@@ -11,6 +11,8 @@ package, resolved once into a frozen ``Config``:
   BYTEPS_LOCAL_RANK/SIZE   → BPS_LOCAL_RANK/SIZE
   DMLC_PS_ROOT_URI         → BPS_COORDINATOR_ADDRESS (host:port of rank 0)
   BYTEPS_PARTITION_BYTES   → BPS_PARTITION_BYTES
+  BYTEPS_MIN_COMPRESS_BYTES → BPS_MIN_COMPRESS_BYTES (buckets below it
+                             skip gradient compression)
   BYTEPS_ENABLE_ASYNC      → BPS_ENABLE_ASYNC    (not ported: raises)
   BYTEPS_ENABLE_PS         → BPS_ENABLE_PS       (not ported: raises)
 
@@ -57,6 +59,7 @@ class Config:
     local_size: int = 1
     coordinator_address: Optional[str] = None
     partition_bytes: int = 4096000       # BYTEPS_PARTITION_BYTES default, global.cc:134
+    min_compress_bytes: int = 65536      # BYTEPS_MIN_COMPRESS_BYTES default 64KiB, global.cc:137-139
     enable_async: bool = False
     enable_ps: bool = False
 
@@ -69,6 +72,7 @@ class Config:
             local_size=_env_int("BPS_LOCAL_SIZE", "BYTEPS_LOCAL_SIZE", 1),
             coordinator_address=_env("BPS_COORDINATOR_ADDRESS", "DMLC_PS_ROOT_URI"),
             partition_bytes=_env_int("BPS_PARTITION_BYTES", "BYTEPS_PARTITION_BYTES", 4096000),
+            min_compress_bytes=_env_int("BPS_MIN_COMPRESS_BYTES", "BYTEPS_MIN_COMPRESS_BYTES", 65536),
             enable_async=_env_bool("BPS_ENABLE_ASYNC", "BYTEPS_ENABLE_ASYNC"),
             enable_ps=_env_bool("BPS_ENABLE_PS", "BYTEPS_ENABLE_PS"),
         )

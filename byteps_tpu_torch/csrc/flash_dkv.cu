@@ -1,0 +1,45 @@
+// dk and dv of the split flash-attention backward for Hopper (sm_90a).
+//
+// Replaces the Pallas kernel
+// byteps_tpu/ops/flash_attention.py::_dkv_kernel (wrapper _flash_bwd,
+// no-bias form, pallas_call at :683), the second half of the backward a
+// sequence longer than one 512 block takes.
+//
+// Contract (the Pallas kernel's): with P and dS as in _dq_kernel (delta
+// given), dv = bf16(P)ᵀ·dO and dk = dSᵀ·q·scale, each accumulated in fp32
+// over every query block and stored as bf16.
+//
+// What bounds it on an H100: four s×s×d products per (batch, head)
+// (Sᵀ, dPᵀ, Pᵀ·dO, dSᵀ·Q) against seven [s, d] bf16 tensors moved, far
+// above the card's ~295 FLOP/byte ridge at seq 1024: tensor-core
+// throughput bounds it. On the TPU the query blocks are the carried grid
+// dimension; on Hopper CTAs share nothing, so each CTA owns one 64-key
+// tile and walks every query tile itself (flash_bwd_dkv.cuh), keeping dk
+// and dv in registers: deterministic, no atomics.
+#include "flash_bwd_dkv.cuh"
+
+// Launches on `stream`, allocates nothing (dk and dv are [b, sk, h, d]
+// contiguous; lse and delta are [b, h, sq] fp32); returns
+// cudaGetLastError().
+extern "C" int bps_flash_dkv(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dk, void* dv, int b,
+                             int h, int sq, int sk, int d, long long q_sb,
+                             long long q_ss, long long k_sb, long long k_ss,
+                             long long v_sb, long long v_ss, long long do_sb,
+                             long long do_ss, float scale, int causal,
+                             void* stream) {
+  if (d != kD || sq % kTile != 0 || sk % kTile != 0 || b <= 0 || h <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long row = static_cast<long long>(h) * kD;
+  flash_bwd_dkv_kernel<<<dim3(sk / kTile, h, b), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, sq, sk,
+      BshdStrides{q_sb, q_ss}, BshdStrides{k_sb, k_ss},
+      BshdStrides{v_sb, v_ss}, BshdStrides{do_sb, do_ss},
+      BshdStrides{sk * row, row}, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -36,6 +36,12 @@ SIGNATURES = {
                   [_P] * 5 + [_I] * 5 + [_L] * 8 + [_F, _I, _P]),
     "flash_bwd": ("bps_flash_bwd",
                   [_P] * 9 + [_I] * 5 + [_L] * 8 + [_F, _I, _P]),
+    "flash_dq": ("bps_flash_dq",
+                 [_P] * 7 + [_I] * 5 + [_L] * 8 + [_F, _I, _P]),
+    "flash_dkv": ("bps_flash_dkv",
+                  [_P] * 8 + [_I] * 5 + [_L] * 8 + [_F, _I, _P]),
+    "onebit_pack": ("bps_onebit_pack", [_P, _P, _L, _P]),
+    "onebit_unpack": ("bps_onebit_unpack", [_P, _P, _L, _P]),
 }
 
 _lock = threading.Lock()
@@ -117,3 +123,18 @@ def entry(stem: str):
     """The C entry point of ``csrc/<stem>.cu``, building on first use."""
     lib = _libs.get(stem) or build_all()[stem]
     return getattr(lib, SIGNATURES[stem][0])
+
+
+def device_type(t, what: str) -> str:
+    """"cpu" (a wrapper then takes its plain version) or "cuda" (it
+    launches its kernel); any other device has no path."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"no {what} path for {t.device}")
+    return t.device.type
+
+
+def raise_on_error(code: int, what: str) -> None:
+    """Raise when an entry point returned a CUDA error (a refused launch
+    never runs, and no later synchronize would report it)."""
+    if code != 0:
+        raise RuntimeError(f"{what} failed to launch: cudaError {code}")

@@ -7,16 +7,19 @@ _DistributedOptimizer), with gradient accumulation via
 ``backward_passes_per_step`` (torch/__init__.py:83-113). Here the wrapper
 holds an inner ``torch.optim`` optimizer: at each sync boundary it runs
 the bucketed all-reduce over the data-parallel group, then
-``inner.step()``.
+``inner.step()``. With ``compression`` (the reference's string kwargs,
+e.g. onebit with error feedback and Nesterov momentum) the reduction is
+``ops.compression.CompressionPlan``'s compressed exchange instead
+(counterpart of ``byteps_tpu/optim.py::_make_compressed``).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
-from .parallel.collectives import bucketed_allreduce
+from .parallel.collectives import bucketed_allreduce, leaf_specs
 
 
 def adamw(params, learning_rate: float, b1: float = 0.9, b2: float = 0.999,
@@ -41,12 +44,24 @@ class DistributedOptimizer:
     A parameter that received no gradient gets zeros before the sync:
     every replica then reduces the same buckets, and the inner optimizer
     updates it as optax does a zero gradient (decay and moments included).
+
+    ``compression``: string kwargs in the reference's format
+    (docs/gradient-compression.md "Interface"). The bucket plan then runs
+    over the leaves in the JAX tree's order (the dotted names sorted by
+    path), so a bucket holds what the JAX package's bucket holds and its
+    compressor sees the same values. Buckets under ``min_compress_bytes``
+    take the plain sum. The compressor state (error feedback, momentum)
+    is this process's own, on the parameters' device. Unlike the dense
+    path, the compressed one runs at world 1 too: only the collective is
+    skipped.
     """
 
     def __init__(self, inner: torch.optim.Optimizer,
                  named_parameters: Optional[Iterable[Tuple[str, torch.nn.Parameter]]] = None,
                  group=None, partition_bytes: int = 4 << 20,
-                 backward_passes_per_step: int = 1) -> None:
+                 backward_passes_per_step: int = 1,
+                 compression: Optional[Dict[str, str]] = None,
+                 min_compress_bytes: int = 65536) -> None:
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
         self.inner = inner
@@ -58,6 +73,17 @@ class DistributedOptimizer:
         self._names = [names.get(id(p), str(i))
                        for i, p in enumerate(self._params)]
         self._passes = 0
+        self.plan = None
+        if compression:
+            from .ops.compression.reducer import CompressionPlan
+            self._order = sorted(range(len(self._params)),
+                                 key=lambda i: self._names[i].split("."))
+            self.plan = CompressionPlan(
+                leaf_specs([self._params[i] for i in self._order],
+                           [self._names[i] for i in self._order]),
+                partition_bytes, {k: str(v) for k, v in compression.items()},
+                min_compress_bytes)
+            self.comp_states = None     # made at the first sync
 
     def step(self) -> bool:
         """Returns True when this call synced and applied an update,
@@ -75,9 +101,16 @@ class DistributedOptimizer:
             if k > 1:
                 for g in grads:
                     g.div_(k)
-            bucketed_allreduce(grads, group=self.group,
-                               partition_bytes=self.partition_bytes,
-                               average=True, names=self._names)
+            if self.plan is None:
+                bucketed_allreduce(grads, group=self.group,
+                                   partition_bytes=self.partition_bytes,
+                                   average=True, names=self._names)
+            else:
+                if self.comp_states is None:
+                    self.comp_states = self.plan.init_state(grads[0].device)
+                self.comp_states = self.plan.reduce(
+                    [grads[i] for i in self._order], self.comp_states,
+                    group=self.group, average=True)
         self.inner.step()
         self.inner.zero_grad(set_to_none=True)
         return True

@@ -6,10 +6,11 @@ mxnet/__init__.py:164-345) owns the optimizer, push_pulls every gradient,
 and steps locally. Here one process drives one GPU, BytePS's own model:
 ``step`` runs the user's loss on this process's batch, backpropagates,
 and hands the gradients to ``optim.DistributedOptimizer`` (bucketed
-all-reduce over the data-parallel group, then the inner step).
+all-reduce over the data-parallel group, or the compressed exchange when
+``compression`` is given, then the inner step).
 
-The parameter-server, async and compressed paths of the JAX trainer are
-not ported yet (ROADMAP.md): their options raise.
+The parameter-server and async paths of the JAX trainer and custom
+reducers are not ported yet (ROADMAP.md): their options raise.
 """
 
 from __future__ import annotations
@@ -50,6 +51,12 @@ class DistributedTrainer:
         ``BPS_PARTITION_BYTES``).
       backward_passes_per_step: local gradient accumulation (reference:
         torch/__init__.py:83-113).
+      compression: gradient compression kwargs in the reference's format,
+        e.g. ``{"compressor_type": "onebit",
+        "compressor_onebit_scaling": "true", "ef_type": "vanilla",
+        "momentum_type": "nesterov"}``; None for the dense all-reduce.
+      min_compress_bytes: buckets below it skip compression (default
+        ``BPS_MIN_COMPRESS_BYTES``).
       device: where the step runs; None means the card (``cuda``) and
         raises when none is present. Tests pass ``"cpu"``.
       group: the data-parallel process group (default: the one ``init()``
@@ -65,9 +72,6 @@ class DistributedTrainer:
                  device=None, group=None) -> None:
         if reducer is not None:
             raise NotImplementedError(f"custom reducers: the port {_NOT_PORTED}")
-        if compression or min_compress_bytes is not None:
-            raise NotImplementedError(
-                f"gradient compression {_NOT_PORTED}")
         gs = GlobalState._instance
         cfg = gs.config if gs is not None else Config.from_env()
         if cfg.enable_ps:
@@ -88,7 +92,11 @@ class DistributedTrainer:
             group=self.group,
             partition_bytes=(cfg.partition_bytes if partition_bytes is None
                              else partition_bytes),
-            backward_passes_per_step=backward_passes_per_step)
+            backward_passes_per_step=backward_passes_per_step,
+            compression=compression,
+            min_compress_bytes=(cfg.min_compress_bytes
+                                if min_compress_bytes is None
+                                else min_compress_bytes))
         self.backward_passes_per_step = backward_passes_per_step
         self._loss_fn = loss_fn
         self.step_count = 0

@@ -8,24 +8,48 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
 
   1. toolchain: torch and CUDA versions, nvcc, the card's name and power
      limit; build the Hopper kernels from ``byteps_tpu_torch/csrc``.
-  2. kernel checks at the flagship attention shape (s 512, h 16, d 64,
-     bf16, seeded): b 4 causal and not, and b 8 (the training phase's
-     batch). Each kernel is held against its plain PyTorch version on the
-     card; the fused backward also against autograd of the plain forward.
-     Times (CUDA events, median of 30 launches, L2 flushed before each) of
-     the kernel, its plain version and the library call
-     (``scaled_dot_product_attention``, timed as a yardstick only; the
-     port never calls it), beside the least time the card could take.
-  3. training: BERT-large at full width (24 x 1024 x 16, vocab 30522,
-     seq 512, bf16 compute over fp32 params, remat), random weights from
-     seed 0, through the port's ``DistributedTrainer`` with AdamW(1e-4,
-     weight_decay 1e-4): 3 steps on one fixed ``synth_mlm_batch`` of 8.
-     Losses must be finite and falling, and the kernel launch counters,
-     zeroed just before, must read 3 x 24 x 2 forward launches (remat runs
-     each layer's forward twice) and 3 x 24 fused-backward launches. Step
-     1 is repeated with ``attn_impl="naive"`` (plain attention on the
-     card) as the reference for the loss.
-  4. one JSON line ``{"kernels": [...]}``, the card's name and power limit,
+  2. kernel checks, each kernel held against its plain PyTorch version on
+     the card, with seeded inputs:
+       - flash forward and fused backward at the BERT shape (s 512, h 16,
+         d 64, bf16): b 4 causal and not, b 8; the fused backward also
+         against autograd of the plain forward;
+       - flash forward, dq and dk/dv (the split backward) at the GPT-2
+         shape (b 8, s 1024, h 16, d 64, bf16), causal and not; the split
+         route's gradients also against autograd of the plain forward;
+       - onebit pack and unpack, bit for bit, on an adversarial vector
+         (±0.0, NaN, ±inf, denormals, 77 elements).
+  3. times (CUDA events, median of 30 launches, L2 flushed before each,
+     the device kept busy until the launch is enqueued) of
+     each kernel, its plain version and, where one PyTorch call computes
+     the same function, that call (``scaled_dot_product_attention``, timed
+     as a yardstick only; the port never calls it), beside the least time
+     the card could take. Attention at the shape its training phase gives
+     it; onebit on one 4,096,000-byte bucket.
+  4. training through the port's ``DistributedTrainer``, random weights
+     from seed 0, AdamW(1e-4, weight_decay 1e-4), 3 steps on one fixed
+     synthetic batch of 8, at full width (bf16 compute over fp32 params,
+     whole-block remat). Each run zeroes every kernel's launch counter
+     just before its 3 steps and reads them just after; they must read
+     what that path launches (remat runs each layer's forward twice):
+       - BERT-large MLM, 24 x 1024 x 16, vocab 30522, seq 512: 144
+         forward and 72 fused-backward launches;
+       - GPT-2 medium, 24 x 1024 x 16, vocab 50257, seq 1024 (two 512
+         attention blocks, so the split backward): 144 forward, 72 dq and
+         72 dk/dv launches;
+       - GPT-2 medium with the README's gradient compression (onebit with
+         the L1-mean scale, vanilla error feedback, Nesterov momentum):
+         as the dense run, plus 3 x nc pack and 3 x 2 x nc unpack
+         launches for the nc compressed buckets of the plan (world 1:
+         error feedback's decompress and the one gathered payload's).
+     Losses must be finite and falling. BERT and dense GPT-2 repeat step 1
+     with ``attn_impl="naive"`` (plain attention on the card) as the
+     reference for the loss; both print step time, rates, peak memory and
+     one profiled step's device busy/idle split. The compressed run then
+     holds one step's compressed reduction of real gradients through the
+     kernels against the same reduction through their plain versions,
+     bit for bit: packed words, scales, decompressed values, error
+     feedback, momentum and the reduced gradient.
+  5. one JSON line ``{"kernels": [...]}``, the card's name and power limit,
      and as the last line ``{"ok": true, "device": {...}}``.
 
 It exits with code 2, printing no result, when no CUDA device is present
@@ -47,27 +71,48 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM, NVIDIA data sheet: dense bf16 tensor-core peak and HBM3 rate
+# H100 SXM, NVIDIA data sheet: dense bf16 tensor-core peak, fp32 peak
+# outside the tensor cores, HBM3 rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
+KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
+           "onebit_pack", "onebit_unpack")
 # the Pallas kernels the Hopper kernels replace
 REPLACES = {
     "flash_fwd": "byteps_tpu/ops/flash_attention.py:172",
     "flash_bwd_fused": "byteps_tpu/ops/flash_attention.py:489",
+    "flash_bwd_dq": "byteps_tpu/ops/flash_attention.py:335",
+    "flash_bwd_dkv": "byteps_tpu/ops/flash_attention.py:421",
+    "onebit_pack": "byteps_tpu/ops/compression/pallas_kernels.py:39",
+    "onebit_unpack": "byteps_tpu/ops/compression/pallas_kernels.py:48",
 }
 SOURCES = {
     "flash_fwd": "byteps_tpu_torch/csrc/flash_fwd.cu",
     "flash_bwd_fused": "byteps_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd_dq": "byteps_tpu_torch/csrc/flash_dq.cu",
+    "flash_bwd_dkv": "byteps_tpu_torch/csrc/flash_dkv.cu",
+    "onebit_pack": "byteps_tpu_torch/csrc/onebit_pack.cu",
+    "onebit_unpack": "byteps_tpu_torch/csrc/onebit_unpack.cu",
 }
 # max |kernel - plain| <= REL * max |plain| (bf16 outputs: both sides round
 # at the same points and differ by fp32 summation order, one bf16 step is
-# 2^-8 relative); lse is fp32 and gets an absolute bound
+# 2^-8 relative); lse is fp32 and gets an absolute bound. The onebit
+# kernels move bits and must agree bit for bit.
 REL_TOL = 1e-2
 REL_TOL_AUTOGRAD = 3e-2     # vs autograd of the plain forward, whose P and
 #                             dS are not rounded to bf16
 LSE_TOL = 1e-3
-TRAIN_BATCH, SEQ, STEPS = 8, 512, 3
+SPIN_CYCLES = 2_000_000     # about 1 ms of device time at H100 clocks
+TRAIN_BATCH, STEPS = 8, 3
+BERT_SEQ, GPT2_SEQ, HEADS, HEAD_DIM = 512, 1024, 16, 64
+# the trainer's defaults (BPS_PARTITION_BYTES, BPS_MIN_COMPRESS_BYTES)
+PARTITION_BYTES, MIN_COMPRESS_BYTES = 4_096_000, 65536
+BUCKET_FLOATS = PARTITION_BYTES // 4    # one full gradient bucket
+README_COMPRESSION = {"compressor_type": "onebit",
+                      "compressor_onebit_scaling": "true",
+                      "ef_type": "vanilla", "momentum_type": "nesterov"}
 
 
 def log(*a):
@@ -79,6 +124,14 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def counters():
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops.compression import kernels as ob
+    return {"flash_fwd": fa.flash_fwd, "flash_bwd_fused": fa.flash_bwd_fused,
+            "flash_bwd_dq": fa.flash_bwd_dq, "flash_bwd_dkv": fa.flash_bwd_dkv,
+            "onebit_pack": ob.onebit_pack, "onebit_unpack": ob.onebit_unpack}
 
 
 # ------------------------------------------------------------- phase 1
@@ -110,15 +163,142 @@ def _rel_err(got, ref):
     return err, err / max(ref.float().abs().max().item(), 1e-30)
 
 
+def _check(name, tag, got, ref, auto=None):
+    """Hold one output against its plain version (and autograd of the
+    plain forward); returns the max abs error against the plain one."""
+    e, r = _rel_err(got, ref)
+    msg = f"[check {tag}] {name} err {e:.3e} (rel {r:.2e})"
+    ok = r <= REL_TOL
+    if auto is not None:
+        ea, ra = _rel_err(got, auto)
+        msg += f"; vs autograd of the plain forward {ea:.3e} (rel {ra:.2e})"
+        ok = ok and ra <= REL_TOL_AUTOGRAD
+    log(msg)
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"{tag}")
+    return e
+
+
+def _check_fwd(fa, q, k, v, causal, tag):
+    out, lse = fa.flash_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal)
+    e_lse = (lse - ref_lse).abs().max().item()
+    log(f"[check {tag}] lse err {e_lse:.3e}")
+    if not e_lse <= LSE_TOL:
+        raise AssertionError(f"flash_fwd lse disagrees at {tag}")
+    return out, lse, _check("fwd out", tag, out, ref_out)
+
+
+def _plain_autograd(fa, q, k, v, do, causal):
+    qa, ka, va = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    fa.flash_fwd_plain(qa, ka, va, causal)[0].backward(do)
+    return qa.grad, ka.grad, va.grad
+
+
+def check_bert_kernels(worst):
+    from byteps_tpu_torch.ops import flash_attention as fa
+    for b, causal in ((4, False), (4, True), (TRAIN_BATCH, False)):
+        q, k, v, do = _inputs(b, BERT_SEQ, HEADS, HEAD_DIM, seed=b + causal)
+        tag = f"b{b} s{BERT_SEQ} h16 d64 {'causal' if causal else 'full'}"
+        _, lse, e = _check_fwd(fa, q, k, v, causal, tag)
+        worst["flash_fwd"] = max(worst["flash_fwd"], e)
+        got = fa.flash_bwd_fused(q, k, v, do, lse, causal)
+        torch.cuda.synchronize()
+        plain = fa.flash_bwd_fused_plain(q, k, v, do, lse, causal)
+        auto = _plain_autograd(fa, q, k, v, do, causal)
+        for g_, p_, a_, name in zip(got, plain, auto, ("dq", "dk", "dv")):
+            worst["flash_bwd_fused"] = max(
+                worst["flash_bwd_fused"],
+                _check(f"fused bwd {name}", tag, g_, p_, a_))
+
+
+def check_gpt2_kernels(worst):
+    """Forward past one block, the split backward's dq and dk/dv kernels,
+    and the split route of the autograd Function, at the GPT-2 shape."""
+    from byteps_tpu_torch.ops import flash_attention as fa
+    b, s = TRAIN_BATCH, GPT2_SEQ
+    if fa.backward_route(s, s) != "split":
+        raise AssertionError(f"seq {s} should take the split backward")
+    for causal in (True, False):
+        q, k, v, do = _inputs(b, s, HEADS, HEAD_DIM, seed=20 + causal)
+        tag = f"b{b} s{s} h16 d64 {'causal' if causal else 'full'}"
+        out, lse, e = _check_fwd(fa, q, k, v, causal, tag)
+        worst["flash_fwd"] = max(worst["flash_fwd"], e)
+        delta = fa.bwd_delta(do, out)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+        torch.cuda.synchronize()
+        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], _check(
+            "split dq", tag, dq,
+            fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal)))
+        ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                causal)
+        worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"],
+                                     _check("split dk", tag, dk, ref_dk),
+                                     _check("split dv", tag, dv, ref_dv))
+        # the autograd Function at seq 1024 (default blocks): split route
+        qa, ka, va = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        fa.flash_attention(qa, ka, va, causal=causal).backward(do)
+        auto = _plain_autograd(fa, q, k, v, do, causal)
+        for got, ref, name in zip((qa.grad, ka.grad, va.grad), auto, "qkv"):
+            e, r = _rel_err(got, ref)
+            log(f"[check {tag}] split route d{name} vs autograd of the plain "
+                f"forward {e:.3e} (rel {r:.2e})")
+            if not r <= REL_TOL_AUTOGRAD:
+                raise AssertionError(f"split route d{name} disagrees at {tag}")
+        del auto, qa, ka, va
+        torch.cuda.empty_cache()
+
+
+def _adversarial():
+    f = torch.finfo(torch.float32)
+    head = torch.tensor([0.0, -0.0, float("nan"), -float("nan"), float("inf"),
+                         -float("inf"), f.tiny / 4, -f.tiny / 4, f.tiny,
+                         -f.tiny, 1.0, -1.0])
+    tail = torch.randn(77 - head.numel(),
+                       generator=torch.Generator().manual_seed(30))
+    return torch.cat([head, tail])
+
+
+def check_onebit(x, tag):
+    """Pack and unpack of ``x`` through the kernels and their plain
+    versions, bit for bit."""
+    from byteps_tpu_torch.ops.compression import kernels as ob
+    x = x.to("cuda", torch.float32).contiguous()
+    words = ob.onebit_pack(x)
+    signs = ob.onebit_unpack(words, x.numel())
+    torch.cuda.synchronize()
+    plain_words = ob.onebit_pack_plain(x)
+    plain_signs = ob.onebit_unpack_plain(words, x.numel())
+    same = (torch.equal(words, plain_words)
+            and torch.equal(signs.view(torch.int32),
+                            plain_signs.view(torch.int32)))
+    log(f"[check onebit {tag}] {x.numel()} floats -> {words.numel()} words: "
+        f"pack and unpack {'bit-identical' if same else 'DIFFER'} to their "
+        f"plain versions")
+    if not same:
+        raise AssertionError(f"onebit kernels disagree with their plain "
+                             f"versions on {tag}")
+
+
+# ------------------------------------------------------------- phase 3
+
 def time_ms(fn, n=30, flush=None):
     """Median over n launches of fn, each timed with CUDA events, with the
-    L2 cache flushed before each launch (outside the timed span)."""
+    L2 cache flushed before each launch (outside the timed span). Before
+    the start event the device spins for about a millisecond, so that fn
+    is enqueued while it is still busy: the events then bracket device
+    time only, not the host's time to reach the launch (tens of
+    microseconds, which would swamp a kernel of a few)."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(n):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -129,112 +309,133 @@ def time_ms(fn, n=30, flush=None):
     return statistics.median(times)
 
 
-def bounds(b, s, h, d, causal):
+def _bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    t_ops = flops / peak * 1e3
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_mem),
+            "bound_by": "operations" if t_ops >= t_mem else "bytes"}
+
+
+def attention_bounds(b, s, h, d, causal):
     """Least time (ms) the card could take: max(FLOPs / peak, bytes /
     rate), each input read once and each output written once. Causal
-    counts only the unmasked (q, k) pairs this data needs."""
+    counts only the unmasked (q, k) pairs this data needs. Per pair: the
+    forward 2 products (S, P·V), the fused backward 5 (S, dP, dV, dQ,
+    dK), dq 3 (S, dP, dQ), dk/dv 4 (S, dP, dV, dK); 2·d FLOPs each."""
     pairs = s * (s + 1) / 2 if causal else s * s
     row = b * s * h * d * 2                       # one [b, s, h, d] bf16
-    lse = b * h * s * 4
-    fwd = (4 * b * h * d * pairs, 4 * row + lse)        # q k v -> out, lse
-    bwd = (10 * b * h * d * pairs, 7 * row + lse)       # q k v dO lse -> dq dk dv
-    out = {}
-    for name, (flops, nbytes) in (("flash_fwd", fwd),
-                                  ("flash_bwd_fused", bwd)):
-        t_ops = flops / PEAK_BF16_FLOPS * 1e3
-        t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
-        out[name] = {"flops": flops, "bytes": nbytes,
-                     "bound_ms": max(t_ops, t_mem),
-                     "bound_by": "operations" if t_ops >= t_mem else "bytes"}
-    return out
+    vec = b * h * s * 4                           # lse or delta, fp32
+    per = 2 * b * h * d * pairs                   # one product's FLOPs
+    return {
+        "flash_fwd": _bound(2 * per, 4 * row + vec),       # qkv -> out, lse
+        "flash_bwd_fused": _bound(5 * per, 7 * row + vec),  # +dO, lse -> dqkv
+        "flash_bwd_dq": _bound(3 * per, 5 * row + 2 * vec),
+        "flash_bwd_dkv": _bound(4 * per, 6 * row + 2 * vec),
+    }
 
 
-def check_kernels():
-    from byteps_tpu_torch.ops import flash_attention as fa
-    worst = {"flash_fwd": 0.0, "flash_bwd_fused": 0.0}
-    for b, causal in ((4, False), (4, True), (TRAIN_BATCH, False)):
-        q, k, v, do = _inputs(b, SEQ, 16, 64, seed=b + causal)
-        out, lse = fa.flash_fwd(q, k, v, causal)
-        torch.cuda.synchronize()
-        ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal)
-        e_out, r_out = _rel_err(out, ref_out)
-        e_lse = (lse - ref_lse).abs().max().item()
-        dq, dk, dv = fa.flash_bwd_fused(q, k, v, do, lse, causal)
-        torch.cuda.synchronize()
-        plain = fa.flash_bwd_fused_plain(q, k, v, do, lse, causal)
-        qa, ka, va = (t.detach().clone().requires_grad_() for t in (q, k, v))
-        fa.flash_fwd_plain(qa, ka, va, causal)[0].backward(do)
-        tag = f"b{b} s{SEQ} h16 d64 {'causal' if causal else 'full'}"
-        log(f"[check {tag}] fwd out err {e_out:.3e} (rel {r_out:.2e}) "
-            f"lse err {e_lse:.3e}")
-        if not (r_out <= REL_TOL and e_lse <= LSE_TOL):
-            raise AssertionError(f"flash_fwd disagrees with its plain "
-                                 f"version at {tag}")
-        worst["flash_fwd"] = max(worst["flash_fwd"], e_out)
-        for got, ref, auto, name in zip((dq, dk, dv), plain,
-                                        (qa.grad, ka.grad, va.grad),
-                                        ("dq", "dk", "dv")):
-            e, r = _rel_err(got, ref)
-            ea, ra = _rel_err(got, auto)
-            log(f"[check {tag}] bwd {name} err {e:.3e} (rel {r:.2e}); vs "
-                f"autograd of the plain forward {ea:.3e} (rel {ra:.2e})")
-            if not (r <= REL_TOL and ra <= REL_TOL_AUTOGRAD):
-                raise AssertionError(f"flash_bwd_fused {name} disagrees at "
-                                     f"{tag}")
-            worst["flash_bwd_fused"] = max(worst["flash_bwd_fused"], e)
-    return worst
+def onebit_bounds(n):
+    """Bytes: the floats and the words, each read or written once. The
+    operations (one compare per float to pack, a shift, mask and
+    multiply-add per float to unpack) are fp32/int work on the CUDA
+    cores, counted against the fp32 peak."""
+    words = (n + 31) // 32
+    return {"onebit_pack": _bound(n, 4 * n + 4 * words, PEAK_FP32_FLOPS),
+            "onebit_unpack": _bound(3 * n, 4 * words + 4 * n,
+                                    PEAK_FP32_FLOPS)}
 
 
-def time_kernels():
-    """Kernel, plain version and library call at the training phase's
-    attention shape (b 8, s 512, h 16, d 64, non-causal)."""
+def _log_time(name, shape, r):
+    lib = ("none" if r["library_ms"] is None
+           else f"{r['library_ms']:.4f} ms")
+    log(f"[time {name} {shape}] kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} "
+        f"ms ({r['bound_by']}: {r['flops'] / 1e9:.3f} GFLOP, "
+        f"{r['bytes'] / 1e6:.2f} MB); kernel at "
+        f"{r['bound_ms'] / r['ms']:.1%} of the bound")
+
+
+def time_attention(b, s, causal, names):
+    """Kernels, plain versions and the library's attention at one shape.
+    The library's backward (autograd.grad on a retained graph) computes
+    dq, dk and dv together: it is the yardstick of the fused backward and
+    of the dq + dk/dv pair."""
     import torch.nn.functional as F
     from byteps_tpu_torch.ops import flash_attention as fa
-    b, s, h, d = TRAIN_BATCH, SEQ, 16, 64
+    h, d = HEADS, HEAD_DIM
     q, k, v, do = _inputs(b, s, h, d, seed=99)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-    _, lse = fa.flash_fwd(q, k, v)
-    res = {
-        "flash_fwd": {
-            "ms": time_ms(lambda: fa.flash_fwd(q, k, v), flush=flush),
-            "plain_ms": time_ms(lambda: fa.flash_fwd_plain(q, k, v), n=10,
-                                flush=flush),
-        },
-        "flash_bwd_fused": {
-            "ms": time_ms(lambda: fa.flash_bwd_fused(q, k, v, do, lse),
-                          flush=flush),
-            "plain_ms": time_ms(
-                lambda: fa.flash_bwd_fused_plain(q, k, v, do, lse), n=10,
-                flush=flush),
-        },
+    out, lse = fa.flash_fwd(q, k, v, causal)
+    delta = fa.bwd_delta(do, out)
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal),
+                      lambda: fa.flash_fwd_plain(q, k, v, causal)),
+        "flash_bwd_fused": (
+            lambda: fa.flash_bwd_fused(q, k, v, do, lse, causal),
+            lambda: fa.flash_bwd_fused_plain(q, k, v, do, lse, causal)),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal),
+            lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal)),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal),
+            lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal)),
     }
     # yardstick only: the library's fused attention on the same inputs,
-    # [b, h, s, d] views. Its backward is timed alone (autograd.grad on a
-    # retained graph), the same work as the fused backward kernel.
+    # [b, h, s, d] views
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
-    res["flash_fwd"]["library_ms"] = time_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt), flush=flush)
-    o = F.scaled_dot_product_attention(qt, kt, vt)
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal), flush=flush)
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     dot = do.transpose(1, 2)
-    res["flash_bwd_fused"]["library_ms"] = time_ms(
-        lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True),
-        flush=flush)
-    bd = bounds(b, s, h, d, causal=False)
-    for name, r in res.items():
+    lib_bwd = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                                  retain_graph=True),
+                      flush=flush)
+    bd = attention_bounds(b, s, h, d, causal)
+    res = {}
+    for name in names:
+        kernel, plain = calls[name]
+        r = {"ms": time_ms(kernel, flush=flush),
+             "plain_ms": time_ms(plain, n=10, flush=flush),
+             "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
+             "timed_shape": [b, s, h, d], "causal": causal}
         r.update(bd[name])
-        log(f"[time {name} b{b} s{s} h{h} d{d}] kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
-            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
-            f"{r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.1f} MB); "
-            f"kernel at {r['bound_ms'] / r['ms']:.1%} of the bound")
+        _log_time(name, f"b{b} s{s} h{h} d{d} "
+                  f"{'causal' if causal else 'full'}", r)
+        res[name] = r
+    del o, flush
+    torch.cuda.empty_cache()
     return res
 
 
-# ------------------------------------------------------------- phase 3
+def time_onebit(n=BUCKET_FLOATS):
+    """Pack and unpack of one default-sized bucket (no single PyTorch call
+    computes either: library "none")."""
+    from byteps_tpu_torch.ops.compression import kernels as ob
+    x = torch.randn(n, generator=torch.Generator().manual_seed(31)).cuda()
+    words = ob.onebit_pack(x)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    bd = onebit_bounds(n)
+    res = {}
+    for name, kernel, plain in (
+            ("onebit_pack", lambda: ob.onebit_pack(x),
+             lambda: ob.onebit_pack_plain(x)),
+            ("onebit_unpack", lambda: ob.onebit_unpack(words, n),
+             lambda: ob.onebit_unpack_plain(words, n))):
+        r = {"ms": time_ms(kernel, flush=flush),
+             "plain_ms": time_ms(plain, n=10, flush=flush),
+             "library_ms": None, "timed_shape": [n]}
+        r.update(bd[name])
+        _log_time(name, f"n {n}", r)
+        res[name] = r
+    return res
+
+
+# ------------------------------------------------------------- phase 4
 
 _KERNEL_GROUPS = (      # first match wins; names as the profiler reports them
     ("flash (port)", ("flash_fwd_kernel", "flash_bwd_")),
+    ("onebit (port)", ("onebit_",)),
     ("nccl", ("nccl",)),
     ("matmul", ("gemm", "xmma", "cutlass", "matmul", "nvjet", "sm90_")),
     ("optimizer", ("multi_tensor", "adam", "foreach")),
@@ -246,14 +447,14 @@ _KERNEL_GROUPS = (      # first match wins; names as the profiler reports them
 )
 
 
-def profile_step(trainer, data):
+def profile_step(trainer, data, tag):
     """One more step under torch.profiler: device time by kernel group and
     the device's idle share of the step's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         t = time.perf_counter()
         trainer.step(data)
         torch.cuda.synchronize()
@@ -264,8 +465,8 @@ def profile_step(trainer, data):
                and not getattr(e, "is_user_annotation", False)
                and "#" not in e.name]
     if not kernels:
-        log("[profile] the profiler recorded no device activity: device "
-            "breakdown not measured")
+        log(f"[profile {tag}] the profiler recorded no device activity: "
+            "device breakdown not measured")
         return
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, *spans[0]
@@ -285,46 +486,47 @@ def profile_step(trainer, data):
                   if any(k in low for k in keys)), "other elementwise")
         groups[g] = groups.get(g, 0.0) + us
     total = sum(groups.values())
-    log(f"[profile] step wall {wall_us / 1e3:.2f} ms, {len(kernels)} device "
-        f"ops, device busy {busy / 1e3:.2f} ms (idle share "
+    log(f"[profile {tag}] step wall {wall_us / 1e3:.2f} ms, {len(kernels)} "
+        f"device ops, device busy {busy / 1e3:.2f} ms (idle share "
         f"{1 - busy / wall_us:.3f}), summed device time {total / 1e3:.2f} ms")
     for g, us in sorted(groups.items(), key=lambda x: -x[1]):
-        log(f"[profile]   {g:24s} {us / 1e3:9.3f} ms  {us / total:6.1%}")
+        log(f"[profile {tag}]   {g:24s} {us / 1e3:9.3f} ms  {us / total:6.1%}")
     for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:12]:
-        log(f"[profile]   top {us / 1e3:9.3f} ms  {name[:110]}")
+        log(f"[profile {tag}]   top {us / 1e3:9.3f} ms  {name[:110]}")
 
 
-def train():
-    from byteps_tpu_torch.models import bert
-    from byteps_tpu_torch.models.flops import (
-        mfu, transformer_train_flops_per_sample)
-    from byteps_tpu_torch.ops import flash_attention as fa
+def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
+             compression=None, naive_cfg=None):
+    """Train ``STEPS`` steps through ``DistributedTrainer`` with every
+    launch counter zeroed just before and read just after; check finite
+    falling losses and the counts ``want(trainer)``. Then 3 more steps
+    for steadier times, one profiled step, and (``naive_cfg``) step 1 of
+    a fresh trainer with plain attention as the loss's reference.
+    Returns (launches, trainer)."""
+    from byteps_tpu_torch.models.flops import mfu
+    from byteps_tpu_torch.models.transformer import Transformer
     from byteps_tpu_torch.optim import adamw
     from byteps_tpu_torch.training import DistributedTrainer
 
-    cfg = bert.bert_large(max_seq=SEQ)
-    max_pred = max(1, int(0.2 * SEQ))
-    data = bert.synth_mlm_batch(np.random.RandomState(0), TRAIN_BATCH, SEQ,
-                                cfg.vocab_size)
-
-    def loss_fn(model, batch):
-        return bert.mlm_loss(model, batch, max_predictions=max_pred)
-
     def make_trainer(c):
-        model = bert.Transformer(c, generator=torch.Generator().manual_seed(0))
+        model = Transformer(c, generator=torch.Generator().manual_seed(0))
         return DistributedTrainer(loss_fn, model,
-                                  adamw(model.parameters(), 1e-4))
+                                  adamw(model.parameters(), 1e-4),
+                                  partition_bytes=PARTITION_BYTES,
+                                  compression=compression,
+                                  min_compress_bytes=MIN_COMPRESS_BYTES)
 
     t0 = time.perf_counter()
     trainer = make_trainer(cfg)     # device=None: the card
     n_params = sum(p.numel() for p in trainer.model.parameters())
-    log(f"[train] bert_large {n_params / 1e6:.1f}M params on "
-        f"{trainer.device}, built in {time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] {n_params / 1e6:.1f}M params on {trainer.device}, built "
+        f"in {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_fwd.launches = 0
-    fa.flash_bwd_fused.launches = 0
+    ctr = counters()
+    for fn in ctr.values():
+        fn.launches = 0
     losses, times = [], []
     for _ in range(STEPS):
         t = time.perf_counter()
@@ -332,31 +534,29 @@ def train():
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
         losses.append(loss.item())
-    launches = {"flash_fwd": fa.flash_fwd.launches,
-                "flash_bwd_fused": fa.flash_bwd_fused.launches}
+    launches = {name: fn.launches for name, fn in ctr.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    fps = transformer_train_flops_per_sample(cfg, SEQ, lm_positions=max_pred)
 
     def rates(step_s):
         sps = TRAIN_BATCH / step_s
-        util = mfu(sps, fps)
+        util = mfu(sps, flops_per_sample)
         return (f"{step_s * 1e3:.1f} ms = {sps:.2f} samples/s, "
-                f"{sps * fps / 1e12:.1f} model TFLOP/s, mfu "
+                f"{sps * flops_per_sample / 1e12:.1f} model TFLOP/s, mfu "
                 + ("not known for this card" if util is None
                    else f"{util:.4f}"))
 
-    log(f"[train] losses {losses}")
-    log(f"[train] step times s {times}; peak memory {peak_gb:.2f} GB; "
+    log(f"[{tag}] losses {losses}")
+    log(f"[{tag}] step times s {times}; peak memory {peak_gb:.2f} GB; "
         f"fastest of steps 2-3: {rates(min(times[1:]))}")
-    log(f"[train] kernel launches in the 3 steps: {launches}")
+    log(f"[{tag}] kernel launches in the {STEPS} steps: {launches}")
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
+        raise AssertionError(f"{tag}: non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses}")
-    want = {"flash_fwd": STEPS * cfg.layers * 2,
-            "flash_bwd_fused": STEPS * cfg.layers}
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches}, expected {want}")
+        raise AssertionError(f"{tag}: loss did not fall: {losses}")
+    expected = want(trainer)
+    if launches != expected:
+        raise AssertionError(f"{tag}: kernel launches {launches}, expected "
+                             f"{expected}")
 
     # past the counted window: steadier step times, then one profiled step
     more = []
@@ -365,21 +565,152 @@ def train():
         trainer.step(data)
         torch.cuda.synchronize()
         more.append(time.perf_counter() - t)
-    log(f"[train] steps 4-6 s {more}: median "
+    log(f"[{tag}] steps 4-6 s {more}: median "
         f"{rates(statistics.median(more))}")
-    profile_step(trainer, data)
-    del trainer
+    profile_step(trainer, data, tag)
 
-    # reference for the loss: step 1 with the plain attention on the card
-    naive = make_trainer(bert.bert_large(max_seq=SEQ, attn_impl="naive"))
-    naive_loss = naive.step(data).item()
-    diff = abs(naive_loss - losses[0])
-    log(f"[train] step-1 loss: kernels {losses[0]:.6f}, naive attention "
-        f"{naive_loss:.6f}, |diff| {diff:.3e}")
-    if not diff <= 2e-2:
-        raise AssertionError("kernel path and naive path disagree on the "
-                             "step-1 loss")
-    del naive
+    if naive_cfg is not None:
+        naive = make_trainer(naive_cfg)
+        naive_loss = naive.step(data).item()
+        del naive
+        diff = abs(naive_loss - losses[0])
+        log(f"[{tag}] step-1 loss: kernels {losses[0]:.6f}, naive attention "
+            f"{naive_loss:.6f}, |diff| {diff:.3e}")
+        if not diff <= 2e-2:
+            raise AssertionError(f"{tag}: kernel path and naive path "
+                                 "disagree on the step-1 loss")
+    torch.cuda.empty_cache()
+    return launches, trainer
+
+
+def _attention_launches(cfg, backward):
+    def want(trainer):
+        w = dict.fromkeys(KERNELS, 0)
+        w["flash_fwd"] = STEPS * cfg.layers * 2   # remat: forward twice
+        for name in backward:
+            w[name] = STEPS * cfg.layers
+        return w
+    return want
+
+
+def train_bert():
+    from byteps_tpu_torch.models import bert
+    from byteps_tpu_torch.models.flops import transformer_train_flops_per_sample
+    cfg = bert.bert_large(max_seq=BERT_SEQ)
+    max_pred = max(1, int(0.2 * BERT_SEQ))
+    data = bert.synth_mlm_batch(np.random.RandomState(0), TRAIN_BATCH,
+                                BERT_SEQ, cfg.vocab_size)
+    launches, trainer = run_path(
+        "bert_large", cfg,
+        lambda m, b: bert.mlm_loss(m, b, max_predictions=max_pred), data,
+        transformer_train_flops_per_sample(cfg, BERT_SEQ,
+                                           lm_positions=max_pred),
+        _attention_launches(cfg, ("flash_bwd_fused",)),
+        naive_cfg=bert.bert_large(max_seq=BERT_SEQ, attn_impl="naive"))
+    del trainer
+    return launches
+
+
+def _gpt2_setup():
+    from byteps_tpu_torch.models import gpt2
+    from byteps_tpu_torch.models.flops import transformer_train_flops_per_sample
+    cfg = gpt2.gpt2_medium()
+    data = gpt2.synth_lm_batch(np.random.RandomState(0), TRAIN_BATCH,
+                               GPT2_SEQ, cfg.vocab_size)
+    return (cfg, gpt2.causal_lm_loss, data,
+            transformer_train_flops_per_sample(cfg, GPT2_SEQ))
+
+
+def train_gpt2_dense():
+    from byteps_tpu_torch.models import gpt2
+    cfg, loss_fn, data, fps = _gpt2_setup()
+    launches, trainer = run_path(
+        "gpt2_medium dense", cfg, loss_fn, data, fps,
+        _attention_launches(cfg, ("flash_bwd_dq", "flash_bwd_dkv")),
+        naive_cfg=gpt2.gpt2_medium(attn_impl="naive"))
+    del trainer
+    return launches
+
+
+def _same_bits(a, b):
+    if a.dtype.is_floating_point:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def train_gpt2_onebit():
+    """The README's compression; then one step's compressed reduction of
+    real gradients through the kernels and through their plain versions
+    (``compressor_backend="jnp"``), from the states the 3 steps left."""
+    from byteps_tpu_torch.ops.compression import base
+    from byteps_tpu_torch.ops.compression.reducer import CompressionPlan
+    from byteps_tpu_torch.parallel.collectives import _pack_bucket
+    cfg, loss_fn, data, fps = _gpt2_setup()
+    attn = _attention_launches(cfg, ("flash_bwd_dq", "flash_bwd_dkv"))
+
+    def want(trainer):
+        w = attn(trainer)
+        nc = trainer.tx.plan.n_compressed
+        w["onebit_pack"] = STEPS * nc
+        w["onebit_unpack"] = STEPS * 2 * nc     # EF's decompress + 1 payload
+        return w
+
+    launches, trainer = run_path("gpt2_medium onebit", cfg, loss_fn, data,
+                                 fps, want, compression=README_COMPRESSION)
+    tx = trainer.tx
+    plan, states = tx.plan, tx.comp_states
+    log(f"[gpt2_medium onebit] plan: {len(plan.buckets)} buckets, "
+        f"{plan.n_compressed} compressed, {sum(b.size for b in plan.buckets)}"
+        f" gradient floats")
+
+    named = dict(trainer.model.named_parameters())
+    trainer.model.zero_grad(set_to_none=True)
+    loss_fn(trainer.model, torch.from_numpy(data).cuda()).backward()
+    grads = [named[s.name].grad for s in plan.specs]
+    plain = CompressionPlan(
+        plan.specs, PARTITION_BYTES,
+        dict(README_COMPRESSION, compressor_backend="jnp"),
+        min_compress_bytes=MIN_COMPRESS_BYTES)
+    if [c is None for c in plain.compressors] != \
+            [c is None for c in plan.compressors]:
+        raise AssertionError("the plain plan compresses other buckets")
+
+    flat = [g.view(-1) for g in grads]
+    full = max((b for b, c in zip(plan.buckets, plan.compressors)
+                if c is not None), key=lambda b: b.size)
+    check_onebit(_pack_bucket(flat, full),
+                 f"bucket {full.index} of a real gradient")
+    for b, ck, cp, st in zip(plan.buckets, plan.compressors,
+                             plain.compressors, states):
+        if ck is None:
+            continue
+        buf = _pack_bucket(flat, b)
+        pk, sk = ck.compress(buf, st)
+        pp, sp = cp.compress(buf, st)
+        pairs = [("packed words", pk["packed"], pp["packed"]),
+                 ("scale", pk["scale"], pp["scale"]),
+                 ("decompressed", ck.decompress(pk), cp.decompress(pp)),
+                 ("momentum", sk["m"], sp["m"]),
+                 ("error feedback", sk["inner"]["error"],
+                  sp["inner"]["error"])]
+        for what, a, c in pairs:
+            if not _same_bits(a, c):
+                raise AssertionError(f"bucket {b.index}: {what} through the "
+                                     "kernels differs from the plain versions")
+    red_k = [g.clone() for g in grads]
+    red_p = [g.clone() for g in grads]
+    plan.reduce(red_k, states)
+    plain.reduce(red_p, states)
+    if not all(_same_bits(a, c) for a, c in zip(red_k, red_p)):
+        raise AssertionError("the compressed reduction through the kernels "
+                             "differs from the one through the plain versions")
+    log(f"[gpt2_medium onebit] one step's compressed reduction of real "
+        f"gradients ({plan.n_compressed} compressed buckets): packed words, "
+        f"scales, decompressed values, error feedback, momentum and the "
+        f"reduced gradient bit-identical through the kernels and through "
+        f"their plain versions")
+    del trainer, grads, red_k, red_p
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -395,25 +726,48 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full fp32
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     toolchain()
-    worst = check_kernels()
-    timing = time_kernels()
-    launches = train()
+    worst = dict.fromkeys(KERNELS, 0.0)
+    check_bert_kernels(worst)
+    check_gpt2_kernels(worst)
+    check_onebit(_adversarial(), "adversarial vector")
+    timing = time_attention(TRAIN_BATCH, BERT_SEQ, False,
+                            ("flash_fwd", "flash_bwd_fused"))
+    gpt2_timing = time_attention(TRAIN_BATCH, GPT2_SEQ, True,
+                                 ("flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv"))
+    timing["flash_bwd_dq"] = gpt2_timing.pop("flash_bwd_dq")
+    timing["flash_bwd_dkv"] = gpt2_timing.pop("flash_bwd_dkv")
+    timing.update(time_onebit())
+    paths = {"bert_large": train_bert(),
+             "gpt2_medium_dense": train_gpt2_dense(),
+             "gpt2_medium_onebit": train_gpt2_onebit()}
+    log(f"all phases in {time.perf_counter() - t_start:.1f} s")
 
     card = card_line()
     kernels = []
-    for name in ("flash_fwd", "flash_bwd_fused"):
+    for name in KERNELS:
         t = timing[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": sum(p[name] for p in paths.values()),
+            "launches_by_path": {k: p[name] for k, p in paths.items()},
             "max_abs_err": worst[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "ok": True, "tolerance": f"max err <= {REL_TOL} * max|plain|",
-            "timed_shape": [TRAIN_BATCH, SEQ, 16, 64], "card": card,
-        })
+            "ok": True, "timed_shape": t["timed_shape"], "card": card,
+            "tolerance": ("bit for bit" if name.startswith("onebit")
+                          else f"max err <= {REL_TOL} * max|plain|"),
+        }
+        if name == "flash_fwd":        # also timed at the GPT-2 shape
+            g = gpt2_timing["flash_fwd"]
+            entry["gpt2"] = {k: g[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "timed_shape", "causal")}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -153,7 +153,7 @@ def test_kernel_input_check_accepts_the_flagship_geometry():
     ("fp32", TypeError, "bfloat16"),
     ("bias", NotImplementedError, "_dq_kernel"),
     ("rel_table", NotImplementedError, "rel"),
-    ("multi_block", NotImplementedError, "split backward"),
+    ("multi_block", NotImplementedError, "bias"),
     ("head_dim", NotImplementedError, "head_dim"),
     ("ragged", ValueError, "multiples"),
     ("causal_cross", ValueError, "causal"),
@@ -172,8 +172,9 @@ def test_kernel_input_check_refuses_what_the_kernels_do_not_take(case, exc,
         kw["bias"] = _meta(4, 512, 512, dtype=torch.float32)
     elif case == "rel_table":
         kw["rel_table"] = _meta(4, 32, dtype=torch.float32)
-    elif case == "multi_block":
+    elif case == "multi_block":     # the split backward's bias form
         q = k = v = _meta(2, 1024, 4, 64)
+        kw["bias"] = _meta(4, 1024, 1024, dtype=torch.float32)
     elif case == "head_dim":
         q = k = v = _meta(2, 512, 4, 128)
     elif case == "ragged":

@@ -66,7 +66,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, byteps_tpu_torch, byteps_tpu_torch.training, "
             "byteps_tpu_torch.models.bert, byteps_tpu_torch.convert, "
-            "byteps_tpu_torch.ops._build, byteps_tpu_torch.models.flops; "
+            "byteps_tpu_torch.ops._build, byteps_tpu_torch.models.flops, "
+            "byteps_tpu_torch.models.gpt2, byteps_tpu_torch.ops.compression; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -139,8 +140,10 @@ def test_init_defaults_to_the_card_and_world_one_needs_no_group():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"compression": {"compressor_type": "onebit"}}, "compression"),
+    ({"compression": {"compressor_type": "topk"}}, "compression"),
     ({"reducer": lambda x, g: x}, "reducer"),
+    ({"compression": {"compressor_type": "onebit", "exchange": "rs"}},
+     "compression"),
 ])
 def test_trainer_refuses_unported_options(kw, match):
     from byteps_tpu_torch.models import bert

@@ -1,5 +1,6 @@
-"""The port's Hopper attention kernels against their plain PyTorch
-versions, on the card.
+"""The port's Hopper kernels (flash attention forward, fused and split
+backward, onebit pack and unpack) against their plain PyTorch versions,
+on the card.
 
 A CUDA kernel has no CPU mode, so every test here needs a GPU: it is
 marked ``cuda`` and skips with a reason elsewhere. This file imports no
@@ -12,13 +13,15 @@ Inputs are seeded normal bf16. Both sides round at the same points (P and
 dS to bf16, outputs to bf16); they differ in fp32 summation order, which
 can move a rounded value by one bf16 step (2⁻⁸ relative). Tolerance:
 max |kernel - plain| <= 1e-2 · max |plain| for out, dq, dk, dv, and 1e-3
-absolute for the fp32 lse.
+absolute for the fp32 lse. The onebit kernels move bits: they must agree
+with their plain versions bit for bit.
 """
 
 import pytest
 import torch
 
 from byteps_tpu_torch.ops import flash_attention as fa
+from byteps_tpu_torch.ops.compression import kernels as ob
 
 pytestmark = pytest.mark.cuda
 
@@ -28,6 +31,7 @@ SHAPES = [  # (b, sq, sk, h)
     (1, 512, 512, 16),
     (2, 128, 256, 4),       # cross-attention, sq != sk
     (2, 512, 192, 2),
+    (2, 1024, 1024, 2),     # two 512 blocks: the GPT-2 context
 ]
 
 
@@ -123,3 +127,89 @@ def test_cuda_fp32_input_raises_instead_of_falling_back(cuda):
     with pytest.raises(TypeError, match="bfloat16"):
         fa.flash_fwd(q, q, q)
     assert fa.flash_fwd.launches == n0
+
+
+@pytest.mark.parametrize("b,sq,sk,h,causal", list(_cases()))
+def test_split_backward_kernels_match_plain(cuda, b, sq, sk, h, causal):
+    """dq and dk/dv with delta = rowsum(dO∘out) from the forward's bf16
+    output, as the split route computes it."""
+    q, k, v, do = _inputs(cuda, b, sq, sk, h, seed=4)
+    out, lse = fa.flash_fwd_plain(q, k, v, causal)
+    delta = fa.bwd_delta(do, out)
+    n0 = fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    _close(dq, fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal), "dq")
+    ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
+    _close(dk, ref_dk, "dk")
+    _close(dv, ref_dv, "dv")
+
+
+def test_split_kernels_read_strided_views_in_place(cuda):
+    g = torch.Generator(device="cpu").manual_seed(5)
+    qkv = torch.randn(2, 192, 3, 4, 64, generator=g).to(cuda, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    do = torch.randn(2, 192, 4, 64, generator=g).to(cuda, torch.bfloat16)
+    out, lse = fa.flash_fwd(q, k, v, True)
+    delta = fa.bwd_delta(do, out)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    assert torch.equal(fa.flash_bwd_dq(q, k, v, do, lse, delta, True),
+                       fa.flash_bwd_dq(qc, kc, vc, do, lse, delta, True))
+    for a, c in zip(fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+                    fa.flash_bwd_dkv(qc, kc, vc, do, lse, delta, True)):
+        assert torch.equal(a, c)
+
+
+def test_autograd_takes_the_split_kernels_past_one_block(cuda):
+    """At seq 1024 (two 512 blocks) the autograd Function runs the forward
+    kernel, then the dq and dk/dv kernels, and never the fused one."""
+    q, k, v, do = _inputs(cuda, 1, 1024, 1024, 2, seed=6)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    names = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
+    n0 = [getattr(fa, n).launches for n in names]
+    fa.attention(q, k, v, causal=True).backward(do)
+    torch.cuda.synchronize()
+    assert [getattr(fa, n).launches - c for n, c in zip(names, n0)] == \
+        [1, 0, 1, 1]
+    qa, ka, va = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    fa.flash_fwd_plain(qa, ka, va, True)[0].backward(do)
+    for t, ref, name in zip((q, k, v), (qa, ka, va), "qkv"):
+        _close(t.grad, ref.grad, "d" + name, rel=3e-2)   # plain P, dS unrounded
+
+
+def _onebit_vectors():
+    f = torch.finfo(torch.float32)
+    head = torch.tensor([0.0, -0.0, float("nan"), -float("nan"), float("inf"),
+                         -float("inf"), f.tiny / 4, -f.tiny / 4, f.tiny,
+                         -f.tiny, 1.0, -1.0])
+    g = torch.Generator(device="cpu").manual_seed(7)
+    yield "adversarial_77", torch.cat([head, torch.randn(65, generator=g)])
+    for n in (1, 31, 32, 33, 4_096_000 // 4):
+        yield f"n{n}", torch.randn(n, generator=g)
+
+
+def test_onebit_kernels_match_plain_bit_for_bit(cuda):
+    for name, x in _onebit_vectors():
+        x = x.to(cuda)
+        p0, u0 = ob.onebit_pack.launches, ob.onebit_unpack.launches
+        words = ob.onebit_pack(x)
+        signs = ob.onebit_unpack(words, x.numel())
+        torch.cuda.synchronize()
+        assert (ob.onebit_pack.launches, ob.onebit_unpack.launches) == \
+            (p0 + 1, u0 + 1), name
+        assert words.dtype == torch.int32 and words.numel() == ob.words_for(x.numel())
+        assert torch.equal(words, ob.onebit_pack_plain(x)), name
+        assert torch.equal(signs.view(torch.int32),
+                           ob.onebit_unpack_plain(words, x.numel()).view(torch.int32)), name
+
+
+def test_onebit_cuda_inputs_the_kernels_do_not_take_raise(cuda):
+    n0 = ob.onebit_pack.launches
+    with pytest.raises(TypeError, match="float32"):
+        ob.onebit_pack(torch.zeros(64, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="fit"):
+        ob.onebit_unpack(torch.zeros(2, device=cuda, dtype=torch.int32), 65)
+    assert ob.onebit_pack.launches == n0
