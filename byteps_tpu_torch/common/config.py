@@ -1,5 +1,6 @@
 """Environment-variable configuration (the port's copy of the fields of
-``byteps_tpu/common/config.py`` that the data-parallel slice reads).
+``byteps_tpu/common/config.py`` that the data-parallel and sync
+parameter-server slices read).
 
 The reference framework (BytePS) is configured purely through environment
 variables (reference: docs/env.md; global.cc:105-281 reads them at init).
@@ -14,7 +15,15 @@ package, resolved once into a frozen ``Config``:
   BYTEPS_MIN_COMPRESS_BYTES → BPS_MIN_COMPRESS_BYTES (buckets below it
                              skip gradient compression)
   BYTEPS_ENABLE_ASYNC      → BPS_ENABLE_ASYNC    (not ported: raises)
-  BYTEPS_ENABLE_PS         → BPS_ENABLE_PS       (not ported: raises)
+  BYTEPS_ENABLE_PS         → BPS_ENABLE_PS       (the sync parameter-server
+                             path, in-process server at world 1)
+  BPS_SERVER_ADDRS         (standalone servers: not ported, raises)
+  BYTEPS_SERVER_ENGINE_THREAD → BPS_SERVER_ENGINE_THREAD
+  BYTEPS_SERVER_ENABLE_SCHEDULE → BPS_SERVER_ENABLE_SCHEDULE
+  BPS_COMPRESS             (the fused compression plane: none | fp16 |
+                             int8 | fp8_e4m3 | fp8_e5m2 | topk; auto
+                             raises)
+  BPS_WATCHDOG_SEC         (the stall watchdog: not ported, > 0 raises)
 
 The original ``BYTEPS_``/``DMLC_`` spellings are accepted as fallbacks so
 that launch scripts written for the reference keep working.
@@ -62,6 +71,11 @@ class Config:
     min_compress_bytes: int = 65536      # BYTEPS_MIN_COMPRESS_BYTES default 64KiB, global.cc:137-139
     enable_async: bool = False
     enable_ps: bool = False
+    server_addrs: str = ""               # BPS_SERVER_ADDRS: host:port,... (empty: in-process)
+    server_engine_threads: int = 4       # BYTEPS_SERVER_ENGINE_THREAD
+    server_enable_schedule: bool = False  # BYTEPS_SERVER_ENABLE_SCHEDULE
+    compress: str = "none"               # BPS_COMPRESS
+    watchdog_sec: float = 0.0            # BPS_WATCHDOG_SEC (0 = off)
 
     @staticmethod
     def from_env(**overrides) -> "Config":
@@ -75,6 +89,13 @@ class Config:
             min_compress_bytes=_env_int("BPS_MIN_COMPRESS_BYTES", "BYTEPS_MIN_COMPRESS_BYTES", 65536),
             enable_async=_env_bool("BPS_ENABLE_ASYNC", "BYTEPS_ENABLE_ASYNC"),
             enable_ps=_env_bool("BPS_ENABLE_PS", "BYTEPS_ENABLE_PS"),
+            server_addrs=_env("BPS_SERVER_ADDRS", None, ""),
+            server_engine_threads=_env_int("BPS_SERVER_ENGINE_THREAD",
+                                           "BYTEPS_SERVER_ENGINE_THREAD", 4),
+            server_enable_schedule=_env_bool("BPS_SERVER_ENABLE_SCHEDULE",
+                                             "BYTEPS_SERVER_ENABLE_SCHEDULE"),
+            compress=(_env("BPS_COMPRESS", None, "none") or "none").lower(),
+            watchdog_sec=float(_env("BPS_WATCHDOG_SEC", None, "0") or 0),
         )
         cfg.update(overrides)
         return Config(**cfg)

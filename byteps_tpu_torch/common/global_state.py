@@ -5,6 +5,11 @@ runs one process per GPU, and so does the port: ``GlobalState.init``
 resolves the env ``Config``, picks the process's device, and joins the
 ``torch.distributed`` process group (NCCL for a CUDA device, gloo for the
 CPU). A world of one needs no process group at all.
+
+With ``BPS_ENABLE_PS`` (the sync parameter-server path) it also builds the
+in-process server backend, as ``byteps_tpu/common/global_state.py:193-205``
+does, and holds the name registry that keeps PS keys stable. Standalone
+servers (``BPS_SERVER_ADDRS``) and the async path are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +22,21 @@ import torch
 import torch.distributed as dist
 
 from .config import Config
+from .naming import NameRegistry
+
+_NOT_PORTED = "is not ported yet (see ROADMAP.md, 'Modules still to port')"
+
+
+def check_ps_config(cfg: Config) -> None:
+    """Refuse the parameter-server options the port does not run yet."""
+    if cfg.enable_async:
+        raise NotImplementedError(
+            f"the async parameter-server path (BPS_ENABLE_ASYNC) "
+            f"{_NOT_PORTED}")
+    if cfg.enable_ps and cfg.server_addrs:
+        raise NotImplementedError(
+            f"standalone PS servers (BPS_SERVER_ADDRS, the remote "
+            f"transport) {_NOT_PORTED}")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -32,7 +52,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 class GlobalState:
-    """Config + device + the data-parallel process group of this process."""
+    """Config + device + the data-parallel process group of this process,
+    and with ``enable_ps`` the PS backend and the exchanges that use it."""
 
     _instance: Optional["GlobalState"] = None
     _lock = threading.Lock()
@@ -42,6 +63,21 @@ class GlobalState:
         self.config = config
         self.device = device
         self._owns_group = owns_group
+        self.registry = NameRegistry()
+        self.ps_backend = None
+        self.exchanges: list = []        # closed by shutdown()
+        if config.enable_ps:
+            if config.num_worker > 1:
+                raise ValueError(
+                    "BPS_ENABLE_PS with BPS_NUM_WORKER>1 needs "
+                    "BPS_SERVER_ADDRS (standalone servers reachable by "
+                    "every worker) — a private in-process backend would "
+                    "wait forever for the other workers' pushes")
+            from ..server.engine import HostPSBackend
+            self.ps_backend = HostPSBackend(
+                num_servers=1, num_workers=config.num_worker,
+                engine_threads=config.server_engine_threads,
+                enable_schedule=config.server_enable_schedule)
 
     # -- lifecycle ----------------------------------------------------------
     @classmethod
@@ -57,13 +93,15 @@ class GlobalState:
             if cls._instance is not None:
                 return cls._instance
             cfg = config or Config.from_env()
+            check_ps_config(cfg)
             dev = resolve_device(device)
             if dev.type == "cuda" and dev.index is None:
                 dev = torch.device("cuda", cfg.local_rank)
             if dev.type == "cuda":
                 torch.cuda.set_device(dev)
             owns = False
-            if cfg.num_worker > 1 and not dist.is_initialized():
+            if cfg.num_worker > 1 and not dist.is_initialized() \
+                    and not cfg.enable_ps:
                 if init_method is None:
                     if not cfg.coordinator_address:
                         raise ValueError(
@@ -97,6 +135,10 @@ class GlobalState:
             inst = cls._instance
             if inst is None:
                 return
+            for ex in inst.exchanges:
+                ex.close()
+            if inst.ps_backend is not None:
+                inst.ps_backend.close()
             if inst._owns_group and dist.is_initialized():
                 dist.destroy_process_group()
             cls._instance = None

@@ -42,6 +42,10 @@ SIGNATURES = {
                   [_P] * 8 + [_I] * 5 + [_L] * 8 + [_F, _I, _P]),
     "onebit_pack": ("bps_onebit_pack", [_P, _P, _L, _P]),
     "onebit_unpack": ("bps_onebit_unpack", [_P, _P, _L, _P]),
+    "int8_quantize": ("bps_int8_quantize", [_P, _P, _L, _F, _P]),
+    "int8_dequantize": ("bps_int8_dequantize", [_P, _P, _L, _F, _P]),
+    "fp8_sr_quantize": ("bps_fp8_sr_quantize",
+                        [_P, _P, _L, _F, ctypes.c_uint, _I, _P]),
 }
 
 _lock = threading.Lock()

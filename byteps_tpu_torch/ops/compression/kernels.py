@@ -1,6 +1,6 @@
-"""Onebit pack and unpack for the port: hand-written Hopper kernels and
+"""The compression kernels of the port: hand-written Hopper kernels and
 their plain PyTorch versions (counterpart of
-``byteps_tpu/ops/compression/pallas_kernels.py``, its onebit half).
+``byteps_tpu/ops/compression/pallas_kernels.py``).
 
   - ``onebit_pack`` launches ``csrc/onebit_pack.cu``, the port of the
     Pallas ``_pack_kernel`` (pallas_kernels.py:39, wrapper ``onebit_pack``
@@ -17,18 +17,36 @@ Both are bounded by device memory. The words live in an ``int32`` tensor
 tensors have too few operations in PyTorch for the plain versions and the
 all-gather.
 
-A wrapper takes its plain version only for a tensor on the CPU. A CUDA
-tensor launches the kernel or raises. Each wrapper counts its launches in
-a plain int attribute, ``launches``. The int8 and fp8 kernels of the same
-Pallas module serve the parameter-server path and are not ported yet
-(ROADMAP.md).
+The parameter-server path's device encode (``compress/device.py``) runs
+the other three, each byte-identical to the numpy codec of
+``compress/wire.py`` for the same inputs:
+
+  - ``int8_quantize`` launches ``csrc/int8_quantize.cu``, the port of
+    ``_int8_q_kernel`` (pallas_kernels.py:120, wrapper ``int8_quantize``
+    :139): q = clip(round-half-even(x / s), ±127) as int8, a correctly
+    rounded division, s <= 0 taken as 1.0;
+  - ``int8_dequantize`` launches ``csrc/int8_dequantize.cu``, the port of
+    ``_int8_dq_kernel`` (:130, wrapper ``int8_dequantize`` :249):
+    (float) q · s, one multiply;
+  - ``fp8_sr_quantize`` launches ``csrc/fp8_sr_quantize.cu``, the port of
+    ``_fp8_sr_kernel`` (:176, wrapper ``fp8_sr_quantize`` :219):
+    ``fp8sr.sr_quantize_bits`` (stochastic rounding to fp8 E4M3 or E5M2
+    bytes in uint32 bit math, the noise keyed by the element's flat index
+    and the seed).
+
+All five are bounded by device memory. A wrapper takes its plain version
+only for a tensor on the CPU. A CUDA tensor launches the kernel or
+raises. Each wrapper counts its launches in a plain int attribute,
+``launches``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .._build import device_type, entry, raise_on_error
+from . import fp8sr
 
 PACK = 32          # bits per word
 # x < 0 with denormals flushed to zero, as the TPU and XLA's CPU compare
@@ -112,3 +130,158 @@ def onebit_unpack(words: torch.Tensor, n: int) -> torch.Tensor:
 
 
 onebit_unpack.launches = 0
+
+
+# ----------------------------------------------- int8 and fp8 quantizers
+
+def check_quant_input(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
+    """Raise on what the quantize kernels do not take: they read one
+    non-empty, contiguous 1-D tensor of ``dtype``."""
+    if t.dtype != dtype or t.dim() != 1 or t.numel() == 0:
+        raise TypeError(f"the {what} kernel takes a non-empty 1-D {dtype} "
+                        f"tensor, got {t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"the {what} kernel takes a contiguous tensor")
+
+
+def _positive_scale(scale) -> np.float32:
+    """The codec's zero-amax rule: a scale that is not > 0 is 1.0."""
+    s = np.float32(scale)
+    return s if s > 0 else np.float32(1.0)
+
+
+def _scale_on(s, device) -> torch.Tensor:
+    # a 0-dim tensor on x's device: dividing a CUDA tensor by a CPU scalar
+    # takes a reciprocal multiply, which is not the codec's division
+    return torch.tensor(np.float32(s), dtype=torch.float32, device=device)
+
+
+def int8_quantize_plain(x: torch.Tensor, scale) -> torch.Tensor:
+    """f32 [n] -> int8 [n] = clip(round-half-even(x / s), ±127), s <= 0
+    taken as 1.0; true division."""
+    y = torch.div(x, _scale_on(_positive_scale(scale), x.device),
+                  rounding_mode=None)
+    return torch.clamp(torch.round(y), -127, 127).to(torch.int8)
+
+
+def int8_dequantize_plain(q: torch.Tensor, scale) -> torch.Tensor:
+    """int8 [n] -> f32 [n] = q · s."""
+    return q.to(torch.float32) * _scale_on(scale, q.device)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """a · c mod 2^32 for int64 a in [0, 2^32) and c < 2^32, split in
+    16-bit halves so that no int64 product overflows."""
+    return ((a & 0xFFFF) * c + ((((a >> 16) * c) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32_plain(idx: torch.Tensor, seed: int) -> torch.Tensor:
+    """``fp8sr.mix32`` on int64 tensors holding uint32 values."""
+    h = _mul32(idx, 0x9E3779B9) ^ (int(seed) & _M32)
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def fp8_sr_quantize_plain(x: torch.Tensor, scale, seed: int,
+                          kind: int) -> torch.Tensor:
+    """f32 [n] -> uint8 [n] fp8 bytes, ``fp8sr.sr_quantize_bits`` in plain
+    PyTorch: uint32 arithmetic in int64 tensors, masked to 32 bits."""
+    mx, _, base, emin, e_sub, qbits = fp8sr.fmt_params(kind)
+    y = torch.div(x, _scale_on(_positive_scale(scale), x.device),
+                  rounding_mode=None)
+    y = torch.clamp(y, -mx, mx)
+    bits = y.view(torch.int32).to(torch.int64) & _M32
+    sign = bits >> 31
+    mag = bits & 0x7FFFFFFF
+    e = mag >> 23
+    h = _mix32_plain(torch.arange(x.numel(), dtype=torch.int64,
+                                  device=x.device), seed)
+    d = torch.clamp((emin + base) - e, base, 23)
+    mask = (torch.ones_like(d) << d) - 1
+    mag_grid = (mag + (h & mask)) & ~mask
+    tiny = e < e_sub
+    u24 = (h >> 8).to(torch.float32) * (2.0 ** -24)
+    t = torch.abs(y) * float(2.0 ** (127 - e_sub))
+    zero = torch.zeros_like(mag)
+    mag_tiny = torch.where(u24 < t, torch.full_like(mag, int(qbits)), zero)
+    mag2 = torch.where(tiny, mag_tiny, mag_grid)
+    mag2 = torch.where(mag == 0, zero, mag2)
+    e2 = mag2 >> 23
+    f2 = mag2 & 0x7FFFFF
+    norm = ((e2 - (emin - 1)) << (23 - base)) | (f2 >> base)
+    sub = ((1 << 23) | f2) >> torch.clamp((emin + base) - e2, 0, 31)
+    out = torch.where(e2 >= emin, norm, sub)
+    out = torch.where(mag2 == 0, zero, out)
+    return ((sign << 7) | out).to(torch.uint8)
+
+
+def int8_quantize(x: torch.Tensor, scale) -> torch.Tensor:
+    """f32 [n] -> int8 [n] at ``scale``. CUDA tensors launch
+    ``csrc/int8_quantize.cu``; CPU tensors take ``int8_quantize_plain``."""
+    if device_type(x, "int8 quantize") == "cpu":
+        return int8_quantize_plain(x, scale)
+    check_quant_input(x, torch.float32, "int8 quantize")
+    q = torch.empty(x.numel(), dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        code = entry("int8_quantize")(
+            x.data_ptr(), q.data_ptr(), x.numel(),
+            float(_positive_scale(scale)),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    raise_on_error(code, "int8 quantize kernel")
+    int8_quantize.launches += 1
+    return q
+
+
+int8_quantize.launches = 0
+
+
+def int8_dequantize(q: torch.Tensor, scale) -> torch.Tensor:
+    """int8 [n] -> f32 [n] = q · scale. CUDA tensors launch
+    ``csrc/int8_dequantize.cu``; CPU tensors take
+    ``int8_dequantize_plain``."""
+    if device_type(q, "int8 dequantize") == "cpu":
+        return int8_dequantize_plain(q, scale)
+    check_quant_input(q, torch.int8, "int8 dequantize")
+    out = torch.empty(q.numel(), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        code = entry("int8_dequantize")(
+            q.data_ptr(), out.data_ptr(), q.numel(),
+            float(np.float32(scale)),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    raise_on_error(code, "int8 dequantize kernel")
+    int8_dequantize.launches += 1
+    return out
+
+
+int8_dequantize.launches = 0
+
+
+def fp8_sr_quantize(x: torch.Tensor, scale, seed: int,
+                    kind: int) -> torch.Tensor:
+    """f32 [n] -> uint8 [n] fp8 ``kind`` bytes (``fp8sr.E4M3`` or
+    ``E5M2``) at ``scale``, noise seeded by ``seed``. CUDA tensors launch
+    ``csrc/fp8_sr_quantize.cu``; CPU tensors take
+    ``fp8_sr_quantize_plain``."""
+    if kind not in (fp8sr.E4M3, fp8sr.E5M2):
+        raise ValueError(f"unknown fp8 kind {kind}")
+    if device_type(x, "fp8 quantize") == "cpu":
+        return fp8_sr_quantize_plain(x, scale, seed, kind)
+    check_quant_input(x, torch.float32, "fp8 quantize")
+    q = torch.empty(x.numel(), dtype=torch.uint8, device=x.device)
+    with torch.cuda.device(x.device):
+        code = entry("fp8_sr_quantize")(
+            x.data_ptr(), q.data_ptr(), x.numel(),
+            float(_positive_scale(scale)), int(seed) & _M32, kind,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    raise_on_error(code, "fp8 quantize kernel")
+    fp8_sr_quantize.launches += 1
+    return q
+
+
+fp8_sr_quantize.launches = 0

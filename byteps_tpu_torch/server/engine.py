@@ -1,0 +1,266 @@
+"""Python bindings of the port's native host reduction service (the port's
+copy of the in-process half of ``byteps_tpu/server/engine.py``).
+
+The reference loads its server as a ctypes CDLL (reference:
+server/__init__.py:21-27); the port does the same for its own copy of the
+summation engine, ``csrc/host/bps_server.cc``, built at first use by
+``ops/_build_host.py``. ``PSServer`` is one server shard; ``HostPSBackend``
+drives a set of shards from the worker side, giving the sync exchange its
+PS route: host numpy → key stores placed by hash (``common.naming.place_key``)
+→ summation engine → pull. Keys declared ``fused=True`` have their rounds
+owned by the homogeneous fused store (``server/homog.py``), which alone
+takes fused payloads.
+
+Not ported yet (ROADMAP.md): key migration and the placement ring,
+bounded-staleness rounds, row-sparse pushes, the param mailbox, the legacy
+compressed-push chains and the remote transport.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+import time
+from typing import Dict, Optional
+
+import numpy as np
+
+from ..common.naming import log_key_placement, place_key
+from ..obs.metrics import get_registry
+
+_DTYPES = {"float32": 0, "float64": 1, "int32": 2, "int64": 3,
+           "float16": 4, "bfloat16": 5, "uint8": 6}
+
+
+def _lib() -> ctypes.CDLL:
+    from ..ops._build_host import load
+    return load()
+
+
+def _addr(a: np.ndarray) -> ctypes.c_void_p:
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def pack_segments(srcs, dst_offs, lens, dst: np.ndarray) -> None:
+    """Gather ``len(srcs)`` byte ranges into ``dst`` natively (GIL
+    released, OpenMP across segments). ``srcs``: raw source addresses;
+    offsets and lengths in bytes."""
+    n = len(srcs)
+    _lib().bps_pack_segments(
+        (ctypes.c_void_p * n)(*srcs), (ctypes.c_uint64 * n)(*dst_offs),
+        (ctypes.c_uint64 * n)(*lens), n, _addr(dst))
+
+
+def unpack_segments(src: np.ndarray, src_offs, dsts, lens) -> None:
+    """Scatter byte ranges of ``src`` to raw destination addresses."""
+    n = len(dsts)
+    _lib().bps_unpack_segments(
+        _addr(src), (ctypes.c_uint64 * n)(*src_offs),
+        (ctypes.c_void_p * n)(*dsts), (ctypes.c_uint64 * n)(*lens), n)
+
+
+def reduce_sum_inplace(dst: np.ndarray, src: np.ndarray) -> None:
+    """dst += src via the native typed reducer (reference: CpuReducer::sum)."""
+    if dst.dtype != src.dtype or dst.nbytes != src.nbytes:
+        raise ValueError(f"reduce_sum_inplace: {dst.dtype}[{dst.size}] += "
+                         f"{src.dtype}[{src.size}]")
+    _lib().bps_reduce_sum(_addr(dst), _addr(src), dst.nbytes,
+                          _DTYPES[str(dst.dtype)])
+
+
+class ServerClosed(RuntimeError):
+    """The server is shutting down."""
+
+
+class PSServer:
+    """One native server shard (reference: byteps_server(), server.cc:441-514)."""
+
+    def __init__(self, num_workers: int, engine_threads: int = 4,
+                 enable_schedule: bool = False) -> None:
+        self._lib = _lib()
+        self._h = self._lib.bps_server_create(
+            num_workers, engine_threads, int(enable_schedule), 0)
+        if not self._h:
+            raise RuntimeError("bps_server_create failed")
+        self.num_workers = num_workers
+        self.engine_threads = engine_threads
+        # close() may race callers blocked in pull: an in-flight count plus
+        # the native two-phase shutdown (begin_shutdown wakes and refuses,
+        # destroy frees only after the drain)
+        self._cv = threading.Condition()
+        self._inflight = 0
+        self._closed = False
+
+    def _enter(self) -> None:
+        with self._cv:
+            if self._closed:
+                raise ServerClosed("server closed")
+            self._inflight += 1
+
+    def _exit(self) -> None:
+        with self._cv:
+            self._inflight -= 1
+            if self._inflight == 0:
+                self._cv.notify_all()
+
+    def _call(self, fn, *args):
+        self._enter()
+        try:
+            return fn(self._h, *args)
+        finally:
+            self._exit()
+
+    def close(self) -> None:
+        with self._cv:
+            if self._closed:
+                return
+            self._closed = True
+            h = self._h
+        if h:
+            # wake blocked pulls (they return rc=-5), then wait for every
+            # in-flight call to leave before freeing the handle
+            self._lib.bps_server_begin_shutdown(h)
+            with self._cv:
+                while self._inflight:
+                    self._cv.wait(timeout=1.0)
+            self._lib.bps_server_destroy(h)
+            self._h = None
+
+    def init_key(self, key: int, nbytes: int, dtype: str = "float32",
+                 init: Optional[np.ndarray] = None) -> None:
+        ptr = None if init is None else _addr(np.ascontiguousarray(init))
+        rc = self._call(self._lib.bps_server_init_key, key, nbytes,
+                        _DTYPES[dtype], ptr)
+        if rc == -5:
+            raise ServerClosed(f"init_key({key}): server shutting down")
+        if rc != 0:
+            raise RuntimeError(f"init_key({key}) failed rc={rc}")
+
+    def push(self, key: int, data: np.ndarray) -> None:
+        data = np.ascontiguousarray(data)
+        rc = self._call(self._lib.bps_server_push, key, _addr(data),
+                        data.nbytes)
+        if rc == -5:
+            raise ServerClosed(f"push({key}): server shutting down")
+        if rc != 0:
+            raise RuntimeError(f"push({key}) failed rc={rc} (length "
+                               f"mismatch or key not initialised)")
+
+    def pull(self, key: int, out: np.ndarray, round: int = 0,
+             timeout_ms: int = 30000) -> None:
+        """Pull round ``round`` (1-based; 0 = latest published) into the
+        contiguous array ``out``."""
+        rc = self._call(self._lib.bps_server_pull, key, _addr(out),
+                        out.nbytes, round, timeout_ms)
+        if rc == -2:
+            raise TimeoutError(f"pull({key}) round={round} timed out "
+                               f"after {timeout_ms}ms")
+        if rc == -5:
+            raise ServerClosed(f"pull({key}): server shutting down")
+        if rc != 0:
+            raise RuntimeError(f"pull({key}) failed rc={rc}")
+
+    def round(self, key: int) -> int:
+        return int(self._call(self._lib.bps_server_round, key))
+
+
+class HostPSBackend:
+    """Worker-side driver over in-process ``PSServer`` shards.
+
+    Keys are placed on shards by hash (reference: global.cc:628-677). The
+    in-process shards model the colocated-server deployment (reference:
+    BYTEPS_ENABLE_IPC); at world 1 it is the whole server side.
+    """
+
+    def __init__(self, num_servers: int = 1, num_workers: int = 1,
+                 engine_threads: int = 4, enable_schedule: bool = False) -> None:
+        self.servers = [PSServer(num_workers, engine_threads, enable_schedule)
+                        for _ in range(num_servers)]
+        self.num_workers = num_workers
+        # homogeneous fused summation (server/homog.py): keys declared
+        # fused=True at init have their rounds owned by this store; lazy,
+        # so plain deployments never allocate it
+        self._homog = None
+        self._declared: set = set()
+        self._shard_bytes: Dict[int, int] = {}
+        self._m_pull_wait = get_registry().histogram("server/pull_wait_s")
+
+    def close(self) -> None:
+        for s in self.servers:
+            s.close()
+
+    def _shard_index(self, key: int) -> int:
+        return place_key(key, len(self.servers))
+
+    def _shard(self, key: int) -> PSServer:
+        return self.servers[self._shard_index(key)]
+
+    def _homog_managed(self, key: int) -> bool:
+        return self._homog is not None and self._homog.managed(key)
+
+    def init_key(self, key: int, nbytes: int, dtype: str = "float32",
+                 init: Optional[np.ndarray] = None,
+                 fused: bool = False) -> None:
+        """Declare ``key``'s dense store. ``fused=True`` (the exchange's
+        plan-time declaration for compression-plane-managed keys) hands the
+        key's rounds to the homogeneous fused store; a re-init resets it
+        (a new tenancy)."""
+        from .homog import FusedSumStore
+        if fused:
+            if self._homog is None:
+                self._homog = FusedSumStore(self.num_workers)
+            self._homog.init_key(key, nbytes, dtype, init)
+        elif self._homog_managed(key):
+            self._homog.drop(key)           # re-declared non-fused
+        self._shard(key).init_key(key, nbytes, dtype, init)
+        if key not in self._declared:       # re-inits are no-ops server-side
+            self._declared.add(key)
+            log_key_placement(key, nbytes, self._shard_index(key),
+                              self._shard_bytes)
+
+    def push(self, key: int, data: np.ndarray) -> None:
+        if self._homog_managed(key):
+            # a dense round of a fused-managed key: the homog store owns
+            # the key's rounds either way
+            self._homog.ingest_dense(key, data)
+        else:
+            self._shard(key).push(key, data)
+
+    def pull(self, key: int, out: np.ndarray, round: int = 0,
+             timeout_ms: int = 30000) -> None:
+        t0 = time.time()
+        if self._homog_managed(key):
+            self._homog.pull_dense(key, out, round, timeout_ms)
+        else:
+            self._shard(key).pull(key, out, round, timeout_ms)
+        # the merge's publish time from this worker's view: server sum
+        # time plus the wait for the other workers' pushes
+        self._m_pull_wait.observe(time.time() - t0)
+
+    def round(self, key: int) -> int:
+        """Latest completed sync round for ``key`` (0 = none yet)."""
+        if self._homog_managed(key):
+            return self._homog.round(key)
+        return self._shard(key).round(key)
+
+    def _fused_store(self, key: int):
+        if not self._homog_managed(key):
+            raise KeyError(f"key {key} was not declared fused=True: only the "
+                           f"homogeneous fused store takes fused payloads")
+        return self._homog
+
+    def push_fused(self, key: int, payload) -> None:
+        """Fused-plane push: the payload is self-describing (codec header)
+        and buffers in the homogeneous store. A torn or mismatched payload
+        raises ``wire.CodecError`` before any byte reaches the store."""
+        self._fused_store(key).ingest(key, payload)
+
+    def pull_fused(self, key: int, nbytes: int, dtype: str, codec: int,
+                   round: int = 0, timeout_ms: int = 30000,
+                   div: Optional[int] = None) -> bytes:
+        """Fused-plane pull: the merged round encoded at the codec the
+        caller's decision trace pinned for it. Every codec is deterministic,
+        so every puller of (round, codec, div) gets the same bytes."""
+        from ..compress import wire
+        return self._fused_store(key).pull_payload(
+            key, codec, round, timeout_ms, div=div or wire.TOPK_DIV)

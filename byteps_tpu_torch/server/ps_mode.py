@@ -1,0 +1,463 @@
+"""Sync PS data path: gradients on the GPU ↔ the host reduction service (the
+port's copy of ``PSGradientExchange`` in ``byteps_tpu/server/ps_mode.py``,
+its ``exchange()``).
+
+Each worker's gradients are cut into buckets (``plan_buckets``, last-
+declared leaves first), each bucket a PS key ``declared_key << 16 |
+bucket``. A bucket is packed and pushed, summed by the server across
+workers, and pulled back: the reference's push/pull pipeline
+(core_loops.cc:538-618). With the fused compression plane on
+(``BPS_COMPRESS=int8`` or ``fp8_e4m3``, ...), a bucket is encoded before
+the push, on the card where its gradients live (``compress/device.py``:
+only the encoded payload is copied to the host), or by the numpy codec on
+the host; the server merges same-codec payloads and serves the merged
+round re-encoded, which the worker decodes on the host.
+
+The exchange is PIPELINED per bucket (``BPS_PS_PIPELINE`` threads, default
+4; ≤ 1 = serial): bucket k+1's encode and push run while bucket k's pull
+waits for the server's merge, and landed buckets are pulled by next-step
+first-use priority. A per-key admission gate keeps one round per key in
+flight.
+
+Not ported yet (ROADMAP.md): the streaming and ingest rounds, sharded
+rounds, bounded-staleness routing, the legacy ``compression=`` kwargs
+chains, the stall watchdog, the flight recorder, ``AsyncPSWorker`` and the
+row-sparse exchange.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..common.naming import NameRegistry
+from ..common.partition import LeafSpec, plan_buckets
+from ..obs.metrics import get_registry, observe_stage
+from .admission import AdmissionPlane
+from .engine import pack_segments, unpack_segments
+
+_NOT_PORTED = "is not ported yet (see ROADMAP.md, 'Modules still to port')"
+
+
+def _dtype_name(t) -> str:
+    return (str(t.dtype).removeprefix("torch.") if torch.is_tensor(t)
+            else str(np.dtype(t.dtype)))
+
+
+def _host_flat(src) -> np.ndarray:
+    """A leaf as a flat contiguous host array: a CUDA tensor is copied to
+    the host, a CPU tensor or numpy array is viewed."""
+    if torch.is_tensor(src):
+        return src.detach().contiguous().reshape(-1).cpu().numpy()
+    return np.ascontiguousarray(src).reshape(-1)
+
+
+class _Round:
+    """One sync exchange round: host leaves materialized lazily under
+    per-leaf locks, bucket pack/encode + push, pull + decode + unpack."""
+
+    def __init__(self, ex: "PSGradientExchange",
+                 tree: Sequence[Tuple[str, object]],
+                 name: Optional[str]) -> None:
+        self.ex = ex
+        self.decl_name, self.keyed = ex._plan(tree, name)
+        sources = [t for _, t in tree]
+        # the decision trace, PINNED per round: the push and the pull of
+        # every bucket in this round use this snapshot
+        self.clevels = None
+        if ex._cplane is not None:
+            ex._cplane.on_round()
+            self.clevels = [ex._cplane.level_of(pskey)
+                            for pskey, _ in self.keyed]
+        # device encode: buckets whose pinned level has a device codec
+        # encode where their gradients live and copy only the payload to
+        # the host; leaves that some host bucket covers are copied dense
+        self.dev_bucket = None
+        self.host_leaves = None
+        if self.clevels is not None and ex._device_encode_on(sources):
+            from ..compress.device import DEVICE_CODECS
+            dev = [lvl in DEVICE_CODECS and ex._cplane.active(pskey)
+                   for (pskey, _), lvl in zip(self.keyed, self.clevels)]
+            if any(dev):
+                self.dev_bucket = dev
+                self.host_leaves = {s.leaf_index
+                                    for d, (_, b) in zip(dev, self.keyed)
+                                    if not d for s in b.segments}
+                sources = [torch.from_numpy(np.ascontiguousarray(s))
+                           if isinstance(s, np.ndarray) else s
+                           for s in sources]
+        self.sources = sources
+        self.shapes = [tuple(s.shape) for s in sources]
+        self.flat: List[Optional[np.ndarray]] = [None] * len(sources)
+        self.flat_locks = [threading.Lock() for _ in sources]
+        self.out = [np.empty(int(np.prod(s.shape)), np.dtype(_dtype_name(s)))
+                    for s in sources]
+        self.rounds: List[Optional[int]] = [None] * len(self.keyed)
+        # pull order: among landed buckets, the one holding the
+        # earliest-declared (input-side) leaves first
+        self.pull_prio = [min((s.leaf_index for s in b.segments), default=0)
+                          for _, b in self.keyed]
+        self.round_seq = ex.plane.pulls.next_round_seq()
+        self._pulls_left = len(self.keyed)
+        self._pull_lock = threading.Lock()
+        self._pull_err: Optional[BaseException] = None
+        self._pull_done = threading.Event()
+        if not self.keyed:
+            self._pull_done.set()
+
+    # ------------------------------------------------------ host leaves
+
+    def get_flat(self, i: int) -> np.ndarray:
+        v = self.flat[i]         # double-checked: a ready leaf never waits
+        if v is not None:
+            return v
+        with self.flat_locks[i]:
+            if self.flat[i] is None:
+                t0 = time.time()
+                self.flat[i] = _host_flat(self.sources[i])
+                observe_stage("PS_D2H", time.time() - t0)
+            return self.flat[i]
+
+    # ------------------------------------------------------ push / pull
+
+    def push_one(self, idx: int) -> np.ndarray:
+        ex = self.ex
+        pskey, b = self.keyed[idx]
+        self.rounds[idx] = ex._next_round(pskey)
+        try:
+            if self.dev_bucket is not None and self.dev_bucket[idx]:
+                return ex._push_bucket_device(self, idx)
+            t0 = time.time()
+            buf = np.empty(b.size, dtype=b.dtype)
+            item = buf.itemsize
+            pack_segments([self.get_flat(s.leaf_index).ctypes.data
+                           + s.leaf_offset * item for s in b.segments],
+                          [s.bucket_offset * item for s in b.segments],
+                          [s.length * item for s in b.segments], buf)
+            t0 = ex._record("PS_PACK", t0)
+            # the bucket's segments crossed to the host dense
+            ex._d2h_account(pskey, buf.nbytes)
+            ex._push_bucket(pskey, buf, self, idx)
+            ex._record("PS_PUSH", t0)
+            return buf
+        except Exception:
+            # the round counter advanced but the push never landed: drop
+            # the entry so a retried exchange re-seeds from the server's
+            # round instead of pulling a round that never completes
+            with ex._key_rounds_lock:
+                ex._key_rounds.pop(pskey, None)
+            raise
+
+    def pull_one(self, idx: int, buf: np.ndarray) -> None:
+        ex = self.ex
+        pskey, b = self.keyed[idx]
+        t0 = time.time()
+        merged = np.ascontiguousarray(
+            ex._pull_bucket(pskey, b, buf, self.rounds[idx], self, idx))
+        t0 = ex._record("PS_PULL", t0)
+        item = merged.itemsize
+        unpack_segments(merged, [s.bucket_offset * item for s in b.segments],
+                        [self.out[s.leaf_index].ctypes.data
+                         + s.leaf_offset * item for s in b.segments],
+                        [s.length * item for s in b.segments])
+        ex._record("PS_UNPACK", t0)
+        ex._m_buckets.inc()
+
+    def assemble(self) -> List[np.ndarray]:
+        return [o.reshape(shp) for o, shp in zip(self.out, self.shapes)]
+
+    # ------------------------------------------------------ pipelined
+
+    def submit_bucket(self, idx: int) -> None:
+        """Queue bucket ``idx``'s pack/encode + push once the admission
+        gate frees its key; its pull is queued when the push lands."""
+        ex = self.ex
+        pskey, _ = self.keyed[idx]
+        ex.plane.gate.admit(pskey, lambda: ex._push_ex.submit(
+            self._push_task, idx))
+
+    def _push_task(self, idx: int) -> None:
+        pskey, _ = self.keyed[idx]
+        try:
+            buf = self.push_one(idx)
+        except BaseException as e:   # noqa: BLE001 — relayed to drain()
+            self.ex.plane.gate.release(pskey)
+            self._pull_finished(e)
+            return
+        self.ex._enqueue_pull(self, idx, buf)
+
+    def _pull_finished(self, exc: Optional[BaseException]) -> None:
+        if exc is not None and self._pull_err is None:
+            self._pull_err = exc
+        with self._pull_lock:
+            self._pulls_left -= 1
+            done = self._pulls_left <= 0
+        if done:
+            self._pull_done.set()
+
+    def drain(self) -> List[np.ndarray]:
+        self._pull_done.wait()
+        if self._pull_err is not None:
+            raise self._pull_err
+        return self.assemble()
+
+
+class PSGradientExchange:
+    """Sync-mode bucketed gradient exchange through the host PS service.
+
+    ``exchange(tree, name)`` takes the gradients as ``(path, tensor)``
+    pairs in the JAX parameter tree's flatten order (so the buckets, keys,
+    scales and fp8 noise are the JAX package's) and returns the summed
+    leaves as host arrays in the same order and shapes.
+
+    ``device``: where the gradients will live; when given (the trainer
+    gives its own), the device encode is resolved and probed at
+    construction rather than at the first exchange.
+    """
+
+    def __init__(self, backend, partition_bytes: int = 4 << 20,
+                 registry: Optional[NameRegistry] = None,
+                 min_compress_bytes: int = 65536,
+                 pipeline_depth: Optional[int] = None,
+                 watchdog_sec: Optional[float] = None,
+                 compress: Optional[str] = None,
+                 max_lag: Optional[int] = None,
+                 device=None) -> None:
+        if watchdog_sec is None:
+            watchdog_sec = float(os.environ.get("BPS_WATCHDOG_SEC", "0") or 0)
+        if watchdog_sec > 0:
+            raise NotImplementedError(
+                f"the stall watchdog (BPS_WATCHDOG_SEC) {_NOT_PORTED}")
+        self.backend = backend
+        self.partition_bytes = partition_bytes
+        self.registry = registry or NameRegistry()
+        self.min_compress_bytes = min_compress_bytes
+        from ..compress.plane import CompressionPlane
+        self._cplane = CompressionPlane.from_config(
+            compress, min_bytes=min_compress_bytes)
+        if self._cplane is not None and not hasattr(backend, "push_fused"):
+            raise ValueError(
+                f"BPS_COMPRESS={self._cplane.mode!r} needs a backend with "
+                f"push_fused/pull_fused; {type(backend).__name__} has neither")
+        self.pipeline_depth = (int(os.environ.get("BPS_PS_PIPELINE", "4"))
+                               if pipeline_depth is None else pipeline_depth)
+        self.plane = AdmissionPlane(max_lag=max_lag)
+        self._plans: Dict = {}
+        self._pull_layer: Dict[int, object] = {}
+        self._d2h_layer: Dict[int, object] = {}
+        self._key_rounds: Dict[int, int] = {}
+        self._key_rounds_lock = threading.Lock()
+        self._push_ex: Optional[ThreadPoolExecutor] = None
+        self._pull_ex: Optional[ThreadPoolExecutor] = None
+        self._ex_lock = threading.Lock()
+        reg = get_registry()
+        self._m_push_bytes = reg.counter("ps/push_bytes")
+        self._m_pull_bytes = reg.counter("ps/pull_bytes")
+        self._m_d2h_bytes = reg.counter("ps/d2h_bytes")
+        self._m_buckets = reg.counter("ps/buckets_completed")
+        self._dev_enc: Optional[bool] = None
+        if device is not None and self._cplane is not None:
+            from ..compress.device import device_encode_enabled
+            self._dev_enc = device_encode_enabled(device)
+
+    def close(self) -> None:
+        """Stop the pipeline's threads (idempotent)."""
+        with self._ex_lock:
+            for ex in (self._push_ex, self._pull_ex):
+                if ex is not None:
+                    ex.shutdown(wait=False)
+            self._push_ex = self._pull_ex = None
+
+    def n_compressed(self) -> int:
+        """How many buckets of the planned trees the plane compresses."""
+        return 0 if self._cplane is None else self._cplane.n_active
+
+    # ------------------------------------------------------------ plan
+
+    def _plan(self, tree, name: Optional[str]):
+        sig = (name, tuple((p, tuple(t.shape), _dtype_name(t))
+                           for p, t in tree))
+        plan = self._plans.get(sig)
+        if plan is not None:
+            return plan
+        # distinct trees land on distinct PS keys: anonymous trees get
+        # position-stable names, keys follow declaration order
+        decl_name = name or f"grads{len(self._plans)}"
+        decl = self.registry.declare(decl_name)
+        specs = [LeafSpec(name=p, size=int(np.prod(t.shape)),
+                          dtype=_dtype_name(t)) for p, t in tree]
+        buckets = plan_buckets(specs, self.partition_bytes,
+                               reverse_order=True)
+        # per-bucket PS keys: declared_key << 16 | bucket (reference:
+        # operations.cc:301-317)
+        keyed = [(decl.key_for_partition(b.index), b) for b in buckets]
+        reg = get_registry()
+        for pskey, b in keyed:
+            nbytes = b.size * np.dtype(b.dtype).itemsize
+            # fused-plane eligibility is decided before the server learns
+            # the key: fused-managed keys' rounds go to the homog store
+            fused = (self._cplane is not None
+                     and self._cplane.register(
+                         pskey, b.size, b.dtype,
+                         layer=f"{decl_name}.{b.index}"))
+            self.backend.init_key(pskey, nbytes, b.dtype, fused=fused)
+            self._pull_layer.setdefault(pskey, reg.counter(
+                f"ps/pull_bytes/{decl_name}.{b.index}"))
+            self._d2h_layer.setdefault(pskey, reg.counter(
+                f"ps/d2h_bytes/{decl_name}.{b.index}"))
+        plan = (decl_name, keyed)
+        self._plans[sig] = plan
+        return plan
+
+    def _record(self, stage: str, t0: float) -> float:
+        now = time.time()
+        observe_stage(stage, now - t0)
+        return now
+
+    def _next_round(self, pskey: int) -> int:
+        """This push's round for ``pskey``, per key; the first use of a
+        key seeds from the server's completed round."""
+        with self._key_rounds_lock:
+            cur = self._key_rounds.get(pskey)
+        if cur is None:
+            cur = int(self.backend.round(pskey))
+        with self._key_rounds_lock:
+            nxt = self._key_rounds.get(pskey, cur) + 1
+            self._key_rounds[pskey] = nxt
+        return nxt
+
+    def _device_encode_on(self, sources) -> bool:
+        """Resolve (once) whether the plane encodes on the gradients'
+        device: ``BPS_COMPRESS_DEVICE`` and the bitwise probe, which
+        raises on a mismatch."""
+        if self._dev_enc is None:
+            from ..compress.device import device_encode_enabled
+            dev = next((s.device for s in sources if torch.is_tensor(s)),
+                       torch.device("cpu"))
+            self._dev_enc = device_encode_enabled(dev)
+        return self._dev_enc
+
+    def _d2h_account(self, pskey: int, nbytes: int) -> None:
+        self._m_d2h_bytes.inc(nbytes)
+        self._d2h_layer[pskey].inc(nbytes)
+
+    # ------------------------------------------------------ push / pull
+
+    def _push_bucket_device(self, rnd: _Round, idx: int) -> np.ndarray:
+        """Gather + EF fold + quantize on the device, copy only the
+        encoded payload to the host, push it fused. Returns the pull
+        staging buffer."""
+        pskey, b = rnd.keyed[idx]
+        parts = [(rnd.sources[s.leaf_index], s.leaf_offset, s.length)
+                 for s in b.segments]
+        t0 = time.time()
+        payload, d2h = self._cplane.encode_on_device(
+            pskey, parts, rnd.clevels[idx], rnd.rounds[idx])
+        self._record("PS_COMPRESS_DEV", t0)
+        # a leaf shared with a host bucket crosses to the host dense
+        # anyway: its segments here saved nothing
+        if rnd.host_leaves:
+            item = np.dtype(b.dtype).itemsize
+            d2h += sum(s.length * item for s in b.segments
+                       if s.leaf_index in rnd.host_leaves)
+        self._d2h_account(pskey, d2h)
+        self._m_push_bytes.inc(len(payload))
+        self.backend.push_fused(pskey, payload)
+        return np.empty(b.size, dtype=b.dtype)
+
+    def _push_bucket(self, pskey: int, buf: np.ndarray, rnd: _Round,
+                     idx: int) -> None:
+        plane = self._cplane
+        if plane is not None and plane.active(pskey):
+            level = rnd.clevels[idx]
+            if level:
+                # the fused encode on the push thread, the EF residual
+                # folded in and the new one staged for commit-on-pull
+                t0 = time.time()
+                payload = plane.encode(pskey, buf, level, rnd.rounds[idx])
+                self._record("PS_COMPRESS", t0)
+                self._m_push_bytes.inc(len(payload))
+                self.backend.push_fused(pskey, payload)
+                return
+            # a dense round of a plane-managed key: per-layer accounting,
+            # and a residual left from a compressed level flushed once
+            plane.note_dense_push(pskey, buf.nbytes)
+            buf = plane.fold_residual(pskey, buf, rnd.rounds[idx])
+        self._m_push_bytes.inc(buf.nbytes)
+        self.backend.push(pskey, buf)
+
+    def _pull_bucket(self, pskey: int, b, buf: np.ndarray, rnd_num: int,
+                     rnd: _Round, idx: int) -> np.ndarray:
+        plane = self._cplane
+        if plane is not None and plane.active(pskey) and rnd.clevels[idx]:
+            nbytes = b.size * np.dtype(b.dtype).itemsize
+            payload = self.backend.pull_fused(
+                pskey, nbytes, str(b.dtype), rnd.clevels[idx],
+                round=rnd_num, div=plane.topk_div)
+            self._m_pull_bytes.inc(len(payload))
+            self._pull_layer[pskey].inc(len(payload))
+            # decode on the host; commits the round's EF residual
+            t0 = time.time()
+            merged = plane.decode(pskey, payload, rnd_num)
+            self._record("PS_DECOMPRESS", t0)
+            return merged
+        self.backend.pull(pskey, buf, round=rnd_num)
+        self._m_pull_bytes.inc(buf.nbytes)
+        self._pull_layer[pskey].inc(buf.nbytes)
+        if plane is not None:
+            # a residual flush pinned to this round clears on its pull
+            plane.commit(pskey, rnd_num)
+        return buf
+
+    def _enqueue_pull(self, rnd: _Round, idx: int, buf) -> None:
+        self.plane.pulls.put(rnd.round_seq, rnd.pull_prio[idx],
+                             (rnd, idx, buf))
+        self._pull_ex.submit(self._pull_next)
+
+    def _pull_next(self) -> None:
+        """One pull slot: drain the highest-priority landed bucket (not
+        necessarily the one whose push scheduled this slot)."""
+        rnd, idx, buf = self.plane.pulls.pop()
+        pskey, _ = rnd.keyed[idx]
+        exc: Optional[BaseException] = None
+        try:
+            rnd.pull_one(idx, buf)
+        except BaseException as e:   # noqa: BLE001 — relayed to drain()
+            exc = e
+        finally:
+            self.plane.gate.release(pskey)
+            rnd._pull_finished(exc)
+
+    def _ensure_executors(self) -> None:
+        with self._ex_lock:
+            if self._push_ex is None:
+                width = max(2, self.pipeline_depth)
+                self._push_ex = ThreadPoolExecutor(
+                    width, thread_name_prefix="bps-ps-push")
+                self._pull_ex = ThreadPoolExecutor(
+                    width, thread_name_prefix="bps-ps-pull")
+
+    # -------------------------------------------------------- exchange
+
+    def exchange(self, tree: Sequence[Tuple[str, object]],
+                 name: Optional[str] = None) -> List[np.ndarray]:
+        """One sync round: every bucket is packed (or encoded), pushed and
+        pulled, pipelined per bucket. Returns the summed leaves."""
+        rnd = _Round(self, list(tree), name)
+        if self.pipeline_depth <= 1 or len(rnd.keyed) <= 1:
+            # serial: push everything (the server sums as they land),
+            # then drain the pulls in the same order
+            bufs = [rnd.push_one(i) for i in range(len(rnd.keyed))]
+            for i, buf in enumerate(bufs):
+                rnd.pull_one(i, buf)
+            return rnd.assemble()
+        self._ensure_executors()
+        for i in range(len(rnd.keyed)):
+            rnd.submit_bucket(i)
+        return rnd.drain()

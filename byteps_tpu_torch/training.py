@@ -1,5 +1,6 @@
 """High-level distributed trainer of the port (counterpart of the dense
-data-parallel path of ``byteps_tpu/training.py::DistributedTrainer``).
+data-parallel path and the sync parameter-server path of
+``byteps_tpu/training.py::DistributedTrainer``).
 
 The reference's ``DistributedTrainer`` (reference:
 mxnet/__init__.py:164-345) owns the optimizer, push_pulls every gradient,
@@ -9,12 +10,27 @@ and hands the gradients to ``optim.DistributedOptimizer`` (bucketed
 all-reduce over the data-parallel group, or the compressed exchange when
 ``compression`` is given, then the inner step).
 
-The parameter-server and async paths of the JAX trainer and custom
-reducers are not ported yet (ROADMAP.md): their options raise.
+With ``BPS_ENABLE_PS=1`` (and ``bps.init()``, which builds the in-process
+server) the same script trains through the parameter server instead, the
+JAX trainer's sync PS branch (``training.py:228-299``, ``_ps_step``
+``:563-599``): the local backward; ``PSGradientExchange.exchange`` of the
+gradients in the JAX tree's order (encoded on the card under
+``BPS_COMPRESS=int8`` or ``fp8_e4m3``); the sum divided by the PS world;
+the summed gradients copied back to the card; the inner optimizer's step.
+The port always runs that monolithic tail, the JAX package's
+``BPS_APPLY_CHUNKED=0`` route: the streamed tail, the staged head, the
+cross-step driver and the sharded update overlap work without changing a
+number, and are not ported yet.
+
+The async path, custom reducers, the legacy ``compression=`` kwargs in PS
+mode and gradient accumulation in PS mode are not ported yet
+(ROADMAP.md): their options raise.
 """
 
 from __future__ import annotations
 
+import hashlib
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -22,7 +38,8 @@ import torch
 import torch.distributed as dist
 
 from .common.config import Config
-from .common.global_state import GlobalState, resolve_device
+from .common.global_state import GlobalState, check_ps_config, resolve_device
+from .obs.metrics import observe_stage
 from .optim import DistributedOptimizer
 from .parallel.mesh import data_group, dp_size
 
@@ -61,7 +78,14 @@ class DistributedTrainer:
         raises when none is present. Tests pass ``"cpu"``.
       group: the data-parallel process group (default: the one ``init()``
         joined; none at world 1).
+      name: the PS declaration name of the gradients (PS mode); defaults
+        to a hash of the parameters' names, shapes and dtypes, with
+        positional suffixes for later trainers of the same structure.
     """
+
+    # per-structure-hash creation counts (never pruned: a freed name could
+    # alias a live server's keys)
+    _name_counts: dict = {}
 
     def __init__(self, loss_fn: Callable, model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer,
@@ -69,23 +93,26 @@ class DistributedTrainer:
                  backward_passes_per_step: int = 1,
                  reducer=None, compression: Optional[dict] = None,
                  min_compress_bytes: Optional[int] = None,
-                 device=None, group=None) -> None:
+                 device=None, group=None, name: Optional[str] = None) -> None:
         if reducer is not None:
             raise NotImplementedError(f"custom reducers: the port {_NOT_PORTED}")
         gs = GlobalState._instance
         cfg = gs.config if gs is not None else Config.from_env()
-        if cfg.enable_ps:
-            raise NotImplementedError(
-                f"the parameter-server path (BPS_ENABLE_PS) {_NOT_PORTED}")
-        if cfg.enable_async:
-            raise NotImplementedError(
-                f"the async parameter-server path (BPS_ENABLE_ASYNC) "
-                f"{_NOT_PORTED}")
+        check_ps_config(cfg)
         if device is None and gs is not None:
             self.device = gs.device
         else:
             self.device = resolve_device(device)
         self.model = model.to(self.device)
+        self.backward_passes_per_step = backward_passes_per_step
+        self._loss_fn = loss_fn
+        self.step_count = 0
+        self.ps_exchange = None
+        if cfg.enable_ps:
+            self._init_ps(gs, optimizer, partition_bytes,
+                          backward_passes_per_step, compression,
+                          min_compress_bytes, name)
+            return
         self.group = group if group is not None else data_group()
         self.tx = DistributedOptimizer(
             optimizer, named_parameters=self.model.named_parameters(),
@@ -97,17 +124,91 @@ class DistributedTrainer:
             min_compress_bytes=(cfg.min_compress_bytes
                                 if min_compress_bytes is None
                                 else min_compress_bytes))
-        self.backward_passes_per_step = backward_passes_per_step
-        self._loss_fn = loss_fn
-        self.step_count = 0
+
+    # ------------------------------------------------------------ PS mode
+
+    def _init_ps(self, gs, optimizer, partition_bytes,
+                 backward_passes_per_step, compression, min_compress_bytes,
+                 name) -> None:
+        if gs is None or gs.ps_backend is None:
+            raise RuntimeError("BPS_ENABLE_PS: call bps.init() first; it "
+                               "builds the parameter-server backend")
+        if compression:
+            raise NotImplementedError(
+                f"the legacy compression= kwargs chains in PS mode "
+                f"{_NOT_PORTED}; BPS_COMPRESS selects the fused plane")
+        if backward_passes_per_step != 1:
+            raise NotImplementedError(
+                f"backward_passes_per_step > 1 in PS mode {_NOT_PORTED}")
+        from .server.ps_mode import PSGradientExchange
+        cfg = gs.config
+        # the JAX tree's flatten order: dotted names sorted by path
+        self._ps_params = sorted(self.model.named_parameters(),
+                                 key=lambda kv: kv[0].split("."))
+        if name is None:
+            sig = "|".join(f"{n}:{tuple(p.shape)}:{p.dtype}"
+                           for n, p in self._ps_params)
+            base = "trainer-" + hashlib.sha1(sig.encode()).hexdigest()[:10]
+            n = DistributedTrainer._name_counts.get(base, 0)
+            DistributedTrainer._name_counts[base] = n + 1
+            name = base if n == 0 else f"{base}-{n}"
+        self._name = name
+        # declared now, before any other tree: keys follow declaration
+        # order, and the fp8 noise seed follows the keys
+        gs.registry.declare(name)
+        self.ps_exchange = PSGradientExchange(
+            gs.ps_backend,
+            partition_bytes=(cfg.partition_bytes if partition_bytes is None
+                             else partition_bytes),
+            registry=gs.registry,
+            min_compress_bytes=(cfg.min_compress_bytes
+                                if min_compress_bytes is None
+                                else min_compress_bytes),
+            watchdog_sec=cfg.watchdog_sec, compress=cfg.compress,
+            device=self.device)
+        gs.exchanges.append(self.ps_exchange)
+        self._ps_world = cfg.num_worker
+        self.tx = optimizer          # the plain inner optimizer
+
+    def _ps_step(self) -> None:
+        """Exchange the gradients through the server, copy the sum back
+        to the card, step the inner optimizer."""
+        grads = []
+        for n, p in self._ps_params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append((n, p.grad))
+        t0 = time.time()
+        summed = self.ps_exchange.exchange(grads, name=self._name)
+        observe_stage("PS_PUSH_PULL", time.time() - t0)
+        t0 = time.time()
+        with torch.no_grad():
+            for (_, g), s in zip(grads, summed):
+                if self._ps_world > 1:
+                    s = s / self._ps_world
+                g.copy_(torch.from_numpy(s).view_as(g), non_blocking=False)
+        observe_stage("PS_H2D", time.time() - t0)
+        self.tx.step()
+        self.tx.zero_grad(set_to_none=True)
+
+    def close(self) -> None:
+        """Stop the PS exchange's threads (``bps.shutdown()`` does too)."""
+        if self.ps_exchange is not None:
+            self.ps_exchange.close()
+
+    # ---------------------------------------------------------------- step
 
     def step(self, batch) -> torch.Tensor:
         """One training step on this process's batch (numpy or tensors);
-        returns the loss averaged over the data-parallel group, detached
-        and still on the device."""
+        returns the loss averaged over the data-parallel group (in PS mode
+        this process's loss), detached and still on the device."""
         batch = _to_device(batch, self.device)
         loss = self._loss_fn(self.model, batch)
         loss.backward()
+        if self.ps_exchange is not None:
+            self._ps_step()
+            self.step_count += 1
+            return loss.detach()
         self.tx.step()
         self.step_count += 1
         loss = loss.detach()

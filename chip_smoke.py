@@ -17,14 +17,19 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          shape (b 8, s 1024, h 16, d 64, bf16), causal and not; the split
          route's gradients also against autograd of the plain forward;
        - onebit pack and unpack, bit for bit, on an adversarial vector
-         (±0.0, NaN, ±inf, denormals, 77 elements).
+         (±0.0, NaN, ±inf, denormals, 77 elements);
+       - int8 quantize and dequantize and fp8 stochastic rounding (E4M3
+         and E5M2), bit for bit, on the device encode's probe vector, one
+         1,024,000-element bucket and sizes 1 and 128·256 + 3; and the
+         device encode's payloads of the probe vector against the numpy
+         codec (``compress/wire.py``), byte for byte.
   3. times (CUDA events, median of 30 launches, L2 flushed before each,
      the device kept busy until the launch is enqueued) of
      each kernel, its plain version and, where one PyTorch call computes
      the same function, that call (``scaled_dot_product_attention``, timed
      as a yardstick only; the port never calls it), beside the least time
      the card could take. Attention at the shape its training phase gives
-     it; onebit on one 4,096,000-byte bucket.
+     it; onebit, int8 and fp8 on one 4,096,000-byte bucket.
   4. training through the port's ``DistributedTrainer``, random weights
      from seed 0, AdamW(1e-4, weight_decay 1e-4), 3 steps on one fixed
      synthetic batch of 8, at full width (bf16 compute over fp32 params,
@@ -40,7 +45,19 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          the L1-mean scale, vanilla error feedback, Nesterov momentum):
          as the dense run, plus 3 x nc pack and 3 x 2 x nc unpack
          launches for the nc compressed buckets of the plan (world 1:
-         error feedback's decompress and the one gathered payload's).
+         error feedback's decompress and the one gathered payload's);
+       - BERT-large MLM through the parameter-server path (``bps.init()``
+         with ``BPS_ENABLE_PS=1``: the in-process server at world 1),
+         once with ``BPS_COMPRESS=int8`` and once with ``fp8_e4m3``, each
+         bucket encoded on the card: the BERT launches plus, for the nc
+         compressed buckets, 3 x nc int8 quantize and 3 x nc dequantize
+         launches (int8, error feedback on) or 3 x nc fp8 launches (fp8).
+         Step 1's loss must equal the dense BERT run's (same weights and
+         batch), step 2's lie within PS_STEP2_TOL of it, and
+         ``ps/d2h_bytes`` must read the payload sizes, under 0.3 x the
+         dense gradient bytes. Then one step's real gradient buckets,
+         encoded through the kernels and through their plain versions,
+         must agree bit for bit: payload, scale and new residual.
      Losses must be finite and falling. BERT and dense GPT-2 repeat step 1
      with ``attn_impl="naive"`` (plain attention on the card) as the
      reference for the loss; both print step time, rates, peak memory and
@@ -78,7 +95,10 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
-           "onebit_pack", "onebit_unpack")
+           "onebit_pack", "onebit_unpack", "int8_quantize", "int8_dequantize",
+           "fp8_sr_quantize")
+BITWISE = ("onebit_pack", "onebit_unpack", "int8_quantize", "int8_dequantize",
+           "fp8_sr_quantize")
 # the Pallas kernels the Hopper kernels replace
 REPLACES = {
     "flash_fwd": "byteps_tpu/ops/flash_attention.py:172",
@@ -87,6 +107,9 @@ REPLACES = {
     "flash_bwd_dkv": "byteps_tpu/ops/flash_attention.py:421",
     "onebit_pack": "byteps_tpu/ops/compression/pallas_kernels.py:39",
     "onebit_unpack": "byteps_tpu/ops/compression/pallas_kernels.py:48",
+    "int8_quantize": "byteps_tpu/ops/compression/pallas_kernels.py:120",
+    "int8_dequantize": "byteps_tpu/ops/compression/pallas_kernels.py:130",
+    "fp8_sr_quantize": "byteps_tpu/ops/compression/pallas_kernels.py:176",
 }
 SOURCES = {
     "flash_fwd": "byteps_tpu_torch/csrc/flash_fwd.cu",
@@ -95,6 +118,9 @@ SOURCES = {
     "flash_bwd_dkv": "byteps_tpu_torch/csrc/flash_dkv.cu",
     "onebit_pack": "byteps_tpu_torch/csrc/onebit_pack.cu",
     "onebit_unpack": "byteps_tpu_torch/csrc/onebit_unpack.cu",
+    "int8_quantize": "byteps_tpu_torch/csrc/int8_quantize.cu",
+    "int8_dequantize": "byteps_tpu_torch/csrc/int8_dequantize.cu",
+    "fp8_sr_quantize": "byteps_tpu_torch/csrc/fp8_sr_quantize.cu",
 }
 # max |kernel - plain| <= REL * max |plain| (bf16 outputs: both sides round
 # at the same points and differ by fp32 summation order, one bf16 step is
@@ -110,6 +136,13 @@ BERT_SEQ, GPT2_SEQ, HEADS, HEAD_DIM = 512, 1024, 16, 64
 # the trainer's defaults (BPS_PARTITION_BYTES, BPS_MIN_COMPRESS_BYTES)
 PARTITION_BYTES, MIN_COMPRESS_BYTES = 4_096_000, 65536
 BUCKET_FLOATS = PARTITION_BYTES // 4    # one full gradient bucket
+# |step-2 loss of a PS run - the dense run's|: AdamW's first step moves
+# every weight by about lr·sign(g), and a gradient quantized to a code of 0
+# leaves its weight in place, so the compressed step lowers the loss less
+# than the dense one. 0.05 is 8% of the dense BERT run's step-1 decrease
+# (10.5543 -> 9.9274 on one H100 80GB HBM3 at 700 W, PERF.md); int8 fell
+# 1.7% short of it there, fp8 (stochastic rounding keeps the signs) 0.1%.
+PS_STEP2_TOL = 0.05
 README_COMPRESSION = {"compressor_type": "onebit",
                       "compressor_onebit_scaling": "true",
                       "ef_type": "vanilla", "momentum_type": "nesterov"}
@@ -131,13 +164,20 @@ def counters():
     from byteps_tpu_torch.ops.compression import kernels as ob
     return {"flash_fwd": fa.flash_fwd, "flash_bwd_fused": fa.flash_bwd_fused,
             "flash_bwd_dq": fa.flash_bwd_dq, "flash_bwd_dkv": fa.flash_bwd_dkv,
-            "onebit_pack": ob.onebit_pack, "onebit_unpack": ob.onebit_unpack}
+            "onebit_pack": ob.onebit_pack, "onebit_unpack": ob.onebit_unpack,
+            "int8_quantize": ob.int8_quantize,
+            "int8_dequantize": ob.int8_dequantize,
+            "fp8_sr_quantize": ob.fp8_sr_quantize}
 
 
 # ------------------------------------------------------------- phase 1
 
 def toolchain():
-    from byteps_tpu_torch.ops import _build
+    """Versions and the card; then every kernel (one nvcc each) and the
+    parameter server's C++ engine (g++), all built at once."""
+    import threading
+
+    from byteps_tpu_torch.ops import _build, _build_host
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     nvcc = _build.nvcc_path()
@@ -145,9 +185,25 @@ def toolchain():
                        check=True).stdout.strip().splitlines()[-1])
     log(f"card: {card_line()}")
     t0 = time.perf_counter()
+    host_err = []
+
+    def build_host():
+        try:
+            _build_host.build()
+        except BaseException as e:   # noqa: BLE001 — re-raised below
+            host_err.append(e)
+
+    host = threading.Thread(target=build_host)
+    host.start()
     _build.build_all()
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s "
-        f"({', '.join(sorted(_build.SIGNATURES))})")
+    host.join()
+    if host_err:
+        raise host_err[0]
+    _build_host.load()
+    log(f"kernels and the server engine built in "
+        f"{time.perf_counter() - t0:.1f} s "
+        f"({', '.join(sorted(_build.SIGNATURES))}; "
+        f"csrc/host/{_build_host.SOURCE.name})")
 
 
 # ------------------------------------------------------------- phase 2
@@ -281,6 +337,54 @@ def check_onebit(x, tag):
     if not same:
         raise AssertionError(f"onebit kernels disagree with their plain "
                              f"versions on {tag}")
+
+
+def _quant_vectors():
+    """The device encode's probe vector, one full bucket and two odd
+    sizes, each with its codec scale."""
+    from byteps_tpu_torch.compress import device as cdev
+    g = torch.Generator().manual_seed(32)
+    yield "probe vector", torch.from_numpy(cdev.probe_vector())
+    yield "bucket", torch.randn(BUCKET_FLOATS, generator=g) * 3
+    for n in (1, 128 * 256 + 3):
+        yield f"n {n}", torch.randn(n, generator=g) * 3
+
+
+def check_quant():
+    """int8 quantize / dequantize and fp8 SR (E4M3 and E5M2) against their
+    plain versions on the card, bit for bit; then the device encode's
+    payloads of the probe vector against the numpy codec, byte for
+    byte."""
+    from byteps_tpu_torch.compress import device as cdev
+    from byteps_tpu_torch.ops.compression import fp8sr
+    from byteps_tpu_torch.ops.compression import kernels as ob
+    for tag, x in _quant_vectors():
+        x = x.to("cuda")
+        amax = x.abs().max().item()
+        q = ob.int8_quantize(x, amax / 127)
+        d = ob.int8_dequantize(q, amax / 127)
+        torch.cuda.synchronize()
+        same = {"int8 quantize": torch.equal(
+                    q, ob.int8_quantize_plain(x, amax / 127)),
+                "int8 dequantize": _same_bits(
+                    d, ob.int8_dequantize_plain(q, amax / 127))}
+        for kind, kname in ((fp8sr.E4M3, "e4m3"), (fp8sr.E5M2, "e5m2")):
+            s = amax / fp8sr.fmt_max(kind)
+            for seed in (0, 0xFFFFFFFF):
+                f = ob.fp8_sr_quantize(x, s, seed, kind)
+                torch.cuda.synchronize()
+                same[f"fp8 {kname} seed {seed:#x}"] = torch.equal(
+                    f, ob.fp8_sr_quantize_plain(x, s, seed, kind))
+        log(f"[check quant {tag}] {x.numel()} floats: " + ", ".join(
+            f"{k} {'bit-identical' if v else 'DIFFERS'}"
+            for k, v in same.items()) + " to the plain versions")
+        if not all(same.values()):
+            raise AssertionError(f"a quantize kernel disagrees with its plain "
+                                 f"version on {tag}")
+    cdev.reset_probe()
+    cdev._probe(torch.device("cuda"))        # raises on any byte mismatch
+    log("[check quant probe vector] device-encode payloads (int8, fp8 e4m3, "
+        "fp8 e5m2) byte-identical to the numpy codec's wire.encode")
 
 
 # ------------------------------------------------------------- phase 3
@@ -431,11 +535,77 @@ def time_onebit(n=BUCKET_FLOATS):
     return res
 
 
+def quant_bounds(n):
+    """Bytes: the floats and the codes, each read or written once (the
+    scale and seed are passed by value). Operations on the CUDA cores,
+    counted against the fp32 peak: int8 quantize a divide, a round and
+    two clamps per float; dequantize a convert and a multiply; fp8 SR
+    about forty integer and float operations per float (the divide, the
+    clamp, the hash, the add-and-truncate, the pack)."""
+    return {"int8_quantize": _bound(4 * n, 4 * n + n, PEAK_FP32_FLOPS),
+            "int8_dequantize": _bound(2 * n, n + 4 * n, PEAK_FP32_FLOPS),
+            "fp8_sr_quantize": _bound(40 * n, 4 * n + n, PEAK_FP32_FLOPS)}
+
+
+def _library_dequantize(q, s8, want):
+    """The library yardstick of int8 dequantize: one ``torch.mul`` of the
+    int8 codes by the scale as a 0-dim f32 tensor on the card, which
+    promotes to f32 and rounds one multiply. It stands only where it is
+    bit-identical to the kernel's output ``want``."""
+    from byteps_tpu_torch.ops.compression import kernels as ob
+    s_t = ob._scale_on(s8, q.device)
+    got = torch.mul(q, s_t)
+    same = got.dtype == want.dtype and torch.equal(
+        got.view(torch.int32), want.view(torch.int32))
+    log(f"[check int8_dequantize library] torch.mul(int8 codes, f32 scale) "
+        f"{'bit-identical to' if same else 'DIFFERS from'} the kernel's output")
+    return (lambda: torch.mul(q, s_t)) if same else None
+
+
+def time_quant(n=BUCKET_FLOATS):
+    """int8 quantize, dequantize and fp8 E4M3 SR of one default-sized
+    bucket at its codec scale. Only dequantize has a single PyTorch call
+    computing the same function (``torch.mul`` by a 0-dim f32 scale);
+    ``quantize_per_tensor`` multiplies by a reciprocal and clamps at -128,
+    and a cast to an fp8 dtype rounds to nearest, so the other two have
+    library "none"."""
+    from byteps_tpu_torch.ops.compression import fp8sr
+    from byteps_tpu_torch.ops.compression import kernels as ob
+    x = torch.randn(n, generator=torch.Generator().manual_seed(33)).cuda()
+    amax = x.abs().max().item()
+    s8, sf = amax / 127, amax / fp8sr.fmt_max(fp8sr.E4M3)
+    q = ob.int8_quantize(x, s8)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    bd = quant_bounds(n)
+    library = {"int8_dequantize": _library_dequantize(
+        q, s8, ob.int8_dequantize(q, s8))}
+    res = {}
+    for name, kernel, plain in (
+            ("int8_quantize", lambda: ob.int8_quantize(x, s8),
+             lambda: ob.int8_quantize_plain(x, s8)),
+            ("int8_dequantize", lambda: ob.int8_dequantize(q, s8),
+             lambda: ob.int8_dequantize_plain(q, s8)),
+            ("fp8_sr_quantize",
+             lambda: ob.fp8_sr_quantize(x, sf, 1234, fp8sr.E4M3),
+             lambda: ob.fp8_sr_quantize_plain(x, sf, 1234, fp8sr.E4M3))):
+        lib = library.get(name)
+        r = {"ms": time_ms(kernel, flush=flush),
+             "plain_ms": time_ms(plain, n=10, flush=flush),
+             "library_ms": None if lib is None else time_ms(lib, flush=flush),
+             "timed_shape": [n]}
+        r.update(bd[name])
+        _log_time(name, f"n {n}", r)
+        res[name] = r
+    return res
+
+
 # ------------------------------------------------------------- phase 4
 
 _KERNEL_GROUPS = (      # first match wins; names as the profiler reports them
     ("flash (port)", ("flash_fwd_kernel", "flash_bwd_")),
     ("onebit (port)", ("onebit_",)),
+    ("quantize (port)", ("int8_quantize_kernel", "int8_dequantize_kernel",
+                         "fp8_sr_kernel")),
     ("nccl", ("nccl",)),
     ("matmul", ("gemm", "xmma", "cutlass", "matmul", "nvjet", "sm90_")),
     ("optimizer", ("multi_tensor", "adam", "foreach")),
@@ -496,15 +666,18 @@ def profile_step(trainer, data, tag):
 
 
 def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
-             compression=None, naive_cfg=None):
+             compression=None, naive_cfg=None, more_steps=STEPS):
     """Train ``STEPS`` steps through ``DistributedTrainer`` with every
     launch counter zeroed just before and read just after; check finite
-    falling losses and the counts ``want(trainer)``. Then 3 more steps
-    for steadier times, one profiled step, and (``naive_cfg``) step 1 of
-    a fresh trainer with plain attention as the loss's reference.
-    Returns (launches, trainer)."""
+    falling losses and the counts ``want(trainer)``. Then ``more_steps``
+    more for steadier times, one profiled step, and (``naive_cfg``) step 1
+    of a fresh trainer with plain attention as the loss's reference.
+    Returns (launches, trainer, losses, metrics): ``metrics`` is the
+    port's metrics registry over the counted steps (the parameter-server
+    path's byte counters and stage times)."""
     from byteps_tpu_torch.models.flops import mfu
     from byteps_tpu_torch.models.transformer import Transformer
+    from byteps_tpu_torch.obs.metrics import get_registry
     from byteps_tpu_torch.optim import adamw
     from byteps_tpu_torch.training import DistributedTrainer
 
@@ -527,6 +700,7 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
     ctr = counters()
     for fn in ctr.values():
         fn.launches = 0
+    get_registry().reset()
     losses, times = [], []
     for _ in range(STEPS):
         t = time.perf_counter()
@@ -535,6 +709,7 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
         times.append(time.perf_counter() - t)
         losses.append(loss.item())
     launches = {name: fn.launches for name, fn in ctr.items()}
+    metrics = get_registry().snapshot()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     def rates(step_s):
@@ -560,13 +735,14 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
 
     # past the counted window: steadier step times, then one profiled step
     more = []
-    for _ in range(STEPS):
+    for _ in range(more_steps):
         t = time.perf_counter()
         trainer.step(data)
         torch.cuda.synchronize()
         more.append(time.perf_counter() - t)
-    log(f"[{tag}] steps 4-6 s {more}: median "
-        f"{rates(statistics.median(more))}")
+    if more:
+        log(f"[{tag}] steps {STEPS + 1}-{STEPS + more_steps} s {more}: "
+            f"median {rates(statistics.median(more))}")
     profile_step(trainer, data, tag)
 
     if naive_cfg is not None:
@@ -580,7 +756,7 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
             raise AssertionError(f"{tag}: kernel path and naive path "
                                  "disagree on the step-1 loss")
     torch.cuda.empty_cache()
-    return launches, trainer
+    return launches, trainer, losses, metrics
 
 
 def _attention_launches(cfg, backward):
@@ -595,20 +771,129 @@ def _attention_launches(cfg, backward):
 
 def train_bert():
     from byteps_tpu_torch.models import bert
+    cfg, loss_fn, data, fps = _bert_setup()
+    launches, trainer, losses, _ = run_path(
+        "bert_large", cfg, loss_fn, data, fps,
+        _attention_launches(cfg, ("flash_bwd_fused",)),
+        naive_cfg=bert.bert_large(max_seq=BERT_SEQ, attn_impl="naive"))
+    del trainer
+    return launches, losses
+
+
+def _bert_setup():
+    from byteps_tpu_torch.models import bert
     from byteps_tpu_torch.models.flops import transformer_train_flops_per_sample
     cfg = bert.bert_large(max_seq=BERT_SEQ)
     max_pred = max(1, int(0.2 * BERT_SEQ))
     data = bert.synth_mlm_batch(np.random.RandomState(0), TRAIN_BATCH,
                                 BERT_SEQ, cfg.vocab_size)
-    launches, trainer = run_path(
-        "bert_large", cfg,
-        lambda m, b: bert.mlm_loss(m, b, max_predictions=max_pred), data,
-        transformer_train_flops_per_sample(cfg, BERT_SEQ,
-                                           lm_positions=max_pred),
-        _attention_launches(cfg, ("flash_bwd_fused",)),
-        naive_cfg=bert.bert_large(max_seq=BERT_SEQ, attn_impl="naive"))
-    del trainer
-    return launches
+    return (cfg, lambda m, b: bert.mlm_loss(m, b, max_predictions=max_pred),
+            data, transformer_train_flops_per_sample(cfg, BERT_SEQ,
+                                                     lm_positions=max_pred))
+
+
+def check_ps_encode(trainer, loss_fn, data, tag):
+    """One step's real gradient buckets encoded on the card through the
+    kernels and through their plain versions, with the residuals and fp8
+    seeds the 3 steps left: payload (codes and scale) and new residual
+    bit for bit, for every compressed bucket."""
+    from byteps_tpu_torch.compress import device as cdev
+    ex = trainer.ps_exchange
+    plane = ex._cplane
+    (_, keyed), = ex._plans.values()
+    trainer.model.zero_grad(set_to_none=True)
+    loss_fn(trainer.model, tuple(torch.from_numpy(x).cuda()
+                                 for x in data)).backward()
+    grads = [p.grad for _, p in trainer._ps_params]
+    n = 0
+    for pskey, b in keyed:
+        if not plane.active(pskey):
+            continue
+        st = plane._keys[pskey]
+        level = plane.level_of(pskey)
+        seed = plane._sr_seed(pskey, st, ex._key_rounds[pskey] + 1, level)
+        parts = [(grads[s.leaf_index], s.leaf_offset, s.length)
+                 for s in b.segments]
+        got, got_r, _ = cdev.encode_bucket(parts, st.size, level, seed,
+                                           st.residual, True)
+        ref, ref_r, _ = cdev.encode_bucket(parts, st.size, level, seed,
+                                           st.residual, True, plain=True)
+        if got != ref or not _same_bits(got_r, ref_r):
+            raise AssertionError(f"{tag}: bucket {b.index} encoded through "
+                                 "the kernels differs from the plain versions")
+        n += 1
+    trainer.model.zero_grad(set_to_none=True)
+    log(f"[{tag}] one step's real gradients, {n} compressed buckets: "
+        "payloads (codes and scale) and new residuals bit-identical through "
+        "the kernels and through their plain versions")
+
+
+def train_bert_ps(codec, dense_losses, step2_misses):
+    """BERT-large through the parameter-server path under ``BPS_COMPRESS=
+    codec``: the same model, weights and batch as the dense BERT run."""
+    import os
+
+    import byteps_tpu_torch as bps
+    cfg, loss_fn, data, fps = _bert_setup()
+    tag = f"bert_large ps {codec}"
+    attn = _attention_launches(cfg, ("flash_bwd_fused",))
+
+    def want(trainer):
+        w = attn(trainer)
+        nc = trainer.ps_exchange.n_compressed()
+        if codec == "int8":
+            w["int8_quantize"] = w["int8_dequantize"] = STEPS * nc
+        else:
+            w["fp8_sr_quantize"] = STEPS * nc
+        return w
+
+    env = {"BPS_ENABLE_PS": "1", "BPS_COMPRESS": codec}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    bps.init()                  # the in-process server, at world 1
+    try:
+        # no steps past the counted window but the profiled one: the PS
+        # step is host-bound and long (steps 2-3 give its time)
+        launches, trainer, losses, metrics = run_path(
+            tag, cfg, loss_fn, data, fps, want, more_steps=0)
+        ex = trainer.ps_exchange
+        nc, nb = ex.n_compressed(), len(next(iter(ex._plans.values()))[1])
+        dense_bytes = 4 * sum(p.numel() for p in trainer.model.parameters())
+        d2h = metrics["ps/d2h_bytes"] / STEPS
+        log(f"[{tag}] plan: {nb} buckets, {nc} compressed; per step "
+            f"ps/d2h_bytes {d2h:.0f} = {d2h / dense_bytes:.4f} x the dense "
+            f"gradient bytes {dense_bytes}; ps/push_bytes "
+            f"{metrics['ps/push_bytes'] / STEPS:.0f}, ps/pull_bytes "
+            f"{metrics['ps/pull_bytes'] / STEPS:.0f}")
+        stages = {k[6:]: v for k, v in metrics.items()
+                  if k.startswith("stage/") and v["count"]}
+        log(f"[{tag}] host stage times over the {STEPS} counted steps "
+            "(summed over buckets and pipeline threads): " + ", ".join(
+                f"{k} {v['sum_ms']:.1f} ms / {v['count']}"
+                for k, v in sorted(stages.items())))
+        if not d2h < 0.3 * dense_bytes:
+            raise AssertionError(f"{tag}: {d2h} bytes a step crossed to the "
+                                 "host, not the payloads alone")
+        log(f"[{tag}] step-1 loss {losses[0]:.6f}, dense run "
+            f"{dense_losses[0]:.6f}; step 2 {losses[1]:.6f}, dense run "
+            f"{dense_losses[1]:.6f} (|diff| {abs(losses[1] - dense_losses[1]):.3e}"
+            f", tolerance {PS_STEP2_TOL})")
+        if losses[0] != dense_losses[0]:
+            raise AssertionError(f"{tag}: step-1 loss differs from the dense "
+                                 "run's on the same weights and batch")
+        if not abs(losses[1] - dense_losses[1]) <= PS_STEP2_TOL:
+            step2_misses.append(tag)
+        check_ps_encode(trainer, loss_fn, data, tag)
+        del trainer
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        bps.shutdown()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _gpt2_setup():
@@ -624,7 +909,7 @@ def _gpt2_setup():
 def train_gpt2_dense():
     from byteps_tpu_torch.models import gpt2
     cfg, loss_fn, data, fps = _gpt2_setup()
-    launches, trainer = run_path(
+    launches, trainer, _, _ = run_path(
         "gpt2_medium dense", cfg, loss_fn, data, fps,
         _attention_launches(cfg, ("flash_bwd_dq", "flash_bwd_dkv")),
         naive_cfg=gpt2.gpt2_medium(attn_impl="naive"))
@@ -655,8 +940,9 @@ def train_gpt2_onebit():
         w["onebit_unpack"] = STEPS * 2 * nc     # EF's decompress + 1 payload
         return w
 
-    launches, trainer = run_path("gpt2_medium onebit", cfg, loss_fn, data,
-                                 fps, want, compression=README_COMPRESSION)
+    launches, trainer, _, _ = run_path("gpt2_medium onebit", cfg, loss_fn,
+                                       data, fps, want,
+                                       compression=README_COMPRESSION)
     tx = trainer.tx
     plan, states = tx.plan, tx.comp_states
     log(f"[gpt2_medium onebit] plan: {len(plan.buckets)} buckets, "
@@ -733,6 +1019,7 @@ def main() -> int:
     check_bert_kernels(worst)
     check_gpt2_kernels(worst)
     check_onebit(_adversarial(), "adversarial vector")
+    check_quant()
     timing = time_attention(TRAIN_BATCH, BERT_SEQ, False,
                             ("flash_fwd", "flash_bwd_fused"))
     gpt2_timing = time_attention(TRAIN_BATCH, GPT2_SEQ, True,
@@ -741,9 +1028,18 @@ def main() -> int:
     timing["flash_bwd_dq"] = gpt2_timing.pop("flash_bwd_dq")
     timing["flash_bwd_dkv"] = gpt2_timing.pop("flash_bwd_dkv")
     timing.update(time_onebit())
-    paths = {"bert_large": train_bert(),
+    timing.update(time_quant())
+    bert_launches, bert_losses = train_bert()
+    paths = {"bert_large": bert_launches,
              "gpt2_medium_dense": train_gpt2_dense(),
              "gpt2_medium_onebit": train_gpt2_onebit()}
+    step2_misses = []
+    for codec in ("int8", "fp8_e4m3"):
+        paths[f"bert_large_ps_{codec}"] = train_bert_ps(codec, bert_losses,
+                                                        step2_misses)
+    if step2_misses:
+        raise AssertionError(f"step-2 loss beyond {PS_STEP2_TOL} of the dense "
+                             f"run's: {step2_misses}")
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
 
     card = card_line()
@@ -759,7 +1055,7 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "ok": True, "timed_shape": t["timed_shape"], "card": card,
-            "tolerance": ("bit for bit" if name.startswith("onebit")
+            "tolerance": ("bit for bit" if name in BITWISE
                           else f"max err <= {REL_TOL} * max|plain|"),
         }
         if name == "flash_fwd":        # also timed at the GPT-2 shape

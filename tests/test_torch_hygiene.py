@@ -30,7 +30,8 @@ _PORT_ENV = ("BPS_WORKER_ID", "DMLC_WORKER_ID", "BPS_NUM_WORKER",
              "DMLC_NUM_WORKER", "BPS_LOCAL_RANK", "BYTEPS_LOCAL_RANK",
              "BPS_LOCAL_SIZE", "BYTEPS_LOCAL_SIZE", "BPS_COORDINATOR_ADDRESS",
              "DMLC_PS_ROOT_URI", "BPS_ENABLE_PS", "BYTEPS_ENABLE_PS",
-             "BPS_ENABLE_ASYNC", "BYTEPS_ENABLE_ASYNC")
+             "BPS_ENABLE_ASYNC", "BYTEPS_ENABLE_ASYNC", "BPS_SERVER_ADDRS",
+             "BPS_COMPRESS", "BPS_COMPRESS_DEVICE")
 
 
 @pytest.fixture(autouse=True)
@@ -67,7 +68,11 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, byteps_tpu_torch, byteps_tpu_torch.training, "
             "byteps_tpu_torch.models.bert, byteps_tpu_torch.convert, "
             "byteps_tpu_torch.ops._build, byteps_tpu_torch.models.flops, "
-            "byteps_tpu_torch.models.gpt2, byteps_tpu_torch.ops.compression; "
+            "byteps_tpu_torch.models.gpt2, byteps_tpu_torch.ops.compression, "
+            "byteps_tpu_torch.ops.compression.kernels, "
+            "byteps_tpu_torch.ops._build_host, "
+            "byteps_tpu_torch.server.ps_mode, byteps_tpu_torch.server.homog, "
+            "byteps_tpu_torch.compress.plane, byteps_tpu_torch.compress.device; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -100,7 +105,8 @@ def _comments_and_docstrings(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + sorted((PORT / "csrc").glob("*.cu*")),
+                         + sorted((PORT / "csrc").glob("*.cu*"))
+                         + sorted((PORT / "csrc" / "host").glob("*.cc")),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_tpu_measurement_in_port_comments(path):
     hits = [(where, text.strip()[:80])
@@ -157,10 +163,15 @@ def test_trainer_refuses_unported_options(kw, match):
 
 @pytest.mark.parametrize("env", ["BPS_ENABLE_PS", "BPS_ENABLE_ASYNC"])
 def test_trainer_refuses_the_ps_paths(env, monkeypatch):
+    """The async path is not ported; the sync PS path is, with its
+    in-process server only: standalone servers (the remote transport)
+    are not."""
     from byteps_tpu_torch.models import bert
     from byteps_tpu_torch.optim import adamw
     from byteps_tpu_torch.training import DistributedTrainer
     monkeypatch.setenv(env, "1")
+    if env == "BPS_ENABLE_PS":
+        monkeypatch.setenv("BPS_SERVER_ADDRS", "localhost:1")
     model = bert.Transformer(bert.bert_tiny())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DistributedTrainer(lambda m, b: 0, model,
@@ -202,3 +213,50 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def _wrappers_calling_plain(path: Path):
+    """(wrapper, the ``*_plain`` calls outside its CPU branch) for every
+    function of ``path`` that calls a plain version."""
+    tree = ast.parse(path.read_text())
+    for fn in tree.body:
+        if not isinstance(fn, ast.FunctionDef) or fn.name.endswith("_plain"):
+            continue
+        guarded = set()
+        for node in ast.walk(fn):
+            # the one place a plain version may run: the body of
+            # ``if device_type(x, ...) == "cpu":``
+            if (isinstance(node, ast.If)
+                    and isinstance(node.test, ast.Compare)
+                    and isinstance(node.test.left, ast.Call)
+                    and getattr(node.test.left.func, "id", "") == "device_type"
+                    and [getattr(c, "value", None)
+                         for c in node.test.comparators] == ["cpu"]):
+                for stmt in node.body:
+                    guarded.update(id(n) for n in ast.walk(stmt))
+        calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
+                 and getattr(n.func, "id", "").endswith("_plain")]
+        if calls:
+            yield fn.name, [n.func.id for n in calls if id(n) not in guarded]
+
+
+@pytest.mark.parametrize("module", ["ops/compression/kernels.py",
+                                    "ops/flash_attention.py"])
+def test_a_cuda_tensor_never_reaches_a_plain_version(module):
+    """A wrapper takes its plain version only inside its
+    ``device_type(...) == "cpu"`` branch: a CUDA tensor launches the
+    kernel or raises."""
+    found = dict(_wrappers_calling_plain(PORT / module))
+    assert found, f"{module} has no wrapper of a plain version"
+    bad = {k: v for k, v in found.items() if v}
+    assert not bad, f"{module}: plain versions outside the CPU branch {bad}"
+
+
+def test_the_server_is_built_from_the_ports_own_source():
+    from byteps_tpu_torch.ops import _build_host
+    assert _build_host.SOURCE == PORT / "csrc" / "host" / "bps_server.cc"
+    assert _build_host.SOURCE.is_file()
+    path = _build_host.build()
+    assert path.parent == PORT / "_build"
+    lib = _build_host.load()
+    assert Path(lib._name).resolve() == path.resolve()

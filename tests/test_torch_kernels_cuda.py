@@ -1,6 +1,6 @@
 """The port's Hopper kernels (flash attention forward, fused and split
-backward, onebit pack and unpack) against their plain PyTorch versions,
-on the card.
+backward, onebit pack and unpack, int8 quantize and dequantize, fp8
+stochastic rounding) against their plain PyTorch versions, on the card.
 
 A CUDA kernel has no CPU mode, so every test here needs a GPU: it is
 marked ``cuda`` and skips with a reason elsewhere. This file imports no
@@ -13,8 +13,8 @@ Inputs are seeded normal bf16. Both sides round at the same points (P and
 dS to bf16, outputs to bf16); they differ in fp32 summation order, which
 can move a rounded value by one bf16 step (2⁻⁸ relative). Tolerance:
 max |kernel - plain| <= 1e-2 · max |plain| for out, dq, dk, dv, and 1e-3
-absolute for the fp32 lse. The onebit kernels move bits: they must agree
-with their plain versions bit for bit.
+absolute for the fp32 lse. The onebit and quantize kernels move bits: they
+must agree with their plain versions bit for bit.
 """
 
 import pytest
@@ -213,3 +213,97 @@ def test_onebit_cuda_inputs_the_kernels_do_not_take_raise(cuda):
     with pytest.raises(ValueError, match="fit"):
         ob.onebit_unpack(torch.zeros(2, device=cuda, dtype=torch.int32), 65)
     assert ob.onebit_pack.launches == n0
+
+
+# ------------------------------------- int8 and fp8 quantizers (rows 7-9)
+#
+# The contract is bytes, byte-identical to the numpy codec: kernel and plain
+# version must agree bit for bit on every element (NaN inputs are outside
+# it: the card divides to one canonical NaN).
+
+def _quant_vectors():
+    from byteps_tpu_torch.compress import device as cdev
+    f = torch.finfo(torch.float32)
+    yield "probe", torch.from_numpy(cdev.probe_vector())
+    yield "edges", torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                                 f.tiny / 4, -f.tiny / 4, f.max, -f.max,
+                                 0.5, 1.5, 2.5, -0.5, -2.5, 3.5])
+    g = torch.Generator(device="cpu").manual_seed(9)
+    for n in (1, 127, 128 * 256 + 3, 1_024_000):
+        yield f"n{n}", torch.randn(n, generator=g) * 3
+
+
+def _scales(x, denom):
+    amax = x[torch.isfinite(x)].abs().max().item()
+    return [amax / denom, 1.0, 0.0, 1e-30]
+
+
+def test_int8_kernels_match_plain_bit_for_bit(cuda):
+    for name, x in _quant_vectors():
+        x = x.to(cuda)
+        for s in _scales(x, 127.0):
+            q0, d0 = ob.int8_quantize.launches, ob.int8_dequantize.launches
+            q = ob.int8_quantize(x, s)
+            d = ob.int8_dequantize(q, s)
+            torch.cuda.synchronize()
+            assert (ob.int8_quantize.launches, ob.int8_dequantize.launches) \
+                == (q0 + 1, d0 + 1)
+            assert q.dtype == torch.int8 and d.dtype == torch.float32
+            assert torch.equal(q, ob.int8_quantize_plain(x, s)), (name, s)
+            assert torch.equal(d.view(torch.int32), ob.int8_dequantize_plain(
+                q, s).view(torch.int32)), (name, s)
+
+
+@pytest.mark.parametrize("seed", [0, 0xFFFFFFFF, 1234])
+@pytest.mark.parametrize("kind", [0, 1], ids=["e4m3", "e5m2"])
+def test_fp8_sr_kernel_matches_plain_bit_for_bit(cuda, kind, seed):
+    from byteps_tpu_torch.ops.compression import fp8sr
+    for name, x in _quant_vectors():
+        x = x.to(cuda)
+        for s in _scales(x, fp8sr.fmt_max(kind)):
+            n0 = ob.fp8_sr_quantize.launches
+            q = ob.fp8_sr_quantize(x, s, seed, kind)
+            torch.cuda.synchronize()
+            assert ob.fp8_sr_quantize.launches == n0 + 1
+            assert q.dtype == torch.uint8
+            assert torch.equal(q, ob.fp8_sr_quantize_plain(x, s, seed, kind)), \
+                (name, s)
+
+
+def test_device_encode_on_the_card_is_the_numpy_codec(cuda):
+    """The probe passes on the card, and an EF encode of a split bucket
+    through the kernels equals the one through the plain versions:
+    payload and new residual, bit for bit."""
+    import numpy as np
+
+    from byteps_tpu_torch.compress import device as cdev
+    from byteps_tpu_torch.compress import wire
+    cdev.reset_probe()
+    assert cdev._probe(cuda)
+    g = torch.Generator(device="cpu").manual_seed(11)
+    x = torch.randn(40_000, generator=g).to(cuda)
+    r = (torch.randn(40_000, generator=g) * 1e-2).to(cuda)
+    parts = [(x[:12_345], 0, 12_345), (x, 12_345, 40_000 - 12_345)]
+    for cid in cdev.DEVICE_CODECS:
+        got, got_r, d2h = cdev.encode_bucket(parts, 40_000, cid, 77, r, True)
+        ref, ref_r, _ = cdev.encode_bucket(parts, 40_000, cid, 77, r, True,
+                                           plain=True)
+        assert got == ref and d2h == 40_000 + 4
+        assert torch.equal(got_r.view(torch.int32), ref_r.view(torch.int32))
+        host = (x + r).cpu().numpy()
+        assert got == wire.encode(cid, host, seed=77)
+        assert np.array_equal(got_r.cpu().numpy(),
+                              host - wire.decode(got, 40_000, np.float32))
+
+
+def test_quant_cuda_inputs_the_kernels_do_not_take_raise(cuda):
+    n0 = ob.int8_quantize.launches
+    with pytest.raises(TypeError, match="float32"):
+        ob.int8_quantize(torch.zeros(64, device=cuda, dtype=torch.bfloat16), 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ob.int8_quantize(torch.zeros(64, device=cuda)[::2], 1.0)
+    with pytest.raises(TypeError, match="int8"):
+        ob.int8_dequantize(torch.zeros(64, device=cuda), 1.0)
+    with pytest.raises(TypeError, match="float32"):
+        ob.fp8_sr_quantize(torch.zeros(2, 4, device=cuda), 1.0, 0, 0)
+    assert ob.int8_quantize.launches == n0
