@@ -51,19 +51,21 @@ extern "C" int bps_flash_bwd(const void* q, const void* k, const void* v,
   const BshdStrides qs{q_sb, q_ss}, ks{k_sb, k_ss}, vs{v_sb, v_ss},
       dos{do_sb, do_ss};
   const long long row = static_cast<long long>(h) * kD;
-  flash_bwd_dq_kernel<false><<<dim3(sq / kTile, h, b), kThreads, 0, st>>>(
+  flash_bwd_dq_kernel<false, kBiasNone>
+      <<<dim3(sq / kTile, h, b), kThreads, 0, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<float*>(delta),
       static_cast<bf16*>(dq), h, sq, sk, qs, ks, vs, dos,
-      BshdStrides{sq * row, row}, scale, causal);
+      BshdStrides{sq * row, row}, scale, causal, BiasArgs{}, nullptr);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkv_kernel<<<dim3(sk / kTile, h, b), kThreads, 0, st>>>(
+  flash_bwd_dkv_kernel<kBiasNone>
+      <<<dim3(sk / kTile, h, b), kThreads, 0, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, sq, sk, qs, ks, vs,
-      dos, BshdStrides{sk * row, row}, scale, causal);
+      dos, BshdStrides{sk * row, row}, scale, causal, BiasArgs{});
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,12 +11,19 @@
 // Shared by flash_bwd.cu (the fused backward's second launch, delta from
 // its first) and flash_dkv.cu (the split backward's `_dkv_kernel`, delta
 // from the caller).
+//
+// kForm is the bias source (flash_bias.cuh; the fused backward takes no
+// bias). Because the fragments are transposed, the bias of fragment row
+// `key` and column `query` is the offset key - query's (the table form's
+// strip entry kl - ql + 63, as in the forward) and the dense form reads
+// bias[h, query, key]: the column, not the row, picks the bias row.
 #pragma once
 
-#include "mma_bf16.cuh"
+#include "flash_bias.cuh"
 
 namespace {
 
+template <int kForm>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -25,12 +32,13 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      bf16* __restrict__ dv, int h, int sq, int sk,
                      BshdStrides qs, BshdStrides ks, BshdStrides vs,
                      BshdStrides dos, BshdStrides dks, float scale,
-                     int causal) {
+                     int causal, BiasArgs ba) {
   __shared__ __align__(16) bf16 sK[kTile * kLD];
   __shared__ __align__(16) bf16 sV[kTile * kLD];
   __shared__ __align__(16) bf16 sQ[kTile * kLD];
   __shared__ __align__(16) bf16 sO[kTile * kLD];
   __shared__ float sL[kTile], sDl[kTile];
+  __shared__ BiasSmem<kForm> sb;
 
   const int kt = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -40,6 +48,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   load_tile(sK, k + bb * ks.b + k0 * ks.s + hh * kD, ks.s, tid);
   load_tile(sV, v + bb * vs.b + k0 * vs.s + hh * kD, vs.s, tid);
+  load_table_row<kForm>(sb, ba, hh, tid);
   __syncthreads();
   uint32_t kf[kD / 16][4], vf[kD / 16][4];
 #pragma unroll
@@ -49,6 +58,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const float* lp = lse + ((long long)bb * h + hh) * sq;
   const float* dlp = delta + ((long long)bb * h + hh) * sq;
+  const float* dense = dense_head<kForm>(ba, hh, sq, sk);
 
   float dka[kD / 8][4], dva[kD / 8][4];
 #pragma unroll
@@ -67,6 +77,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       sL[tid] = lp[q0 + tid];
       sDl[tid] = dlp[q0 + tid];
     }
+    load_strip<kForm>(sb, ba, q0, k0, sq, tid);
     __syncthreads();
 
     float st[kTile / 8][4], dpt[kTile / 8][4];
@@ -91,7 +102,16 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int qi = n * 8 + 2 * t + (i & 1);
-        float p = expf(st[n][i] * scale - sL[qi]);
+        float p;
+        if constexpr (kForm == kBiasNone) {
+          p = expf(st[n][i] * scale - sL[qi]);
+        } else {
+          p = expf(biased(st[n][i], scale,
+                          bias_at<kForm>(sb, dense, sk, q0 + qi,
+                                         key[i >> 1], qi,
+                                         key[i >> 1] - k0)) -
+                   sL[qi]);
+        }
         if (causal && q0 + qi < key[i >> 1]) p = 0.f;
         st[n][i] = p;
         dpt[n][i] = p * (dpt[n][i] - sDl[qi]);

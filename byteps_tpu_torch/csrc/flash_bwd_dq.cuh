@@ -13,13 +13,35 @@
 // S and dP are recomputed on the tensor cores (mma.sync.m16n8k16, bf16 x
 // bf16 -> fp32) and never reach device memory; key tiles above the
 // diagonal are skipped under causal masking.
+//
+// kForm is the bias source (flash_bias.cuh; the fused backward takes no
+// bias). With a bias, the gradient of the scores' addend comes out too,
+// from the fp32 dS before its bf16 rounding:
+//   - dense: dS of every (b, h, q, k) to `grad` [b, h, sq, sk] fp32, the
+//     causally skipped key tiles written as 0 (the caller sums over b);
+//   - table: dS summed by bucket into one row of `grad` [b, h, sq / kTile,
+//     nb] fp32 per CTA (the caller sums the rows). Each warp walks the
+//     buckets its 16 x 64 scores of a tile cover, sums each with a shuffle
+//     butterfly and adds it to its own shared-memory row; the four rows
+//     are added in a fixed order at the end. No atomics: the same inputs
+//     give the same bits.
 #pragma once
 
-#include "mma_bf16.cuh"
+#include <climits>
+
+#include "flash_bias.cuh"
 
 namespace {
 
-template <bool kDeltaIn>
+template <int kForm>
+struct DtableSmem {};
+
+template <>
+struct DtableSmem<kBiasTable> {
+  float dt[kThreads / 32][kMaxBuckets];  // per-warp partial dtable
+};
+
+template <bool kDeltaIn, int kForm>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -27,11 +49,13 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     bf16* __restrict__ dq, int h, int sq, int sk,
                     BshdStrides qs, BshdStrides ks, BshdStrides vs,
                     BshdStrides dos, BshdStrides dqs, float scale,
-                    int causal) {
+                    int causal, BiasArgs ba, float* __restrict__ grad) {
   __shared__ __align__(16) bf16 sQ[kTile * kLD];
   __shared__ __align__(16) bf16 sO[kTile * kLD];
   __shared__ __align__(16) bf16 sK[kTile * kLD];
   __shared__ __align__(16) bf16 sV[kTile * kLD];
+  __shared__ BiasSmem<kForm> sb;
+  __shared__ DtableSmem<kForm> sdt;
 
   const int qt = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -41,6 +65,11 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   load_tile(sQ, q + bb * qs.b + q0 * qs.s + hh * kD, qs.s, tid);
   load_tile(sO, dout + bb * dos.b + q0 * dos.s + hh * kD, dos.s, tid);
+  load_table_row<kForm>(sb, ba, hh, tid);
+  if constexpr (kForm == kBiasTable) {
+    for (int i = tid; i < (kThreads / 32) * kMaxBuckets; i += kThreads)
+      (&sdt.dt[0][0])[i] = 0.f;
+  }
   __syncthreads();
   uint32_t qf[kD / 16][4], of[kD / 16][4];
 #pragma unroll
@@ -53,6 +82,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   int nkt = sk / kTile;
   if (causal) nkt = min(nkt, (q0 + kTile - 1) / kTile + 1);
+  const float* dense = dense_head<kForm>(ba, hh, sq, sk);
 
   float s[kTile / 8][4], dp[kTile / 8][4];
   // S and dP of key tile kt for this warp's 16 rows; P = exp(S - lse)
@@ -61,6 +91,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     load_tile(sK, k + bb * ks.b + (long long)kt * kTile * ks.s + hh * kD, ks.s, tid);
     load_tile(sV, v + bb * vs.b + (long long)kt * kTile * vs.s + hh * kD, vs.s, tid);
+    load_strip<kForm>(sb, ba, q0, kt * kTile, sq, tid);
     __syncthreads();
 #pragma unroll
     for (int n = 0; n < kTile / 8; ++n) {
@@ -84,7 +115,15 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int i = 0; i < 4; ++i) {
         const int r = i >> 1;
         const int col = kt * kTile + n * 8 + 2 * t + (i & 1);
-        float p = expf(s[n][i] * scale - lse_r[r]);
+        float p;
+        if constexpr (kForm == kBiasNone) {
+          p = expf(s[n][i] * scale - lse_r[r]);
+        } else {
+          p = expf(biased(s[n][i], scale,
+                          bias_at<kForm>(sb, dense, sk, row[r], col,
+                                         row[r] - q0, col - kt * kTile)) -
+                   lse_r[r]);
+        }
         if (causal && row[r] < col) p = 0.f;
         s[n][i] = p;
       }
@@ -123,6 +162,46 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[n][i] *= dp[n][i] - dl[i >> 1];
     }
+    if constexpr (kForm == kBiasDense) {
+      float* gp = grad + (((long long)bb * h + hh) * sq) * sk + kt * kTile;
+#pragma unroll
+      for (int n = 0; n < kTile / 8; ++n) {
+        const int col = n * 8 + 2 * t;
+        *reinterpret_cast<float2*>(gp + (long long)row[0] * sk + col) =
+            make_float2(s[n][0], s[n][1]);
+        *reinterpret_cast<float2*>(gp + (long long)row[1] * sk + col) =
+            make_float2(s[n][2], s[n][3]);
+      }
+    }
+    if constexpr (kForm == kBiasTable) {
+      // strip index of element (n, i): its key's and query's local offset
+      const int j0 = 2 * t - (warp * 16 + g) + kTile - 1;
+      int lo = INT_MAX, hi = -1;
+#pragma unroll
+      for (int n = 0; n < kTile / 8; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int bk = sb.bucket[j0 + n * 8 + (i & 1) - 8 * (i >> 1)];
+          lo = min(lo, bk);
+          hi = max(hi, bk);
+        }
+      }
+      lo = __reduce_min_sync(0xffffffffu, lo);
+      hi = __reduce_max_sync(0xffffffffu, hi);
+      for (int bk = lo; bk <= hi; ++bk) {
+        float part = 0.f;
+#pragma unroll
+        for (int n = 0; n < kTile / 8; ++n) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (sb.bucket[j0 + n * 8 + (i & 1) - 8 * (i >> 1)] == bk)
+              part += s[n][i];
+          }
+        }
+        part = warp_sum(part);
+        if (lane == 0) sdt.dt[warp][bk] += part;
+      }
+    }
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) {
       uint32_t da[4];
@@ -134,6 +213,23 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma16816(acc[n], da, b);
       }
     }
+  }
+
+  if constexpr (kForm == kBiasDense) {
+    // the key tiles the causal walk skipped: their dS is 0
+    const int c0 = nkt * kTile, quads = (sk - c0) / 4;
+    float* gp = grad + (((long long)bb * h + hh) * sq + q0) * sk + c0;
+    for (int i = tid; i < kTile * quads; i += kThreads) {
+      *reinterpret_cast<float4*>(gp + (long long)(i / quads) * sk +
+                                 (i % quads) * 4) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  if constexpr (kForm == kBiasTable) {
+    __syncthreads();
+    float* gp = grad + (((long long)bb * h + hh) * (sq / kTile) + qt) * ba.nb;
+    for (int i = tid; i < ba.nb; i += kThreads)
+      gp[i] = ((sdt.dt[0][i] + sdt.dt[1][i]) + sdt.dt[2][i]) + sdt.dt[3][i];
   }
 
   bf16* gp = dq + bb * dqs.b + hh * kD;

@@ -2,25 +2,50 @@
 //
 // Replaces the Pallas kernel
 // byteps_tpu/ops/flash_attention.py::_dkv_kernel (wrapper _flash_bwd,
-// no-bias form, pallas_call at :683), the second half of the backward a
-// sequence longer than one 512 block takes.
+// pallas_call at :683), the second half of the backward a sequence longer
+// than one 512 block, or any biased call, takes; in its three forms (no
+// bias, the additive bias, T5's in-kernel relative-position table).
 //
 // Contract (the Pallas kernel's): with P and dS as in _dq_kernel (delta
-// given), dv = bf16(P)ᵀ·dO and dk = dSᵀ·q·scale, each accumulated in fp32
-// over every query block and stored as bf16.
+// given, the bias or table entry added to each score before the
+// softmax), dv = bf16(P)ᵀ·dO and dk = dSᵀ·q·scale, each accumulated in
+// fp32 over every query block and stored as bf16.
 //
 // What bounds it on an H100: four s×s×d products per (batch, head)
 // (Sᵀ, dPᵀ, Pᵀ·dO, dSᵀ·Q) against seven [s, d] bf16 tensors moved, far
 // above the card's ~295 FLOP/byte ridge at seq 1024: tensor-core
-// throughput bounds it. On the TPU the query blocks are the carried grid
-// dimension; on Hopper CTAs share nothing, so each CTA owns one 64-key
-// tile and walks every query tile itself (flash_bwd_dkv.cuh), keeping dk
-// and dv in registers: deterministic, no atomics.
+// throughput bounds it. The dense bias adds 4 bytes read per score, about
+// as many as the products need in time at d 64; the table adds nothing
+// but a shared-memory read per score. On the TPU the query blocks are the
+// carried grid dimension; on Hopper CTAs share nothing, so each CTA owns
+// one 64-key tile and walks every query tile itself (flash_bwd_dkv.cuh),
+// keeping dk and dv in registers: deterministic, no atomics.
 #include "flash_bwd_dkv.cuh"
+
+namespace {
+
+template <int kForm>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dk, void* dv, int b, int h, int sq, int sk,
+                   BshdStrides qs, BshdStrides ks, BshdStrides vs,
+                   BshdStrides dos, float scale, int causal,
+                   const BiasArgs& ba, cudaStream_t stream) {
+  const long long row = static_cast<long long>(h) * kD;
+  flash_bwd_dkv_kernel<kForm><<<dim3(sk / kTile, h, b), kThreads, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, sq, sk, qs, ks, vs,
+      dos, BshdStrides{sk * row, row}, scale, causal, ba);
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 // Launches on `stream`, allocates nothing (dk and dv are [b, sk, h, d]
 // contiguous; lse and delta are [b, h, sq] fp32); returns
-// cudaGetLastError().
+// cudaGetLastError(). `form` and the bias arguments as in bps_flash_fwd.
 extern "C" int bps_flash_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dk, void* dv, int b,
@@ -28,18 +53,24 @@ extern "C" int bps_flash_dkv(const void* q, const void* k, const void* v,
                              long long q_ss, long long k_sb, long long k_ss,
                              long long v_sb, long long v_ss, long long do_sb,
                              long long do_ss, float scale, int causal,
-                             void* stream) {
-  if (d != kD || sq % kTile != 0 || sk % kTile != 0 || b <= 0 || h <= 0)
+                             int form, const void* bias, const void* bucket,
+                             const void* table, int nb, void* stream) {
+  if (d != kD || sq % kTile != 0 || sk % kTile != 0 || b <= 0 || h <= 0 ||
+      !bias_args_ok(form, bias, bucket, table, nb))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long row = static_cast<long long>(h) * kD;
-  flash_bwd_dkv_kernel<<<dim3(sk / kTile, h, b), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, sq, sk,
-      BshdStrides{q_sb, q_ss}, BshdStrides{k_sb, k_ss},
-      BshdStrides{v_sb, v_ss}, BshdStrides{do_sb, do_ss},
-      BshdStrides{sk * row, row}, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  const BiasArgs ba = bias_args(bias, bucket, table, nb);
+  const BshdStrides qs{q_sb, q_ss}, ks{k_sb, k_ss}, vs{v_sb, v_ss},
+      dos{do_sb, do_ss};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (form == kBiasDense)
+    err = launch<kBiasDense>(q, k, v, dout, lse, delta, dk, dv, b, h, sq, sk,
+                             qs, ks, vs, dos, scale, causal, ba, st);
+  else if (form == kBiasTable)
+    err = launch<kBiasTable>(q, k, v, dout, lse, delta, dk, dv, b, h, sq, sk,
+                             qs, ks, vs, dos, scale, causal, ba, st);
+  else
+    err = launch<kBiasNone>(q, k, v, dout, lse, delta, dk, dv, b, h, sq, sk,
+                            qs, ks, vs, dos, scale, causal, ba, st);
+  return static_cast<int>(err);
 }

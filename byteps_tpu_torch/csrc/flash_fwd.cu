@@ -1,38 +1,46 @@
 // Flash-attention forward for Hopper (sm_90a), bf16 in, fp32 softmax.
 //
 // Replaces the Pallas kernel byteps_tpu/ops/flash_attention.py::_fwd_kernel
-// (wrapper _flash_fwd, pallas_call at :284) for the one-block geometry of
-// the flagship step (s <= 512, d = 64, no bias, no rel table).
+// (wrapper _flash_fwd, pallas_call at :284) in its three score forms: no
+// bias, the additive bias [h, sq, sk] (`has_bias`) and T5's in-kernel
+// relative-position table (`rel`, _bucket_block :61, _table_bias :68,
+// _rel_row :78); see flash_bias.cuh. Its fp32 `out_dtype` (ring attention
+// only) is not ported.
 //
 // Contract (the same as the Pallas kernel's): q [b,sq,h,d], k/v [b,sk,h,d]
-// bf16 -> out [b,sq,h,d] bf16 and lse [b,h,sq] fp32. S = q·kᵀ·scale in fp32;
-// causal masks entries with row < col to -1e30 and skips kv tiles above
-// the diagonal; online max/sum; P is cast to bf16 before P·V; out =
+// bf16 -> out [b,sq,h,d] bf16 and lse [b,h,sq] fp32. S = q·kᵀ·scale (+ B)
+// in fp32; causal masks entries with row < col to -1e30 and skips kv tiles
+// above the diagonal; online max/sum; P is cast to bf16 before P·V; out =
 // acc / max(l, 1e-30) and lse = m + log(l).
 //
 // What bounds it on an H100: at seq 512 and d 64 the work is 4·s·d FLOP
 // per score against 2·d bytes per row read, about 256 FLOP/byte, just
 // under the card's ~295 FLOP/byte ridge, so the least time is set by
-// memory (q, k, v read once and out written once). The design keeps S and
-// P out of device memory entirely: one CTA of 4 warps per (batch, head,
-// 64-query tile) holds its Q fragments in registers, walks the key tiles
-// through shared memory, and keeps the running max, sum and the output
-// accumulator in registers. Products run on the tensor cores through
-// mma.sync.m16n8k16 (bf16 x bf16 -> fp32). wgmma, TMA and a pipelined
-// ring of tiles are later work.
-#include "mma_bf16.cuh"
+// memory (q, k, v read once and out written once). The dense bias adds
+// 4·h·sq·sk bytes (4 bytes per score, more than q, k and v together at
+// s 1024, d 64), and so is bounded by memory at every length; the table
+// adds h·nb·4 bytes and one shared-memory read per score. The design keeps
+// S and P out of device memory entirely: one CTA of 4 warps per (batch,
+// head, 64-query tile) holds its Q fragments in registers, walks the key
+// tiles through shared memory, and keeps the running max, sum and the
+// output accumulator in registers. Products run on the tensor cores
+// through mma.sync.m16n8k16 (bf16 x bf16 -> fp32). wgmma, TMA and a
+// pipelined ring of tiles are later work.
+#include "flash_bias.cuh"
 
 namespace {
 
+template <int kForm>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
                  float* __restrict__ lse, int h, int sq, int sk,
                  BshdStrides qs, BshdStrides ks, BshdStrides vs,
-                 BshdStrides os, float scale, int causal) {
+                 BshdStrides os, float scale, int causal, BiasArgs ba) {
   __shared__ __align__(16) bf16 sQ[kTile * kLD];
   __shared__ __align__(16) bf16 sK[kTile * kLD];
   __shared__ __align__(16) bf16 sV[kTile * kLD];
+  __shared__ BiasSmem<kForm> sb;
 
   const int qt = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -41,6 +49,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
 
   load_tile(sQ, q + bb * qs.b + q0 * qs.s + hh * kD, qs.s, tid);
+  load_table_row<kForm>(sb, ba, hh, tid);
   __syncthreads();
   uint32_t qf[kD / 16][4];
 #pragma unroll
@@ -50,6 +59,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int n = 0; n < kD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float* dense = dense_head<kForm>(ba, hh, sq, sk);
 
   int nkt = sk / kTile;
   if (causal) nkt = min(nkt, (q0 + kTile - 1) / kTile + 1);
@@ -57,6 +67,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // every warp is done with the previous K/V tile
     load_tile(sK, k + bb * ks.b + (long long)kt * kTile * ks.s + hh * kD, ks.s, tid);
     load_tile(sV, v + bb * vs.b + (long long)kt * kTile * vs.s + hh * kD, vs.s, tid);
+    load_strip<kForm>(sb, ba, q0, kt * kTile, sq, tid);
     __syncthreads();
 
     float s[kTile / 8][4];
@@ -79,7 +90,14 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int i = 0; i < 4; ++i) {
         const int r = i >> 1;
         const int col = kt * kTile + n * 8 + 2 * t + (i & 1);
-        float x = s[n][i] * scale;
+        float x;
+        if constexpr (kForm == kBiasNone) {
+          x = s[n][i] * scale;
+        } else {
+          x = biased(s[n][i], scale,
+                     bias_at<kForm>(sb, dense, sk, row[r], col, row[r] - q0,
+                                    col - kt * kTile));
+        }
         if (causal && row[r] < col) x = kNegInf;
         s[n][i] = x;
         mx[r] = fmaxf(mx[r], x);
@@ -140,23 +158,48 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int kForm>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   void* lse, int b, int h, int sq, int sk, BshdStrides qs,
+                   BshdStrides ks, BshdStrides vs, BshdStrides os,
+                   float scale, int causal, const BiasArgs& ba,
+                   cudaStream_t stream) {
+  flash_fwd_kernel<kForm><<<dim3(sq / kTile, h, b), kThreads, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+      static_cast<float*>(lse), h, sq, sk, qs, ks, vs, os, scale, causal, ba);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches on `stream`, allocates nothing; returns cudaGetLastError().
+// `form` is a BiasForm: 0 takes no bias arguments, 1 `bias` ([h, sq, sk]
+// fp32), 2 `bucket` ([sq + sk - 1] int32), `table` ([h, nb] fp32) and nb.
 extern "C" int bps_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, int b, int h, int sq,
                              int sk, int d, long long q_sb, long long q_ss,
                              long long k_sb, long long k_ss, long long v_sb,
                              long long v_ss, long long o_sb, long long o_ss,
-                             float scale, int causal, void* stream) {
-  if (d != kD || sq % kTile != 0 || sk % kTile != 0 || b <= 0 || h <= 0)
+                             float scale, int causal, int form,
+                             const void* bias, const void* bucket,
+                             const void* table, int nb, void* stream) {
+  if (d != kD || sq % kTile != 0 || sk % kTile != 0 || b <= 0 || h <= 0 ||
+      !bias_args_ok(form, bias, bucket, table, nb))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(sq / kTile, h, b);
-  flash_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(lse), h, sq, sk, BshdStrides{q_sb, q_ss},
-      BshdStrides{k_sb, k_ss}, BshdStrides{v_sb, v_ss},
-      BshdStrides{o_sb, o_ss}, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  const BiasArgs ba = bias_args(bias, bucket, table, nb);
+  const BshdStrides qs{q_sb, q_ss}, ks{k_sb, k_ss}, vs{v_sb, v_ss},
+      os{o_sb, o_ss};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (form == kBiasDense)
+    err = launch<kBiasDense>(q, k, v, out, lse, b, h, sq, sk, qs, ks, vs, os,
+                             scale, causal, ba, st);
+  else if (form == kBiasTable)
+    err = launch<kBiasTable>(q, k, v, out, lse, b, h, sq, sk, qs, ks, vs, os,
+                             scale, causal, ba, st);
+  else
+    err = launch<kBiasNone>(q, k, v, out, lse, b, h, sq, sk, qs, ks, vs, os,
+                            scale, causal, ba, st);
+  return static_cast<int>(err);
 }

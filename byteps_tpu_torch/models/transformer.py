@@ -137,6 +137,16 @@ def init_params(cfg: TransformerConfig,
     }
 
 
+def layer_views(blocks: nn.Module):
+    """Per-layer dicts {dotted name: view} of a tree of leaves stacked on a
+    leading layer axis. One unbind per stacked leaf: its backward stacks
+    the per-layer grads in one op instead of one full-size scatter per
+    layer."""
+    names = [n for n, _ in blocks.named_parameters()]
+    for leaves in zip(*(p.unbind(0) for p in blocks.parameters())):
+        yield dict(zip(names, leaves))
+
+
 class ParamTree(nn.Module):
     """A nested dict of parameters as a module: the dotted path of each
     leaf is its ``state_dict`` key."""
@@ -205,12 +215,7 @@ class Transformer(nn.Module):
             positions = torch.arange(s, device=tokens.device)
         x = F.embedding(tokens, self.embed.tok).to(dt)
         x = x + self.embed.pos[positions].to(dt)
-        names = [n for n, _ in self.blocks.named_parameters()]
-        # one unbind per stacked leaf: its backward stacks the per-layer
-        # grads in one op instead of one full-size scatter per layer
-        per_layer = zip(*(p.unbind(0) for p in self.blocks.parameters()))
-        for i, leaves in enumerate(per_layer):
-            blk = dict(zip(names, leaves))
+        for i, blk in enumerate(layer_views(self.blocks)):
             if cfg.remat and (cfg.remat_layers == -1 or i < cfg.remat_layers):
                 x = checkpoint(_block, x, blk, cfg, use_reentrant=False)
             else:

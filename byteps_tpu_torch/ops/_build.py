@@ -30,16 +30,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
+# the attention kernels' bias source: form, dense bias, bucket vector,
+# table, bucket count (csrc/flash_bias.cuh)
+_BIAS = [_I, _P, _P, _P, _I]
 # argtypes of each C entry point, by source stem
 SIGNATURES = {
     "flash_fwd": ("bps_flash_fwd",
-                  [_P] * 5 + [_I] * 5 + [_L] * 8 + [_F, _I, _P]),
+                  [_P] * 5 + [_I] * 5 + [_L] * 8 + [_F, _I] + _BIAS + [_P]),
     "flash_bwd": ("bps_flash_bwd",
                   [_P] * 9 + [_I] * 5 + [_L] * 8 + [_F, _I, _P]),
     "flash_dq": ("bps_flash_dq",
-                 [_P] * 7 + [_I] * 5 + [_L] * 8 + [_F, _I, _P]),
+                 [_P] * 7 + [_I] * 5 + [_L] * 8 + [_F, _I] + _BIAS
+                 + [_P, _P]),
     "flash_dkv": ("bps_flash_dkv",
-                  [_P] * 8 + [_I] * 5 + [_L] * 8 + [_F, _I, _P]),
+                  [_P] * 8 + [_I] * 5 + [_L] * 8 + [_F, _I] + _BIAS + [_P]),
     "onebit_pack": ("bps_onebit_pack", [_P, _P, _L, _P]),
     "onebit_unpack": ("bps_onebit_unpack", [_P, _P, _L, _P]),
     "int8_quantize": ("bps_int8_quantize", [_P, _P, _L, _F, _P]),

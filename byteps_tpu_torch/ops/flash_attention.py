@@ -24,22 +24,44 @@ Kernels (CUDA C++ for sm_90a, ``csrc/``, built at first use by
     (:579): delta = rowsum(dO∘out) is an input, taken by the caller from
     the forward's bf16 output. Both bounded by tensor-core throughput.
 
+The forward, dq and dk/dv kernels each come in three forms, chosen at
+compile time, as the Pallas kernels' ``has_bias`` / ``rel``:
+
+  - no bias (BERT, GPT-2, T5's cross-attention);
+  - ``bias`` [h, sq, sk], an additive score bias read from device memory:
+    S = q·kᵀ·scale + B, before the causal mask and the softmax. The dq
+    kernel also writes dS for every (b, h, q, k), skipped tiles as 0,
+    and the wrapper sums it over the batch: dbias [h, sq, sk] fp32;
+  - ``rel_table`` [h, nb], T5's relative-position table (nb <= 128): each
+    score adds the table entry of the bucket of key - query, the bucket
+    read from an O(s) per-offset vector (``relpos.bucket_vector``, built
+    on the CPU) and the table from shared memory, so no [h, sq, sk] bias
+    exists anywhere. The dq kernel reduces dS by bucket into per-CTA
+    partials in a fixed order (no atomics) and the wrapper sums them:
+    dtable [h, nb] fp32, the same bits on every run.
+
+The Pallas helpers ``_head_tile``, ``_clamp_ht`` and ``_DT_PAD`` have no
+counterpart: they fit the TPU's block rules (several heads per program,
+the dtable output padded to an (8, 128) tile). The Hopper kernels run one
+head per CTA, and the dtable partials are [b, h, sq / 64, nb].
+
 Which backward runs follows the JAX package exactly (``backward_route``):
 the fused one when the whole sequence is one block each way (blocks of
 512 shrunk to the sequence, ``BPS_FLASH_BQ`` / ``BPS_FLASH_BK``
-overriding), unless ``BPS_FLASH_FUSED_BWD=0``; the split one otherwise.
-The two are different functions in bf16 (the fused delta is rowsum(P∘dP),
-the split one rowsum(dO∘out) with ``out`` already rounded), so parity with
-the JAX package needs the same route at the same shapes. The Hopper
-kernels themselves walk 64-row tiles whatever the block.
+overriding) and no bias or table is given, unless
+``BPS_FLASH_FUSED_BWD=0``; the split one otherwise. The two are different
+functions in bf16 (the fused delta is rowsum(P∘dP), the split one
+rowsum(dO∘out) with ``out`` already rounded), so parity with the JAX
+package needs the same route at the same shapes. The Hopper kernels
+themselves walk 64-row tiles whatever the block.
 
 Each wrapper keeps its plain PyTorch version beside it, with the same
 inputs and outputs, and takes it only for tensors on the CPU. A CUDA
 tensor launches the kernel or raises: inputs the kernels do not take
-(fp32, a bias, a rel table, d other than 64, a sequence not a multiple of
-64) are refused by ``check_kernel_inputs`` with the name of the Pallas
-kernel still to port. Each wrapper counts its launches in a plain int
-attribute, ``launches``.
+(fp32 q/k/v, d other than 64, a sequence not a multiple of 64, a bias or
+table of the wrong shape) are refused by ``check_kernel_inputs``. Each
+wrapper counts its launches in plain int attributes: ``launches`` (every
+form), ``launches_bias`` and ``launches_rel`` (the bias and table forms).
 """
 
 from __future__ import annotations
@@ -50,12 +72,15 @@ from typing import Optional, Tuple
 import torch
 
 from ..parallel.ring import local_attention
+from . import relpos
 from ._build import device_type, entry, raise_on_error
 
 _NEG_INF = -1e30
 KERNEL_D = 64          # head dim the kernels are built for
 KERNEL_TILE = 64       # sequence tile of the kernels
 BLOCK = 512            # the JAX package's default block each way
+MAX_BUCKETS = 128      # rel-table buckets the kernels take (JAX: one lane tile)
+FORM_NONE, FORM_BIAS, FORM_REL = 0, 1, 2   # the kernels' bias sources
 
 
 def _scale(q, scale):
@@ -91,31 +116,78 @@ def resolve_blocks(sq: int, sk: int, block_q: int = BLOCK,
 
 
 def backward_route(sq: int, sk: int, block_q: int = BLOCK,
-                   block_k: int = BLOCK) -> str:
+                   block_k: int = BLOCK, biased: bool = False) -> str:
     """"fused" where the JAX ``_flash_bwd`` takes ``_dqkv_fused_kernel``
-    (one block each way, no bias, ``BPS_FLASH_FUSED_BWD`` not "0"), else
-    "split" (``_dq_kernel`` then ``_dkv_kernel``)."""
+    (one block each way, no bias or table, ``BPS_FLASH_FUSED_BWD`` not
+    "0"), else "split" (``_dq_kernel`` then ``_dkv_kernel``)."""
     bq, bk = resolve_blocks(sq, sk, block_q, block_k)
-    if (sq // bq == 1 and sk // bk == 1
+    if (not biased and sq // bq == 1 and sk // bk == 1
             and os.environ.get("BPS_FLASH_FUSED_BWD", "1") != "0"):
         return "fused"
     return "split"
 
 
+# ----------------------------------------------------------- bias forms
+
+def _form(bias, rel_table) -> int:
+    if bias is not None:
+        return FORM_BIAS
+    return FORM_NONE if rel_table is None else FORM_REL
+
+
+def score_bias(sq: int, sk: int, bias=None, rel_table=None,
+               rel_bidirectional: bool = True, rel_max_distance: int = 128
+               ) -> Optional[torch.Tensor]:
+    """The fp32 [h, sq, sk] addend of the scores, or None: ``bias`` itself,
+    or the table entry of each (query, key)'s bucket."""
+    if bias is not None:
+        return bias.float()
+    if rel_table is None:
+        return None
+    bucket = relpos.bucket_map(sq, sk, rel_bidirectional, rel_table.shape[1],
+                               rel_max_distance, rel_table.device)
+    return rel_table.float()[:, bucket]
+
+
+def _scores(q, k, scale, addend):
+    """S = q·kᵀ·scale (+ B), fp32 [b, h, sq, sk]: the product rounded
+    before the addend is added, as the kernels and the Pallas kernels add
+    it."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    return s if addend is None else s + addend[None]
+
+
+def _table_grad(ds: torch.Tensor, sq: int, sk: int, rel_table,
+                rel_bidirectional: bool, rel_max_distance: int
+                ) -> torch.Tensor:
+    """dtable [h, nb]: dS [b, h, sq, sk] summed over the batch and over the
+    positions of each bucket."""
+    h, nb = rel_table.shape
+    bucket = relpos.bucket_map(sq, sk, rel_bidirectional, nb,
+                               rel_max_distance, ds.device)
+    return torch.zeros(h, nb, dtype=torch.float32, device=ds.device
+                       ).index_add_(1, bucket.reshape(-1),
+                                    ds.sum(0).reshape(h, -1))
+
+
 # ------------------------------------------------------- plain versions
 
 def flash_fwd_plain(q, k, v, causal: bool = False,
-                    scale: Optional[float] = None
+                    scale: Optional[float] = None, bias=None, rel_table=None,
+                    rel_bidirectional: bool = True,
+                    rel_max_distance: int = 128
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's function in plain PyTorch: (out, lse).
 
-    Products in fp32 from the inputs' values; P cast to v's dtype before
-    P·V; out = acc / max(l, 1e-30), lse = m + log(l)."""
+    Products in fp32 from the inputs' values, the bias added before the
+    mask; P cast to v's dtype before P·V; out = acc / max(l, 1e-30),
+    lse = m + log(l)."""
     scale = _scale(q, scale)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    sq, sk = q.shape[1], k.shape[1]
+    s = _scores(q, k, scale, score_bias(sq, sk, bias, rel_table,
+                                        rel_bidirectional, rel_max_distance))
     if causal:
-        s = s.masked_fill(~_causal_keep(q.shape[1], k.shape[1], q.device),
-                          _NEG_INF)
+        s = s.masked_fill(~_causal_keep(sq, sk, q.device), _NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)          # [b, h, q, 1]
@@ -124,10 +196,10 @@ def flash_fwd_plain(q, k, v, causal: bool = False,
     return out.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
-def _probs_and_dp(q, k, v, do, lse, causal, scale):
+def _probs_and_dp(q, k, v, do, lse, causal, scale, addend=None):
     """P = exp(S - lse) (0 where causally masked) and dP = dO·Vᵀ, fp32,
     [b, h, sq, sk]."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = _scores(q, k, scale, addend)
     p = torch.exp(s - lse.float()[..., None])
     if causal:
         p = p.masked_fill(~_causal_keep(q.shape[1], k.shape[1], q.device),
@@ -159,23 +231,40 @@ def bwd_delta(do, out) -> torch.Tensor:
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool = False,
-                       scale: Optional[float] = None) -> torch.Tensor:
+                       scale: Optional[float] = None, bias=None,
+                       rel_table=None, rel_bidirectional: bool = True,
+                       rel_max_distance: int = 128):
     """The dq kernel's function in plain PyTorch: dS = P∘(dP - delta)
-    rounded to q's dtype, dq = dS·K·scale."""
+    rounded to q's dtype, dq = dS·K·scale. With ``bias`` it returns
+    (dq, dbias = Σ_batch dS), with ``rel_table`` (dq, dtable = Σ dS over
+    the batch and each bucket's positions), both fp32 from dS before its
+    rounding."""
     scale = _scale(q, scale)
-    p, dp = _probs_and_dp(q, k, v, do, lse, causal, scale)
-    ds = (p * (dp - delta.float()[..., None])).to(q.dtype).float()
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
-    return dq.to(q.dtype)
+    sq, sk = q.shape[1], k.shape[1]
+    p, dp = _probs_and_dp(q, k, v, do, lse, causal, scale, score_bias(
+        sq, sk, bias, rel_table, rel_bidirectional, rel_max_distance))
+    ds32 = p * (dp - delta.float()[..., None])
+    ds = ds32.to(q.dtype).float()
+    dq = (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale).to(q.dtype)
+    if bias is not None:
+        return dq, ds32.sum(0)
+    if rel_table is not None:
+        return dq, _table_grad(ds32, sq, sk, rel_table, rel_bidirectional,
+                               rel_max_distance)
+    return dq
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool = False,
-                        scale: Optional[float] = None
+                        scale: Optional[float] = None, bias=None,
+                        rel_table=None, rel_bidirectional: bool = True,
+                        rel_max_distance: int = 128
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dk/dv kernel's function in plain PyTorch: dv = P̂ᵀ·dO with P
     rounded to dO's dtype, dk = dSᵀ·Q·scale."""
     scale = _scale(q, scale)
-    p, dp = _probs_and_dp(q, k, v, do, lse, causal, scale)
+    p, dp = _probs_and_dp(q, k, v, do, lse, causal, scale, score_bias(
+        q.shape[1], k.shape[1], bias, rel_table, rel_bidirectional,
+        rel_max_distance))
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
     ds = (p * (dp - delta.float()[..., None])).to(q.dtype).float()
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
@@ -184,20 +273,40 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool = False,
 
 # ------------------------------------------------------- input contract
 
+def check_forms(q, k, causal: bool = False, bias=None,
+                rel_table=None) -> None:
+    """The JAX package's rules (``_fwd_rule``), on every device: causal
+    masking needs sq == sk; the bias forms are mutually exclusive, with at
+    most ``MAX_BUCKETS`` buckets; a bias is [h, sq, sk], a table fp32
+    [h, nb]."""
+    b, sq, h = q.shape[:3]
+    sk = k.shape[1]
+    if causal and sq != sk:
+        raise ValueError(
+            "causal masking requires equal q/kv lengths (got "
+            f"{sq} vs {sk}); cross-attention is bidirectional")
+    if bias is not None and rel_table is not None:
+        raise ValueError("bias and rel_table are mutually exclusive")
+    if bias is not None and tuple(bias.shape) != (h, sq, sk):
+        raise ValueError(f"bias must be [h, sq, sk] = {(h, sq, sk)}, got "
+                         f"{tuple(bias.shape)}")
+    if rel_table is not None:
+        if rel_table.dim() != 2 or rel_table.shape[0] != h:
+            raise ValueError(f"rel_table must be [h, nb] with h = {h} (q's "
+                             f"heads), got {tuple(rel_table.shape)}")
+        if rel_table.shape[1] > MAX_BUCKETS:
+            raise ValueError(
+                f"rel_table has {rel_table.shape[1]} buckets; the in-kernel "
+                f"path supports at most {MAX_BUCKETS}")
+        if rel_table.dtype != torch.float32:
+            raise TypeError(f"rel_table must be float32, got "
+                            f"{rel_table.dtype}")
+
+
 def check_kernel_inputs(q, k, v, causal: bool = False, bias=None,
                         rel_table=None) -> None:
     """Refuse what the Hopper kernels do not take; called by the CUDA
     branch of each wrapper before it launches. Never a fallback."""
-    if bias is not None:
-        raise NotImplementedError(
-            "flash attention with an additive bias needs the bias forms of "
-            "_fwd_kernel and of the split backward (_dq_kernel, "
-            "_dkv_kernel), not ported yet (ROADMAP.md); use impl='naive'")
-    if rel_table is not None:
-        raise NotImplementedError(
-            "flash attention with a T5 rel_table needs the in-kernel "
-            "rel-bias forms of _fwd_kernel / _dq_kernel / _dkv_kernel, not "
-            "ported yet (ROADMAP.md)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise TypeError(
@@ -220,13 +329,11 @@ def check_kernel_inputs(q, k, v, causal: bool = False, bias=None,
     if sq % KERNEL_TILE or sk % KERNEL_TILE:
         raise ValueError(f"sequence lengths {sq}, {sk} must be multiples of "
                          f"{KERNEL_TILE} for the Hopper flash kernels")
-    if causal and sq != sk:
-        raise ValueError(
-            "causal masking requires equal q/kv lengths (got "
-            f"{sq} vs {sk}); cross-attention is bidirectional")
-    devs = {t.device for t in (q, k, v)}
+    check_forms(q, k, causal, bias, rel_table)
+    devs = {t.device for t in (q, k, v, bias, rel_table) if t is not None}
     if len(devs) != 1:
-        raise ValueError(f"q, k, v on different devices: {devs}")
+        raise ValueError(f"q, k, v, bias, rel_table on different devices: "
+                         f"{devs}")
 
 
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
@@ -239,19 +346,58 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
+def _bias_args(q, k, bias, rel_table, rel_bidirectional, rel_max_distance):
+    """(form, tensors, pointer arguments) of a kernel's bias source: the
+    dense fp32 bias, or the offset bucket vector and the fp32 table, with
+    the bucket count. The caller holds ``tensors`` until it has launched:
+    the pointers are only valid while they live."""
+    form = _form(bias, rel_table)
+    if form == FORM_BIAS:
+        dense = bias.float().contiguous()
+        return form, (dense,), (dense.data_ptr(), None, None, 0)
+    if form == FORM_REL:
+        nb = rel_table.shape[1]
+        table = rel_table.contiguous()
+        vec = relpos.bucket_vector(q.shape[1], k.shape[1],
+                                   bool(rel_bidirectional), nb,
+                                   int(rel_max_distance), str(q.device))
+        return form, (table, vec), (None, vec.data_ptr(), table.data_ptr(),
+                                    nb)
+    return form, (), (None, None, None, 0)
+
+
+def _count(fn, form: int) -> None:
+    fn.launches += 1
+    if form == FORM_BIAS:
+        fn.launches_bias += 1
+    elif form == FORM_REL:
+        fn.launches_rel += 1
+
+
+def _counted(fn):
+    fn.launches = fn.launches_bias = fn.launches_rel = 0
+    return fn
+
+
 # ------------------------------------------------------------- wrappers
 
-def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None
+@_counted
+def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
+              bias=None, rel_table=None, rel_bidirectional: bool = True,
+              rel_max_distance: int = 128
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q [b,sq,h,d], k/v [b,sk,h,d] -> (out [b,sq,h,d], lse [b,h,sq] fp32).
     CUDA tensors launch ``csrc/flash_fwd.cu``; CPU tensors take
     ``flash_fwd_plain``."""
     if device_type(q, "flash attention") == "cpu":
-        return flash_fwd_plain(q, k, v, causal, scale)
-    check_kernel_inputs(q, k, v, causal)
+        return flash_fwd_plain(q, k, v, causal, scale, bias, rel_table,
+                               rel_bidirectional, rel_max_distance)
+    check_kernel_inputs(q, k, v, causal, bias, rel_table)
     q, k, v = (_kernel_layout(t) for t in (q, k, v))
     b, sq, h, d = q.shape
     sk = k.shape[1]
+    form, keep, bargs = _bias_args(q, k, bias, rel_table, rel_bidirectional,
+                                   rel_max_distance)
     out = torch.empty(b, sq, h, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -261,13 +407,10 @@ def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None
             lse.data_ptr(), b, h, sq, sk, d,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-            _scale(q, scale), int(causal), stream)
+            _scale(q, scale), int(causal), form, *bargs, stream)
     raise_on_error(code, "flash forward kernel")
-    flash_fwd.launches += 1
+    _count(flash_fwd, form)
     return out, lse
-
-
-flash_fwd.launches = 0
 
 
 def _check_bwd_inputs(q, k, v, do, lse, delta=None) -> None:
@@ -296,10 +439,10 @@ def _bwd_args(q, k, v, do, scale, causal):
     return (b, h, sq, k.shape[1], d,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), do.stride(0), do.stride(1),
-            _scale(q, scale), int(causal),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            _scale(q, scale), int(causal))
 
 
+@_counted
 def flash_bwd_fused(q, k, v, do, lse, causal: bool = False,
                     scale: Optional[float] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -317,64 +460,84 @@ def flash_bwd_fused(q, k, v, do, lse, causal: bool = False,
         code = entry("flash_bwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), *_bwd_args(q, k, v, do, scale, causal))
+            dv.data_ptr(), *_bwd_args(q, k, v, do, scale, causal),
+            torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error(code, "flash fused backward kernel")
-    flash_bwd_fused.launches += 1
+    _count(flash_bwd_fused, FORM_NONE)
     return dq, dk, dv
 
 
-flash_bwd_fused.launches = 0
-
-
+@_counted
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
-                 scale: Optional[float] = None) -> torch.Tensor:
-    """The split backward's dq: (q, k, v, dO, lse, delta) -> dq. CUDA
-    tensors launch ``csrc/flash_dq.cu``; CPU tensors take
-    ``flash_bwd_dq_plain``."""
+                 scale: Optional[float] = None, bias=None, rel_table=None,
+                 rel_bidirectional: bool = True, rel_max_distance: int = 128):
+    """The split backward's dq: (q, k, v, dO, lse, delta) -> dq, or
+    (dq, dbias [h, sq, sk]) with ``bias``, (dq, dtable [h, nb]) with
+    ``rel_table``, both fp32. CUDA tensors launch ``csrc/flash_dq.cu``;
+    CPU tensors take ``flash_bwd_dq_plain``."""
     if device_type(q, "flash attention") == "cpu":
-        return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale)
-    check_kernel_inputs(q, k, v, causal)
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale,
+                                  bias, rel_table, rel_bidirectional,
+                                  rel_max_distance)
+    check_kernel_inputs(q, k, v, causal, bias, rel_table)
     _check_bwd_inputs(q, k, v, do, lse, delta)
     q, k, v, do = (_kernel_layout(t) for t in (q, k, v, do))
     lse, delta = lse.contiguous(), delta.contiguous()
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    form, keep, bargs = _bias_args(q, k, bias, rel_table, rel_bidirectional,
+                                   rel_max_distance)
     dq = _empty(q)
+    grad = None
+    if form == FORM_BIAS:       # dS of every (b, h, q, k); skipped tiles 0
+        grad = torch.empty(b, h, sq, sk, dtype=torch.float32, device=q.device)
+    elif form == FORM_REL:      # one dtable row per (b, h, query tile)
+        grad = torch.empty(b, h, sq // KERNEL_TILE, bargs[3],
+                           dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         code = entry("flash_dq")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *_bwd_args(q, k, v, do, scale, causal))
+            *_bwd_args(q, k, v, do, scale, causal), form, *bargs,
+            None if grad is None else grad.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error(code, "flash dq kernel")
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, form)
+    if form == FORM_BIAS:
+        return dq, grad.sum(0)
+    if form == FORM_REL:
+        return dq, grad.sum((0, 2))
     return dq
 
 
-flash_bwd_dq.launches = 0
-
-
+@_counted
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
-                  scale: Optional[float] = None
+                  scale: Optional[float] = None, bias=None, rel_table=None,
+                  rel_bidirectional: bool = True, rel_max_distance: int = 128
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The split backward's dk and dv: (q, k, v, dO, lse, delta) ->
     (dk, dv). CUDA tensors launch ``csrc/flash_dkv.cu``; CPU tensors take
     ``flash_bwd_dkv_plain``."""
     if device_type(q, "flash attention") == "cpu":
-        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale)
-    check_kernel_inputs(q, k, v, causal)
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale,
+                                   bias, rel_table, rel_bidirectional,
+                                   rel_max_distance)
+    check_kernel_inputs(q, k, v, causal, bias, rel_table)
     _check_bwd_inputs(q, k, v, do, lse, delta)
     q, k, v, do = (_kernel_layout(t) for t in (q, k, v, do))
     lse, delta = lse.contiguous(), delta.contiguous()
+    form, keep, bargs = _bias_args(q, k, bias, rel_table, rel_bidirectional,
+                                   rel_max_distance)
     dk, dv = _empty(k), _empty(v)
     with torch.cuda.device(q.device):
         code = entry("flash_dkv")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *_bwd_args(q, k, v, do, scale, causal))
+            *_bwd_args(q, k, v, do, scale, causal), form, *bargs,
+            torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error(code, "flash dk/dv kernel")
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv, form)
     return dk, dv
-
-
-flash_bwd_dkv.launches = 0
 
 
 # ------------------------------------------------------------ public API
@@ -384,56 +547,78 @@ class _FlashAttention(torch.autograd.Function):
     the fused backward computes delta from P∘dP, so under remat the
     recompute's output is needed only by the layers after attention. On
     the split route it also saves ``out``, whose rowsum with dO is the
-    delta the split kernels read."""
+    delta the split kernels read, and the bias or table when given. The
+    backward returns the gradient of the bias (dbias) or of the table
+    (dtable), as the JAX custom VJP returns ``dbias, drel``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, fused):
-        out, lse = flash_fwd(q, k, v, causal, scale)
+    def forward(ctx, q, k, v, bias, rel_table, causal, scale, fused, rel):
+        out, lse = flash_fwd(q, k, v, causal, scale, bias, rel_table, *rel)
+        form = _form(bias, rel_table)
+        extra = {FORM_NONE: (), FORM_BIAS: (bias,), FORM_REL: (rel_table,)}
         if fused:
             ctx.save_for_backward(q, k, v, lse)
         else:
-            ctx.save_for_backward(q, k, v, lse, out)
+            ctx.save_for_backward(q, k, v, lse, out, *extra[form])
         ctx.causal, ctx.scale, ctx.fused = causal, scale, fused
+        ctx.form, ctx.rel = form, rel
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, lse, *out = ctx.saved_tensors
+        q, k, v, lse, *rest = ctx.saved_tensors
         do = dout.to(q.dtype)
+        dbias = drel = None
         if ctx.fused:
             dq, dk, dv = flash_bwd_fused(q, k, v, do, lse, ctx.causal,
                                          ctx.scale)
         else:
-            delta = bwd_delta(do, out[0])
-            dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+            out, *given = rest
+            bias = given[0] if ctx.form == FORM_BIAS else None
+            table = given[0] if ctx.form == FORM_REL else None
+            delta = bwd_delta(do, out)
+            dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale,
+                              bias, table, *ctx.rel)
+            if ctx.form == FORM_BIAS:
+                dq, dbias = dq
+                dbias = dbias.to(bias.dtype)
+            elif ctx.form == FORM_REL:
+                dq, drel = dq
             dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal,
-                                   ctx.scale)
-        return dq, dk, dv, None, None, None
+                                   ctx.scale, bias, table, *ctx.rel)
+        return dq, dk, dv, dbias, drel, None, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None, bias=None,
                     rel_table=None, block_q: int = BLOCK,
-                    block_k: int = BLOCK):
+                    block_k: int = BLOCK, rel_bidirectional: bool = True,
+                    rel_max_distance: int = 128):
     """Differentiable flash attention: q [b, sq, h, d], k/v [b, sk, h, d]
     -> [b, sq, h, d]. ``block_q`` / ``block_k`` are the JAX package's
     blocks: they choose the backward route (``backward_route``), as
-    there. The bias and rel-table forms are not ported."""
-    if bias is not None or rel_table is not None:
-        check_kernel_inputs(q, k, v, causal, bias, rel_table)
-    fused = backward_route(q.shape[1], k.shape[1], block_q,
-                           block_k) == "fused"
-    return _FlashAttention.apply(q, k, v, causal, scale, fused)
+    there. ``bias`` [h, sq, sk] or ``rel_table`` [h, nb] (T5's table, with
+    ``rel_bidirectional`` and ``rel_max_distance``) add to the scores;
+    both are differentiable and take the split backward."""
+    check_forms(q, k, causal, bias, rel_table)
+    biased = bias is not None or rel_table is not None
+    fused = backward_route(q.shape[1], k.shape[1], block_q, block_k,
+                           biased) == "fused"
+    return _FlashAttention.apply(q, k, v, bias, rel_table, causal, scale,
+                                 fused, (bool(rel_bidirectional),
+                                         int(rel_max_distance)))
 
 
 def attention(q, k, v, causal: bool = False, scale: Optional[float] = None,
-              impl: str = "auto", bias=None, rel_table=None):
+              impl: str = "auto", bias=None, rel_table=None,
+              rel_bidirectional: bool = True, rel_max_distance: int = 128):
     """Dispatcher the models call.
 
     impl: "auto" | "flash" -> ``flash_attention`` (the Hopper kernels on
     the card, their plain versions on the CPU; refused inputs raise);
     "naive" -> ``parallel.ring.local_attention``, the plain O(s²) oracle,
-    only when asked for; "hybrid" is not ported."""
+    only when asked for, with a rel table materialized through
+    ``relpos.relative_bias``; "hybrid" is not ported."""
     if impl not in ("auto", "flash", "hybrid", "naive"):
         raise ValueError(
             f"attn impl must be auto|flash|hybrid|naive, got {impl!r}")
@@ -443,10 +628,12 @@ def attention(q, k, v, causal: bool = False, scale: Optional[float] = None,
             "ported (ROADMAP.md)")
     if impl == "naive":
         if rel_table is not None:
-            raise NotImplementedError(
-                "the T5 rel-table bias (ops/relpos.py) is not ported "
-                "(ROADMAP.md)")
+            bias = relpos.relative_bias(rel_table.T, q.shape[1], k.shape[1],
+                                        rel_bidirectional,
+                                        rel_table.shape[1], rel_max_distance)
         return local_attention(q, k, v, causal=causal, scale=scale,
                                bias=bias)
     return flash_attention(q, k, v, causal=causal, scale=scale, bias=bias,
-                           rel_table=rel_table)
+                           rel_table=rel_table,
+                           rel_bidirectional=rel_bidirectional,
+                           rel_max_distance=rel_max_distance)

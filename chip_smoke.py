@@ -16,6 +16,16 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
        - flash forward, dq and dk/dv (the split backward) at the GPT-2
          shape (b 8, s 1024, h 16, d 64, bf16), causal and not; the split
          route's gradients also against autograd of the plain forward;
+       - the same three kernels in their bias forms at the T5-small shapes
+         (h 8, d 64, T5's scale 1.0): the rel-table form at the encoder's
+         (b 8, s 1024, bidirectional) and the decoder's (b 8, s 512,
+         causal), the dense form at the encoder's with the materialized
+         ``relative_bias`` of the same table; out, lse, dq, dk, dv and
+         dtable / dbias (within REL_TOL · max|plain|); the dense and table
+         forms bit for bit on out, lse, dq, dk and dv; two launches of the
+         table-form dq, the same dtable bits; and the no-bias forward, dq
+         and dk/dv at the cross-attention shape (b 8, sq 512 queries over
+         sk 1024 keys, not causal, scale 1.0);
        - onebit pack and unpack, bit for bit, on an adversarial vector
          (±0.0, NaN, ±inf, denormals, 77 elements);
        - int8 quantize and dequantize and fp8 stochastic rounding (E4M3
@@ -27,9 +37,12 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
      the device kept busy until the launch is enqueued) of
      each kernel, its plain version and, where one PyTorch call computes
      the same function, that call (``scaled_dot_product_attention``, timed
-     as a yardstick only; the port never calls it), beside the least time
-     the card could take. Attention at the shape its training phase gives
-     it; onebit, int8 and fp8 on one 4,096,000-byte bucket.
+     as a yardstick only; the port never calls it; for the bias forms with
+     the materialized bias as its float ``attn_mask``, built outside the
+     timed window), beside the least time the card could take. Attention
+     at the shape its training phase gives it (the table and dense forms
+     at the T5 shapes above); onebit, int8 and fp8 on one
+     4,096,000-byte bucket.
   4. training through the port's ``DistributedTrainer``, random weights
      from seed 0, AdamW(1e-4, weight_decay 1e-4), 3 steps on one fixed
      synthetic batch of 8, at full width (bf16 compute over fp32 params,
@@ -58,16 +71,24 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          dense gradient bytes. Then one step's real gradient buckets,
          encoded through the kernels and through their plain versions,
          must agree bit for bit: payload, scale and new residual.
-     Losses must be finite and falling. BERT and dense GPT-2 repeat step 1
-     with ``attn_impl="naive"`` (plain attention on the card) as the
-     reference for the loss; both print step time, rates, peak memory and
+       - T5-small seq2seq (``t5_small()``: 6 + 6 layers x 512 x 8 heads of
+         64, vocab 32000, relative position tables, 32 buckets), source
+         1024, target 513 (the decoder sees 512): 72 table-form forward
+         launches (3 x 2 x (6 encoder + 6 decoder self-attention)), 36
+         no-bias forward (cross-attention), 36 table-form dq and dk/dv, 18
+         no-bias dq and dk/dv (cross-attention over two 512 blocks of
+         source takes the split backward), 0 fused, 0 dense-bias.
+     Losses must be finite and falling. BERT, dense GPT-2 and T5 repeat
+     step 1 with ``attn_impl="naive"`` (plain attention on the card) as
+     the reference for the loss; both print step time, rates, peak memory and
      one profiled step's device busy/idle split. The compressed run then
      holds one step's compressed reduction of real gradients through the
      kernels against the same reduction through their plain versions,
      bit for bit: packed words, scales, decompressed values, error
      feedback, momentum and the reduced gradient.
-  5. one JSON line ``{"kernels": [...]}``, the card's name and power limit,
-     and as the last line ``{"ok": true, "device": {...}}``.
+  5. one JSON line ``{"kernels": [...]}`` (each flash kernel with its
+     bias and table forms under ``forms``), the card's name and power
+     limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 It exits with code 2, printing no result, when no CUDA device is present
 or when the ``byteps_tpu_torch`` package is not beside it.
@@ -97,6 +118,10 @@ PEAK_BYTES_PER_S = 3.35e12
 KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
            "onebit_pack", "onebit_unpack", "int8_quantize", "int8_dequantize",
            "fp8_sr_quantize")
+# the kernels with bias forms (csrc/flash_bias.cuh), counted per form
+FLASH_FORMS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+FORMS = ("bias", "rel")
+COUNT_KEYS = KERNELS + tuple(f"{k}:{f}" for k in FLASH_FORMS for f in FORMS)
 BITWISE = ("onebit_pack", "onebit_unpack", "int8_quantize", "int8_dequantize",
            "fp8_sr_quantize")
 # the Pallas kernels the Hopper kernels replace
@@ -133,6 +158,10 @@ LSE_TOL = 1e-3
 SPIN_CYCLES = 2_000_000     # about 1 ms of device time at H100 clocks
 TRAIN_BATCH, STEPS = 8, 3
 BERT_SEQ, GPT2_SEQ, HEADS, HEAD_DIM = 512, 1024, 16, 64
+# T5-small: the decoder length of examples/long_context_bench.py --t5
+# (dec_len 512, fed dec_len + 1 targets) over a source of two 512 blocks;
+# 8 heads of 64, the rel table of 32 buckets up to distance 128
+T5_SRC, T5_TGT, T5_HEADS, T5_BUCKETS = 1024, 513, 8, 32
 # the trainer's defaults (BPS_PARTITION_BYTES, BPS_MIN_COMPRESS_BYTES)
 PARTITION_BYTES, MIN_COMPRESS_BYTES = 4_096_000, 65536
 BUCKET_FLOATS = PARTITION_BYTES // 4    # one full gradient bucket
@@ -168,6 +197,23 @@ def counters():
             "int8_quantize": ob.int8_quantize,
             "int8_dequantize": ob.int8_dequantize,
             "fp8_sr_quantize": ob.fp8_sr_quantize}
+
+
+def zero_counts(ctr):
+    for fn in ctr.values():
+        fn.launches = 0
+        if hasattr(fn, "launches_rel"):
+            fn.launches_bias = fn.launches_rel = 0
+
+
+def read_counts(ctr):
+    """{kernel: launches of every form} and, for the flash kernels with
+    bias forms, {"kernel:bias": .., "kernel:rel": ..}."""
+    counts = {name: fn.launches for name, fn in ctr.items()}
+    for name in FLASH_FORMS:
+        counts[f"{name}:bias"] = ctr[name].launches_bias
+        counts[f"{name}:rel"] = ctr[name].launches_rel
+    return counts
 
 
 # ------------------------------------------------------------- phase 1
@@ -236,10 +282,12 @@ def _check(name, tag, got, ref, auto=None):
     return e
 
 
-def _check_fwd(fa, q, k, v, causal, tag):
-    out, lse = fa.flash_fwd(q, k, v, causal)
+def _check_fwd(fa, q, k, v, causal, tag, **kw):
+    """The forward (``kw``: scale and a bias form) against its plain
+    version; returns (out, lse, max abs err of out)."""
+    out, lse = fa.flash_fwd(q, k, v, causal, **kw)
     torch.cuda.synchronize()
-    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal)
+    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal, **kw)
     e_lse = (lse - ref_lse).abs().max().item()
     log(f"[check {tag}] lse err {e_lse:.3e}")
     if not e_lse <= LSE_TOL:
@@ -306,6 +354,113 @@ def check_gpt2_kernels(worst):
                 raise AssertionError(f"split route d{name} disagrees at {tag}")
         del auto, qa, ka, va
         torch.cuda.empty_cache()
+
+
+def _t5_inputs(b, s, seed):
+    """q, k, v, dO at a T5 shape. q and k are drawn at std d^-1/4, so the
+    scores at T5's scale 1.0 have unit variance, as at the other shapes'
+    d^-1/2; the table is standard normal, [h, nb] fp32."""
+    q, k, v, do = _inputs(b, s, T5_HEADS, HEAD_DIM, seed)
+    q, k = (t * HEAD_DIM ** -0.25 for t in (q, k))
+    table = torch.randn(T5_HEADS, T5_BUCKETS,
+                        generator=torch.Generator().manual_seed(seed + 1))
+    return q, k, v, do, table.cuda()
+
+
+def _same(tag, pairs):
+    same = {name: torch.equal(a, b) for name, a, b in pairs}
+    log(f"[check {tag}] " + ", ".join(
+        f"{k} {'bit-identical' if v else 'DIFFERS'}" for k, v in same.items()))
+    if not all(same.values()):
+        raise AssertionError(f"{tag}: not bit-identical")
+
+
+def check_form(fa, worst, form, tag, q, k, v, do, causal, kw):
+    """Forward, dq (with dbias or dtable) and dk/dv of one bias form
+    against their plain versions; returns the kernels' outputs."""
+    out, lse, e = _check_fwd(fa, q, k, v, causal, tag, scale=1.0, **kw)
+    worst["flash_fwd", form] = max(worst["flash_fwd", form], e)
+    delta = fa.bwd_delta(do, out)
+    dq, dgrad = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, 1.0, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, 1.0, **kw)
+    torch.cuda.synchronize()
+    ref_dq, ref_grad = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta,
+                                             causal, 1.0, **kw)
+    gname = "dtable" if form == "rel" else "dbias"
+    worst["flash_bwd_dq", form] = max(
+        worst["flash_bwd_dq", form], _check("dq", tag, dq, ref_dq),
+        _check(gname, tag, dgrad, ref_grad))
+    del ref_dq, ref_grad
+    ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+                                            1.0, **kw)
+    worst["flash_bwd_dkv", form] = max(worst["flash_bwd_dkv", form],
+                                       _check("dk", tag, dk, ref_dk),
+                                       _check("dv", tag, dv, ref_dv))
+    del ref_dk, ref_dv
+    torch.cuda.empty_cache()
+    return out, lse, dq, dgrad, dk, dv, delta
+
+
+def check_cross(fa, worst, b, sq, sk, seed):
+    """The no-bias forward, dq and dk/dv at T5's cross-attention shape (the
+    decoder's sq queries over the encoder's sk keys, not causal, scale
+    1.0): out, lse, dq, dk and dv against their plain versions."""
+    q, k, v, do = _inputs(b, sk, T5_HEADS, HEAD_DIM, seed)
+    q, do = q[:, :sq].contiguous(), do[:, :sq].contiguous()
+    q, k = (t * HEAD_DIM ** -0.25 for t in (q, k))
+    tag = f"b{b} sq{sq} sk{sk} h{T5_HEADS} d64 cross, no bias"
+    out, lse, e = _check_fwd(fa, q, k, v, False, tag, scale=1.0)
+    worst["flash_fwd"] = max(worst["flash_fwd"], e)
+    delta = fa.bwd_delta(do, out)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, False, 1.0)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, False, 1.0)
+    torch.cuda.synchronize()
+    worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], _check(
+        "split dq", tag, dq,
+        fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, False, 1.0)))
+    ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, False,
+                                            1.0)
+    worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"],
+                                 _check("split dk", tag, dk, ref_dk),
+                                 _check("split dv", tag, dv, ref_dv))
+    del q, k, v, do, out, lse, delta, dq, dk, dv, ref_dk, ref_dv
+    torch.cuda.empty_cache()
+
+
+def check_t5_kernels(worst):
+    """The rel-table form at the encoder's and the decoder's self-attention
+    shapes, the dense form at the encoder's with the materialized bias of
+    the same table; the two forms bit for bit; dtable the same bits on a
+    second launch; the no-bias kernels at the cross-attention shape."""
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import relpos
+    b = TRAIN_BATCH
+    q, k, v, do, table = _t5_inputs(b, T5_SRC, seed=60)
+    tag = f"b{b} s{T5_SRC} h{T5_HEADS} d64 rel bidirectional"
+    rel = {"rel_table": table, "rel_bidirectional": True}
+    got_t = check_form(fa, worst, "rel", tag, q, k, v, do, False, rel)
+    again = fa.flash_bwd_dq(q, k, v, do, got_t[1], got_t[6], False, 1.0,
+                            **rel)
+    torch.cuda.synchronize()
+    _same(f"{tag} second dq launch", [("dq", got_t[2], again[0]),
+                                      ("dtable", got_t[3], again[1])])
+    dense = {"bias": relpos.relative_bias(table.T, T5_SRC, T5_SRC, True,
+                                          T5_BUCKETS)}
+    tag_d = f"b{b} s{T5_SRC} h{T5_HEADS} d64 dense bias"
+    got_d = check_form(fa, worst, "bias", tag_d, q, k, v, do, False, dense)
+    _same("dense vs table forms, same bias values", [
+        (n, a, c) for n, a, c in zip(("out", "lse", "dq"), got_t, got_d)] + [
+        ("dk", got_t[4], got_d[4]), ("dv", got_t[5], got_d[5])])
+    del got_t, got_d, again, dense
+    torch.cuda.empty_cache()
+    s = T5_TGT - 1
+    q, k, v, do, table = _t5_inputs(b, s, seed=61)
+    check_form(fa, worst, "rel", f"b{b} s{s} h{T5_HEADS} d64 rel causal",
+               q, k, v, do, True,
+               {"rel_table": table, "rel_bidirectional": False})
+    del q, k, v, do, table
+    torch.cuda.empty_cache()
+    check_cross(fa, worst, b, s, T5_SRC, seed=62)
 
 
 def _adversarial():
@@ -452,19 +607,54 @@ def onebit_bounds(n):
 def _log_time(name, shape, r):
     lib = ("none" if r["library_ms"] is None
            else f"{r['library_ms']:.4f} ms")
+    design = ("" if "design_bytes" not in r else
+              f"; the design moves {r['design_bytes'] / 1e6:.2f} MB")
     log(f"[time {name} {shape}] kernel {r['ms']:.4f} ms, plain "
         f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} "
         f"ms ({r['bound_by']}: {r['flops'] / 1e9:.3f} GFLOP, "
-        f"{r['bytes'] / 1e6:.2f} MB); kernel at "
+        f"{r['bytes'] / 1e6:.2f} MB{design}); kernel at "
         f"{r['bound_ms'] / r['ms']:.1%} of the bound")
 
 
-def time_attention(b, s, causal, names):
-    """Kernels, plain versions and the library's attention at one shape.
-    The library's backward (autograd.grad on a retained graph) computes
-    dq, dk and dv together: it is the yardstick of the fused backward and
-    of the dq + dk/dv pair."""
+def library_attention_ms(q, k, v, do, causal, flush, mask=None, scale=None):
+    """Yardstick only: the library's fused attention on the same inputs
+    ([b, h, s, d] views), forward and backward (autograd.grad on a retained
+    graph: dq, dk and dv together, the yardstick of the fused backward and
+    of the dq + dk/dv pair). A float ``mask`` replaces ``is_causal``."""
     import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    kw = ({"is_causal": causal} if mask is None else {"attn_mask": mask})
+    if scale is not None:
+        kw["scale"] = scale
+    fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw),
+                  flush=flush)
+    o = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    dot = do.transpose(1, 2)
+    bwd = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                              retain_graph=True), flush=flush)
+    return fwd, bwd
+
+
+def time_kernels(calls, bounds, lib, label, shape, flush):
+    """Each of ``calls`` ({name: (kernel, plain)}) timed beside its bound
+    and the library's forward or backward time ``lib``."""
+    res = {}
+    for name, (kernel, plain) in calls.items():
+        r = {"ms": time_ms(kernel, flush=flush),
+             "plain_ms": time_ms(plain, n=10, flush=flush),
+             "library_ms": lib[0] if name == "flash_fwd" else lib[1]}
+        r.update(shape)
+        r.update(bounds[name])
+        b, s, h, d = shape["timed_shape"]
+        _log_time(f"{name}{label}", f"b{b} s{s} h{h} d{d} "
+                  f"{'causal' if shape['causal'] else 'full'}", r)
+        res[name] = r
+    return res
+
+
+def time_attention(b, s, causal, names):
+    """Kernels, plain versions and the library's attention at one shape."""
     from byteps_tpu_torch.ops import flash_attention as fa
     h, d = HEADS, HEAD_DIM
     q, k, v, do = _inputs(b, s, h, d, seed=99)
@@ -484,30 +674,86 @@ def time_attention(b, s, causal, names):
             lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal),
             lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal)),
     }
-    # yardstick only: the library's fused attention on the same inputs,
-    # [b, h, s, d] views
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
-    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal), flush=flush)
-    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-    dot = do.transpose(1, 2)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
-                                                  retain_graph=True),
-                      flush=flush)
-    bd = attention_bounds(b, s, h, d, causal)
-    res = {}
-    for name in names:
-        kernel, plain = calls[name]
-        r = {"ms": time_ms(kernel, flush=flush),
-             "plain_ms": time_ms(plain, n=10, flush=flush),
-             "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
-             "timed_shape": [b, s, h, d], "causal": causal}
-        r.update(bd[name])
-        _log_time(name, f"b{b} s{s} h{h} d{d} "
-                  f"{'causal' if causal else 'full'}", r)
-        res[name] = r
-    del o, flush
+    lib = library_attention_ms(q, k, v, do, causal, flush)
+    res = time_kernels({n: calls[n] for n in names},
+                       attention_bounds(b, s, h, d, causal), lib, "",
+                       {"timed_shape": [b, s, h, d], "causal": causal},
+                       flush)
+    del flush
+    torch.cuda.empty_cache()
+    return res
+
+
+def form_bounds(b, s, h, d, causal, form):
+    """``attention_bounds`` plus what the function of a bias form must
+    move: the dense bias reads h·sq·sk fp32 in each kernel and its dq
+    writes dbias, h·sq·sk fp32; the table form reads the [h, nb] table and
+    its dq writes dtable, [h, nb] fp32. The dense dq's design moves more
+    than its function: it writes dS per batch, b·h·sq·sk fp32, and
+    ``torch.sum`` reads that back to write dbias (``design_bytes``). So
+    does the table form's: it reads the sq + sk - 1 bucket vector and
+    writes [b, h, sq / 64, nb] partials, summed the same way."""
+    base = attention_bounds(b, s, h, d, causal)
+    if form == "bias":
+        extra = dict.fromkeys(FLASH_FORMS, 4 * h * s * s)
+        extra["flash_bwd_dq"] += 4 * h * s * s
+        design = 4 * h * s * s + 2 * 4 * b * h * s * s + 4 * h * s * s
+    else:
+        extra = dict.fromkeys(FLASH_FORMS, 4 * h * T5_BUCKETS)
+        extra["flash_bwd_dq"] += 4 * h * T5_BUCKETS
+        partials = 4 * b * h * (s // 64) * T5_BUCKETS
+        design = 2 * 4 * h * T5_BUCKETS + 4 * (2 * s - 1) + 2 * partials
+    res = {n: _bound(base[n]["flops"], base[n]["bytes"] + extra[n])
+           for n in FLASH_FORMS}
+    dq = res["flash_bwd_dq"]
+    dq["design_bytes"] = base["flash_bwd_dq"]["bytes"] + design
+    return res
+
+
+def time_forms(b, s, causal, form):
+    """The forward, dq and dk/dv kernels in one bias form at a T5 shape,
+    their plain versions, and the library's attention with the
+    materialized bias as its float ``attn_mask`` (built before the timed
+    window; forward, and the backward for dq, dk and dv together)."""
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import relpos
+    h, d = T5_HEADS, HEAD_DIM
+    q, k, v, do, table = _t5_inputs(b, s, seed=98)
+    if form == "rel":
+        kw = {"rel_table": table, "rel_bidirectional": not causal}
+    else:
+        kw = {"bias": relpos.relative_bias(table.T, s, s, True, T5_BUCKETS)}
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    out, lse = fa.flash_fwd(q, k, v, causal, 1.0, **kw)
+    delta = fa.bwd_delta(do, out)
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal, 1.0, **kw),
+                      lambda: fa.flash_fwd_plain(q, k, v, causal, 1.0, **kw)),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, 1.0,
+                                    **kw),
+            lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal,
+                                          1.0, **kw)),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, 1.0,
+                                     **kw),
+            lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+                                           1.0, **kw)),
+    }
+    # yardstick only: the library's attention, [b, h, s, d] views, the
+    # bias as a float mask (causal folded in as -inf above the diagonal)
+    mask = relpos.relative_bias(table.T, s, s, not causal, T5_BUCKETS)
+    if causal:
+        mask = mask.masked_fill(~torch.ones(s, s, dtype=torch.bool,
+                                            device="cuda").tril(),
+                                float("-inf"))
+    lib = library_attention_ms(q, k, v, do, causal, flush,
+                               mask=mask[None].to(torch.bfloat16), scale=1.0)
+    res = time_kernels(calls, form_bounds(b, s, h, d, causal, form), lib,
+                       f" {form}",
+                       {"timed_shape": [b, s, h, d], "causal": causal},
+                       flush)
+    del flush, mask
     torch.cuda.empty_cache()
     return res
 
@@ -666,13 +912,15 @@ def profile_step(trainer, data, tag):
 
 
 def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
-             compression=None, naive_cfg=None, more_steps=STEPS):
+             compression=None, naive_cfg=None, more_steps=STEPS,
+             model_cls=None, tokens_per_sample=None):
     """Train ``STEPS`` steps through ``DistributedTrainer`` with every
     launch counter zeroed just before and read just after; check finite
     falling losses and the counts ``want(trainer)``. Then ``more_steps``
     more for steadier times, one profiled step, and (``naive_cfg``) step 1
     of a fresh trainer with plain attention as the loss's reference.
-    Returns (launches, trainer, losses, metrics): ``metrics`` is the
+    ``model_cls`` builds the model from ``cfg`` (default the transformer
+    core). Returns (launches, trainer, losses, metrics): ``metrics`` is the
     port's metrics registry over the counted steps (the parameter-server
     path's byte counters and stage times)."""
     from byteps_tpu_torch.models.flops import mfu
@@ -682,7 +930,8 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
     from byteps_tpu_torch.training import DistributedTrainer
 
     def make_trainer(c):
-        model = Transformer(c, generator=torch.Generator().manual_seed(0))
+        model = (model_cls or Transformer)(
+            c, generator=torch.Generator().manual_seed(0))
         return DistributedTrainer(loss_fn, model,
                                   adamw(model.parameters(), 1e-4),
                                   partition_bytes=PARTITION_BYTES,
@@ -698,8 +947,7 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ctr = counters()
-    for fn in ctr.values():
-        fn.launches = 0
+    zero_counts(ctr)
     get_registry().reset()
     losses, times = [], []
     for _ in range(STEPS):
@@ -708,14 +956,16 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
         losses.append(loss.item())
-    launches = {name: fn.launches for name, fn in ctr.items()}
+    launches = read_counts(ctr)
     metrics = get_registry().snapshot()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     def rates(step_s):
         sps = TRAIN_BATCH / step_s
         util = mfu(sps, flops_per_sample)
-        return (f"{step_s * 1e3:.1f} ms = {sps:.2f} samples/s, "
+        toks = ("" if tokens_per_sample is None
+                else f"{sps * tokens_per_sample:.0f} tokens/s, ")
+        return (f"{step_s * 1e3:.1f} ms = {sps:.2f} samples/s, {toks}"
                 f"{sps * flops_per_sample / 1e12:.1f} model TFLOP/s, mfu "
                 + ("not known for this card" if util is None
                    else f"{util:.4f}"))
@@ -761,7 +1011,7 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
 
 def _attention_launches(cfg, backward):
     def want(trainer):
-        w = dict.fromkeys(KERNELS, 0)
+        w = dict.fromkeys(COUNT_KEYS, 0)
         w["flash_fwd"] = STEPS * cfg.layers * 2   # remat: forward twice
         for name in backward:
             w[name] = STEPS * cfg.layers
@@ -1000,6 +1250,74 @@ def train_gpt2_onebit():
     return launches
 
 
+def t5_train_flops_per_sample(cfg, src, tgt):
+    """Model FLOPs of one T5 training sample (3 x forward), the convention
+    of ``models/flops.py``, which has no T5 formula: per encoder layer the
+    transformer layer at s = src (8·s·h² + 4·s·h·m + 4·s²·h); per decoder
+    layer the same at s = tgt plus cross-attention (q and out projections
+    4·tgt·h², the kv projection 4·src·h², scores and AV 4·tgt·src·h); the
+    tied head 2·tgt·h·vocab."""
+    h, m = cfg.hidden, cfg.mlp_dim
+
+    def layer(s):
+        return 8 * s * h * h + 4 * s * h * m + 4 * s * s * h
+    cross = 4 * tgt * h * h + 4 * src * h * h + 4 * tgt * src * h
+    fwd = (cfg.enc_layers * layer(src) + cfg.dec_layers * (layer(tgt) + cross)
+           + 2 * tgt * h * cfg.vocab_size)
+    return 3.0 * fwd
+
+
+def train_t5():
+    """T5-small seq2seq: self-attention through the rel-table forms
+    (bidirectional encoder, causal decoder), cross-attention (512 queries
+    over 1024 keys, two blocks: the split backward) with no bias."""
+    from byteps_tpu_torch.models import t5
+    cfg = t5.t5_small()
+    dec = T5_TGT - 1
+    data = t5.synth_seq2seq_batch(np.random.RandomState(0), TRAIN_BATCH,
+                                  T5_SRC, T5_TGT, cfg.vocab_size)
+    fps = t5_train_flops_per_sample(cfg, T5_SRC, dec)
+    log(f"[t5_small] model FLOPs {fps / 1e9:.2f} G a sample "
+        f"({fps / 3e9:.2f} G forward), {TRAIN_BATCH * fps / 1e12:.3f} T a step")
+    n_self = cfg.enc_layers + cfg.dec_layers
+
+    def want(trainer):
+        w = dict.fromkeys(COUNT_KEYS, 0)
+        w["flash_fwd:rel"] = STEPS * 2 * n_self          # remat: twice
+        w["flash_fwd"] = w["flash_fwd:rel"] + STEPS * 2 * cfg.dec_layers
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            w[f"{name}:rel"] = STEPS * n_self
+            w[name] = w[f"{name}:rel"] + STEPS * cfg.dec_layers
+        return w
+
+    launches, trainer, _, _ = run_path(
+        "t5_small", cfg, t5.seq2seq_loss, data, fps, want,
+        naive_cfg=t5.t5_small(attn_impl="naive"), model_cls=t5.T5,
+        tokens_per_sample=T5_SRC + dec)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def form_entry(name, form, paths, worst, timing):
+    """The ``forms`` entry of a flash kernel: its launches in each path,
+    its worst error against the plain version at the T5 shapes, its time
+    beside its bound, plain and library times (the table form at the
+    encoder's shape, and at the decoder's under ``decoder``)."""
+    key = f"{name}:{form}"
+    t = timing[form, "encoder"][name]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "timed_shape", "causal") + (("design_bytes",)
+                                        if "design_bytes" in t else ())
+    entry = {"launches": sum(p[key] for p in paths.values()),
+             "launches_by_path": {k: p[key] for k, p in paths.items()},
+             "max_abs_err": worst[name, form], **{k: t[k] for k in keys}}
+    if form == "rel":
+        d = timing["rel", "decoder"][name]
+        entry["decoder"] = {k: d[k] for k in keys}
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the "
@@ -1016,8 +1334,10 @@ def main() -> int:
 
     toolchain()
     worst = dict.fromkeys(KERNELS, 0.0)
+    worst.update({(k, f): 0.0 for k in FLASH_FORMS for f in FORMS})
     check_bert_kernels(worst)
     check_gpt2_kernels(worst)
+    check_t5_kernels(worst)
     check_onebit(_adversarial(), "adversarial vector")
     check_quant()
     timing = time_attention(TRAIN_BATCH, BERT_SEQ, False,
@@ -1029,10 +1349,15 @@ def main() -> int:
     timing["flash_bwd_dkv"] = gpt2_timing.pop("flash_bwd_dkv")
     timing.update(time_onebit())
     timing.update(time_quant())
+    form_timing = {
+        ("rel", "encoder"): time_forms(TRAIN_BATCH, T5_SRC, False, "rel"),
+        ("rel", "decoder"): time_forms(TRAIN_BATCH, T5_TGT - 1, True, "rel"),
+        ("bias", "encoder"): time_forms(TRAIN_BATCH, T5_SRC, False, "bias")}
     bert_launches, bert_losses = train_bert()
     paths = {"bert_large": bert_launches,
              "gpt2_medium_dense": train_gpt2_dense(),
-             "gpt2_medium_onebit": train_gpt2_onebit()}
+             "gpt2_medium_onebit": train_gpt2_onebit(),
+             "t5_small": train_t5()}
     step2_misses = []
     for codec in ("int8", "fp8_e4m3"):
         paths[f"bert_large_ps_{codec}"] = train_bert_ps(codec, bert_losses,
@@ -1063,6 +1388,9 @@ def main() -> int:
             entry["gpt2"] = {k: g[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "timed_shape", "causal")}
+        if name in FLASH_FORMS:        # the bias forms, at the T5 shapes
+            entry["forms"] = {f: form_entry(name, f, paths, worst,
+                                            form_timing) for f in FORMS}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)

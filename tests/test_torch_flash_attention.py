@@ -151,30 +151,40 @@ def test_kernel_input_check_accepts_the_flagship_geometry():
 
 @pytest.mark.parametrize("case,exc,match", [
     ("fp32", TypeError, "bfloat16"),
-    ("bias", NotImplementedError, "_dq_kernel"),
-    ("rel_table", NotImplementedError, "rel"),
-    ("multi_block", NotImplementedError, "bias"),
+    ("bias_and_table", ValueError, "mutually exclusive"),
+    ("table_129_buckets", ValueError, "at most 128"),
+    ("bias_shape", ValueError, r"\[h, sq, sk\]"),
+    ("table_bf16", TypeError, "float32"),
+    ("table_heads", ValueError, "q's heads"),
     ("head_dim", NotImplementedError, "head_dim"),
     ("ragged", ValueError, "multiples"),
     ("causal_cross", ValueError, "causal"),
 ])
 def test_kernel_input_check_refuses_what_the_kernels_do_not_take(case, exc,
                                                                   match):
-    """The CUDA branch of both wrappers calls ``check_kernel_inputs``
+    """The CUDA branch of every wrapper calls ``check_kernel_inputs``
     before it launches; what it refuses raises instead of falling back to
-    the plain version. Meta tensors stand in for the card's."""
+    the plain version. The bias and table forms are taken under the JAX
+    package's rules (``_fwd_rule``): one of the two, at most 128 buckets,
+    a bias [h, sq, sk], an fp32 table [h, nb]. Meta tensors stand in for
+    the card's."""
     q = _meta(2, 512, 4, 64)
     k = v = q
     kw = {}
     if case == "fp32":
         q = k = v = _meta(2, 512, 4, 64, dtype=torch.float32)
-    elif case == "bias":
+    elif case == "bias_and_table":
         kw["bias"] = _meta(4, 512, 512, dtype=torch.float32)
-    elif case == "rel_table":
         kw["rel_table"] = _meta(4, 32, dtype=torch.float32)
-    elif case == "multi_block":     # the split backward's bias form
-        q = k = v = _meta(2, 1024, 4, 64)
-        kw["bias"] = _meta(4, 1024, 1024, dtype=torch.float32)
+    elif case == "table_129_buckets":
+        kw["rel_table"] = _meta(4, 129, dtype=torch.float32)
+    elif case == "bias_shape":        # [sq, sk, h] instead of [h, sq, sk]
+        k = v = _meta(2, 256, 4, 64)
+        kw["bias"] = _meta(512, 256, 4, dtype=torch.float32)
+    elif case == "table_bf16":
+        kw["rel_table"] = _meta(4, 32)
+    elif case == "table_heads":       # the [nb, h] parameter, untransposed
+        kw["rel_table"] = _meta(32, 4, dtype=torch.float32)
     elif case == "head_dim":
         q = k = v = _meta(2, 512, 4, 128)
     elif case == "ragged":
@@ -186,10 +196,29 @@ def test_kernel_input_check_refuses_what_the_kernels_do_not_take(case, exc,
         tfa.check_kernel_inputs(q, k, v, **kw)
 
 
-def test_flash_attention_refuses_bias_on_every_device():
+def test_kernel_input_check_accepts_both_forms_at_the_t5_shapes():
+    """The encoder's table (bidirectional, 32 buckets), the decoder's, a
+    dense bias at sq != sk, and the kernels' largest table."""
+    enc, dec = _meta(8, 1024, 8, 64), _meta(8, 512, 8, 64)
+    table = _meta(8, 32, dtype=torch.float32)
+    tfa.check_kernel_inputs(enc, enc, enc, rel_table=table)
+    tfa.check_kernel_inputs(dec, dec, dec, causal=True, rel_table=table)
+    tfa.check_kernel_inputs(dec, enc, enc,
+                            bias=_meta(8, 512, 1024, dtype=torch.float32))
+    tfa.check_kernel_inputs(enc, enc, enc,
+                            rel_table=_meta(8, 128, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("bad", ["shape", "both"])
+def test_flash_attention_refuses_bias_on_every_device(bad):
+    """A bias of the wrong shape, or a bias beside a table, raises on the
+    CPU (the plain versions' path) as the kernels' check does on the
+    card."""
     q = torch.zeros(1, 64, 2, 64)
-    with pytest.raises(NotImplementedError, match="bias"):
-        tfa.flash_attention(q, q, q, bias=torch.zeros(2, 64, 64))
+    kw = ({"bias": torch.zeros(64, 64, 2)} if bad == "shape" else
+          {"bias": torch.zeros(2, 64, 64), "rel_table": torch.zeros(2, 32)})
+    with pytest.raises(ValueError, match="bias"):
+        tfa.flash_attention(q, q, q, **kw)
 
 
 def test_wrapper_refuses_devices_without_a_path():

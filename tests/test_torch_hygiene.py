@@ -68,7 +68,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, byteps_tpu_torch, byteps_tpu_torch.training, "
             "byteps_tpu_torch.models.bert, byteps_tpu_torch.convert, "
             "byteps_tpu_torch.ops._build, byteps_tpu_torch.models.flops, "
-            "byteps_tpu_torch.models.gpt2, byteps_tpu_torch.ops.compression, "
+            "byteps_tpu_torch.models.gpt2, byteps_tpu_torch.models.t5, "
+            "byteps_tpu_torch.ops.relpos, byteps_tpu_torch.ops.compression, "
             "byteps_tpu_torch.ops.compression.kernels, "
             "byteps_tpu_torch.ops._build_host, "
             "byteps_tpu_torch.server.ps_mode, byteps_tpu_torch.server.homog, "

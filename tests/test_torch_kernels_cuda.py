@@ -1,5 +1,6 @@
 """The port's Hopper kernels (flash attention forward, fused and split
-backward, onebit pack and unpack, int8 quantize and dequantize, fp8
+backward, the forward and split backward with an additive bias or T5's
+rel table, onebit pack and unpack, int8 quantize and dequantize, fp8
 stochastic rounding) against their plain PyTorch versions, on the card.
 
 A CUDA kernel has no CPU mode, so every test here needs a GPU: it is
@@ -12,8 +13,11 @@ JAX, so it also runs where only PyTorch is installed:
 Inputs are seeded normal bf16. Both sides round at the same points (P and
 dS to bf16, outputs to bf16); they differ in fp32 summation order, which
 can move a rounded value by one bf16 step (2⁻⁸ relative). Tolerance:
-max |kernel - plain| <= 1e-2 · max |plain| for out, dq, dk, dv, and 1e-3
-absolute for the fp32 lse. The onebit and quantize kernels move bits: they
+max |kernel - plain| <= 1e-2 · max |plain| for out, dq, dk, dv, dbias and
+dtable (fp32 sums of the same dS in another order), and 1e-3 absolute for
+the fp32 lse. The dense and table forms given the same bias values run the
+same arithmetic and must agree bit for bit, and dtable must be the same
+bits on every launch. The onebit and quantize kernels move bits: they
 must agree with their plain versions bit for bit.
 """
 
@@ -307,3 +311,190 @@ def test_quant_cuda_inputs_the_kernels_do_not_take_raise(cuda):
     with pytest.raises(TypeError, match="float32"):
         ob.fp8_sr_quantize(torch.zeros(2, 4, device=cuda), 1.0, 0, 0)
     assert ob.int8_quantize.launches == n0
+
+
+# ------------------------------------- bias and rel-table forms (rows 1, 3, 4)
+
+FORM_CASES = [  # (b, sq, sk, h, causal, form, nb, max_distance)
+    (2, 128, 128, 4, False, "rel", 32, 128),
+    (2, 256, 256, 4, True, "rel", 32, 128),
+    (2, 128, 256, 4, False, "rel", 32, 128),     # sq != sk
+    (1, 512, 512, 8, False, "rel", 128, 512),
+    (2, 1024, 1024, 2, True, "rel", 32, 128),
+    (2, 1024, 1024, 2, False, "rel", 128, 128),
+    (2, 128, 256, 4, False, "bias", 0, 0),       # sq != sk
+    (2, 512, 192, 2, False, "bias", 0, 0),
+    (2, 256, 256, 4, True, "bias", 0, 0),
+    (1, 1024, 1024, 2, False, "bias", 0, 0),
+]
+
+
+def _form_kw(dev, form, h, sq, sk, causal, nb, maxd, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if form == "bias":
+        return {"bias": torch.randn(h, sq, sk, generator=g).to(dev)}
+    return {"rel_table": torch.randn(h, nb, generator=g).to(dev),
+            "rel_bidirectional": not causal, "rel_max_distance": maxd}
+
+
+@pytest.mark.parametrize(
+    "b,sq,sk,h,causal,form,nb,maxd", FORM_CASES,
+    ids=[f"{c[5]}-b{c[0]}-q{c[1]}-k{c[2]}-h{c[3]}-"
+         f"{'causal' if c[4] else 'full'}" + (f"-nb{c[6]}" if c[6] else "")
+         for c in FORM_CASES])
+def test_bias_forms_match_plain(cuda, b, sq, sk, h, causal, form, nb, maxd):
+    """Forward, dq (with dbias or dtable) and dk/dv of each form."""
+    q, k, v, do = _inputs(cuda, b, sq, sk, h, seed=40)
+    kw = _form_kw(cuda, form, h, sq, sk, causal, nb, maxd, seed=41)
+    attr = "launches_bias" if form == "bias" else "launches_rel"
+    fns = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    n0 = [getattr(f, attr) for f in fns]
+    out, lse = fa.flash_fwd(q, k, v, causal, **kw)
+    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal, **kw)
+    _close(out, ref_out, "out")
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    delta = fa.bwd_delta(do, ref_out)
+    dq, dgrad = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal, **kw)
+    torch.cuda.synchronize()
+    assert [getattr(f, attr) - c for f, c in zip(fns, n0)] == [1, 1, 1]
+    ref_dq, ref_dgrad = fa.flash_bwd_dq_plain(q, k, v, do, ref_lse, delta,
+                                              causal, **kw)
+    ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, do, ref_lse, delta,
+                                            causal, **kw)
+    assert dgrad.dtype == torch.float32 and dgrad.shape == ref_dgrad.shape
+    for got, ref, name in ((dq, ref_dq, "dq"), (dk, ref_dk, "dk"),
+                           (dv, ref_dv, "dv"), (dgrad, ref_dgrad, form)):
+        _close(got, ref, name)
+
+
+def test_dense_and_table_forms_agree_bit_for_bit(cuda):
+    """The same fp32 bias values, once as the table and once materialized:
+    the same addend in the same code, so the same bits."""
+    from byteps_tpu_torch.ops import relpos
+    b, s, h = 2, 256, 4
+    q, k, v, do = _inputs(cuda, b, s, s, h, seed=42)
+    table = torch.randn(h, 32, generator=torch.Generator().manual_seed(43))
+    table = table.to(cuda)
+    for causal in (False, True):
+        rel = {"rel_table": table, "rel_bidirectional": not causal}
+        dense = {"bias": relpos.relative_bias(table.T, s, s, not causal)}
+        out_t, lse_t = fa.flash_fwd(q, k, v, causal, **rel)
+        out_d, lse_d = fa.flash_fwd(q, k, v, causal, **dense)
+        assert torch.equal(out_t, out_d) and torch.equal(lse_t, lse_d)
+        delta = fa.bwd_delta(do, out_t)
+        dq_t, _ = fa.flash_bwd_dq(q, k, v, do, lse_t, delta, causal, **rel)
+        dq_d, _ = fa.flash_bwd_dq(q, k, v, do, lse_t, delta, causal, **dense)
+        assert torch.equal(dq_t, dq_d)
+        for a, c in zip(fa.flash_bwd_dkv(q, k, v, do, lse_t, delta, causal,
+                                         **rel),
+                        fa.flash_bwd_dkv(q, k, v, do, lse_t, delta, causal,
+                                         **dense)):
+            assert torch.equal(a, c)
+
+
+def test_dtable_is_the_same_bits_on_every_launch(cuda):
+    q, k, v, do = _inputs(cuda, 2, 512, 512, 4, seed=44)
+    table = torch.randn(4, 32, generator=torch.Generator().manual_seed(45))
+    kw = {"rel_table": table.to(cuda), "rel_bidirectional": True}
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = fa.bwd_delta(do, out)
+    first = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    for _ in range(3):
+        again = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        assert torch.equal(first[0], again[0])
+        assert torch.equal(first[1], again[1])
+
+
+def test_dbias_of_causally_skipped_tiles_is_zero(cuda):
+    """The dq kernel skips key tiles above the diagonal; their dbias must
+    read 0, not what the buffer held."""
+    s, h = 256, 2
+    q, k, v, do = _inputs(cuda, 2, s, s, h, seed=46)
+    bias = torch.randn(h, s, s, generator=torch.Generator().manual_seed(47))
+    torch.full((2, h, s, s), float("nan"), device=cuda)   # dirty the pool
+    out, lse = fa.flash_fwd(q, k, v, True, bias=bias.to(cuda))
+    _, dbias = fa.flash_bwd_dq(q, k, v, do, lse, fa.bwd_delta(do, out), True,
+                               bias=bias.to(cuda))
+    above = ~torch.ones(s, s, dtype=torch.bool, device=cuda).tril()
+    assert torch.isfinite(dbias).all()
+    assert (dbias[:, above] == 0).all()
+
+
+def test_table_buckets_on_the_exact_log_boundaries(cuda):
+    """Offsets |n| = 16, 32 and 64 sit exactly on bucket boundaries in
+    float32 (bidirectional, 32 buckets, max distance 128): their true
+    buckets are 10, 12 and 14 a side. The table is 0 but for +8 on the
+    buckets one below (9, 11, 13 and 25, 27, 29), and q = k = 0, so each
+    score is its bias alone: an offset put one bucket low would change the
+    lse by far more than its tolerance."""
+    from byteps_tpu_torch.ops import relpos
+    b, s, h = 1, 256, 2
+    rel = torch.tensor([-64, -32, -16, 16, 32, 64], dtype=torch.int32)
+    assert relpos.relative_position_bucket(rel, True).tolist() == \
+        [14, 12, 10, 26, 28, 30]
+    zero = torch.zeros(b, s, h, 64, device=cuda, dtype=torch.bfloat16)
+    v = _inputs(cuda, b, s, s, h, seed=48)[2]
+    table = torch.zeros(h, 32, device=cuda)
+    table[:, [9, 11, 13, 25, 27, 29]] = 8.0
+    out, lse = fa.flash_fwd(zero, zero, v, rel_table=table)
+    ref_out, ref_lse = fa.flash_fwd_plain(zero, zero, v, rel_table=table)
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    _close(out, ref_out, "out")
+
+
+def test_bias_forms_read_strided_views_in_place(cuda):
+    g = torch.Generator(device="cpu").manual_seed(49)
+    qkv = torch.randn(2, 192, 3, 4, 64, generator=g).to(cuda, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    do = torch.randn(2, 192, 4, 64, generator=g).to(cuda, torch.bfloat16)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    for kw in ({"rel_table": torch.randn(4, 32, generator=g).to(cuda)},
+               {"bias": torch.randn(4, 192, 192, generator=g).to(cuda)}):
+        out, lse = fa.flash_fwd(q, k, v, **kw)
+        out_c, lse_c = fa.flash_fwd(qc, kc, vc, **kw)
+        assert torch.equal(out, out_c) and torch.equal(lse, lse_c)
+        delta = fa.bwd_delta(do, out)
+        for a, c in zip(fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                        fa.flash_bwd_dq(qc, kc, vc, do, lse, delta, **kw)):
+            assert torch.equal(a, c)
+        for a, c in zip(fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
+                        fa.flash_bwd_dkv(qc, kc, vc, do, lse, delta, **kw)):
+            assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("form", ["rel", "bias"])
+def test_autograd_returns_the_bias_and_table_gradients(cuda, form):
+    """The autograd Function with a bias or table takes the split kernels
+    even at one block, and returns d(bias) or d(table) beside dq, dk, dv,
+    against autograd of the plain forward."""
+    b, s, h = 2, 256, 4
+    q, k, v, do = _inputs(cuda, b, s, s, h, seed=50)
+    g = torch.Generator().manual_seed(51)
+    extra = (torch.randn(h, 32, generator=g) if form == "rel"
+             else torch.randn(h, s, s, generator=g)).to(cuda)
+    name = "rel_table" if form == "rel" else "bias"
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, extra)]
+    names = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
+    n0 = [getattr(fa, n).launches for n in names]
+    fa.attention(*leaves[:3], **{name: leaves[3]}).backward(do)
+    torch.cuda.synchronize()
+    assert [getattr(fa, n).launches - c for n, c in zip(names, n0)] == \
+        [1, 0, 1, 1]
+    ref = [t.detach().clone().requires_grad_() for t in (q, k, v, extra)]
+    fa.flash_fwd_plain(*ref[:3], **{name: ref[3]})[0].backward(do)
+    for got, want, label in zip(leaves, ref, ("dq", "dk", "dv", "d" + name)):
+        _close(got.grad, want.grad, label, rel=3e-2)
+
+
+def test_cuda_bias_forms_the_kernels_do_not_take_raise(cuda):
+    q = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.bfloat16)
+    n0 = fa.flash_fwd.launches
+    with pytest.raises(ValueError, match="at most 128"):
+        fa.flash_fwd(q, q, q, rel_table=torch.zeros(2, 129, device=cuda))
+    with pytest.raises(TypeError, match="float32"):
+        fa.flash_fwd(q, q, q, rel_table=torch.zeros(
+            2, 32, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="different devices"):
+        fa.flash_fwd(q, q, q, bias=torch.zeros(2, 64, 64))
+    assert fa.flash_fwd.launches == n0
