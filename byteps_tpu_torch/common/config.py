@@ -24,6 +24,15 @@ package, resolved once into a frozen ``Config``:
                              int8 | fp8_e4m3 | fp8_e5m2 | topk; auto
                              raises)
   BPS_WATCHDOG_SEC         (the stall watchdog: not ported, > 0 raises)
+  BPS_PP_STAGES            (pipeline depth: DistributedTrainer raises
+                             above 1, as the JAX trainer does)
+
+The knobs of ``REFUSED`` select behaviour the port does not have yet:
+at their defaults they change nothing, and any other value raises
+``NotImplementedError`` in ``Config.from_env`` instead of running the
+default path. The other fields of the JAX package's ``Config`` are read
+outside this one (``BPS_LOG_LEVEL``, ``BPS_STATS``) or only tune a mode
+that is refused (``tests/test_torch_hygiene.py`` holds the list).
 
 The original ``BYTEPS_``/``DMLC_`` spellings are accepted as fallbacks so
 that launch scripts written for the reference keep working.
@@ -58,6 +67,57 @@ def _env_bool(name: str, legacy: Optional[str], default: bool = False) -> bool:
     return v.strip().lower() in _TRUE
 
 
+# field of the JAX package's Config: (env var, legacy name, default, type,
+# what a non-default value selects there)
+REFUSED = {
+    "role": ("BPS_ROLE", "DMLC_ROLE", "worker", str,
+             "a server or scheduler process (the port runs workers, its "
+             "server in-process)"),
+    "scheduling_credit": ("BPS_SCHEDULING_CREDIT",
+                          "BYTEPS_SCHEDULING_CREDIT", 0, int,
+                          "the credit-limited push scheduler"),
+    "host_only": ("BPS_HOST_ONLY", None, False, bool,
+                  "the host-only runtime"),
+    "key_hash_fn": ("BPS_KEY_HASH_FN", "BYTEPS_KEY_HASH_FN", "djb2", str,
+                    "a key placement other than djb2"),
+    "sharded_update": ("BPS_SHARDED_UPDATE", None, False, bool,
+                       "the sharded weight update"),
+    "trace_on": ("BPS_TRACE_ON", "BYTEPS_TRACE_ON", False, bool,
+                 "the step-window tracer"),
+    "telemetry_on": ("BPS_TELEMETRY_ON", "BYTEPS_TELEMETRY_ON", False, bool,
+                     "telemetry"),
+    "debug_sample_tensor": ("BPS_DEBUG_SAMPLE_TENSOR",
+                            "BYTEPS_DEBUG_SAMPLE_TENSOR", "", str,
+                            "the engine's debug tensor sampling"),
+    "stats_file": ("BPS_STATS_FILE", None, "", str,
+                   "the rolling StepStats dump"),
+    "fleet_scrape_sec": ("BPS_FLEET_SCRAPE_SEC", None, 0.0, float,
+                         "the fleet telemetry scraper"),
+    "metrics_port": ("BPS_METRICS_PORT", None, 0, int,
+                     "the HTTP metrics exporter"),
+}
+
+
+def _refused_value(env: str, legacy: Optional[str], default, kind):
+    v = _env(env, legacy)
+    if v is None or (kind is not str and v.strip() == ""):
+        return default
+    return v.strip().lower() in _TRUE if kind is bool else kind(v)
+
+
+def check_refused() -> None:
+    """Raise for a ``REFUSED`` knob set to another value than its
+    default."""
+    for env, legacy, default, kind, what in REFUSED.values():
+        value = _refused_value(env, legacy, default, kind)
+        if value != default:
+            name = env if _env(env) is not None else legacy
+            raise NotImplementedError(
+                f"{name}={_env(env, legacy)!r}: {what} is not ported yet "
+                "(see ROADMAP.md, 'Modules still to port'); the port "
+                "refuses the knob rather than run its default path")
+
+
 @dataclasses.dataclass(frozen=True)
 class Config:
     """Frozen snapshot of the runtime knobs, resolved at ``init()``."""
@@ -76,9 +136,11 @@ class Config:
     server_enable_schedule: bool = False  # BYTEPS_SERVER_ENABLE_SCHEDULE
     compress: str = "none"               # BPS_COMPRESS
     watchdog_sec: float = 0.0            # BPS_WATCHDOG_SEC (0 = off)
+    pp_stages: int = 1                   # BPS_PP_STAGES (1 = no pipeline)
 
     @staticmethod
     def from_env(**overrides) -> "Config":
+        check_refused()
         cfg = dict(
             worker_id=_env_int("BPS_WORKER_ID", "DMLC_WORKER_ID", 0),
             num_worker=_env_int("BPS_NUM_WORKER", "DMLC_NUM_WORKER", 1),
@@ -96,6 +158,7 @@ class Config:
                                              "BYTEPS_SERVER_ENABLE_SCHEDULE"),
             compress=(_env("BPS_COMPRESS", None, "none") or "none").lower(),
             watchdog_sec=float(_env("BPS_WATCHDOG_SEC", None, "0") or 0),
+            pp_stages=_env_int("BPS_PP_STAGES", None, 1),
         )
         cfg.update(overrides)
         return Config(**cfg)

@@ -126,6 +126,22 @@ inline bool bias_args_ok(int form, const void* bias, const void* bucket,
   }
 }
 
+// Call f(std::integral_constant<int, form>) for a bias form, or return
+// cudaErrorInvalidValue.
+template <typename F>
+inline cudaError_t with_form(int form, F&& f) {
+  switch (form) {
+    case kBiasNone:
+      return f(std::integral_constant<int, kBiasNone>{});
+    case kBiasDense:
+      return f(std::integral_constant<int, kBiasDense>{});
+    case kBiasTable:
+      return f(std::integral_constant<int, kBiasTable>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 inline BiasArgs bias_args(const void* bias, const void* bucket,
                           const void* table, int nb) {
   return BiasArgs{static_cast<const float*>(bias),

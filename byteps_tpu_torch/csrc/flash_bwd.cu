@@ -30,9 +30,41 @@
 // Both recompute S and dP from q, k, v, dO on the tensor cores
 // (mma.sync.m16n8k16, bf16 x bf16 -> fp32); S, P and dP never reach device
 // memory. The recompute costs 9 products where the function needs 5: the
-// price of needing no atomics and no [s, s] buffer.
+// price of needing no atomics and no [s, s] buffer. At head dim 128, (b)
+// is two launches, dv then dk (the register plan in flash_bwd_dkv.cuh),
+// and the pair recomputes 10 products.
 #include "flash_bwd_dkv.cuh"
 #include "flash_bwd_dq.cuh"
+
+namespace {
+
+template <int kD>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, void* delta,
+                       void* dq, void* dk, void* dv, int b, int h, int sq,
+                       int sk, BshdStrides qs, BshdStrides ks, BshdStrides vs,
+                       BshdStrides dos, float scale, int causal,
+                       cudaStream_t st) {
+  constexpr int kSmem = sizeof(DqSmem<kD, kBiasNone>);
+  const cudaError_t attr =
+      smem_attr(flash_bwd_dq_kernel<false, kD, kBiasNone>, kSmem);
+  if (attr != cudaSuccess) return attr;
+  const long long row = static_cast<long long>(h) * kD;
+  flash_bwd_dq_kernel<false, kD, kBiasNone>
+      <<<dim3(sq / kTile, h, b), kThreads, kSmem, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+          static_cast<const float*>(lse), static_cast<float*>(delta),
+          static_cast<bf16*>(dq), h, sq, sk, qs, ks, vs, dos,
+          BshdStrides{sq * row, row}, scale, causal, BiasArgs{}, nullptr);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_dkv_all<kD, kBiasNone>(q, k, v, dout, lse, delta, dk, dv, b,
+                                       h, sq, sk, qs, ks, vs, dos, scale,
+                                       causal, BiasArgs{}, st);
+}
+
+}  // namespace
 
 // Launches (a) then (b) on `stream`, allocates nothing (`delta` is the
 // caller's [b, h, sq] fp32 scratch; dq is [b, sq, h, d] and dk/dv are
@@ -45,27 +77,14 @@ extern "C" int bps_flash_bwd(const void* q, const void* k, const void* v,
                              long long v_sb, long long v_ss, long long do_sb,
                              long long do_ss, float scale, int causal,
                              void* stream) {
-  if (d != kD || sq % kTile != 0 || sk % kTile != 0 || b <= 0 || h <= 0)
+  if (sq % kTile != 0 || sk % kTile != 0 || b <= 0 || h <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const BshdStrides qs{q_sb, q_ss}, ks{k_sb, k_ss}, vs{v_sb, v_ss},
       dos{do_sb, do_ss};
-  const long long row = static_cast<long long>(h) * kD;
-  flash_bwd_dq_kernel<false, kBiasNone>
-      <<<dim3(sq / kTile, h, b), kThreads, 0, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<float*>(delta),
-      static_cast<bf16*>(dq), h, sq, sk, qs, ks, vs, dos,
-      BshdStrides{sq * row, row}, scale, causal, BiasArgs{}, nullptr);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkv_kernel<kBiasNone>
-      <<<dim3(sk / kTile, h, b), kThreads, 0, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, sq, sk, qs, ks, vs,
-      dos, BshdStrides{sk * row, row}, scale, causal, BiasArgs{});
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(with_d(d, [&](auto D) {
+    return launch_bwd<decltype(D)::value>(q, k, v, dout, lse, delta, dq, dk,
+                                          dv, b, h, sq, sk, qs, ks, vs, dos,
+                                          scale, causal, st);
+  }));
 }

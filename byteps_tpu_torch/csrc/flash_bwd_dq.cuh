@@ -25,6 +25,15 @@
 //     butterfly and adds it to its own shared-memory row; the four rows
 //     are added in a fixed order at the end. No atomics: the same inputs
 //     give the same bits.
+//
+// Head dim kD is a template parameter (64 and 128). The Q, dO, K and V
+// tiles sit in dynamic shared memory, 4 · 64 · (kD + 8) · 2 bytes: 36,864
+// at d 64, 69,632 at d 128 (plus the table form's strip and partials).
+// Register plan: a warp's dq accumulator (kD / 2 fp32) and its S and dP
+// tiles (64 fp32) are live across the whole key walk. At d 64 the warp
+// also holds its Q and dO A fragments (kD / 4 registers each); at d 128
+// those would bring the count past 255, so they are re-read from the Q
+// and dO tiles, which stay in shared memory, at each product (AFrags).
 #pragma once
 
 #include <climits>
@@ -41,7 +50,22 @@ struct DtableSmem<kBiasTable> {
   float dt[kThreads / 32][kMaxBuckets];  // per-warp partial dtable
 };
 
-template <bool kDeltaIn, int kForm>
+template <int kD, int kForm>
+struct DqSmem {
+  bf16 q[kTileElems<kD>];
+  bf16 o[kTileElems<kD>];
+  bf16 k[kTileElems<kD>];
+  bf16 v[kTileElems<kD>];
+  BiasSmem<kForm> sb;
+  DtableSmem<kForm> sdt;
+};
+static_assert(sizeof(DqSmem<64, kBiasNone>) == 36866 &&
+                  sizeof(DqSmem<64, kBiasTable>) == 40448 &&
+                  sizeof(DqSmem<128, kBiasNone>) == 69634 &&
+                  sizeof(DqSmem<128, kBiasTable>) == 73216,
+              "dq's dynamic shared memory at d 64 and d 128");
+
+template <bool kDeltaIn, int kD, int kForm>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -50,12 +74,13 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     BshdStrides qs, BshdStrides ks, BshdStrides vs,
                     BshdStrides dos, BshdStrides dqs, float scale,
                     int causal, BiasArgs ba, float* __restrict__ grad) {
-  __shared__ __align__(16) bf16 sQ[kTile * kLD];
-  __shared__ __align__(16) bf16 sO[kTile * kLD];
-  __shared__ __align__(16) bf16 sK[kTile * kLD];
-  __shared__ __align__(16) bf16 sV[kTile * kLD];
-  __shared__ BiasSmem<kForm> sb;
-  __shared__ DtableSmem<kForm> sdt;
+  auto& sm = dyn_smem<DqSmem<kD, kForm>>();
+  bf16* sQ = sm.q;
+  bf16* sO = sm.o;
+  bf16* sK = sm.k;
+  bf16* sV = sm.v;
+  BiasSmem<kForm>& sb = sm.sb;
+  DtableSmem<kForm>& sdt = sm.sdt;
 
   const int qt = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -63,20 +88,17 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = qt * kTile;
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
 
-  load_tile(sQ, q + bb * qs.b + q0 * qs.s + hh * kD, qs.s, tid);
-  load_tile(sO, dout + bb * dos.b + q0 * dos.s + hh * kD, dos.s, tid);
+  load_tile<kD>(sQ, q + bb * qs.b + q0 * qs.s + hh * kD, qs.s, tid);
+  load_tile<kD>(sO, dout + bb * dos.b + q0 * dos.s + hh * kD, dos.s, tid);
   load_table_row<kForm>(sb, ba, hh, tid);
   if constexpr (kForm == kBiasTable) {
     for (int i = tid; i < (kThreads / 32) * kMaxBuckets; i += kThreads)
       (&sdt.dt[0][0])[i] = 0.f;
   }
   __syncthreads();
-  uint32_t qf[kD / 16][4], of[kD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    load_a(qf[kk], sQ, warp * 16, kk * 16, g, t);
-    load_a(of[kk], sO, warp * 16, kk * 16, g, t);
-  }
+  constexpr bool kHold = kD <= 64;
+  const AFrags<kD, kHold> qf(sQ, warp * 16, g, t);
+  const AFrags<kD, kHold> of(sO, warp * 16, g, t);
   const long long head_row = ((long long)bb * h + hh) * sq;
   const float lse_r[2] = {lse[head_row + row[0]], lse[head_row + row[1]]};
 
@@ -89,8 +111,10 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // replaces S in place, masked entries 0.
   auto scores = [&](int kt) {
     __syncthreads();
-    load_tile(sK, k + bb * ks.b + (long long)kt * kTile * ks.s + hh * kD, ks.s, tid);
-    load_tile(sV, v + bb * vs.b + (long long)kt * kTile * vs.s + hh * kD, vs.s, tid);
+    load_tile<kD>(sK, k + bb * ks.b + (long long)kt * kTile * ks.s + hh * kD,
+                  ks.s, tid);
+    load_tile<kD>(sV, v + bb * vs.b + (long long)kt * kTile * vs.s + hh * kD,
+                  vs.s, tid);
     load_strip<kForm>(sb, ba, q0, kt * kTile, sq, tid);
     __syncthreads();
 #pragma unroll
@@ -100,13 +124,16 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk) {
+      uint32_t qa[4], oa[4];
+      qf.get(qa, kk);
+      of.get(oa, kk);
 #pragma unroll
       for (int n = 0; n < kTile / 8; ++n) {
         uint32_t b[2];
-        load_b_nk(b, sK, n * 8, kk * 16, g, t);
-        mma16816(s[n], qf[kk], b);
-        load_b_nk(b, sV, n * 8, kk * 16, g, t);
-        mma16816(dp[n], of[kk], b);
+        load_b_nk<kD>(b, sK, n * 8, kk * 16, g, t);
+        mma16816(s[n], qa, b);
+        load_b_nk<kD>(b, sV, n * 8, kk * 16, g, t);
+        mma16816(dp[n], oa, b);
       }
     }
 #pragma unroll
@@ -209,7 +236,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int n = 0; n < kD / 8; ++n) {
         uint32_t b[2];
-        load_b_kn(b, sK, kk * 16, n * 8, g, t);
+        load_b_kn<kD>(b, sK, kk * 16, n * 8, g, t);
         mma16816(acc[n], da, b);
       }
     }

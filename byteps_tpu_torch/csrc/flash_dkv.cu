@@ -19,29 +19,10 @@
 // but a shared-memory read per score. On the TPU the query blocks are the
 // carried grid dimension; on Hopper CTAs share nothing, so each CTA owns
 // one 64-key tile and walks every query tile itself (flash_bwd_dkv.cuh),
-// keeping dk and dv in registers: deterministic, no atomics.
+// keeping dk and dv in registers: deterministic, no atomics. Head dim 64
+// (one launch) or 128 (a dv launch, then a dk launch: the register plan
+// in flash_bwd_dkv.cuh).
 #include "flash_bwd_dkv.cuh"
-
-namespace {
-
-template <int kForm>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
-                   void* dk, void* dv, int b, int h, int sq, int sk,
-                   BshdStrides qs, BshdStrides ks, BshdStrides vs,
-                   BshdStrides dos, float scale, int causal,
-                   const BiasArgs& ba, cudaStream_t stream) {
-  const long long row = static_cast<long long>(h) * kD;
-  flash_bwd_dkv_kernel<kForm><<<dim3(sk / kTile, h, b), kThreads, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, sq, sk, qs, ks, vs,
-      dos, BshdStrides{sk * row, row}, scale, causal, ba);
-  return cudaGetLastError();
-}
-
-}  // namespace
 
 // Launches on `stream`, allocates nothing (dk and dv are [b, sk, h, d]
 // contiguous; lse and delta are [b, h, sq] fp32); returns
@@ -55,22 +36,18 @@ extern "C" int bps_flash_dkv(const void* q, const void* k, const void* v,
                              long long do_ss, float scale, int causal,
                              int form, const void* bias, const void* bucket,
                              const void* table, int nb, void* stream) {
-  if (d != kD || sq % kTile != 0 || sk % kTile != 0 || b <= 0 || h <= 0 ||
+  if (sq % kTile != 0 || sk % kTile != 0 || b <= 0 || h <= 0 ||
       !bias_args_ok(form, bias, bucket, table, nb))
     return static_cast<int>(cudaErrorInvalidValue);
   const BiasArgs ba = bias_args(bias, bucket, table, nb);
   const BshdStrides qs{q_sb, q_ss}, ks{k_sb, k_ss}, vs{v_sb, v_ss},
       dos{do_sb, do_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (form == kBiasDense)
-    err = launch<kBiasDense>(q, k, v, dout, lse, delta, dk, dv, b, h, sq, sk,
-                             qs, ks, vs, dos, scale, causal, ba, st);
-  else if (form == kBiasTable)
-    err = launch<kBiasTable>(q, k, v, dout, lse, delta, dk, dv, b, h, sq, sk,
-                             qs, ks, vs, dos, scale, causal, ba, st);
-  else
-    err = launch<kBiasNone>(q, k, v, dout, lse, delta, dk, dv, b, h, sq, sk,
-                            qs, ks, vs, dos, scale, causal, ba, st);
-  return static_cast<int>(err);
+  return static_cast<int>(with_d(d, [&](auto D) {
+    return with_form(form, [&](auto F) {
+      return launch_dkv_all<decltype(D)::value, decltype(F)::value>(
+          q, k, v, dout, lse, delta, dk, dv, b, h, sq, sk, qs, ks, vs, dos,
+          scale, causal, ba, st);
+    });
+  }));
 }

@@ -27,20 +27,25 @@
 // (flash_bwd_dq.cuh): one CTA per (batch, head, 64-query tile) walks the
 // key tiles once, keeps S, P, dP and dS in registers, and accumulates dq
 // there; no atomics, no [s, s] buffer but the dense form's dbias output.
+// Head dim 64 or 128 (the register plan of each is in flash_bwd_dq.cuh).
 #include "flash_bwd_dq.cuh"
 
 namespace {
 
-template <int kForm>
+template <int kD, int kForm>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, int b, int h, int sq, int sk, BshdStrides qs,
                    BshdStrides ks, BshdStrides vs, BshdStrides dos,
                    float scale, int causal, const BiasArgs& ba, void* grad,
                    cudaStream_t stream) {
+  constexpr int kSmem = sizeof(DqSmem<kD, kForm>);
+  const cudaError_t attr =
+      smem_attr(flash_bwd_dq_kernel<true, kD, kForm>, kSmem);
+  if (attr != cudaSuccess) return attr;
   const long long row = static_cast<long long>(h) * kD;
-  flash_bwd_dq_kernel<true, kForm>
-      <<<dim3(sq / kTile, h, b), kThreads, 0, stream>>>(
+  flash_bwd_dq_kernel<true, kD, kForm>
+      <<<dim3(sq / kTile, h, b), kThreads, kSmem, stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
           static_cast<const float*>(lse),
@@ -68,7 +73,7 @@ extern "C" int bps_flash_dq(const void* q, const void* k, const void* v,
                             const void* bias, const void* bucket,
                             const void* table, int nb, void* grad,
                             void* stream) {
-  if (d != kD || sq % kTile != 0 || sk % kTile != 0 || b <= 0 || h <= 0 ||
+  if (sq % kTile != 0 || sk % kTile != 0 || b <= 0 || h <= 0 ||
       !bias_args_ok(form, bias, bucket, table, nb) ||
       (form != kBiasNone && grad == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -76,15 +81,11 @@ extern "C" int bps_flash_dq(const void* q, const void* k, const void* v,
   const BshdStrides qs{q_sb, q_ss}, ks{k_sb, k_ss}, vs{v_sb, v_ss},
       dos{do_sb, do_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (form == kBiasDense)
-    err = launch<kBiasDense>(q, k, v, dout, lse, delta, dq, b, h, sq, sk, qs,
-                             ks, vs, dos, scale, causal, ba, grad, st);
-  else if (form == kBiasTable)
-    err = launch<kBiasTable>(q, k, v, dout, lse, delta, dq, b, h, sq, sk, qs,
-                             ks, vs, dos, scale, causal, ba, grad, st);
-  else
-    err = launch<kBiasNone>(q, k, v, dout, lse, delta, dq, b, h, sq, sk, qs,
-                            ks, vs, dos, scale, causal, ba, grad, st);
-  return static_cast<int>(err);
+  return static_cast<int>(with_d(d, [&](auto D) {
+    return with_form(form, [&](auto F) {
+      return launch<decltype(D)::value, decltype(F)::value>(
+          q, k, v, dout, lse, delta, dq, b, h, sq, sk, qs, ks, vs, dos, scale,
+          causal, ba, grad, st);
+    });
+  }));
 }

@@ -13,10 +13,11 @@
 // above the diagonal; online max/sum; P is cast to bf16 before P·V; out =
 // acc / max(l, 1e-30) and lse = m + log(l).
 //
-// What bounds it on an H100: at seq 512 and d 64 the work is 4·s·d FLOP
-// per score against 2·d bytes per row read, about 256 FLOP/byte, just
-// under the card's ~295 FLOP/byte ridge, so the least time is set by
-// memory (q, k, v read once and out written once). The dense bias adds
+// What bounds it on an H100: the function reads q, k, v and writes out
+// once, 8·s·d bytes per (batch, head), and does 4·s²·d FLOP, so s / 2
+// FLOP per byte whatever d: at seq 512 (BERT-large at d 64 and its dh128
+// variant at d 128) about 256, just under the card's ~295 FLOP/byte
+// ridge, so the least time is set by memory. The dense bias adds
 // 4·h·sq·sk bytes (4 bytes per score, more than q, k and v together at
 // s 1024, d 64), and so is bounded by memory at every length; the table
 // adds h·nb·4 bytes and one shared-memory read per score. The design keeps
@@ -26,21 +27,43 @@
 // output accumulator in registers. Products run on the tensor cores
 // through mma.sync.m16n8k16 (bf16 x bf16 -> fp32). wgmma, TMA and a
 // pipelined ring of tiles are later work.
+//
+// Head dim kD is a template parameter, instantiated at 64 and 128. The
+// Q, K and V tiles sit in dynamic shared memory: 3 · 64 · (kD + 8) · 2
+// bytes, 27,648 at d 64 and 52,224 at d 128, past the 48 KB a kernel may
+// declare statically. Registers: each warp holds its 16 rows of Q as A
+// fragments (kD / 4 registers), the output accumulator (kD / 2 fp32) and
+// one 16 x 64 tile of scores (32 fp32): about 176 at d 128, under the 255
+// a thread may hold, so the design is the same at both widths.
 #include "flash_bias.cuh"
 
 namespace {
 
-template <int kForm>
+template <int kD, int kForm>
+struct FwdSmem {
+  bf16 q[kTileElems<kD>];
+  bf16 k[kTileElems<kD>];
+  bf16 v[kTileElems<kD>];
+  BiasSmem<kForm> sb;
+};
+static_assert(sizeof(FwdSmem<64, kBiasNone>) == 27650 &&
+                  sizeof(FwdSmem<64, kBiasTable>) == 29184 &&
+                  sizeof(FwdSmem<128, kBiasNone>) == 52226 &&
+                  sizeof(FwdSmem<128, kBiasTable>) == 53760,
+              "the forward's dynamic shared memory at d 64 and d 128");
+
+template <int kD, int kForm>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
                  float* __restrict__ lse, int h, int sq, int sk,
                  BshdStrides qs, BshdStrides ks, BshdStrides vs,
                  BshdStrides os, float scale, int causal, BiasArgs ba) {
-  __shared__ __align__(16) bf16 sQ[kTile * kLD];
-  __shared__ __align__(16) bf16 sK[kTile * kLD];
-  __shared__ __align__(16) bf16 sV[kTile * kLD];
-  __shared__ BiasSmem<kForm> sb;
+  auto& sm = dyn_smem<FwdSmem<kD, kForm>>();
+  bf16* sQ = sm.q;
+  bf16* sK = sm.k;
+  bf16* sV = sm.v;
+  BiasSmem<kForm>& sb = sm.sb;
 
   const int qt = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -48,12 +71,13 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = qt * kTile;
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
 
-  load_tile(sQ, q + bb * qs.b + q0 * qs.s + hh * kD, qs.s, tid);
+  load_tile<kD>(sQ, q + bb * qs.b + q0 * qs.s + hh * kD, qs.s, tid);
   load_table_row<kForm>(sb, ba, hh, tid);
   __syncthreads();
   uint32_t qf[kD / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) load_a(qf[kk], sQ, warp * 16, kk * 16, g, t);
+  for (int kk = 0; kk < kD / 16; ++kk)
+    load_a<kD>(qf[kk], sQ, warp * 16, kk * 16, g, t);
 
   float o[kD / 8][4];
 #pragma unroll
@@ -65,8 +89,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (causal) nkt = min(nkt, (q0 + kTile - 1) / kTile + 1);
   for (int kt = 0; kt < nkt; ++kt) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile(sK, k + bb * ks.b + (long long)kt * kTile * ks.s + hh * kD, ks.s, tid);
-    load_tile(sV, v + bb * vs.b + (long long)kt * kTile * vs.s + hh * kD, vs.s, tid);
+    load_tile<kD>(sK, k + bb * ks.b + (long long)kt * kTile * ks.s + hh * kD,
+                  ks.s, tid);
+    load_tile<kD>(sV, v + bb * vs.b + (long long)kt * kTile * vs.s + hh * kD,
+                  vs.s, tid);
     load_strip<kForm>(sb, ba, q0, kt * kTile, sq, tid);
     __syncthreads();
 
@@ -78,7 +104,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int n = 0; n < kTile / 8; ++n) {
         uint32_t b[2];
-        load_b_nk(b, sK, n * 8, kk * 16, g, t);
+        load_b_nk<kD>(b, sK, n * 8, kk * 16, g, t);
         mma16816(s[n], qf[kk], b);
       }
     }
@@ -135,7 +161,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int n = 0; n < kD / 8; ++n) {
         uint32_t b[2];
-        load_b_kn(b, sV, kk * 16, n * 8, g, t);
+        load_b_kn<kD>(b, sV, kk * 16, n * 8, g, t);
         mma16816(o[n], pa, b);
       }
     }
@@ -158,16 +184,21 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int kForm>
+template <int kD, int kForm>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int b, int h, int sq, int sk, BshdStrides qs,
                    BshdStrides ks, BshdStrides vs, BshdStrides os,
                    float scale, int causal, const BiasArgs& ba,
                    cudaStream_t stream) {
-  flash_fwd_kernel<kForm><<<dim3(sq / kTile, h, b), kThreads, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(lse), h, sq, sk, qs, ks, vs, os, scale, causal, ba);
+  constexpr int kSmem = sizeof(FwdSmem<kD, kForm>);
+  const cudaError_t attr = smem_attr(flash_fwd_kernel<kD, kForm>, kSmem);
+  if (attr != cudaSuccess) return attr;
+  flash_fwd_kernel<kD, kForm>
+      <<<dim3(sq / kTile, h, b), kThreads, kSmem, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<bf16*>(out),
+          static_cast<float*>(lse), h, sq, sk, qs, ks, vs, os, scale, causal,
+          ba);
   return cudaGetLastError();
 }
 
@@ -184,22 +215,18 @@ extern "C" int bps_flash_fwd(const void* q, const void* k, const void* v,
                              float scale, int causal, int form,
                              const void* bias, const void* bucket,
                              const void* table, int nb, void* stream) {
-  if (d != kD || sq % kTile != 0 || sk % kTile != 0 || b <= 0 || h <= 0 ||
+  if (sq % kTile != 0 || sk % kTile != 0 || b <= 0 || h <= 0 ||
       !bias_args_ok(form, bias, bucket, table, nb))
     return static_cast<int>(cudaErrorInvalidValue);
   const BiasArgs ba = bias_args(bias, bucket, table, nb);
   const BshdStrides qs{q_sb, q_ss}, ks{k_sb, k_ss}, vs{v_sb, v_ss},
       os{o_sb, o_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (form == kBiasDense)
-    err = launch<kBiasDense>(q, k, v, out, lse, b, h, sq, sk, qs, ks, vs, os,
-                             scale, causal, ba, st);
-  else if (form == kBiasTable)
-    err = launch<kBiasTable>(q, k, v, out, lse, b, h, sq, sk, qs, ks, vs, os,
-                             scale, causal, ba, st);
-  else
-    err = launch<kBiasNone>(q, k, v, out, lse, b, h, sq, sk, qs, ks, vs, os,
-                            scale, causal, ba, st);
-  return static_cast<int>(err);
+  return static_cast<int>(with_d(d, [&](auto D) {
+    return with_form(form, [&](auto F) {
+      return launch<decltype(D)::value, decltype(F)::value>(
+          q, k, v, out, lse, b, h, sq, sk, qs, ks, vs, os, scale, causal, ba,
+          st);
+    });
+  }));
 }

@@ -19,17 +19,61 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 typedef __nv_bfloat16 bf16;
 
 // Tile geometry shared by the forward and the backward: one 64-row tile
-// of queries (or keys) per CTA, 16 rows per warp, head dim 64. Shared
-// memory rows are padded by 8 bf16 so that the fragment loads of the 8
-// row groups of a warp fall on distinct banks.
-constexpr int kD = 64;
+// of queries (or keys) per CTA, 16 rows per warp. The head dim kD is a
+// template parameter of every kernel and of the helpers below; with_d
+// lists the widths that are instantiated.
+// Shared memory rows are padded by 8 bf16 (kLD = kD + 8): a row is then
+// 4 words off a multiple of 32 banks, so the fragment loads of the 8 row
+// groups of a warp fall on distinct banks at either width.
 constexpr int kTile = 64;
-constexpr int kLD = kD + 8;
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;
+
+template <int kD>
+constexpr int kLDOf = kD + 8;
+
+// Call f(std::integral_constant<int, d>) for a head dim the kernels are
+// instantiated for, or return cudaErrorInvalidValue: every entry point
+// dispatches its `d` here, so another width is one more case.
+template <typename F>
+inline cudaError_t with_d(int d, F&& f) {
+  switch (d) {
+    case 64:
+      return f(std::integral_constant<int, 64>{});
+    case 128:
+      return f(std::integral_constant<int, 128>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// One [kTile][kLD] bf16 tile of shared memory.
+template <int kD>
+constexpr int kTileElems = kTile * kLDOf<kD>;
+
+// The kernels' tiles live in dynamic shared memory (at d 128 they pass
+// the 48 KB a kernel may declare statically); each kernel lays out its
+// own struct over it.
+template <typename T>
+__device__ __forceinline__ T& dyn_smem() {
+  extern __shared__ __align__(16) unsigned char bps_dyn_smem[];
+  return *reinterpret_cast<T*>(bps_dyn_smem);
+}
+
+// Allow `kernel` `bytes` of dynamic shared memory: above 48 KB a launch
+// without it is refused. The attribute belongs to the current device's
+// context, so every launch sets it (a cheap host call) rather than the
+// first launch in the process.
+template <typename Kernel>
+inline cudaError_t smem_attr(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
 
 __device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
                                          const uint32_t* b) {
@@ -57,9 +101,10 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
 
 // Copy a [kTile, kD] tile whose rows are `row_stride` elements apart in
 // global memory into shared memory [kTile][kLD], 16 bytes per thread.
+template <int kD>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long row_stride, int tid) {
-  constexpr int kChunks = kD / 8;
+  constexpr int kChunks = kD / 8, kLD = kLDOf<kD>;
   for (int i = tid; i < kTile * kChunks; i += kThreads) {
     const int r = i / kChunks, c = (i % kChunks) * 8;
     *reinterpret_cast<uint4*>(dst + r * kLD + c) =
@@ -68,8 +113,10 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 }
 
 // A fragment of rows r0.., columns c0.. of a row-major smem tile.
+template <int kD>
 __device__ __forceinline__ void load_a(uint32_t* a, const bf16* s, int r0,
                                        int c0, int g, int t) {
+  constexpr int kLD = kLDOf<kD>;
   const bf16* p = s + (r0 + g) * kLD + c0 + 2 * t;
   a[0] = ld_pair(p);
   a[1] = ld_pair(p + 8 * kLD);
@@ -79,21 +126,56 @@ __device__ __forceinline__ void load_a(uint32_t* a, const bf16* s, int r0,
 
 // B fragment (k0.., n0..) from a smem tile that holds B transposed,
 // one row per column n (K[key][d] for S = Q·Kᵀ): k pairs are contiguous.
+template <int kD>
 __device__ __forceinline__ void load_b_nk(uint32_t* b, const bf16* s, int n0,
                                           int k0, int g, int t) {
-  const bf16* p = s + (n0 + g) * kLD + k0 + 2 * t;
+  const bf16* p = s + (n0 + g) * kLDOf<kD> + k0 + 2 * t;
   b[0] = ld_pair(p);
   b[1] = ld_pair(p + 8);
 }
 
 // B fragment (k0.., n0..) from a smem tile that holds B row-major, one
 // row per k (V[key][d] for O = P·V): k pairs are a row apart.
+template <int kD>
 __device__ __forceinline__ void load_b_kn(uint32_t* b, const bf16* s, int k0,
                                           int n0, int g, int t) {
+  constexpr int kLD = kLDOf<kD>;
   const bf16* p = s + (k0 + 2 * t) * kLD + n0 + g;
   b[0] = pack_bf16(p[0], p[kLD]);
   b[1] = pack_bf16(p[8 * kLD], p[9 * kLD]);
 }
+
+// The A fragments of the 16 rows at r0 of an smem tile, k-step by k-step
+// (kD / 16 of them): held in registers when kHold, else re-read from the
+// tile at each use. The kernels hold them at d 64; at d 128 they would
+// take 32 more registers per operand than the products leave.
+template <int kD, bool kHold>
+struct AFrags {
+  uint32_t f[kHold ? kD / 16 : 1][4];
+  const bf16* s;
+  int r0, g, t;
+
+  __device__ __forceinline__ AFrags(const bf16* tile, int row0, int g_,
+                                    int t_)
+      : s(tile), r0(row0), g(g_), t(t_) {
+    if constexpr (kHold) {
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) load_a<kD>(f[kk], s, r0, kk * 16, g, t);
+    }
+  }
+
+  // k-step kk's fragment, into `a` (4 registers).
+  __device__ __forceinline__ void get(uint32_t* a, int kk) const {
+    if constexpr (kHold) {
+      a[0] = f[kk][0];
+      a[1] = f[kk][1];
+      a[2] = f[kk][2];
+      a[3] = f[kk][3];
+    } else {
+      load_a<kD>(a, s, r0, kk * 16, g, t);
+    }
+  }
+};
 
 // The C fragments of n-tiles 2j and 2j+1 of a product, rounded to bf16,
 // are the A fragment of k-step j of the next product (P·V, dS·K, ...).
@@ -118,7 +200,7 @@ __device__ __forceinline__ float quad_max(float x) {
   return x;
 }
 
-// Element strides of a [b, s, h, kD] tensor whose head stride is kD and
+// Element strides of a [b, s, h, d] tensor whose head stride is d and
 // whose last stride is 1 (the wrapper checks both).
 struct BshdStrides {
   long long b;

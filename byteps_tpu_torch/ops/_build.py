@@ -13,20 +13,23 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 from ..common.logging import get_logger
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+# -Xptxas -v: ptxas reports each kernel's registers, stack and spills,
+# kept beside the library (ptxas_report reads them)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -81,9 +84,15 @@ def _lib_path(stem: str) -> Path:
     return BUILD_DIR / f"lib{stem}-{_digest(stem)}.so"
 
 
-def build_all(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
+def _log_path(stem: str) -> Path:
+    """nvcc's output of the current build of ``stem``, beside its library."""
+    return _lib_path(stem).with_suffix(".log")
+
+
+def build_all() -> Dict[str, ctypes.CDLL]:
     """Compile every source that has no current build, all at once, and
-    load every library. Raises with nvcc's output if a build fails."""
+    load every library. Raises with nvcc's output if a build fails; keeps
+    it beside each library it builds."""
     with _lock:
         stems = sorted(SIGNATURES)
         todo = [s for s in stems if s not in _libs
@@ -96,20 +105,20 @@ def build_all(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
             for stem in todo:
                 out = _lib_path(stem)
                 tmp = out.with_suffix(f".{os.getpid()}.tmp")
-                cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-                       "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                       str(CSRC / f"{stem}.cu")]
                 procs.append((stem, out, tmp, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                     text=True)))
             errors = []
             for stem, out, tmp, proc in procs:
                 log, _ = proc.communicate()
-                if verbose and log:
-                    print(f"[nvcc {stem}]\n{log}", flush=True)
                 if proc.returncode != 0:
                     errors.append(f"nvcc failed on csrc/{stem}.cu "
                                   f"(exit {proc.returncode}):\n{log}")
                 else:
+                    # the log first: every library has its log beside it
+                    _log_path(stem).write_text(log)
                     os.replace(tmp, out)   # atomic: two processes building at once both load a whole file
             if errors:
                 raise RuntimeError("\n".join(errors))
@@ -131,6 +140,48 @@ def entry(stem: str):
     """The C entry point of ``csrc/<stem>.cu``, building on first use."""
     lib = _libs.get(stem) or build_all()[stem]
     return getattr(lib, SIGNATURES[stem][0])
+
+
+_ENTRY = re.compile(r"(?:Compiling entry function '|Function properties "
+                    r"for )(\S+?)'?(?: for '\w+')?$")
+# a kernel template instance's mangled name: the length-prefixed name
+# (lower case, ending in _kernel), then its template arguments
+_KERNEL = re.compile(r"\d+([a-z_]+_kernel)I((?:L[ib]\d+E)+)E")
+
+
+def ptxas_report(stems=None) -> List[dict]:
+    """The ptxas -v output of the current builds of ``stems`` (default:
+    every source), one row per kernel template instance: its source,
+    kernel name, template arguments (in order, as ints), registers, stack
+    frame and spill bytes. Reads the logs ``build_all`` keeps beside the
+    libraries, so a cached build reports as a fresh one does."""
+    rows: Dict[str, dict] = {}
+    for stem in stems or sorted(SIGNATURES):
+        cur = None
+        for line in _log_path(stem).read_text().splitlines():
+            m = _ENTRY.search(line.strip())
+            if m:
+                cur = rows.setdefault(m.group(1), {"source": stem,
+                                                   "mangled": m.group(1)})
+                continue
+            if cur is None:
+                continue
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("stack", r"(\d+) bytes stack frame"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads")):
+                f = re.search(pat, line)
+                if f:
+                    cur[key] = int(f.group(1))
+    out = []
+    for row in rows.values():
+        kernel = _KERNEL.search(row.pop("mangled"))
+        if kernel and "registers" in row:
+            row["kernel"] = kernel.group(1)
+            row["args"] = [int(a) for a in
+                           re.findall(r"L[ib](\d+)E", kernel.group(2))]
+            out.append(row)
+    return sorted(out, key=lambda r: (r["source"], r["kernel"], r["args"]))
 
 
 def device_type(t, what: str) -> str:

@@ -11,7 +11,7 @@ Kernels (CUDA C++ for sm_90a, ``csrc/``, built at first use by
   - ``flash_fwd`` launches ``csrc/flash_fwd.cu``, the port of the Pallas
     ``_fwd_kernel`` (flash_attention.py:172, wrapper ``_flash_fwd`` :248):
     online-softmax forward, S and P never leave the chip. Bounded by
-    memory on an H100 at the flagship's seq 512 / d 64.
+    memory on an H100 at the flagship's seq 512, at d 64 and d 128.
   - ``flash_bwd_fused`` launches ``csrc/flash_bwd.cu``, the port of the
     Pallas ``_dqkv_fused_kernel`` (:489, wrapper ``_flash_bwd_fused``
     :548): (q, k, v, dO, lse) -> (dq, dk, dv) with delta computed from
@@ -40,6 +40,12 @@ compile time, as the Pallas kernels' ``has_bias`` / ``rel``:
     partials in a fixed order (no atomics) and the wrapper sums them:
     dtable [h, nb] fp32, the same bits on every run.
 
+Each kernel is built for head dims 64 and 128 (``KERNEL_DS``), a
+compile-time parameter of the CUDA sources; the Pallas kernels take any
+d <= 256, and the other widths are still to port (ROADMAP.md queue 2).
+At d 128 the dk/dv work is two launches behind the one wrapper (dv, then
+dk: the register plan in ``csrc/flash_bwd_dkv.cuh``).
+
 The Pallas helpers ``_head_tile``, ``_clamp_ht`` and ``_DT_PAD`` have no
 counterpart: they fit the TPU's block rules (several heads per program,
 the dtable output padded to an (8, 128) tile). The Hopper kernels run one
@@ -58,10 +64,13 @@ themselves walk 64-row tiles whatever the block.
 Each wrapper keeps its plain PyTorch version beside it, with the same
 inputs and outputs, and takes it only for tensors on the CPU. A CUDA
 tensor launches the kernel or raises: inputs the kernels do not take
-(fp32 q/k/v, d other than 64, a sequence not a multiple of 64, a bias or
-table of the wrong shape) are refused by ``check_kernel_inputs``. Each
-wrapper counts its launches in plain int attributes: ``launches`` (every
-form), ``launches_bias`` and ``launches_rel`` (the bias and table forms).
+(fp32 or fp16 q/k/v, a head dim other than 64 and 128, a sequence not a
+multiple of 64, a bias or table of the wrong shape) are refused by
+``check_kernel_inputs``. Each wrapper counts its launches in plain
+attributes: ``launches`` (every form and width), ``launches_bias`` and
+``launches_rel`` (the bias and table forms), and by head dim
+``launches_d``, ``launches_bias_d`` and ``launches_rel_d`` (dicts from
+head dim to launches).
 """
 
 from __future__ import annotations
@@ -76,7 +85,7 @@ from . import relpos
 from ._build import device_type, entry, raise_on_error
 
 _NEG_INF = -1e30
-KERNEL_D = 64          # head dim the kernels are built for
+KERNEL_DS = (64, 128)  # head dims the kernels are built for
 KERNEL_TILE = 64       # sequence tile of the kernels
 BLOCK = 512            # the JAX package's default block each way
 MAX_BUCKETS = 128      # rel-table buckets the kernels take (JAX: one lane tile)
@@ -321,11 +330,12 @@ def check_kernel_inputs(q, k, v, causal: bool = False, bias=None,
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not agree")
-    if d != KERNEL_D:
+    if d not in KERNEL_DS:
         raise NotImplementedError(
-            f"head_dim {d}: the Hopper flash kernels are built for "
-            f"d = {KERNEL_D}; other widths of _fwd_kernel / "
-            "_dqkv_fused_kernel are not ported (ROADMAP.md)")
+            f"head_dim {d}: the Hopper flash kernels are built for d in "
+            f"{KERNEL_DS}; other widths of _fwd_kernel / _dqkv_fused_kernel "
+            "/ _dq_kernel / _dkv_kernel are not ported (ROADMAP.md queue 2, "
+            "row '1-4 d')")
     if sq % KERNEL_TILE or sk % KERNEL_TILE:
         raise ValueError(f"sequence lengths {sq}, {sk} must be multiples of "
                          f"{KERNEL_TILE} for the Hopper flash kernels")
@@ -366,16 +376,27 @@ def _bias_args(q, k, bias, rel_table, rel_bidirectional, rel_max_distance):
     return form, (), (None, None, None, 0)
 
 
-def _count(fn, form: int) -> None:
+def _count(fn, form: int, d: int) -> None:
     fn.launches += 1
+    fn.launches_d[d] += 1
     if form == FORM_BIAS:
         fn.launches_bias += 1
+        fn.launches_bias_d[d] += 1
     elif form == FORM_REL:
         fn.launches_rel += 1
+        fn.launches_rel_d[d] += 1
+
+
+def zero_counts(fn) -> None:
+    """Set every launch count of the wrapper ``fn`` to 0."""
+    fn.launches = fn.launches_bias = fn.launches_rel = 0
+    fn.launches_d = dict.fromkeys(KERNEL_DS, 0)
+    fn.launches_bias_d = dict.fromkeys(KERNEL_DS, 0)
+    fn.launches_rel_d = dict.fromkeys(KERNEL_DS, 0)
 
 
 def _counted(fn):
-    fn.launches = fn.launches_bias = fn.launches_rel = 0
+    zero_counts(fn)
     return fn
 
 
@@ -409,7 +430,7 @@ def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
             _scale(q, scale), int(causal), form, *bargs, stream)
     raise_on_error(code, "flash forward kernel")
-    _count(flash_fwd, form)
+    _count(flash_fwd, form, d)
     return out, lse
 
 
@@ -463,7 +484,7 @@ def flash_bwd_fused(q, k, v, do, lse, causal: bool = False,
             dv.data_ptr(), *_bwd_args(q, k, v, do, scale, causal),
             torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error(code, "flash fused backward kernel")
-    _count(flash_bwd_fused, FORM_NONE)
+    _count(flash_bwd_fused, FORM_NONE, q.shape[3])
     return dq, dk, dv
 
 
@@ -502,7 +523,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
             None if grad is None else grad.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error(code, "flash dq kernel")
-    _count(flash_bwd_dq, form)
+    _count(flash_bwd_dq, form, q.shape[3])
     if form == FORM_BIAS:
         return dq, grad.sum(0)
     if form == FORM_REL:
@@ -536,7 +557,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
             *_bwd_args(q, k, v, do, scale, causal), form, *bargs,
             torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error(code, "flash dk/dv kernel")
-    _count(flash_bwd_dkv, form)
+    _count(flash_bwd_dkv, form, q.shape[3])
     return dk, dv
 
 

@@ -23,8 +23,9 @@ cross-step driver and the sharded update overlap work without changing a
 number, and are not ported yet.
 
 The async path, custom reducers, the legacy ``compression=`` kwargs in PS
-mode and gradient accumulation in PS mode are not ported yet
-(ROADMAP.md): their options raise.
+mode, gradient accumulation in PS mode and pipeline parallelism
+(``BPS_PP_STAGES`` > 1) are not ported yet (ROADMAP.md): their options
+raise.
 """
 
 from __future__ import annotations
@@ -98,6 +99,12 @@ class DistributedTrainer:
             raise NotImplementedError(f"custom reducers: the port {_NOT_PORTED}")
         gs = GlobalState._instance
         cfg = gs.config if gs is not None else Config.from_env()
+        if cfg.pp_stages > 1:
+            # the JAX trainer's refusal (byteps_tpu/training.py:164-173)
+            raise ValueError(
+                f"BPS_PP_STAGES={cfg.pp_stages}: DistributedTrainer is the "
+                f"data-parallel step — its whole-model step would silently "
+                f"train only replicas; pipeline parallelism {_NOT_PORTED}")
         check_ps_config(cfg)
         if device is None and gs is not None:
             self.device = gs.device

@@ -7,7 +7,10 @@ Run from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit. Phases (any failure raises and the exit code is not 0):
 
   1. toolchain: torch and CUDA versions, nvcc, the card's name and power
-     limit; build the Hopper kernels from ``byteps_tpu_torch/csrc``.
+     limit; build the Hopper kernels from ``byteps_tpu_torch/csrc`` (the
+     flash kernels at head dims 64 and 128) with ptxas -v, and print each
+     flash instantiation's registers, stack and spills (from the log kept
+     beside each library, so a cached build prints them too).
   2. kernel checks, each kernel held against its plain PyTorch version on
      the card, with seeded inputs:
        - flash forward and fused backward at the BERT shape (s 512, h 16,
@@ -26,6 +29,14 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          table-form dq, the same dtable bits; and the no-bias forward, dq
          and dk/dv at the cross-attention shape (b 8, sq 512 queries over
          sk 1024 keys, not causal, scale 1.0);
+       - every flash form again at head dim 128: the forward and fused
+         backward at the dh128 BERT shape (b 8, s 512, h 8, d 128), full
+         and causal, also against autograd of the plain forward; the
+         forward, dq and dk/dv at b 8, s 1024, h 8, causal and full, and
+         the split route against autograd; the table and dense forms (bit
+         for bit against each other, dtable the same bits on relaunch),
+         the causal table and the cross shape at T5's geometry (h 8,
+         scale 1.0);
        - onebit pack and unpack, bit for bit, on an adversarial vector
          (±0.0, NaN, ±inf, denormals, 77 elements);
        - int8 quantize and dequantize and fp8 stochastic rounding (E4M3
@@ -41,8 +52,10 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
      the materialized bias as its float ``attn_mask``, built outside the
      timed window), beside the least time the card could take. Attention
      at the shape its training phase gives it (the table and dense forms
-     at the T5 shapes above); onebit, int8 and fp8 on one
-     4,096,000-byte bucket.
+     at the T5 shapes above); at head dim 128 the forward and fused
+     backward at the dh128 shape, the forward, dq and dk/dv at b 8, s
+     1024, h 8 causal, the table and dense forms at T5's encoder geometry;
+     onebit, int8 and fp8 on one 4,096,000-byte bucket.
   4. training through the port's ``DistributedTrainer``, random weights
      from seed 0, AdamW(1e-4, weight_decay 1e-4), 3 steps on one fixed
      synthetic batch of 8, at full width (bf16 compute over fp32 params,
@@ -50,7 +63,11 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
      just before its 3 steps and reads them just after; they must read
      what that path launches (remat runs each layer's forward twice):
        - BERT-large MLM, 24 x 1024 x 16, vocab 30522, seq 512: 144
-         forward and 72 fused-backward launches;
+         forward and 72 fused-backward launches, all at head dim 64;
+       - BERT-large at 8 heads of 128 (``bench.py``'s dh128 variant,
+         ``dataclasses.replace(bert_large, heads=8)``): 144 forward and 72
+         fused-backward launches, all at head dim 128, none at 64; its step
+         time, rates and profiled step printed beside the d-64 run's;
        - GPT-2 medium, 24 x 1024 x 16, vocab 50257, seq 1024 (two 512
          attention blocks, so the split backward): 144 forward, 72 dq and
          72 dk/dv launches;
@@ -78,17 +95,19 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          no-bias forward (cross-attention), 36 table-form dq and dk/dv, 18
          no-bias dq and dk/dv (cross-attention over two 512 blocks of
          source takes the split backward), 0 fused, 0 dense-bias.
-     Losses must be finite and falling. BERT, dense GPT-2 and T5 repeat
-     step 1 with ``attn_impl="naive"`` (plain attention on the card) as
-     the reference for the loss; both print step time, rates, peak memory and
-     one profiled step's device busy/idle split. The compressed run then
+     Losses must be finite and falling. BERT (both widths), dense GPT-2
+     and T5 repeat step 1 with ``attn_impl="naive"`` (plain attention on
+     the card) as the reference for the loss; every run prints step time,
+     rates, peak memory and one profiled step's device busy/idle split. The compressed run then
      holds one step's compressed reduction of real gradients through the
      kernels against the same reduction through their plain versions,
      bit for bit: packed words, scales, decompressed values, error
      feedback, momentum and the reduced gradient.
-  5. one JSON line ``{"kernels": [...]}`` (each flash kernel with its
-     bias and table forms under ``forms``), the card's name and power
-     limit, and as the last line ``{"ok": true, "device": {...}}``.
+  5. one JSON line ``{"kernels": [...]}`` (each flash kernel at head dim
+     64, with its bias and table forms under ``forms``, its ptxas rows,
+     and the same entry at head dim 128 under ``d128``), the card's name
+     and power limit, and as the last line
+     ``{"ok": true, "device": {...}}``.
 
 It exits with code 2, printing no result, when no CUDA device is present
 or when the ``byteps_tpu_torch`` package is not beside it.
@@ -118,10 +137,17 @@ PEAK_BYTES_PER_S = 3.35e12
 KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
            "onebit_pack", "onebit_unpack", "int8_quantize", "int8_dequantize",
            "fp8_sr_quantize")
+FLASH = KERNELS[:4]
 # the kernels with bias forms (csrc/flash_bias.cuh), counted per form
 FLASH_FORMS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 FORMS = ("bias", "rel")
-COUNT_KEYS = KERNELS + tuple(f"{k}:{f}" for k in FLASH_FORMS for f in FORMS)
+# the head dims the flash kernels are built for, counted per width (the
+# wrapper's KERNEL_DS; main checks that they agree)
+WIDTHS = (64, 128)
+COUNT_KEYS = (KERNELS + tuple(f"{k}:{f}" for k in FLASH_FORMS for f in FORMS)
+              + tuple(f"{k}:d{d}" for k in FLASH for d in WIDTHS)
+              + tuple(f"{k}:{f}:d{d}" for k in FLASH_FORMS for f in FORMS
+                      for d in WIDTHS))
 BITWISE = ("onebit_pack", "onebit_unpack", "int8_quantize", "int8_dequantize",
            "fp8_sr_quantize")
 # the Pallas kernels the Hopper kernels replace
@@ -158,6 +184,9 @@ LSE_TOL = 1e-3
 SPIN_CYCLES = 2_000_000     # about 1 ms of device time at H100 clocks
 TRAIN_BATCH, STEPS = 8, 3
 BERT_SEQ, GPT2_SEQ, HEADS, HEAD_DIM = 512, 1024, 16, 64
+# bench.py's dh128 variant of BERT-large: the same hidden, layers and
+# FLOPs as 8 heads of 128 instead of 16 of 64
+DH128_HEADS, DH128 = 8, 128
 # T5-small: the decoder length of examples/long_context_bench.py --t5
 # (dec_len 512, fed dec_len + 1 targets) over a source of two 512 blocks;
 # 8 heads of 64, the rel table of 32 buckets up to distance 128
@@ -200,20 +229,45 @@ def counters():
 
 
 def zero_counts(ctr):
-    for fn in ctr.values():
-        fn.launches = 0
-        if hasattr(fn, "launches_rel"):
-            fn.launches_bias = fn.launches_rel = 0
+    from byteps_tpu_torch.ops import flash_attention as fa
+    for name, fn in ctr.items():
+        if name in FLASH:
+            fa.zero_counts(fn)
+        else:
+            fn.launches = 0
 
 
 def read_counts(ctr):
-    """{kernel: launches of every form} and, for the flash kernels with
-    bias forms, {"kernel:bias": .., "kernel:rel": ..}."""
+    """{kernel: launches of every form and width}; for every flash kernel
+    {"kernel:d64": .., "kernel:d128": ..}, and for the flash kernels with
+    bias forms {"kernel:bias": .., "kernel:rel": ..} and the same per
+    width, {"kernel:bias:d64": .., ...}."""
     counts = {name: fn.launches for name, fn in ctr.items()}
+    for name in FLASH:
+        for d in WIDTHS:
+            counts[f"{name}:d{d}"] = ctr[name].launches_d[d]
     for name in FLASH_FORMS:
-        counts[f"{name}:bias"] = ctr[name].launches_bias
-        counts[f"{name}:rel"] = ctr[name].launches_rel
+        fn = ctr[name]
+        counts[f"{name}:bias"] = fn.launches_bias
+        counts[f"{name}:rel"] = fn.launches_rel
+        for d in WIDTHS:
+            counts[f"{name}:bias:d{d}"] = fn.launches_bias_d[d]
+            counts[f"{name}:rel:d{d}"] = fn.launches_rel_d[d]
     return counts
+
+
+def by_width(w, d):
+    """The launch counts ``w`` of a path whose attention runs at head dim
+    ``d``: every flash launch at that width, none at the other."""
+    for name in FLASH:
+        for width in WIDTHS:
+            w[f"{name}:d{width}"] = w[name] if width == d else 0
+    for name in FLASH_FORMS:
+        for f in FORMS:
+            for width in WIDTHS:
+                w[f"{name}:{f}:d{width}"] = (w[f"{name}:{f}"] if width == d
+                                             else 0)
+    return w
 
 
 # ------------------------------------------------------------- phase 1
@@ -250,6 +304,43 @@ def toolchain():
         f"{time.perf_counter() - t0:.1f} s "
         f"({', '.join(sorted(_build.SIGNATURES))}; "
         f"csrc/host/{_build_host.SOURCE.name})")
+    return ptxas_table()
+
+
+_FORM_NAMES = ("none", "dense", "table")
+_DKV_OUT = ("dk+dv", "dv", "dk")
+
+
+def ptxas_table():
+    """Registers, stack and spills of every flash kernel instantiation,
+    from the ptxas -v log that each build keeps beside its library (a
+    cached build's too); printed and returned. The dynamic shared memory
+    of each is a static_assert beside its layout in the sources."""
+    from byteps_tpu_torch.ops import _build
+    rows = []
+    for r in _build.ptxas_report([s for s in sorted(_build.SIGNATURES)
+                                  if s.startswith("flash_")]):
+        a = r["args"]
+        if r["kernel"] == "flash_fwd_kernel":
+            d, form, what = a[0], a[1], "forward"
+        elif r["kernel"] == "flash_bwd_dq_kernel":
+            d, form = a[1], a[2]
+            what = "dq (delta given)" if a[0] else "dq + delta (fused bwd)"
+        else:
+            d, form, what = a[0], a[1], _DKV_OUT[a[2]]
+        row = {"source": f"csrc/{r['source']}.cu", "kernel": what, "d": d,
+               "form": _FORM_NAMES[form], "registers": r["registers"],
+               "stack": r.get("stack", 0),
+               "spill_stores": r.get("spill_stores", 0),
+               "spill_loads": r.get("spill_loads", 0)}
+        log(f"[ptxas] {row['source']:20s} {what:22s} d{d:<4d} "
+            f"{row['form']:6s} {row['registers']:3d} registers, "
+            f"stack {row['stack']} B, spill stores {row['spill_stores']} B, "
+            f"loads {row['spill_loads']} B")
+        rows.append(row)
+    if not rows:
+        raise AssertionError("ptxas reported no flash kernel")
+    return rows
 
 
 # ------------------------------------------------------------- phase 2
@@ -301,11 +392,15 @@ def _plain_autograd(fa, q, k, v, do, causal):
     return qa.grad, ka.grad, va.grad
 
 
-def check_bert_kernels(worst):
+def check_bert_kernels(worst, h=HEADS, d=HEAD_DIM,
+                       cases=((4, False), (4, True), (TRAIN_BATCH, False))):
+    """The forward and the fused backward at BERT's seq 512 (``cases``:
+    batch, causal), the backward also against autograd of the plain
+    forward."""
     from byteps_tpu_torch.ops import flash_attention as fa
-    for b, causal in ((4, False), (4, True), (TRAIN_BATCH, False)):
-        q, k, v, do = _inputs(b, BERT_SEQ, HEADS, HEAD_DIM, seed=b + causal)
-        tag = f"b{b} s{BERT_SEQ} h16 d64 {'causal' if causal else 'full'}"
+    for b, causal in cases:
+        q, k, v, do = _inputs(b, BERT_SEQ, h, d, seed=b + causal)
+        tag = f"b{b} s{BERT_SEQ} h{h} d{d} {'causal' if causal else 'full'}"
         _, lse, e = _check_fwd(fa, q, k, v, causal, tag)
         worst["flash_fwd"] = max(worst["flash_fwd"], e)
         got = fa.flash_bwd_fused(q, k, v, do, lse, causal)
@@ -318,16 +413,17 @@ def check_bert_kernels(worst):
                 _check(f"fused bwd {name}", tag, g_, p_, a_))
 
 
-def check_gpt2_kernels(worst):
+def check_gpt2_kernels(worst, h=HEADS, d=HEAD_DIM):
     """Forward past one block, the split backward's dq and dk/dv kernels,
-    and the split route of the autograd Function, at the GPT-2 shape."""
+    and the split route of the autograd Function, at the GPT-2 context
+    (s 1024, b 8)."""
     from byteps_tpu_torch.ops import flash_attention as fa
     b, s = TRAIN_BATCH, GPT2_SEQ
     if fa.backward_route(s, s) != "split":
         raise AssertionError(f"seq {s} should take the split backward")
     for causal in (True, False):
-        q, k, v, do = _inputs(b, s, HEADS, HEAD_DIM, seed=20 + causal)
-        tag = f"b{b} s{s} h16 d64 {'causal' if causal else 'full'}"
+        q, k, v, do = _inputs(b, s, h, d, seed=20 + causal)
+        tag = f"b{b} s{s} h{h} d{d} {'causal' if causal else 'full'}"
         out, lse, e = _check_fwd(fa, q, k, v, causal, tag)
         worst["flash_fwd"] = max(worst["flash_fwd"], e)
         delta = fa.bwd_delta(do, out)
@@ -356,12 +452,13 @@ def check_gpt2_kernels(worst):
         torch.cuda.empty_cache()
 
 
-def _t5_inputs(b, s, seed):
-    """q, k, v, dO at a T5 shape. q and k are drawn at std d^-1/4, so the
-    scores at T5's scale 1.0 have unit variance, as at the other shapes'
-    d^-1/2; the table is standard normal, [h, nb] fp32."""
-    q, k, v, do = _inputs(b, s, T5_HEADS, HEAD_DIM, seed)
-    q, k = (t * HEAD_DIM ** -0.25 for t in (q, k))
+def _t5_inputs(b, s, seed, d=HEAD_DIM):
+    """q, k, v, dO at a T5 shape (h 8, head dim d). q and k are drawn at
+    std d^-1/4, so the scores at T5's scale 1.0 have unit variance, as at
+    the other shapes' d^-1/2; the table is standard normal, [h, nb]
+    fp32."""
+    q, k, v, do = _inputs(b, s, T5_HEADS, d, seed)
+    q, k = (t * d ** -0.25 for t in (q, k))
     table = torch.randn(T5_HEADS, T5_BUCKETS,
                         generator=torch.Generator().manual_seed(seed + 1))
     return q, k, v, do, table.cuda()
@@ -401,14 +498,14 @@ def check_form(fa, worst, form, tag, q, k, v, do, causal, kw):
     return out, lse, dq, dgrad, dk, dv, delta
 
 
-def check_cross(fa, worst, b, sq, sk, seed):
+def check_cross(fa, worst, b, sq, sk, seed, d=HEAD_DIM):
     """The no-bias forward, dq and dk/dv at T5's cross-attention shape (the
     decoder's sq queries over the encoder's sk keys, not causal, scale
     1.0): out, lse, dq, dk and dv against their plain versions."""
-    q, k, v, do = _inputs(b, sk, T5_HEADS, HEAD_DIM, seed)
+    q, k, v, do = _inputs(b, sk, T5_HEADS, d, seed)
     q, do = q[:, :sq].contiguous(), do[:, :sq].contiguous()
-    q, k = (t * HEAD_DIM ** -0.25 for t in (q, k))
-    tag = f"b{b} sq{sq} sk{sk} h{T5_HEADS} d64 cross, no bias"
+    q, k = (t * d ** -0.25 for t in (q, k))
+    tag = f"b{b} sq{sq} sk{sk} h{T5_HEADS} d{d} cross, no bias"
     out, lse, e = _check_fwd(fa, q, k, v, False, tag, scale=1.0)
     worst["flash_fwd"] = max(worst["flash_fwd"], e)
     delta = fa.bwd_delta(do, out)
@@ -427,16 +524,17 @@ def check_cross(fa, worst, b, sq, sk, seed):
     torch.cuda.empty_cache()
 
 
-def check_t5_kernels(worst):
+def check_t5_kernels(worst, d=HEAD_DIM):
     """The rel-table form at the encoder's and the decoder's self-attention
     shapes, the dense form at the encoder's with the materialized bias of
     the same table; the two forms bit for bit; dtable the same bits on a
-    second launch; the no-bias kernels at the cross-attention shape."""
+    second launch; the no-bias kernels at the cross-attention shape. At
+    T5's geometry (h 8, scale 1.0) with head dim d."""
     from byteps_tpu_torch.ops import flash_attention as fa
     from byteps_tpu_torch.ops import relpos
     b = TRAIN_BATCH
-    q, k, v, do, table = _t5_inputs(b, T5_SRC, seed=60)
-    tag = f"b{b} s{T5_SRC} h{T5_HEADS} d64 rel bidirectional"
+    q, k, v, do, table = _t5_inputs(b, T5_SRC, seed=60, d=d)
+    tag = f"b{b} s{T5_SRC} h{T5_HEADS} d{d} rel bidirectional"
     rel = {"rel_table": table, "rel_bidirectional": True}
     got_t = check_form(fa, worst, "rel", tag, q, k, v, do, False, rel)
     again = fa.flash_bwd_dq(q, k, v, do, got_t[1], got_t[6], False, 1.0,
@@ -446,7 +544,7 @@ def check_t5_kernels(worst):
                                       ("dtable", got_t[3], again[1])])
     dense = {"bias": relpos.relative_bias(table.T, T5_SRC, T5_SRC, True,
                                           T5_BUCKETS)}
-    tag_d = f"b{b} s{T5_SRC} h{T5_HEADS} d64 dense bias"
+    tag_d = f"b{b} s{T5_SRC} h{T5_HEADS} d{d} dense bias"
     got_d = check_form(fa, worst, "bias", tag_d, q, k, v, do, False, dense)
     _same("dense vs table forms, same bias values", [
         (n, a, c) for n, a, c in zip(("out", "lse", "dq"), got_t, got_d)] + [
@@ -454,13 +552,25 @@ def check_t5_kernels(worst):
     del got_t, got_d, again, dense
     torch.cuda.empty_cache()
     s = T5_TGT - 1
-    q, k, v, do, table = _t5_inputs(b, s, seed=61)
-    check_form(fa, worst, "rel", f"b{b} s{s} h{T5_HEADS} d64 rel causal",
+    q, k, v, do, table = _t5_inputs(b, s, seed=61, d=d)
+    check_form(fa, worst, "rel", f"b{b} s{s} h{T5_HEADS} d{d} rel causal",
                q, k, v, do, True,
                {"rel_table": table, "rel_bidirectional": False})
     del q, k, v, do, table
     torch.cuda.empty_cache()
-    check_cross(fa, worst, b, s, T5_SRC, seed=62)
+    check_cross(fa, worst, b, s, T5_SRC, seed=62, d=d)
+
+
+def check_dh128_kernels(worst):
+    """Every flash kernel form at head dim 128, against its plain version:
+    the forward and the fused backward at the dh128 BERT shape (b 8, s
+    512, h 8), full and causal; the forward, dq and dk/dv past one block
+    (b 8, s 1024, h 8), causal and full; the table and dense forms, the
+    cross shape and the causal table at T5's geometry."""
+    check_bert_kernels(worst, DH128_HEADS, DH128,
+                       cases=((TRAIN_BATCH, False), (TRAIN_BATCH, True)))
+    check_gpt2_kernels(worst, DH128_HEADS, DH128)
+    check_t5_kernels(worst, DH128)
 
 
 def _adversarial():
@@ -653,10 +763,9 @@ def time_kernels(calls, bounds, lib, label, shape, flush):
     return res
 
 
-def time_attention(b, s, causal, names):
+def time_attention(b, s, causal, names, h=HEADS, d=HEAD_DIM):
     """Kernels, plain versions and the library's attention at one shape."""
     from byteps_tpu_torch.ops import flash_attention as fa
-    h, d = HEADS, HEAD_DIM
     q, k, v, do = _inputs(b, s, h, d, seed=99)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     out, lse = fa.flash_fwd(q, k, v, causal)
@@ -710,15 +819,16 @@ def form_bounds(b, s, h, d, causal, form):
     return res
 
 
-def time_forms(b, s, causal, form):
-    """The forward, dq and dk/dv kernels in one bias form at a T5 shape,
-    their plain versions, and the library's attention with the
-    materialized bias as its float ``attn_mask`` (built before the timed
-    window; forward, and the backward for dq, dk and dv together)."""
+def time_forms(b, s, causal, form, d=HEAD_DIM):
+    """The forward, dq and dk/dv kernels in one bias form at a T5 shape
+    (h 8, head dim d), their plain versions, and the library's attention
+    with the materialized bias as its float ``attn_mask`` (built before
+    the timed window; forward, and the backward for dq, dk and dv
+    together)."""
     from byteps_tpu_torch.ops import flash_attention as fa
     from byteps_tpu_torch.ops import relpos
-    h, d = T5_HEADS, HEAD_DIM
-    q, k, v, do, table = _t5_inputs(b, s, seed=98)
+    h = T5_HEADS
+    q, k, v, do, table = _t5_inputs(b, s, seed=98, d=d)
     if form == "rel":
         kw = {"rel_table": table, "rel_bidirectional": not causal}
     else:
@@ -883,7 +993,7 @@ def profile_step(trainer, data, tag):
     if not kernels:
         log(f"[profile {tag}] the profiler recorded no device activity: "
             "device breakdown not measured")
-        return
+        return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
@@ -909,6 +1019,8 @@ def profile_step(trainer, data, tag):
         log(f"[profile {tag}]   {g:24s} {us / 1e3:9.3f} ms  {us / total:6.1%}")
     for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:12]:
         log(f"[profile {tag}]   top {us / 1e3:9.3f} ms  {name[:110]}")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / wall_us, "device_ops": len(kernels)}
 
 
 def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
@@ -922,7 +1034,8 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
     ``model_cls`` builds the model from ``cfg`` (default the transformer
     core). Returns (launches, trainer, losses, metrics): ``metrics`` is the
     port's metrics registry over the counted steps (the parameter-server
-    path's byte counters and stage times)."""
+    path's byte counters and stage times). The run's step time, rates,
+    peak memory and profiled step go to ``SUMMARY[tag]``."""
     from byteps_tpu_torch.models.flops import mfu
     from byteps_tpu_torch.models.transformer import Transformer
     from byteps_tpu_torch.obs.metrics import get_registry
@@ -993,7 +1106,12 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
     if more:
         log(f"[{tag}] steps {STEPS + 1}-{STEPS + more_steps} s {more}: "
             f"median {rates(statistics.median(more))}")
-    profile_step(trainer, data, tag)
+    step_s = statistics.median(more) if more else min(times[1:])
+    SUMMARY[tag] = {"step_ms": step_s * 1e3,
+                    "samples_per_s": TRAIN_BATCH / step_s,
+                    "mfu": mfu(TRAIN_BATCH / step_s, flops_per_sample),
+                    "peak_gb": peak_gb, "losses": losses,
+                    "profile": profile_step(trainer, data, tag)}
 
     if naive_cfg is not None:
         naive = make_trainer(naive_cfg)
@@ -1009,13 +1127,16 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
     return launches, trainer, losses, metrics
 
 
+SUMMARY = {}
+
+
 def _attention_launches(cfg, backward):
     def want(trainer):
         w = dict.fromkeys(COUNT_KEYS, 0)
         w["flash_fwd"] = STEPS * cfg.layers * 2   # remat: forward twice
         for name in backward:
             w[name] = STEPS * cfg.layers
-        return w
+        return by_width(w, cfg.head_dim)
     return want
 
 
@@ -1030,10 +1151,46 @@ def train_bert():
     return launches, losses
 
 
-def _bert_setup():
+def train_bert_dh128():
+    """bench.py's dh128 variant of BERT-large (8 heads of 128: the same
+    hidden, layers and FLOPs): the d-128 forward and fused backward, no
+    d-64 launch; step 1's loss against the same config on plain attention.
+    Its step time, rates and profile are printed beside the d-64 run's of
+    this call."""
+    import dataclasses
+
+    from byteps_tpu_torch.models import bert
+    cfg, loss_fn, data, fps = _bert_setup(heads=DH128_HEADS)
+    if cfg.head_dim != DH128:
+        raise AssertionError(f"dh128 config has head_dim {cfg.head_dim}")
+    launches, trainer, _, _ = run_path(
+        "bert_large_dh128", cfg, loss_fn, data, fps,
+        _attention_launches(cfg, ("flash_bwd_fused",)),
+        naive_cfg=dataclasses.replace(
+            bert.bert_large(max_seq=BERT_SEQ, attn_impl="naive"),
+            heads=DH128_HEADS))
+    del trainer
+    torch.cuda.empty_cache()
+    for tag in ("bert_large", "bert_large_dh128"):
+        r = SUMMARY[tag]
+        p = r["profile"] or {}
+        log(f"[dh128 vs d64, this call] {tag}: step {r['step_ms']:.1f} ms "
+            f"(median of steps 4-6), {r['samples_per_s']:.2f} samples/s, "
+            f"mfu {r['mfu']}, peak {r['peak_gb']:.2f} GB; profiled step "
+            f"wall {p.get('wall_ms', float('nan')):.2f} ms, device busy "
+            f"{p.get('busy_ms', float('nan')):.2f} ms, idle share "
+            f"{p.get('idle_share', float('nan')):.3f}")
+    return launches
+
+
+def _bert_setup(heads=None):
+    import dataclasses
+
     from byteps_tpu_torch.models import bert
     from byteps_tpu_torch.models.flops import transformer_train_flops_per_sample
     cfg = bert.bert_large(max_seq=BERT_SEQ)
+    if heads is not None:          # bench.py:3084's replace(bert_large, heads=8)
+        cfg = dataclasses.replace(cfg, heads=heads)
     max_pred = max(1, int(0.2 * BERT_SEQ))
     data = bert.synth_mlm_batch(np.random.RandomState(0), TRAIN_BATCH,
                                 BERT_SEQ, cfg.vocab_size)
@@ -1288,7 +1445,7 @@ def train_t5():
         for name in ("flash_bwd_dq", "flash_bwd_dkv"):
             w[f"{name}:rel"] = STEPS * n_self
             w[name] = w[f"{name}:rel"] + STEPS * cfg.dec_layers
-        return w
+        return by_width(w, cfg.head_dim)
 
     launches, trainer, _, _ = run_path(
         "t5_small", cfg, t5.seq2seq_loss, data, fps, want,
@@ -1299,22 +1456,49 @@ def train_t5():
     return launches
 
 
-def form_entry(name, form, paths, worst, timing):
-    """The ``forms`` entry of a flash kernel: its launches in each path,
-    its worst error against the plain version at the T5 shapes, its time
-    beside its bound, plain and library times (the table form at the
-    encoder's shape, and at the decoder's under ``decoder``)."""
+def form_entry(name, form, paths, worst, timing, d=HEAD_DIM):
+    """The ``forms`` entry of a flash kernel at head dim ``d``: its
+    launches in each path, its worst error against the plain version at
+    the T5 shapes, its time beside its bound, plain and library times (the
+    table form at the encoder's shape, and where timed at the decoder's
+    under ``decoder``)."""
     key = f"{name}:{form}"
     t = timing[form, "encoder"][name]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "timed_shape", "causal") + (("design_bytes",)
                                         if "design_bytes" in t else ())
-    entry = {"launches": sum(p[key] for p in paths.values()),
-             "launches_by_path": {k: p[key] for k, p in paths.items()},
+    by_path = {k: p[f"{key}:d{d}"] for k, p in paths.items()}
+    entry = {"launches": sum(by_path.values()), "launches_by_path": by_path,
              "max_abs_err": worst[name, form], **{k: t[k] for k in keys}}
-    if form == "rel":
-        d = timing["rel", "decoder"][name]
-        entry["decoder"] = {k: d[k] for k in keys}
+    if form == "rel" and ("rel", "decoder") in timing:
+        dec = timing["rel", "decoder"][name]
+        entry["decoder"] = {k: dec[k] for k in keys}
+    return entry
+
+
+def kernel_entry(name, paths, worst, timing, card, ptxas, d=None):
+    """One kernel's entry of the ``{"kernels": [...]}`` line. A flash
+    kernel has one per head dim ``d`` (the d-128 one nested in the d-64
+    one), with the launches and ptxas rows of that width."""
+    t = timing[name]
+    key = name if d is None else f"{name}:d{d}"
+    entry = {
+        "name": name if d in (None, HEAD_DIM) else f"{name}_d{d}",
+        "route": "cuda", "source": SOURCES[name],
+        "replaces": REPLACES[name],
+        "launches": sum(p[key] for p in paths.values()),
+        "launches_by_path": {k: p[key] for k, p in paths.items()},
+        "max_abs_err": worst[name], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "ok": True, "timed_shape": t["timed_shape"], "card": card,
+        "tolerance": ("bit for bit" if name in BITWISE
+                      else f"max err <= {REL_TOL} * max|plain|"),
+    }
+    if d is not None:
+        entry["head_dim"] = d
+        entry["ptxas"] = [r for r in ptxas if r["d"] == d
+                          and r["source"] == SOURCES[name].split("/", 1)[1]]
     return entry
 
 
@@ -1328,16 +1512,21 @@ def main() -> int:
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from byteps_tpu_torch.ops.flash_attention import KERNEL_DS
+    if WIDTHS != KERNEL_DS:
+        raise AssertionError(f"WIDTHS {WIDTHS} != the kernels' {KERNEL_DS}")
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full fp32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    toolchain()
+    ptxas = toolchain()
     worst = dict.fromkeys(KERNELS, 0.0)
     worst.update({(k, f): 0.0 for k in FLASH_FORMS for f in FORMS})
+    worst128 = dict(worst)
     check_bert_kernels(worst)
     check_gpt2_kernels(worst)
     check_t5_kernels(worst)
+    check_dh128_kernels(worst128)
     check_onebit(_adversarial(), "adversarial vector")
     check_quant()
     timing = time_attention(TRAIN_BATCH, BERT_SEQ, False,
@@ -1353,8 +1542,22 @@ def main() -> int:
         ("rel", "encoder"): time_forms(TRAIN_BATCH, T5_SRC, False, "rel"),
         ("rel", "decoder"): time_forms(TRAIN_BATCH, T5_TGT - 1, True, "rel"),
         ("bias", "encoder"): time_forms(TRAIN_BATCH, T5_SRC, False, "bias")}
+    # d 128: the forward and fused backward at the dh128 BERT shape, the
+    # split backward past one block, the forms at T5's encoder geometry
+    timing128 = time_attention(TRAIN_BATCH, BERT_SEQ, False,
+                               ("flash_fwd", "flash_bwd_fused"),
+                               DH128_HEADS, DH128)
+    split128 = time_attention(TRAIN_BATCH, GPT2_SEQ, True,
+                              ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                              DH128_HEADS, DH128)
+    timing128["flash_bwd_dq"] = split128.pop("flash_bwd_dq")
+    timing128["flash_bwd_dkv"] = split128.pop("flash_bwd_dkv")
+    form_timing128 = {
+        (f, "encoder"): time_forms(TRAIN_BATCH, T5_SRC, False, f, DH128)
+        for f in FORMS}
     bert_launches, bert_losses = train_bert()
     paths = {"bert_large": bert_launches,
+             "bert_large_dh128": train_bert_dh128(),
              "gpt2_medium_dense": train_gpt2_dense(),
              "gpt2_medium_onebit": train_gpt2_onebit(),
              "t5_small": train_t5()}
@@ -1370,28 +1573,29 @@ def main() -> int:
     card = card_line()
     kernels = []
     for name in KERNELS:
-        t = timing[name]
-        entry = {
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name],
-            "launches": sum(p[name] for p in paths.values()),
-            "launches_by_path": {k: p[name] for k, p in paths.items()},
-            "max_abs_err": worst[name], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "ok": True, "timed_shape": t["timed_shape"], "card": card,
-            "tolerance": ("bit for bit" if name in BITWISE
-                          else f"max err <= {REL_TOL} * max|plain|"),
-        }
-        if name == "flash_fwd":        # also timed at the GPT-2 shape
-            g = gpt2_timing["flash_fwd"]
-            entry["gpt2"] = {k: g[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "timed_shape", "causal")}
-        if name in FLASH_FORMS:        # the bias forms, at the T5 shapes
-            entry["forms"] = {f: form_entry(name, f, paths, worst,
-                                            form_timing) for f in FORMS}
-        kernels.append(entry)
+        if name not in FLASH:
+            kernels.append(kernel_entry(name, paths, worst, timing, card,
+                                        ptxas))
+            continue
+        # the d-64 figures at the top, as the kernel line has carried
+        # them; the d-128 instantiation's, every key, under "d128"
+        by_d = {}
+        for d, w, tm, ft, other in (
+                (HEAD_DIM, worst, timing, form_timing, gpt2_timing),
+                (DH128, worst128, timing128, form_timing128, split128)):
+            entry = kernel_entry(name, paths, w, tm, card, ptxas, d)
+            if name == "flash_fwd":    # also timed past one block
+                g = other["flash_fwd"]
+                entry["gpt2" if d == HEAD_DIM else "s1024"] = {
+                    k: g[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms",
+                                      "timed_shape", "causal")}
+            if name in FLASH_FORMS:    # the bias forms, at the T5 shapes
+                entry["forms"] = {f: form_entry(name, f, paths, w, ft, d)
+                                  for f in FORMS}
+            by_d[d] = entry
+        by_d[HEAD_DIM]["d128"] = by_d[DH128]
+        kernels.append(by_d[HEAD_DIM])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -144,9 +144,11 @@ def _meta(*shape, dtype=torch.bfloat16):
 
 
 def test_kernel_input_check_accepts_the_flagship_geometry():
-    q = _meta(4, 512, 16, 64)
-    tfa.check_kernel_inputs(q, q, q, causal=False)
-    tfa.check_kernel_inputs(q, q, q, causal=True)
+    """BERT-large's 16 heads of 64 and its dh128 variant's 8 heads of
+    128 (``bench.py``): the two widths the kernels are built for."""
+    for q in (_meta(4, 512, 16, 64), _meta(8, 512, 8, 128)):
+        tfa.check_kernel_inputs(q, q, q, causal=False)
+        tfa.check_kernel_inputs(q, q, q, causal=True)
 
 
 @pytest.mark.parametrize("case,exc,match", [
@@ -156,7 +158,8 @@ def test_kernel_input_check_accepts_the_flagship_geometry():
     ("bias_shape", ValueError, r"\[h, sq, sk\]"),
     ("table_bf16", TypeError, "float32"),
     ("table_heads", ValueError, "q's heads"),
-    ("head_dim", NotImplementedError, "head_dim"),
+    ("head_dim", NotImplementedError, "head_dim 96"),
+    ("head_dim_256", NotImplementedError, "head_dim 256"),
     ("ragged", ValueError, "multiples"),
     ("causal_cross", ValueError, "causal"),
 ])
@@ -185,8 +188,10 @@ def test_kernel_input_check_refuses_what_the_kernels_do_not_take(case, exc,
         kw["rel_table"] = _meta(4, 32)
     elif case == "table_heads":       # the [nb, h] parameter, untransposed
         kw["rel_table"] = _meta(32, 4, dtype=torch.float32)
-    elif case == "head_dim":
-        q = k = v = _meta(2, 512, 4, 128)
+    elif case == "head_dim":          # neither 64 nor 128
+        q = k = v = _meta(2, 512, 4, 96)
+    elif case == "head_dim_256":      # the Pallas kernels' widest
+        q = k = v = _meta(2, 512, 4, 256)
     elif case == "ragged":
         q = k = v = _meta(2, 200, 4, 64)
     elif case == "causal_cross":

@@ -5,7 +5,9 @@
     own copies of what it needs;
   - its entry points run on the card unless asked otherwise, and raise
     where there is none;
-  - what is not ported raises instead of running some other path;
+  - what is not ported raises instead of running some other path: every
+    field of the JAX package's ``Config`` is read by the port or refused
+    at a non-default value;
   - no comment or docstring carries a measurement taken on a TPU.
 """
 
@@ -31,12 +33,18 @@ _PORT_ENV = ("BPS_WORKER_ID", "DMLC_WORKER_ID", "BPS_NUM_WORKER",
              "BPS_LOCAL_SIZE", "BYTEPS_LOCAL_SIZE", "BPS_COORDINATOR_ADDRESS",
              "DMLC_PS_ROOT_URI", "BPS_ENABLE_PS", "BYTEPS_ENABLE_PS",
              "BPS_ENABLE_ASYNC", "BYTEPS_ENABLE_ASYNC", "BPS_SERVER_ADDRS",
-             "BPS_COMPRESS", "BPS_COMPRESS_DEVICE")
+             "BPS_COMPRESS", "BPS_COMPRESS_DEVICE", "BPS_PP_STAGES")
+
+
+def _refused_env():
+    from byteps_tpu_torch.common.config import REFUSED
+    return [n for env, legacy, *_ in REFUSED.values()
+            for n in (env, legacy) if n]
 
 
 @pytest.fixture(autouse=True)
 def _port_env_unset(monkeypatch):
-    for name in _PORT_ENV:
+    for name in _PORT_ENV + tuple(_refused_env()):
         monkeypatch.delenv(name, raising=False)
 
 
@@ -186,6 +194,107 @@ def test_unported_model_options_raise(kw):
     from byteps_tpu_torch.models import bert
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bert.bert_large(**kw)
+
+
+# Fields of the JAX package's Config that the port reads outside its own
+# Config: field -> (the port's module, the env var it reads)
+READ_ELSEWHERE = {"log_level": ("common/logging.py", "BPS_LOG_LEVEL"),
+                  "stats_on": ("obs/metrics.py", "BPS_STATS")}
+# Fields that only tune a mode another knob selects: field -> that knob's
+# field, which the port refuses (REFUSED, or BPS_SERVER_ADDRS and
+# BPS_PP_STAGES, refused where they would act). Alone they change nothing
+# in the JAX package either.
+SUBORDINATE = {
+    "pp_rank": "pp_stages", "pp_microbatch": "pp_stages",
+    "pp_virtual": "pp_stages",
+    "shard_rank": "sharded_update", "shard_world": "sharded_update",
+    "trace_start_step": "trace_on", "trace_end_step": "trace_on",
+    "trace_dir": "trace_on", "trace_profiler": "trace_on",
+    "stats_every": "stats_file",
+    # the managed server plane and the emulated NIC act only on remote
+    # servers (more than one BPS_SERVER_ADDRS)
+    "plane_replicas": "server_addrs", "plane_rebalance_sec": "server_addrs",
+    "plane_vnodes": "server_addrs", "plane_liveness": "server_addrs",
+    "emu_nic_rate": "server_addrs", "emu_nic_latency": "server_addrs",
+}
+# Knobs that need no refusal, with the reason.
+EXEMPT = {
+    # read by the JAX trainer outside its Config: they choose an overlap
+    # schedule of the PS step, not its numbers, and the port's monolithic
+    # tail is the JAX package's BPS_APPLY_CHUNKED=0 route
+    "apply_chunked": "an overlap schedule (BPS_APPLY_CHUNKED)",
+    "cross_step": "an overlap schedule (BPS_CROSS_STEP)",
+    # jax.distributed's process count and index; the port's process group
+    # is num_worker / worker_id, which fall back to the same DMLC_ names
+    "num_processes": "jax.distributed only",
+    "process_id": "jax.distributed only",
+    # the JAX package's Config reads them and no module acts on them
+    "force_distributed": "acted on nowhere",
+    "reverse_layer_priority": "acted on nowhere",
+}
+
+
+def test_every_reference_knob_is_read_or_refused():
+    """Walk the fields of both Configs: each field of the JAX package's is
+    read by the port (its own Config, or a named module), refused at a
+    non-default value, subordinate to a refused knob, or exempt."""
+    import dataclasses
+
+    from byteps_tpu.common.config import Config as JConfig
+    from byteps_tpu_torch.common.config import REFUSED, Config
+    ref = [f.name for f in dataclasses.fields(JConfig)]
+    ours = {f.name for f in dataclasses.fields(Config)}
+    assert ours <= set(ref), f"port fields unknown to the reference: " \
+        f"{ours - set(ref)}"
+    for field, (module, env) in READ_ELSEWHERE.items():
+        assert env in (PORT / module).read_text(), (field, module)
+    for field, selector in SUBORDINATE.items():
+        assert selector in REFUSED or selector in ("pp_stages",
+                                                   "server_addrs"), field
+    covered = ours | set(READ_ELSEWHERE) | set(REFUSED) | set(SUBORDINATE) \
+        | set(EXEMPT)
+    missing = [f for f in ref if f not in covered]
+    assert not missing, f"reference knobs neither read nor refused: {missing}"
+    groups = [ours, set(READ_ELSEWHERE), set(REFUSED), set(SUBORDINATE),
+              set(EXEMPT)]
+    assert sum(map(len, groups)) == len(set().union(*groups))
+
+
+def _refused_cases():
+    from byteps_tpu_torch.common.config import REFUSED
+    values = {"role": "server", "scheduling_credit": "4", "host_only": "1",
+              "key_hash_fn": "naive", "sharded_update": "1", "trace_on": "1",
+              "telemetry_on": "1", "debug_sample_tensor": "grads",
+              "stats_file": "stats.json", "fleet_scrape_sec": "30",
+              "metrics_port": "9100"}
+    assert set(values) == set(REFUSED)
+    return [pytest.param(f, REFUSED[f][0], v, id=f)
+            for f, v in values.items()]
+
+
+@pytest.mark.parametrize("field,env,value", _refused_cases())
+def test_refused_knob_raises_at_a_non_default_value(field, env, value,
+                                                     monkeypatch):
+    """The value changes what the JAX package does (its Config reads
+    another value than the default); the port raises rather than run its
+    default path, and the default value itself still runs."""
+    from byteps_tpu.common.config import Config as JConfig
+    from byteps_tpu_torch.common.config import REFUSED, Config
+    default = REFUSED[field][2]
+    monkeypatch.setenv(env, str(default).lower() if isinstance(default, bool)
+                       else str(default))
+    Config.from_env()
+    monkeypatch.setenv(env, value)
+    assert getattr(JConfig.from_env(), field) != default
+    with pytest.raises(NotImplementedError, match=f"{env}.*ROADMAP"):
+        Config.from_env()
+
+
+def test_refused_knob_raises_under_its_legacy_name(monkeypatch):
+    import byteps_tpu_torch as bps
+    monkeypatch.setenv("DMLC_ROLE", "server")
+    with pytest.raises(NotImplementedError, match="DMLC_ROLE"):
+        bps.init(device="cpu")
 
 
 def test_kernel_build_needs_nvcc_and_says_so(monkeypatch, tmp_path):

@@ -10,7 +10,8 @@ JAX, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_kernels_cuda.py
 
-Inputs are seeded normal bf16. Both sides round at the same points (P and
+The flash checks run at head dims 64 and 128, the two widths the kernels
+are built for; another width raises. Inputs are seeded normal bf16. Both sides round at the same points (P and
 dS to bf16, outputs to bf16); they differ in fp32 summation order, which
 can move a rounded value by one bf16 step (2⁻⁸ relative). Tolerance:
 max |kernel - plain| <= 1e-2 · max |plain| for out, dq, dk, dv, dbias and
@@ -29,6 +30,7 @@ from byteps_tpu_torch.ops.compression import kernels as ob
 
 pytestmark = pytest.mark.cuda
 
+WIDTHS = fa.KERNEL_DS       # the head dims the flash kernels are built for
 SHAPES = [  # (b, sq, sk, h)
     (2, 128, 128, 4),
     (2, 256, 256, 4),
@@ -46,9 +48,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(dev, b, sq, sk, h, seed=0):
+def _inputs(dev, b, sq, sk, h, seed=0, d=64):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    mk = lambda s: torch.randn(b, s, h, 64, generator=g).to(dev, torch.bfloat16)
+    mk = lambda s: torch.randn(b, s, h, d, generator=g).to(dev, torch.bfloat16)
     return mk(sq), mk(sk), mk(sk), mk(sq)
 
 
@@ -67,39 +69,44 @@ def _cases():
                                id=f"b{b}-q{sq}-k{sk}-h{h}-{'causal' if causal else 'full'}")
 
 
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("b,sq,sk,h,causal", list(_cases()))
-def test_forward_kernel_matches_plain(cuda, b, sq, sk, h, causal):
-    q, k, v, _ = _inputs(cuda, b, sq, sk, h)
-    n0 = fa.flash_fwd.launches
+def test_forward_kernel_matches_plain(cuda, b, sq, sk, h, causal, d):
+    q, k, v, _ = _inputs(cuda, b, sq, sk, h, d=d)
+    n0, nd = fa.flash_fwd.launches, fa.flash_fwd.launches_d[d]
     out, lse = fa.flash_fwd(q, k, v, causal)
     torch.cuda.synchronize()
     assert fa.flash_fwd.launches == n0 + 1
+    assert fa.flash_fwd.launches_d[d] == nd + 1
     ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal)
     assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
     _close(out, ref_out, "out")
     assert (lse - ref_lse).abs().max().item() <= 1e-3
 
 
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("b,sq,sk,h,causal", list(_cases()))
-def test_fused_backward_kernel_matches_plain(cuda, b, sq, sk, h, causal):
-    q, k, v, do = _inputs(cuda, b, sq, sk, h, seed=1)
+def test_fused_backward_kernel_matches_plain(cuda, b, sq, sk, h, causal, d):
+    q, k, v, do = _inputs(cuda, b, sq, sk, h, seed=1, d=d)
     _, lse = fa.flash_fwd_plain(q, k, v, causal)
-    n0 = fa.flash_bwd_fused.launches
+    n0, nd = fa.flash_bwd_fused.launches, fa.flash_bwd_fused.launches_d[d]
     got = fa.flash_bwd_fused(q, k, v, do, lse, causal)
     torch.cuda.synchronize()
     assert fa.flash_bwd_fused.launches == n0 + 1
+    assert fa.flash_bwd_fused.launches_d[d] == nd + 1
     ref = fa.flash_bwd_fused_plain(q, k, v, do, lse, causal)
     for g_, r_, name in zip(got, ref, ("dq", "dk", "dv")):
         _close(g_, r_, name)
 
 
-def test_kernels_read_strided_views_in_place(cuda):
+@pytest.mark.parametrize("d", WIDTHS)
+def test_kernels_read_strided_views_in_place(cuda, d):
     """q, k, v as views of one packed [b, s, 3, h, d] projection (the
     model's layout) give the same bits as contiguous copies."""
     g = torch.Generator(device="cpu").manual_seed(2)
-    qkv = torch.randn(2, 256, 3, 4, 64, generator=g).to(cuda, torch.bfloat16)
+    qkv = torch.randn(2, 256, 3, 4, d, generator=g).to(cuda, torch.bfloat16)
     q, k, v = qkv.unbind(2)
-    do = torch.randn(2, 256, 4, 64, generator=g).to(cuda, torch.bfloat16)
+    do = torch.randn(2, 256, 4, d, generator=g).to(cuda, torch.bfloat16)
     out, lse = fa.flash_fwd(q, k, v)
     out_c, lse_c = fa.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous())
     assert torch.equal(out, out_c) and torch.equal(lse, lse_c)
@@ -133,11 +140,30 @@ def test_cuda_fp32_input_raises_instead_of_falling_back(cuda):
     assert fa.flash_fwd.launches == n0
 
 
+def test_cuda_head_dim_96_raises_from_every_wrapper(cuda):
+    """A width the kernels are not built for raises from each wrapper,
+    never reaching a kernel or a plain version."""
+    q, k, v, do = _inputs(cuda, 1, 128, 128, 2, seed=8, d=96)
+    lse = torch.zeros(1, 2, 128, device=cuda)
+    names = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
+    n0 = [getattr(fa, n).launches for n in names]
+    calls = (lambda: fa.flash_fwd(q, k, v),
+             lambda: fa.flash_bwd_fused(q, k, v, do, lse),
+             lambda: fa.flash_bwd_dq(q, k, v, do, lse, lse),
+             lambda: fa.flash_bwd_dkv(q, k, v, do, lse, lse),
+             lambda: fa.attention(q, k, v))
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="head_dim 96"):
+            call()
+    assert [getattr(fa, n).launches for n in names] == n0
+
+
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("b,sq,sk,h,causal", list(_cases()))
-def test_split_backward_kernels_match_plain(cuda, b, sq, sk, h, causal):
+def test_split_backward_kernels_match_plain(cuda, b, sq, sk, h, causal, d):
     """dq and dk/dv with delta = rowsum(dO∘out) from the forward's bf16
     output, as the split route computes it."""
-    q, k, v, do = _inputs(cuda, b, sq, sk, h, seed=4)
+    q, k, v, do = _inputs(cuda, b, sq, sk, h, seed=4, d=d)
     out, lse = fa.flash_fwd_plain(q, k, v, causal)
     delta = fa.bwd_delta(do, out)
     n0 = fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches
@@ -167,10 +193,11 @@ def test_split_kernels_read_strided_views_in_place(cuda):
         assert torch.equal(a, c)
 
 
-def test_autograd_takes_the_split_kernels_past_one_block(cuda):
+@pytest.mark.parametrize("d", WIDTHS)
+def test_autograd_takes_the_split_kernels_past_one_block(cuda, d):
     """At seq 1024 (two 512 blocks) the autograd Function runs the forward
     kernel, then the dq and dk/dv kernels, and never the fused one."""
-    q, k, v, do = _inputs(cuda, 1, 1024, 1024, 2, seed=6)
+    q, k, v, do = _inputs(cuda, 1, 1024, 1024, 2, seed=6, d=d)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     names = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
     n0 = [getattr(fa, n).launches for n in names]
@@ -337,18 +364,21 @@ def _form_kw(dev, form, h, sq, sk, causal, nb, maxd, seed):
             "rel_bidirectional": not causal, "rel_max_distance": maxd}
 
 
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize(
     "b,sq,sk,h,causal,form,nb,maxd", FORM_CASES,
     ids=[f"{c[5]}-b{c[0]}-q{c[1]}-k{c[2]}-h{c[3]}-"
          f"{'causal' if c[4] else 'full'}" + (f"-nb{c[6]}" if c[6] else "")
          for c in FORM_CASES])
-def test_bias_forms_match_plain(cuda, b, sq, sk, h, causal, form, nb, maxd):
+def test_bias_forms_match_plain(cuda, b, sq, sk, h, causal, form, nb, maxd,
+                                d):
     """Forward, dq (with dbias or dtable) and dk/dv of each form."""
-    q, k, v, do = _inputs(cuda, b, sq, sk, h, seed=40)
+    q, k, v, do = _inputs(cuda, b, sq, sk, h, seed=40, d=d)
     kw = _form_kw(cuda, form, h, sq, sk, causal, nb, maxd, seed=41)
     attr = "launches_bias" if form == "bias" else "launches_rel"
     fns = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     n0 = [getattr(f, attr) for f in fns]
+    nd = [getattr(f, attr + "_d")[d] for f in fns]
     out, lse = fa.flash_fwd(q, k, v, causal, **kw)
     ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal, **kw)
     _close(out, ref_out, "out")
@@ -358,6 +388,8 @@ def test_bias_forms_match_plain(cuda, b, sq, sk, h, causal, form, nb, maxd):
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal, **kw)
     torch.cuda.synchronize()
     assert [getattr(f, attr) - c for f, c in zip(fns, n0)] == [1, 1, 1]
+    assert [getattr(f, attr + "_d")[d] - c
+            for f, c in zip(fns, nd)] == [1, 1, 1]
     ref_dq, ref_dgrad = fa.flash_bwd_dq_plain(q, k, v, do, ref_lse, delta,
                                               causal, **kw)
     ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, do, ref_lse, delta,
@@ -368,12 +400,13 @@ def test_bias_forms_match_plain(cuda, b, sq, sk, h, causal, form, nb, maxd):
         _close(got, ref, name)
 
 
-def test_dense_and_table_forms_agree_bit_for_bit(cuda):
+@pytest.mark.parametrize("d", WIDTHS)
+def test_dense_and_table_forms_agree_bit_for_bit(cuda, d):
     """The same fp32 bias values, once as the table and once materialized:
     the same addend in the same code, so the same bits."""
     from byteps_tpu_torch.ops import relpos
     b, s, h = 2, 256, 4
-    q, k, v, do = _inputs(cuda, b, s, s, h, seed=42)
+    q, k, v, do = _inputs(cuda, b, s, s, h, seed=42, d=d)
     table = torch.randn(h, 32, generator=torch.Generator().manual_seed(43))
     table = table.to(cuda)
     for causal in (False, True):
@@ -393,8 +426,9 @@ def test_dense_and_table_forms_agree_bit_for_bit(cuda):
             assert torch.equal(a, c)
 
 
-def test_dtable_is_the_same_bits_on_every_launch(cuda):
-    q, k, v, do = _inputs(cuda, 2, 512, 512, 4, seed=44)
+@pytest.mark.parametrize("d", WIDTHS)
+def test_dtable_is_the_same_bits_on_every_launch(cuda, d):
+    q, k, v, do = _inputs(cuda, 2, 512, 512, 4, seed=44, d=d)
     table = torch.randn(4, 32, generator=torch.Generator().manual_seed(45))
     kw = {"rel_table": table.to(cuda), "rel_bidirectional": True}
     out, lse = fa.flash_fwd(q, k, v, **kw)
@@ -406,11 +440,12 @@ def test_dtable_is_the_same_bits_on_every_launch(cuda):
         assert torch.equal(first[1], again[1])
 
 
-def test_dbias_of_causally_skipped_tiles_is_zero(cuda):
+@pytest.mark.parametrize("d", WIDTHS)
+def test_dbias_of_causally_skipped_tiles_is_zero(cuda, d):
     """The dq kernel skips key tiles above the diagonal; their dbias must
     read 0, not what the buffer held."""
     s, h = 256, 2
-    q, k, v, do = _inputs(cuda, 2, s, s, h, seed=46)
+    q, k, v, do = _inputs(cuda, 2, s, s, h, seed=46, d=d)
     bias = torch.randn(h, s, s, generator=torch.Generator().manual_seed(47))
     torch.full((2, h, s, s), float("nan"), device=cuda)   # dirty the pool
     out, lse = fa.flash_fwd(q, k, v, True, bias=bias.to(cuda))

@@ -385,6 +385,46 @@ def test_exchange_refuses_what_is_not_ported(env, value, exc, monkeypatch):
         be.close()
 
 
+def test_pp_stages_is_refused_by_both_trainers(monkeypatch):
+    """``BPS_PP_STAGES=2``: the JAX ``DistributedTrainer`` refuses to run
+    its whole-model step on a pipeline stage, and so does the port's,
+    with and without ``bps.init()``."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    import byteps_tpu as jbps
+    import byteps_tpu_torch as bps
+    from byteps_tpu.parallel.mesh import make_mesh
+    from byteps_tpu.training import DistributedTrainer as JaxTrainer
+    from byteps_tpu_torch.training import DistributedTrainer
+    for name in ("BPS_ENABLE_PS", "BYTEPS_ENABLE_PS", "BPS_NUM_WORKER",
+                 "DMLC_NUM_WORKER"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("BPS_PP_STAGES", "2")
+    stem = "BPS_PP_STAGES=2: DistributedTrainer is the data-parallel step"
+    mesh = make_mesh({"data": 1}, devices=jax.devices()[:1])
+    jbps.init(mesh=mesh)
+    try:
+        with pytest.raises(ValueError, match=stem):
+            JaxTrainer(lambda p, b: jnp.sum(p["w"] * b), {"w": jnp.ones(3)},
+                       optax.sgd(0.1), mesh=mesh)
+    finally:
+        jbps.shutdown()
+    model = torch.nn.Linear(3, 1)
+    with pytest.raises(ValueError, match=stem):
+        DistributedTrainer(lambda m, b: m(b).sum(), model,
+                           torch.optim.SGD(model.parameters(), 0.1),
+                           device="cpu")
+    bps.init(device="cpu")
+    try:
+        with pytest.raises(ValueError, match=stem):
+            DistributedTrainer(lambda m, b: m(b).sum(), model,
+                               torch.optim.SGD(model.parameters(), 0.1))
+    finally:
+        bps.shutdown()
+
+
 def test_server_builds_without_openmp_and_sums_alike(monkeypatch, tmp_path):
     """A g++ that cannot link OpenMP builds the engine without it (its
     OpenMP use is pragmas only); that build sums bit for bit alike."""
