@@ -7,7 +7,8 @@
 //     the CTA first walks its key tiles once for delta = rowsum(P∘dP) over
 //     the whole key row and writes it to the caller's [b, h, sq] scratch,
 //     where the dk/dv launch reads it;
-//   - flash_dq.cu (the split backward's `_dq_kernel`): kDeltaIn = true,
+//   - flash_dq.cu (the split backward's `_dq_kernel`), and flash_bwd.cu
+//     when its caller gives delta (ring attention): kDeltaIn = true,
 //     delta is read from its input, computed by the caller from the
 //     forward's output as rowsum(dO∘out).
 // S and dP are recomputed on the tensor cores (mma.sync.m16n8k16, bf16 x

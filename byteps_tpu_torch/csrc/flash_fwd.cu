@@ -4,14 +4,19 @@
 // (wrapper _flash_fwd, pallas_call at :284) in its three score forms: no
 // bias, the additive bias [h, sq, sk] (`has_bias`) and T5's in-kernel
 // relative-position table (`rel`, _bucket_block :61, _table_bias :68,
-// _rel_row :78); see flash_bias.cuh. Its fp32 `out_dtype` (ring attention
-// only) is not ported.
+// _rel_row :78); see flash_bias.cuh. The no-bias form also writes its
+// output in fp32 (`out_dtype=float32`, `kF32Out`), which only ring
+// attention asks for (byteps_tpu/parallel/ring.py::_flash_blk_fwd): the
+// ring merges one partial output per ring step by log-sum-exp, and an fp32
+// partial keeps that merge from rounding to bf16 once per step.
 //
 // Contract (the same as the Pallas kernel's): q [b,sq,h,d], k/v [b,sk,h,d]
-// bf16 -> out [b,sq,h,d] bf16 and lse [b,h,sq] fp32. S = q·kᵀ·scale (+ B)
-// in fp32; causal masks entries with row < col to -1e30 and skips kv tiles
-// above the diagonal; online max/sum; P is cast to bf16 before P·V; out =
-// acc / max(l, 1e-30) and lse = m + log(l).
+// bf16 -> out [b,sq,h,d] bf16 (or fp32) and lse [b,h,sq] fp32. S =
+// q·kᵀ·scale (+ B) in fp32; causal masks entries with row < col to -1e30
+// and skips kv tiles above the diagonal; online max/sum; P is cast to bf16
+// before P·V; out = acc / max(l, 1e-30) and lse = m + log(l). The fp32 out
+// is that quotient unrounded: rounded to bf16 it is the bf16 launch's out,
+// bit for bit (the two instantiations differ only in the store).
 //
 // What bounds it on an H100: the function reads q, k, v and writes out
 // once, 8·s·d bytes per (batch, head), and does 4·s²·d FLOP, so s / 2
@@ -34,7 +39,11 @@
 // declare statically. Registers: each warp holds its 16 rows of Q as A
 // fragments (kD / 4 registers), the output accumulator (kD / 2 fp32) and
 // one 16 x 64 tile of scores (32 fp32): about 176 at d 128, under the 255
-// a thread may hold, so the design is the same at both widths.
+// a thread may hold, so the design is the same at both widths. The fp32
+// out is stored straight from the accumulator registers, 8 bytes a lane
+// where the bf16 out stores 4: no shared memory and no register is added,
+// and the bytes written double (the fp32 out moves 10·s·d bytes per
+// (batch, head) instead of 8·s·d, still bounded by memory at seq 512).
 #include "flash_bias.cuh"
 
 namespace {
@@ -52,10 +61,11 @@ static_assert(sizeof(FwdSmem<64, kBiasNone>) == 27650 &&
                   sizeof(FwdSmem<128, kBiasTable>) == 53760,
               "the forward's dynamic shared memory at d 64 and d 128");
 
-template <int kD, int kForm>
+// kF32Out: `out` is fp32 (the ring's partial output), else bf16.
+template <int kD, int kForm, bool kF32Out>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out,
+                 const bf16* __restrict__ v, void* __restrict__ out,
                  float* __restrict__ lse, int h, int sq, int sk,
                  BshdStrides qs, BshdStrides ks, BshdStrides vs,
                  BshdStrides os, float scale, int causal, BiasArgs ba) {
@@ -168,14 +178,20 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   const float lc[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
-  bf16* op = out + bb * os.b + hh * kD;
 #pragma unroll
   for (int n = 0; n < kD / 8; ++n) {
     const int col = n * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(op + row[0] * os.s + col) =
-        pack_f32(o[n][0] / lc[0], o[n][1] / lc[0]);
-    *reinterpret_cast<uint32_t*>(op + row[1] * os.s + col) =
-        pack_f32(o[n][2] / lc[1], o[n][3] / lc[1]);
+    const float x0 = o[n][0] / lc[0], x1 = o[n][1] / lc[0];
+    const float x2 = o[n][2] / lc[1], x3 = o[n][3] / lc[1];
+    if constexpr (kF32Out) {
+      float* op = static_cast<float*>(out) + bb * os.b + hh * kD;
+      *reinterpret_cast<float2*>(op + row[0] * os.s + col) = make_float2(x0, x1);
+      *reinterpret_cast<float2*>(op + row[1] * os.s + col) = make_float2(x2, x3);
+    } else {
+      bf16* op = static_cast<bf16*>(out) + bb * os.b + hh * kD;
+      *reinterpret_cast<uint32_t*>(op + row[0] * os.s + col) = pack_f32(x0, x1);
+      *reinterpret_cast<uint32_t*>(op + row[1] * os.s + col) = pack_f32(x2, x3);
+    }
   }
   if (t == 0) {
     float* lp = lse + ((long long)bb * h + hh) * sq;
@@ -184,21 +200,21 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int kD, int kForm>
+template <int kD, int kForm, bool kF32Out>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int b, int h, int sq, int sk, BshdStrides qs,
                    BshdStrides ks, BshdStrides vs, BshdStrides os,
                    float scale, int causal, const BiasArgs& ba,
                    cudaStream_t stream) {
   constexpr int kSmem = sizeof(FwdSmem<kD, kForm>);
-  const cudaError_t attr = smem_attr(flash_fwd_kernel<kD, kForm>, kSmem);
+  const cudaError_t attr =
+      smem_attr(flash_fwd_kernel<kD, kForm, kF32Out>, kSmem);
   if (attr != cudaSuccess) return attr;
-  flash_fwd_kernel<kD, kForm>
+  flash_fwd_kernel<kD, kForm, kF32Out>
       <<<dim3(sq / kTile, h, b), kThreads, kSmem, stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<bf16*>(out),
-          static_cast<float*>(lse), h, sq, sk, qs, ks, vs, os, scale, causal,
-          ba);
+          static_cast<const bf16*>(v), out, static_cast<float*>(lse), h, sq,
+          sk, qs, ks, vs, os, scale, causal, ba);
   return cudaGetLastError();
 }
 
@@ -207,6 +223,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // Launches on `stream`, allocates nothing; returns cudaGetLastError().
 // `form` is a BiasForm: 0 takes no bias arguments, 1 `bias` ([h, sq, sk]
 // fp32), 2 `bucket` ([sq + sk - 1] int32), `table` ([h, nb] fp32) and nb.
+// `out_f32` 1 writes `out` as fp32 (no-bias form only), 0 as bf16; the
+// out strides are in elements of that type.
 extern "C" int bps_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, int b, int h, int sq,
                              int sk, int d, long long q_sb, long long q_ss,
@@ -214,17 +232,23 @@ extern "C" int bps_flash_fwd(const void* q, const void* k, const void* v,
                              long long v_ss, long long o_sb, long long o_ss,
                              float scale, int causal, int form,
                              const void* bias, const void* bucket,
-                             const void* table, int nb, void* stream) {
+                             const void* table, int nb, int out_f32,
+                             void* stream) {
   if (sq % kTile != 0 || sk % kTile != 0 || b <= 0 || h <= 0 ||
-      !bias_args_ok(form, bias, bucket, table, nb))
+      !bias_args_ok(form, bias, bucket, table, nb) ||
+      (out_f32 && form != kBiasNone))
     return static_cast<int>(cudaErrorInvalidValue);
   const BiasArgs ba = bias_args(bias, bucket, table, nb);
   const BshdStrides qs{q_sb, q_ss}, ks{k_sb, k_ss}, vs{v_sb, v_ss},
       os{o_sb, o_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_d(d, [&](auto D) {
+    constexpr int kD = decltype(D)::value;
+    if (out_f32)
+      return launch<kD, kBiasNone, true>(q, k, v, out, lse, b, h, sq, sk, qs,
+                                         ks, vs, os, scale, causal, ba, st);
     return with_form(form, [&](auto F) {
-      return launch<decltype(D)::value, decltype(F)::value>(
+      return launch<kD, decltype(F)::value, false>(
           q, k, v, out, lse, b, h, sq, sk, qs, ks, vs, os, scale, causal, ba,
           st);
     });

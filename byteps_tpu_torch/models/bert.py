@@ -47,8 +47,9 @@ def mlm_loss(model: Transformer, batch,
     run the LM head only on those (the standard max_predictions_per_seq
     trick). Exact as long as no sequence has more than K masked positions;
     sequences over the cap drop their latest-position extras. None =
-    full-sequence head."""
-    if max_predictions is None:
+    full-sequence head, which sequence parallelism always takes (the
+    hidden states are sequence shards)."""
+    if max_predictions is None or model.cfg.sp_axis is not None:
         return lm_loss(model, batch)
     tokens, targets = batch
     b, s = tokens.shape

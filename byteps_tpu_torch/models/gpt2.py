@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.mesh import axis_ring
+from ..parallel.ring import rotate
 from .transformer import Transformer, TransformerConfig, lm_loss
 
 
@@ -36,17 +38,32 @@ def gpt2_tiny(**kw) -> TransformerConfig:
                        max_seq=64, dtype="float32", remat=False, **kw)
 
 
+def next_token_targets(tokens: torch.Tensor, sp_axis=None) -> torch.Tensor:
+    """The targets of ``tokens`` [b, s]: each position's next token, -1
+    at the globally last position. Under ``sp_axis`` each shard borrows
+    the next shard's first token as its last target (rank i receives from
+    rank i + 1: the JAX permutation i -> i - 1), and only the last rank
+    masks its last position."""
+    if sp_axis is None:
+        return torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)],
+                         dim=1)
+    ring = axis_ring(sp_axis)
+    next_first, = rotate([tokens[:, :1]], ring, shift=-1)
+    if ring.index == ring.size - 1:
+        next_first = torch.full_like(next_first, -1)
+    return torch.cat([tokens[:, 1:], next_first], dim=1)
+
+
 def causal_lm_loss(model: Transformer, batch) -> torch.Tensor:
     """batch = tokens [b, s]; next-token prediction.
 
     The full sequence stays the input and the last target is masked
     (target -1), as in the JAX package: the same loss as a shift to s - 1,
-    but s stays a multiple of the attention block. The sequence-parallel
-    form (``sp_axis``) is refused by the config (ROADMAP.md)."""
+    but s stays a multiple of the attention block. Under sequence
+    parallelism ``tokens`` is this rank's shard (``next_token_targets``)."""
     tokens = batch
-    targets = torch.cat([tokens[:, 1:],
-                         torch.full_like(tokens[:, :1], -1)], dim=1)
-    return lm_loss(model, (tokens, targets))
+    return lm_loss(model, (tokens, next_token_targets(tokens,
+                                                      model.cfg.sp_axis)))
 
 
 def synth_lm_batch(rng: np.random.RandomState, batch: int, seq: int,

@@ -15,10 +15,16 @@ carry across by name alone (``convert.params_from_jax``).
   - ``torch.utils.checkpoint`` (non-reentrant) on each block when
     ``remat``: the backward re-runs the block's forward, attention kernel
     included
+  - sequence parallelism over the ``sp_axis`` mesh axis: ``tokens`` is
+    this rank's sequence shard, positions are offset by rank · s_local,
+    attention is ``parallel.ring.ring_attention``, and the loss sums its
+    nll and mask count over the axis before dividing. The axis resolves
+    through the current mesh (``parallel.mesh.use_mesh``, entered by
+    ``ShardedTrainer.step``); with none, a forward raises.
 
-Tensor, sequence and pipeline parallelism, the chunked LM head and the
-remat policies other than None are not ported yet (ROADMAP.md): those
-config fields raise.
+Tensor and pipeline parallelism, the chunked LM head and the remat
+policies other than None are not ported yet (ROADMAP.md): those config
+fields raise.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import attention
+from ..parallel.mesh import axis_ring
+from ..parallel.ring import ring_attention, seq_sum
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -83,11 +91,11 @@ class TransformerConfig:
         if self.dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}, "
                              f"got {self.dtype!r}")
-        for field in ("tp_axis", "sp_axis", "pp_axis"):
+        for field in ("tp_axis", "pp_axis"):
             if getattr(self, field) is not None:
                 raise NotImplementedError(
-                    f"{field}: tensor/sequence/pipeline parallelism is not "
-                    "ported yet (ROADMAP.md)")
+                    f"{field}: tensor/pipeline parallelism is not ported "
+                    "yet (ROADMAP.md)")
         if self.lm_head_chunk:
             raise NotImplementedError(
                 "lm_head_chunk: the chunked LM head is not ported yet "
@@ -176,7 +184,11 @@ def _attention(x, blk: Dict[str, torch.Tensor], cfg: TransformerConfig):
     w = blk["qkv"].to(x.dtype).reshape(h, 3 * cfg.heads * cfg.head_dim)
     qkv = (x @ w).view(b, s, 3, cfg.heads, cfg.head_dim)
     q, k, v = qkv.unbind(2)                         # [b, s, heads, hd] views
-    out = attention(q, k, v, causal=cfg.causal, impl=cfg.attn_impl)
+    if cfg.sp_axis is not None:
+        out = ring_attention(q, k, v, cfg.sp_axis, causal=cfg.causal,
+                             impl=cfg.attn_impl)
+    else:
+        out = attention(q, k, v, causal=cfg.causal, impl=cfg.attn_impl)
     out = out.reshape(b, s, cfg.heads * cfg.head_dim)
     return out @ blk["attn_out"].to(x.dtype)
 
@@ -208,11 +220,16 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """With ``sp_axis``, ``tokens`` is this rank's sequence shard and
+        the default positions are its global ones."""
         cfg = self.cfg
         dt = DTYPES[cfg.dtype]
         s = tokens.shape[1]
         if positions is None:
-            positions = torch.arange(s, device=tokens.device)
+            offset = (axis_ring(cfg.sp_axis).index * s
+                      if cfg.sp_axis is not None else 0)
+            positions = torch.arange(offset, offset + s,
+                                     device=tokens.device)
         x = F.embedding(tokens, self.embed.tok).to(dt)
         x = x + self.embed.pos[positions].to(dt)
         for i, blk in enumerate(layer_views(self.blocks)):
@@ -242,8 +259,17 @@ def _nll_sum(lg, targets, mask):
 
 def lm_loss(model: Transformer, batch) -> torch.Tensor:
     """Cross-entropy LM loss with the full head. batch = (tokens,
-    targets); targets < 0 are ignored (the MLM mask convention)."""
+    targets); targets < 0 are ignored (the MLM mask convention).
+
+    Under sequence parallelism the nll sum and the mask count are summed
+    over the ``sp_axis`` ranks before dividing, so every rank holds the
+    global loss (a mean of per-shard means would weight shards with
+    different mask counts unevenly)."""
     tokens, targets = batch
     mask = targets >= 0
     nll_sum = _nll_sum(logits(model, model(tokens)), targets, mask)
-    return nll_sum / mask.sum().float().clamp_min(1.0)
+    cnt = mask.sum().float()
+    if model.cfg.sp_axis is not None:
+        nll_sum, cnt = seq_sum(torch.stack([nll_sum, cnt]),
+                               axis_ring(model.cfg.sp_axis)).unbind()
+    return nll_sum / cnt.clamp_min(1.0)

@@ -39,9 +39,10 @@ _BIAS = [_I, _P, _P, _P, _I]
 # argtypes of each C entry point, by source stem
 SIGNATURES = {
     "flash_fwd": ("bps_flash_fwd",
-                  [_P] * 5 + [_I] * 5 + [_L] * 8 + [_F, _I] + _BIAS + [_P]),
+                  [_P] * 5 + [_I] * 5 + [_L] * 8 + [_F, _I] + _BIAS
+                  + [_I, _P]),
     "flash_bwd": ("bps_flash_bwd",
-                  [_P] * 9 + [_I] * 5 + [_L] * 8 + [_F, _I, _P]),
+                  [_P] * 10 + [_I] * 5 + [_L] * 8 + [_F, _I, _P]),
     "flash_dq": ("bps_flash_dq",
                  [_P] * 7 + [_I] * 5 + [_L] * 8 + [_F, _I] + _BIAS
                  + [_P, _P]),

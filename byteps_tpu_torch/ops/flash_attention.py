@@ -12,12 +12,21 @@ Kernels (CUDA C++ for sm_90a, ``csrc/``, built at first use by
     ``_fwd_kernel`` (flash_attention.py:172, wrapper ``_flash_fwd`` :248):
     online-softmax forward, S and P never leave the chip. Bounded by
     memory on an H100 at the flagship's seq 512, at d 64 and d 128.
+    ``out_dtype=torch.float32`` (no bias) writes the output unrounded,
+    the Pallas ``out_dtype`` that only ring attention asks for
+    (``parallel/ring.py``): 10·s·d bytes per (batch, head) moved where
+    the bf16 out moves 8·s·d, still bounded by memory at seq 512.
   - ``flash_bwd_fused`` launches ``csrc/flash_bwd.cu``, the port of the
     Pallas ``_dqkv_fused_kernel`` (:489, wrapper ``_flash_bwd_fused``
     :548): (q, k, v, dO, lse) -> (dq, dk, dv) with delta computed from
     P∘dP, so ``out`` is no input. Bounded by tensor-core throughput. Two
     launches behind the one wrapper, because delta and dk/dv reduce
-    across tiles that Hopper CTAs cannot share (see the source).
+    across tiles that Hopper CTAs cannot share (see the source). With
+    ``delta`` given (the Pallas ``has_delta``, ring attention's hoisted
+    global rowsum(dO∘out)) the first launch skips its delta walk: 7
+    recomputed products instead of 9, still bounded by tensor-core
+    throughput, and the outputs are the split route's with that delta,
+    bit for bit.
   - ``flash_bwd_dq`` launches ``csrc/flash_dq.cu`` and ``flash_bwd_dkv``
     ``csrc/flash_dkv.cu``, the ports of the Pallas ``_dq_kernel`` (:335)
     and ``_dkv_kernel`` (:421), the split backward of ``_flash_bwd``
@@ -70,7 +79,9 @@ multiple of 64, a bias or table of the wrong shape) are refused by
 attributes: ``launches`` (every form and width), ``launches_bias`` and
 ``launches_rel`` (the bias and table forms), and by head dim
 ``launches_d``, ``launches_bias_d`` and ``launches_rel_d`` (dicts from
-head dim to launches).
+head dim to launches); ``flash_fwd`` also counts its fp32-out launches
+(``launches_f32``, ``launches_f32_d``) and ``flash_bwd_fused`` its
+delta-given ones (``launches_delta``, ``launches_delta_d``).
 """
 
 from __future__ import annotations
@@ -184,13 +195,13 @@ def _table_grad(ds: torch.Tensor, sq: int, sk: int, rel_table,
 def flash_fwd_plain(q, k, v, causal: bool = False,
                     scale: Optional[float] = None, bias=None, rel_table=None,
                     rel_bidirectional: bool = True,
-                    rel_max_distance: int = 128
+                    rel_max_distance: int = 128, out_dtype=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's function in plain PyTorch: (out, lse).
 
     Products in fp32 from the inputs' values, the bias added before the
-    mask; P cast to v's dtype before P·V; out = acc / max(l, 1e-30),
-    lse = m + log(l)."""
+    mask; P cast to v's dtype before P·V; out = acc / max(l, 1e-30) in
+    ``out_dtype`` (default q's), lse = m + log(l)."""
     scale = _scale(q, scale)
     sq, sk = q.shape[1], k.shape[1]
     s = _scores(q, k, scale, score_bias(sq, sk, bias, rel_table,
@@ -202,7 +213,7 @@ def flash_fwd_plain(q, k, v, causal: bool = False,
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)          # [b, h, q, 1]
     acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     out = acc / l.transpose(1, 2)
-    return out.to(q.dtype), (m + torch.log(l))[..., 0]
+    return out.to(out_dtype or q.dtype), (m + torch.log(l))[..., 0]
 
 
 def _probs_and_dp(q, k, v, do, lse, causal, scale, addend=None):
@@ -218,14 +229,16 @@ def _probs_and_dp(q, k, v, do, lse, causal, scale, addend=None):
 
 
 def flash_bwd_fused_plain(q, k, v, do, lse, causal: bool = False,
-                          scale: Optional[float] = None
+                          scale: Optional[float] = None, delta=None
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fused backward kernel's function in plain PyTorch:
-    (q, k, v, dO, lse) -> (dq, dk, dv), no ``out`` input."""
+    (q, k, v, dO, lse) -> (dq, dk, dv), no ``out`` input; delta =
+    rowsum(P∘dP) unless the caller gives it ([b, h, sq] fp32)."""
     scale = _scale(q, scale)
     p, dp = _probs_and_dp(q, k, v, do, lse, causal, scale)
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
-    delta = (p * dp).sum(-1, keepdim=True)
+    delta = ((p * dp).sum(-1, keepdim=True) if delta is None
+             else delta.float()[..., None])
     ds = (p * (dp - delta)).to(q.dtype).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
@@ -312,6 +325,18 @@ def check_forms(q, k, causal: bool = False, bias=None,
                             f"{rel_table.dtype}")
 
 
+def check_out_dtype(out_dtype, bias=None, rel_table=None) -> None:
+    """The forward's ``out_dtype``: None (q's dtype) or float32, the
+    latter only without a bias or table (the ring passes none, and the
+    kernel's fp32 store is instantiated for the no-bias form only)."""
+    if out_dtype not in (None, torch.float32):
+        raise ValueError(f"out_dtype must be None or torch.float32, got "
+                         f"{out_dtype}")
+    if out_dtype is not None and (bias is not None or rel_table is not None):
+        raise ValueError("out_dtype=float32 is the ring's no-bias form; a "
+                         "bias or rel_table takes q's dtype")
+
+
 def check_kernel_inputs(q, k, v, causal: bool = False, bias=None,
                         rel_table=None) -> None:
     """Refuse what the Hopper kernels do not take; called by the CUDA
@@ -376,50 +401,61 @@ def _bias_args(q, k, bias, rel_table, rel_bidirectional, rel_max_distance):
     return form, (), (None, None, None, 0)
 
 
-def _count(fn, form: int, d: int) -> None:
+def _count(fn, form: int, d: int, variant: Optional[str] = None) -> None:
+    """One launch of ``fn`` in bias ``form`` at head dim ``d``;
+    ``variant`` ("f32", "delta") also counts the ring's form."""
     fn.launches += 1
     fn.launches_d[d] += 1
-    if form == FORM_BIAS:
-        fn.launches_bias += 1
-        fn.launches_bias_d[d] += 1
-    elif form == FORM_REL:
-        fn.launches_rel += 1
-        fn.launches_rel_d[d] += 1
+    kind = {FORM_BIAS: "bias", FORM_REL: "rel"}.get(form)
+    for k in (kind, variant):
+        if k is not None:
+            setattr(fn, f"launches_{k}", getattr(fn, f"launches_{k}") + 1)
+            getattr(fn, f"launches_{k}_d")[d] += 1
 
 
 def zero_counts(fn) -> None:
     """Set every launch count of the wrapper ``fn`` to 0."""
-    fn.launches = fn.launches_bias = fn.launches_rel = 0
+    fn.launches = 0
     fn.launches_d = dict.fromkeys(KERNEL_DS, 0)
-    fn.launches_bias_d = dict.fromkeys(KERNEL_DS, 0)
-    fn.launches_rel_d = dict.fromkeys(KERNEL_DS, 0)
+    for k in ("bias", "rel") + fn.variants:
+        setattr(fn, f"launches_{k}", 0)
+        setattr(fn, f"launches_{k}_d", dict.fromkeys(KERNEL_DS, 0))
 
 
-def _counted(fn):
-    zero_counts(fn)
-    return fn
+def _counted(*variants):
+    """Give a wrapper its launch counts; ``variants`` names the ring
+    forms it also counts on their own."""
+    def wrap(fn):
+        fn.variants = variants
+        zero_counts(fn)
+        return fn
+    return wrap
 
 
 # ------------------------------------------------------------- wrappers
 
-@_counted
+@_counted("f32")
 def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
               bias=None, rel_table=None, rel_bidirectional: bool = True,
-              rel_max_distance: int = 128
+              rel_max_distance: int = 128, out_dtype=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q [b,sq,h,d], k/v [b,sk,h,d] -> (out [b,sq,h,d], lse [b,h,sq] fp32).
-    CUDA tensors launch ``csrc/flash_fwd.cu``; CPU tensors take
+    """q [b,sq,h,d], k/v [b,sk,h,d] -> (out [b,sq,h,d], lse [b,h,sq] fp32),
+    out in ``out_dtype`` (None: q's; float32 only without a bias). CUDA
+    tensors launch ``csrc/flash_fwd.cu``; CPU tensors take
     ``flash_fwd_plain``."""
+    check_out_dtype(out_dtype, bias, rel_table)
     if device_type(q, "flash attention") == "cpu":
         return flash_fwd_plain(q, k, v, causal, scale, bias, rel_table,
-                               rel_bidirectional, rel_max_distance)
+                               rel_bidirectional, rel_max_distance, out_dtype)
     check_kernel_inputs(q, k, v, causal, bias, rel_table)
     q, k, v = (_kernel_layout(t) for t in (q, k, v))
     b, sq, h, d = q.shape
     sk = k.shape[1]
     form, keep, bargs = _bias_args(q, k, bias, rel_table, rel_bidirectional,
                                    rel_max_distance)
-    out = torch.empty(b, sq, h, d, dtype=q.dtype, device=q.device)
+    f32 = out_dtype is not None
+    out = torch.empty(b, sq, h, d, dtype=out_dtype or q.dtype,
+                      device=q.device)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -428,9 +464,9 @@ def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
             lse.data_ptr(), b, h, sq, sk, d,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-            _scale(q, scale), int(causal), form, *bargs, stream)
+            _scale(q, scale), int(causal), form, *bargs, int(f32), stream)
     raise_on_error(code, "flash forward kernel")
-    _count(flash_fwd, form, d)
+    _count(flash_fwd, form, d, "f32" if f32 else None)
     return out, lse
 
 
@@ -463,32 +499,39 @@ def _bwd_args(q, k, v, do, scale, causal):
             _scale(q, scale), int(causal))
 
 
-@_counted
+@_counted("delta")
 def flash_bwd_fused(q, k, v, do, lse, causal: bool = False,
-                    scale: Optional[float] = None
+                    scale: Optional[float] = None, delta=None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(q, k, v, dO, lse) -> (dq, dk, dv). CUDA tensors launch
+    """(q, k, v, dO, lse) -> (dq, dk, dv), delta computed in the kernel
+    unless given ([b, h, sq] fp32). CUDA tensors launch
     ``csrc/flash_bwd.cu``; CPU tensors take ``flash_bwd_fused_plain``."""
     if device_type(q, "flash attention") == "cpu":
-        return flash_bwd_fused_plain(q, k, v, do, lse, causal, scale)
+        return flash_bwd_fused_plain(q, k, v, do, lse, causal, scale, delta)
     check_kernel_inputs(q, k, v, causal)
-    _check_bwd_inputs(q, k, v, do, lse)
+    _check_bwd_inputs(q, k, v, do, lse, delta)
     q, k, v, do = (_kernel_layout(t) for t in (q, k, v, do))
     lse = lse.contiguous()
     dq, dk, dv = _empty(q), _empty(k), _empty(v)
-    delta = _empty(lse)
+    if delta is None:       # the kernel's scratch: it writes delta there
+        scratch, given = _empty(lse), None
+    else:
+        scratch, given = None, delta.contiguous()
     with torch.cuda.device(q.device):
         code = entry("flash_bwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), *_bwd_args(q, k, v, do, scale, causal),
+            lse.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            None if given is None else given.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            *_bwd_args(q, k, v, do, scale, causal),
             torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error(code, "flash fused backward kernel")
-    _count(flash_bwd_fused, FORM_NONE, q.shape[3])
+    _count(flash_bwd_fused, FORM_NONE, q.shape[3],
+           None if given is None else "delta")
     return dq, dk, dv
 
 
-@_counted
+@_counted()
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
                  scale: Optional[float] = None, bias=None, rel_table=None,
                  rel_bidirectional: bool = True, rel_max_distance: int = 128):
@@ -531,7 +574,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
     return dq
 
 
-@_counted
+@_counted()
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
                   scale: Optional[float] = None, bias=None, rel_table=None,
                   rel_bidirectional: bool = True, rel_max_distance: int = 128

@@ -26,6 +26,13 @@ The async path, custom reducers, the legacy ``compression=`` kwargs in PS
 mode, gradient accumulation in PS mode and pipeline parallelism
 (``BPS_PP_STAGES`` > 1) are not ported yet (ROADMAP.md): their options
 raise.
+
+``ShardedTrainer`` is the data × sequence-parallel step (counterpart of
+the JAX ``ShardedTrainer`` on a mesh whose only axes above 1 are
+``data`` and ``seq``): each rank trains on the sequence shard of its data
+shard, ring attention joins the shards, replicated parameters' gradients
+are summed over the ``seq`` group and then all-reduced over the ``data``
+group by ``DistributedOptimizer``.
 """
 
 from __future__ import annotations
@@ -42,7 +49,8 @@ from .common.config import Config
 from .common.global_state import GlobalState, check_ps_config, resolve_device
 from .obs.metrics import observe_stage
 from .optim import DistributedOptimizer
-from .parallel.mesh import data_group, dp_size
+from .parallel.collectives import bucketed_allreduce
+from .parallel.mesh import Mesh, data_group, dp_size, use_mesh
 
 _NOT_PORTED = "is not ported yet (see ROADMAP.md, 'Modules still to port')"
 
@@ -224,3 +232,130 @@ class DistributedTrainer:
             dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=self.group)
             loss = loss / n
         return loss
+
+
+def _shard(x, rows: slice, cols: slice):
+    """This rank's block of a global batch leaf: rows on the data axis,
+    the sequence (dim 1) on the seq axis."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(_shard(v, rows, cols) for v in x)
+    if isinstance(x, np.ndarray):
+        return np.ascontiguousarray(x[rows, cols] if x.ndim >= 2 else x[rows])
+    if torch.is_tensor(x):
+        return (x[rows, cols] if x.ndim >= 2 else x[rows]).contiguous()
+    return x
+
+
+class ShardedTrainer:
+    """The data × sequence-parallel train step on a ``parallel.mesh``
+    mesh (counterpart of ``byteps_tpu/training.py::ShardedTrainer``,
+    ``:1106-1215``, for meshes of ``data`` and ``seq`` axes).
+
+    Args:
+      loss_fn: ``loss_fn(model, batch) -> scalar``, the global loss on
+        every rank (the models' losses under ``sp_axis`` sum over the
+        ``seq`` axis before dividing).
+      model: an ``nn.Module`` whose config names the mesh's ``seq`` axis
+        as its ``sp_axis``; moved to ``device``.
+      optimizer: the inner ``torch.optim`` optimizer.
+      mesh: ``parallel.mesh.make_mesh({"data": dp, "seq": sp})``; size-1
+        axes are kept (a ``seq`` axis of 1 is a ring of one).
+      partition_bytes: the data all-reduce's bucket size (default
+        ``BPS_PARTITION_BYTES``).
+      device: None means the card (``cuda``) and raises without one.
+
+    ``step(batch)`` takes the GLOBAL batch (every rank the same), whose
+    leaves are [batch, seq, ...] (or [batch]): rank (i, j) of the mesh
+    trains on rows i of ``data`` and sequence block j of ``seq``. The
+    gradients are those of the global loss: each rank's share (the
+    backward of the loss's seq sum is the identity) summed over the
+    ``seq`` group, then averaged over the ``data`` group with the
+    bucketed all-reduce, as the JAX trainer's psum-then-rescale gives
+    them. The returned loss is the global one averaged over ``data``.
+
+    Tensor, pipeline and expert parallelism (mesh axes ``model``,
+    ``pipe``, ``expert`` and ``dcn`` above 1), a ``param_spec_tree``,
+    compression and ``backward_passes_per_step`` > 1 are not ported
+    (ROADMAP.md): they raise.
+    """
+
+    def __init__(self, loss_fn: Callable, model: torch.nn.Module,
+                 optimizer: torch.optim.Optimizer, mesh: Mesh,
+                 partition_bytes: Optional[int] = None, device=None,
+                 param_spec_tree=None, compression: Optional[dict] = None,
+                 backward_passes_per_step: int = 1) -> None:
+        over = [a for a in ("model", "pipe", "expert", "dcn")
+                if mesh.size(a) > 1]
+        if over:
+            raise NotImplementedError(
+                f"mesh axes {over}: tensor, pipeline and expert parallelism "
+                f"{_NOT_PORTED}")
+        if param_spec_tree is not None:
+            raise NotImplementedError(f"param_spec_tree (sharded parameters) "
+                                      f"{_NOT_PORTED}")
+        if compression:
+            raise NotImplementedError(
+                f"compression in ShardedTrainer {_NOT_PORTED}")
+        if backward_passes_per_step != 1:
+            raise NotImplementedError(
+                f"backward_passes_per_step > 1 in ShardedTrainer "
+                f"{_NOT_PORTED}")
+        gs = GlobalState._instance
+        cfg = gs.config if gs is not None else Config.from_env()
+        if device is None and gs is not None:
+            self.device = gs.device
+        else:
+            self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.mesh = mesh
+        self._loss_fn = loss_fn
+        self._seq = mesh.ring("seq") if "seq" in mesh.shape else None
+        self.tx = DistributedOptimizer(
+            optimizer, named_parameters=self.model.named_parameters(),
+            group=mesh.group("data") if "data" in mesh.shape else None,
+            partition_bytes=(cfg.partition_bytes if partition_bytes is None
+                             else partition_bytes))
+        self.step_count = 0
+
+    def shard_batch(self, batch):
+        """This rank's block of the global ``batch``."""
+        def block(axis, n):
+            if axis not in self.mesh.shape:
+                return slice(None)
+            r = self.mesh.ring(axis)
+            if n % r.size:
+                raise ValueError(f"dim of {n} does not split over the "
+                                 f"{r.size} ranks of {axis!r}")
+            return slice(r.index * (n // r.size), (r.index + 1) * (n // r.size))
+
+        leaf = batch[0] if isinstance(batch, (tuple, list)) else batch
+        rows = block("data", leaf.shape[0])
+        cols = block("seq", leaf.shape[1]) if leaf.ndim >= 2 else slice(None)
+        return _shard(batch, rows, cols)
+
+    def step(self, batch) -> torch.Tensor:
+        """One step on the global ``batch``; returns the global loss
+        averaged over the data group, detached, on the device."""
+        batch = _to_device(self.shard_batch(batch), self.device)
+        with use_mesh(self.mesh):
+            loss = self._loss_fn(self.model, batch)
+            loss.backward()
+            if self._seq is not None and self._seq.size > 1:
+                grads = []
+                for p in self.model.parameters():
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                    grads.append(p.grad)
+                with torch.no_grad():
+                    bucketed_allreduce(grads, group=self._seq.group,
+                                       partition_bytes=self.tx.partition_bytes,
+                                       average=False)
+            self.tx.step()
+            loss = loss.detach()
+            n = dp_size()
+            if n > 1:
+                dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=data_group())
+                loss = loss / n
+        self.step_count += 1
+        return loss
+

@@ -43,7 +43,24 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          and E5M2), bit for bit, on the device encode's probe vector, one
          1,024,000-element bucket and sizes 1 and 128·256 + 3; and the
          device encode's payloads of the probe vector against the numpy
-         codec (``compress/wire.py``), byte for byte.
+         codec (``compress/wire.py``), byte for byte;
+       - the two forms only ring attention reaches: the forward with fp32
+         out (form 1f) at the BERT shape (b 8, s 512, h 16, d 64) and the
+         dh128 shape (h 8, d 128), full and causal, and at b 8, s 1024,
+         h 16 causal: out within REL_TOL · max|plain|, lse within LSE_TOL,
+         and out rounded to bf16 and lse bit for bit the bf16 launch's;
+         the fused backward with delta given (form 2d) at the BERT and
+         dh128 shapes, full and causal, delta = rowsum(dO∘out): within
+         REL_TOL of the plain version, within REL_TOL_AUTOGRAD of autograd
+         of the plain forward, and bit for bit the split route's dq and
+         dk/dv with the same delta;
+       - the flash ring's schedule at sp 4 in one process
+         (``parallel/ring.py::ring_schedule``: the shards are slices; each
+         rank's blocks in the ring's order, kv rank (rank - step) mod 4,
+         diagonal, visible and hidden): b 2, global s 2048 (four 512
+         shards), h 16 d 64 and h 8 d 128, causal and full; out against
+         ``local_attention`` of the whole sequence (REL_TOL), dq, dk, dv
+         against its autograd (REL_TOL_AUTOGRAD).
   3. times (CUDA events, median of 30 launches, L2 flushed before each,
      the device kept busy until the launch is enqueued) of
      each kernel, its plain version and, where one PyTorch call computes
@@ -55,7 +72,9 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
      at the T5 shapes above); at head dim 128 the forward and fused
      backward at the dh128 shape, the forward, dq and dk/dv at b 8, s
      1024, h 8 causal, the table and dense forms at T5's encoder geometry;
-     onebit, int8 and fp8 on one 4,096,000-byte bucket.
+     onebit, int8 and fp8 on one 4,096,000-byte bucket; the ring's forms
+     1f and 2d at the BERT shape (d 64) and the dh128 shape (d 128), full,
+     against the library's forward and backward.
   4. training through the port's ``DistributedTrainer``, random weights
      from seed 0, AdamW(1e-4, weight_decay 1e-4), 3 steps on one fixed
      synthetic batch of 8, at full width (bf16 compute over fp32 params,
@@ -94,7 +113,18 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          launches (3 x 2 x (6 encoder + 6 decoder self-attention)), 36
          no-bias forward (cross-attention), 36 table-form dq and dk/dv, 18
          no-bias dq and dk/dv (cross-attention over two 512 blocks of
-         source takes the split backward), 0 fused, 0 dense-bias.
+         source takes the split backward), 0 fused, 0 dense-bias;
+       - sequence parallelism through the port's ``ShardedTrainer`` on a
+         ``{"seq": 1}`` mesh (a ring of one; ``sp_axis="seq"``):
+         BERT-large MLM at seq 512 with the full-sequence head, 144
+         fp32-out forward and 72 delta-given fused launches and no other
+         flash launch, step 1's loss within 2e-2 of the same config's on
+         the naive ring; GPT-2 medium at seq 1024 (one shard of two
+         512 blocks: the split backward with delta given), 144 fp32-out
+         forward, 72 dq, 72 dk/dv, 0 fused, step 1's loss within 1e-5 of
+         this call's dense GPT-2 step 1 (the same weights and batch; a
+         ring of one's merge returns the block's partial unchanged), and
+         whether it is bit for bit.
      Losses must be finite and falling. BERT (both widths), dense GPT-2
      and T5 repeat step 1 with ``attn_impl="naive"`` (plain attention on
      the card) as the reference for the loss; every run prints step time,
@@ -104,13 +134,29 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
      bit for bit: packed words, scales, decompressed values, error
      feedback, momentum and the reduced gradient.
   5. one JSON line ``{"kernels": [...]}`` (each flash kernel at head dim
-     64, with its bias and table forms under ``forms``, its ptxas rows,
-     and the same entry at head dim 128 under ``d128``), the card's name
+     64, with its bias and table forms under ``forms``, the ring's forms
+     under ``fp32_out`` (forward) and ``delta`` (fused backward), its
+     ptxas rows, and the same entry at head dim 128 under ``d128``), the
+     card's name
      and power limit, and as the last line
      ``{"ok": true, "device": {...}}``.
 
 It exits with code 2, printing no result, when no CUDA device is present
 or when the ``byteps_tpu_torch`` package is not beside it.
+
+    python3 chip_smoke.py --sp 4
+
+runs only the sequence-parallel path over 4 cards of one host instead
+(one process per card, NCCL over ``tcp://localhost``): ring attention at
+sp 4 (b 2, s 2048, h 16 d 64 and h 8 d 128, causal and full) against
+``local_attention`` of the whole sequence and its autograd, and against
+``ring_schedule`` on one card; each rank's launches; the ring's forward
+and backward timed on each card beside the whole sequence's flash
+attention on one; then BERT-large (seq 512) and GPT-2 medium (seq 1024)
+through ``ShardedTrainer`` on ``{"seq": 4}`` for 3 steps (losses finite
+and falling, step 1 within 2e-2 of the dense model's loss on one card,
+every rank the same weights bit for bit, each rank's launches). It
+prints ``{"sp": {...}}``, the card line and the same last line.
 """
 
 from __future__ import annotations
@@ -144,10 +190,17 @@ FORMS = ("bias", "rel")
 # the head dims the flash kernels are built for, counted per width (the
 # wrapper's KERNEL_DS; main checks that they agree)
 WIDTHS = (64, 128)
+# the forms only ring attention reaches, counted on their own (the
+# wrappers' ``variants``): the forward's fp32 out, the fused backward's
+# given delta; their names in the kernel line
+VARIANTS = (("flash_fwd", "f32"), ("flash_bwd_fused", "delta"))
+VARIANT_NAMES = {"f32": "fp32_out", "delta": "delta"}
 COUNT_KEYS = (KERNELS + tuple(f"{k}:{f}" for k in FLASH_FORMS for f in FORMS)
               + tuple(f"{k}:d{d}" for k in FLASH for d in WIDTHS)
               + tuple(f"{k}:{f}:d{d}" for k in FLASH_FORMS for f in FORMS
-                      for d in WIDTHS))
+                      for d in WIDTHS)
+              + tuple(f"{k}:{v}" for k, v in VARIANTS)
+              + tuple(f"{k}:{v}:d{d}" for k, v in VARIANTS for d in WIDTHS))
 BITWISE = ("onebit_pack", "onebit_unpack", "int8_quantize", "int8_dequantize",
            "fp8_sr_quantize")
 # the Pallas kernels the Hopper kernels replace
@@ -191,6 +244,11 @@ DH128_HEADS, DH128 = 8, 128
 # (dec_len 512, fed dec_len + 1 targets) over a source of two 512 blocks;
 # 8 heads of 64, the rel table of 32 buckets up to distance 128
 T5_SRC, T5_TGT, T5_HEADS, T5_BUCKETS = 1024, 513, 8, 32
+# the ring schedule's check: 4 ranks of one 512 shard each
+RING_SP, RING_BATCH, RING_SEQ = 4, 2, 2048
+# |step-1 loss of GPT-2 on a ring of one - the dense run's| (the same
+# weights, batch and kernels' bits: the merge returns the partial as is)
+SP_DENSE_TOL = 1e-5
 # the trainer's defaults (BPS_PARTITION_BYTES, BPS_MIN_COMPRESS_BYTES)
 PARTITION_BYTES, MIN_COMPRESS_BYTES = 4_096_000, 65536
 BUCKET_FLOATS = PARTITION_BYTES // 4    # one full gradient bucket
@@ -239,9 +297,10 @@ def zero_counts(ctr):
 
 def read_counts(ctr):
     """{kernel: launches of every form and width}; for every flash kernel
-    {"kernel:d64": .., "kernel:d128": ..}, and for the flash kernels with
+    {"kernel:d64": .., "kernel:d128": ..}, for the flash kernels with
     bias forms {"kernel:bias": .., "kernel:rel": ..} and the same per
-    width, {"kernel:bias:d64": .., ...}."""
+    width, {"kernel:bias:d64": .., ...}, and the ring's forms
+    {"flash_fwd:f32": .., "flash_bwd_fused:delta": .., ...:d64, ...}."""
     counts = {name: fn.launches for name, fn in ctr.items()}
     for name in FLASH:
         for d in WIDTHS:
@@ -253,6 +312,11 @@ def read_counts(ctr):
         for d in WIDTHS:
             counts[f"{name}:bias:d{d}"] = fn.launches_bias_d[d]
             counts[f"{name}:rel:d{d}"] = fn.launches_rel_d[d]
+    for name, var in VARIANTS:
+        fn = ctr[name]
+        counts[f"{name}:{var}"] = getattr(fn, f"launches_{var}")
+        for d in WIDTHS:
+            counts[f"{name}:{var}:d{d}"] = getattr(fn, f"launches_{var}_d")[d]
     return counts
 
 
@@ -267,6 +331,10 @@ def by_width(w, d):
             for width in WIDTHS:
                 w[f"{name}:{f}:d{width}"] = (w[f"{name}:{f}"] if width == d
                                              else 0)
+    for name, var in VARIANTS:
+        for width in WIDTHS:
+            w[f"{name}:{var}:d{width}"] = (w[f"{name}:{var}"] if width == d
+                                           else 0)
     return w
 
 
@@ -322,7 +390,8 @@ def ptxas_table():
                                   if s.startswith("flash_")]):
         a = r["args"]
         if r["kernel"] == "flash_fwd_kernel":
-            d, form, what = a[0], a[1], "forward"
+            d, form = a[0], a[1]
+            what = "forward, fp32 out" if a[2] else "forward"
         elif r["kernel"] == "flash_bwd_dq_kernel":
             d, form = a[1], a[2]
             what = "dq (delta given)" if a[0] else "dq + delta (fused bwd)"
@@ -571,6 +640,94 @@ def check_dh128_kernels(worst):
                        cases=((TRAIN_BATCH, False), (TRAIN_BATCH, True)))
     check_gpt2_kernels(worst, DH128_HEADS, DH128)
     check_t5_kernels(worst, DH128)
+
+
+def check_ring_forms(worst):
+    """Forms 1f and 2d against their plain versions. 1f at the BERT and
+    dh128 shapes, full and causal, and at b 8, s 1024, h 16 causal: out
+    and lse, and the fp32 out rounded to bf16 (and lse) bit for bit the
+    bf16 launch's. 2d at the BERT and dh128 shapes (one block), delta =
+    rowsum(dO∘out): against the plain version and autograd of the plain
+    forward, and bit for bit the split dq and dk/dv with that delta.
+    ``worst`` is keyed by (form, head dim)."""
+    from byteps_tpu_torch.ops import flash_attention as fa
+    cases = [(BERT_SEQ, h, d, causal)
+             for h, d in ((HEADS, HEAD_DIM), (DH128_HEADS, DH128))
+             for causal in (False, True)] + [(GPT2_SEQ, HEADS, HEAD_DIM,
+                                               True)]
+    for s, h, d, causal in cases:
+        b = TRAIN_BATCH
+        q, k, v, do = _inputs(b, s, h, d, seed=70 + causal)
+        tag = f"b{b} s{s} h{h} d{d} {'causal' if causal else 'full'}"
+        out, lse, e = _check_fwd(fa, q, k, v, causal, f"{tag} fp32 out",
+                                 out_dtype=torch.float32)
+        if out.dtype != torch.float32:
+            raise AssertionError(f"fp32 out came back {out.dtype} at {tag}")
+        worst["fp32_out", d] = max(worst["fp32_out", d], e)
+        out16, lse16 = fa.flash_fwd(q, k, v, causal)
+        torch.cuda.synchronize()
+        _same(f"{tag} fp32 out rounded to bf16 vs the bf16 launch",
+              [("out", out.to(torch.bfloat16), out16), ("lse", lse, lse16)])
+        if s != BERT_SEQ:
+            continue
+        delta = fa.bwd_delta(do, out16)
+        got = fa.flash_bwd_fused(q, k, v, do, lse16, causal, delta=delta)
+        torch.cuda.synchronize()
+        plain = fa.flash_bwd_fused_plain(q, k, v, do, lse16, causal,
+                                         delta=delta)
+        auto = _plain_autograd(fa, q, k, v, do, causal)
+        for g_, p_, a_, name in zip(got, plain, auto, ("dq", "dk", "dv")):
+            worst["delta", d] = max(worst["delta", d], _check(
+                f"fused bwd, delta given, {name}", tag, g_, p_, a_))
+        split = (fa.flash_bwd_dq(q, k, v, do, lse16, delta, causal),
+                 *fa.flash_bwd_dkv(q, k, v, do, lse16, delta, causal))
+        torch.cuda.synchronize()
+        _same(f"{tag} fused bwd with delta vs split dq + dk/dv",
+              [(n, a, c) for n, a, c in zip(("dq", "dk", "dv"), got, split)])
+        del q, k, v, do, out, out16, got, plain, auto, split
+        torch.cuda.empty_cache()
+
+
+def check_ring_schedule():
+    """The flash ring's schedule at sp 4 in one process
+    (``ring_schedule``: every rank's blocks in the ring's order, the
+    shards slices of one sequence) against attention over the whole
+    sequence and its autograd, at h 16 d 64 and h 8 d 128, causal and
+    full. Launch counts of the schedule: (rank + 1) forwards and fused
+    backwards per rank causally, sp each without the mask."""
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.parallel import ring
+    for h, d in ((HEADS, HEAD_DIM), (DH128_HEADS, DH128)):
+        for causal in (True, False):
+            q, k, v, do = _inputs(RING_BATCH, RING_SEQ, h, d,
+                                  seed=80 + causal)
+            tag = (f"ring sp {RING_SP}: b{RING_BATCH} s{RING_SEQ} h{h} d{d} "
+                   f"{'causal' if causal else 'full'}")
+            n0 = (fa.flash_fwd.launches_f32, fa.flash_bwd_fused.launches_delta)
+            out, _, dq, dk, dv = ring.ring_schedule(q, k, v, do, RING_SP,
+                                                    causal)
+            torch.cuda.synchronize()
+            blocks = (RING_SP * (RING_SP + 1) // 2 if causal
+                      else RING_SP * RING_SP)
+            n = (fa.flash_fwd.launches_f32 - n0[0],
+                 fa.flash_bwd_fused.launches_delta - n0[1])
+            log(f"[check {tag}] {n[0]} fp32-out forwards, {n[1]} fused "
+                f"backwards with delta over the {RING_SP} ranks")
+            if n != (blocks, blocks):
+                raise AssertionError(f"{tag}: launches {n}, expected "
+                                     f"{blocks} each")
+            xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            ref = ring.local_attention(*xs, causal=causal)
+            ref.backward(do)
+            _check("out vs local_attention", tag, out, ref)
+            for got, x, name in zip((dq, dk, dv), xs, "qkv"):
+                e, r = _rel_err(got, x.grad)
+                log(f"[check {tag}] d{name} vs autograd of local_attention "
+                    f"{e:.3e} (rel {r:.2e})")
+                if not r <= REL_TOL_AUTOGRAD:
+                    raise AssertionError(f"{tag}: d{name} disagrees")
+            del q, k, v, do, out, dq, dk, dv, xs, ref
+            torch.cuda.empty_cache()
 
 
 def _adversarial():
@@ -955,6 +1112,54 @@ def time_quant(n=BUCKET_FLOATS):
     return res
 
 
+def ring_form_bounds(b, s, h, d, causal):
+    """The bounds of the ring's forms: the forward's FLOPs with out
+    written in fp32 (4 bytes an element); the fused backward's FLOPs with
+    delta read beside lse."""
+    base = attention_bounds(b, s, h, d, causal)
+    row = b * s * h * d * 2
+    vec = b * h * s * 4
+    return {"fp32_out": _bound(base["flash_fwd"]["flops"],
+                               3 * row + 2 * row + vec),
+            "delta": _bound(base["flash_bwd_fused"]["flops"],
+                            7 * row + 2 * vec)}
+
+
+def time_ring_forms(h=HEADS, d=HEAD_DIM):
+    """Forms 1f and 2d at the BERT shape (b 8, s 512, full; h 16 d 64 or
+    h 8 d 128), their plain versions, and the library's forward (which
+    writes bf16) and backward."""
+    from byteps_tpu_torch.ops import flash_attention as fa
+    b, s = TRAIN_BATCH, BERT_SEQ
+    q, k, v, do = _inputs(b, s, h, d, seed=97)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    out, lse = fa.flash_fwd(q, k, v, False)
+    delta = fa.bwd_delta(do, out)
+    f32 = torch.float32
+    lib = library_attention_ms(q, k, v, do, False, flush)
+    bounds = ring_form_bounds(b, s, h, d, False)
+    res = {}
+    for name, kernel, plain, lib_ms in (
+            ("fp32_out", lambda: fa.flash_fwd(q, k, v, False, out_dtype=f32),
+             lambda: fa.flash_fwd_plain(q, k, v, False, out_dtype=f32),
+             lib[0]),
+            ("delta",
+             lambda: fa.flash_bwd_fused(q, k, v, do, lse, False, delta=delta),
+             lambda: fa.flash_bwd_fused_plain(q, k, v, do, lse, False,
+                                              delta=delta),
+             lib[1])):
+        r = {"ms": time_ms(kernel, flush=flush),
+             "plain_ms": time_ms(plain, n=10, flush=flush),
+             "library_ms": lib_ms, "timed_shape": [b, s, h, d],
+             "causal": False}
+        r.update(bounds[name])
+        _log_time(name, f"b{b} s{s} h{h} d{d} full", r)
+        res[name] = r
+    del flush
+    torch.cuda.empty_cache()
+    return res
+
+
 # ------------------------------------------------------------- phase 4
 
 _KERNEL_GROUPS = (      # first match wins; names as the profiler reports them
@@ -1025,9 +1230,10 @@ def profile_step(trainer, data, tag):
 
 def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
              compression=None, naive_cfg=None, more_steps=STEPS,
-             model_cls=None, tokens_per_sample=None):
-    """Train ``STEPS`` steps through ``DistributedTrainer`` with every
-    launch counter zeroed just before and read just after; check finite
+             model_cls=None, tokens_per_sample=None, mesh=None):
+    """Train ``STEPS`` steps through ``DistributedTrainer`` (with a
+    ``mesh``: ``ShardedTrainer`` on it, the global batch ``data``) with
+    every launch counter zeroed just before and read just after; check finite
     falling losses and the counts ``want(trainer)``. Then ``more_steps``
     more for steadier times, one profiled step, and (``naive_cfg``) step 1
     of a fresh trainer with plain attention as the loss's reference.
@@ -1040,11 +1246,15 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
     from byteps_tpu_torch.models.transformer import Transformer
     from byteps_tpu_torch.obs.metrics import get_registry
     from byteps_tpu_torch.optim import adamw
-    from byteps_tpu_torch.training import DistributedTrainer
+    from byteps_tpu_torch.training import DistributedTrainer, ShardedTrainer
 
     def make_trainer(c):
         model = (model_cls or Transformer)(
             c, generator=torch.Generator().manual_seed(0))
+        if mesh is not None:
+            return ShardedTrainer(loss_fn, model,
+                                  adamw(model.parameters(), 1e-4), mesh,
+                                  partition_bytes=PARTITION_BYTES)
         return DistributedTrainer(loss_fn, model,
                                   adamw(model.parameters(), 1e-4),
                                   partition_bytes=PARTITION_BYTES,
@@ -1324,6 +1534,71 @@ def train_gpt2_dense():
     return launches
 
 
+def _sp_launches(cfg, backward):
+    """A sequence-parallel path on a ring of one: every forward in fp32
+    out (remat: twice a layer), and ``backward`` once a layer, the fused
+    one with delta given."""
+    def want(trainer):
+        w = dict.fromkeys(COUNT_KEYS, 0)
+        w["flash_fwd"] = w["flash_fwd:f32"] = STEPS * cfg.layers * 2
+        for name in backward:
+            w[name] = STEPS * cfg.layers
+        if "flash_bwd_fused" in backward:
+            w["flash_bwd_fused:delta"] = STEPS * cfg.layers
+        return by_width(w, cfg.head_dim)
+    return want
+
+
+def train_bert_sp():
+    """BERT-large MLM with ``sp_axis="seq"`` through ``ShardedTrainer`` on a
+    ``{"seq": 1}`` mesh: the full-sequence head, the flash ring (fp32-out
+    forward, fused backward with delta given); step 1 against the naive
+    ring's."""
+    import dataclasses
+
+    from byteps_tpu_torch.models import bert
+    from byteps_tpu_torch.models.flops import transformer_train_flops_per_sample
+    from byteps_tpu_torch.parallel.mesh import make_mesh
+    cfg = bert.bert_large(max_seq=BERT_SEQ, sp_axis="seq")
+    data = bert.synth_mlm_batch(np.random.RandomState(0), TRAIN_BATCH,
+                                BERT_SEQ, cfg.vocab_size)
+    launches, trainer, _, _ = run_path(
+        "bert_large_sp", cfg, bert.mlm_loss, data,
+        transformer_train_flops_per_sample(cfg, BERT_SEQ),
+        _sp_launches(cfg, ("flash_bwd_fused",)),
+        naive_cfg=dataclasses.replace(cfg, attn_impl="naive"),
+        mesh=make_mesh({"seq": 1}))
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_gpt2_sp():
+    """GPT-2 medium with ``sp_axis="seq"`` through ``ShardedTrainer`` on a
+    ``{"seq": 1}`` mesh: one shard of two 512 blocks, so the split
+    backward with delta given; step 1 against this call's dense GPT-2
+    run (the same weights and batch)."""
+    from byteps_tpu_torch.models import gpt2
+    from byteps_tpu_torch.parallel.mesh import make_mesh
+    _, loss_fn, data, fps = _gpt2_setup()
+    cfg = gpt2.gpt2_medium(sp_axis="seq")
+    launches, trainer, losses, _ = run_path(
+        "gpt2_medium_sp", cfg, loss_fn, data, fps,
+        _sp_launches(cfg, ("flash_bwd_dq", "flash_bwd_dkv")),
+        mesh=make_mesh({"seq": 1}))
+    del trainer
+    torch.cuda.empty_cache()
+    dense = SUMMARY["gpt2_medium dense"]["losses"][0]
+    diff = abs(losses[0] - dense)
+    log(f"[gpt2_medium_sp] step-1 loss {losses[0]!r}, dense run {dense!r}: "
+        f"|diff| {diff:.3e} ({'bit for bit' if losses[0] == dense else 'not bit for bit'}"
+        f"; tolerance {SP_DENSE_TOL})")
+    if not diff <= SP_DENSE_TOL:
+        raise AssertionError("gpt2_medium_sp: step-1 loss differs from the "
+                             "dense run's on the same weights and batch")
+    return launches
+
+
 def _same_bits(a, b):
     if a.dtype.is_floating_point:
         a, b = a.view(torch.int32), b.view(torch.int32)
@@ -1476,6 +1751,21 @@ def form_entry(name, form, paths, worst, timing, d=HEAD_DIM):
     return entry
 
 
+def variant_entry(name, var, paths, worst, timing, d):
+    """The entry of a ring form (``var``: "f32" under the forward, "delta"
+    under the fused backward) at head dim ``d``: its launches in each
+    path, its worst error against the plain version, its time at the
+    BERT shape beside its bound, plain and library times."""
+    vname = VARIANT_NAMES[var]
+    t = timing[d][vname]
+    by_path = {k: p[f"{name}:{var}:d{d}"] for k, p in paths.items()}
+    return {"launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": worst[vname, d],
+            "tolerance": f"max err <= {REL_TOL} * max|plain|",
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "timed_shape", "causal")}}
+
+
 def kernel_entry(name, paths, worst, timing, card, ptxas, d=None):
     """One kernel's entry of the ``{"kernels": [...]}`` line. A flash
     kernel has one per head dim ``d`` (the d-128 one nested in the d-64
@@ -1502,7 +1792,252 @@ def kernel_entry(name, paths, worst, timing, card, ptxas, d=None):
     return entry
 
 
+# ------------------------------------------- --sp N: the ring over N cards
+
+SP_TRAIN_TOL = 2e-2     # |step-1 loss over the ring - the dense model's|
+
+
+def _sp_inputs(b, s, h, d, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(b, s, h, d, generator=g).to(dev, torch.bfloat16)
+            for _ in range(4)]
+
+
+def _events_ms(fn, dist, iters=10):
+    """Each rank's mean time of ``fn`` over ``iters`` runs (CUDA events,
+    after a warm-up and a barrier); the slowest rank's."""
+    fn()
+    dist.barrier()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    t = torch.tensor([start.elapsed_time(end) / iters], device="cuda")
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t.item()
+
+
+def sp_ring_checks(rank, n, mesh, dev, dist):
+    """Ring attention over the ``seq`` ranks against the whole sequence on
+    one card. Returns rank 0's results (None elsewhere)."""
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.parallel import ring
+    from byteps_tpu_torch.parallel.mesh import use_mesh
+    res = []
+    for h, d in ((HEADS, HEAD_DIM), (DH128_HEADS, DH128)):
+        for causal in (True, False):
+            b, S = RING_BATCH, RING_SEQ
+            q, k, v, do = _sp_inputs(b, S, h, d, 90 + causal, dev)
+            s = S // n
+            sl = slice(rank * s, (rank + 1) * s)
+            tag = (f"ring over {n} cards: b{b} s{S} h{h} d{d} "
+                   f"{'causal' if causal else 'full'}")
+            xs = [t[:, sl].clone().requires_grad_() for t in (q, k, v)]
+            fa.zero_counts(fa.flash_fwd)
+            fa.zero_counts(fa.flash_bwd_fused)
+            with use_mesh(mesh):
+                out = ring.ring_attention(*xs, "seq", causal=causal)
+                out.backward(do[:, sl])
+            torch.cuda.synchronize()
+            got = (fa.flash_fwd.launches_f32, fa.flash_bwd_fused.launches_delta,
+                   fa.flash_fwd.launches, fa.flash_bwd_fused.launches)
+            want = rank + 1 if causal else n
+            if got != (want,) * 4:
+                raise AssertionError(f"{tag}: rank {rank} launched {got}, "
+                                     f"expected {want} of each form")
+            parts = []          # out, dq, dk, dv of the whole sequence
+            for t in (out, *(x.grad for x in xs)):
+                every = [torch.empty_like(t) for _ in range(n)]
+                dist.all_gather(every, t.detach().contiguous())
+                parts.append(torch.cat(every, 1))
+            # the ring's forward and backward on each card, the slowest's
+            def step():
+                ys = [t.detach().requires_grad_() for t in xs]
+                with use_mesh(mesh):
+                    ring.ring_attention(*ys, "seq", causal=causal).backward(
+                        do[:, sl])
+            ring_ms = _events_ms(step, dist)
+            if rank == 0:
+                out_w, dq, dk, dv = parts
+                sched = ring.ring_schedule(q, k, v, do, n, causal)
+                same = [torch.equal(a, c) for a, c in
+                        zip((out_w, dq, dk, dv), (sched[0], *sched[2:]))]
+                ref_x = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+                ref = ring.local_attention(*ref_x, causal=causal)
+                ref.backward(do)
+                _check("out vs local_attention", tag, out_w, ref)
+                errs = {}
+                for g_, x, name in zip((dq, dk, dv), ref_x, "qkv"):
+                    e, r = _rel_err(g_, x.grad)
+                    errs[f"d{name}"] = r
+                    log(f"[check {tag}] d{name} vs autograd of local_attention "
+                        f"{e:.3e} (rel {r:.2e})")
+                    if not r <= REL_TOL_AUTOGRAD:
+                        raise AssertionError(f"{tag}: d{name} disagrees")
+                log(f"[check {tag}] vs ring_schedule on one card: " + ", ".join(
+                    f"{nm} {'bit-identical' if sm else 'differs'}"
+                    for nm, sm in zip(("out", "dq", "dk", "dv"), same)))
+                qa, ka, va = (t.detach().requires_grad_() for t in (q, k, v))
+                one_ms = time_ms(lambda: fa.flash_attention(
+                    qa, ka, va, causal=causal).backward(do), n=10)
+                log(f"[time {tag}] ring forward + backward {ring_ms:.4f} ms "
+                    f"(slowest card, mean of 10); the whole sequence's flash "
+                    f"attention forward + backward on one card {one_ms:.4f} ms")
+                res.append({"shape": [b, S, h, d], "causal": causal,
+                            "rel_err": errs, "bit_for_bit_vs_schedule": same,
+                            "ring_ms": ring_ms, "one_card_ms": one_ms})
+            del q, k, v, do, xs, out, parts
+            torch.cuda.empty_cache()
+    return res if rank == 0 else None
+
+
+def sp_train(rank, n, mesh, dev, dist):
+    """BERT-large and GPT-2 medium through ShardedTrainer on the ``seq``
+    ranks; rank 0 holds step 1 against the dense model's loss."""
+    import dataclasses
+
+    from byteps_tpu_torch.models import bert, gpt2
+    from byteps_tpu_torch.models.transformer import Transformer
+    from byteps_tpu_torch.optim import adamw
+    from byteps_tpu_torch.training import ShardedTrainer
+    ctr = counters()
+    res = {}
+    bert_cfg = bert.bert_large(max_seq=BERT_SEQ, sp_axis="seq")
+    gpt2_cfg = gpt2.gpt2_medium(sp_axis="seq")
+    for tag, cfg, loss_fn, data in (
+            ("bert_large_sp", bert_cfg, bert.mlm_loss, bert.synth_mlm_batch(
+                np.random.RandomState(0), TRAIN_BATCH, BERT_SEQ,
+                bert_cfg.vocab_size)),
+            ("gpt2_medium_sp", gpt2_cfg, gpt2.causal_lm_loss,
+             gpt2.synth_lm_batch(np.random.RandomState(0), TRAIN_BATCH,
+                                 GPT2_SEQ, gpt2_cfg.vocab_size))):
+        tag = f"{tag} over {n} cards"
+        model = Transformer(cfg, generator=torch.Generator().manual_seed(0))
+        tr = ShardedTrainer(loss_fn, model, adamw(model.parameters(), 1e-4),
+                            mesh, partition_bytes=PARTITION_BYTES, device=dev)
+        zero_counts(ctr)
+        losses, times = [], []
+        for _ in range(STEPS):
+            t = time.perf_counter()
+            losses.append(tr.step(data).item())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        got = read_counts(ctr)
+        blocks = rank + 1 if cfg.causal else n
+        want = {"flash_fwd:f32": STEPS * cfg.layers * 2 * blocks,
+                "flash_bwd_fused:delta": STEPS * cfg.layers * blocks}
+        want["flash_fwd"] = want["flash_fwd:f32"]
+        want["flash_bwd_fused"] = want["flash_bwd_fused:delta"]
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            want[name] = 0
+        if any(got[k] != v for k, v in want.items()):
+            raise AssertionError(f"{tag}: rank {rank} launched "
+                                 f"{ {k: got[k] for k in want} }, expected {want}")
+        sums = torch.tensor([p.detach().double().sum().item()
+                             for p in model.parameters()], device=dev)
+        every = [torch.empty_like(sums) for _ in range(n)]
+        dist.all_gather(every, sums)
+        del tr, model
+        torch.cuda.empty_cache()
+        if rank != 0:
+            continue
+        same = all(torch.equal(every[0], e) for e in every[1:])
+        dense_cfg = dataclasses.replace(cfg, sp_axis=None)
+        dense = Transformer(dense_cfg,
+                            generator=torch.Generator().manual_seed(0)).to(dev)
+        batch = (tuple(torch.from_numpy(x).to(dev) for x in data)
+                 if isinstance(data, tuple) else torch.from_numpy(data).to(dev))
+        with torch.no_grad():
+            ref = loss_fn(dense, batch).item()
+        del dense
+        torch.cuda.empty_cache()
+        diff = abs(losses[0] - ref)
+        log(f"[{tag}] losses {losses}; step times s {times}; launches on rank "
+            f"0 { {k: got[k] for k in want} }; step-1 loss vs the dense "
+            f"model's on one card {ref:.6f}: |diff| {diff:.3e}; every rank "
+            f"the same weights: {same}")
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"{tag}: losses {losses}")
+        if not (diff <= SP_TRAIN_TOL and same):
+            raise AssertionError(f"{tag}: step-1 loss or replicas disagree")
+        res[tag] = {"losses": losses, "step_s": times, "dense_step1": ref,
+                    "same_weights": same,
+                    "launches_rank0": {k: got[k] for k in want}}
+    return res
+
+
+def sp_rank(rank, n, port, out, device="cuda"):
+    """One rank of ``--sp n``: its card, the NCCL group, the mesh, the
+    checks; rank 0 writes the results to ``out``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from byteps_tpu_torch.parallel.mesh import make_mesh
+    dev = torch.device(device, rank) if device == "cuda" else torch.device(device)
+    if device == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=n, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh({"seq": n})
+        res = {"ring": sp_ring_checks(rank, n, mesh, dev, dist),
+               "train": sp_train(rank, n, mesh, dev, dist)}
+        dist.barrier()
+        if rank == 0:
+            Path(out).write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def sp_main(n) -> int:
+    """``--sp n``: build the kernels once, then one process per card."""
+    import os
+    import socket
+    import tempfile
+    if torch.cuda.device_count() < n:
+        print(f"chip_smoke --sp {n}: {torch.cuda.device_count()} CUDA "
+              f"device(s), {n} needed", file=sys.stderr)
+        return 2
+    toolchain()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out = Path(tempfile.mkdtemp()) / "sp.json"
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--sp-rank", str(r), str(n), str(port),
+         str(out)], env=dict(os.environ), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    try:
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        log(f"----- rank {r} (exit {p.returncode})")
+        log(text if r == 0 or p.returncode else text[-2000:])
+    if any(p.returncode for p in procs):
+        raise AssertionError("a rank of the sequence-parallel run failed")
+    print(json.dumps({"sp": {"cards": n, **json.loads(out.read_text())}}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
+    args = sys.argv[1:]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the "
               "card", file=sys.stderr)
@@ -1517,16 +2052,26 @@ def main() -> int:
         raise AssertionError(f"WIDTHS {WIDTHS} != the kernels' {KERNEL_DS}")
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full fp32
     torch.backends.cudnn.allow_tf32 = False
+    if args[:1] == ["--sp-rank"]:
+        return sp_rank(int(args[1]), int(args[2]), int(args[3]), args[4])
+    if args[:1] == ["--sp"]:
+        return sp_main(int(args[1]))
+    if args:
+        print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
+        return 2
     t_start = time.perf_counter()
 
     ptxas = toolchain()
     worst = dict.fromkeys(KERNELS, 0.0)
     worst.update({(k, f): 0.0 for k in FLASH_FORMS for f in FORMS})
     worst128 = dict(worst)
+    ring_worst = {(v, d): 0.0 for v in VARIANT_NAMES.values() for d in WIDTHS}
     check_bert_kernels(worst)
     check_gpt2_kernels(worst)
     check_t5_kernels(worst)
     check_dh128_kernels(worst128)
+    check_ring_forms(ring_worst)
+    check_ring_schedule()
     check_onebit(_adversarial(), "adversarial vector")
     check_quant()
     timing = time_attention(TRAIN_BATCH, BERT_SEQ, False,
@@ -1555,12 +2100,16 @@ def main() -> int:
     form_timing128 = {
         (f, "encoder"): time_forms(TRAIN_BATCH, T5_SRC, False, f, DH128)
         for f in FORMS}
+    ring_timing = {HEAD_DIM: time_ring_forms(),
+                   DH128: time_ring_forms(DH128_HEADS, DH128)}
     bert_launches, bert_losses = train_bert()
     paths = {"bert_large": bert_launches,
              "bert_large_dh128": train_bert_dh128(),
              "gpt2_medium_dense": train_gpt2_dense(),
              "gpt2_medium_onebit": train_gpt2_onebit(),
-             "t5_small": train_t5()}
+             "t5_small": train_t5(),
+             "bert_large_sp": train_bert_sp(),
+             "gpt2_medium_sp": train_gpt2_sp()}
     step2_misses = []
     for codec in ("int8", "fp8_e4m3"):
         paths[f"bert_large_ps_{codec}"] = train_bert_ps(codec, bert_losses,
@@ -1593,6 +2142,10 @@ def main() -> int:
             if name in FLASH_FORMS:    # the bias forms, at the T5 shapes
                 entry["forms"] = {f: form_entry(name, f, paths, w, ft, d)
                                   for f in FORMS}
+            for kname, var in VARIANTS:  # the ring's forms
+                if kname == name:
+                    entry[VARIANT_NAMES[var]] = variant_entry(
+                        name, var, paths, ring_worst, ring_timing, d)
             by_d[d] = entry
         by_d[HEAD_DIM]["d128"] = by_d[DH128]
         kernels.append(by_d[HEAD_DIM])

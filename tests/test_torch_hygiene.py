@@ -187,7 +187,7 @@ def test_trainer_refuses_the_ps_paths(env, monkeypatch):
                            adamw(model.parameters(), 1e-3), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [{"tp_axis": "model"}, {"sp_axis": "seq"},
+@pytest.mark.parametrize("kw", [{"tp_axis": "model"},
                                 {"pp_axis": "pipe"}, {"lm_head_chunk": 128},
                                 {"remat_policy": "dots"}])
 def test_unported_model_options_raise(kw):

@@ -19,7 +19,11 @@ dtable (fp32 sums of the same dS in another order), and 1e-3 absolute for
 the fp32 lse. The dense and table forms given the same bias values run the
 same arithmetic and must agree bit for bit, and dtable must be the same
 bits on every launch. The onebit and quantize kernels move bits: they
-must agree with their plain versions bit for bit.
+must agree with their plain versions bit for bit. The ring's two forms:
+the forward's fp32 out, rounded to bf16, must be the bf16 launch's out
+bit for bit (the two differ only in the store), and the fused backward
+with delta given must be the split route's dq and dk/dv with the same
+delta bit for bit (the same kernels).
 """
 
 import pytest
@@ -130,6 +134,87 @@ def test_autograd_function_runs_both_kernels(cuda):
                                    fa.flash_fwd_plain(q, k, v)[1])
     for t, r_, name in zip((q, k, v), ref, "qkv"):
         _close(t.grad, r_, "d" + name)
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("b,sq,sk,h,causal", list(_cases()))
+def test_fp32_out_forward_matches_plain_and_the_bf16_launch(cuda, b, sq, sk,
+                                                            h, causal, d):
+    """Form 1f (the ring's partial output): out in fp32 against the plain
+    version, and rounded to bf16 the bf16 launch's out, bit for bit."""
+    q, k, v, _ = _inputs(cuda, b, sq, sk, h, seed=9, d=d)
+    n0, nf = fa.flash_fwd.launches, fa.flash_fwd.launches_f32_d[d]
+    out, lse = fa.flash_fwd(q, k, v, causal, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_fwd.launches_f32_d[d]) == \
+        (n0 + 1, nf + 1)
+    assert out.dtype == torch.float32 and out.shape == (b, sq, h, d)
+    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal,
+                                          out_dtype=torch.float32)
+    _close(out, ref_out, "out")
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    out16, lse16 = fa.flash_fwd(q, k, v, causal)
+    assert torch.equal(out.to(torch.bfloat16), out16)
+    assert torch.equal(lse, lse16)
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("b,sq,sk,h,causal", list(_cases()))
+def test_fused_backward_with_delta_matches_plain_and_split(cuda, b, sq, sk,
+                                                           h, causal, d):
+    """Form 2d (the ring's per-block backward): the fused backward with a
+    given delta = rowsum(dO∘out) against the plain version, and bit for
+    bit against dq then dk/dv with the same delta."""
+    q, k, v, do = _inputs(cuda, b, sq, sk, h, seed=10, d=d)
+    out, lse = fa.flash_fwd(q, k, v, causal)
+    delta = fa.bwd_delta(do, out)
+    n0, nd = fa.flash_bwd_fused.launches, fa.flash_bwd_fused.launches_delta_d[d]
+    got = fa.flash_bwd_fused(q, k, v, do, lse, causal, delta=delta)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_fused.launches,
+            fa.flash_bwd_fused.launches_delta_d[d]) == (n0 + 1, nd + 1)
+    ref = fa.flash_bwd_fused_plain(q, k, v, do, lse, causal, delta=delta)
+    for g_, r_, name in zip(got, ref, ("dq", "dk", "dv")):
+        _close(g_, r_, name)
+    split = (fa.flash_bwd_dq(q, k, v, do, lse, delta, causal),
+             *fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal))
+    for g_, s_, name in zip(got, split, ("dq", "dk", "dv")):
+        assert torch.equal(g_, s_), name
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_schedule_at_sp4_matches_full_attention(cuda, causal, d):
+    """The flash ring's schedule of 4 ranks in one process (shards of 128:
+    diagonal, visible and hidden blocks) against the plain attention of
+    the whole sequence and its autograd (3e-2: its P and dS unrounded)."""
+    from byteps_tpu_torch.parallel import ring
+    q, k, v, do = _inputs(cuda, 1, 512, 512, 4, seed=11, d=d)
+    names = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
+    n0 = [getattr(fa, n).launches for n in names]
+    out, _, dq, dk, dv = ring.ring_schedule(q, k, v, do, 4, causal)
+    torch.cuda.synchronize()
+    blocks = 10 if causal else 16
+    assert [getattr(fa, n).launches - c for n, c in zip(names, n0)] == \
+        [blocks, blocks, 0, 0]
+    qa, ka, va = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    ref = fa.flash_fwd_plain(qa, ka, va, causal)[0]
+    ref.backward(do)
+    _close(out, ref, "out")
+    for got, t, name in zip((dq, dk, dv), (qa, ka, va), "qkv"):
+        _close(got, t.grad, "d" + name, rel=3e-2)
+
+
+def test_ring_on_cuda_refuses_what_the_kernels_do_not_take(cuda):
+    """The flash ring on CUDA tensors launches the kernels or raises: fp32
+    inputs never reach a plain version."""
+    from byteps_tpu_torch.parallel import mesh, ring
+    q = torch.zeros(1, 128, 2, 64, device=cuda)
+    n0 = fa.flash_fwd.launches
+    with mesh.use_mesh(mesh.make_mesh({"seq": 1})):
+        with pytest.raises(TypeError, match="bfloat16"):
+            ring.ring_attention(q, q, q, "seq")
+    assert fa.flash_fwd.launches == n0
 
 
 def test_cuda_fp32_input_raises_instead_of_falling_back(cuda):
