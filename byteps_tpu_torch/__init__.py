@@ -18,12 +18,20 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
 import torch.distributed as dist
 
 from .common.config import Config
 from .common.global_state import GlobalState
 
 __version__ = "0.1.0"
+
+# PyTorch's CPU exp sets itself up on its first call. When that call is
+# split across threads, one thread's share can come out of a low-accuracy
+# path (errors near 1e-4, so the plain versions' softmax misses 1e-5 in
+# about one process in four under load). One call on one element sets it
+# up on this thread first.
+torch.exp(torch.zeros(1))
 
 
 # -- lifecycle (reference: operations.cc:34-129) ----------------------------

@@ -24,7 +24,7 @@
 // forms given the same bias values run the same arithmetic.
 #pragma once
 
-#include "mma_bf16.cuh"
+#include "hopper.cuh"
 
 enum BiasForm : int { kBiasNone = 0, kBiasDense = 1, kBiasTable = 2 };
 constexpr int kMaxBuckets = 128;
@@ -48,30 +48,44 @@ struct BiasSmem<kBiasTable> {
   int bucket[kStrip + 1];  // this tile's bucket, by offset
 };
 
-// Stage head hh's table row; before the CTA's first __syncthreads.
+// Stage head hh's table row (consumer threads); before the consumers'
+// first consumer_sync.
 template <int kForm>
 __device__ __forceinline__ void load_table_row(BiasSmem<kForm>& sb,
                                                const BiasArgs& ba, int hh,
                                                int tid) {
   if constexpr (kForm == kBiasTable) {
-    for (int i = tid; i < ba.nb; i += kThreads)
+    for (int i = tid; i < ba.nb; i += kConsumers)
       sb.tab[i] = ba.table[static_cast<long long>(hh) * ba.nb + i];
   }
 }
 
 // The strip of the tile whose queries start at q0 and keys at k0:
-// entry j is offset (k0 - q0) + j - (kTile - 1). Between the two
-// __syncthreads that bracket a tile's loads.
+// entry j is offset (k0 - q0) + j - (kTile - 1). Written by the consumer
+// threads between two consumer_syncs (strip_for below).
 template <int kForm>
 __device__ __forceinline__ void load_strip(BiasSmem<kForm>& sb,
                                            const BiasArgs& ba, int q0, int k0,
                                            int sq, int tid) {
   if constexpr (kForm == kBiasTable) {
-    for (int j = tid; j < kStrip; j += kThreads) {
+    for (int j = tid; j < kStrip; j += kConsumers) {
       const int b = ba.bucket[k0 - q0 + j - (kTile - 1) + sq - 1];
       sb.bucket[j] = b;
       sb.strip[j] = sb.tab[b];
     }
+  }
+}
+
+// The table form's strip for the tile (q0, k0), fenced so that no
+// consumer still reads the previous tile's; nothing in the other forms.
+template <int kForm>
+__device__ __forceinline__ void strip_for(BiasSmem<kForm>& sb,
+                                          const BiasArgs& ba, int q0, int k0,
+                                          int sq, int tid) {
+  if constexpr (kForm == kBiasTable) {
+    consumer_sync();
+    load_strip<kForm>(sb, ba, q0, k0, sq, tid);
+    consumer_sync();
   }
 }
 
@@ -147,4 +161,19 @@ inline BiasArgs bias_args(const void* bias, const void* bucket,
   return BiasArgs{static_cast<const float*>(bias),
                   static_cast<const int*>(bucket),
                   static_cast<const float*>(table), nb};
+}
+
+// The bytes of dynamic shared memory a launch of a kernel whose layout is
+// Layout<kD, kForm> asks for, at head dim d in bias form `form`; -1 for a
+// width or form with no instantiation.
+template <template <int, int> class Layout>
+inline int layout_bytes(int d, int form) {
+  int bytes = -1;
+  with_d(d, [&](auto D) {
+    return with_form(form, [&](auto F) {
+      bytes = smem_bytes<Layout<decltype(D)::value, decltype(F)::value>>;
+      return cudaSuccess;
+    });
+  });
+  return bytes;
 }

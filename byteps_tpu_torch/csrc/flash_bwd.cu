@@ -36,53 +36,23 @@
 // split backward's, flash_dq.cu): one walk, no delta pass, no scratch;
 // (b) reads the given delta. Its outputs are then the split route's dq and
 // dk/dv with the same delta, bit for bit: the same kernels.
-// Both recompute S and dP from q, k, v, dO on the tensor cores
-// (mma.sync.m16n8k16, bf16 x bf16 -> fp32); S, P and dP never reach device
-// memory. The recompute costs 9 products where the function needs 5 (7
-// with delta given, which skips (a)'s delta walk): the price of needing no
-// atomics and no [s, s] buffer. At head dim 128, (b) is two launches, dv
-// then dk (the register plan in flash_bwd_dkv.cuh), and the pair
-// recomputes 10 products (8 with delta given). The given delta adds 4
-// bytes per query row read, next to lse: bounded by tensor-core
-// throughput all the same.
+// Both recompute S and dP from q, k, v, dO on the tensor cores (wgmma,
+// bf16 x bf16 -> fp32, operands brought by TMA through a ring of tiles:
+// hopper.cuh); S, P and dP never reach device memory. The recompute costs
+// 9 products where the function needs 5 (7 with delta given, which skips
+// (a)'s delta walk), at either head dim: the price of needing no atomics
+// and no [s, s] buffer. The tensor maps of q, k, v and dO are encoded once
+// per call and serve both launches. The given delta adds 4 bytes per query
+// row read, next to lse: bounded by tensor-core throughput all the same.
 #include "flash_bwd_dkv.cuh"
 #include "flash_bwd_dq.cuh"
 
-namespace {
-
-template <bool kDeltaIn, int kD>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, void* delta,
-                       void* dq, void* dk, void* dv, int b, int h, int sq,
-                       int sk, BshdStrides qs, BshdStrides ks, BshdStrides vs,
-                       BshdStrides dos, float scale, int causal,
-                       cudaStream_t st) {
-  constexpr int kSmem = sizeof(DqSmem<kD, kBiasNone>);
-  const cudaError_t attr =
-      smem_attr(flash_bwd_dq_kernel<kDeltaIn, kD, kBiasNone>, kSmem);
-  if (attr != cudaSuccess) return attr;
-  const long long row = static_cast<long long>(h) * kD;
-  flash_bwd_dq_kernel<kDeltaIn, kD, kBiasNone>
-      <<<dim3(sq / kTile, h, b), kThreads, kSmem, st>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-          static_cast<const float*>(lse), static_cast<float*>(delta),
-          static_cast<bf16*>(dq), h, sq, sk, qs, ks, vs, dos,
-          BshdStrides{sq * row, row}, scale, causal, BiasArgs{}, nullptr);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_dkv_all<kD, kBiasNone>(q, k, v, dout, lse, delta, dk, dv, b,
-                                       h, sq, sk, qs, ks, vs, dos, scale,
-                                       causal, BiasArgs{}, st);
-}
-
-}  // namespace
-
 // Launches (a) then (b) on `stream`, allocates nothing (dq is [b, sq, h,
-// d] and dk/dv are [b, sk, h, d], all contiguous); returns
-// cudaGetLastError(). `delta_in` null: delta is computed in (a) into
-// `delta`, the caller's [b, h, sq] fp32 scratch. `delta_in` non-null: the
-// caller's [b, h, sq] fp32 delta, read only; `delta` is then unused.
+// d] and dk/dv are [b, sk, h, d], all contiguous); returns a cudaError_t
+// (the tensor maps' encoding, then cudaGetLastError()). `delta_in` null:
+// delta is computed in (a) into `delta`, the caller's [b, h, sq] fp32
+// scratch. `delta_in` non-null: the caller's [b, h, sq] fp32 delta, read
+// only; `delta` is then unused.
 extern "C" int bps_flash_bwd(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse, void* delta,
                              const void* delta_in, void* dq, void* dk,
@@ -95,16 +65,32 @@ extern "C" int bps_flash_bwd(const void* q, const void* k, const void* v,
       (delta_in == nullptr && delta == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const BshdStrides qs{q_sb, q_ss}, ks{k_sb, k_ss}, vs{v_sb, v_ss},
-      dos{do_sb, do_ss};
   return static_cast<int>(with_d(d, [&](auto D) {
     constexpr int kD = decltype(D)::value;
-    if (delta_in != nullptr)  // read only: the kDeltaIn kernel never writes it
-      return launch_bwd<true, kD>(q, k, v, dout, lse,
-                                  const_cast<void*>(delta_in), dq, dk, dv, b,
-                                  h, sq, sk, qs, ks, vs, dos, scale, causal,
-                                  st);
-    return launch_bwd<false, kD>(q, k, v, dout, lse, delta, dq, dk, dv, b, h,
-                                 sq, sk, qs, ks, vs, dos, scale, causal, st);
+    QkvoMaps m;
+    cudaError_t err = encode_qkvo(m, q, k, v, dout, b, h, sq, sk, kD,
+                                  {q_sb, q_ss}, {k_sb, k_ss}, {v_sb, v_ss},
+                                  {do_sb, do_ss});
+    if (err != cudaSuccess) return err;
+    // read only: the kDeltaIn kernel never writes it
+    void* dl = delta_in != nullptr ? const_cast<void*>(delta_in) : delta;
+    err = delta_in != nullptr
+              ? launch_dq<true, kD, kBiasNone>(m, lse, dl, dq, b, h, sq, sk,
+                                               scale, causal, BiasArgs{},
+                                               nullptr, st)
+              : launch_dq<false, kD, kBiasNone>(m, lse, dl, dq, b, h, sq, sk,
+                                                scale, causal, BiasArgs{},
+                                                nullptr, st);
+    if (err != cudaSuccess) return err;
+    return launch_dkv<kD, kBiasNone>(m, lse, dl, dk, dv, b, h, sq, sk, scale,
+                                     causal, BiasArgs{}, st);
   }));
+}
+
+// The dynamic shared memory a launch of `kernel` (0 the forward, 1 dq, 2
+// dk/dv) asks for at head dim d in bias form `form`, for the kernels this
+// library holds; -1 for the others.
+extern "C" int bps_flash_smem(int kernel, int d, int form) {
+  if (kernel == 1) return layout_bytes<DqSmem>(d, form);
+  return kernel == 2 ? layout_bytes<DkvSmem>(d, form) : -1;
 }

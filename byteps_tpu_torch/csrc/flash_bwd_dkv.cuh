@@ -5,251 +5,236 @@
 // the diagonal are skipped under causal masking.
 //
 // Rows of every product are keys: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, so Pᵀ and dSᵀ
-// come out of the tensor cores already in the A layout of dv += Pᵀ·dO and
-// dk += dSᵀ·Q, and never touch shared or device memory.
+// come out of the tensor cores already in the register layout of the A
+// operand of dv += Pᵀ·dO and dk += dSᵀ·Q, and never touch shared or
+// device memory.
 //
 // Shared by flash_bwd.cu (the fused backward's second launch, delta from
 // its first) and flash_dkv.cu (the split backward's `_dkv_kernel`, delta
 // from the caller).
 //
+// Design (hopper.cuh): the producer warp loads the K and V tiles once and
+// streams each query tile's Q and dO tiles, with its 64 lse and delta
+// values (a bulk copy each), through a ring of kStages stages by TMA. Per
+// query tile the consumer warpgroup issues Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ
+// together (wgmma, all operands K-major in shared memory), forms Pᵀ and
+// dSᵀ in registers, and adds Pᵀ·dO and dSᵀ·Q with A from registers and
+// dO, Q read MN-major from the tiles that fed the scores. No atomics.
+//
 // kForm is the bias source (flash_bias.cuh; the fused backward takes no
-// bias). Because the fragments are transposed, the bias of fragment row
-// `key` and column `query` is the offset key - query's (the table form's
-// strip entry kl - ql + 63, as in the forward) and the dense form reads
+// bias). Because the accumulators are transposed, the bias of row `key`
+// and column `query` is the offset key - query's (the table form's strip
+// entry kl - ql + 63, as in the forward) and the dense form reads
 // bias[h, query, key]: the column, not the row, picks the bias row.
 //
-// Head dim kD is a template parameter (64 and 128). The K, V, Q and dO
-// tiles sit in dynamic shared memory, 4 · 64 · (kD + 8) · 2 bytes: 36,864
-// at d 64, 69,632 at d 128. Register plan, by width:
-//   - d 64 (kOut = kDkDv): one launch; a warp holds its K and V A
-//     fragments (kD / 4 registers each), the dk and dv accumulators
-//     (kD / 2 fp32 each) and the Sᵀ and dPᵀ tiles (64 fp32): 231
-//     registers without a bias.
-//   - d 128: the accumulators alone are 128 fp32 and the K and V
-//     fragments 64 more, past the 255 a thread may hold once Sᵀ and dPᵀ
-//     are live. So the fragments are re-read from the K and V tiles,
-//     which stay in shared memory (AFrags), and dk and dv are two
-//     launches of this kernel, kDvOnly then kDkOnly, each with one
-//     accumulator live. The dv launch needs no dPᵀ; both recompute Sᵀ:
-//     5 products per (query, key) tile instead of 4, for no spill.
+// Head dim kD is a template parameter (64 and 128). Shared memory: the K
+// and V tiles and kStages Q/dO pairs with their lse and delta, 49 KB at
+// d 64 and 97 KB at d 128. Registers of a consumer thread: the dk and dv
+// accumulators (kD fp32 together), Sᵀ and dPᵀ (64 fp32) and their bf16 A
+// operands (32). The K, V, Q and dO operands stay in shared memory, where
+// wgmma reads them, so both accumulators fit at d 128 too and dk and dv
+// are one launch at either width; at d 128 the thread needs more than the
+// 168 registers two CTAs of 160 threads leave, so one CTA runs per SM.
 #pragma once
 
 #include "flash_bias.cuh"
 
 namespace {
 
-// What one launch of the dk/dv kernel computes.
-enum DkvOut : int { kDkDv = 0, kDvOnly = 1, kDkOnly = 2 };
-
-// How many launches compute dk and dv at head dim kD.
-template <int kD>
-constexpr int kDkvPasses = kD <= 64 ? 1 : 2;
+constexpr int kDkvStages = 2;
 
 template <int kD, int kForm>
 struct DkvSmem {
-  bf16 k[kTileElems<kD>];
-  bf16 v[kTileElems<kD>];
-  bf16 q[kTileElems<kD>];
-  bf16 o[kTileElems<kD>];
-  float l[kTile];
-  float dl[kTile];
+  Tile<kD> k;
+  Tile<kD> v;
+  Tile<kD> q[kDkvStages];
+  Tile<kD> o[kDkvStages];
+  float l[kDkvStages][kTile];
+  float dl[kDkvStages][kTile];
+  uint64_t kv_full;
+  uint64_t full[kDkvStages];
+  uint64_t empty[kDkvStages];
   BiasSmem<kForm> sb;
 };
-static_assert(sizeof(DkvSmem<64, kBiasNone>) == 37380 &&
-                  sizeof(DkvSmem<64, kBiasTable>) == 38912 &&
-                  sizeof(DkvSmem<128, kBiasNone>) == 70148 &&
-                  sizeof(DkvSmem<128, kBiasTable>) == 71680,
-              "dk/dv's dynamic shared memory at d 64 and d 128");
 
-template <int kD, int kForm, int kOut>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+// CTAs per SM the register plan allows (see above).
+template <int kD>
+constexpr int kDkvBlocks = kD <= 64 ? 2 : 1;
+
+template <int kD, int kForm>
+__global__ void __launch_bounds__(kThreads, kDkvBlocks<kD>)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, int h, int sq, int sk,
-                     BshdStrides qs, BshdStrides ks, BshdStrides vs,
-                     BshdStrides dos, BshdStrides dks, float scale,
-                     int causal, BiasArgs ba) {
-  constexpr bool kDk = kOut != kDvOnly, kDv = kOut != kDkOnly;
+                     BshdStrides dks, float scale, int causal, BiasArgs ba) {
   auto& sm = dyn_smem<DkvSmem<kD, kForm>>();
-  bf16* sK = sm.k;
-  bf16* sV = sm.v;
-  bf16* sQ = sm.q;
-  bf16* sO = sm.o;
-  float* sL = sm.l;
-  float* sDl = sm.dl;
-  BiasSmem<kForm>& sb = sm.sb;
-
   const int kt = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int tid = threadIdx.x;
   const int k0 = kt * kTile;
-  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  const int qt0 = causal ? kt : 0, nqt = sq / kTile;
+  const long long head_row = ((long long)bb * h + hh) * sq;
 
-  load_tile<kD>(sK, k + bb * ks.b + k0 * ks.s + hh * kD, ks.s, tid);
-  if constexpr (kDk)
-    load_tile<kD>(sV, v + bb * vs.b + k0 * vs.s + hh * kD, vs.s, tid);
-  load_table_row<kForm>(sb, ba, hh, tid);
+  if (tid == 0) {
+    mbar_init(&sm.kv_full, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumers);
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
-  constexpr bool kHold = kD <= 64;
-  const AFrags<kD, kHold> kf(sK, warp * 16, g, t);
-  const AFrags<kD, kHold && kDk> vf(sV, warp * 16, g, t);
-  const float* lp = lse + ((long long)bb * h + hh) * sq;
-  const float* dlp = delta + ((long long)bb * h + hh) * sq;
-  const float* dense = dense_head<kForm>(ba, hh, sq, sk);
 
-  // each launch sizes only the accumulators it writes
-  float dka[kDk ? kD / 8 : 1][4], dva[kDv ? kD / 8 : 1][4];
-#pragma unroll
-  for (int n = 0; n < kD / 8; ++n) {
-    if constexpr (kDk) dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
-    if constexpr (kDv) dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+  if (tid >= kConsumers) {  // the producer warp: lane 0 issues every load
+    if (tid == kConsumers) {
+      mbar_expect_tx(&sm.kv_full, 2 * kTileBytes<kD>);
+      load_tile<kD>(&sm.k, &tk, &sm.kv_full, k0, hh, bb);
+      load_tile<kD>(&sm.v, &tv, &sm.kv_full, k0, hh, bb);
+      for (int i = 0; i < nqt - qt0; ++i) {
+        const int st = i % kDkvStages, q0 = (qt0 + i) * kTile;
+        mbar_wait(&sm.empty[st], ((i / kDkvStages) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[st],
+                       2 * kTileBytes<kD> + 2 * kTile * sizeof(float));
+        load_tile<kD>(&sm.q[st], &tq, &sm.full[st], q0, hh, bb);
+        load_tile<kD>(&sm.o[st], &tdo, &sm.full[st], q0, hh, bb);
+        bulk_load(sm.l[st], lse + head_row + q0, kTile * sizeof(float),
+                  &sm.full[st]);
+        bulk_load(sm.dl[st], delta + head_row + q0, kTile * sizeof(float),
+                  &sm.full[st]);
+      }
+    }
+    return;
   }
 
-  const int nqt = sq / kTile;
-  for (int qt = causal ? k0 / kTile : 0; qt < nqt; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    load_tile<kD>(sQ, q + bb * qs.b + q0 * qs.s + hh * kD, qs.s, tid);
-    load_tile<kD>(sO, dout + bb * dos.b + q0 * dos.s + hh * kD, dos.s, tid);
-    if (tid < kTile) {
-      sL[tid] = lp[q0 + tid];
-      if constexpr (kDk) sDl[tid] = dlp[q0 + tid];
-    }
-    load_strip<kForm>(sb, ba, q0, k0, sq, tid);
-    __syncthreads();
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  BiasSmem<kForm>& sb = sm.sb;
+  load_table_row<kForm>(sb, ba, hh, tid);
+  const float* dense = dense_head<kForm>(ba, hh, sq, sk);
+  const float scale_l2 = scale * kLog2e;
 
-    float st[kTile / 8][4], dpt[kDk ? kTile / 8 : 1][4];
+  float dka[kD / 64][32], dva[kD / 64][32];
 #pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-      st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
-      if constexpr (kDk)
-        dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
-    }
+  for (int c = 0; c < kD / 64; ++c) {
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      kf.get(ka, kk);
-      if constexpr (kDk) vf.get(va, kk);
+    for (int j = 0; j < 32; ++j) dka[c][j] = dva[c][j] = 0.f;
+  }
+  mbar_wait(&sm.kv_full, 0);
+
+  for (int i = 0; i < nqt - qt0; ++i) {
+    const int st = i % kDkvStages, q0 = (qt0 + i) * kTile;
+    strip_for<kForm>(sb, ba, q0, k0, sq, tid);
+    mbar_wait(&sm.full[st], (i / kDkvStages) & 1);
+
+    float s[32], dp[32];
+    wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < kTile / 8; ++n) {
-        uint32_t b[2];
-        load_b_nk<kD>(b, sQ, n * 8, kk * 16, g, t);
-        mma16816(st[n], ka, b);
-        if constexpr (kDk) {
-          load_b_nk<kD>(b, sO, n * 8, kk * 16, g, t);
-          mma16816(dpt[n], va, b);
-        }
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_ss(s, desc_k(sm.k, kk), desc_k(sm.q[st], kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_ss(dp, desc_k(sm.v, kk), desc_k(sm.o[st], kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait();
+    fence_acc(s);
+    fence_acc(dp);
+
+    const float* sL = sm.l[st];
+    const float* sDl = sm.dl[st];
+    const bool diag = causal && q0 == k0;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int r = (j >> 1) & 1;
+      const int qi = (j >> 2) * 8 + 2 * t + (j & 1);
+      float p;
+      if constexpr (kForm == kBiasNone) {
+        p = exp2_sfu(s[j] * scale_l2 - sL[qi] * kLog2e);
+      } else {
+        p = exp2_sfu(biased(s[j], scale,
+                         bias_at<kForm>(sb, dense, sk, q0 + qi, key[r], qi,
+                                        key[r] - k0)) *
+                      kLog2e -
+                  sL[qi] * kLog2e);
       }
+      if (diag && q0 + qi < key[r]) p = 0.f;
+      s[j] = p;
+      dp[j] = p * (dp[j] - sDl[qi]);
+    }
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      c_to_a(pa[kk], &s[8 * kk]);
+      c_to_a(da[kk], &dp[8 * kk]);
+      fence_frag(pa[kk]);
+      fence_frag(da[kk]);
     }
 #pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qi = n * 8 + 2 * t + (i & 1);
-        float p;
-        if constexpr (kForm == kBiasNone) {
-          p = expf(st[n][i] * scale - sL[qi]);
-        } else {
-          p = expf(biased(st[n][i], scale,
-                          bias_at<kForm>(sb, dense, sk, q0 + qi,
-                                         key[i >> 1], qi,
-                                         key[i >> 1] - k0)) -
-                   sL[qi]);
-        }
-        if (causal && q0 + qi < key[i >> 1]) p = 0.f;
-        st[n][i] = p;
-        if constexpr (kDk) dpt[n][i] = p * (dpt[n][i] - sDl[qi]);
-      }
+    for (int c = 0; c < kD / 64; ++c) {
+      fence_acc(dva[c]);
+      fence_acc(dka[c]);
     }
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      if constexpr (kDv) c_to_a(pa, st[2 * kk], st[2 * kk + 1]);
-      if constexpr (kDk) c_to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
+    for (int c = 0; c < kD / 64; ++c) {
 #pragma unroll
-      for (int n = 0; n < kD / 8; ++n) {
-        uint32_t b[2];
-        if constexpr (kDv) {
-          load_b_kn<kD>(b, sO, kk * 16, n * 8, g, t);
-          mma16816(dva[n], pa, b);
-        }
-        if constexpr (kDk) {
-          load_b_kn<kD>(b, sQ, kk * 16, n * 8, g, t);
-          mma16816(dka[n], da, b);
-        }
-      }
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(dva[c], pa[kk], desc_mn(sm.o[st], c, kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(dka[c], da[kk], desc_mn(sm.q[st], c, kk));
     }
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int c = 0; c < kD / 64; ++c) {
+      fence_acc(dva[c]);
+      fence_acc(dka[c]);
+    }
+    mbar_arrive(&sm.empty[st]);
   }
 
   bf16* kp = dk + bb * dks.b + hh * kD;
   bf16* vp = dv + bb * dks.b + hh * kD;
 #pragma unroll
-  for (int n = 0; n < kD / 8; ++n) {
-    const int col = n * 8 + 2 * t;
+  for (int c = 0; c < kD / 64; ++c) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if constexpr (kDk)
+    for (int n = 0; n < 8; ++n) {
+      const int col = c * 64 + n * 8 + 2 * t;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float* a = &dka[c][4 * n + 2 * r];
+        const float* b = &dva[c][4 * n + 2 * r];
         *reinterpret_cast<uint32_t*>(kp + key[r] * dks.s + col) =
-            pack_f32(dka[n][2 * r] * scale, dka[n][2 * r + 1] * scale);
-      if constexpr (kDv)
+            pack_f32(a[0] * scale, a[1] * scale);
         *reinterpret_cast<uint32_t*>(vp + key[r] * dks.s + col) =
-            pack_f32(dva[n][2 * r], dva[n][2 * r + 1]);
+            pack_f32(b[0], b[1]);
+      }
     }
   }
 }
 
-template <int kD, int kForm, int kOut>
-cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v,
-                       const bf16* dout, const float* lse,
-                       const float* delta, bf16* dk, bf16* dv, int b, int h,
-                       int sq, int sk, BshdStrides qs, BshdStrides ks,
-                       BshdStrides vs, BshdStrides dos, float scale,
-                       int causal, const BiasArgs& ba, cudaStream_t stream) {
-  constexpr int kSmem = sizeof(DkvSmem<kD, kForm>);
-  const cudaError_t attr =
-      smem_attr(flash_bwd_dkv_kernel<kD, kForm, kOut>, kSmem);
+// dk and dv at head dim kD in bias form kForm: one launch at either width
+// (the register plan above); dk and dv are [b, sk, h, d] contiguous.
+template <int kD, int kForm>
+cudaError_t launch_dkv(const QkvoMaps& m, const void* lse,
+                       const void* delta, void* dk, void* dv, int b, int h,
+                       int sq, int sk, float scale, int causal,
+                       const BiasArgs& ba, cudaStream_t stream) {
+  constexpr int kSmem = smem_bytes<DkvSmem<kD, kForm>>;
+  const cudaError_t attr = smem_attr(flash_bwd_dkv_kernel<kD, kForm>, kSmem);
   if (attr != cudaSuccess) return attr;
   const long long row = static_cast<long long>(h) * kD;
-  flash_bwd_dkv_kernel<kD, kForm, kOut>
+  flash_bwd_dkv_kernel<kD, kForm>
       <<<dim3(sk / kTile, h, b), kThreads, kSmem, stream>>>(
-          q, k, v, dout, lse, delta, dk, dv, h, sq, sk, qs, ks, vs, dos,
-          BshdStrides{sk * row, row}, scale, causal, ba);
+          m.q, m.k, m.v, m.o, static_cast<const float*>(lse),
+          static_cast<const float*>(delta), static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), h, sq, sk, BshdStrides{sk * row, row},
+          scale, causal, ba);
   return cudaGetLastError();
-}
-
-// dk and dv at head dim kD in bias form kForm: one launch at d 64, the dv
-// launch then the dk launch at d 128 (the register plan above).
-template <int kD, int kForm>
-cudaError_t launch_dkv_all(const void* q, const void* k, const void* v,
-                           const void* dout, const void* lse,
-                           const void* delta, void* dk, void* dv, int b,
-                           int h, int sq, int sk, BshdStrides qs,
-                           BshdStrides ks, BshdStrides vs, BshdStrides dos,
-                           float scale, int causal, const BiasArgs& ba,
-                           cudaStream_t stream) {
-  const auto* q_ = static_cast<const bf16*>(q);
-  const auto* k_ = static_cast<const bf16*>(k);
-  const auto* v_ = static_cast<const bf16*>(v);
-  const auto* o_ = static_cast<const bf16*>(dout);
-  const auto* l_ = static_cast<const float*>(lse);
-  const auto* dl_ = static_cast<const float*>(delta);
-  auto* dk_ = static_cast<bf16*>(dk);
-  auto* dv_ = static_cast<bf16*>(dv);
-  if constexpr (kDkvPasses<kD> == 1) {
-    return launch_dkv<kD, kForm, kDkDv>(q_, k_, v_, o_, l_, dl_, dk_, dv_, b,
-                                        h, sq, sk, qs, ks, vs, dos, scale,
-                                        causal, ba, stream);
-  } else {
-    const cudaError_t err = launch_dkv<kD, kForm, kDvOnly>(
-        q_, k_, v_, o_, l_, dl_, dk_, dv_, b, h, sq, sk, qs, ks, vs, dos,
-        scale, causal, ba, stream);
-    if (err != cudaSuccess) return err;
-    return launch_dkv<kD, kForm, kDkOnly>(q_, k_, v_, o_, l_, dl_, dk_, dv_,
-                                          b, h, sq, sk, qs, ks, vs, dos,
-                                          scale, causal, ba, stream);
-  }
 }
 
 }  // namespace

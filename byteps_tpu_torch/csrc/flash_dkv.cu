@@ -19,14 +19,15 @@
 // but a shared-memory read per score. On the TPU the query blocks are the
 // carried grid dimension; on Hopper CTAs share nothing, so each CTA owns
 // one 64-key tile and walks every query tile itself (flash_bwd_dkv.cuh),
-// keeping dk and dv in registers: deterministic, no atomics. Head dim 64
-// (one launch) or 128 (a dv launch, then a dk launch: the register plan
-// in flash_bwd_dkv.cuh).
+// keeping dk and dv in registers, fed by TMA through a ring of tiles and
+// multiplied on the tensor cores (wgmma): deterministic, no atomics. One
+// launch at head dim 64 or 128 (the register plan in flash_bwd_dkv.cuh).
 #include "flash_bwd_dkv.cuh"
 
 // Launches on `stream`, allocates nothing (dk and dv are [b, sk, h, d]
-// contiguous; lse and delta are [b, h, sq] fp32); returns
-// cudaGetLastError(). `form` and the bias arguments as in bps_flash_fwd.
+// contiguous; lse and delta are [b, h, sq] fp32, 16-byte aligned); returns
+// a cudaError_t (the tensor maps' encoding, then cudaGetLastError()).
+// `form` and the bias arguments as in bps_flash_fwd.
 extern "C" int bps_flash_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dk, void* dv, int b,
@@ -40,14 +41,24 @@ extern "C" int bps_flash_dkv(const void* q, const void* k, const void* v,
       !bias_args_ok(form, bias, bucket, table, nb))
     return static_cast<int>(cudaErrorInvalidValue);
   const BiasArgs ba = bias_args(bias, bucket, table, nb);
-  const BshdStrides qs{q_sb, q_ss}, ks{k_sb, k_ss}, vs{v_sb, v_ss},
-      dos{do_sb, do_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_d(d, [&](auto D) {
+    constexpr int kD = decltype(D)::value;
+    QkvoMaps m;
+    const cudaError_t err = encode_qkvo(
+        m, q, k, v, dout, b, h, sq, sk, kD, {q_sb, q_ss}, {k_sb, k_ss},
+        {v_sb, v_ss}, {do_sb, do_ss});
+    if (err != cudaSuccess) return err;
     return with_form(form, [&](auto F) {
-      return launch_dkv_all<decltype(D)::value, decltype(F)::value>(
-          q, k, v, dout, lse, delta, dk, dv, b, h, sq, sk, qs, ks, vs, dos,
-          scale, causal, ba, st);
+      return launch_dkv<kD, decltype(F)::value>(m, lse, delta, dk, dv, b, h,
+                                                sq, sk, scale, causal, ba, st);
     });
   }));
+}
+
+// The dynamic shared memory a launch of `kernel` (0 the forward, 1 dq, 2
+// dk/dv) asks for at head dim d in bias form `form`, for the kernels this
+// library holds; -1 for the others.
+extern "C" int bps_flash_smem(int kernel, int d, int form) {
+  return kernel == 2 ? layout_bytes<DkvSmem>(d, form) : -1;
 }

@@ -25,44 +25,18 @@
 // tile near the diagonal, one or a few far from it. The design is the
 // fused backward's first launch without its delta pass
 // (flash_bwd_dq.cuh): one CTA per (batch, head, 64-query tile) walks the
-// key tiles once, keeps S, P, dP and dS in registers, and accumulates dq
-// there; no atomics, no [s, s] buffer but the dense form's dbias output.
-// Head dim 64 or 128 (the register plan of each is in flash_bwd_dq.cuh).
+// key tiles once, fed by TMA through a ring of tiles, keeps S, P, dP and
+// dS in registers, and accumulates dq there on the tensor cores (wgmma);
+// no atomics, no [s, s] buffer but the dense form's dbias output. Head dim
+// 64 or 128 (the register plan of each is in flash_bwd_dq.cuh).
 #include "flash_bwd_dq.cuh"
 
-namespace {
-
-template <int kD, int kForm>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
-                   void* dq, int b, int h, int sq, int sk, BshdStrides qs,
-                   BshdStrides ks, BshdStrides vs, BshdStrides dos,
-                   float scale, int causal, const BiasArgs& ba, void* grad,
-                   cudaStream_t stream) {
-  constexpr int kSmem = sizeof(DqSmem<kD, kForm>);
-  const cudaError_t attr =
-      smem_attr(flash_bwd_dq_kernel<true, kD, kForm>, kSmem);
-  if (attr != cudaSuccess) return attr;
-  const long long row = static_cast<long long>(h) * kD;
-  flash_bwd_dq_kernel<true, kD, kForm>
-      <<<dim3(sq / kTile, h, b), kThreads, kSmem, stream>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-          static_cast<const float*>(lse),
-          const_cast<float*>(static_cast<const float*>(delta)),  // read only
-          static_cast<bf16*>(dq), h, sq, sk, qs, ks, vs, dos,
-          BshdStrides{sq * row, row}, scale, causal, ba,
-          static_cast<float*>(grad));
-  return cudaGetLastError();
-}
-
-}  // namespace
-
 // Launches on `stream`, allocates nothing (dq is [b, sq, h, d] contiguous;
-// lse and delta are [b, h, sq] fp32); returns cudaGetLastError(). `form`
-// and the bias arguments as in bps_flash_fwd; `grad` is the dense form's
-// [b, h, sq, sk] fp32 dS or the table form's [b, h, sq / 64, nb] fp32
-// partials, null without a bias.
+// lse and delta are [b, h, sq] fp32); returns a cudaError_t (the tensor
+// maps' encoding, then cudaGetLastError()). `form` and the bias arguments
+// as in bps_flash_fwd; `grad` is the dense form's [b, h, sq, sk] fp32 dS
+// or the table form's [b, h, sq / 64, nb] fp32 partials, null without a
+// bias.
 extern "C" int bps_flash_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, int b, int h, int sq,
@@ -78,14 +52,26 @@ extern "C" int bps_flash_dq(const void* q, const void* k, const void* v,
       (form != kBiasNone && grad == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const BiasArgs ba = bias_args(bias, bucket, table, nb);
-  const BshdStrides qs{q_sb, q_ss}, ks{k_sb, k_ss}, vs{v_sb, v_ss},
-      dos{do_sb, do_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_d(d, [&](auto D) {
+    constexpr int kD = decltype(D)::value;
+    QkvoMaps m;
+    const cudaError_t err = encode_qkvo(
+        m, q, k, v, dout, b, h, sq, sk, kD, {q_sb, q_ss}, {k_sb, k_ss},
+        {v_sb, v_ss}, {do_sb, do_ss});
+    if (err != cudaSuccess) return err;
     return with_form(form, [&](auto F) {
-      return launch<decltype(D)::value, decltype(F)::value>(
-          q, k, v, dout, lse, delta, dq, b, h, sq, sk, qs, ks, vs, dos, scale,
-          causal, ba, grad, st);
+      // read only: the kDeltaIn kernel never writes delta
+      return launch_dq<true, kD, decltype(F)::value>(
+          m, lse, const_cast<void*>(delta), dq, b, h, sq, sk, scale, causal,
+          ba, grad, st);
     });
   }));
+}
+
+// The dynamic shared memory a launch of `kernel` (0 the forward, 1 dq, 2
+// dk/dv) asks for at head dim d in bias form `form`, for the kernels this
+// library holds; -1 for the others.
+extern "C" int bps_flash_smem(int kernel, int d, int form) {
+  return kernel == 1 ? layout_bytes<DqSmem>(d, form) : -1;
 }

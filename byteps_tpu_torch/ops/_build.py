@@ -56,6 +56,13 @@ SIGNATURES = {
                         [_P, _P, _L, _F, ctypes.c_uint, _I, _P]),
 }
 
+# every flash library also answers the dynamic shared memory of the kernel
+# instantiations it holds: bps_flash_smem(kernel, d, form), kernel 0 the
+# forward, 1 dq, 2 dk/dv (-1 for one it does not hold)
+SMEM_QUERY = "bps_flash_smem"
+SMEM_KERNELS = {"flash_fwd_kernel": 0, "flash_bwd_dq_kernel": 1,
+                "flash_bwd_dkv_kernel": 2}
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -185,6 +192,75 @@ def ptxas_report(stems=None) -> List[dict]:
     return sorted(out, key=lambda r: (r["source"], r["kernel"], r["args"]))
 
 
+def smem_bytes(stem: str, kernel: str, d: int, form: int) -> int:
+    """The dynamic shared memory (bytes) a launch of ``kernel`` (a key of
+    ``SMEM_KERNELS``) from ``csrc/<stem>.cu`` asks for at head dim ``d``
+    in bias form ``form``."""
+    lib = _libs.get(stem) or build_all()[stem]
+    fn = getattr(lib, SMEM_QUERY)
+    fn.argtypes = [_I, _I, _I]
+    fn.restype = _I
+    return fn(SMEM_KERNELS[kernel], d, form)
+
+
+def tensor_map_us(base: int, n: int = 10000) -> float:
+    """Host microseconds per tensor map encode (cuTensorMapEncodeTiled, as
+    every flash launch encodes one per operand), over ``n`` encodes of a
+    BERT-large operand's map at the device address ``base`` (16-byte
+    aligned; nothing is read) by ``csrc/flash_fwd.cu``'s
+    ``bps_tensor_map_us``."""
+    lib = _libs.get("flash_fwd") or build_all()["flash_fwd"]
+    fn = lib.bps_tensor_map_us
+    fn.argtypes = [_P, _I]
+    fn.restype = ctypes.c_double
+    return fn(base, n)
+
+
+# SASS instructions counted per kernel: the Hopper products (wgmma), TMA
+# tensor loads and bulk copies
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP")
+
+
+def _sass_path(stem: str) -> Path:
+    """The SASS listing of the current build of ``stem``, beside it."""
+    return _lib_path(stem).with_suffix(".sass")
+
+
+def sass_counts(stems=None) -> List[dict]:
+    """Per kernel template instance of the current builds of ``stems``
+    (default: every source): its source, kernel name, template arguments
+    and how many of each ``SASS_OPS`` instruction its machine code holds.
+    The listing is ``cuobjdump -sass`` of the library (the toolkit's,
+    beside nvcc), kept beside it on first use, so a cached build reports
+    as a fresh one does."""
+    out = []
+    for stem in stems or sorted(SIGNATURES):
+        path = _sass_path(stem)
+        if not path.exists():
+            cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
+            path.write_text(subprocess.run(
+                [str(cuobjdump), "-sass", str(_lib_path(stem))],
+                capture_output=True, text=True, check=True).stdout)
+        sass = path.read_text()
+        row = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                kernel = _KERNEL.search(m.group(1))
+                row = None
+                if kernel:
+                    row = {"source": stem, "kernel": kernel.group(1),
+                           "args": [int(a) for a in re.findall(
+                               r"L[ib](\d+)E", kernel.group(2))],
+                           **dict.fromkeys(SASS_OPS, 0)}
+                    out.append(row)
+            elif row is not None:
+                for op in SASS_OPS:
+                    if re.search(rf"\b{op}\b", line):
+                        row[op] += 1
+    return sorted(out, key=lambda r: (r["source"], r["kernel"], r["args"]))
+
+
 def device_type(t, what: str) -> str:
     """"cpu" (a wrapper then takes its plain version) or "cuda" (it
     launches its kernel); any other device has no path."""
@@ -193,8 +269,20 @@ def device_type(t, what: str) -> str:
     return t.device.type
 
 
+# an entry point's code for a tensor map it could not encode: MAP_ERROR +
+# the driver's CUresult, MAP_ERROR - 1 without the driver entry point
+# (csrc/hopper.cuh::kMapError)
+MAP_ERROR = 100000
+
+
 def raise_on_error(code: int, what: str) -> None:
     """Raise when an entry point returned a CUDA error (a refused launch
     never runs, and no later synchronize would report it)."""
+    if code == MAP_ERROR - 1:
+        raise RuntimeError(f"{what}: the driver has no "
+                           "cuTensorMapEncodeTiled entry point")
+    if code >= MAP_ERROR:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused a TMA "
+                           f"tensor map (CUresult {code - MAP_ERROR})")
     if code != 0:
         raise RuntimeError(f"{what} failed to launch: cudaError {code}")

@@ -52,8 +52,11 @@ compile time, as the Pallas kernels' ``has_bias`` / ``rel``:
 Each kernel is built for head dims 64 and 128 (``KERNEL_DS``), a
 compile-time parameter of the CUDA sources; the Pallas kernels take any
 d <= 256, and the other widths are still to port (ROADMAP.md queue 2).
-At d 128 the dk/dv work is two launches behind the one wrapper (dv, then
-dk: the register plan in ``csrc/flash_bwd_dkv.cuh``).
+The kernels bring q, k, v and dO into shared memory by TMA, through
+tensor maps over [b, s, h, d] that the C entry points encode at every
+call: ``reads_in_place`` is the layout rule those maps need, and
+``kernel_layout`` copies an operand that breaks it (``vector_layout`` does
+the same for lse and delta).
 
 The Pallas helpers ``_head_tile``, ``_clamp_ht`` and ``_DT_PAD`` have no
 counterpart: they fit the TPU's block rules (several heads per program,
@@ -371,14 +374,38 @@ def check_kernel_inputs(q, k, v, causal: bool = False, bias=None,
                          f"{devs}")
 
 
-def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when the kernels can read it in place (head stride d,
-    unit last stride, 16-byte aligned rows), else a contiguous copy."""
-    d = t.shape[-1]
-    if (t.stride(3) == 1 and t.stride(2) == d and t.stride(1) % 8 == 0
-            and t.stride(0) % 8 == 0 and t.data_ptr() % 16 == 0):
+def reads_in_place(t: torch.Tensor) -> bool:
+    """Whether the Hopper kernels read the [b, s, h, d] operand ``t`` as
+    it is. Each kernel reads its q, k, v and dO through a TMA tensor map
+    over [b, s, h, d] whose boxes are [64 rows][64 columns] of one head:
+    the last stride must be 1 and the head stride d, and TMA takes a base
+    address and row and batch strides that are positive multiples of 16
+    bytes. The model's ``qkv.unbind(2)`` views pass (row stride 3·h·d)."""
+    if t.dim() != 4:
+        return False
+    d = t.shape[3]
+    row, batch = (t.stride(i) * t.element_size() for i in (1, 0))
+    return (t.stride(3) == 1 and t.stride(2) == d
+            and row > 0 and row % 16 == 0 and batch > 0 and batch % 16 == 0
+            and t.data_ptr() % 16 == 0)
+
+
+def kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when the kernels read it in place
+    (``reads_in_place``), else a fresh contiguous copy, which they do
+    (``contiguous()`` would return a misaligned contiguous view as it
+    is)."""
+    return t if reads_in_place(t) else t.clone(
+        memory_format=torch.contiguous_format)
+
+
+def vector_layout(t: torch.Tensor) -> torch.Tensor:
+    """An lse or delta vector ([b, h, sq] fp32) as the kernels read it:
+    contiguous on a 16-byte boundary (dk/dv brings each query tile's 64
+    values in by one bulk copy), else a fresh copy, which is."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
         return t
-    return t.contiguous()
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _bias_args(q, k, bias, rel_table, rel_bidirectional, rel_max_distance):
@@ -448,7 +475,7 @@ def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
         return flash_fwd_plain(q, k, v, causal, scale, bias, rel_table,
                                rel_bidirectional, rel_max_distance, out_dtype)
     check_kernel_inputs(q, k, v, causal, bias, rel_table)
-    q, k, v = (_kernel_layout(t) for t in (q, k, v))
+    q, k, v = (kernel_layout(t) for t in (q, k, v))
     b, sq, h, d = q.shape
     sk = k.shape[1]
     form, keep, bargs = _bias_args(q, k, bias, rel_table, rel_bidirectional,
@@ -510,13 +537,13 @@ def flash_bwd_fused(q, k, v, do, lse, causal: bool = False,
         return flash_bwd_fused_plain(q, k, v, do, lse, causal, scale, delta)
     check_kernel_inputs(q, k, v, causal)
     _check_bwd_inputs(q, k, v, do, lse, delta)
-    q, k, v, do = (_kernel_layout(t) for t in (q, k, v, do))
-    lse = lse.contiguous()
+    q, k, v, do = (kernel_layout(t) for t in (q, k, v, do))
+    lse = vector_layout(lse)
     dq, dk, dv = _empty(q), _empty(k), _empty(v)
     if delta is None:       # the kernel's scratch: it writes delta there
         scratch, given = _empty(lse), None
     else:
-        scratch, given = None, delta.contiguous()
+        scratch, given = None, vector_layout(delta)
     with torch.cuda.device(q.device):
         code = entry("flash_bwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -545,8 +572,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
                                   rel_max_distance)
     check_kernel_inputs(q, k, v, causal, bias, rel_table)
     _check_bwd_inputs(q, k, v, do, lse, delta)
-    q, k, v, do = (_kernel_layout(t) for t in (q, k, v, do))
-    lse, delta = lse.contiguous(), delta.contiguous()
+    q, k, v, do = (kernel_layout(t) for t in (q, k, v, do))
+    lse, delta = vector_layout(lse), vector_layout(delta)
     b, sq, h, _ = q.shape
     sk = k.shape[1]
     form, keep, bargs = _bias_args(q, k, bias, rel_table, rel_bidirectional,
@@ -588,8 +615,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
                                    rel_max_distance)
     check_kernel_inputs(q, k, v, causal, bias, rel_table)
     _check_bwd_inputs(q, k, v, do, lse, delta)
-    q, k, v, do = (_kernel_layout(t) for t in (q, k, v, do))
-    lse, delta = lse.contiguous(), delta.contiguous()
+    q, k, v, do = (kernel_layout(t) for t in (q, k, v, do))
+    lse, delta = vector_layout(lse), vector_layout(delta)
     form, keep, bargs = _bias_args(q, k, bias, rel_table, rel_bidirectional,
                                    rel_max_distance)
     dk, dv = _empty(k), _empty(v)

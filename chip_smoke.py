@@ -10,7 +10,11 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
      limit; build the Hopper kernels from ``byteps_tpu_torch/csrc`` (the
      flash kernels at head dims 64 and 128) with ptxas -v, and print each
      flash instantiation's registers, stack and spills (from the log kept
-     beside each library, so a cached build prints them too).
+     beside each library, so a cached build prints them too), its dynamic
+     shared memory and its count of wgmma (HGMMA), TMA tensor load
+     (UTMALDG) and bulk copy (UBLKCP) instructions (``cuobjdump -sass``);
+     it fails unless every one holds HGMMA and UTMALDG and spills
+     nothing. Then the host cost of one tensor map encode.
   2. kernel checks, each kernel held against its plain PyTorch version on
      the card, with seeded inputs:
        - flash forward and fused backward at the BERT shape (s 512, h 16,
@@ -54,6 +58,11 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          REL_TOL of the plain version, within REL_TOL_AUTOGRAD of autograd
          of the plain forward, and bit for bit the split route's dq and
          dk/dv with the same delta;
+       - determinism: each flash kernel launched twice on the same
+         inputs, the same bits (forward bf16 and fp32 out, fused backward
+         with delta computed and given at the BERT shapes; dq and dk/dv
+         at b 8, s 1024 causal; forward, dq and dk/dv in the dense and
+         table forms at T5's encoder shape), at head dims 64 and 128;
        - the flash ring's schedule at sp 4 in one process
          (``parallel/ring.py::ring_schedule``: the shards are slices; each
          rank's blocks in the ring's order, kv rank (rank - step) mod 4,
@@ -74,7 +83,10 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
      1024, h 8 causal, the table and dense forms at T5's encoder geometry;
      onebit, int8 and fp8 on one 4,096,000-byte bucket; the ring's forms
      1f and 2d at the BERT shape (d 64) and the dh128 shape (d 128), full,
-     against the library's forward and backward.
+     against the library's forward and backward; and each flash
+     wrapper's host microseconds per call at the BERT shapes (checks,
+     allocations, tensor maps and launches, enqueued while the card is
+     busy).
   4. training through the port's ``DistributedTrainer``, random weights
      from seed 0, AdamW(1e-4, weight_decay 1e-4), 3 steps on one fixed
      synthetic batch of 8, at full width (bf16 compute over fp32 params,
@@ -143,6 +155,12 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
 
 It exits with code 2, printing no result, when no CUDA device is present
 or when the ``byteps_tpu_torch`` package is not beside it.
+
+    python3 chip_smoke.py --host-us PARENT
+
+prints only the host microseconds per call of the four flash wrappers at
+both head dims, this checkout's kernels against those of the checkout at
+PARENT (built here), in turns in one process, as one JSON line.
 
     python3 chip_smoke.py --sp 4
 
@@ -372,22 +390,30 @@ def toolchain():
         f"{time.perf_counter() - t0:.1f} s "
         f"({', '.join(sorted(_build.SIGNATURES))}; "
         f"csrc/host/{_build_host.SOURCE.name})")
-    return ptxas_table()
+    rows = ptxas_table()
+    tensor_map_us()
+    return rows
 
 
 _FORM_NAMES = ("none", "dense", "table")
-_DKV_OUT = ("dk+dv", "dv", "dk")
 
 
 def ptxas_table():
-    """Registers, stack and spills of every flash kernel instantiation,
-    from the ptxas -v log that each build keeps beside its library (a
-    cached build's too); printed and returned. The dynamic shared memory
-    of each is a static_assert beside its layout in the sources."""
+    """Every flash kernel instantiation: its registers, stack and spills
+    (the ptxas -v log that each build keeps beside its library, a cached
+    build's too), its dynamic shared memory (the library's own
+    ``bps_flash_smem``) and how many wgmma (HGMMA), TMA tensor load
+    (UTMALDG) and bulk copy (UBLKCP) instructions its SASS holds
+    (``cuobjdump -sass``); printed and returned. Fails unless each one
+    reached the tensor cores through wgmma, loads by TMA and spills
+    nothing."""
     from byteps_tpu_torch.ops import _build
-    rows = []
-    for r in _build.ptxas_report([s for s in sorted(_build.SIGNATURES)
-                                  if s.startswith("flash_")]):
+    stems = [s for s in sorted(_build.SIGNATURES) if s.startswith("flash_")]
+    report = _build.ptxas_report(stems)
+    sass = {(r["source"], r["kernel"], tuple(r["args"])): r
+            for r in _build.sass_counts(stems)}
+    rows, bad = [], []
+    for r in report:
         a = r["args"]
         if r["kernel"] == "flash_fwd_kernel":
             d, form = a[0], a[1]
@@ -396,20 +422,46 @@ def ptxas_table():
             d, form = a[1], a[2]
             what = "dq (delta given)" if a[0] else "dq + delta (fused bwd)"
         else:
-            d, form, what = a[0], a[1], _DKV_OUT[a[2]]
+            d, form, what = a[0], a[1], "dk+dv"
+        ops = sass.get((r["source"], r["kernel"], tuple(a)),
+                       dict.fromkeys(_build.SASS_OPS, 0))
         row = {"source": f"csrc/{r['source']}.cu", "kernel": what, "d": d,
                "form": _FORM_NAMES[form], "registers": r["registers"],
                "stack": r.get("stack", 0),
                "spill_stores": r.get("spill_stores", 0),
-               "spill_loads": r.get("spill_loads", 0)}
+               "spill_loads": r.get("spill_loads", 0),
+               "smem": _build.smem_bytes(r["source"], r["kernel"], d, form),
+               **{op.lower(): ops[op] for op in _build.SASS_OPS}}
         log(f"[ptxas] {row['source']:20s} {what:22s} d{d:<4d} "
             f"{row['form']:6s} {row['registers']:3d} registers, "
             f"stack {row['stack']} B, spill stores {row['spill_stores']} B, "
-            f"loads {row['spill_loads']} B")
+            f"loads {row['spill_loads']} B; {row['smem']} B dynamic shared "
+            f"memory; SASS: {row['hgmma']} HGMMA, {row['utmaldg']} UTMALDG, "
+            f"{row['ublkcp']} UBLKCP")
+        if (not row["hgmma"] or not row["utmaldg"] or row["spill_stores"]
+                or row["spill_loads"]):
+            bad.append(f"{row['source']} {what} d{d} {row['form']}")
         rows.append(row)
     if not rows:
         raise AssertionError("ptxas reported no flash kernel")
+    if bad:
+        raise AssertionError(f"no wgmma or TMA in the SASS, or a spill: "
+                             f"{bad}")
     return rows
+
+
+def tensor_map_us():
+    """Host microseconds of one TMA tensor map encode (a BERT-large
+    operand's), the cost every flash launch pays per operand."""
+    from byteps_tpu_torch.ops import _build
+    base = torch.empty(16, dtype=torch.uint8, device="cuda")
+    us = _build.tensor_map_us(base.data_ptr())
+    log(f"[ptxas] tensor maps: {us:.3f} us per cuTensorMapEncodeTiled on "
+        "the host")
+    if not us > 0:
+        raise AssertionError("the driver refused a BERT-large operand's "
+                             "tensor map")
+    return us
 
 
 # ------------------------------------------------------------- phase 2
@@ -728,6 +780,67 @@ def check_ring_schedule():
                     raise AssertionError(f"{tag}: d{name} disagrees")
             del q, k, v, do, out, dq, dk, dv, xs, ref
             torch.cuda.empty_cache()
+
+
+def _twice(tag, calls):
+    """Launch each of ``calls`` ({name: fn}) twice on the same inputs;
+    every output must be the same bits."""
+    for name, fn in calls.items():
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        first = first if isinstance(first, tuple) else (first,)
+        second = second if isinstance(second, tuple) else (second,)
+        _same(f"{tag} {name}, two launches",
+              [(f"output {i}", a, b) for i, (a, b) in
+               enumerate(zip(first, second))])
+
+
+def check_determinism():
+    """Each redesigned flash kernel, launched twice on the same inputs,
+    gives the same bits (no atomics anywhere), at head dims 64 and 128:
+    the forward (bf16 and fp32 out) and the fused backward (delta computed
+    and given) at the BERT shape; dq and dk/dv past one block (b 8, s
+    1024, causal); the forward, dq (with dbias or dtable) and dk/dv in
+    the dense and table forms at T5's encoder shape."""
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import relpos
+    f32 = torch.float32
+    for h, d in ((HEADS, HEAD_DIM), (DH128_HEADS, DH128)):
+        b, s = TRAIN_BATCH, BERT_SEQ
+        q, k, v, do = _inputs(b, s, h, d, seed=41)
+        out, lse = fa.flash_fwd(q, k, v)
+        delta = fa.bwd_delta(do, out)
+        _twice(f"b{b} s{s} h{h} d{d} full", {
+            "forward": lambda: fa.flash_fwd(q, k, v),
+            "forward, fp32 out": lambda: fa.flash_fwd(q, k, v,
+                                                      out_dtype=f32),
+            "fused backward": lambda: fa.flash_bwd_fused(q, k, v, do, lse),
+            "fused backward, delta given": lambda: fa.flash_bwd_fused(
+                q, k, v, do, lse, delta=delta)})
+        s = GPT2_SEQ
+        q, k, v, do = _inputs(b, s, h, d, seed=42)
+        out, lse = fa.flash_fwd(q, k, v, True)
+        delta = fa.bwd_delta(do, out)
+        _twice(f"b{b} s{s} h{h} d{d} causal", {
+            "dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True),
+            "dk/dv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                              True)})
+        s = T5_SRC
+        q, k, v, do, table = _t5_inputs(b, s, seed=43, d=d)
+        for form, kw in (
+                ("table", {"rel_table": table}),
+                ("dense", {"bias": relpos.relative_bias(
+                    table.T, s, s, True, T5_BUCKETS)})):
+            out, lse = fa.flash_fwd(q, k, v, False, 1.0, **kw)
+            delta = fa.bwd_delta(do, out)
+            _twice(f"b{b} s{s} h{T5_HEADS} d{d} {form}", {
+                "forward": lambda: fa.flash_fwd(q, k, v, False, 1.0, **kw),
+                "dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, False,
+                                              1.0, **kw),
+                "dk/dv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                  False, 1.0, **kw)})
+        del q, k, v, do, out, lse, delta, table
+        torch.cuda.empty_cache()
 
 
 def _adversarial():
@@ -1077,11 +1190,11 @@ def _library_dequantize(q, s8, want):
 
 def time_quant(n=BUCKET_FLOATS):
     """int8 quantize, dequantize and fp8 E4M3 SR of one default-sized
-    bucket at its codec scale. Only dequantize has a single PyTorch call
-    computing the same function (``torch.mul`` by a 0-dim f32 scale);
-    ``quantize_per_tensor`` multiplies by a reciprocal and clamps at -128,
-    and a cast to an fp8 dtype rounds to nearest, so the other two have
-    library "none"."""
+    bucket at its codec scale. Dequantize has a single PyTorch call
+    computing the same function (``torch.mul`` by a 0-dim f32 scale); the
+    other two are timed beside the single call nearest to them, which
+    counts as their library call only where it gives the kernel's bytes
+    on this bucket."""
     from byteps_tpu_torch.ops.compression import fp8sr
     from byteps_tpu_torch.ops.compression import kernels as ob
     x = torch.randn(n, generator=torch.Generator().manual_seed(33)).cuda()
@@ -1092,6 +1205,24 @@ def time_quant(n=BUCKET_FLOATS):
     bd = quant_bounds(n)
     library = {"int8_dequantize": _library_dequantize(
         q, s8, ob.int8_dequantize(q, s8))}
+    # the single calls nearest to the other two, timed beside them and held
+    # against the kernel's bytes (``considered`` in the kernel line): the
+    # library time where they give the kernel's bytes on this bucket.
+    # quantize_per_tensor multiplies by 1/s where the codec divides by s,
+    # which can move a code at a rounding boundary; the fp8 cast rounds to
+    # nearest, not stochastically.
+    e4m3 = ob.fp8_sr_quantize(x, sf, 1234, fp8sr.E4M3)
+    considered = {
+        "int8_quantize": (
+            "torch.quantize_per_tensor(x, s, 0, torch.qint8)",
+            lambda: torch.quantize_per_tensor(x, s8, 0, torch.qint8),
+            lambda out: out.int_repr().view(torch.uint8),
+            q.view(torch.uint8)),
+        "fp8_sr_quantize": (
+            "torch.Tensor.to(torch.float8_e4m3fn) of x / s",
+            lambda: (x / sf).to(torch.float8_e4m3fn),
+            lambda out: out.view(torch.uint8),
+            e4m3.view(torch.uint8))}
     res = {}
     for name, kernel, plain in (
             ("int8_quantize", lambda: ob.int8_quantize(x, s8),
@@ -1108,6 +1239,19 @@ def time_quant(n=BUCKET_FLOATS):
              "timed_shape": [n]}
         r.update(bd[name])
         _log_time(name, f"n {n}", r)
+        if name in considered:
+            call, fn, as_bytes, want = considered[name]
+            differ = int((as_bytes(fn()) != want).sum().item())
+            r["considered"] = {"call": call,
+                               "ms": time_ms(fn, flush=flush),
+                               "bytes_differ": differ, "of": n}
+            if differ == 0:
+                r["library_ms"] = r["considered"]["ms"]
+            log(f"[time {name} n {n}] considered {call}: "
+                f"{r['considered']['ms']:.4f} ms; {differ} of {n} bytes "
+                "differ from the kernel's: " + (
+                    "the same bytes on this bucket, its library time"
+                    if differ == 0 else "not the same function"))
         res[name] = r
     return res
 
@@ -1158,6 +1302,98 @@ def time_ring_forms(h=HEADS, d=HEAD_DIM):
     del flush
     torch.cuda.empty_cache()
     return res
+
+
+def host_us(fn, n=50, repeats=5):
+    """Host microseconds per call of the wrapper ``fn`` (its checks,
+    allocations, tensor maps and launches): ``n`` calls enqueued back to
+    back while the card spins ahead of them, so that no call waits for
+    the device; the least mean of ``repeats`` such runs (the host is
+    shared, and other work only ever adds to a run)."""
+    fn()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(repeats):
+        torch.cuda._sleep(SPIN_CYCLES * 100)    # about 100 ms of device time
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, (time.perf_counter() - t) / n * 1e6)
+        torch.cuda.synchronize()
+    return best
+
+
+def time_host(h=HEADS, d=HEAD_DIM):
+    """Host microseconds per call of each flash wrapper at the BERT shape
+    (b 8, s 512, full, h heads of d): the cost a host-bound step pays per
+    launch, tensor map encoding included."""
+    from byteps_tpu_torch.ops import flash_attention as fa
+    b, s = TRAIN_BATCH, BERT_SEQ
+    q, k, v, do = _inputs(b, s, h, d, seed=99)
+    out, lse = fa.flash_fwd(q, k, v)
+    delta = fa.bwd_delta(do, out)
+    res = {name: host_us(fn) for name, fn in (
+        ("flash_fwd", lambda: fa.flash_fwd(q, k, v)),
+        ("flash_bwd_fused", lambda: fa.flash_bwd_fused(q, k, v, do, lse)),
+        ("flash_bwd_dq", lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta)),
+        ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(q, k, v, do, lse,
+                                                   delta)))}
+    log(f"[host b{b} s{s} h{h} d{d}] us per wrapper call: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in res.items()))
+    return res
+
+
+def host_us_ab(parent) -> int:
+    """``--host-us PARENT``: host microseconds per call of the four flash
+    wrappers at both widths, launching in turns the kernels of this
+    checkout and those of the checkout at PARENT (its ``csrc`` flash
+    sources built here with the same flags; the C entry points take the
+    same arguments), in one process: five rounds of parent, change,
+    change, parent. The Python wrappers are this checkout's on both
+    sides, so the difference is the entry points' own host cost, tensor
+    map encoding included. Prints the least and the median per side as
+    one JSON line."""
+    import ctypes
+
+    from byteps_tpu_torch.ops import _build
+    from byteps_tpu_torch.ops import flash_attention as fa
+    stems = ("flash_fwd", "flash_bwd", "flash_dq", "flash_dkv")
+    src = Path(parent).resolve() / "byteps_tpu_torch" / "csrc"
+    out = Path(parent).resolve() / "byteps_tpu_torch" / "_build_host_us"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = [(stem, subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+         str(out / f"lib{stem}.so"), str(src / f"{stem}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for stem in stems]
+    sides = {"parent": {}, "change": {}}
+    for stem, proc in procs:
+        log_text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {src / stem}.cu:\n{log_text}")
+        name, argtypes = _build.SIGNATURES[stem]
+        fn = getattr(ctypes.CDLL(str(out / f"lib{stem}.so")), name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        sides["parent"][stem] = fn
+        sides["change"][stem] = _build.entry(stem)
+    entry = fa.entry
+    runs = {side: {d: {} for d in WIDTHS} for side in sides}
+    try:
+        for _ in range(5):
+            for side in ("parent", "change", "change", "parent"):
+                fa.entry = sides[side].__getitem__
+                for h, d in ((HEADS, HEAD_DIM), (DH128_HEADS, DH128)):
+                    for name, us in time_host(h, d).items():
+                        runs[side][d].setdefault(name, []).append(us)
+    finally:
+        fa.entry = entry
+    res = {side: {d: {name: {"least": min(v), "median": statistics.median(v)}
+                      for name, v in by_d.items()}
+                  for d, by_d in per_d.items()}
+           for side, per_d in runs.items()}
+    print(json.dumps({"host_us": res, "parent": str(parent)}))
+    print(card_line())
+    return 0
 
 
 # ------------------------------------------------------------- phase 4
@@ -1785,6 +2021,8 @@ def kernel_entry(name, paths, worst, timing, card, ptxas, d=None):
         "tolerance": ("bit for bit" if name in BITWISE
                       else f"max err <= {REL_TOL} * max|plain|"),
     }
+    if "considered" in t:
+        entry["considered"] = t["considered"]
     if d is not None:
         entry["head_dim"] = d
         entry["ptxas"] = [r for r in ptxas if r["d"] == d
@@ -2047,6 +2285,8 @@ def main() -> int:
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args[:1] == ["--host-us"] and len(args) == 2:
+        return host_us_ab(args[1])
     from byteps_tpu_torch.ops.flash_attention import KERNEL_DS
     if WIDTHS != KERNEL_DS:
         raise AssertionError(f"WIDTHS {WIDTHS} != the kernels' {KERNEL_DS}")
@@ -2072,6 +2312,7 @@ def main() -> int:
     check_dh128_kernels(worst128)
     check_ring_forms(ring_worst)
     check_ring_schedule()
+    check_determinism()
     check_onebit(_adversarial(), "adversarial vector")
     check_quant()
     timing = time_attention(TRAIN_BATCH, BERT_SEQ, False,
@@ -2102,6 +2343,7 @@ def main() -> int:
         for f in FORMS}
     ring_timing = {HEAD_DIM: time_ring_forms(),
                    DH128: time_ring_forms(DH128_HEADS, DH128)}
+    host = {HEAD_DIM: time_host(), DH128: time_host(DH128_HEADS, DH128)}
     bert_launches, bert_losses = train_bert()
     paths = {"bert_large": bert_launches,
              "bert_large_dh128": train_bert_dh128(),
@@ -2133,6 +2375,7 @@ def main() -> int:
                 (HEAD_DIM, worst, timing, form_timing, gpt2_timing),
                 (DH128, worst128, timing128, form_timing128, split128)):
             entry = kernel_entry(name, paths, w, tm, card, ptxas, d)
+            entry["host_us"] = host[d][name]
             if name == "flash_fwd":    # also timed past one block
                 g = other["flash_fwd"]
                 entry["gpt2" if d == HEAD_DIM else "s1024"] = {

@@ -254,52 +254,103 @@ def test_counters_keep_one_count_per_width():
 
 # two entries of an nvcc -Xptxas -v log as the H100's toolchain writes
 # them: a kernel in an anonymous namespace carries a per-file prefix
-_PTXAS = """ptxas info    : 0 bytes gmem
-ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__ef5963ac_12_flash_bwd_cu_39da42f620flash_bwd_dkv_kernelILi128ELi0ELi2EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_S6_iii11BshdStridesS7_S7_S7_S7_fi8BiasArgs' for 'sm_90a'
-ptxas info    : Function properties for _ZN45_GLOBAL__N__ef5963ac_12_flash_bwd_cu_39da42f620flash_bwd_dkv_kernelILi128ELi0ELi2EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_S6_iii11BshdStridesS7_S7_S7_S7_fi8BiasArgs
-    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 166 registers, used 1 barriers, 464 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__ef5963ac_12_flash_bwd_cu_39da42f619flash_bwd_dq_kernelILb0ELi128ELi0EEEvPK13__nv_bfloat16' for 'sm_90a'
-ptxas info    : Function properties for _ZN45_GLOBAL__N__ef5963ac_12_flash_bwd_cu_39da42f619flash_bwd_dq_kernelILb0ELi128ELi0EEEvPK13__nv_bfloat16
-    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
-ptxas info    : Used 168 registers, used 1 barriers, 464 bytes cmem[0]
-"""
+_DKV = ("_ZN45_GLOBAL__N__ef5963ac_12_flash_bwd_cu_39da42f620flash_bwd_dkv_"
+        "kernelILi128ELi0EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16"
+        "S5_iii11BshdStridesfi8BiasArgs")
+_DQ = ("_ZN45_GLOBAL__N__ef5963ac_12_flash_bwd_cu_39da42f619flash_bwd_dq_"
+       "kernelILb0ELi128ELi0EEEv14CUtensorMap_stS1_S1_S1_PKfPfP13__nv_"
+       "bfloat16iii11BshdStridesfi8BiasArgsS3_")
 
 
-def _keep_logs(tmp_path, monkeypatch, logs):
+def _ptxas_log(dq_spills=False):
+    """nvcc's -Xptxas -v output for the fused backward's two kernels at
+    d 128 (their mangled names as nvcc writes them), the dq kernel with a
+    spill when asked."""
+    dq_frame = ("8 bytes stack frame, 4 bytes spill stores, 12 bytes spill "
+                "loads" if dq_spills else
+                "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+                "loads")
+    return (
+        "ptxas info    : 0 bytes gmem\n"
+        f"ptxas info    : Compiling entry function '{_DKV}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {_DKV}\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 230 registers, used 1 barriers, 928 bytes cmem[0]\n"
+        f"ptxas info    : Compiling entry function '{_DQ}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {_DQ}\n"
+        f"    {dq_frame}\n"
+        "ptxas info    : Used 156 registers, used 1 barriers, 936 bytes cmem[0]\n")
+
+
+def _sass_listing():
+    """cuobjdump -sass of the same library: each kernel's wgmma products,
+    TMA tensor loads and (dk/dv) bulk copies of lse and delta."""
+    def fn(name, ops):
+        body = "".join(f"        /*{i:04x}*/                   {op} ;\n"
+                       for i, op in enumerate(ops))
+        return f"\t\tFunction : {name}\n{body}"
+    return ("\tcode for sm_90a\n"
+            + fn(_DKV, ["UTMALDG.4D [UR8], [UR4]"] * 8
+                 + ["UBLKCP.S.G [UR4], [UR6], UR5"] * 2
+                 + ["HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT"] * 32
+                 + ["EXIT"])
+            + fn(_DQ, ["UTMALDG.4D [UR8], [UR4]"] * 8
+                 + ["HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT"] * 40
+                 + ["EXIT"]))
+
+
+def _keep_logs(tmp_path, monkeypatch, logs, sass=None):
     """A build directory holding only the ptxas logs ``logs`` ({source:
-    nvcc output}) beside where their libraries would be: what a cached
-    build leaves for a process that compiles nothing."""
+    nvcc output}) and SASS listings ``sass`` ({source: cuobjdump output})
+    beside where their libraries would be: what a cached build leaves for
+    a process that compiles nothing."""
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     for stem in _build.SIGNATURES:
         _build._log_path(stem).write_text(logs.get(stem, ""))
+        _build._sass_path(stem).write_text((sass or {}).get(stem, ""))
 
 
 def test_ptxas_report_reads_each_instantiation(tmp_path, monkeypatch):
     """The report that chip_smoke prints: one row per kernel template
     instance, with its template arguments (here the head dim 128), read
-    from the log kept beside the library."""
-    _keep_logs(tmp_path, monkeypatch, {"flash_bwd": _PTXAS})
+    from the log kept beside the library, spills included."""
+    _keep_logs(tmp_path, monkeypatch, {"flash_bwd": _ptxas_log(True)})
     rows = _build.ptxas_report(["flash_bwd", "flash_fwd"])
     assert rows == [
         {"source": "flash_bwd", "kernel": "flash_bwd_dkv_kernel",
-         "args": [128, 0, 2], "registers": 166, "stack": 0,
+         "args": [128, 0], "registers": 230, "stack": 0,
          "spill_stores": 0, "spill_loads": 0},
         {"source": "flash_bwd", "kernel": "flash_bwd_dq_kernel",
-         "args": [0, 128, 0], "registers": 168, "stack": 8,
+         "args": [0, 128, 0], "registers": 156, "stack": 8,
          "spill_stores": 4, "spill_loads": 12}]
+    assert _build.sass_counts(["flash_bwd"]) == []     # no listing kept
 
 
 def test_chip_smoke_ptxas_table_reads_a_cached_build(tmp_path, monkeypatch):
     """chip_smoke's ptxas table needs no compile in its own process: a
     warm build directory (a second run, or one after the cuda tests)
-    gives the same rows as a fresh build."""
+    gives the same rows as a fresh build, with each instantiation's SASS
+    counts from the kept listing and its dynamic shared memory from its
+    library. A spill, or a kernel without wgmma or TMA, fails it."""
     import chip_smoke
-    _keep_logs(tmp_path, monkeypatch, {"flash_bwd": _PTXAS})
+    smem = {"flash_bwd_dkv_kernel": 101376, "flash_bwd_dq_kernel": 100352}
+    monkeypatch.setattr(_build, "smem_bytes",
+                        lambda stem, kernel, d, form: smem[kernel])
+    _keep_logs(tmp_path, monkeypatch, {"flash_bwd": _ptxas_log()},
+               {"flash_bwd": _sass_listing()})
     rows = chip_smoke.ptxas_table()
-    assert [(r["kernel"], r["d"], r["form"], r["registers"]) for r in rows] \
-        == [("dk", 128, "none", 166), ("dq + delta (fused bwd)", 128, "none",
-                                       168)]
+    assert [(r["kernel"], r["d"], r["form"], r["registers"], r["smem"],
+             r["hgmma"], r["utmaldg"], r["ublkcp"]) for r in rows] == [
+        ("dk+dv", 128, "none", 230, 101376, 32, 8, 2),
+        ("dq + delta (fused bwd)", 128, "none", 156, 100352, 40, 8, 0)]
+    _keep_logs(tmp_path, monkeypatch, {"flash_bwd": _ptxas_log(True)},
+               {"flash_bwd": _sass_listing()})
+    with pytest.raises(AssertionError, match="dq \\+ delta"):
+        chip_smoke.ptxas_table()
+    _keep_logs(tmp_path, monkeypatch, {"flash_bwd": _ptxas_log()},
+               {"flash_bwd": _sass_listing().replace("HGMMA", "HMMA")})
+    with pytest.raises(AssertionError, match="no wgmma"):
+        chip_smoke.ptxas_table()
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "empty")
     with pytest.raises(FileNotFoundError):   # no build: no report
         chip_smoke.ptxas_table()

@@ -121,6 +121,36 @@ def test_kernels_read_strided_views_in_place(cuda, d):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("d", WIDTHS)
+def test_kernels_launch_from_a_thread_with_no_cuda_call_yet(cuda, d):
+    """PyTorch runs a backward on its autograd thread, which may reach a
+    kernel before any CUDA call there made a context current; the tensor
+    maps are encoded there all the same, and the results are the main
+    thread's bits."""
+    import threading
+    q, k, v, do = _inputs(cuda, 2, 128, 128, 4, seed=7, d=d)
+    out, lse = fa.flash_fwd(q, k, v)
+    grads = fa.flash_bwd_fused(q, k, v, do, lse)
+    got = {}
+
+    def run():
+        try:
+            got["fwd"] = fa.flash_fwd(q, k, v)
+            got["bwd"] = fa.flash_bwd_fused(q, k, v, do, lse)
+            torch.cuda.synchronize()
+        except BaseException as e:      # noqa: BLE001 — re-raised below
+            got["error"] = e
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    if "error" in got:
+        raise got["error"]
+    assert torch.equal(got["fwd"][0], out) and torch.equal(got["fwd"][1], lse)
+    for a, b in zip(got["bwd"], grads):
+        assert torch.equal(a, b)
+
+
 def test_autograd_function_runs_both_kernels(cuda):
     q, k, v, do = _inputs(cuda, 2, 128, 128, 4, seed=3)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
@@ -294,6 +324,75 @@ def test_autograd_takes_the_split_kernels_past_one_block(cuda, d):
     fa.flash_fwd_plain(qa, ka, va, True)[0].backward(do)
     for t, ref, name in zip((q, k, v), (qa, ka, va), "qkv"):
         _close(t.grad, ref.grad, "d" + name, rel=3e-2)   # plain P, dS unrounded
+
+
+# The edges of the kernels' TMA ring (two stages of 64-row tiles): one
+# tile (fewer tiles than stages), two, a cross shape whose key walk is
+# twice its query walk, and a causal walk of 16 tiles.
+EDGES = [  # (id, b, sq, sk, h, causal)
+    ("one-tile", 2, 64, 64, 2, False),
+    ("one-tile-causal", 2, 64, 64, 2, True),
+    ("two-tiles-causal", 2, 128, 128, 2, True),
+    ("cross-q512-k1024", 1, 512, 1024, 4, False),
+    ("causal-1024", 1, 1024, 1024, 4, True),
+]
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("b,sq,sk,h,causal",
+                         [pytest.param(*e[1:], id=e[0]) for e in EDGES])
+def test_ring_edges_match_plain_and_repeat_bit_for_bit(cuda, b, sq, sk, h,
+                                                       causal, d):
+    """At the ring's edges, with q, k, v the ``qkv.unbind(2)`` views of
+    one packed projection where sq == sk (read in place): the forward,
+    the split dq and dk/dv and (sq == sk) the fused backward against their
+    plain versions; every output the same bits on a second launch and the
+    same bits as from contiguous copies of q, k and v."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+    mk = lambda *shape: torch.randn(*shape, generator=g).to(cuda,
+                                                            torch.bfloat16)
+    if sq == sk:
+        q, k, v = mk(b, sq, 3, h, d).unbind(2)
+        assert all(fa.reads_in_place(t) for t in (q, k, v))
+    else:
+        q, k, v = mk(b, sq, h, d), mk(b, sk, h, d), mk(b, sk, h, d)
+    do = mk(b, sq, h, d)
+    out, lse = fa.flash_fwd(q, k, v, causal)
+    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal)
+    _close(out, ref_out, "out")
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    delta = fa.bwd_delta(do, out)
+    calls = {
+        "forward": lambda q, k, v: fa.flash_fwd(q, k, v, causal),
+        "dq": lambda q, k, v: fa.flash_bwd_dq(q, k, v, do, lse, delta,
+                                              causal),
+        "dk/dv": lambda q, k, v: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                  causal),
+    }
+    if sq == sk:
+        calls["fused"] = lambda q, k, v: fa.flash_bwd_fused(q, k, v, do, lse,
+                                                            causal)
+    _close(calls["dq"](q, k, v),
+           fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal), "dq")
+    for got, ref, name in zip(
+            calls["dk/dv"](q, k, v),
+            fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal),
+            ("dk", "dv")):
+        _close(got, ref, name)
+    if sq == sk:
+        for got, ref, name in zip(
+                calls["fused"](q, k, v),
+                fa.flash_bwd_fused_plain(q, k, v, do, lse, causal),
+                ("dq", "dk", "dv")):
+            _close(got, ref, "fused " + name)
+    copies = [t.contiguous() for t in (q, k, v)]
+    for name, fn in calls.items():
+        first = fn(q, k, v)
+        first = first if isinstance(first, tuple) else (first,)
+        for again in (fn(q, k, v), fn(*copies)):
+            again = again if isinstance(again, tuple) else (again,)
+            for a, c in zip(first, again):
+                assert torch.equal(a, c), name
 
 
 def _onebit_vectors():
