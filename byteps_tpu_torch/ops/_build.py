@@ -19,7 +19,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 from ..common.logging import get_logger
 
@@ -49,8 +49,12 @@ SIGNATURES = {
     "flash_dkv": ("bps_flash_dkv",
                   [_P] * 8 + [_I] * 5 + [_L] * 8 + [_F, _I] + _BIAS + [_P]),
     "onebit_pack": ("bps_onebit_pack", [_P, _P, _L, _P]),
-    "onebit_unpack": ("bps_onebit_unpack", [_P, _P, _L, _P]),
-    "int8_quantize": ("bps_int8_quantize", [_P, _P, _L, _F, _P]),
+    # the two take a launch plan (ops/compression/kernels.py::stream_plan):
+    # head, vectors and grid; before it, bps_onebit_unpack (words, out, n,
+    # stream) and bps_int8_quantize (x, q, n, scale, stream)
+    "onebit_unpack": ("bps_onebit_unpack_planned", [_P, _P, _L, _L, _I, _P]),
+    "int8_quantize": ("bps_int8_quantize_planned",
+                      [_P, _P, _L, _I, _L, _I, _F, _P]),
     "int8_dequantize": ("bps_int8_dequantize", [_P, _P, _L, _F, _P]),
     "fp8_sr_quantize": ("bps_fp8_sr_quantize",
                         [_P, _P, _L, _F, ctypes.c_uint, _I, _P]),
@@ -152,9 +156,24 @@ def entry(stem: str):
 
 _ENTRY = re.compile(r"(?:Compiling entry function '|Function properties "
                     r"for )(\S+?)'?(?: for '\w+')?$")
-# a kernel template instance's mangled name: the length-prefixed name
-# (lower case, ending in _kernel), then its template arguments
-_KERNEL = re.compile(r"\d+([a-z_]+_kernel)I((?:L[ib]\d+E)+)E")
+_TEMPLATE = re.compile(r"I((?:L[ib]\d+E)+)E")
+
+
+def _kernel_of(mangled: str) -> Optional[Tuple[str, List[int]]]:
+    """The kernel name and template arguments (in order, as ints) of a
+    mangled name, None for a function whose name does not end in _kernel.
+    The name is the identifier whose length prefix, the digits just before
+    it, gives its length: nvcc's anonymous namespaces carry hashes of
+    letters and digits, so no pattern alone finds where the name starts."""
+    for m in re.finditer(r"_kernel", mangled):
+        end = m.end()
+        for start in range(m.start(), 0, -1):
+            if (mangled[start].isalpha()
+                    and mangled[:start].endswith(str(end - start))):
+                t = _TEMPLATE.match(mangled, end)
+                args = re.findall(r"L[ib](\d+)E", t.group(1)) if t else []
+                return mangled[start:end], [int(a) for a in args]
+    return None
 
 
 def ptxas_report(stems=None) -> List[dict]:
@@ -183,11 +202,9 @@ def ptxas_report(stems=None) -> List[dict]:
                     cur[key] = int(f.group(1))
     out = []
     for row in rows.values():
-        kernel = _KERNEL.search(row.pop("mangled"))
+        kernel = _kernel_of(row.pop("mangled"))
         if kernel and "registers" in row:
-            row["kernel"] = kernel.group(1)
-            row["args"] = [int(a) for a in
-                           re.findall(r"L[ib](\d+)E", kernel.group(2))]
+            row["kernel"], row["args"] = kernel
             out.append(row)
     return sorted(out, key=lambda r: (r["source"], r["kernel"], r["args"]))
 
@@ -216,9 +233,13 @@ def tensor_map_us(base: int, n: int = 10000) -> float:
     return fn(base, n)
 
 
-# SASS instructions counted per kernel: the Hopper products (wgmma), TMA
-# tensor loads and bulk copies
-SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP")
+# SASS instructions counted per kernel, by the pattern of their opcode:
+# the Hopper products (wgmma), TMA tensor loads, bulk copies, and 128-bit
+# global loads and stores (any modifiers)
+SASS_OPS = {"HGMMA": r"\bHGMMA\b", "UTMALDG": r"\bUTMALDG\b",
+            "UBLKCP": r"\bUBLKCP\b",
+            "LDG.E.128": r"\bLDG\.E(?:\.\w+)*\.128\b",
+            "STG.E.128": r"\bSTG\.E(?:\.\w+)*\.128\b"}
 
 
 def _sass_path(stem: str) -> Path:
@@ -246,17 +267,16 @@ def sass_counts(stems=None) -> List[dict]:
         for line in sass.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
-                kernel = _KERNEL.search(m.group(1))
+                kernel = _kernel_of(m.group(1))
                 row = None
                 if kernel:
-                    row = {"source": stem, "kernel": kernel.group(1),
-                           "args": [int(a) for a in re.findall(
-                               r"L[ib](\d+)E", kernel.group(2))],
+                    row = {"source": stem, "kernel": kernel[0],
+                           "args": kernel[1],
                            **dict.fromkeys(SASS_OPS, 0)}
                     out.append(row)
             elif row is not None:
-                for op in SASS_OPS:
-                    if re.search(rf"\b{op}\b", line):
+                for op, pattern in SASS_OPS.items():
+                    if re.search(pattern, line):
                         row[op] += 1
     return sorted(out, key=lambda r: (r["source"], r["kernel"], r["args"]))
 

@@ -38,9 +38,15 @@ All five are bounded by device memory. A wrapper takes its plain version
 only for a tensor on the CPU. A CUDA tensor launches the kernel or
 raises. Each wrapper counts its launches in a plain int attribute,
 ``launches``.
+
+``onebit_unpack`` and ``int8_quantize`` launch one wave of 16-byte
+accesses; ``stream_plan`` computes where their vectors start and how many
+CTAs they take, here in Python, where the CPU tests reach it.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -55,6 +61,50 @@ NEG_BOUND = -torch.finfo(torch.float32).tiny
 
 def words_for(n: int) -> int:
     return (n + PACK - 1) // PACK
+
+
+# ---------------------------------------------------------- launch plan
+
+VEC_BYTES = 16          # one vector access: a float4
+CTA_THREADS = 256       # kThreads of csrc/int8_quantize.cu, onebit_unpack.cu
+CTAS_PER_SM = 4         # their kMinBlocks: resident CTAs a SM, one wave
+QUANT_VECS = 4          # float4 loads a quantize thread holds in flight
+UNPACK_VECS = 8         # float4 stores an unpack thread issues (32 words a warp)
+
+
+class StreamPlan(NamedTuple):
+    """How a streaming kernel covers [0, n): ``head`` elements one by one,
+    then ``vecs`` 16-byte vectors from element ``head`` on, then ``tail``
+    elements one by one; ``grid`` CTAs."""
+    head: int
+    vecs: int
+    tail: int
+    grid: int
+
+
+def stream_plan(n: int, addr_mod_16: int, sms: int, elems_per_vec: int,
+                vecs_per_thread: int) -> StreamPlan:
+    """The launch plan of a kernel that streams ``n`` elements of
+    ``VEC_BYTES // elems_per_vec`` bytes from an address ``addr_mod_16``
+    past a 16-byte boundary: the head reaches the first boundary, every
+    vector is aligned, the tail is what is left (each shorter than a
+    vector). A CTA of ``CTA_THREADS`` takes ``CTA_THREADS ·
+    vecs_per_thread`` vectors a pass; the grid is one wave at most
+    (``sms · CTAS_PER_SM``), fewer when ``n`` needs fewer, and a larger
+    ``n`` strides over it."""
+    size = VEC_BYTES // elems_per_vec
+    if n < 1 or addr_mod_16 % size or not 0 <= addr_mod_16 < VEC_BYTES:
+        raise ValueError(f"no plan for {n} elements of {size} bytes at "
+                         f"{addr_mod_16} past a 16-byte boundary")
+    head = min(n, (VEC_BYTES - addr_mod_16) % VEC_BYTES // size)
+    vecs = (n - head) // elems_per_vec
+    chunk = CTA_THREADS * vecs_per_thread
+    grid = max(1, min(sms * CTAS_PER_SM, -(-vecs // chunk)))
+    return StreamPlan(head, vecs, n - head - vecs * elems_per_vec, grid)
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # ------------------------------------------------------- plain versions
@@ -120,9 +170,13 @@ def onebit_unpack(words: torch.Tensor, n: int) -> torch.Tensor:
         raise ValueError(f"{n} elements do not fit {words.numel()} words")
     words = words.contiguous()
     out = torch.empty(n, dtype=torch.float32, device=words.device)
+    if out.data_ptr() % VEC_BYTES:
+        raise RuntimeError("the onebit unpack kernel writes 16-byte vectors "
+                           "and torch.empty gave a misaligned output")
+    plan = stream_plan(n, 0, _sms(out.device), 4, UNPACK_VECS)
     with torch.cuda.device(words.device):
         code = entry("onebit_unpack")(
-            words.data_ptr(), out.data_ptr(), n,
+            words.data_ptr(), out.data_ptr(), n, plan.vecs, plan.grid,
             torch.cuda.current_stream(words.device).cuda_stream)
     raise_on_error(code, "onebit unpack kernel")
     onebit_unpack.launches += 1
@@ -228,10 +282,13 @@ def int8_quantize(x: torch.Tensor, scale) -> torch.Tensor:
         return int8_quantize_plain(x, scale)
     check_quant_input(x, torch.float32, "int8 quantize")
     q = torch.empty(x.numel(), dtype=torch.int8, device=x.device)
+    # x may be a view at any 4-byte offset: the plan peels a head
+    plan = stream_plan(x.numel(), x.data_ptr() % VEC_BYTES, _sms(x.device),
+                       4, QUANT_VECS)
     with torch.cuda.device(x.device):
         code = entry("int8_quantize")(
-            x.data_ptr(), q.data_ptr(), x.numel(),
-            float(_positive_scale(scale)),
+            x.data_ptr(), q.data_ptr(), x.numel(), plan.head, plan.vecs,
+            plan.grid, float(_positive_scale(scale)),
             torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_error(code, "int8 quantize kernel")
     int8_quantize.launches += 1

@@ -14,7 +14,12 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
      shared memory and its count of wgmma (HGMMA), TMA tensor load
      (UTMALDG) and bulk copy (UBLKCP) instructions (``cuobjdump -sass``);
      it fails unless every one holds HGMMA and UTMALDG and spills
-     nothing. Then the host cost of one tensor map encode.
+     nothing. The same for every codec kernel instance, with its count of
+     128-bit global loads and stores (``LDG.E.128``, ``STG.E.128``, any
+     modifiers) and bulk copies: it fails on any spill, and unless int8
+     quantize holds a 128-bit load or a bulk copy and onebit unpack a
+     128-bit store or a bulk copy. Then the host cost of one tensor map
+     encode.
   2. kernel checks, each kernel held against its plain PyTorch version on
      the card, with seeded inputs:
        - flash forward and fused backward at the BERT shape (s 512, h 16,
@@ -48,6 +53,9 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          1,024,000-element bucket and sizes 1 and 128·256 + 3; and the
          device encode's payloads of the probe vector against the numpy
          codec (``compress/wire.py``), byte for byte;
+       - int8 quantize of the views ``x[k:]`` and onebit unpack of the
+         views ``words[k:]``, k in 0..3, at one bucket, 4,096,003 and
+         1,025 floats: bit for bit, and two launches the same bits;
        - the two forms only ring attention reaches: the forward with fp32
          out (form 1f) at the BERT shape (b 8, s 512, h 16, d 64) and the
          dh128 shape (h 8, d 128), full and causal, and at b 8, s 1024,
@@ -81,7 +89,10 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
      at the T5 shapes above); at head dim 128 the forward and fused
      backward at the dh128 shape, the forward, dq and dk/dv at b 8, s
      1024, h 8 causal, the table and dense forms at T5's encoder geometry;
-     onebit, int8 and fp8 on one 4,096,000-byte bucket; the ring's forms
+     onebit, int8 and fp8 on one 4,096,000-byte bucket (and, printed
+     only, on four buckets at once, beside the harness's floor: an almost
+     empty launch, ``torch.cuda._sleep(0)``, timed the same way); the
+     ring's forms
      1f and 2d at the BERT shape (d 64) and the dh128 shape (d 128), full,
      against the library's forward and backward; and each flash
      wrapper's host microseconds per call at the BERT shapes (checks,
@@ -162,6 +173,14 @@ prints only the host microseconds per call of the four flash wrappers at
 both head dims, this checkout's kernels against those of the checkout at
 PARENT (built here), in turns in one process, as one JSON line.
 
+    python3 chip_smoke.py --codec-ab PARENT
+
+prints only the device milliseconds of the int8 quantize and onebit
+unpack kernels on one bucket, this checkout's against those of the
+checkout at PARENT (built here, each called through its own C entry
+point), in turns in one process, beside ``torch.quantize_per_tensor``,
+as one JSON line.
+
     python3 chip_smoke.py --sp 4
 
 runs only the sequence-parallel path over 4 cards of one host instead
@@ -179,6 +198,7 @@ prints ``{"sp": {...}}``, the card line and the same last line.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import statistics
@@ -390,7 +410,7 @@ def toolchain():
         f"{time.perf_counter() - t0:.1f} s "
         f"({', '.join(sorted(_build.SIGNATURES))}; "
         f"csrc/host/{_build_host.SOURCE.name})")
-    rows = ptxas_table()
+    rows = ptxas_table() + codec_table()
     tensor_map_us()
     return rows
 
@@ -447,6 +467,51 @@ def ptxas_table():
     if bad:
         raise AssertionError(f"no wgmma or TMA in the SASS, or a spill: "
                              f"{bad}")
+    return rows
+
+
+# the codec kernels (csrc/<stem>.cu) and the 128-bit access (a SASS_OPS
+# key) or bulk copy each one's design must hold
+CODEC_STEMS = ("onebit_pack", "onebit_unpack", "int8_quantize",
+               "int8_dequantize", "fp8_sr_quantize")
+WIDE_ACCESS = {"int8_quantize": "LDG.E.128", "onebit_unpack": "STG.E.128"}
+
+
+def codec_table():
+    """Every codec kernel instance: registers, stack and spills (ptxas -v)
+    and its count of 128-bit global loads and stores and bulk copies in
+    the SASS; printed and returned. Fails on any spill, and unless the
+    quantize kernel holds a 128-bit load or a bulk copy and the unpack
+    kernel a 128-bit store or a bulk copy (in every instance)."""
+    from byteps_tpu_torch.ops import _build
+    sass = {(r["source"], r["kernel"], tuple(r["args"])): r
+            for r in _build.sass_counts(CODEC_STEMS)}
+    rows, bad = [], []
+    for r in _build.ptxas_report(CODEC_STEMS):
+        ops = sass.get((r["source"], r["kernel"], tuple(r["args"])),
+                       dict.fromkeys(_build.SASS_OPS, 0))
+        row = {"source": f"csrc/{r['source']}.cu", "kernel": r["kernel"],
+               "args": r["args"], "registers": r["registers"],
+               "stack": r.get("stack", 0),
+               "spill_stores": r.get("spill_stores", 0),
+               "spill_loads": r.get("spill_loads", 0),
+               **{op.lower(): ops[op] for op in _build.SASS_OPS}}
+        log(f"[ptxas] {row['source']:26s} {r['kernel']}{r['args'] or ''}: "
+            f"{row['registers']} registers, stack {row['stack']} B, spill "
+            f"stores {row['spill_stores']} B, loads {row['spill_loads']} B; "
+            f"SASS: {ops['LDG.E.128']} LDG.E.128, {ops['STG.E.128']} "
+            f"STG.E.128, {ops['UBLKCP']} UBLKCP")
+        wide = WIDE_ACCESS.get(r["source"])
+        if (row["spill_stores"] or row["spill_loads"]
+                or (wide and not ops[wide] and not ops["UBLKCP"])):
+            bad.append(f"{row['source']} {r['kernel']}{r['args']}")
+        rows.append(row)
+    missing = set(CODEC_STEMS) - {r["source"][5:-3] for r in rows}
+    if missing:
+        raise AssertionError(f"ptxas reported no kernel of {sorted(missing)}")
+    if bad:
+        raise AssertionError(f"a codec kernel spills, or lacks its 128-bit "
+                             f"access or bulk copy: {bad}")
     return rows
 
 
@@ -922,6 +987,39 @@ def check_quant():
         "fp8 e5m2) byte-identical to the numpy codec's wire.encode")
 
 
+def check_codec_views():
+    """The two one-wave kernels on what their plans peel: int8 quantize of
+    ``x[k:]`` (a head of 4 - k elements before the first 16-byte vector,
+    the codes then misaligned) and onebit unpack of ``words[k:]`` (4-byte
+    loads at any offset, a masked tail), k in 0..3, on one bucket and odd
+    sizes; bit for bit their plain versions, and launched twice, the same
+    bits."""
+    from byteps_tpu_torch.ops.compression import kernels as ob
+    g = torch.Generator().manual_seed(34)
+    for n in (BUCKET_FLOATS, 4_096_003, 1025):
+        x = (torch.randn(n + 3, generator=g) * 3).cuda()
+        s = x.abs().max().item() / 127
+        words = ob.onebit_pack(x)
+        for k in range(4):
+            xk, wk, m = x[k:], words[k:], n - 32 * k
+            q, q2 = ob.int8_quantize(xk, s), ob.int8_quantize(xk, s)
+            u, u2 = ob.onebit_unpack(wk, m), ob.onebit_unpack(wk, m)
+            torch.cuda.synchronize()
+            same = {
+                "int8 quantize": torch.equal(q, ob.int8_quantize_plain(xk, s)),
+                "onebit unpack": _same_bits(u, ob.onebit_unpack_plain(wk, m)),
+                "relaunch": torch.equal(q, q2) and _same_bits(u, u2)}
+            log(f"[check codec views n {n} k {k}] int8 quantize of x[{k}:] "
+                f"({xk.numel()} floats), onebit unpack of words[{k}:] ({m} "
+                "floats): " + ", ".join(
+                    f"{key} {'bit-identical' if v else 'DIFFERS'}"
+                    for key, v in same.items()))
+            if not all(same.values()):
+                raise AssertionError(f"a one-wave codec kernel disagrees with "
+                                     f"its plain version or itself: n {n}, "
+                                     f"view {k}")
+
+
 # ------------------------------------------------------------- phase 3
 
 def time_ms(fn, n=30, flush=None):
@@ -1138,25 +1236,48 @@ def time_forms(b, s, causal, form, d=HEAD_DIM):
     return res
 
 
+def time_floor():
+    """The timing harness's floor: an almost empty launch
+    (``torch.cuda._sleep(0)``) timed by ``time_ms``'s events, flush and
+    spin. Printed beside the codec kernels, whose times are little more
+    than it."""
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    ms = time_ms(lambda: torch.cuda._sleep(0), flush=flush)
+    log(f"[time floor] an empty launch (torch.cuda._sleep(0)): {ms:.4f} ms")
+    return ms
+
+
+def _log_4x(name, kernel, bound, flush):
+    """Print (only) a codec kernel's time on four buckets at once."""
+    ms = time_ms(kernel, flush=flush)
+    log(f"[time {name} n {4 * BUCKET_FLOATS}] kernel {ms:.4f} ms, bound "
+        f"{bound['bound_ms']:.4f} ms; kernel at {bound['bound_ms'] / ms:.1%} "
+        f"of the bound")
+
+
 def time_onebit(n=BUCKET_FLOATS):
     """Pack and unpack of one default-sized bucket (no single PyTorch call
-    computes either: library "none")."""
+    computes either: library "none"); each kernel also at four buckets,
+    printed only."""
     from byteps_tpu_torch.ops.compression import kernels as ob
     x = torch.randn(n, generator=torch.Generator().manual_seed(31)).cuda()
-    words = ob.onebit_pack(x)
+    x4 = torch.randn(4 * n, generator=torch.Generator().manual_seed(35)).cuda()
+    words, words4 = ob.onebit_pack(x), ob.onebit_pack(x4)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-    bd = onebit_bounds(n)
+    bd, bd4 = onebit_bounds(n), onebit_bounds(4 * n)
     res = {}
-    for name, kernel, plain in (
+    for name, kernel, plain, kernel4 in (
             ("onebit_pack", lambda: ob.onebit_pack(x),
-             lambda: ob.onebit_pack_plain(x)),
+             lambda: ob.onebit_pack_plain(x), lambda: ob.onebit_pack(x4)),
             ("onebit_unpack", lambda: ob.onebit_unpack(words, n),
-             lambda: ob.onebit_unpack_plain(words, n))):
+             lambda: ob.onebit_unpack_plain(words, n),
+             lambda: ob.onebit_unpack(words4, 4 * n))):
         r = {"ms": time_ms(kernel, flush=flush),
              "plain_ms": time_ms(plain, n=10, flush=flush),
              "library_ms": None, "timed_shape": [n]}
         r.update(bd[name])
         _log_time(name, f"n {n}", r)
+        _log_4x(name, kernel4, bd4[name], flush)
         res[name] = r
     return res
 
@@ -1194,15 +1315,20 @@ def time_quant(n=BUCKET_FLOATS):
     computing the same function (``torch.mul`` by a 0-dim f32 scale); the
     other two are timed beside the single call nearest to them, which
     counts as their library call only where it gives the kernel's bytes
-    on this bucket."""
+    on this bucket. Each kernel also at four buckets, printed only."""
     from byteps_tpu_torch.ops.compression import fp8sr
     from byteps_tpu_torch.ops.compression import kernels as ob
     x = torch.randn(n, generator=torch.Generator().manual_seed(33)).cuda()
+    x4 = torch.randn(4 * n, generator=torch.Generator().manual_seed(36)).cuda()
     amax = x.abs().max().item()
     s8, sf = amax / 127, amax / fp8sr.fmt_max(fp8sr.E4M3)
-    q = ob.int8_quantize(x, s8)
+    q, q4 = ob.int8_quantize(x, s8), ob.int8_quantize(x4, s8)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-    bd = quant_bounds(n)
+    bd, bd4 = quant_bounds(n), quant_bounds(4 * n)
+    at_4x = {"int8_quantize": lambda: ob.int8_quantize(x4, s8),
+             "int8_dequantize": lambda: ob.int8_dequantize(q4, s8),
+             "fp8_sr_quantize": lambda: ob.fp8_sr_quantize(x4, sf, 1234,
+                                                           fp8sr.E4M3)}
     library = {"int8_dequantize": _library_dequantize(
         q, s8, ob.int8_dequantize(q, s8))}
     # the single calls nearest to the other two, timed beside them and held
@@ -1239,6 +1365,7 @@ def time_quant(n=BUCKET_FLOATS):
              "timed_shape": [n]}
         r.update(bd[name])
         _log_time(name, f"n {n}", r)
+        _log_4x(name, at_4x[name], bd4[name], flush)
         if name in considered:
             call, fn, as_bytes, want = considered[name]
             differ = int((as_bytes(fn()) != want).sum().item())
@@ -1353,8 +1480,6 @@ def host_us_ab(parent) -> int:
     sides, so the difference is the entry points' own host cost, tensor
     map encoding included. Prints the least and the median per side as
     one JSON line."""
-    import ctypes
-
     from byteps_tpu_torch.ops import _build
     from byteps_tpu_torch.ops import flash_attention as fa
     stems = ("flash_fwd", "flash_bwd", "flash_dq", "flash_dkv")
@@ -1392,6 +1517,106 @@ def host_us_ab(parent) -> int:
                   for d, by_d in per_d.items()}
            for side, per_d in runs.items()}
     print(json.dumps({"host_us": res, "parent": str(parent)}))
+    print(card_line())
+    return 0
+
+
+# the codec entry points before the launch plan, as ``_build.SIGNATURES``
+# had them: bps_int8_quantize (x, q, n, scale, stream), bps_onebit_unpack
+# (words, out, n, stream)
+_P, _L, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+BEFORE_PLAN = {"int8_quantize": ("bps_int8_quantize", [_P, _P, _L, _F, _P]),
+               "onebit_unpack": ("bps_onebit_unpack", [_P, _P, _L, _P])}
+
+
+def codec_ab(parent) -> int:
+    """``--codec-ab PARENT``: device milliseconds of the int8 quantize and
+    onebit unpack kernels of the checkout at PARENT (its two ``csrc``
+    sources built here with the same flags) and of this checkout, on one
+    bucket (the phase-3 data), in one process: five rounds of parent,
+    change, change, parent, each a ``time_ms`` (median of 30 launches, L2
+    flushed); ``torch.quantize_per_tensor`` once a round beside them. Each
+    side is called through its own C entry point: this checkout's takes
+    the launch plan (``_build.SIGNATURES``), and a PARENT library without
+    that entry is called as before the plan (``BEFORE_PLAN``). Both sides
+    must give the same bytes. Prints the least and the median per side as
+    one JSON line."""
+    from byteps_tpu_torch.ops import _build
+    from byteps_tpu_torch.ops.compression import kernels as ob
+    stems = ("int8_quantize", "onebit_unpack")
+    root = Path(parent).resolve()
+    out = root / "byteps_tpu_torch" / "_build_codec_ab"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = [(stem, subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+         str(out / f"lib{stem}.so"),
+         str(root / "byteps_tpu_torch" / "csrc" / f"{stem}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for stem in stems]
+    n = BUCKET_FLOATS
+    x = torch.randn(n, generator=torch.Generator().manual_seed(33)).cuda()
+    s8 = x.abs().max().item() / 127
+    words = ob.onebit_pack(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = ob._sms(x.device)
+    qp = ob.stream_plan(n, x.data_ptr() % ob.VEC_BYTES, sms, 4, ob.QUANT_VECS)
+    up = ob.stream_plan(n, 0, sms, 4, ob.UNPACK_VECS)
+    outs = {side: {"int8_quantize": torch.empty(n, dtype=torch.int8,
+                                                device="cuda"),
+                   "onebit_unpack": torch.empty(n, device="cuda")}
+            for side in ("parent", "change")}
+
+    def call(side, stem, fn, planned):
+        o = outs[side][stem].data_ptr()
+        if stem == "int8_quantize":
+            args = ((x.data_ptr(), o, n, qp.head, qp.vecs, qp.grid, s8)
+                    if planned else (x.data_ptr(), o, n, s8))
+        else:
+            args = ((words.data_ptr(), o, n, up.vecs, up.grid) if planned
+                    else (words.data_ptr(), o, n))
+        return lambda: fn(*args, stream)
+
+    sides = {"parent": {}, "change": {}}
+    for stem, proc in procs:
+        log_text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {root}'s csrc/{stem}.cu:\n"
+                               f"{log_text}")
+        lib = ctypes.CDLL(str(out / f"lib{stem}.so"))
+        name, argtypes = _build.SIGNATURES[stem]
+        planned = hasattr(lib, name)
+        if not planned:
+            name, argtypes = BEFORE_PLAN[stem]
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        sides["parent"][stem] = call("parent", stem, fn, planned)
+        sides["change"][stem] = call("change", stem, _build.entry(stem), True)
+        log(f"[codec-ab] {stem}: parent's {name}")
+    for side in sides:
+        for stem, fn in sides[side].items():
+            _build.raise_on_error(fn(), f"{side} {stem}")
+    torch.cuda.synchronize()
+    for stem in stems:
+        a, b = (outs[side][stem].view(torch.uint8) for side in sides)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{stem}: the parent's and this checkout's "
+                                 "kernels give other bytes")
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    runs = {side: {stem: [] for stem in stems} for side in sides}
+    library = []
+    for _ in range(5):
+        for side in ("parent", "change", "change", "parent"):
+            for stem in stems:
+                runs[side][stem].append(time_ms(sides[side][stem],
+                                                flush=flush))
+        library.append(time_ms(
+            lambda: torch.quantize_per_tensor(x, s8, 0, torch.qint8),
+            flush=flush))
+    stat = lambda v: {"least": min(v), "median": statistics.median(v)}
+    res = {stem: {side: stat(runs[side][stem]) for side in sides}
+           for stem in stems}
+    res["int8_quantize"]["library"] = stat(library)
+    print(json.dumps({"codec_ab_ms": res, "n": n, "parent": str(parent)}))
     print(card_line())
     return 0
 
@@ -2023,10 +2248,13 @@ def kernel_entry(name, paths, worst, timing, card, ptxas, d=None):
     }
     if "considered" in t:
         entry["considered"] = t["considered"]
+    source = SOURCES[name].split("/", 1)[1]
     if d is not None:
         entry["head_dim"] = d
-        entry["ptxas"] = [r for r in ptxas if r["d"] == d
-                          and r["source"] == SOURCES[name].split("/", 1)[1]]
+        entry["ptxas"] = [r for r in ptxas if r.get("d") == d
+                          and r["source"] == source]
+    else:
+        entry["ptxas"] = [r for r in ptxas if r["source"] == source]
     return entry
 
 
@@ -2287,6 +2515,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     if args[:1] == ["--host-us"] and len(args) == 2:
         return host_us_ab(args[1])
+    if args[:1] == ["--codec-ab"] and len(args) == 2:
+        return codec_ab(args[1])
     from byteps_tpu_torch.ops.flash_attention import KERNEL_DS
     if WIDTHS != KERNEL_DS:
         raise AssertionError(f"WIDTHS {WIDTHS} != the kernels' {KERNEL_DS}")
@@ -2315,6 +2545,7 @@ def main() -> int:
     check_determinism()
     check_onebit(_adversarial(), "adversarial vector")
     check_quant()
+    check_codec_views()
     timing = time_attention(TRAIN_BATCH, BERT_SEQ, False,
                             ("flash_fwd", "flash_bwd_fused"))
     gpt2_timing = time_attention(TRAIN_BATCH, GPT2_SEQ, True,
@@ -2322,6 +2553,7 @@ def main() -> int:
                                   "flash_bwd_dkv"))
     timing["flash_bwd_dq"] = gpt2_timing.pop("flash_bwd_dq")
     timing["flash_bwd_dkv"] = gpt2_timing.pop("flash_bwd_dkv")
+    time_floor()
     timing.update(time_onebit())
     timing.update(time_quant())
     form_timing = {

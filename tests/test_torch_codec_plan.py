@@ -1,0 +1,104 @@
+"""The launch plan of the port's one-wave codec kernels
+(``ops/compression/kernels.py::stream_plan``), on the CPU.
+
+``int8_quantize`` and ``onebit_unpack`` launch ``csrc/int8_quantize.cu``
+and ``csrc/onebit_unpack.cu`` with a plan computed in Python: the elements
+read one by one before the first 16-byte boundary (the head), the 16-byte
+vectors from there on, the elements left after them (the tail), and a grid
+of one wave at most. The kernels run only on the card
+(``test_torch_kernels_cuda.py``); their index walk is simple, and the plan
+is the part that is hard to get right, so it is held here: over sizes up
+to 5·2^20 elements and every 4-byte offset of the pointer past a 16-byte
+boundary, with the 132 SMs of an H100 SXM, the plan covers [0, n) exactly
+once as the kernels walk it, every vector it assigns is 16-byte aligned,
+and the grid never exceeds its cap. No tolerance: these are integers.
+"""
+
+import numpy as np
+import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from byteps_tpu_torch.ops.compression import kernels as ob
+
+SMS = 132                       # an H100 SXM
+CAP = SMS * ob.CTAS_PER_SM      # one wave
+ELEMS = 4                       # 4-byte elements: a float4 a vector
+KERNELS = {"int8_quantize": ob.QUANT_VECS, "onebit_unpack": ob.UNPACK_VECS}
+PLANS = settings(max_examples=40, deadline=None, database=None,
+                 derandomize=True)
+
+sizes = st.integers(1, 5 << 20)
+offsets = st.sampled_from([0, 4, 8, 12])
+kernels = st.sampled_from(sorted(KERNELS))
+
+
+def _vector_touches(plan, vecs_per_thread):
+    """How often each vector of the body is stored, as the kernels walk
+    the plan: CTA b takes the chunks b, b + grid, ... of threads ·
+    vecs_per_thread vectors (a chunk is a contiguous run of vectors,
+    however its threads share it), the vectors past ``plan.vecs``
+    masked."""
+    chunk = ob.CTA_THREADS * vecs_per_thread
+    nchunks = -(-plan.vecs // chunk)
+    walked = np.concatenate([np.arange(b, nchunks, plan.grid, dtype=np.int64)
+                             for b in range(plan.grid)])
+    vecs = (walked[:, None] * chunk + np.arange(chunk)).ravel()
+    return np.bincount(vecs[vecs < plan.vecs], minlength=plan.vecs)
+
+
+@PLANS
+@given(n=sizes, addr=offsets, kernel=kernels)
+def test_plan_covers_every_element_exactly_once(n, addr, kernel):
+    """CTA 0 reads the head [0, head) and the tail [end, n) one by one;
+    the vectors cover [head, end) four elements each."""
+    plan = ob.stream_plan(n, addr, SMS, ELEMS, KERNELS[kernel])
+    end = plan.head + ELEMS * plan.vecs
+    assert min(plan.head, plan.vecs, plan.tail) >= 0
+    assert end + plan.tail == n
+    assert (_vector_touches(plan, KERNELS[kernel]) == 1).all()
+
+
+@PLANS
+@given(n=sizes, addr=offsets, kernel=kernels)
+def test_plan_vectors_are_16_byte_aligned(n, addr, kernel):
+    plan = ob.stream_plan(n, addr, SMS, ELEMS, KERNELS[kernel])
+    assert 0 <= plan.head < ELEMS and 0 <= plan.tail < ELEMS
+    assert plan.head + ELEMS * plan.vecs + plan.tail == n
+    if plan.vecs:
+        # vector v starts at byte addr + 4·head + 16·v
+        assert (addr + 4 * plan.head) % ob.VEC_BYTES == 0
+
+
+@PLANS
+@given(n=sizes, addr=offsets, kernel=kernels)
+def test_plan_grid_is_one_wave_at_most(n, addr, kernel):
+    plan = ob.stream_plan(n, addr, SMS, ELEMS, KERNELS[kernel])
+    chunks = -(-plan.vecs // (ob.CTA_THREADS * KERNELS[kernel]))
+    assert 1 <= plan.grid <= CAP
+    assert plan.grid == max(1, min(CAP, chunks))   # no idle CTA
+
+
+@pytest.mark.parametrize("kernel,grid", [("int8_quantize", 250),
+                                         ("onebit_unpack", 125)])
+def test_a_gradient_bucket_is_one_wave(kernel, grid):
+    """The trainer's default bucket (4,096,000 bytes of f32) takes one
+    wave, every CTA one pass."""
+    plan = ob.stream_plan(1_024_000, 0, SMS, ELEMS, KERNELS[kernel])
+    assert plan == ob.StreamPlan(0, 256_000, 0, grid) and grid <= CAP
+
+
+@pytest.mark.parametrize("n,addr", [(0, 0), (-1, 0), (8, 2), (8, 16),
+                                    (8, -4)])
+def test_plan_refuses_what_no_kernel_takes(n, addr):
+    with pytest.raises(ValueError, match="no plan"):
+        ob.stream_plan(n, addr, SMS, ELEMS, ob.QUANT_VECS)
+
+
+@pytest.mark.parametrize("addr,head", [(0, 0), (4, 3), (8, 2), (12, 1)])
+def test_the_head_of_a_short_view_is_the_whole_view(addr, head):
+    """A view shorter than its head is read one by one, with no vector."""
+    for n in range(1, 9):
+        plan = ob.stream_plan(n, addr, SMS, ELEMS, ob.QUANT_VECS)
+        assert plan.head == min(n, head) and plan.grid == 1
+        assert plan.vecs == (n - plan.head) // ELEMS

@@ -524,6 +524,143 @@ def test_quant_cuda_inputs_the_kernels_do_not_take_raise(cuda):
     assert ob.int8_quantize.launches == n0
 
 
+# ------------------- the one-wave int8 quantize and onebit unpack (rows 6-7)
+#
+# Both launch one wave of 16-byte accesses on a plan that peels a head (x
+# may be a view at any 4-byte offset), walks 16-byte vectors and masks a
+# tail: every edge of that plan, bit for bit, and each launch twice.
+
+EDGE_SIZES = [1, 3, 4, 15, 16, 17, 31, 32, 33, 1023, 1024, 1025, 4095, 4097,
+              1_024_000, 4_096_003]
+VIEW_SIZES = [1, 17, 1025, 1_024_000, 4_096_003]
+
+
+def _quantize_twice(x, s):
+    n0 = ob.int8_quantize.launches
+    q = ob.int8_quantize(x, s)
+    assert ob.int8_quantize.launches == n0 + 1
+    q2 = ob.int8_quantize(x, s)
+    assert ob.int8_quantize.launches == n0 + 2
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8 and q.shape == x.shape
+    assert torch.equal(q, q2)
+    return q
+
+
+def _unpack_twice(words, n):
+    n0 = ob.onebit_unpack.launches
+    u = ob.onebit_unpack(words, n)
+    assert ob.onebit_unpack.launches == n0 + 1
+    u2 = ob.onebit_unpack(words, n)
+    assert ob.onebit_unpack.launches == n0 + 2
+    torch.cuda.synchronize()
+    assert u.dtype == torch.float32 and u.shape == (n,)
+    assert torch.equal(u.view(torch.int32), u2.view(torch.int32))
+    return u
+
+
+def _words(m, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randint(-2**31, 2**31, (m,), generator=g, dtype=torch.int64
+                         ).to(torch.int32)
+
+
+@pytest.mark.parametrize("n", EDGE_SIZES)
+def test_one_wave_codecs_match_plain_at_every_size(cuda, n):
+    g = torch.Generator(device="cpu").manual_seed(n)
+    x = (torch.randn(n, generator=g) * 3).to(cuda)
+    s = x.abs().max().item() / 127
+    assert torch.equal(_quantize_twice(x, s), ob.int8_quantize_plain(x, s))
+    words = _words(ob.words_for(n), n).to(cuda)
+    assert torch.equal(_unpack_twice(words, n).view(torch.int32),
+                       ob.onebit_unpack_plain(words, n).view(torch.int32))
+
+
+@pytest.mark.parametrize("n", VIEW_SIZES)
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_int8_quantize_of_a_misaligned_view_matches_plain(cuda, k, n):
+    """x[k:] starts 4k bytes past a 16-byte boundary: a head of 4 - k
+    elements, then codes stored 4 - k bytes past q's boundary."""
+    g = torch.Generator(device="cpu").manual_seed(100 + n)
+    x = (torch.randn(n + k, generator=g) * 3).to(cuda)[k:]
+    assert x.data_ptr() % 16 == 4 * k
+    s = x.abs().max().item() / 127
+    assert torch.equal(_quantize_twice(x, s), ob.int8_quantize_plain(x, s))
+
+
+@pytest.mark.parametrize("n", VIEW_SIZES)
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_onebit_unpack_of_a_words_view_matches_plain(cuda, k, n):
+    """words[k:] is read with 4-byte loads at any offset; the floats are
+    still stored as aligned 16-byte vectors."""
+    words = _words(ob.words_for(n) + k, 200 + n).to(cuda)[k:]
+    assert words.data_ptr() % 16 == 4 * k
+    assert torch.equal(_unpack_twice(words, n).view(torch.int32),
+                       ob.onebit_unpack_plain(words, n).view(torch.int32))
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 3])
+def test_int8_quantize_edges_match_plain_in_every_view(cuda, k):
+    """Ties at ±0.5, ±2.5 (round half to even), the clamps at ±127, ±0,
+    denormals and infinities, at scale 1 and at the vector's amax scale,
+    from every 4-byte offset."""
+    f = torch.finfo(torch.float32)
+    edges = torch.tensor([0.5, -0.5, 1.5, -1.5, 2.5, -2.5, 126.5, -126.5,
+                          127.4, -127.4, 127.5, -127.5, 128.0, -128.0, 1e9,
+                          -1e9, 0.0, -0.0, f.tiny / 4, -f.tiny / 4, f.tiny,
+                          -f.tiny, float("inf"), -float("inf"), 3.5, -3.5])
+    x = edges.repeat(3).to(cuda)[k:]
+    for s in (1.0, 1e9 / 127, 0.0):
+        assert torch.equal(_quantize_twice(x, s),
+                           ob.int8_quantize_plain(x, s)), s
+
+
+@pytest.mark.parametrize("s", [1.0, 0.0037, 3.3e-9, 2.2e7, 1e-40, 3e38])
+def test_int8_quantize_near_ties_match_the_exact_divide(cuda, s):
+    """x = (k + 1/2) · s and its neighbours up to 6 ulps away, k in
+    -140..140: where x · RN(1 / s) and the correctly rounded x / s round
+    to other integers, the kernel must take the divide. 1e-40 and 3e38
+    have no normal reciprocal (every element takes the divide)."""
+    import numpy as np
+    with np.errstate(over="ignore"):       # 3e38 · 140 is inf: an input too
+        ties = ((np.arange(-140, 141) + 0.5) * np.float64(np.float32(s))
+                ).astype(np.float32)
+    xs, up, down = [ties], ties, ties
+    for _ in range(6):
+        up = np.nextafter(up, np.float32(np.inf))
+        down = np.nextafter(down, np.float32(-np.inf))
+        xs += [up, down]
+    x = torch.from_numpy(np.concatenate(xs)).to(cuda)
+    assert torch.equal(_quantize_twice(x, s), ob.int8_quantize_plain(x, s))
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 3])
+def test_onebit_unpack_edges_match_plain_in_every_view(cuda, k):
+    """Words of no bit, every bit, the sign bit alone, the lowest bit
+    alone and alternating bits, from every 4-byte offset, at sizes ending
+    mid-word and mid-vector."""
+    words = torch.tensor([0, -1, -2**31, 1, 0x55555555, -0x55555556, 0, -1],
+                         dtype=torch.int32).repeat(4).to(cuda)[k:]
+    for n in (1, 2, 5, 32 * words.numel() - 3, 32 * words.numel()):
+        assert torch.equal(_unpack_twice(words, n).view(torch.int32),
+                           ob.onebit_unpack_plain(words, n).view(torch.int32))
+
+
+def test_one_wave_codecs_on_a_stride_of_waves(cuda):
+    """An n past one wave (132 SMs · 4 CTAs · 1,024 vectors for quantize)
+    walks the grid in a stride loop."""
+    n = 3 * ob._sms(cuda) * ob.CTAS_PER_SM * ob.CTA_THREADS * 16 + 5
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.randn(n + 1, generator=g).to(cuda)[1:]
+    s = x.abs().max().item() / 127
+    assert ob.stream_plan(n, x.data_ptr() % 16, ob._sms(cuda), 4,
+                          ob.QUANT_VECS).grid == ob._sms(cuda) * ob.CTAS_PER_SM
+    assert torch.equal(_quantize_twice(x, s), ob.int8_quantize_plain(x, s))
+    words = ob.onebit_pack(x)
+    assert torch.equal(_unpack_twice(words, n).view(torch.int32),
+                       ob.onebit_unpack_plain(words, n).view(torch.int32))
+
+
 # ------------------------------------- bias and rel-table forms (rows 1, 3, 4)
 
 FORM_CASES = [  # (b, sq, sk, h, causal, form, nb, max_distance)
