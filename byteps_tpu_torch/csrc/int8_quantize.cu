@@ -37,23 +37,18 @@
 //     the divide only where x · r lies too close to a half-integer to be
 //     sure of rint(x / s) (codes4_recip), or every element does where r is
 //     not a normal float. Every code is the divide's.
-// x may be a view at any 4-byte offset (a single-leaf bucket without error
-// feedback), so the plan peels `head` (< 4) elements to reach a 16-byte
-// boundary. The codes then start at q + head, aligned only to head bytes:
-// that case takes the kAlignedStore = false instance, whose warp regathers
-// its 128 codes by shuffles and writes them as 4 byte stores of 32
-// contiguous bytes each. The `tail` (< 4) elements past the vectors and the
-// head are read one by one by CTA 0.
+// The walk (the head and tail, the float4 loop, the aligned and shuffled
+// stores) is codec_stream.cuh's, shared with fp8_sr_quantize.cu.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <cmath>
 
+#include "codec_stream.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMinBlocks = 4;   // resident CTAs a SM (kernels.py::CTAS_PER_SM)
-constexpr int kVecs = 4;        // float4 loads a thread, all in flight
+constexpr int kVecs = 4;   // float4 loads a thread (kernels.py::QUANT_VECS)
 
 __device__ __forceinline__ uint32_t code(float x, float s) {
   float v = rintf(__fdiv_rn(x, s));
@@ -96,55 +91,28 @@ __device__ __forceinline__ uint32_t codes4_recip(float4 v, float r,
                      __byte_perm(b[2], b[3], 0x0040), 0x5410);
 }
 
+// The codes of the int8 codec, for codec_stream.cuh's walk.
+struct Int8Codes {
+  float s, r;
+  bool recip;   // r = RN(1 / s) is a normal float
+
+  __device__ __forceinline__ uint8_t one(float x, long long) const {
+    return static_cast<uint8_t>(code(x, s));
+  }
+  __device__ __forceinline__ uint32_t four(float4 v, long long) const {
+    float gap = 1.0f;
+    uint32_t c = recip ? codes4_recip(v, r, gap) : 0u;
+    if (!(gap > 0.0f) || !recip) c = codes4(v, s);
+    return c;
+  }
+};
+
 template <bool kAlignedStore>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 int8_quantize_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
-                     long long n, int head, long long vecs, float s,
-                     float r, bool recip) {
-  const int t = threadIdx.x;
-  if (blockIdx.x == 0) {               // the head and the tail, one by one
-    const long long end = head + 4 * vecs;
-    if (t < head) {
-      q[t] = static_cast<int8_t>(code(x[t], s));
-    } else if (t >= 4 && end + (t - 4) < n) {
-      q[end + t - 4] = static_cast<int8_t>(code(x[end + t - 4], s));
-    }
-  }
-  const float4* xv = reinterpret_cast<const float4*>(x + head);
-  int8_t* qb = q + head;
-  const long long chunk = static_cast<long long>(kThreads) * kVecs;
-  const int lane = t & 31;
-  for (long long c0 = blockIdx.x * chunk; c0 < vecs;
-       c0 += static_cast<long long>(gridDim.x) * chunk) {
-    float4 v[kVecs];
-#pragma unroll
-    for (int j = 0; j < kVecs; ++j) {
-      const long long i = c0 + j * kThreads + t;
-      v[j] = i < vecs ? xv[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int j = 0; j < kVecs; ++j) {
-      const long long i = c0 + j * kThreads + t;
-      float gap = 1.0f;
-      uint32_t c = recip ? codes4_recip(v[j], r, gap) : 0u;
-      if (!(gap > 0.0f) || !recip) c = codes4(v[j], s);
-      if (kAlignedStore) {
-        if (i < vecs) reinterpret_cast<uint32_t*>(qb)[i] = c;
-      } else {
-        // the warp's 128 codes from vector i - lane on: byte store r writes
-        // codes 32r..32r+31, code 32r + lane held by lane 8r + lane / 4
-        const long long w0 = i - lane;
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int src = 8 * r + (lane >> 2);
-          const uint32_t word = __shfl_sync(0xFFFFFFFFu, c, src);
-          if (w0 + src < vecs)
-            qb[4 * w0 + 32 * r + lane] =
-                static_cast<int8_t>(word >> (8 * (lane & 3)));
-        }
-      }
-    }
-  }
+                     long long n, int head, long long vecs, Int8Codes codes) {
+  stream_codes<kVecs, kAlignedStore>(x, reinterpret_cast<uint8_t*>(q), n,
+                                     head, vecs, codes);
 }
 
 }  // namespace
@@ -165,13 +133,13 @@ extern "C" int bps_int8_quantize_planned(const void* x, void* q, long long n,
     return static_cast<int>(cudaErrorInvalidValue);
   const float s = scale > 0.0f ? scale : 1.0f;
   const float r = 1.0f / s;   // correctly rounded on the host too
-  const bool recip = std::isnormal(r);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Int8Codes codes{s, r, std::isnormal(r)};
   if (reinterpret_cast<uintptr_t>(qb + head) % 4 == 0)
     int8_quantize_kernel<true><<<grid, kThreads, 0, st>>>(
-        xf, qb, n, head, vecs, s, r, recip);
+        xf, qb, n, head, vecs, codes);
   else
     int8_quantize_kernel<false><<<grid, kThreads, 0, st>>>(
-        xf, qb, n, head, vecs, s, r, recip);
+        xf, qb, n, head, vecs, codes);
   return static_cast<int>(cudaGetLastError());
 }

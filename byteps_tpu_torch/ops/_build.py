@@ -48,16 +48,18 @@ SIGNATURES = {
                  + [_P, _P]),
     "flash_dkv": ("bps_flash_dkv",
                   [_P] * 8 + [_I] * 5 + [_L] * 8 + [_F, _I] + _BIAS + [_P]),
-    "onebit_pack": ("bps_onebit_pack", [_P, _P, _L, _P]),
-    # the two take a launch plan (ops/compression/kernels.py::stream_plan):
-    # head, vectors and grid; before it, bps_onebit_unpack (words, out, n,
-    # stream) and bps_int8_quantize (x, q, n, scale, stream)
+    # the four take a launch plan (ops/compression/kernels.py::stream_plan):
+    # head, vectors and grid; before it, bps_onebit_pack (x, words, n,
+    # stream), bps_onebit_unpack (words, out, n, stream), bps_int8_quantize
+    # (x, q, n, scale, stream) and bps_fp8_sr_quantize (x, q, n, scale,
+    # seed, kind, stream)
+    "onebit_pack": ("bps_onebit_pack_planned", [_P, _P, _L, _I, _L, _I, _P]),
     "onebit_unpack": ("bps_onebit_unpack_planned", [_P, _P, _L, _L, _I, _P]),
     "int8_quantize": ("bps_int8_quantize_planned",
                       [_P, _P, _L, _I, _L, _I, _F, _P]),
     "int8_dequantize": ("bps_int8_dequantize", [_P, _P, _L, _F, _P]),
-    "fp8_sr_quantize": ("bps_fp8_sr_quantize",
-                        [_P, _P, _L, _F, ctypes.c_uint, _I, _P]),
+    "fp8_sr_quantize": ("bps_fp8_sr_quantize_planned",
+                        [_P, _P, _L, _I, _L, _I, _F, ctypes.c_uint, _I, _P]),
 }
 
 # every flash library also answers the dynamic shared memory of the kernel
@@ -247,22 +249,31 @@ def _sass_path(stem: str) -> Path:
     return _lib_path(stem).with_suffix(".sass")
 
 
+def sass_listing(lib) -> str:
+    """``cuobjdump -sass`` of the library ``lib`` (the toolkit's, beside
+    nvcc)."""
+    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def sass_of(stem: str) -> str:
+    """The SASS listing of the current build of ``stem``, kept beside it
+    on first use, so a cached build reports as a fresh one does."""
+    path = _sass_path(stem)
+    if not path.exists():
+        path.write_text(sass_listing(_lib_path(stem)))
+    return path.read_text()
+
+
 def sass_counts(stems=None) -> List[dict]:
     """Per kernel template instance of the current builds of ``stems``
     (default: every source): its source, kernel name, template arguments
-    and how many of each ``SASS_OPS`` instruction its machine code holds.
-    The listing is ``cuobjdump -sass`` of the library (the toolkit's,
-    beside nvcc), kept beside it on first use, so a cached build reports
-    as a fresh one does."""
+    and how many of each ``SASS_OPS`` instruction its machine code holds
+    (``sass_of``)."""
     out = []
     for stem in stems or sorted(SIGNATURES):
-        path = _sass_path(stem)
-        if not path.exists():
-            cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
-            path.write_text(subprocess.run(
-                [str(cuobjdump), "-sass", str(_lib_path(stem))],
-                capture_output=True, text=True, check=True).stdout)
-        sass = path.read_text()
+        sass = sass_of(stem)
         row = None
         for line in sass.splitlines():
             m = re.search(r"Function : (\S+)", line)

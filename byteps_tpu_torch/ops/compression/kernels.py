@@ -34,14 +34,15 @@ the other three, each byte-identical to the numpy codec of
     bytes in uint32 bit math, the noise keyed by the element's flat index
     and the seed).
 
-All five are bounded by device memory. A wrapper takes its plain version
-only for a tensor on the CPU. A CUDA tensor launches the kernel or
-raises. Each wrapper counts its launches in a plain int attribute,
-``launches``.
+All five are bounded by device memory (fp8 SR's integer operations come
+close). A wrapper takes its plain version only for a tensor on the CPU.
+A CUDA tensor launches the kernel or raises. Each wrapper counts its
+launches in a plain int attribute, ``launches``.
 
-``onebit_unpack`` and ``int8_quantize`` launch one wave of 16-byte
-accesses; ``stream_plan`` computes where their vectors start and how many
-CTAs they take, here in Python, where the CPU tests reach it.
+``onebit_pack``, ``onebit_unpack``, ``int8_quantize`` and
+``fp8_sr_quantize`` launch one wave of 16-byte accesses; ``stream_plan``
+computes where their vectors start and how many CTAs they take, here in
+Python, where the CPU tests reach it.
 """
 
 from __future__ import annotations
@@ -66,10 +67,13 @@ def words_for(n: int) -> int:
 # ---------------------------------------------------------- launch plan
 
 VEC_BYTES = 16          # one vector access: a float4
-CTA_THREADS = 256       # kThreads of csrc/int8_quantize.cu, onebit_unpack.cu
+CTA_THREADS = 256       # kThreads of the one-wave codec kernels (csrc/)
 CTAS_PER_SM = 4         # their kMinBlocks: resident CTAs a SM, one wave
-QUANT_VECS = 4          # float4 loads a quantize thread holds in flight
+QUANT_VECS = 4          # float4 loads an int8 quantize thread holds in flight
 UNPACK_VECS = 8         # float4 stores an unpack thread issues (32 words a warp)
+PACK_VECS = 8           # float4 loads a pack thread holds (32 words a warp)
+PACK_SCALARS = 8        # 4-byte loads a thread of pack's view instance
+FP8_VECS = 2            # float4 loads an fp8 SR thread holds in flight
 
 
 class StreamPlan(NamedTuple):
@@ -101,6 +105,18 @@ def stream_plan(n: int, addr_mod_16: int, sms: int, elems_per_vec: int,
     chunk = CTA_THREADS * vecs_per_thread
     grid = max(1, min(sms * CTAS_PER_SM, -(-vecs // chunk)))
     return StreamPlan(head, vecs, n - head - vecs * elems_per_vec, grid)
+
+
+def pack_plan(n: int, addr_mod_16: int, sms: int) -> StreamPlan:
+    """The pack kernel's plan: ``stream_plan``'s head, vectors and tail,
+    with a grid sized to the instance that runs. An aligned x takes the
+    float4 instance, ``CTA_THREADS · 4 · PACK_VECS`` floats a CTA a pass
+    (the n % 4 floats past the vectors in one more float4 slot); a view at
+    a 4-byte offset takes the 4-byte-load instance, ``CTA_THREADS ·
+    PACK_SCALARS`` floats a CTA a pass. One wave at most either way."""
+    plan = stream_plan(n, addr_mod_16, sms, 4, PACK_VECS)
+    per_cta = CTA_THREADS * (PACK_SCALARS if addr_mod_16 else 4 * PACK_VECS)
+    return plan._replace(grid=max(1, min(sms * CTAS_PER_SM, -(-n // per_cta))))
 
 
 def _sms(device: torch.device) -> int:
@@ -146,10 +162,13 @@ def onebit_pack(x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     words = torch.empty(words_for(x.numel()), dtype=torch.int32,
                         device=x.device)
+    # a view at any 4-byte offset takes the kernel's 4-byte-load instance,
+    # never a copy
+    plan = pack_plan(x.numel(), x.data_ptr() % VEC_BYTES, _sms(x.device))
     with torch.cuda.device(x.device):
         code = entry("onebit_pack")(
-            x.data_ptr(), words.data_ptr(), x.numel(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            x.data_ptr(), words.data_ptr(), x.numel(), plan.head, plan.vecs,
+            plan.grid, torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_error(code, "onebit pack kernel")
     onebit_pack.launches += 1
     return words
@@ -331,11 +350,14 @@ def fp8_sr_quantize(x: torch.Tensor, scale, seed: int,
         return fp8_sr_quantize_plain(x, scale, seed, kind)
     check_quant_input(x, torch.float32, "fp8 quantize")
     q = torch.empty(x.numel(), dtype=torch.uint8, device=x.device)
+    # x may be a view at any 4-byte offset: the plan peels a head
+    plan = stream_plan(x.numel(), x.data_ptr() % VEC_BYTES, _sms(x.device),
+                       4, FP8_VECS)
     with torch.cuda.device(x.device):
         code = entry("fp8_sr_quantize")(
-            x.data_ptr(), q.data_ptr(), x.numel(),
-            float(_positive_scale(scale)), int(seed) & _M32, kind,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            x.data_ptr(), q.data_ptr(), x.numel(), plan.head, plan.vecs,
+            plan.grid, float(_positive_scale(scale)), int(seed) & _M32,
+            kind, torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_error(code, "fp8 quantize kernel")
     fp8_sr_quantize.launches += 1
     return q

@@ -173,13 +173,14 @@ prints only the host microseconds per call of the four flash wrappers at
 both head dims, this checkout's kernels against those of the checkout at
 PARENT (built here), in turns in one process, as one JSON line.
 
-    python3 chip_smoke.py --codec-ab PARENT
+    python3 chip_smoke.py --codec-ab PARENT [STEM ...]
 
-prints only the device milliseconds of the int8 quantize and onebit
-unpack kernels on one bucket, this checkout's against those of the
+prints only the device milliseconds of the codec kernels STEM (default
+``onebit_pack fp8_sr_quantize``; also ``int8_quantize``,
+``onebit_unpack``) on one bucket, this checkout's against those of the
 checkout at PARENT (built here, each called through its own C entry
-point), in turns in one process, beside ``torch.quantize_per_tensor``,
-as one JSON line.
+point with its own launch plan), in turns in one process, the int8
+quantize beside ``torch.quantize_per_tensor``, as one JSON line.
 
     python3 chip_smoke.py --sp 4
 
@@ -201,6 +202,7 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -217,6 +219,9 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# 32-bit integer operations: 64 INT32 lanes a SM (half the fp32 lanes) at
+# the boost clock that the fp32 figure assumes (132 · 128 · 2 · 1.98e9)
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
 
 KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
            "onebit_pack", "onebit_unpack", "int8_quantize", "int8_dequantize",
@@ -471,18 +476,23 @@ def ptxas_table():
 
 
 # the codec kernels (csrc/<stem>.cu) and the 128-bit access (a SASS_OPS
-# key) or bulk copy each one's design must hold
+# key) or bulk copy each one's design must hold, in every instance but the
+# exempt ones, each with its reason (source, kernel, template arguments)
 CODEC_STEMS = ("onebit_pack", "onebit_unpack", "int8_quantize",
                "int8_dequantize", "fp8_sr_quantize")
-WIDE_ACCESS = {"int8_quantize": "LDG.E.128", "onebit_unpack": "STG.E.128"}
+WIDE_ACCESS = {"int8_quantize": "LDG.E.128", "onebit_unpack": "STG.E.128",
+               "onebit_pack": "LDG.E.128", "fp8_sr_quantize": "LDG.E.128"}
+WIDE_EXEMPT = {("onebit_pack", "onebit_pack_kernel", (0,)):
+               "x a view at a 4-byte offset: word boundaries are fixed by "
+               "x[0], so its float4s would straddle words; 4-byte loads"}
 
 
 def codec_table():
     """Every codec kernel instance: registers, stack and spills (ptxas -v)
     and its count of 128-bit global loads and stores and bulk copies in
-    the SASS; printed and returned. Fails on any spill, and unless the
-    quantize kernel holds a 128-bit load or a bulk copy and the unpack
-    kernel a 128-bit store or a bulk copy (in every instance)."""
+    the SASS; printed and returned. Fails on any spill, and unless each
+    instance of a ``WIDE_ACCESS`` kernel holds its 128-bit access or a
+    bulk copy (``WIDE_EXEMPT`` named in the report with its reason)."""
     from byteps_tpu_torch.ops import _build
     sass = {(r["source"], r["kernel"], tuple(r["args"])): r
             for r in _build.sass_counts(CODEC_STEMS)}
@@ -502,6 +512,12 @@ def codec_table():
             f"SASS: {ops['LDG.E.128']} LDG.E.128, {ops['STG.E.128']} "
             f"STG.E.128, {ops['UBLKCP']} UBLKCP")
         wide = WIDE_ACCESS.get(r["source"])
+        exempt = WIDE_EXEMPT.get((r["source"], r["kernel"],
+                                  tuple(r["args"])))
+        if wide and exempt:
+            log(f"[ptxas] {row['source']:26s} {r['kernel']}{r['args']}: "
+                f"exempt from the {wide} gate ({exempt})")
+            wide = None
         if (row["spill_stores"] or row["spill_loads"]
                 or (wide and not ops[wide] and not ops["UBLKCP"])):
             bad.append(f"{row['source']} {r['kernel']}{r['args']}")
@@ -988,36 +1004,154 @@ def check_quant():
 
 
 def check_codec_views():
-    """The two one-wave kernels on what their plans peel: int8 quantize of
-    ``x[k:]`` (a head of 4 - k elements before the first 16-byte vector,
-    the codes then misaligned) and onebit unpack of ``words[k:]`` (4-byte
-    loads at any offset, a masked tail), k in 0..3, on one bucket and odd
-    sizes; bit for bit their plain versions, and launched twice, the same
+    """The four one-wave kernels on what their plans peel: int8 quantize,
+    fp8 SR (E4M3) and onebit pack of ``x[k:]`` (a head of 4 - k elements
+    before the first 16-byte vector, the codes then misaligned; pack's
+    4-byte-load instance) and onebit unpack of ``words[k:]`` (4-byte loads
+    at any offset, a masked tail), k in 0..3, on one bucket and odd sizes;
+    bit for bit their plain versions, and launched twice, the same
     bits."""
+    from byteps_tpu_torch.ops.compression import fp8sr
     from byteps_tpu_torch.ops.compression import kernels as ob
     g = torch.Generator().manual_seed(34)
     for n in (BUCKET_FLOATS, 4_096_003, 1025):
         x = (torch.randn(n + 3, generator=g) * 3).cuda()
         s = x.abs().max().item() / 127
+        sf = x.abs().max().item() / fp8sr.fmt_max(fp8sr.E4M3)
         words = ob.onebit_pack(x)
         for k in range(4):
             xk, wk, m = x[k:], words[k:], n - 32 * k
-            q, q2 = ob.int8_quantize(xk, s), ob.int8_quantize(xk, s)
-            u, u2 = ob.onebit_unpack(wk, m), ob.onebit_unpack(wk, m)
-            torch.cuda.synchronize()
-            same = {
-                "int8 quantize": torch.equal(q, ob.int8_quantize_plain(xk, s)),
-                "onebit unpack": _same_bits(u, ob.onebit_unpack_plain(wk, m)),
-                "relaunch": torch.equal(q, q2) and _same_bits(u, u2)}
-            log(f"[check codec views n {n} k {k}] int8 quantize of x[{k}:] "
-                f"({xk.numel()} floats), onebit unpack of words[{k}:] ({m} "
-                "floats): " + ", ".join(
+            runs = {
+                "int8 quantize": (lambda: ob.int8_quantize(xk, s),
+                                  lambda: ob.int8_quantize_plain(xk, s)),
+                "fp8 quantize": (
+                    lambda: ob.fp8_sr_quantize(xk, sf, 77, fp8sr.E4M3),
+                    lambda: ob.fp8_sr_quantize_plain(xk, sf, 77,
+                                                     fp8sr.E4M3)),
+                "onebit pack": (lambda: ob.onebit_pack(xk),
+                                lambda: ob.onebit_pack_plain(xk)),
+                "onebit unpack": (lambda: ob.onebit_unpack(wk, m),
+                                  lambda: ob.onebit_unpack_plain(wk, m))}
+            same = {}
+            for key, (kernel, plain) in runs.items():
+                a, b = kernel(), kernel()
+                torch.cuda.synchronize()
+                same[key] = _same_bits(a, plain())
+                same[f"{key} relaunch"] = _same_bits(a, b)
+            log(f"[check codec views n {n} k {k}] int8 and fp8 quantize and "
+                f"onebit pack of x[{k}:] ({xk.numel()} floats), onebit "
+                f"unpack of words[{k}:] ({m} floats): " + ", ".join(
                     f"{key} {'bit-identical' if v else 'DIFFERS'}"
                     for key, v in same.items()))
             if not all(same.values()):
                 raise AssertionError(f"a one-wave codec kernel disagrees with "
                                      f"its plain version or itself: n {n}, "
                                      f"view {k}")
+
+
+def fp8_near_carry(n, s, seed, kind, rng):
+    """n floats x whose quotients y = x / s land within one of a carry of
+    the stochastic rounding's add: element i's low magnitude bits are
+    2^base - (h_i & mask) + (-1, 0 or 1), h_i its noise, in the format's
+    normal range below min(MAX, FLT_MAX / 4s); x is RN(y · s), moved by
+    -1, 0 or 1 ulp. A quotient one ulp off then flips bytes that random
+    vectors leave alone."""
+    from byteps_tpu_torch.ops.compression import fp8sr
+    mx, mant, base, emin, _, _ = fp8sr.fmt_params(kind)
+    u32 = lambda v: np.asarray(v).astype(np.uint32)
+    top_y = min(mx, float(np.finfo(np.float32).max) / float(s) / 4)
+    e = rng.integers(emin, max(emin, 126 + int(np.floor(np.log2(top_y)))) + 1,
+                     n)
+    noise = fp8sr.mix32(np.arange(n, dtype=np.uint32), seed) & u32(
+        (1 << base) - 1)
+    low = (u32(1 << base) - noise + u32(rng.integers(-1, 2, n))) & u32(
+        (1 << base) - 1)
+    top = u32(rng.integers(0, 1 << mant, n))
+    y = ((u32(e) << u32(23)) | (top << u32(base)) | low).view(np.float32)
+    y = np.where(rng.integers(0, 2, n) == 1, -y, y)
+    with np.errstate(over="ignore", under="ignore"):
+        x = (y * np.float32(s)).astype(np.float32)
+    step = rng.integers(-1, 2, n)
+    inf = np.float32(np.inf)
+    return np.where(step > 0, np.nextafter(x, inf),
+                    np.where(step < 0, np.nextafter(x, -inf), x))
+
+
+def fp8_guard_edges(s, kind):
+    """x at the edges of the fp8 kernel's divide guard and rounding paths
+    for scale s, each with its 3 neighbours on either side, both signs:
+    the guard's bounds max(2^-100, 2^-99 s) and min(2^124 s, FLT_MAX),
+    2^-100, x / s at the clip (MAX · s) and near fp32 overflow (FLT_MAX ·
+    s), FLT_MAX, the formats' smallest normals and subnormal quanta times
+    s, FLT_MIN and the least denormal; and ±0, ±inf."""
+    from byteps_tpu_torch.ops.compression import fp8sr
+    fmax, sd = float(np.finfo(np.float32).max), float(np.float32(s))
+    out = [0.0, -0.0, np.inf, -np.inf]
+    for b in (max(2.0 ** -100, sd * 2.0 ** -99), min(sd * 2.0 ** 124, fmax),
+              2.0 ** -100, fp8sr.fmt_max(kind) * sd, fmax * sd, fmax,
+              2.0 ** -6 * sd, 2.0 ** -14 * sd, 2.0 ** -9 * sd, 2.0 ** -16 * sd,
+              2.0 ** -126, 2.0 ** -149):
+        with np.errstate(over="ignore", under="ignore"):
+            v = np.float32(b)
+        if not np.isfinite(v) or v == 0:
+            continue
+        for toward in (np.float32(np.inf), np.float32(0)):
+            w = v
+            for _ in range(3):
+                out += [w, -w]
+                with np.errstate(over="ignore"):
+                    w = np.nextafter(w, toward)
+    return np.array(out, np.float32)
+
+
+# the near-carry scales: a power of two, an all-ones significand, and two
+# without a normal RN(1/s) (every element then takes the divide)
+FP8_CARRY_SCALES = (2.0 ** -3, float(np.array([(122 << 23) | 0x7FFFFF],
+                                              np.uint32).view(np.float32)[0]),
+                    3e38, 1e-40)
+# the guard-edge scales: those, and a plain one, tiny and huge ones
+FP8_EDGE_SCALES = FP8_CARRY_SCALES + (1.0, 0.37, 2.0 ** -40, 2.0 ** 20, 1e-30)
+
+
+def check_fp8_edges():
+    """fp8 SR (both kinds, three seeds) on near-carry vectors at
+    ``FP8_CARRY_SCALES`` (262,144 floats each) and on the guard's edges at
+    ``FP8_EDGE_SCALES``, from x[0] and x[1:]: bit for bit its plain
+    version, launched twice the same bits. These are the vectors where a
+    quotient one ulp off changes bytes."""
+    from byteps_tpu_torch.ops.compression import fp8sr
+    from byteps_tpu_torch.ops.compression import kernels as ob
+    rng = np.random.default_rng(37)
+    checked = 0
+    for kind in (fp8sr.E4M3, fp8sr.E5M2):
+        for seed in (0, 0xFFFFFFFF, 1234):
+            vectors = [(f"near-carry s {s:g}", s,
+                        fp8_near_carry(1 << 18, s, seed, kind, rng))
+                       for s in FP8_CARRY_SCALES]
+            vectors += [(f"guard edges s {s:g}", s,
+                         np.tile(fp8_guard_edges(s, kind), 3))
+                        for s in FP8_EDGE_SCALES]
+            for tag, s, xn in vectors:
+                for k in (0, 1):
+                    # designed for the indices of the view x[k:]
+                    x = torch.from_numpy(np.concatenate(
+                        [np.zeros(k, np.float32), xn])).cuda()[k:]
+                    a = ob.fp8_sr_quantize(x, s, seed, kind)
+                    b = ob.fp8_sr_quantize(x, s, seed, kind)
+                    torch.cuda.synchronize()
+                    ref = ob.fp8_sr_quantize_plain(x, s, seed, kind)
+                    if not (torch.equal(a, ref) and torch.equal(a, b)):
+                        bad = int((a != ref).sum().item())
+                        raise AssertionError(
+                            f"fp8 SR kind {kind} seed {seed:#x} {tag} view "
+                            f"{k}: {bad} of {x.numel()} bytes differ from "
+                            f"the plain version, or a relaunch differs")
+                    checked += x.numel()
+    log(f"[check fp8 edges] near-carry vectors at scales "
+        f"{FP8_CARRY_SCALES} and the divide guard's edges at "
+        f"{FP8_EDGE_SCALES}, E4M3 and E5M2, seeds 0, 0xffffffff, 1234, "
+        f"views x[0:] and x[1:] ({checked} floats): bit-identical to the "
+        "plain version, relaunches the same bits")
 
 
 # ------------------------------------------------------------- phase 3
@@ -1089,7 +1223,7 @@ def _log_time(name, shape, r):
               f"; the design moves {r['design_bytes'] / 1e6:.2f} MB")
     log(f"[time {name} {shape}] kernel {r['ms']:.4f} ms, plain "
         f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} "
-        f"ms ({r['bound_by']}: {r['flops'] / 1e9:.3f} GFLOP, "
+        f"ms ({r['bound_by']}: {r['flops'] / 1e9:.3f} G ops, "
         f"{r['bytes'] / 1e6:.2f} MB{design}); kernel at "
         f"{r['bound_ms'] / r['ms']:.1%} of the bound")
 
@@ -1282,16 +1416,31 @@ def time_onebit(n=BUCKET_FLOATS):
     return res
 
 
+# fp8 SR's 32-bit integer operations per element that the function needs
+# for a quotient in the format's normal range or zero, as this run's data
+# is (a gaussian bucket over amax / 448: about 1e-4 of its elements fall
+# below the smallest normal, whose few more operations move nothing): the
+# hash 10 (the index's multiply, the xor with the seed, three xor-shifts
+# of two, two multiplies) and the normal-range code 8 (the magnitude's and
+# the noise's masks, their add, the cut, the rebias, the clamp at zero, the
+# sign's shift and its and-or). The float clip and the byte packing are
+# left out.
+FP8_INT_OPS = 10 + 8
+
+
 def quant_bounds(n):
     """Bytes: the floats and the codes, each read or written once (the
-    scale and seed are passed by value). Operations on the CUDA cores,
-    counted against the fp32 peak: int8 quantize a divide, a round and
-    two clamps per float; dequantize a convert and a multiply; fp8 SR
-    about forty integer and float operations per float (the divide, the
-    clamp, the hash, the add-and-truncate, the pack)."""
+    scale and seed are passed by value). Operations on the CUDA cores:
+    int8 quantize a divide, a round and two clamps per float and
+    dequantize a convert and a multiply, both counted against the fp32
+    peak; fp8 SR the ``FP8_INT_OPS`` integer operations per float of its
+    normal-range path against ``PEAK_INT32_OPS``, its float operations
+    (the divide, the clip) left out, which keeps the bound a bound. All
+    three are bound by their bytes."""
     return {"int8_quantize": _bound(4 * n, 4 * n + n, PEAK_FP32_FLOPS),
             "int8_dequantize": _bound(2 * n, n + 4 * n, PEAK_FP32_FLOPS),
-            "fp8_sr_quantize": _bound(40 * n, 4 * n + n, PEAK_FP32_FLOPS)}
+            "fp8_sr_quantize": _bound(FP8_INT_OPS * n, 4 * n + n,
+                                      PEAK_INT32_OPS)}
 
 
 def _library_dequantize(q, s8, want):
@@ -1523,27 +1672,94 @@ def host_us_ab(parent) -> int:
 
 # the codec entry points before the launch plan, as ``_build.SIGNATURES``
 # had them: bps_int8_quantize (x, q, n, scale, stream), bps_onebit_unpack
-# (words, out, n, stream)
-_P, _L, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+# (words, out, n, stream), bps_onebit_pack (x, words, n, stream),
+# bps_fp8_sr_quantize (x, q, n, scale, seed, kind, stream)
+_P, _L, _F, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, \
+    ctypes.c_int
 BEFORE_PLAN = {"int8_quantize": ("bps_int8_quantize", [_P, _P, _L, _F, _P]),
-               "onebit_unpack": ("bps_onebit_unpack", [_P, _P, _L, _P])}
+               "onebit_unpack": ("bps_onebit_unpack", [_P, _P, _L, _P]),
+               "onebit_pack": ("bps_onebit_pack", [_P, _P, _L, _P]),
+               "fp8_sr_quantize": ("bps_fp8_sr_quantize",
+                                   [_P, _P, _L, _F, ctypes.c_uint, _I, _P])}
+# the plan constant of each planned codec kernel in ops/compression/
+# kernels.py (float4s a thread), read from each side's own checkout
+PLAN_VECS = {"int8_quantize": "QUANT_VECS", "onebit_unpack": "UNPACK_VECS",
+             "onebit_pack": "PACK_VECS", "fp8_sr_quantize": "FP8_VECS"}
+CODEC_AB_STEMS = ("onebit_pack", "fp8_sr_quantize")
 
 
-def codec_ab(parent) -> int:
-    """``--codec-ab PARENT``: device milliseconds of the int8 quantize and
-    onebit unpack kernels of the checkout at PARENT (its two ``csrc``
-    sources built here with the same flags) and of this checkout, on one
-    bucket (the phase-3 data), in one process: five rounds of parent,
-    change, change, parent, each a ``time_ms`` (median of 30 launches, L2
-    flushed); ``torch.quantize_per_tensor`` once a round beside them. Each
-    side is called through its own C entry point: this checkout's takes
-    the launch plan (``_build.SIGNATURES``), and a PARENT library without
-    that entry is called as before the plan (``BEFORE_PLAN``). Both sides
-    must give the same bytes. Prints the least and the median per side as
-    one JSON line."""
+def _plan_vecs(root, stem, default):
+    """The float4s a thread of ``stem`` in the checkout at ``root``, as
+    its kernels.py states them (``default`` where it states none)."""
+    src = (root / "byteps_tpu_torch" / "ops" / "compression"
+           / "kernels.py").read_text()
+    m = re.search(rf"^{PLAN_VECS[stem]} = (\d+)", src, re.M)
+    return int(m.group(1)) if m else default
+
+
+def common_path(sass: str) -> dict:
+    """Per kernel instance in the SASS listing ``sass``: the instructions
+    a thread runs on its common path through one pass of the main loop
+    (from the target of the last backward branch to that branch), or from
+    the entry to EXIT where there is no loop. The walk falls through a
+    conditional forward branch, and takes it where the block it skips
+    holds a call (the correctly rounded divide's slow path), a ``MUFU``
+    or an ``I2F`` (the fp8 contract's rare arithmetic), and takes every
+    unconditional one. The rule fits the quantize kernels, whose rare
+    paths are those."""
     from byteps_tpu_torch.ops import _build
+    out = {}
+    for fn in re.split(r"\n\s+Function : ", sass)[1:]:
+        kernel = _build._kernel_of(fn.split("\n")[0])
+        ins = [(int(m.group(1), 16), m.group(2).strip()) for m in
+               re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+        if not kernel or not ins:
+            continue
+        at = {a: i for i, (a, _) in enumerate(ins)}
+        target = lambda t: (int(m.group(1), 16) if (m := re.search(
+            r"BRA\s+(?:!?U?P\w+,\s*)?0x([0-9a-f]+)", t)) else None)
+        back = [(a, target(t)) for a, t in ins
+                if target(t) is not None and target(t) < a]
+        end, i = (back[-1][0], at[back[-1][1]]) if back else (None, 0)
+        n = 0
+        while i < len(ins):
+            a, t = ins[i]
+            if a == end:
+                break
+            n += 1
+            if t.startswith(("EXIT", "RET")):
+                break
+            tgt = target(t)
+            if tgt is not None and tgt > a and (not t.startswith("@") or any(
+                    x.startswith("CALL") or "MUFU" in x or "I2F" in x
+                    for b, x in ins if a < b < tgt)):
+                i = at[tgt]
+                continue
+            i += 1
+        out[(kernel[0], tuple(kernel[1]))] = n
+    return out
+
+
+def codec_ab(parent, stems=CODEC_AB_STEMS) -> int:
+    """``--codec-ab PARENT [STEM ...]``: device milliseconds of the codec
+    kernels ``stems`` (default the onebit pack and fp8 SR; any of
+    ``PLAN_VECS``) of the checkout at PARENT (their ``csrc`` sources built
+    here with the same flags) and of this checkout, on one bucket (the
+    phase-3 data), in one process: five rounds of parent, change, change,
+    parent, each a ``time_ms`` (median of 30 launches, L2 flushed);
+    ``torch.quantize_per_tensor`` once a round beside the int8 quantize.
+    Each side is called through its own C entry point with its own plan:
+    this checkout's takes the launch plan (``_build.SIGNATURES``), a
+    PARENT library without that entry is called as before the plan
+    (``BEFORE_PLAN``), and each side's plan takes the float4s a thread its
+    own kernels.py states. Both sides must give the same bytes. Prints the
+    least and the median per side as one JSON line."""
+    from byteps_tpu_torch.ops import _build
+    from byteps_tpu_torch.ops.compression import fp8sr
     from byteps_tpu_torch.ops.compression import kernels as ob
-    stems = ("int8_quantize", "onebit_unpack")
+    unknown = set(stems) - set(PLAN_VECS)
+    if unknown:
+        raise ValueError(f"--codec-ab: no such codec kernel {sorted(unknown)}")
     root = Path(parent).resolve()
     out = root / "byteps_tpu_torch" / "_build_codec_ab"
     out.mkdir(parents=True, exist_ok=True)
@@ -1555,28 +1771,42 @@ def codec_ab(parent) -> int:
         for stem in stems]
     n = BUCKET_FLOATS
     x = torch.randn(n, generator=torch.Generator().manual_seed(33)).cuda()
-    s8 = x.abs().max().item() / 127
+    amax = x.abs().max().item()
+    s8, sf = amax / 127, amax / fp8sr.fmt_max(fp8sr.E4M3)
     words = ob.onebit_pack(x)
     stream = torch.cuda.current_stream().cuda_stream
     sms = ob._sms(x.device)
-    qp = ob.stream_plan(n, x.data_ptr() % ob.VEC_BYTES, sms, 4, ob.QUANT_VECS)
-    up = ob.stream_plan(n, 0, sms, 4, ob.UNPACK_VECS)
-    outs = {side: {"int8_quantize": torch.empty(n, dtype=torch.int8,
-                                                device="cuda"),
-                   "onebit_unpack": torch.empty(n, device="cuda")}
+    xa = x.data_ptr() % ob.VEC_BYTES
+    # per stem: its input's address offset, its output, and its arguments
+    # before and after the plan (between them the plan's head, vecs, grid)
+    io = {"int8_quantize": (xa, lambda: torch.empty(n, dtype=torch.int8,
+                                                     device="cuda"),
+                            lambda o: ((x.data_ptr(), o, n), (s8,))),
+          "onebit_unpack": (0, lambda: torch.empty(n, device="cuda"),
+                            lambda o: ((words.data_ptr(), o, n), ())),
+          "onebit_pack": (xa, lambda: torch.empty(ob.words_for(n),
+                                                   dtype=torch.int32,
+                                                   device="cuda"),
+                          lambda o: ((x.data_ptr(), o, n), ())),
+          "fp8_sr_quantize": (xa, lambda: torch.empty(n, dtype=torch.uint8,
+                                                      device="cuda"),
+                              lambda o: ((x.data_ptr(), o, n),
+                                         (sf, 1234, fp8sr.E4M3)))}
+    outs = {side: {stem: io[stem][1]() for stem in stems}
             for side in ("parent", "change")}
 
-    def call(side, stem, fn, planned):
-        o = outs[side][stem].data_ptr()
-        if stem == "int8_quantize":
-            args = ((x.data_ptr(), o, n, qp.head, qp.vecs, qp.grid, s8)
-                    if planned else (x.data_ptr(), o, n, s8))
-        else:
-            args = ((words.data_ptr(), o, n, up.vecs, up.grid) if planned
-                    else (words.data_ptr(), o, n))
-        return lambda: fn(*args, stream)
+    def call(side, stem, fn, vecs):
+        addr, _, args = io[stem]
+        lead, rest = args(outs[side][stem].data_ptr())
+        if vecs is None:                       # before the plan
+            return lambda: fn(*lead, *rest, stream)
+        p = ob.stream_plan(n, addr, sms, 4, vecs)
+        plan = ((p.vecs, p.grid) if stem == "onebit_unpack"
+                else (p.head, p.vecs, p.grid))
+        return lambda: fn(*lead, *plan, *rest, stream)
 
     sides = {"parent": {}, "change": {}}
+    sass_path = {}
     for stem, proc in procs:
         log_text, _ = proc.communicate()
         if proc.returncode:
@@ -1584,14 +1814,28 @@ def codec_ab(parent) -> int:
                                f"{log_text}")
         lib = ctypes.CDLL(str(out / f"lib{stem}.so"))
         name, argtypes = _build.SIGNATURES[stem]
-        planned = hasattr(lib, name)
-        if not planned:
+        own = getattr(ob, PLAN_VECS[stem])
+        vecs = _plan_vecs(root, stem, own) if hasattr(lib, name) else None
+        if vecs is None:
             name, argtypes = BEFORE_PLAN[stem]
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        sides["parent"][stem] = call("parent", stem, fn, planned)
-        sides["change"][stem] = call("change", stem, _build.entry(stem), True)
-        log(f"[codec-ab] {stem}: parent's {name}")
+        sides["parent"][stem] = call("parent", stem, fn, vecs)
+        sides["change"][stem] = call("change", stem, _build.entry(stem), own)
+        log(f"[codec-ab] {stem}: parent's {name}"
+            + ("" if vecs is None else f", {vecs} float4s a thread")
+            + f"; this checkout's {own}")
+        if stem == "fp8_sr_quantize":   # its SASS, before and after
+            for side, sass, v in (
+                    ("parent", _build.sass_listing(out / f"lib{stem}.so"),
+                     vecs),
+                    ("change", _build.sass_of(stem), own)):
+                per = 1 if v is None else 4 * v   # elements a thread a pass
+                sass_path[side] = {
+                    f"{k}{list(args)}": count / per for (k, args), count
+                    in sorted(common_path(sass).items())}
+                log(f"[codec-ab] {stem} {side}: common-path instructions "
+                    f"per element, {per} a thread a pass: {sass_path[side]}")
     for side in sides:
         for stem, fn in sides[side].items():
             _build.raise_on_error(fn(), f"{side} {stem}")
@@ -1609,13 +1853,17 @@ def codec_ab(parent) -> int:
             for stem in stems:
                 runs[side][stem].append(time_ms(sides[side][stem],
                                                 flush=flush))
-        library.append(time_ms(
-            lambda: torch.quantize_per_tensor(x, s8, 0, torch.qint8),
-            flush=flush))
+        if "int8_quantize" in stems:
+            library.append(time_ms(
+                lambda: torch.quantize_per_tensor(x, s8, 0, torch.qint8),
+                flush=flush))
     stat = lambda v: {"least": min(v), "median": statistics.median(v)}
     res = {stem: {side: stat(runs[side][stem]) for side in sides}
            for stem in stems}
-    res["int8_quantize"]["library"] = stat(library)
+    if library:
+        res["int8_quantize"]["library"] = stat(library)
+    if sass_path:
+        res["fp8_sr_quantize"]["sass_per_element"] = sass_path
     print(json.dumps({"codec_ab_ms": res, "n": n, "parent": str(parent)}))
     print(card_line())
     return 0
@@ -2515,8 +2763,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     if args[:1] == ["--host-us"] and len(args) == 2:
         return host_us_ab(args[1])
-    if args[:1] == ["--codec-ab"] and len(args) == 2:
-        return codec_ab(args[1])
+    if args[:1] == ["--codec-ab"] and len(args) >= 2:
+        return codec_ab(args[1], tuple(args[2:]) or CODEC_AB_STEMS)
     from byteps_tpu_torch.ops.flash_attention import KERNEL_DS
     if WIDTHS != KERNEL_DS:
         raise AssertionError(f"WIDTHS {WIDTHS} != the kernels' {KERNEL_DS}")
@@ -2546,6 +2794,7 @@ def main() -> int:
     check_onebit(_adversarial(), "adversarial vector")
     check_quant()
     check_codec_views()
+    check_fp8_edges()
     timing = time_attention(TRAIN_BATCH, BERT_SEQ, False,
                             ("flash_fwd", "flash_bwd_fused"))
     gpt2_timing = time_attention(TRAIN_BATCH, GPT2_SEQ, True,

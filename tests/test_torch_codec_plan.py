@@ -1,8 +1,10 @@
 """The launch plan of the port's one-wave codec kernels
 (``ops/compression/kernels.py::stream_plan``), on the CPU.
 
-``int8_quantize`` and ``onebit_unpack`` launch ``csrc/int8_quantize.cu``
-and ``csrc/onebit_unpack.cu`` with a plan computed in Python: the elements
+``int8_quantize``, ``onebit_unpack``, ``onebit_pack`` and
+``fp8_sr_quantize`` launch ``csrc/int8_quantize.cu``,
+``csrc/onebit_unpack.cu``, ``csrc/onebit_pack.cu`` and
+``csrc/fp8_sr_quantize.cu`` with a plan computed in Python: the elements
 read one by one before the first 16-byte boundary (the head), the 16-byte
 vectors from there on, the elements left after them (the tail), and a grid
 of one wave at most. The kernels run only on the card
@@ -24,8 +26,9 @@ from byteps_tpu_torch.ops.compression import kernels as ob
 SMS = 132                       # an H100 SXM
 CAP = SMS * ob.CTAS_PER_SM      # one wave
 ELEMS = 4                       # 4-byte elements: a float4 a vector
-KERNELS = {"int8_quantize": ob.QUANT_VECS, "onebit_unpack": ob.UNPACK_VECS}
-PLANS = settings(max_examples=40, deadline=None, database=None,
+KERNELS = {"int8_quantize": ob.QUANT_VECS, "onebit_unpack": ob.UNPACK_VECS,
+           "onebit_pack": ob.PACK_VECS, "fp8_sr_quantize": ob.FP8_VECS}
+PLANS = settings(max_examples=80, deadline=None, database=None,
                  derandomize=True)
 
 sizes = st.integers(1, 5 << 20)
@@ -80,12 +83,36 @@ def test_plan_grid_is_one_wave_at_most(n, addr, kernel):
 
 
 @pytest.mark.parametrize("kernel,grid", [("int8_quantize", 250),
-                                         ("onebit_unpack", 125)])
+                                         ("onebit_unpack", 125),
+                                         ("onebit_pack", 125),
+                                         ("fp8_sr_quantize", 500)])
 def test_a_gradient_bucket_is_one_wave(kernel, grid):
     """The trainer's default bucket (4,096,000 bytes of f32) takes one
     wave, every CTA one pass."""
     plan = ob.stream_plan(1_024_000, 0, SMS, ELEMS, KERNELS[kernel])
     assert plan == ob.StreamPlan(0, 256_000, 0, grid) and grid <= CAP
+
+
+@PLANS
+@given(n=sizes, addr=offsets)
+def test_pack_plan_sizes_the_grid_to_its_instance(n, addr):
+    """Pack's float4 instance takes 8,192 floats a CTA a pass, its
+    4-byte-load instance (a view at a 4-byte offset) 2,048: every CTA
+    makes one pass where one wave holds n, none is idle, and the head,
+    vectors and tail are ``stream_plan``'s."""
+    plan = ob.pack_plan(n, addr, SMS)
+    per_cta = ob.CTA_THREADS * (ob.PACK_SCALARS if addr else
+                                ELEMS * ob.PACK_VECS)
+    assert plan[:3] == ob.stream_plan(n, addr, SMS, ELEMS, ob.PACK_VECS)[:3]
+    assert 1 <= plan.grid <= CAP
+    assert plan.grid * per_cta >= n or plan.grid == CAP
+    assert (plan.grid - 1) * per_cta < n
+
+
+@pytest.mark.parametrize("addr,grid", [(0, 125), (4, 500), (8, 500),
+                                       (12, 500)])
+def test_a_gradient_bucket_is_one_wave_of_either_pack_instance(addr, grid):
+    assert ob.pack_plan(1_024_000, addr, SMS).grid == grid <= CAP
 
 
 @pytest.mark.parametrize("n,addr", [(0, 0), (-1, 0), (8, 2), (8, 16),

@@ -29,6 +29,7 @@ delta bit for bit (the same kernels).
 import pytest
 import torch
 
+import chip_smoke as smoke
 from byteps_tpu_torch.ops import flash_attention as fa
 from byteps_tpu_torch.ops.compression import kernels as ob
 
@@ -659,6 +660,122 @@ def test_one_wave_codecs_on_a_stride_of_waves(cuda):
     words = ob.onebit_pack(x)
     assert torch.equal(_unpack_twice(words, n).view(torch.int32),
                        ob.onebit_unpack_plain(words, n).view(torch.int32))
+
+
+# ------------------------- the one-wave onebit pack and fp8 SR (rows 5, 9)
+#
+# Both launch one wave of 16-byte loads on the same plan (pack: a 4-byte-load
+# instance for a view at a 4-byte offset, whose float4s would straddle
+# words); fp8 SR divides by the host's RN(1 / s) and one fma correction
+# inside a guard, by __fdiv_rn outside it. Every edge, bit for bit, each
+# launch twice; near-carry vectors, where a quotient one ulp off changes
+# bytes, and the guard's edges.
+
+PACK_FP8_SIZES = [1, 3, 4, 31, 32, 33, 127, 128, 129, 1023, 1025, 4097,
+                  1_024_000, 4_096_003]
+
+
+def _twice(fn, counter):
+    n0 = counter.launches
+    a = fn()
+    assert counter.launches == n0 + 1
+    b = fn()
+    assert counter.launches == n0 + 2
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    return a
+
+
+def _pack_and_fp8_match_plain(x):
+    from byteps_tpu_torch.ops.compression import fp8sr
+    words = _twice(lambda: ob.onebit_pack(x), ob.onebit_pack)
+    assert words.dtype == torch.int32 and words.numel() == ob.words_for(
+        x.numel())
+    assert torch.equal(words, ob.onebit_pack_plain(x))
+    amax = x.abs().max().item()
+    for kind in (fp8sr.E4M3, fp8sr.E5M2):
+        s = amax / fp8sr.fmt_max(kind)
+        q = _twice(lambda: ob.fp8_sr_quantize(x, s, 99, kind),
+                   ob.fp8_sr_quantize)
+        assert q.dtype == torch.uint8 and q.shape == x.shape
+        assert torch.equal(q, ob.fp8_sr_quantize_plain(x, s, 99, kind)), kind
+
+
+@pytest.mark.parametrize("n", PACK_FP8_SIZES)
+def test_pack_and_fp8_match_plain_at_every_size(cuda, n):
+    g = torch.Generator(device="cpu").manual_seed(300 + n)
+    x = torch.randn(n, generator=g) * 3
+    x[torch.randint(0, n, (n // 5,), generator=g)] = 0.0   # zeros of both signs
+    x[torch.randint(0, n, (n // 9,), generator=g)] = -0.0
+    _pack_and_fp8_match_plain(x.to(cuda))
+
+
+@pytest.mark.parametrize("n", VIEW_SIZES)
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_pack_and_fp8_of_a_misaligned_view_match_plain(cuda, k, n):
+    """x[k:] starts 4k bytes past a 16-byte boundary: pack takes its
+    4-byte-load instance, fp8 SR peels a head of 4 - k elements and stores
+    its codes 4 - k bytes past q's boundary."""
+    g = torch.Generator(device="cpu").manual_seed(400 + n)
+    x = (torch.randn(n + k, generator=g) * 3).to(cuda)[k:]
+    assert x.data_ptr() % 16 == 4 * k
+    _pack_and_fp8_match_plain(x)
+
+
+def test_pack_and_fp8_on_a_stride_of_waves(cuda):
+    """An n past one wave walks the grid in a stride loop: pack's 132 SMs ·
+    4 CTAs · 2,048 float4s, three times over, from an aligned x (and its
+    4-byte-load instance twelve times over from x[1:])."""
+    n = 3 * ob._sms(cuda) * ob.CTAS_PER_SM * ob.CTA_THREADS * 4 * ob.PACK_VECS
+    g = torch.Generator(device="cpu").manual_seed(6)
+    x = torch.randn(n + 5, generator=g).to(cuda)
+    for xv in (x[:n + 3], x[1:]):
+        assert ob.pack_plan(xv.numel(), xv.data_ptr() % 16,
+                            ob._sms(cuda)).grid == \
+            ob._sms(cuda) * ob.CTAS_PER_SM
+        _pack_and_fp8_match_plain(xv)
+
+
+@pytest.mark.parametrize("s", smoke.FP8_CARRY_SCALES,
+                         ids=["pow2", "all-ones", "no-normal-recip",
+                              "subnormal"])
+@pytest.mark.parametrize("seed", [0, 0xFFFFFFFF, 1234])
+@pytest.mark.parametrize("kind", [0, 1], ids=["e4m3", "e5m2"])
+def test_fp8_near_carry_vectors_match_the_exact_divide(cuda, kind, seed, s):
+    """Where a quotient's low bits plus the noise land within one of a
+    carry, a divide one ulp off flips the byte (random vectors almost
+    never show it): ``chip_smoke.fp8_near_carry``, from x[0] and from
+    x[1:], the noise designed for the view's indices. 3e38 and the
+    subnormal 1e-40 have no normal RN(1/s): every element takes the
+    divide."""
+    import numpy as np
+    xn = smoke.fp8_near_carry(1 << 17, s, seed, kind,
+                              np.random.default_rng(seed % 1000 + kind))
+    for k in (0, 1):
+        x = torch.from_numpy(np.concatenate([np.zeros(k, np.float32), xn])
+                             ).to(cuda)[k:]
+        q = _twice(lambda: ob.fp8_sr_quantize(x, s, seed, kind),
+                   ob.fp8_sr_quantize)
+        assert torch.equal(q, ob.fp8_sr_quantize_plain(x, s, seed, kind)), k
+
+
+@pytest.mark.parametrize("s", smoke.FP8_EDGE_SCALES)
+@pytest.mark.parametrize("kind", [0, 1], ids=["e4m3", "e5m2"])
+def test_fp8_sr_at_the_divide_guards_edges_matches_plain(cuda, kind, s):
+    """``chip_smoke.fp8_guard_edges``: x at the guard's bounds, at
+    2^-100, x / s at the clip and near fp32 overflow, the formats'
+    smallest normals and subnormal quanta times s, each with its
+    neighbours, ±0 and ±inf; from every 4-byte offset, two seeds."""
+    import numpy as np
+    xn = np.tile(smoke.fp8_guard_edges(s, kind), 3)
+    for k in range(4):
+        x = torch.from_numpy(np.concatenate([np.zeros(k, np.float32), xn])
+                             ).to(cuda)[k:]
+        for seed in (0, 1234):
+            q = _twice(lambda: ob.fp8_sr_quantize(x, s, seed, kind),
+                       ob.fp8_sr_quantize)
+            assert torch.equal(q, ob.fp8_sr_quantize_plain(x, s, seed, kind)), \
+                (k, seed)
 
 
 # ------------------------------------- bias and rel-table forms (rows 1, 3, 4)
