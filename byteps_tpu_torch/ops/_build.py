@@ -48,16 +48,19 @@ SIGNATURES = {
                  + [_P, _P]),
     "flash_dkv": ("bps_flash_dkv",
                   [_P] * 8 + [_I] * 5 + [_L] * 8 + [_F, _I] + _BIAS + [_P]),
-    # the four take a launch plan (ops/compression/kernels.py::stream_plan):
-    # head, vectors and grid; before it, bps_onebit_pack (x, words, n,
-    # stream), bps_onebit_unpack (words, out, n, stream), bps_int8_quantize
-    # (x, q, n, scale, stream) and bps_fp8_sr_quantize (x, q, n, scale,
-    # seed, kind, stream)
+    # the five take a launch plan (ops/compression/kernels.py::stream_plan):
+    # head (not unpack and dequantize: their vectors are the output's),
+    # vectors and grid (dequantize then its instance, 1 for word loads);
+    # before it, bps_onebit_pack (x, words, n, stream),
+    # bps_onebit_unpack (words, out, n, stream), bps_int8_quantize (x, q,
+    # n, scale, stream), bps_int8_dequantize (q, out, n, scale, stream) and
+    # bps_fp8_sr_quantize (x, q, n, scale, seed, kind, stream)
     "onebit_pack": ("bps_onebit_pack_planned", [_P, _P, _L, _I, _L, _I, _P]),
     "onebit_unpack": ("bps_onebit_unpack_planned", [_P, _P, _L, _L, _I, _P]),
     "int8_quantize": ("bps_int8_quantize_planned",
                       [_P, _P, _L, _I, _L, _I, _F, _P]),
-    "int8_dequantize": ("bps_int8_dequantize", [_P, _P, _L, _F, _P]),
+    "int8_dequantize": ("bps_int8_dequantize_planned",
+                        [_P, _P, _L, _L, _I, _I, _F, _P]),
     "fp8_sr_quantize": ("bps_fp8_sr_quantize_planned",
                         [_P, _P, _L, _I, _L, _I, _F, ctypes.c_uint, _I, _P]),
 }

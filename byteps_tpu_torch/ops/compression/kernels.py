@@ -39,10 +39,9 @@ close). A wrapper takes its plain version only for a tensor on the CPU.
 A CUDA tensor launches the kernel or raises. Each wrapper counts its
 launches in a plain int attribute, ``launches``.
 
-``onebit_pack``, ``onebit_unpack``, ``int8_quantize`` and
-``fp8_sr_quantize`` launch one wave of 16-byte accesses; ``stream_plan``
-computes where their vectors start and how many CTAs they take, here in
-Python, where the CPU tests reach it.
+All five launch one wave of 16-byte accesses; ``stream_plan`` computes
+where their vectors start and how many CTAs they take, here in Python,
+where the CPU tests reach it.
 """
 
 from __future__ import annotations
@@ -72,6 +71,7 @@ CTAS_PER_SM = 4         # their kMinBlocks: resident CTAs a SM, one wave
 QUANT_VECS = 4          # float4 loads an int8 quantize thread holds in flight
 UNPACK_VECS = 8         # float4 stores an unpack thread issues (32 words a warp)
 PACK_VECS = 8           # float4 loads a pack thread holds (32 words a warp)
+DEQUANT_VECS = 8        # float4 stores a dequantize thread issues
 PACK_SCALARS = 8        # 4-byte loads a thread of pack's view instance
 FP8_VECS = 2            # float4 loads an fp8 SR thread holds in flight
 
@@ -117,6 +117,17 @@ def pack_plan(n: int, addr_mod_16: int, sms: int) -> StreamPlan:
     plan = stream_plan(n, addr_mod_16, sms, 4, PACK_VECS)
     per_cta = CTA_THREADS * (PACK_SCALARS if addr_mod_16 else 4 * PACK_VECS)
     return plan._replace(grid=max(1, min(sms * CTAS_PER_SM, -(-n // per_cta))))
+
+
+def dequantize_reads_words(q_addr: int) -> bool:
+    """Which instance of the dequantize kernel reads codes at the address
+    ``q_addr``: True, the word instance (the four codes of a float4 in one
+    4-byte load), where q is 4-byte aligned, as every q the device encode
+    makes is; False, the byte instance (four 1-byte loads a float4), for
+    a view ``q[k:]`` at any other offset. Both store float4s on the same
+    plan. The wrapper passes the choice to the C entry, which refuses the
+    word instance on a q that is not 4-byte aligned."""
+    return q_addr % 4 == 0
 
 
 def _sms(device: torch.device) -> int:
@@ -325,9 +336,16 @@ def int8_dequantize(q: torch.Tensor, scale) -> torch.Tensor:
         return int8_dequantize_plain(q, scale)
     check_quant_input(q, torch.int8, "int8 dequantize")
     out = torch.empty(q.numel(), dtype=torch.float32, device=q.device)
+    if out.data_ptr() % VEC_BYTES:
+        raise RuntimeError("the int8 dequantize kernel writes 16-byte "
+                           "vectors and torch.empty gave a misaligned output")
+    # the float4s are the output's; q may be a view at any byte offset,
+    # never copied
+    plan = stream_plan(q.numel(), 0, _sms(out.device), 4, DEQUANT_VECS)
     with torch.cuda.device(q.device):
         code = entry("int8_dequantize")(
-            q.data_ptr(), out.data_ptr(), q.numel(),
+            q.data_ptr(), out.data_ptr(), q.numel(), plan.vecs, plan.grid,
+            int(dequantize_reads_words(q.data_ptr())),
             float(np.float32(scale)),
             torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error(code, "int8 dequantize kernel")

@@ -17,9 +17,10 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
      nothing. The same for every codec kernel instance, with its count of
      128-bit global loads and stores (``LDG.E.128``, ``STG.E.128``, any
      modifiers) and bulk copies: it fails on any spill, and unless int8
-     quantize holds a 128-bit load or a bulk copy and onebit unpack a
-     128-bit store or a bulk copy. Then the host cost of one tensor map
-     encode.
+     quantize, fp8 SR and onebit pack hold a 128-bit load and onebit
+     unpack and int8 dequantize a 128-bit store (or a bulk copy), in every
+     instance but pack's 4-byte-load one (``WIDE_EXEMPT``). Then the host
+     cost of one tensor map encode.
   2. kernel checks, each kernel held against its plain PyTorch version on
      the card, with seeded inputs:
        - flash forward and fused backward at the BERT shape (s 512, h 16,
@@ -50,12 +51,14 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          (±0.0, NaN, ±inf, denormals, 77 elements);
        - int8 quantize and dequantize and fp8 stochastic rounding (E4M3
          and E5M2), bit for bit, on the device encode's probe vector, one
-         1,024,000-element bucket and sizes 1 and 128·256 + 3; and the
+         1,024,000-element bucket and sizes 1 and 128·256 + 3 (dequantize
+         launched twice, the same bits); and the
          device encode's payloads of the probe vector against the numpy
          codec (``compress/wire.py``), byte for byte;
-       - int8 quantize of the views ``x[k:]`` and onebit unpack of the
-         views ``words[k:]``, k in 0..3, at one bucket, 4,096,003 and
-         1,025 floats: bit for bit, and two launches the same bits;
+       - int8 and fp8 quantize and onebit pack of the views ``x[k:]``,
+         onebit unpack of ``words[k:]`` and int8 dequantize of ``q[k:]``,
+         k in 0..3, at one bucket, 4,096,003 and 1,025 floats: bit for
+         bit, and two launches the same bits;
        - the two forms only ring attention reaches: the forward with fp32
          out (form 1f) at the BERT shape (b 8, s 512, h 16, d 64) and the
          dh128 shape (h 8, d 128), full and causal, and at b 8, s 1024,
@@ -91,7 +94,9 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
      1024, h 8 causal, the table and dense forms at T5's encoder geometry;
      onebit, int8 and fp8 on one 4,096,000-byte bucket (and, printed
      only, on four buckets at once, beside the harness's floor: an almost
-     empty launch, ``torch.cuda._sleep(0)``, timed the same way); the
+     empty launch, ``torch.cuda._sleep(0)``, timed the same way; pack of
+     ``x[1:]`` and dequantize of ``q[1:]``, their instances for views,
+     under ``view`` in the kernel line); the
      ring's forms
      1f and 2d at the BERT shape (d 64) and the dh128 shape (d 128), full,
      against the library's forward and backward; and each flash
@@ -151,7 +156,9 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
      Losses must be finite and falling. BERT (both widths), dense GPT-2
      and T5 repeat step 1 with ``attn_impl="naive"`` (plain attention on
      the card) as the reference for the loss; every run prints step time,
-     rates, peak memory and one profiled step's device busy/idle split. The compressed run then
+     rates, peak memory and one profiled step's device busy/idle split,
+     its device time by kernel group and each codec kernel's device time
+     and launches. The compressed run then
      holds one step's compressed reduction of real gradients through the
      kernels against the same reduction through their plain versions,
      bit for bit: packed words, scales, decompressed values, error
@@ -177,7 +184,8 @@ PARENT (built here), in turns in one process, as one JSON line.
 
 prints only the device milliseconds of the codec kernels STEM (default
 ``onebit_pack fp8_sr_quantize``; also ``int8_quantize``,
-``onebit_unpack``) on one bucket, this checkout's against those of the
+``onebit_unpack``, ``int8_dequantize``) on one bucket, this checkout's
+against those of the
 checkout at PARENT (built here, each called through its own C entry
 point with its own launch plan), in turns in one process, the int8
 quantize beside ``torch.quantize_per_tensor``, as one JSON line.
@@ -481,7 +489,8 @@ def ptxas_table():
 CODEC_STEMS = ("onebit_pack", "onebit_unpack", "int8_quantize",
                "int8_dequantize", "fp8_sr_quantize")
 WIDE_ACCESS = {"int8_quantize": "LDG.E.128", "onebit_unpack": "STG.E.128",
-               "onebit_pack": "LDG.E.128", "fp8_sr_quantize": "LDG.E.128"}
+               "onebit_pack": "LDG.E.128", "fp8_sr_quantize": "LDG.E.128",
+               "int8_dequantize": "STG.E.128"}
 WIDE_EXEMPT = {("onebit_pack", "onebit_pack_kernel", (0,)):
                "x a view at a 4-byte offset: word boundaries are fixed by "
                "x[0], so its float4s would straddle words; 4-byte loads"}
@@ -978,12 +987,14 @@ def check_quant():
         x = x.to("cuda")
         amax = x.abs().max().item()
         q = ob.int8_quantize(x, amax / 127)
-        d = ob.int8_dequantize(q, amax / 127)
+        d, d2 = ob.int8_dequantize(q, amax / 127), ob.int8_dequantize(
+            q, amax / 127)
         torch.cuda.synchronize()
         same = {"int8 quantize": torch.equal(
                     q, ob.int8_quantize_plain(x, amax / 127)),
                 "int8 dequantize": _same_bits(
-                    d, ob.int8_dequantize_plain(q, amax / 127))}
+                    d, ob.int8_dequantize_plain(q, amax / 127)),
+                "int8 dequantize relaunch": _same_bits(d, d2)}
         for kind, kname in ((fp8sr.E4M3, "e4m3"), (fp8sr.E5M2, "e5m2")):
             s = amax / fp8sr.fmt_max(kind)
             for seed in (0, 0xFFFFFFFF):
@@ -1004,12 +1015,13 @@ def check_quant():
 
 
 def check_codec_views():
-    """The four one-wave kernels on what their plans peel: int8 quantize,
+    """The five one-wave kernels on what their plans peel: int8 quantize,
     fp8 SR (E4M3) and onebit pack of ``x[k:]`` (a head of 4 - k elements
     before the first 16-byte vector, the codes then misaligned; pack's
-    4-byte-load instance) and onebit unpack of ``words[k:]`` (4-byte loads
-    at any offset, a masked tail), k in 0..3, on one bucket and odd sizes;
-    bit for bit their plain versions, and launched twice, the same
+    4-byte-load instance), onebit unpack of ``words[k:]`` (4-byte loads
+    at any offset, a masked tail) and int8 dequantize of ``q[k:]`` (the
+    byte-load instance for k > 0), k in 0..3, on one bucket and odd
+    sizes; bit for bit their plain versions, and launched twice, the same
     bits."""
     from byteps_tpu_torch.ops.compression import fp8sr
     from byteps_tpu_torch.ops.compression import kernels as ob
@@ -1018,9 +1030,9 @@ def check_codec_views():
         x = (torch.randn(n + 3, generator=g) * 3).cuda()
         s = x.abs().max().item() / 127
         sf = x.abs().max().item() / fp8sr.fmt_max(fp8sr.E4M3)
-        words = ob.onebit_pack(x)
+        words, q = ob.onebit_pack(x), ob.int8_quantize(x, s)
         for k in range(4):
-            xk, wk, m = x[k:], words[k:], n - 32 * k
+            xk, wk, qk, m = x[k:], words[k:], q[k:], n - 32 * k
             runs = {
                 "int8 quantize": (lambda: ob.int8_quantize(xk, s),
                                   lambda: ob.int8_quantize_plain(xk, s)),
@@ -1031,7 +1043,9 @@ def check_codec_views():
                 "onebit pack": (lambda: ob.onebit_pack(xk),
                                 lambda: ob.onebit_pack_plain(xk)),
                 "onebit unpack": (lambda: ob.onebit_unpack(wk, m),
-                                  lambda: ob.onebit_unpack_plain(wk, m))}
+                                  lambda: ob.onebit_unpack_plain(wk, m)),
+                "int8 dequantize": (lambda: ob.int8_dequantize(qk, s),
+                                    lambda: ob.int8_dequantize_plain(qk, s))}
             same = {}
             for key, (kernel, plain) in runs.items():
                 a, b = kernel(), kernel()
@@ -1040,7 +1054,8 @@ def check_codec_views():
                 same[f"{key} relaunch"] = _same_bits(a, b)
             log(f"[check codec views n {n} k {k}] int8 and fp8 quantize and "
                 f"onebit pack of x[{k}:] ({xk.numel()} floats), onebit "
-                f"unpack of words[{k}:] ({m} floats): " + ", ".join(
+                f"unpack of words[{k}:] ({m} floats), int8 dequantize of "
+                f"q[{k}:] ({qk.numel()} codes): " + ", ".join(
                     f"{key} {'bit-identical' if v else 'DIFFERS'}"
                     for key, v in same.items()))
             if not all(same.values()):
@@ -1389,13 +1404,27 @@ def _log_4x(name, kernel, bound, flush):
         f"of the bound")
 
 
+def _time_view(name, what, kernel, bound, flush):
+    """A codec kernel's instance for a view at an offset the aligned one
+    does not take, timed on one bucket and printed; returned for the
+    kernel line's ``view``."""
+    ms = time_ms(kernel, flush=flush)
+    log(f"[time {name} {what}] kernel {ms:.4f} ms, bound "
+        f"{bound['bound_ms']:.4f} ms; kernel at {bound['bound_ms'] / ms:.1%} "
+        f"of the bound")
+    return {"input": what, "ms": ms, "bound_ms": bound["bound_ms"]}
+
+
 def time_onebit(n=BUCKET_FLOATS):
     """Pack and unpack of one default-sized bucket (no single PyTorch call
     computes either: library "none"); each kernel also at four buckets,
-    printed only."""
+    printed only; pack also of a view ``x[1:]``, its 4-byte-load
+    instance."""
     from byteps_tpu_torch.ops.compression import kernels as ob
     x = torch.randn(n, generator=torch.Generator().manual_seed(31)).cuda()
     x4 = torch.randn(4 * n, generator=torch.Generator().manual_seed(35)).cuda()
+    x1 = torch.randn(n + 1, generator=torch.Generator().manual_seed(37)
+                     ).cuda()[1:]
     words, words4 = ob.onebit_pack(x), ob.onebit_pack(x4)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     bd, bd4 = onebit_bounds(n), onebit_bounds(4 * n)
@@ -1413,6 +1442,13 @@ def time_onebit(n=BUCKET_FLOATS):
         _log_time(name, f"n {n}", r)
         _log_4x(name, kernel4, bd4[name], flush)
         res[name] = r
+    addr = x1.data_ptr() % ob.VEC_BYTES
+    if not addr:
+        raise AssertionError("x[1:] is 16-byte aligned: no 4-byte instance")
+    grid = ob.pack_plan(n, addr, ob._sms(x1.device)).grid
+    res["onebit_pack"]["view"] = _time_view(
+        "onebit_pack", f"x[1:] n {n} (4-byte-load instance, {grid} CTAs)",
+        lambda: ob.onebit_pack(x1), bd["onebit_pack"], flush)
     return res
 
 
@@ -1464,7 +1500,8 @@ def time_quant(n=BUCKET_FLOATS):
     computing the same function (``torch.mul`` by a 0-dim f32 scale); the
     other two are timed beside the single call nearest to them, which
     counts as their library call only where it gives the kernel's bytes
-    on this bucket. Each kernel also at four buckets, printed only."""
+    on this bucket. Each kernel also at four buckets, printed only;
+    dequantize also of a view ``q[1:]``, its byte-load instance."""
     from byteps_tpu_torch.ops.compression import fp8sr
     from byteps_tpu_torch.ops.compression import kernels as ob
     x = torch.randn(n, generator=torch.Generator().manual_seed(33)).cuda()
@@ -1472,6 +1509,8 @@ def time_quant(n=BUCKET_FLOATS):
     amax = x.abs().max().item()
     s8, sf = amax / 127, amax / fp8sr.fmt_max(fp8sr.E4M3)
     q, q4 = ob.int8_quantize(x, s8), ob.int8_quantize(x4, s8)
+    q1 = torch.empty(n + 1, dtype=torch.int8, device="cuda")[1:]
+    q1.copy_(q)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     bd, bd4 = quant_bounds(n), quant_bounds(4 * n)
     at_4x = {"int8_quantize": lambda: ob.int8_quantize(x4, s8),
@@ -1529,6 +1568,11 @@ def time_quant(n=BUCKET_FLOATS):
                     "the same bytes on this bucket, its library time"
                     if differ == 0 else "not the same function"))
         res[name] = r
+    if ob.dequantize_reads_words(q1.data_ptr()):
+        raise AssertionError("q[1:] is 4-byte aligned: no byte-load instance")
+    res["int8_dequantize"]["view"] = _time_view(
+        "int8_dequantize", f"q[1:] n {n} (byte-load instance)",
+        lambda: ob.int8_dequantize(q1, s8), bd["int8_dequantize"], flush)
     return res
 
 
@@ -1673,18 +1717,24 @@ def host_us_ab(parent) -> int:
 # the codec entry points before the launch plan, as ``_build.SIGNATURES``
 # had them: bps_int8_quantize (x, q, n, scale, stream), bps_onebit_unpack
 # (words, out, n, stream), bps_onebit_pack (x, words, n, stream),
-# bps_fp8_sr_quantize (x, q, n, scale, seed, kind, stream)
+# bps_fp8_sr_quantize (x, q, n, scale, seed, kind, stream),
+# bps_int8_dequantize (q, out, n, scale, stream)
 _P, _L, _F, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, \
     ctypes.c_int
 BEFORE_PLAN = {"int8_quantize": ("bps_int8_quantize", [_P, _P, _L, _F, _P]),
                "onebit_unpack": ("bps_onebit_unpack", [_P, _P, _L, _P]),
                "onebit_pack": ("bps_onebit_pack", [_P, _P, _L, _P]),
                "fp8_sr_quantize": ("bps_fp8_sr_quantize",
-                                   [_P, _P, _L, _F, ctypes.c_uint, _I, _P])}
+                                   [_P, _P, _L, _F, ctypes.c_uint, _I, _P]),
+               "int8_dequantize": ("bps_int8_dequantize",
+                                   [_P, _P, _L, _F, _P])}
 # the plan constant of each planned codec kernel in ops/compression/
 # kernels.py (float4s a thread), read from each side's own checkout
 PLAN_VECS = {"int8_quantize": "QUANT_VECS", "onebit_unpack": "UNPACK_VECS",
-             "onebit_pack": "PACK_VECS", "fp8_sr_quantize": "FP8_VECS"}
+             "onebit_pack": "PACK_VECS", "fp8_sr_quantize": "FP8_VECS",
+             "int8_dequantize": "DEQUANT_VECS"}
+# the planned entries that take no head: their vectors are the output's
+NO_HEAD = ("onebit_unpack", "int8_dequantize")
 CODEC_AB_STEMS = ("onebit_pack", "fp8_sr_quantize")
 
 
@@ -1747,9 +1797,10 @@ def codec_ab(parent, stems=CODEC_AB_STEMS) -> int:
     here with the same flags) and of this checkout, on one bucket (the
     phase-3 data), in one process: five rounds of parent, change, change,
     parent, each a ``time_ms`` (median of 30 launches, L2 flushed);
-    ``torch.quantize_per_tensor`` once a round beside the int8 quantize.
-    Each side is called through its own C entry point with its own plan:
-    this checkout's takes the launch plan (``_build.SIGNATURES``), a
+    ``torch.quantize_per_tensor`` once a round beside the int8 quantize,
+    ``torch.mul`` by the 0-dim scale beside the dequantize. Each side is
+    called through its own C entry point with its own plan: this
+    checkout's takes the launch plan (``_build.SIGNATURES``), a
     PARENT library without that entry is called as before the plan
     (``BEFORE_PLAN``), and each side's plan takes the float4s a thread its
     own kernels.py states. Both sides must give the same bytes. Prints the
@@ -1773,12 +1824,13 @@ def codec_ab(parent, stems=CODEC_AB_STEMS) -> int:
     x = torch.randn(n, generator=torch.Generator().manual_seed(33)).cuda()
     amax = x.abs().max().item()
     s8, sf = amax / 127, amax / fp8sr.fmt_max(fp8sr.E4M3)
-    words = ob.onebit_pack(x)
+    words, q = ob.onebit_pack(x), ob.int8_quantize(x, s8)
     stream = torch.cuda.current_stream().cuda_stream
     sms = ob._sms(x.device)
     xa = x.data_ptr() % ob.VEC_BYTES
     # per stem: its input's address offset, its output, and its arguments
-    # before and after the plan (between them the plan's head, vecs, grid)
+    # before and after the plan (between them the plan's head, vecs, grid
+    # and dequantize's instance)
     io = {"int8_quantize": (xa, lambda: torch.empty(n, dtype=torch.int8,
                                                      device="cuda"),
                             lambda o: ((x.data_ptr(), o, n), (s8,))),
@@ -1791,7 +1843,9 @@ def codec_ab(parent, stems=CODEC_AB_STEMS) -> int:
           "fp8_sr_quantize": (xa, lambda: torch.empty(n, dtype=torch.uint8,
                                                       device="cuda"),
                               lambda o: ((x.data_ptr(), o, n),
-                                         (sf, 1234, fp8sr.E4M3)))}
+                                         (sf, 1234, fp8sr.E4M3))),
+          "int8_dequantize": (0, lambda: torch.empty(n, device="cuda"),
+                              lambda o: ((q.data_ptr(), o, n), (s8,)))}
     outs = {side: {stem: io[stem][1]() for stem in stems}
             for side in ("parent", "change")}
 
@@ -1801,8 +1855,10 @@ def codec_ab(parent, stems=CODEC_AB_STEMS) -> int:
         if vecs is None:                       # before the plan
             return lambda: fn(*lead, *rest, stream)
         p = ob.stream_plan(n, addr, sms, 4, vecs)
-        plan = ((p.vecs, p.grid) if stem == "onebit_unpack"
+        plan = ((p.vecs, p.grid) if stem in NO_HEAD
                 else (p.head, p.vecs, p.grid))
+        if stem == "int8_dequantize":
+            plan += (int(ob.dequantize_reads_words(q.data_ptr())),)
         return lambda: fn(*lead, *plan, *rest, stream)
 
     sides = {"parent": {}, "change": {}}
@@ -1847,21 +1903,24 @@ def codec_ab(parent, stems=CODEC_AB_STEMS) -> int:
                                  "kernels give other bytes")
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     runs = {side: {stem: [] for stem in stems} for side in sides}
-    library = []
+    s_t = ob._scale_on(s8, x.device)
+    library = {stem: fn for stem, fn in (
+        ("int8_quantize",
+         lambda: torch.quantize_per_tensor(x, s8, 0, torch.qint8)),
+        ("int8_dequantize", lambda: torch.mul(q, s_t))) if stem in stems}
+    library_runs = {stem: [] for stem in library}
     for _ in range(5):
         for side in ("parent", "change", "change", "parent"):
             for stem in stems:
                 runs[side][stem].append(time_ms(sides[side][stem],
                                                 flush=flush))
-        if "int8_quantize" in stems:
-            library.append(time_ms(
-                lambda: torch.quantize_per_tensor(x, s8, 0, torch.qint8),
-                flush=flush))
+        for stem, fn in library.items():
+            library_runs[stem].append(time_ms(fn, flush=flush))
     stat = lambda v: {"least": min(v), "median": statistics.median(v)}
     res = {stem: {side: stat(runs[side][stem]) for side in sides}
            for stem in stems}
-    if library:
-        res["int8_quantize"]["library"] = stat(library)
+    for stem, v in library_runs.items():
+        res[stem]["library"] = stat(v)
     if sass_path:
         res["fp8_sr_quantize"]["sass_per_element"] = sass_path
     print(json.dumps({"codec_ab_ms": res, "n": n, "parent": str(parent)}))
@@ -1871,11 +1930,20 @@ def codec_ab(parent, stems=CODEC_AB_STEMS) -> int:
 
 # ------------------------------------------------------------- phase 4
 
+# each codec kernel (a stem of ``CODEC_STEMS``) by its kernel's name, a
+# substring of what the profiler reports
+CODEC_KERNEL_NAMES = {"onebit_pack": "onebit_pack_kernel",
+                      "onebit_unpack": "onebit_unpack_kernel",
+                      "int8_quantize": "int8_quantize_kernel",
+                      "int8_dequantize": "int8_dequantize_kernel",
+                      "fp8_sr_quantize": "fp8_sr_kernel"}
 _KERNEL_GROUPS = (      # first match wins; names as the profiler reports them
     ("flash (port)", ("flash_fwd_kernel", "flash_bwd_")),
-    ("onebit (port)", ("onebit_",)),
-    ("quantize (port)", ("int8_quantize_kernel", "int8_dequantize_kernel",
-                         "fp8_sr_kernel")),
+    ("onebit (port)", tuple(CODEC_KERNEL_NAMES[s] for s in
+                            ("onebit_pack", "onebit_unpack"))),
+    ("quantize (port)", tuple(CODEC_KERNEL_NAMES[s] for s in
+                              ("int8_quantize", "int8_dequantize",
+                               "fp8_sr_quantize"))),
     ("nccl", ("nccl",)),
     ("matmul", ("gemm", "xmma", "cutlass", "matmul", "nvjet", "sm90_")),
     ("optimizer", ("multi_tensor", "adam", "foreach")),
@@ -1887,9 +1955,24 @@ _KERNEL_GROUPS = (      # first match wins; names as the profiler reports them
 )
 
 
+def codec_in_step(kernels):
+    """Device ms and launches of each codec kernel among ``kernels`` (the
+    (name, µs) pairs of a profiled step's device work), by stem; a kernel
+    that did not run is left out."""
+    out = {}
+    for name, us in kernels:
+        for stem, kname in CODEC_KERNEL_NAMES.items():
+            if kname in name:
+                r = out.setdefault(stem, {"ms": 0.0, "launches": 0})
+                r["ms"] += us / 1e3
+                r["launches"] += 1
+    return out
+
+
 def profile_step(trainer, data, tag):
-    """One more step under torch.profiler: device time by kernel group and
-    the device's idle share of the step's wall time."""
+    """One more step under torch.profiler: device time by kernel group,
+    each codec kernel's device time and launches, and the device's idle
+    share of the step's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1933,8 +2016,15 @@ def profile_step(trainer, data, tag):
         log(f"[profile {tag}]   {g:24s} {us / 1e3:9.3f} ms  {us / total:6.1%}")
     for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:12]:
         log(f"[profile {tag}]   top {us / 1e3:9.3f} ms  {name[:110]}")
+    codec = codec_in_step((e.name, e.time_range.end - e.time_range.start)
+                          for e in kernels)
+    for stem, r in codec.items():
+        log(f"[profile {tag}]   codec {stem:16s} {r['ms']:9.3f} ms over "
+            f"{r['launches']} launches ({r['ms'] * 1e3 / r['launches']:.2f} "
+            f"µs each)")
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
-            "idle_share": 1 - busy / wall_us, "device_ops": len(kernels)}
+            "idle_share": 1 - busy / wall_us, "device_ops": len(kernels),
+            "codec": codec}
 
 
 def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
@@ -2494,8 +2584,9 @@ def kernel_entry(name, paths, worst, timing, card, ptxas, d=None):
         "tolerance": ("bit for bit" if name in BITWISE
                       else f"max err <= {REL_TOL} * max|plain|"),
     }
-    if "considered" in t:
-        entry["considered"] = t["considered"]
+    for key in ("considered", "view"):
+        if key in t:
+            entry[key] = t[key]
     source = SOURCES[name].split("/", 1)[1]
     if d is not None:
         entry["head_dim"] = d

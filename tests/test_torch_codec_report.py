@@ -3,7 +3,9 @@ gate of phase 1's codec table (no spill, and the 16-byte access each
 one-wave kernel's design must hold in every instance but pack's 4-byte
 one, which the report names exempt), the common-path instruction count
 that ``--codec-ab`` prints for fp8 SR, fp8's INT32 operations in its bound,
-and the plan constant ``--codec-ab`` reads from another checkout. The
+the plan constant and parent entries ``--codec-ab`` reads from another
+checkout, and each codec kernel's time and launches in phase 4's profiled
+step. The
 inputs are synthetic ptxas logs and SASS listings shaped as nvcc and
 cuobjdump write them; the card's own are read on the chip. No
 tolerance but the bound's float rounding."""
@@ -22,13 +24,17 @@ KERNELS = {
                     f"{NS}18onebit_pack_kernelILb1EEEvPKfPjxx"],
     "onebit_unpack": [f"{NS}20onebit_unpack_kernelEPKjPfxx"],
     "int8_quantize": [f"{NS}20int8_quantize_kernelILb1EEEvPKfPaxix9Int8Codes"],
-    "int8_dequantize": [f"{NS}22int8_dequantize_kernelEPKaPfxf"],
+    "int8_dequantize": [f"{NS}22int8_dequantize_kernelILb0EEEvPKaPfxxf",
+                        f"{NS}22int8_dequantize_kernelILb1EEEvPKaPfxxf"],
     "fp8_sr_quantize": [f"{NS}13fp8_sr_kernelILi3ELi121ELb1EEEvPKfPhxix8Fp8C"],
 }
 WIDE = {"onebit_pack": "LDG.E.128.CONSTANT R8, desc[UR4][R2.64]",
         "onebit_unpack": "STG.E.128 desc[UR4][R2.64], R8",
         "int8_quantize": "LDG.E.128.CONSTANT R8, desc[UR4][R2.64]",
-        "fp8_sr_quantize": "LDG.E.128.CONSTANT R8, desc[UR4][R2.64]"}
+        "fp8_sr_quantize": "LDG.E.128.CONSTANT R8, desc[UR4][R2.64]",
+        "int8_dequantize": "STG.E.128 desc[UR4][R2.64], R8"}
+# the one instance the gate exempts: pack's 4-byte-load one
+EXEMPT = KERNELS["onebit_pack"][0]
 
 
 def _log(names, spill=0):
@@ -65,7 +71,7 @@ def _keep(tmp_path, monkeypatch, drop=(), spill=None):
             _log(names, 8 if stem == spill else 0))
         _build._sass_path(stem).write_text(_listing({
             name: (["LDG.E.CONSTANT R8, desc[UR4][R2.64]"]
-                   if "ILb0E" in name or name in drop
+                   if name == EXEMPT or name in drop
                    else [WIDE.get(stem, "LDG.E R8, desc[UR4][R2.64]")])
             + ["EXIT"] for name in names}))
 
@@ -78,12 +84,17 @@ def test_codec_table_names_packs_four_byte_instance_exempt(tmp_path,
     assert rows[("onebit_pack_kernel", (0,))]["ldg.e.128"] == 0
     assert rows[("onebit_pack_kernel", (1,))]["ldg.e.128"] == 1
     assert rows[("fp8_sr_kernel", (3, 121, 1))]["ldg.e.128"] == 1
+    # dequantize's byte-load instance is not exempt: it stores float4s
+    assert rows[("int8_dequantize_kernel", (0,))]["stg.e.128"] == 1
+    assert rows[("int8_dequantize_kernel", (1,))]["stg.e.128"] == 1
     assert set(chip_smoke.WIDE_ACCESS) == set(WIDE)
 
 
 @pytest.mark.parametrize("stem,index", [("onebit_pack", 1),
                                         ("fp8_sr_quantize", 0),
-                                        ("int8_quantize", 0)])
+                                        ("int8_quantize", 0),
+                                        ("int8_dequantize", 0),
+                                        ("int8_dequantize", 1)])
 def test_codec_table_fails_a_wide_instance_without_its_access(
         tmp_path, monkeypatch, stem, index):
     _keep(tmp_path, monkeypatch, drop=(KERNELS[stem][index],))
@@ -154,3 +165,41 @@ def test_codec_ab_reads_each_sides_plan_constant(tmp_path):
     assert chip_smoke._plan_vecs(tmp_path, "onebit_pack", 3) == 3
     assert chip_smoke._plan_vecs(chip_smoke.ROOT, "fp8_sr_quantize",
                                  0) == ob.FP8_VECS
+    assert chip_smoke._plan_vecs(chip_smoke.ROOT, "int8_dequantize",
+                                 0) == ob.DEQUANT_VECS
+
+
+def test_codec_ab_knows_every_codec_kernel_before_and_after_the_plan():
+    """Every codec kernel can be timed against a parent: its plan constant,
+    its entry before the plan (dequantize's (q, out, n, scale, stream)),
+    and the planned entry's arguments, the plan's head only where the
+    vectors are the input's (dequantize's instance after the grid)."""
+    assert set(chip_smoke.PLAN_VECS) == set(chip_smoke.BEFORE_PLAN) == set(
+        chip_smoke.CODEC_STEMS)
+    P, L, F, I = chip_smoke._P, chip_smoke._L, chip_smoke._F, chip_smoke._I
+    assert chip_smoke.BEFORE_PLAN["int8_dequantize"] == (
+        "bps_int8_dequantize", [P, P, L, F, P])
+    assert _build.SIGNATURES["int8_dequantize"] == (
+        "bps_int8_dequantize_planned", [P, P, L, L, I, I, F, P])
+    for stem in chip_smoke.CODEC_STEMS:
+        _, args = _build.SIGNATURES[stem]
+        head = stem not in chip_smoke.NO_HEAD
+        assert args[2:5 + head] == [L] + [I] * head + [L, I], stem
+
+
+def test_codec_in_step_splits_dequantize_from_quantize():
+    """Phase 4's per-kernel line: names as the profiler reports them, each
+    launch counted once under its own stem, other kernels left out."""
+    ns = "void (anonymous namespace)::"
+    events = [(f"{ns}int8_quantize_kernel<true, Int8Codes>(float const*, "
+               "signed char*, long long, int, long long, float)", 4.0),
+              (f"{ns}int8_dequantize_kernel<true>(signed char const*, "
+               "float*, long long, long long, float)", 3.0),
+              (f"{ns}int8_dequantize_kernel<true>(signed char const*, "
+               "float*, long long, long long, float)", 5.0),
+              ("void at::native::vectorized_elementwise_kernel<4>", 9.0),
+              (f"{ns}fp8_sr_kernel<3, 121, true>(float const*)", 7.0)]
+    got = chip_smoke.codec_in_step(events)
+    assert got == {"int8_quantize": {"ms": 0.004, "launches": 1},
+                   "int8_dequantize": {"ms": 0.008, "launches": 2},
+                   "fp8_sr_quantize": {"ms": 0.007, "launches": 1}}

@@ -778,6 +778,133 @@ def test_fp8_sr_at_the_divide_guards_edges_matches_plain(cuda, kind, s):
                 (k, seed)
 
 
+# ------------------------------------ the one-wave int8 dequantize (row 8)
+#
+# One wave of float4 stores on the output's plan (no head); codes from one
+# aligned word a float4 where q is 4-byte aligned, four 1-byte loads from a
+# view q[k:] at any other offset, the instance picked by the wrapper.
+# out = RN((float) q · s), bit for bit, each launch twice.
+
+def _dequantize_twice(q, s):
+    d = _twice(lambda: ob.int8_dequantize(q, s).view(torch.int32),
+               ob.int8_dequantize)
+    assert d.shape == q.shape
+    return d
+
+
+def _codes(n, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randint(-127, 128, (n,), generator=g, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("n", VIEW_SIZES)
+@pytest.mark.parametrize("k", range(16))
+def test_int8_dequantize_of_a_view_matches_plain(cuda, k, n, monkeypatch):
+    """q[k:] starts k bytes past a 16-byte boundary: the wrapper passes
+    the C entry the word instance for k % 4 == 0, the byte instance
+    otherwise; out is the wrapper's own, aligned."""
+    real, picked = ob.entry, []
+
+    def spy(stem):
+        fn = real(stem)
+        if stem != "int8_dequantize":
+            return fn
+        return lambda *a: picked.append(a[5]) or fn(*a)
+
+    monkeypatch.setattr(ob, "entry", spy)
+    q = _codes(n + k, 500 + n).to(cuda)[k:]
+    assert q.data_ptr() % 16 == k
+    s = 3.7 / 127
+    assert torch.equal(_dequantize_twice(q, s),
+                       ob.int8_dequantize_plain(q, s).view(torch.int32))
+    assert picked == [int(k % 4 == 0)] * 2
+
+
+@pytest.mark.parametrize("n", VIEW_SIZES)
+def test_int8_dequantize_instances_agree_on_an_aligned_q(cuda, n):
+    """Forced through the C entry on an aligned q, the byte instance gives
+    the word instance's bits, and both the plain version's."""
+    from byteps_tpu_torch.ops import _build
+    fn = _build.entry("int8_dequantize")
+    q = _codes(n, 900 + n).to(cuda)
+    plan = ob.stream_plan(n, 0, ob._sms(cuda), 4, ob.DEQUANT_VECS)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    s = 3.7 / 127
+    want = ob.int8_dequantize_plain(q, s).view(torch.int32)
+    for words in (1, 0):
+        out = torch.empty(n, device=cuda)
+        _build.raise_on_error(fn(q.data_ptr(), out.data_ptr(), n, plan.vecs,
+                                 plan.grid, words, s, stream),
+                              f"int8 dequantize, words {words}")
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int32), want), words
+
+
+@pytest.mark.parametrize("k", [0, 1])
+def test_int8_dequantize_on_a_stride_of_waves(cuda, k):
+    """One wave (132 SMs · 4 CTAs · 2,048 float4s) and one float4 more,
+    then a tail of 1: CTA 0 walks a second pass and writes the tail; both
+    instances."""
+    wave = ob._sms(cuda) * ob.CTAS_PER_SM * ob.CTA_THREADS * ob.DEQUANT_VECS
+    n = 4 * wave + 5
+    q = _codes(n + k, 7).to(cuda)[k:]
+    plan = ob.stream_plan(n, 0, ob._sms(cuda), 4, ob.DEQUANT_VECS)
+    assert plan == ob.StreamPlan(0, wave + 1, 1, ob._sms(cuda) *
+                                 ob.CTAS_PER_SM)
+    s = 0.0123
+    assert torch.equal(_dequantize_twice(q, s),
+                       ob.int8_dequantize_plain(q, s).view(torch.int32))
+
+
+@pytest.mark.parametrize("s", [3.7 / 127, 1.0, 0.0, 1e-30, 1e-40],
+                         ids=["amax", "one", "zero", "tiny", "subnormal"])
+@pytest.mark.parametrize("k", [0, 1, 2, 3])
+def test_int8_dequantize_edges_match_plain_in_every_view(cuda, k, s):
+    """The codes ±127, 0 and -1 (and all 255 codes) at the codec's scale,
+    1, 0 (the scale is taken as given), 1e-30 and the subnormal 1e-40,
+    whose products with |q| <= 117 stay subnormal (no flush to zero),
+    from every byte offset."""
+    codes = torch.tensor([127, -127, 0, -1, 1], dtype=torch.int8)
+    q = torch.cat([codes.repeat(7), torch.arange(-127, 128).to(torch.int8)
+                   ]).to(cuda)[k:]
+    d = _dequantize_twice(q, s)
+    assert torch.equal(d, ob.int8_dequantize_plain(q, s).view(torch.int32))
+    if s == 1e-40:
+        f = d.view(torch.float32)
+        assert (f[q != 0] != 0).all()      # no product flushed to zero
+
+
+def test_int8_dequantize_entry_refuses_what_its_plan_does_not_cover(cuda):
+    """The C entry returns cudaErrorInvalidValue (1), and launches
+    nothing, for a plan that does not cover [0, n) as vecs float4s and a
+    tail of 0-3, a misaligned out, no CTA, or the word instance on a q
+    that is not 4-byte aligned."""
+    from byteps_tpu_torch.ops import _build
+    fn = _build.entry("int8_dequantize")
+    n = 17
+    q = _codes(n + 1, 3).to(cuda)
+    qa, o = q.data_ptr(), torch.full((n + 4,), 7.0, device=cuda)
+    out = o.data_ptr()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    bad = [(qa, out, n, 5, 1, 1),        # 20 elements > 17
+           (qa, out, n, 3, 1, 1),        # a tail of 5
+           (qa, out, n, -1, 1, 1),
+           (qa, out, 0, 0, 1, 1),
+           (qa, out, n, 4, 0, 1),        # no CTA
+           (qa, out + 4, n, 4, 1, 1),    # out misaligned
+           (qa + 1, out, n, 4, 1, 1)]    # words from a misaligned q
+    for args in bad:
+        assert fn(*args, 1.0, stream) == 1, args
+    torch.cuda.synchronize()
+    assert (o == 7.0).all()
+    assert fn(qa + 1, out, n, 4, 1, 0, 1.0, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(o[:n], q[1:].to(torch.float32))
+    assert fn(qa, out, n, 4, 1, 1, 1.0, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(o[:n], q[:n].to(torch.float32))
+
+
 # ------------------------------------- bias and rel-table forms (rows 1, 3, 4)
 
 FORM_CASES = [  # (b, sq, sk, h, causal, form, nb, max_distance)
