@@ -26,6 +26,13 @@ package, resolved once into a frozen ``Config``:
   BPS_WATCHDOG_SEC         (the stall watchdog: not ported, > 0 raises)
   BPS_PP_STAGES            (pipeline depth: DistributedTrainer raises
                              above 1, as the JAX trainer does)
+  BYTEPS_SCHEDULING_CREDIT → BPS_SCHEDULING_CREDIT (bytes of bucket
+                             collectives in flight before the engine's
+                             synchronous push_pull waits; 0 = no limit)
+  BYTEPS_TELEMETRY_ON      → BPS_TELEMETRY_ON    (the push_pull MB/s
+                             window behind ``get_pushpull_speed``)
+  BYTEPS_DEBUG_SAMPLE_TENSOR → BPS_DEBUG_SAMPLE_TENSOR (push_pull names
+                             holding it log their results' mean and std)
 
 The knobs of ``REFUSED`` select behaviour the port does not have yet:
 at their defaults they change nothing, and any other value raises
@@ -73,9 +80,6 @@ REFUSED = {
     "role": ("BPS_ROLE", "DMLC_ROLE", "worker", str,
              "a server or scheduler process (the port runs workers, its "
              "server in-process)"),
-    "scheduling_credit": ("BPS_SCHEDULING_CREDIT",
-                          "BYTEPS_SCHEDULING_CREDIT", 0, int,
-                          "the credit-limited push scheduler"),
     "host_only": ("BPS_HOST_ONLY", None, False, bool,
                   "the host-only runtime"),
     "key_hash_fn": ("BPS_KEY_HASH_FN", "BYTEPS_KEY_HASH_FN", "djb2", str,
@@ -84,11 +88,6 @@ REFUSED = {
                        "the sharded weight update"),
     "trace_on": ("BPS_TRACE_ON", "BYTEPS_TRACE_ON", False, bool,
                  "the step-window tracer"),
-    "telemetry_on": ("BPS_TELEMETRY_ON", "BYTEPS_TELEMETRY_ON", False, bool,
-                     "telemetry"),
-    "debug_sample_tensor": ("BPS_DEBUG_SAMPLE_TENSOR",
-                            "BYTEPS_DEBUG_SAMPLE_TENSOR", "", str,
-                            "the engine's debug tensor sampling"),
     "stats_file": ("BPS_STATS_FILE", None, "", str,
                    "the rolling StepStats dump"),
     "fleet_scrape_sec": ("BPS_FLEET_SCRAPE_SEC", None, 0.0, float,
@@ -137,6 +136,9 @@ class Config:
     compress: str = "none"               # BPS_COMPRESS
     watchdog_sec: float = 0.0            # BPS_WATCHDOG_SEC (0 = off)
     pp_stages: int = 1                   # BPS_PP_STAGES (1 = no pipeline)
+    scheduling_credit: int = 0           # 0 = disabled, scheduled_queue.cc:35-45
+    telemetry_on: bool = False
+    debug_sample_tensor: str = ""        # BYTEPS_DEBUG_SAMPLE_TENSOR
 
     @staticmethod
     def from_env(**overrides) -> "Config":
@@ -159,6 +161,11 @@ class Config:
             compress=(_env("BPS_COMPRESS", None, "none") or "none").lower(),
             watchdog_sec=float(_env("BPS_WATCHDOG_SEC", None, "0") or 0),
             pp_stages=_env_int("BPS_PP_STAGES", None, 1),
+            scheduling_credit=_env_int("BPS_SCHEDULING_CREDIT",
+                                       "BYTEPS_SCHEDULING_CREDIT", 0),
+            telemetry_on=_env_bool("BPS_TELEMETRY_ON", "BYTEPS_TELEMETRY_ON"),
+            debug_sample_tensor=_env("BPS_DEBUG_SAMPLE_TENSOR",
+                                     "BYTEPS_DEBUG_SAMPLE_TENSOR", ""),
         )
         cfg.update(overrides)
         return Config(**cfg)

@@ -6,10 +6,17 @@ resolves the env ``Config``, picks the process's device, and joins the
 ``torch.distributed`` process group (NCCL for a CUDA device, gloo for the
 CPU). A world of one needs no process group at all.
 
-With ``BPS_ENABLE_PS`` (the sync parameter-server path) it also builds the
-in-process server backend, as ``byteps_tpu/common/global_state.py:193-205``
-does, and holds the name registry that keeps PS keys stable. Standalone
-servers (``BPS_SERVER_ADDRS``) and the async path are not ported yet.
+It holds the name registry that keeps keys stable, the ``PushPullEngine``
+behind ``bps.push_pull`` and, with ``BPS_TELEMETRY_ON``, the push_pull
+speed window (``byteps_tpu/common/global_state.py:110-118``). With
+``BPS_ENABLE_PS`` (the sync parameter-server path) it also builds the
+in-process server backend and gives the engine the recipe of its
+``PSGradientExchange`` on its own device, as
+``byteps_tpu/common/global_state.py:193-218`` does; the engine builds
+that exchange at its first use, so a run that trains through
+``DistributedTrainer`` alone holds only the trainer's.
+Standalone servers (``BPS_SERVER_ADDRS``) and the async path are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -59,11 +66,20 @@ class GlobalState:
     _lock = threading.Lock()
 
     def __init__(self, config: Config, device: torch.device,
-                 owns_group: bool) -> None:
+                 owns_group: bool,
+                 registry: Optional[NameRegistry] = None) -> None:
         self.config = config
         self.device = device
         self._owns_group = owns_group
-        self.registry = NameRegistry()
+        self.registry = registry or NameRegistry()
+        from ..parallel.collectives import PushPullEngine
+        from ..telemetry import PushPullSpeed
+        self.telemetry = PushPullSpeed() if config.telemetry_on else None
+        self.engine = PushPullEngine(
+            partition_bytes=config.partition_bytes, registry=self.registry,
+            telemetry=self.telemetry,
+            scheduling_credit=config.scheduling_credit,
+            debug_sample=config.debug_sample_tensor)
         self.ps_backend = None
         self.exchanges: list = []        # closed by shutdown()
         if config.enable_ps:
@@ -78,16 +94,36 @@ class GlobalState:
                 num_servers=1, num_workers=config.num_worker,
                 engine_threads=config.server_engine_threads,
                 enable_schedule=config.server_enable_schedule)
+            # sync PS: the eager push_pull takes the host hop. The recipe
+            # holds what it needs, not this state: a reference back would
+            # keep the exchanges, and their residuals on the card, alive
+            # after shutdown until the cycle collector ran
+            backend, registry, exchanges = (self.ps_backend, self.registry,
+                                            self.exchanges)
+
+            def engine_exchange():
+                from ..server.ps_mode import PSGradientExchange
+                ex = PSGradientExchange(
+                    backend, partition_bytes=config.partition_bytes,
+                    registry=registry,
+                    min_compress_bytes=config.min_compress_bytes,
+                    watchdog_sec=config.watchdog_sec,
+                    compress=config.compress, device=device)
+                exchanges.append(ex)
+                return ex
+            self.engine.ps_factory = engine_exchange
 
     # -- lifecycle ----------------------------------------------------------
     @classmethod
     def init(cls, config: Optional[Config] = None, device=None,
              init_method: Optional[str] = None,
-             timeout: Optional[datetime.timedelta] = None) -> "GlobalState":
+             timeout: Optional[datetime.timedelta] = None,
+             registry: Optional[NameRegistry] = None) -> "GlobalState":
         """Join the process group described by ``config`` (env by default).
 
         ``init_method`` overrides the rendezvous (e.g. ``file://...`` for
         a FileStore); otherwise ``tcp://<coordinator_address>`` is used.
+        ``registry`` carries declarations over (``resume``).
         """
         with cls._lock:
             if cls._instance is not None:
@@ -115,7 +151,7 @@ class GlobalState:
                     init_method=init_method, world_size=cfg.num_worker,
                     rank=cfg.worker_id, **kw)
                 owns = True
-            cls._instance = GlobalState(cfg, dev, owns)
+            cls._instance = GlobalState(cfg, dev, owns, registry)
             return cls._instance
 
     @classmethod
@@ -132,13 +168,40 @@ class GlobalState:
     @classmethod
     def shutdown(cls) -> None:
         with cls._lock:
+            if cls._instance is not None:
+                cls._instance._teardown()
+                cls._instance = None
+
+    def _teardown(self) -> None:
+        for ex in self.exchanges:
+            ex.close()
+        if self.ps_backend is not None:
+            self.ps_backend.close()
+        if self._owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+    @classmethod
+    def suspend(cls) -> Optional[NameRegistry]:
+        """Tear down, returning the registry of declarations for
+        ``resume`` (reference: byteps_suspend, operations.cc:114-119)."""
+        with cls._lock:
             inst = cls._instance
             if inst is None:
-                return
-            for ex in inst.exchanges:
-                ex.close()
-            if inst.ps_backend is not None:
-                inst.ps_backend.close()
-            if inst._owns_group and dist.is_initialized():
-                dist.destroy_process_group()
+                return None
+            inst._teardown()
             cls._instance = None
+            return inst.registry
+
+    @classmethod
+    def resume(cls, registry: Optional[NameRegistry],
+               config: Optional[Config] = None, device=None,
+               init_method: Optional[str] = None,
+               timeout: Optional[datetime.timedelta] = None
+               ) -> "GlobalState":
+        """Init again (new membership) with ``suspend``'s registry, its
+        declarations replayed in their original order so name→key stays
+        the same (reference: ReDeclareTensor, global.cc:431-436)."""
+        if registry is not None:
+            registry.redeclare_all()
+        return cls.init(config, device=device, init_method=init_method,
+                        timeout=timeout, registry=registry)

@@ -17,8 +17,8 @@ the JAX package's gets the same keys and the same payloads.
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
-from typing import Dict
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
 
 
 def _raw_djb2(key: int) -> int:
@@ -34,6 +34,8 @@ class TensorDecl:
     """Per-tensor declaration record (reference: BPSContext, common.h:177-205)."""
     name: str
     declared_key: int
+    priority: int = 0              # default -declared_key, like tf ops.cc:158
+    compression_kwargs: Dict[str, str] = field(default_factory=dict)
 
     def key_for_partition(self, i: int) -> int:
         """Partition ``i``'s PS key; 16 bits of partition space per tensor
@@ -45,18 +47,52 @@ class TensorDecl:
 
 
 class NameRegistry:
-    """Thread-safe name→key registry; keys follow declaration order."""
+    """Thread-safe name→key registry; keys follow declaration order, and
+    ``redeclare_all`` replays them for an elastic resume."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._decls: Dict[str, TensorDecl] = {}
+        self._order: List[str] = []          # declaration order, for replay
 
-    def declare(self, name: str) -> TensorDecl:
-        """Declare a tensor; idempotent per name (reference: IsTensorDeclared)."""
+    def declare(self, name: str, priority: Optional[int] = None,
+                **compression_kwargs: str) -> TensorDecl:
+        """Declare a tensor; idempotent per name (reference:
+        IsTensorDeclared). ``priority`` defaults to ``-declared_key``:
+        the later a tensor is declared, the later it goes."""
         with self._lock:
-            if name not in self._decls:
-                self._decls[name] = TensorDecl(name, len(self._decls))
-            return self._decls[name]
+            decl = self._decls.get(name)
+            if decl is None:
+                key = len(self._order)
+                decl = TensorDecl(
+                    name, key, -key if priority is None else priority,
+                    {k: str(v) for k, v in compression_kwargs.items()})
+                self._decls[name] = decl
+                self._order.append(name)
+            return decl
+
+    def get(self, name: str) -> Optional[TensorDecl]:
+        with self._lock:
+            return self._decls.get(name)
+
+    def declared_names(self) -> List[str]:
+        with self._lock:
+            return list(self._order)
+
+    def redeclare_all(self) -> List[TensorDecl]:
+        """Replay the declarations in their original order (reference:
+        ReDeclareTensor, global.cc:431-436): keys follow that order, so
+        name→key stays the same."""
+        with self._lock:
+            decls = [self._decls[n] for n in self._order]
+        self.reset()
+        return [self.declare(d.name, priority=d.priority,
+                             **d.compression_kwargs) for d in decls]
+
+    def reset(self) -> None:
+        with self._lock:
+            self._decls.clear()
+            self._order.clear()
 
 
 def place_key(key: int, num_servers: int) -> int:

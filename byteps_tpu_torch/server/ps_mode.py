@@ -58,6 +58,19 @@ def _host_flat(src) -> np.ndarray:
     return np.ascontiguousarray(src).reshape(-1)
 
 
+class _PendingExchange:
+    """Handle returned by ``PSGradientExchange.exchange_async``: the
+    pushes are already in flight; ``result()`` drains the pulls."""
+
+    __slots__ = ("_drain",)
+
+    def __init__(self, drain) -> None:
+        self._drain = drain
+
+    def result(self) -> List[np.ndarray]:
+        return self._drain()
+
+
 class _Round:
     """One sync exchange round: host leaves materialized lazily under
     per-leaf locks, bucket pack/encode + push, pull + decode + unpack."""
@@ -249,6 +262,7 @@ class PSGradientExchange:
                                if pipeline_depth is None else pipeline_depth)
         self.plane = AdmissionPlane(max_lag=max_lag)
         self._plans: Dict = {}
+        self._plan_lock = threading.Lock()
         self._pull_layer: Dict[int, object] = {}
         self._d2h_layer: Dict[int, object] = {}
         self._key_rounds: Dict[int, int] = {}
@@ -286,6 +300,13 @@ class PSGradientExchange:
         plan = self._plans.get(sig)
         if plan is not None:
             return plan
+        with self._plan_lock:   # exchanges may start on several threads
+            plan = self._plans.get(sig)
+            if plan is None:
+                plan = self._plans[sig] = self._new_plan(tree, name)
+            return plan
+
+    def _new_plan(self, tree, name: Optional[str]):
         # distinct trees land on distinct PS keys: anonymous trees get
         # position-stable names, keys follow declaration order
         decl_name = name or f"grads{len(self._plans)}"
@@ -311,9 +332,7 @@ class PSGradientExchange:
                 f"ps/pull_bytes/{decl_name}.{b.index}"))
             self._d2h_layer.setdefault(pskey, reg.counter(
                 f"ps/d2h_bytes/{decl_name}.{b.index}"))
-        plan = (decl_name, keyed)
-        self._plans[sig] = plan
-        return plan
+        return decl_name, keyed
 
     def _record(self, stage: str, t0: float) -> float:
         now = time.time()
@@ -445,19 +464,40 @@ class PSGradientExchange:
 
     # -------------------------------------------------------- exchange
 
+    def plan_for(self, tree: Sequence[Tuple[str, object]],
+                 name: Optional[str] = None) -> None:
+        """Declare ``tree``'s keys now. A caller that defers its exchange
+        (an async handle) calls this at dispatch, so the keys follow the
+        dispatch order on every worker whatever order its exchanges
+        later run in (``byteps_tpu/server/ps_mode.py:934-940``)."""
+        self._plan(list(tree), name)
+
     def exchange(self, tree: Sequence[Tuple[str, object]],
                  name: Optional[str] = None) -> List[np.ndarray]:
         """One sync round: every bucket is packed (or encoded), pushed and
         pulled, pipelined per bucket. Returns the summed leaves."""
+        return self.exchange_async(tree, name).result()
+
+    def exchange_async(self, tree: Sequence[Tuple[str, object]],
+                       name: Optional[str] = None) -> _PendingExchange:
+        """Like ``exchange``, but returns once every bucket's push is
+        submitted (a serial round: done); ``.result()`` drains the pulls
+        and returns the summed leaves. This worker's pushes reach the
+        server without waiting for any pull, so a caller that holds a
+        thread through ``.result()`` cannot keep a peer's round from
+        completing (``byteps_tpu/server/ps_mode.py:1342-1360``)."""
         rnd = _Round(self, list(tree), name)
         if self.pipeline_depth <= 1 or len(rnd.keyed) <= 1:
             # serial: push everything (the server sums as they land),
             # then drain the pulls in the same order
             bufs = [rnd.push_one(i) for i in range(len(rnd.keyed))]
-            for i, buf in enumerate(bufs):
-                rnd.pull_one(i, buf)
-            return rnd.assemble()
+
+            def drain() -> List[np.ndarray]:
+                for i, buf in enumerate(bufs):
+                    rnd.pull_one(i, buf)
+                return rnd.assemble()
+            return _PendingExchange(drain)
         self._ensure_executors()
         for i in range(len(rnd.keyed)):
             rnd.submit_bucket(i)
-        return rnd.drain()
+        return _PendingExchange(rnd.drain)

@@ -1,0 +1,220 @@
+"""DistributedOptimizer + parameter/optimizer-state broadcast of the torch
+plugin (the port of ``byteps_tpu/torch/optimizer.py``; reference:
+torch/__init__.py:35-409).
+
+The wrapper subclasses the user's optimizer class dynamically (the
+reference's trick) and:
+
+  - hooks every parameter's gradient accumulation
+    (``register_post_accumulate_grad_hook``, the modern form of the
+    reference's ``grad_acc.register_hook``) to dispatch an async
+    push_pull the moment a gradient is ready, overlapping communication
+    with the rest of backward — only when ``size() > 1``, as the
+    reference does: at world 1 the wrapper is the plain optimizer;
+  - counts ``backward_passes_per_step`` backwards before communicating
+    (local gradient accumulation, reference :83-113);
+  - ``synchronize()`` drains the handles and writes the averaged
+    gradients back, so gradient clipping between backward and step works.
+
+The async parameter-server mode of the JAX plugin (``BPS_ENABLE_ASYNC``:
+weight deltas through ``async_param_exchange``) is not ported:
+``init()`` refuses the knob.
+"""
+
+from __future__ import annotations
+
+from contextlib import contextmanager
+
+import torch
+
+from ..common.global_state import GlobalState
+from .compression import Compression
+from .ops import declare_model_keys, push_pull_async, size, synchronize
+
+
+class _DistributedOptimizer(torch.optim.Optimizer):
+    def __init__(self, params, named_parameters, compression,
+                 backward_passes_per_step=1):
+        super(self.__class__, self).__init__(params)
+        self._compression = compression
+
+        named_parameters = list(named_parameters or [])
+        if any(not isinstance(p, tuple) for p in named_parameters):
+            raise ValueError("named_parameters should be a sequence of "
+                             "(name, parameter) tuples, usually "
+                             "model.named_parameters()")
+        names = [n for n, _ in named_parameters]
+        if len(set(names)) != len(names):
+            dups = sorted({n for n in names if names.count(n) > 1})
+            raise ValueError(f"parameter names must be unique; "
+                             f"duplicates: {', '.join(dups)}")
+        if named_parameters:
+            self._parameter_names = {p: n for n, p in named_parameters}
+        else:
+            # one running index across ALL groups: a per-group index would
+            # give the first parameter of every group the same name
+            allp = [p for group in self.param_groups
+                    for p in group["params"]]
+            self._parameter_names = {
+                p: f"push_pull.noname.{i}" for i, p in enumerate(allp)}
+        self.backward_passes_per_step = backward_passes_per_step
+        # forward position of each parameter (named_parameters yields in
+        # module order): its exchange priority on the PS pool
+        self._param_index = {p: i for i, p in
+                             enumerate(self._parameter_names)}
+        self._push_pull_delay = {p: backward_passes_per_step
+                                 for p in self._parameter_names}
+        self._handles = {}
+        self._hook_handles = []
+        self._requires_update = set()
+        self._should_sync = True
+        if size() > 1:
+            self._register_hooks()
+        declare_model_keys(self._parameter_names.values())
+
+    def _register_hooks(self):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.requires_grad:
+                    self._requires_update.add(p)
+                    self._hook_handles.append(
+                        p.register_post_accumulate_grad_hook(
+                            self._make_hook()))
+
+    def _make_hook(self):
+        def hook(p):
+            if p in self._handles and self._handles[p][0] is not None:
+                if self._push_pull_delay[p] <= 0:
+                    raise AssertionError(
+                        "Gradients were computed more than "
+                        "backward_passes_per_step times before step(); "
+                        "increase backward_passes_per_step to accumulate")
+            assert self._push_pull_delay[p] > 0
+            handle, ctx = None, None
+            self._push_pull_delay[p] -= 1
+            if self._push_pull_delay[p] == 0:
+                handle, ctx = self._push_pull_grad_async(p)
+            self._handles[p] = (handle, ctx)
+        return hook
+
+    def _push_pull_grad_async(self, p):
+        name = self._parameter_names[p]
+        compressed, ctx = self._compression.compress(p.grad)
+        # priority = forward position: on a busy PS pool earlier layers'
+        # exchanges go first, so the next forward unblocks soonest
+        handle = push_pull_async(compressed, average=True,
+                                 name="Gradient." + name,
+                                 priority=self._param_index.get(p, 0))
+        return handle, ctx
+
+    def set_backward_passes_per_step(self, passes):
+        self.backward_passes_per_step = passes
+        for p in self._push_pull_delay:
+            self._push_pull_delay[p] = passes
+
+    def synchronize(self):
+        if size() <= 1:
+            return
+        # parameters whose hook never fired (unused in this forward) and
+        # that have no gradient contribute nothing: every rank skips them
+        # alike (autograd leaves unused parameters' grads None everywhere)
+        missing = {p for p in self._requires_update - set(self._handles)
+                   if p.grad is not None}
+        for p in sorted(missing, key=self._param_index.get):
+            self._handles[p] = self._push_pull_grad_async(p)
+        for p, (handle, ctx) in list(self._handles.items()):
+            if handle is None:
+                self._handles[p] = self._push_pull_grad_async(p)
+        for p, (handle, ctx) in self._handles.items():
+            if handle is None:
+                continue
+            out = synchronize(handle)
+            self._push_pull_delay[p] = self.backward_passes_per_step
+            with torch.no_grad():
+                p.grad.copy_(self._compression.decompress(out, ctx))
+        self._handles.clear()
+
+    @contextmanager
+    def skip_synchronize(self):
+        self._should_sync = False
+        try:
+            yield
+        finally:
+            self._should_sync = True
+
+    def step(self, closure=None):
+        if self._should_sync:
+            self.synchronize()
+        return super(self.__class__, self).step(closure)
+
+
+def DistributedOptimizer(optimizer, named_parameters=None,
+                         compression=Compression.none,
+                         backward_passes_per_step=1):
+    """Wrap a torch optimizer so gradients are push_pull-averaged across
+    workers before each step (reference: torch/__init__.py:218-252 — a
+    dynamic subclass of the wrapped optimizer's class)."""
+    cls = type(optimizer.__class__.__name__, (optimizer.__class__,),
+               dict(_DistributedOptimizer.__dict__))
+    return cls(optimizer.param_groups, named_parameters, compression,
+               backward_passes_per_step)
+
+
+def broadcast_parameters(params, root_rank, prefix="Parameter."):
+    """Root's values into every worker's tensors, in place (reference:
+    torch/__init__.py:259-291, whose zero-the-others + sum the port
+    replaces with ``dist.broadcast``: root's bits exactly, a -0.0
+    included). ``params``: a dict (a ``state_dict()``, broadcast in
+    sorted name order) or a list of tensors or (name, tensor) pairs.
+    ``prefix`` named the reference's keys; a broadcast declares none."""
+    if isinstance(params, dict):
+        items = sorted(params.items())
+    elif isinstance(params, list):
+        items = [p if isinstance(p, tuple) else (None, p) for p in params]
+    else:
+        raise ValueError(f"invalid params of type {type(params)}")
+    if size() <= 1:
+        return
+    GlobalState.get().engine.broadcast_(
+        [p for _, p in items if isinstance(p, torch.Tensor)], root_rank)
+
+
+def broadcast_optimizer_state(optimizer, root_rank,
+                              prefix="OptimizerState."):
+    """Root's optimizer state to every worker; scalar state entries are
+    tensor-ized for the wire (reference: torch/__init__.py:293-409)."""
+    if size() <= 1:
+        return
+    if not optimizer.state_dict().get("state"):
+        # a fresh optimizer: materialize its state with a zero-gradient
+        # step (the reference's trick) so every worker broadcasts the same
+        # entries — a checkpoint-loaded root would otherwise send entries
+        # a fresh worker never receives. Parameters are restored around
+        # the step: weight decay would move them.
+        saved = [(p, p.detach().clone())
+                 for g in optimizer.param_groups for p in g["params"]]
+        grads = [p.grad for p, _ in saved]
+        for p, _ in saved:
+            p.grad = torch.zeros_like(p)
+        optimizer.step()
+        with torch.no_grad():
+            for (p, v), g in zip(saved, grads):
+                p.copy_(v)
+                p.grad = g
+    state = optimizer.state_dict()
+    tensors = {}
+    scalars = []                       # (pid, key, original python type)
+    for pid, pstate in state.get("state", {}).items():
+        for k, v in list(pstate.items()):
+            key = f"{prefix}{pid}.{k}"
+            if isinstance(v, torch.Tensor):
+                tensors[key] = v
+            elif isinstance(v, (int, float)) and not isinstance(v, bool):
+                t = torch.tensor(float(v), dtype=torch.float64)
+                tensors[key] = t
+                pstate[k] = t
+                scalars.append((pid, k, type(v)))
+    broadcast_parameters(tensors, root_rank, prefix="")
+    for pid, k, typ in scalars:        # back to python scalars
+        state["state"][pid][k] = typ(state["state"][pid][k].item())
+    optimizer.load_state_dict(state)

@@ -15,8 +15,9 @@ server) the same script trains through the parameter server instead, the
 JAX trainer's sync PS branch (``training.py:228-299``, ``_ps_step``
 ``:563-599``): the local backward; ``PSGradientExchange.exchange`` of the
 gradients in the JAX tree's order (encoded on the card under
-``BPS_COMPRESS=int8`` or ``fp8_e4m3``); the sum divided by the PS world;
-the summed gradients copied back to the card; the inner optimizer's step.
+``BPS_COMPRESS=int8`` or ``fp8_e4m3``); the summed gradients copied back
+to the card (the port's PS runs one worker, so the sum is the mean); the
+inner optimizer's step.
 The port always runs that monolithic tail, the JAX package's
 ``BPS_APPLY_CHUNKED=0`` route: the streamed tail, the staged head, the
 cross-step driver and the sharded update overlap work without changing a
@@ -182,7 +183,6 @@ class DistributedTrainer:
             watchdog_sec=cfg.watchdog_sec, compress=cfg.compress,
             device=self.device)
         gs.exchanges.append(self.ps_exchange)
-        self._ps_world = cfg.num_worker
         self.tx = optimizer          # the plain inner optimizer
 
     def _ps_step(self) -> None:
@@ -199,8 +199,6 @@ class DistributedTrainer:
         t0 = time.time()
         with torch.no_grad():
             for (_, g), s in zip(grads, summed):
-                if self._ps_world > 1:
-                    s = s / self._ps_world
                 g.copy_(torch.from_numpy(s).view_as(g), non_blocking=False)
         observe_stage("PS_H2D", time.time() - t0)
         self.tx.step()

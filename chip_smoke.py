@@ -153,6 +153,31 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          this call's dense GPT-2 step 1 (the same weights and batch; a
          ring of one's merge returns the block's partial unchanged), and
          whether it is bit for bit.
+       - the BytePS API (``bps.init()`` first, world 1), BERT-large at
+         the dense run's weights, batch and AdamW: ``bert_large_plugin``,
+         the optimizer wrapped by ``byteps_tpu_torch.torch.
+         DistributedOptimizer`` after ``broadcast_parameters`` and
+         ``broadcast_optimizer_state`` from rank 0 (no hook at world 1),
+         its losses the dense run's bit for bit, 144 forward and 72 fused
+         launches; ``bert_large_pushpull_int8`` (``BPS_ENABLE_PS=1``,
+         ``BPS_COMPRESS=int8``, ``BPS_TELEMETRY_ON=1``): every gradient
+         through the plugin's ``push_pull_async_inplace`` in
+         ``declare_model_keys`` order, then ``synchronize`` on each;
+         ``bert_large_pushpull_fp8`` (``fp8_e4m3``): the gradients as
+         trees (the embeddings, each layer's slice of the stacked block
+         tensors, the final layer norm) through the top-level
+         ``push_pull_async`` / ``synchronize`` (the engine's deferred PS
+         hop). Each PS path: step 1's loss the dense run's, step 2 within
+         PS_STEP2_TOL, 3 x nc quantize (and dequantize) or fp8 launches
+         for the nc compressed partitions the exchange's plan reports,
+         ``ps/d2h_bytes`` under 0.3 x the dense bytes, a positive
+         ``get_pushpull_speed()``, and step 1's exchanged embedding and
+         block gradients (``API_CHECK``, ``API_CHECK_TREES``) bit for bit
+         the same tensors' CPU copies exchanged through the plain
+         versions by a second exchange on its own server, its keys
+         declared in the same order. Each prints its step time, samples/s
+         and the API's own host time a step (dispatch to the last
+         ``synchronize``) beside the card's name and power limit.
      Losses must be finite and falling. BERT (both widths), dense GPT-2
      and T5 repeat step 1 with ``attn_impl="naive"`` (plain attention on
      the card) as the reference for the loss; every run prints step time,
@@ -189,6 +214,11 @@ against those of the
 checkout at PARENT (built here, each called through its own C entry
 point with its own launch plan), in turns in one process, the int8
 quantize beside ``torch.quantize_per_tensor``, as one JSON line.
+
+    python3 chip_smoke.py --ps-profile
+
+prints only where the PS API's fp8 tree path spends its time beside the
+trainer's exchange of the same BERT-large gradients (``ps_profile``).
 
     python3 chip_smoke.py --sp 4
 
@@ -310,6 +340,14 @@ BUCKET_FLOATS = PARTITION_BYTES // 4    # one full gradient bucket
 # (10.5543 -> 9.9274 on one H100 80GB HBM3 at 700 W, PERF.md); int8 fell
 # 1.7% short of it there, fp8 (stochastic rounding keeps the signs) 0.1%.
 PS_STEP2_TOL = 0.05
+# get_pushpull_speed() on the PS int8 API path, read just after each
+# step's last synchronize, against the gradient bytes of the steps whose
+# first transfer started in the window's last 10 s over the time since
+# the first of them: each transfer is back-dated to its dispatch, so the
+# two agree up to a transfer on the window's edge. A window that loses or
+# double-counts transfers, or reads seconds as milliseconds, is off by
+# far more than 1.25.
+SPEED_FACTOR = 1.25
 README_COMPRESSION = {"compressor_type": "onebit",
                       "compressor_onebit_scaling": "true",
                       "ef_type": "vanilla", "momentum_type": "nesterov"}
@@ -2312,6 +2350,418 @@ def train_bert_ps(codec, dense_losses, step2_misses):
                 os.environ[k] = v
 
 
+# --------------------------- the BytePS API: the plugin and push_pull paths
+
+# the tensors whose step-1 exchange the int8 push_pull path holds against
+# the plain versions: the embedding gradients, the final layer norm, and
+# of the stacked [layers, ...] block tensors the attention output and the
+# small ones (a block is a slice of each); the fp8 path's trees of them
+API_CHECK = ("embed.pos", "embed.tok", "final_ln.bias", "final_ln.scale",
+             "blocks.attn_out", "blocks.ln1.bias", "blocks.ln1.scale",
+             "blocks.mlp_out_b")
+API_CHECK_TREES = ("embed", "block0")
+
+
+def _api_model(cfg):
+    """The dense BERT run's model and optimizer: the same seed-0 weights,
+    AdamW(1e-4) made before the move to the card, as the trainer gets
+    them."""
+    from byteps_tpu_torch.models.transformer import Transformer
+    from byteps_tpu_torch.optim import adamw
+    model = Transformer(cfg, generator=torch.Generator().manual_seed(0))
+    opt = adamw(model.parameters(), 1e-4)
+    return model.to("cuda"), opt
+
+
+def _api_rates(step_s, fps):
+    from byteps_tpu_torch.models.flops import mfu
+    sps = TRAIN_BATCH / step_s
+    util = mfu(sps, fps)
+    return (f"{step_s * 1e3:.1f} ms = {sps:.2f} samples/s, "
+            f"{sps * fps / 1e12:.1f} model TFLOP/s, mfu "
+            + ("not known for this card" if util is None else f"{util:.4f}"))
+
+
+def run_api_path(tag, step, want, fps, more_steps=STEPS):
+    """``STEPS`` counted steps of ``step(i) -> (loss, api_s)`` (the API's
+    own host time of the step) with every launch counter zeroed just
+    before and read just after; finite falling losses, the counts
+    ``want()``; then ``more_steps`` more for the step time. Returns
+    (launches, losses, metrics)."""
+    from byteps_tpu_torch.obs.metrics import get_registry
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ctr = counters()
+    zero_counts(ctr)
+    get_registry().reset()
+    losses, times, api = [], [], []
+    for i in range(STEPS):
+        t = time.perf_counter()
+        loss, a = step(i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(loss.item())
+        api.append(a)
+    launches = read_counts(ctr)
+    metrics = get_registry().snapshot()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[{tag}] losses {losses}")
+    log(f"[{tag}] step times s {times}; API host s a step {api}; peak "
+        f"memory {peak_gb:.2f} GB; fastest of steps 2-3: "
+        f"{_api_rates(min(times[1:]), fps)}")
+    log(f"[{tag}] kernel launches in the {STEPS} steps: {launches}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag}: non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: loss did not fall: {losses}")
+    expected = want()
+    if launches != expected:
+        raise AssertionError(f"{tag}: kernel launches {launches}, expected "
+                             f"{expected}")
+    more, more_api = [], []
+    for i in range(more_steps):
+        t = time.perf_counter()
+        _, a = step(STEPS + i)
+        torch.cuda.synchronize()
+        more.append(time.perf_counter() - t)
+        more_api.append(a)
+    if more:
+        log(f"[{tag}] steps {STEPS + 1}-{STEPS + more_steps} s {more}, API "
+            f"host s {more_api}: median {_api_rates(statistics.median(more), fps)}")
+    step_s = statistics.median(more) if more else min(times[1:])
+    api_s = statistics.median(more_api) if more else min(api[1:])
+    SUMMARY[tag] = {"step_ms": step_s * 1e3,
+                    "samples_per_s": TRAIN_BATCH / step_s,
+                    "api_host_ms": api_s * 1e3, "peak_gb": peak_gb,
+                    "losses": losses}
+    log(f"[{tag}] step {step_s * 1e3:.1f} ms, {TRAIN_BATCH / step_s:.2f} "
+        f"samples/s, the API's host time {api_s * 1e3:.1f} ms a step "
+        f"(dispatch to the last synchronize), on {card_line()}")
+    return launches, losses, metrics
+
+
+def train_bert_plugin(dense_losses):
+    """BERT-large through the torch plugin, the reference's way: the
+    optimizer wrapped by ``byteps_tpu_torch.torch.DistributedOptimizer``,
+    parameters and optimizer state broadcast from rank 0 first. At world 1
+    no hook is registered: the losses must be the dense run's, bit for
+    bit (the same kernels and AdamW on the same weights and batch)."""
+    import byteps_tpu_torch.torch as bt
+    from byteps_tpu_torch.training import _to_device
+    cfg, loss_fn, data, fps = _bert_setup()
+    tag = "bert_large_plugin"
+    bt.init()
+    try:
+        model, inner = _api_model(cfg)
+        opt = bt.DistributedOptimizer(
+            inner, named_parameters=model.named_parameters())
+        bt.broadcast_parameters(model.state_dict(), 0)
+        bt.broadcast_optimizer_state(opt, 0)
+        batch = _to_device(data, "cuda")
+
+        def step(i):
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn(model, batch)
+            loss.backward()
+            t = time.perf_counter()
+            opt.synchronize()
+            api = time.perf_counter() - t
+            with opt.skip_synchronize():
+                opt.step()
+            return loss.detach(), api
+
+        launches, losses, _ = run_api_path(
+            tag, step, lambda: _attention_launches(
+                cfg, ("flash_bwd_fused",))(None), fps)
+        log(f"[{tag}] losses {losses}, dense run {dense_losses}: "
+            + ("bit for bit" if losses == dense_losses else "DIFFERENT"))
+        if losses != dense_losses:
+            raise AssertionError(f"{tag}: losses differ from the dense "
+                                 "DistributedTrainer run's")
+        del model, opt, inner
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        bt.shutdown()
+
+
+def _layer_trees(model, layers):
+    """The gradients as trees for the push_pull path: ``embed``, one per
+    layer (``block{i}``: that layer's slice of every stacked block
+    tensor) and ``final_ln``, in the forward's order."""
+    trees = {}
+    for n, p in model.named_parameters():
+        head, rest = n.split(".", 1)
+        if head == "blocks":
+            for i in range(layers):
+                trees.setdefault(f"block{i}", {})[rest] = p.grad[i]
+        else:
+            trees.setdefault(head, {})[rest] = p.grad
+    first = [k for k in ("embed",) if k in trees]
+    blocks = [f"block{i}" for i in range(layers)]
+    return {k: trees[k] for k in first + blocks
+            + sorted(set(trees) - set(first) - set(blocks))}
+
+
+def _reference_exchange(codec, registry):
+    """A second exchange on its own in-process server, its registry
+    declared in the main one's order, encoding CPU tensors with the
+    kernels' plain versions."""
+    from byteps_tpu_torch.common.naming import NameRegistry
+    from byteps_tpu_torch.server.engine import HostPSBackend
+    from byteps_tpu_torch.server.ps_mode import PSGradientExchange
+    reg = NameRegistry()
+    for n in registry.declared_names():
+        reg.declare(n)
+    backend = HostPSBackend(num_servers=1, num_workers=1)
+    ex = PSGradientExchange(backend, partition_bytes=PARTITION_BYTES,
+                            registry=reg,
+                            min_compress_bytes=MIN_COMPRESS_BYTES,
+                            compress=codec, device=torch.device("cpu"))
+    return backend, ex
+
+
+def route_turns(tag, model, opt, loss_fn, batch, ex, exchange):
+    """The PS API path's steps in turns with the trainer's route in the same
+    phase: forward, backward, the exchange, AdamW, timed to the card's
+    end. ``trees`` is the path's own exchange; ``trainer_route`` sends
+    every gradient as one tree through ``exchange`` in the trainer's
+    order and copies the sums back, as ``DistributedTrainer._ps_step``
+    does. One untimed ``trainer_route`` step plans its keys first, then
+    trees, route, route, trees. Returns the two routes' mean step ms."""
+    whole = sorted(model.named_parameters(), key=lambda kv: kv[0].split("."))
+
+    def trainer_route(first):
+        grads = [(n, p.grad) for n, p in whole]
+        summed = ex.exchange(grads, name="trainer-route")
+        with torch.no_grad():
+            for (_, g), x in zip(grads, summed):
+                g.copy_(torch.from_numpy(x).view_as(g))
+
+    routes = {"trees": exchange, "trainer_route": trainer_route}
+    turns = {k: [] for k in routes}
+    for k in ("trainer_route", "trees", "trainer_route", "trainer_route",
+              "trees"):
+        t = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss_fn(model, batch).backward()
+        routes[k](False)
+        opt.step()
+        torch.cuda.synchronize()
+        turns[k].append((time.perf_counter() - t) * 1e3)
+    turns["trainer_route"].pop(0)           # planned its keys
+    mean = {k: statistics.mean(v) for k, v in turns.items()}
+    log(f"[{tag}] in turns in this phase, step ms: trees {turns['trees']}, "
+        f"the trainer's route {turns['trainer_route']}; trees / trainer's "
+        f"route {mean['trees'] / mean['trainer_route']:.3f}, on "
+        f"{card_line()}")
+    SUMMARY[tag]["turns_ms"] = turns
+    return mean
+
+
+def train_bert_pushpull(codec, dense_losses, step2_misses):
+    """BERT-large through the BytePS API in PS mode (``BPS_ENABLE_PS=1``,
+    ``BPS_COMPRESS=codec``, telemetry on). int8: every gradient through
+    the plugin's ``push_pull_async_inplace`` in ``declare_model_keys``
+    order, then ``synchronize`` on every handle. fp8: the gradients as
+    trees through the top-level ``push_pull_async`` (the engine's
+    deferred PS hop), then ``synchronize``. Then AdamW."""
+    import os
+
+    import byteps_tpu_torch as bps
+    import byteps_tpu_torch.torch as bt
+    from byteps_tpu_torch.common.global_state import GlobalState
+    from byteps_tpu_torch.parallel.collectives import tree_flatten
+    from byteps_tpu_torch.training import _to_device
+    cfg, loss_fn, data, fps = _bert_setup()
+    tag = f"bert_large_pushpull_{codec.split('_')[0]}"
+    env = {"BPS_ENABLE_PS": "1", "BPS_COMPRESS": codec,
+           "BPS_TELEMETRY_ON": "1", "BPS_COMPRESS_DEVICE": "1"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    bps.init()                  # the in-process server, at world 1
+    try:
+        gs = GlobalState.get()
+        ex = gs.engine.ps_exchange
+        model, opt = _api_model(cfg)
+        params = dict(model.named_parameters())
+        forward_pos = {n: i for i, n in enumerate(params)}
+        if codec == "int8":
+            bt.ops.declare_model_keys(params)
+        batch = _to_device(data, "cuda")
+        sent, got = {}, {}
+
+        def exchange_tensors(first):
+            names = [n for n in sorted(params) if params[n].grad is not None]
+            if first:
+                sent.update({n: params[n].grad.to("cpu", copy=True)
+                             for n in API_CHECK})
+            t = time.perf_counter()
+            hs = []
+            for n in names:
+                hs.append(bt.push_pull_async_inplace(
+                    params[n].grad, name="Gradient." + n,
+                    priority=forward_pos[n]))
+                if len(hs) == 1:    # the step's first transfer starts
+                    dispatched.append(time.time())
+            for h in hs:
+                bt.synchronize(h)
+            api = time.perf_counter() - t
+            if first:
+                got.update({n: params[n].grad.to("cpu", copy=True)
+                            for n in API_CHECK})
+            return api
+
+        def exchange_trees(first):
+            trees = _layer_trees(model, cfg.layers)
+            if first:
+                sent.update({k: {n: g.to("cpu", copy=True)
+                                 for n, g in trees[k].items()}
+                             for k in API_CHECK_TREES})
+            t = time.perf_counter()
+            hs = [(k, bps.push_pull_async(tree, name="Gradient." + k))
+                  for k, tree in trees.items()]
+            outs = {k: bps.synchronize(h) for k, h in hs}
+            api = time.perf_counter() - t
+            with torch.no_grad():
+                for k, out in outs.items():
+                    for n, g in trees[k].items():
+                        g.copy_(out[n])
+            if first:
+                got.update({k: {n: v.to("cpu", copy=True)
+                                for n, v in outs[k].items()}
+                            for k in API_CHECK_TREES})
+            return api
+
+        exchange = exchange_tensors if codec == "int8" else exchange_trees
+
+        speed, read_at, dispatched = [], [], []
+
+        def step(i):
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn(model, batch)
+            loss.backward()
+            api = exchange(i == 0)
+            # read at once: a step longer than the 10 s window leaves
+            # nothing in it a moment later
+            speed.append(bps.get_pushpull_speed())
+            read_at.append(time.time())
+            opt.step()
+            return loss.detach(), api
+
+        attn = _attention_launches(cfg, ("flash_bwd_fused",))
+
+        def want():
+            w = attn(None)
+            nc = ex.n_compressed()
+            if codec == "int8":
+                w["int8_quantize"] = w["int8_dequantize"] = STEPS * nc
+            else:
+                w["fp8_sr_quantize"] = STEPS * nc
+            return w
+
+        # the PS step is host-bound and long: steps 2-3 give its time
+        launches, losses, metrics = run_api_path(tag, step, want, fps,
+                                                 more_steps=0)
+        nc, nb = ex.n_compressed(), sum(len(k) for _, k in ex._plans.values())
+        key = "int8_quantize" if codec == "int8" else "fp8_sr_quantize"
+        log(f"[{tag}] plan: {len(ex._plans)} exchanged trees, {nb} "
+            f"partitions, {nc} compressed; {key} launches "
+            f"{launches[key]} = {STEPS} x {nc}")
+        dense_bytes = 4 * sum(p.numel() for p in model.parameters())
+        d2h = metrics["ps/d2h_bytes"] / STEPS
+        log(f"[{tag}] per step ps/d2h_bytes {d2h:.0f} = "
+            f"{d2h / dense_bytes:.4f} x the dense gradient bytes "
+            f"{dense_bytes}; ps/push_bytes "
+            f"{metrics['ps/push_bytes'] / STEPS:.0f}, ps/pull_bytes "
+            f"{metrics['ps/pull_bytes'] / STEPS:.0f}")
+        stages = {k[6:]: v for k, v in metrics.items()
+                  if k.startswith("stage/") and v["count"]}
+        log(f"[{tag}] host stage times over the {STEPS} counted steps "
+            "(summed over buckets and threads): " + ", ".join(
+                f"{k} {v['sum_ms']:.1f} ms / {v['count']}"
+                for k, v in sorted(stages.items())))
+        log(f"[{tag}] get_pushpull_speed() after each step's last "
+            f"synchronize: {[round(x, 1) for x in speed]} MB/s (10 s window)")
+        if not min(speed) > 0:
+            raise AssertionError(f"{tag}: get_pushpull_speed() {speed} with "
+                                 "BPS_TELEMETRY_ON=1")
+        if codec == "int8":
+            # every exchange of a step ends inside the window: each reading
+            # is the gradient bytes of the steps dispatched in the last
+            # WINDOW_SEC over the time since the first of them
+            from byteps_tpu_torch.telemetry import WINDOW_SEC
+            for k, (got_mbps, now) in enumerate(zip(speed, read_at)):
+                inside = [d for d in dispatched[:k + 1]
+                          if now - d <= WINDOW_SEC]
+                want_mbps = (len(inside) * dense_bytes
+                             / (now - min(inside)) / 1e6)
+                log(f"[{tag}] after step {k + 1}: {got_mbps:.1f} MB/s, the "
+                    f"{len(inside)} steps' gradient bytes in the window over "
+                    f"their time {want_mbps:.1f} MB/s (ratio "
+                    f"{got_mbps / want_mbps:.3f}, held within "
+                    f"x{SPEED_FACTOR})")
+                if not 1 / SPEED_FACTOR <= got_mbps / want_mbps \
+                        <= SPEED_FACTOR:
+                    raise AssertionError(
+                        f"{tag}: get_pushpull_speed() {got_mbps} MB/s after "
+                        f"step {k + 1} against {want_mbps} MB/s")
+        if not d2h < 0.3 * dense_bytes:
+            raise AssertionError(f"{tag}: {d2h} bytes a step crossed to the "
+                                 "host, not the payloads alone")
+        log(f"[{tag}] step-1 loss {losses[0]:.6f}, dense run "
+            f"{dense_losses[0]:.6f}; step 2 {losses[1]:.6f}, dense run "
+            f"{dense_losses[1]:.6f} (|diff| "
+            f"{abs(losses[1] - dense_losses[1]):.3e}, tolerance "
+            f"{PS_STEP2_TOL})")
+        if losses[0] != dense_losses[0]:
+            raise AssertionError(f"{tag}: step-1 loss differs from the dense "
+                                 "run's on the same weights and batch")
+        if not abs(losses[1] - dense_losses[1]) <= PS_STEP2_TOL:
+            step2_misses.append(tag)
+        if codec != "int8":
+            route_turns(tag, model, opt, loss_fn, batch, ex, exchange)
+        # step 1's exchange again on CPU copies, through the plain versions
+        t = time.perf_counter()
+        backend, ref = _reference_exchange(codec, gs.registry)
+        try:
+            n = 0
+            for name, x in sent.items():
+                if codec == "int8":
+                    (want_x,) = ref.exchange([("['t']", x)],
+                                             name="Gradient." + name)
+                    pairs = [(name, got[name], want_x)]
+                else:
+                    paths, leaves, _ = tree_flatten(x)
+                    outs = ref.exchange(list(zip(paths, leaves)),
+                                        name="Gradient." + name)
+                    pairs = [(f"{name}{p}", got[name][p[2:-2]], o)
+                             for p, o in zip(paths, outs)]
+                for what, g, w in pairs:
+                    if g.numpy().tobytes() != np.ascontiguousarray(
+                            w).tobytes():
+                        raise AssertionError(
+                            f"{tag}: step 1's exchanged {what} differs from "
+                            "its CPU copy's through the plain versions")
+                    n += 1
+        finally:
+            ref.close()
+            backend.close()
+        log(f"[{tag}] step 1: {n} exchanged gradients bit for bit their CPU "
+            f"copies' through the plain versions (a second exchange, "
+            f"{time.perf_counter() - t:.1f} s)")
+        del model, opt
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        bt.shutdown()           # the plugin's pool, then the runtime
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def _gpt2_setup():
     from byteps_tpu_torch.models import gpt2
     from byteps_tpu_torch.models.flops import transformer_train_flops_per_sample
@@ -2841,6 +3291,427 @@ def sp_main(n) -> int:
     return 0
 
 
+# ------------------------------- --world N: the plugin and engine over NCCL
+
+def _world_setup(tiny):
+    import dataclasses
+
+    from byteps_tpu_torch.models import bert
+    cfg, loss_fn, data, fps = _bert_setup()
+    if tiny:           # a CPU rehearsal over gloo
+        cfg = dataclasses.replace(bert.bert_tiny(attn_impl="naive"),
+                                  max_seq=BERT_SEQ)
+        data = bert.synth_mlm_batch(np.random.RandomState(0), 2, BERT_SEQ,
+                                    cfg.vocab_size)
+    return cfg, loss_fn, data, fps
+
+
+def world_rank(rank, n, port, out, device="cuda", tiny=False):
+    """One rank of ``--world n``: ``bps.init()`` over NCCL (gloo on the
+    CPU), BERT-large through the plugin's ``DistributedOptimizer`` (its
+    hooks reduce every gradient as backward produces it) for 3 steps on
+    this rank's batch, then one backward's gradients through the
+    top-level ``push_pull`` and ``push_pull_async``, each held bit for bit
+    against the mean of the ranks' gradients gathered with ``all_gather``;
+    rank 0 writes the results to ``out``."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    import byteps_tpu_torch as bps
+    import byteps_tpu_torch.torch as bt
+    from byteps_tpu_torch.models import bert
+    from byteps_tpu_torch.models.transformer import Transformer
+    from byteps_tpu_torch.optim import adamw
+    from byteps_tpu_torch.training import _to_device
+    os.environ.update(BPS_NUM_WORKER=str(n), BPS_WORKER_ID=str(rank),
+                      BPS_LOCAL_RANK=str(rank), BPS_LOCAL_SIZE=str(n),
+                      BPS_COORDINATOR_ADDRESS=f"localhost:{port}")
+    bps.init(device=device, timeout=datetime.timedelta(seconds=300))
+    cuda = device == "cuda"
+    dev = torch.device("cuda", rank) if cuda else torch.device("cpu")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    try:
+        cfg, loss_fn, _, fps = _world_setup(tiny)
+        rows = 2 if tiny else TRAIN_BATCH
+        batch = _to_device(bert.synth_mlm_batch(
+            np.random.RandomState(100 + rank), rows, BERT_SEQ,
+            cfg.vocab_size), dev)
+        model = Transformer(cfg, generator=torch.Generator().manual_seed(0))
+        opt = bt.DistributedOptimizer(adamw(model.parameters(), 1e-4),
+                                      named_parameters=model.named_parameters())
+        model.to(dev)
+        bt.broadcast_parameters(model.state_dict(), 0)
+        bt.broadcast_optimizer_state(opt, 0)
+        first = []
+        dispatch = opt._push_pull_grad_async
+
+        def timed_dispatch(p):
+            if not first:
+                first.append(time.perf_counter())
+            return dispatch(p)
+        opt._push_pull_grad_async = timed_dispatch
+        ctr = counters()
+        zero_counts(ctr)
+        losses, times, api = [], [], []
+        for i in range(2 * STEPS):
+            if i == STEPS:
+                launches = read_counts(ctr)
+            first.clear()
+            sync()
+            t = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn(model, batch)
+            loss.backward()
+            opt.step()
+            sync()
+            times.append(time.perf_counter() - t)
+            api.append(time.perf_counter() - first[0])
+            losses.append(loss.item())
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[STEPS - 1] < losses[0]):
+            raise AssertionError(f"rank {rank}: losses {losses}")
+        want = _attention_launches(cfg, ("flash_bwd_fused",))(None)
+        if cuda and launches != want:
+            raise AssertionError(f"rank {rank}: launches {launches}, "
+                                 f"expected {want}")
+        # every rank holds rank 0's parameters, bit for bit
+        differ = 0
+        for p in model.parameters():
+            ref = p.detach().clone()
+            dist.broadcast(ref, 0)
+            differ += int(not torch.equal(ref, p.detach()))
+        if differ:
+            raise AssertionError(f"rank {rank}: {differ} parameters differ "
+                                 "from rank 0's")
+        # the engine: one backward's gradients as a tree
+        opt.zero_grad(set_to_none=True)
+        loss_fn(model, batch).backward()
+        grads = {k: p.grad.detach().clone()
+                 for k, p in model.named_parameters()}
+        res = {}
+        for how in ("push_pull", "push_pull_async"):
+            sync()
+            t = time.perf_counter()
+            if how == "push_pull":
+                got = bps.push_pull(grads, name="world.grads")
+            else:
+                got = bps.synchronize(bps.push_pull_async(
+                    grads, name="world.grads.async"))
+            sync()
+            res[f"{how}_ms"] = (time.perf_counter() - t) * 1e3
+            for k, g in grads.items():
+                parts = [torch.empty_like(g) for _ in range(n)]
+                dist.all_gather(parts, g)
+                mean = parts[0]
+                for q in parts[1:]:
+                    mean = mean + q
+                if not torch.equal(got[k], mean / n):
+                    raise AssertionError(f"rank {rank}: {how} of {k} is not "
+                                         "the mean of the ranks' gradients")
+        nbytes = sum(g.nbytes for g in grads.values())
+        res.update({"losses": losses, "step_ms": [x * 1e3 for x in times],
+                    "api_host_ms": [x * 1e3 for x in api],
+                    "grad_bytes": nbytes, "fps": fps,
+                    "launches": {k: v for k, v in
+                                 (launches if cuda else {}).items() if v}})
+        gathered = [None] * n
+        dist.all_gather_object(gathered, res)
+        if rank == 0:
+            Path(out).write_text(json.dumps(gathered))
+    finally:
+        bt.shutdown()
+    return 0
+
+
+def world_main(n) -> int:
+    """``--world n``: build the kernels once, then one process per card."""
+    import os
+    import socket
+    import tempfile
+    if torch.cuda.device_count() < n:
+        print(f"chip_smoke --world {n}: {torch.cuda.device_count()} CUDA "
+              f"device(s), {n} needed", file=sys.stderr)
+        return 2
+    toolchain()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out = Path(tempfile.mkdtemp()) / "world.json"
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--world-rank", str(r), str(n), str(port),
+         str(out)], env=dict(os.environ), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    try:
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        log(f"----- rank {r} (exit {p.returncode})")
+        log(text if r == 0 or p.returncode else text[-2000:])
+    if any(p.returncode for p in procs):
+        raise AssertionError("a rank of the --world run failed")
+    ranks = json.loads(out.read_text())
+    card = card_line()
+    for r, res in enumerate(ranks):
+        steps = res["step_ms"][STEPS:]
+        log(f"[world {n} rank {r}] plugin step (median of steps 4-6) "
+            f"{statistics.median(steps):.1f} ms = "
+            f"{TRAIN_BATCH / statistics.median(steps) * 1e3:.2f} samples/s a "
+            f"rank; the API's host time (first dispatch to the last "
+            f"synchronize) {statistics.median(res['api_host_ms'][STEPS:]):.1f}"
+            f" ms; engine push_pull of {res['grad_bytes']} bytes "
+            f"{res['push_pull_ms']:.1f} ms, push_pull_async + synchronize "
+            f"{res['push_pull_async_ms']:.1f} ms; on {card}")
+    print(json.dumps({"world": {"cards": n, "ranks": ranks}}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def _thread_cpu() -> dict:
+    """CPU seconds of every thread of this process by group (the pool's
+    name prefix, ``main``, or the kernel's name for threads Python did not
+    start, such as the server engine's), from ``/proc/self/task``."""
+    import os
+    import threading
+    names = {t.native_id: t.name for t in threading.enumerate()}
+    tick = os.sysconf("SC_CLK_TCK")
+    out = {}
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/self/task/{tid}/comm") as f:
+                comm = f.read().strip()
+        except OSError:
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        cpu = (int(fields[11]) + int(fields[12])) / tick
+        name = names.get(int(tid), comm)
+        group = ("main" if name == "MainThread"
+                 else re.sub(r"[_-]?\d+(_\d+)?$", "", name))
+        out[group] = out.get(group, 0.0) + cpu
+    return out
+
+
+class _Sampler:
+    """A stack sampler of every Python thread (``sys._current_frames``
+    every ``period`` s): counts, per thread group, the innermost frame
+    in this repository's code, as ``file:function:line``."""
+
+    def __init__(self, period: float = 0.002) -> None:
+        import threading
+        self.period = period
+        self.counts: dict = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="ps-profile-sampler")
+
+    def _run(self) -> None:
+        import threading
+        me = threading.get_ident()
+        root = str(ROOT)
+        while not self._stop.wait(self.period):
+            names = {t.ident: t.name for t in threading.enumerate()}
+            for ident, frame in sys._current_frames().items():
+                if ident == me:
+                    continue
+                name = names.get(ident, "?")
+                group = ("main" if name == "MainThread"
+                         else re.sub(r"[_-]?\d+(_\d+)?$", "", name))
+                f = frame
+                while f is not None and not f.f_code.co_filename.startswith(
+                        root):
+                    f = f.f_back
+                if f is None:
+                    where = f"(outside the repo) {frame.f_code.co_name}"
+                else:
+                    where = (f"{Path(f.f_code.co_filename).name}:"
+                             f"{f.f_code.co_name}:{f.f_lineno}")
+                g = self.counts.setdefault(group, {})
+                g[where] = g.get(where, 0) + 1
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+
+    def top(self, n: int = 12) -> dict:
+        return {g: sorted(c.items(), key=lambda kv: -kv[1])[:n]
+                for g, c in self.counts.items()}
+
+
+def ps_profile(reps: int = 3, device: str = "cuda") -> int:
+    """``--ps-profile``: where the PS API's fp8 tree path spends its time,
+    beside the trainer's exchange, in one process on one card. BERT-large
+    at the dense run's weights and batch, ``BPS_ENABLE_PS=1``,
+    ``BPS_COMPRESS=fp8_e4m3``, one backward; then the same gradients go
+    ``reps`` times, the variants in turns (forward, then backward order
+    on alternate turns), through five routes, each ending with the
+    summed gradients in the model's ``.grad``:
+
+      trainer       ``PSGradientExchange.exchange`` of every gradient in
+                    one tree, copied back (``DistributedTrainer._ps_step``
+                    without the optimizer);
+      engine_trees  the ``bert_large_pushpull_fp8`` path: the 26 trees of
+                    ``_layer_trees`` through ``bps.push_pull_async``,
+                    then ``bps.synchronize`` of each;
+      direct_trees  the same 26 trees through ``exchange`` one after
+                    another, without the engine;
+      async_trees   the same 26 trees through ``exchange_async``, all
+                    started before the first ``result``;
+      engine_whole  every gradient in one tree through ``bps.push_pull``.
+
+    For each route and turn: the wall time, the summed host stage times
+    per bucket (``stage/PS_*``), the process's CPU seconds and each
+    thread group's (``/proc/self/task``). Then one more turn of
+    ``trainer`` and ``engine_trees`` under a 2 ms stack sampler. Prints
+    one JSON line ``{"ps_profile": ...}``, also written to
+    ``chiprun_out/ps_profile.json``, the card line and the last line.
+    ``device="cpu"`` (with the helpers replaced by tiny ones) rehearses
+    it on the CPU."""
+    import os
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.common.global_state import GlobalState
+    from byteps_tpu_torch.obs.metrics import get_registry
+    from byteps_tpu_torch.parallel.collectives import tree_flatten
+    from byteps_tpu_torch.training import _to_device
+    os.environ.update({"BPS_ENABLE_PS": "1", "BPS_COMPRESS": "fp8_e4m3",
+                       "BPS_COMPRESS_DEVICE": "1",
+                       "BPS_PARTITION_BYTES": str(PARTITION_BYTES),
+                       "BPS_MIN_COMPRESS_BYTES": str(MIN_COMPRESS_BYTES)})
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    log(card_line())
+    cfg, loss_fn, data, _ = _bert_setup()
+    bps.init(device=device)
+    try:
+        ex = GlobalState.get().engine.ps_exchange
+        model, _ = _api_model(cfg)
+        loss_fn(model, _to_device(data, device)).backward()
+        sync()
+        whole = sorted(model.named_parameters(),
+                       key=lambda kv: kv[0].split("."))
+        trees = _layer_trees(model, cfg.layers)
+        flat = {k: tree_flatten(t)[:2] for k, t in trees.items()}
+
+        def land(pairs):
+            with torch.no_grad():
+                for g, s in pairs:
+                    g.copy_(s if torch.is_tensor(s)
+                            else torch.from_numpy(np.ascontiguousarray(s))
+                            .view_as(g))
+
+        def trainer():
+            grads = [(n, p.grad) for n, p in whole]
+            land(zip([g for _, g in grads],
+                     ex.exchange(grads, name="profile-whole")))
+
+        def engine_trees():
+            hs = [(k, bps.push_pull_async(t, name="Gradient." + k))
+                  for k, t in trees.items()]
+            for k, h in hs:
+                out = bps.synchronize(h)
+                land((g, out[n]) for n, g in trees[k].items())
+
+        def direct_trees():
+            for k, (paths, leaves) in flat.items():
+                land(zip(leaves, ex.exchange(list(zip(paths, leaves)),
+                                             name="Gradient." + k)))
+
+        def async_trees():
+            pend = [(leaves, ex.exchange_async(list(zip(paths, leaves)),
+                                               name="Gradient." + k))
+                    for k, (paths, leaves) in flat.items()]
+            for leaves, p in pend:
+                land(zip(leaves, p.result()))
+
+        def engine_whole():
+            grads = {n: p.grad for n, p in whole}
+            out = bps.push_pull(grads, name="profile-engine-whole")
+            land((g, out[n]) for n, g in grads.items())
+
+        routes = {"trainer": trainer, "engine_trees": engine_trees,
+                  "direct_trees": direct_trees, "async_trees": async_trees,
+                  "engine_whole": engine_whole}
+        for fn in routes.values():          # plans, keys, first rounds
+            fn()
+        sync()
+
+        def measure(fn):
+            snap0 = get_registry().snapshot()
+            cpu0, thr0 = time.process_time(), _thread_cpu()
+            t = time.perf_counter()
+            fn()
+            sync()
+            wall = time.perf_counter() - t
+            cpu, thr1 = time.process_time() - cpu0, _thread_cpu()
+            snap = get_registry().snapshot()
+            stages = {}
+            for k, v in snap.items():
+                if k.startswith("stage/PS") and isinstance(v, dict):
+                    n = v["count"] - snap0.get(k, {"count": 0})["count"]
+                    ms = v["sum_ms"] - snap0.get(k, {"sum_ms": 0.0})["sum_ms"]
+                    if n:
+                        stages[k[6:]] = {"n": n, "ms_sum": ms,
+                                         "ms_each": ms / n}
+            return {"wall_ms": wall * 1e3, "cpu_s": cpu,
+                    "threads_cpu_s": {g: thr1[g] - thr0.get(g, 0.0)
+                                      for g in thr1
+                                      if thr1[g] - thr0.get(g, 0.0) > 0.01},
+                    "stages": stages}
+
+        runs = {k: [] for k in routes}
+        for r in range(reps):
+            order = list(routes) if r % 2 == 0 else list(routes)[::-1]
+            for k in order:
+                m = measure(routes[k])
+                runs[k].append(m)
+                log(f"[ps_profile] turn {r + 1} {k}: {m['wall_ms']:.1f} ms, "
+                    f"process CPU {m['cpu_s']:.2f} s, threads "
+                    + ", ".join(f"{g} {s:.2f}" for g, s in
+                                sorted(m["threads_cpu_s"].items()))
+                    + "; " + ", ".join(
+                        f"{s} {v['ms_each']:.2f} ms x {v['n']}"
+                        for s, v in sorted(m["stages"].items())))
+        sampled = {}
+        for k in ("trainer", "engine_trees"):
+            with _Sampler() as smp:
+                m = measure(routes[k])
+            sampled[k] = {"wall_ms": m["wall_ms"], "top": smp.top()}
+            for g, rows in sorted(smp.top().items()):
+                log(f"[ps_profile] sampled {k} ({m['wall_ms']:.1f} ms) "
+                    f"{g}: " + "; ".join(f"{w} {c}" for w, c in rows))
+        med = {k: statistics.median(m["wall_ms"] for m in v)
+               for k, v in runs.items()}
+        log(f"[ps_profile] median wall ms: {med}; engine_trees / trainer "
+            f"{med['engine_trees'] / med['trainer']:.3f}, on {card_line()}")
+        result = {"ps_profile": {"card": card_line(), "median_wall_ms": med,
+                                 "runs": runs, "sampled": sampled}}
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "ps_profile.json").write_text(json.dumps(result, indent=1))
+        print(json.dumps({"ps_profile": {"median_wall_ms": med}}))
+    finally:
+        bps.shutdown()
+    if device == "cuda":
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     args = sys.argv[1:]
     if not torch.cuda.is_available():
@@ -2865,6 +3736,12 @@ def main() -> int:
         return sp_rank(int(args[1]), int(args[2]), int(args[3]), args[4])
     if args[:1] == ["--sp"]:
         return sp_main(int(args[1]))
+    if args[:1] == ["--world-rank"]:
+        return world_rank(int(args[1]), int(args[2]), int(args[3]), args[4])
+    if args[:1] == ["--world"]:
+        return world_main(int(args[1]))
+    if args == ["--ps-profile"]:
+        return ps_profile()
     if args:
         print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
         return 2
@@ -2928,6 +3805,10 @@ def main() -> int:
     for codec in ("int8", "fp8_e4m3"):
         paths[f"bert_large_ps_{codec}"] = train_bert_ps(codec, bert_losses,
                                                         step2_misses)
+    paths["bert_large_plugin"] = train_bert_plugin(bert_losses)
+    for codec in ("int8", "fp8_e4m3"):
+        paths[f"bert_large_pushpull_{codec.split('_')[0]}"] = \
+            train_bert_pushpull(codec, bert_losses, step2_misses)
     if step2_misses:
         raise AssertionError(f"step-2 loss beyond {PS_STEP2_TOL} of the dense "
                              f"run's: {step2_misses}")

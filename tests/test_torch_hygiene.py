@@ -33,7 +33,11 @@ _PORT_ENV = ("BPS_WORKER_ID", "DMLC_WORKER_ID", "BPS_NUM_WORKER",
              "BPS_LOCAL_SIZE", "BYTEPS_LOCAL_SIZE", "BPS_COORDINATOR_ADDRESS",
              "DMLC_PS_ROOT_URI", "BPS_ENABLE_PS", "BYTEPS_ENABLE_PS",
              "BPS_ENABLE_ASYNC", "BYTEPS_ENABLE_ASYNC", "BPS_SERVER_ADDRS",
-             "BPS_COMPRESS", "BPS_COMPRESS_DEVICE", "BPS_PP_STAGES")
+             "BPS_COMPRESS", "BPS_COMPRESS_DEVICE", "BPS_PP_STAGES",
+             "BPS_SCHEDULING_CREDIT", "BYTEPS_SCHEDULING_CREDIT",
+             "BPS_TELEMETRY_ON", "BYTEPS_TELEMETRY_ON",
+             "BPS_DEBUG_SAMPLE_TENSOR", "BYTEPS_DEBUG_SAMPLE_TENSOR",
+             "BPS_PARTITION_BYTES")
 
 
 def _refused_env():
@@ -81,7 +85,8 @@ def test_importing_the_port_loads_no_jax():
             "byteps_tpu_torch.ops.compression.kernels, "
             "byteps_tpu_torch.ops._build_host, "
             "byteps_tpu_torch.server.ps_mode, byteps_tpu_torch.server.homog, "
-            "byteps_tpu_torch.compress.plane, byteps_tpu_torch.compress.device; "
+            "byteps_tpu_torch.compress.plane, byteps_tpu_torch.compress.device, "
+            "byteps_tpu_torch.torch, byteps_tpu_torch.telemetry; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -262,9 +267,8 @@ def test_every_reference_knob_is_read_or_refused():
 
 def _refused_cases():
     from byteps_tpu_torch.common.config import REFUSED
-    values = {"role": "server", "scheduling_credit": "4", "host_only": "1",
+    values = {"role": "server", "host_only": "1",
               "key_hash_fn": "naive", "sharded_update": "1", "trace_on": "1",
-              "telemetry_on": "1", "debug_sample_tensor": "grads",
               "stats_file": "stats.json", "fleet_scrape_sec": "30",
               "metrics_port": "9100"}
     assert set(values) == set(REFUSED)
@@ -288,6 +292,116 @@ def test_refused_knob_raises_at_a_non_default_value(field, env, value,
     assert getattr(JConfig.from_env(), field) != default
     with pytest.raises(NotImplementedError, match=f"{env}.*ROADMAP"):
         Config.from_env()
+
+
+# -- the knobs the port acts on since the BytePS API came over: each acts,
+# under either spelling
+
+class _FakeWork:
+    """An all-reduce of two identical ranks that completes when waited."""
+
+    def __init__(self, buf, log):
+        self.buf, self.done, self.log = buf, False, log
+
+    def is_completed(self):
+        return self.done
+
+    def wait(self):
+        if not self.done:
+            self.buf.mul_(2)
+            self.done = True
+            self.log.append("wait")
+
+
+@pytest.mark.parametrize("env", ["BPS_SCHEDULING_CREDIT",
+                                 "BYTEPS_SCHEDULING_CREDIT"])
+def test_scheduling_credit_bounds_the_bytes_in_flight(env, monkeypatch):
+    """A world of two (collectives faked: each completes when waited on):
+    with a credit, dispatch waits on the oldest buckets once their bytes
+    exceed it; without one, every bucket is in flight at once."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.parallel import collectives
+    log, inflight = [], []
+
+    def all_reduce(buf, op=None, group=None, async_op=False):
+        inflight.append(sum(w.buf.nbytes for w in works if not w.done))
+        works.append(_FakeWork(buf, log))
+        return works[-1]
+
+    monkeypatch.setattr(collectives.dist, "all_reduce", all_reduce)
+    monkeypatch.setattr(collectives, "data_group", lambda: "two-ranks")
+    monkeypatch.setattr(collectives, "dp_size", lambda group=None: 2)
+    monkeypatch.setenv("BPS_PARTITION_BYTES", "4096")
+    tree = {f"t{i}": torch.full((1024,), float(i)) for i in range(8)}
+    for credit in (0, 8192):
+        works = []
+        log.clear()
+        inflight.clear()
+        monkeypatch.setenv(env, str(credit))
+        bps.init(device="cpu")
+        try:
+            waits = bps.get_metrics().stage("CREDIT_BLOCK")
+            before = waits.count
+            out = bps.push_pull(tree)
+            for k, v in tree.items():
+                assert torch.equal(out[k], v)      # the mean of two equals
+            assert len(works) == 8
+            if credit:
+                assert max(inflight) <= credit
+                assert waits.count > before
+            else:
+                assert inflight == [4096 * i for i in range(8)]
+                assert waits.count == before
+        finally:
+            bps.shutdown()
+
+
+@pytest.mark.parametrize("env", ["BPS_TELEMETRY_ON", "BYTEPS_TELEMETRY_ON"])
+def test_telemetry_records_push_pulls(env, monkeypatch):
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.common.global_state import GlobalState
+    bps.init(device="cpu")
+    try:
+        assert GlobalState.get().telemetry is None
+        bps.push_pull({"x": torch.ones(4096)})
+        assert bps.get_pushpull_speed() == 0.0
+    finally:
+        bps.shutdown()
+    monkeypatch.setenv(env, "1")
+    bps.init(device="cpu")
+    try:
+        bps.push_pull({"x": torch.ones(4096)})
+        assert bps.get_pushpull_speed() > 0.0
+    finally:
+        bps.shutdown()
+
+
+@pytest.mark.parametrize("env", ["BPS_DEBUG_SAMPLE_TENSOR",
+                                 "BYTEPS_DEBUG_SAMPLE_TENSOR"])
+def test_debug_sampler_logs_matching_names(env, monkeypatch):
+    import logging
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.common.logging import get_logger
+    lines = []
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    monkeypatch.setenv(env, "grads")
+    handler = Lines()
+    get_logger().addHandler(handler)
+    bps.init(device="cpu")
+    try:
+        x = {"w": torch.tensor([1.0, 3.0])}
+        bps.push_pull(x, name="other")
+        assert not lines
+        bps.push_pull(x, name="grads.step")
+        assert lines == ["SAMPLE grads.step['w'] mean=2 std=1 first=1"]
+    finally:
+        bps.shutdown()
+        get_logger().removeHandler(handler)
 
 
 def test_refused_knob_raises_under_its_legacy_name(monkeypatch):

@@ -201,3 +201,48 @@ def test_ps_trainer_needs_init_and_refuses_unported_options(monkeypatch):
     monkeypatch.setenv("BPS_SERVER_ADDRS", "localhost:1")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bps.init(device="cpu")
+
+
+def test_a_trainer_run_holds_only_the_trainers_exchange(monkeypatch):
+    """The engine behind ``bps.push_pull`` builds its PS exchange at its
+    first use: a run that trains through ``DistributedTrainer`` alone
+    holds one exchange, the trainer's, and ``bps.shutdown`` closes
+    whichever were built."""
+    monkeypatch.setenv("BPS_COMPRESS", "int8")
+    bps.init(device="cpu")
+    gs = GlobalState.get()
+    model = tbert.Transformer(tbert.bert_config(dtype="float32", **WIDTH))
+    tt = DistributedTrainer(
+        lambda m, b: tbert.mlm_loss(m, b, max_predictions=MAX_PRED), model,
+        adamw(model.parameters(), LR, eps=EPS), device="cpu")
+    assert np.isfinite(tt.step(_batch(0)).item())
+    assert gs.exchanges == [tt.ps_exchange]
+    assert gs.engine._ps_exchange is None
+    ex = gs.engine.ps_exchange
+    assert ex is not None and ex is not tt.ps_exchange
+    assert gs.engine.ps_exchange is ex
+    assert gs.exchanges == [tt.ps_exchange, ex]
+    out = bps.push_pull({"g": torch.ones(1 << 16)}, name="g")
+    assert out["g"].shape == (1 << 16,)
+
+
+def test_shutdown_frees_the_exchanges_at_once(monkeypatch):
+    """``bps.shutdown`` drops the state, its exchanges and their error-
+    feedback residuals (on the card, the size of the gradients) at once,
+    without waiting for the cycle collector: nothing the engine holds
+    refers back to the state."""
+    import gc
+    import weakref
+    monkeypatch.setenv("BPS_COMPRESS", "int8")
+    bps.init(device="cpu")
+    gs = GlobalState.get()
+    bps.push_pull({"g": torch.ones(1 << 16)}, name="g")
+    refs = [weakref.ref(gs), weakref.ref(gs.engine),
+            weakref.ref(gs.engine.ps_exchange)]
+    del gs
+    gc.disable()
+    try:
+        bps.shutdown()
+        assert [r() for r in refs] == [None, None, None]
+    finally:
+        gc.enable()
