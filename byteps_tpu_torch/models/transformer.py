@@ -58,7 +58,7 @@ class TransformerConfig:
     remat: bool = True            # checkpoint each block
     remat_policy: Optional[str] = None
     remat_layers: int = -1        # how many of the layers to checkpoint
-    attn_impl: str = "auto"       # auto | flash | naive
+    attn_impl: str = "auto"       # auto | flash | hybrid | naive
     tp_axis: Optional[str] = None
     sp_axis: Optional[str] = None
     pp_axis: Optional[str] = None

@@ -1,4 +1,4 @@
-from .base import Compressor, create, register
-from . import onebit  # registers "onebit"
+from .base import Compressor, create, register, registered_names
+from . import dithering, onebit, randomk, topk  # register the compressors
 from .decorators import VanillaErrorFeedback, NesterovMomentum
 from .reducer import CompressionPlan

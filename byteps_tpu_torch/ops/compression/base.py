@@ -11,11 +11,16 @@ explicitly, so one instance can serve a bucket on any device. State and
 payloads are dicts of tensors on the bucket's device. The kwargs surface
 is string-typed and keeps the reference's key names (``compressor_type``,
 ``ef_type``, ``momentum_type``, ``momentum_mu``,
-``compressor_onebit_scaling``, ``compressor_backend``).
+``compressor_onebit_scaling``, ``compressor_backend``, ``compressor_k``,
+``seed``, ``dithering_partition``, ``dithering_normalize``).
 
-Registered here: ``onebit``. The JAX package's ``topk``, ``randomk`` and
-``dithering`` are names this port knows and refuses until they are ported
-(ROADMAP.md).
+Registered (by the package's ``__init__``, which imports each module):
+``onebit``, ``topk``, ``randomk`` and ``dithering``, the JAX package's
+four. The two that draw random numbers (randomk, dithering)
+keep a ``torch.Generator``'s state in their compressor state
+(``generator_state``): a CPU byte tensor, seeded from the ``seed`` kwarg,
+that goes in and out of ``compress`` like any other state, so no draw
+waits on the device.
 """
 
 from __future__ import annotations
@@ -32,8 +37,6 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
 _REGISTRY: Dict[str, Callable[..., "Compressor"]] = {}
-# registered in the JAX package, not ported yet
-NOT_PORTED = ("dithering", "randomk", "topk")
 
 
 def register(name: str):
@@ -63,6 +66,26 @@ class Compressor:
     def decompress(self, payload: Payload) -> torch.Tensor:
         raise NotImplementedError
 
+    def payload_nbytes(self) -> int:
+        """Wire size of one compressed payload (for telemetry/ratio)."""
+        raise NotImplementedError
+
+
+def generator_state(seed: int, device=None) -> torch.Tensor:
+    """The state of a ``torch.Generator`` on ``device`` (default the CPU)
+    seeded with ``seed``: a CPU byte tensor."""
+    g = torch.Generator(device=device or "cpu")
+    g.manual_seed(seed)
+    return g.get_state()
+
+
+def generator(state: torch.Tensor, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` at ``state`` (which must come
+    from a generator of the same device type)."""
+    g = torch.Generator(device=device)
+    g.set_state(state)
+    return g
+
 
 def create(kwargs: Dict[str, str], size: int,
            dtype: str = "float32") -> Optional[Compressor]:
@@ -72,14 +95,7 @@ def create(kwargs: Dict[str, str], size: int,
     no ``compressor_type`` is given."""
     if "compressor_type" not in kwargs:
         return None
-    from . import onebit  # noqa: F401  (registers "onebit")
     kind = kwargs["compressor_type"]
-    if kind in NOT_PORTED:
-        raise NotImplementedError(
-            f"gradient compression with compressor_type {kind!r} is not "
-            "ported yet (ROADMAP.md, "
-            "'Modules still to port'); the port has "
-            f"{sorted(_REGISTRY)}")
     ctor = _REGISTRY.get(kind)
     if ctor is None:
         raise ValueError(f"no compressor registered under {kind!r}; have "
@@ -93,3 +109,7 @@ def create(kwargs: Dict[str, str], size: int,
         comp = NesterovMomentum(comp, mu=float(kwargs.get("momentum_mu",
                                                           0.9)))
     return comp
+
+
+def registered_names():
+    return sorted(_REGISTRY)

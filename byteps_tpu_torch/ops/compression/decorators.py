@@ -46,6 +46,9 @@ class VanillaErrorFeedback(Compressor):
     def decompress(self, payload):
         return self.inner.decompress(payload)
 
+    def payload_nbytes(self) -> int:
+        return self.inner.payload_nbytes()
+
 
 class NesterovMomentum(Compressor):
     name = "nesterov_momentum"
@@ -68,3 +71,6 @@ class NesterovMomentum(Compressor):
 
     def decompress(self, payload):
         return self.inner.decompress(payload)
+
+    def payload_nbytes(self) -> int:
+        return self.inner.payload_nbytes()

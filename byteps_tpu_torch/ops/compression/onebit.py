@@ -60,3 +60,6 @@ class OnebitCompressor(Compressor):
     def decompress(self, payload: dict) -> torch.Tensor:
         signs = self._unpack(payload["packed"], self.size)
         return (signs * payload["scale"]).to(DTYPES[self.dtype])
+
+    def payload_nbytes(self) -> int:
+        return -(-self.size // 32) * 4 + 4

@@ -73,6 +73,18 @@ rowsum(dO∘out) with ``out`` already rounded), so parity with the JAX
 package needs the same route at the same shapes. The Hopper kernels
 themselves walk 64-row tiles whatever the block.
 
+``attention`` is the dispatcher the models call (JAX ``attention``,
+:853): ``route`` picks the path. "auto" takes the kernels on the card
+wherever ``check_kernel_inputs`` accepts the input and raises where it
+refuses it; the plain O(s²) attention runs only when asked for by name
+("naive"). The JAX package's ``supported()`` predicate is kept for
+parity, but routes nothing: the kernels take sequences in tiles of 64,
+finer than its 128, so a shape it rejects still has a kernel here. On
+CPU tensors "auto" takes the kernels' plain versions. "hybrid" is the
+JAX package's ``fwd_xla`` form: a forward of plain products
+(``hybrid_fwd``, the port of ``_xla_fwd``) that gives the (out, lse)
+residuals the flash backward kernels read, with those kernels behind it.
+
 Each wrapper keeps its plain PyTorch version beside it, with the same
 inputs and outputs, and takes it only for tensors on the CPU. A CUDA
 tensor launches the kernel or raises: inputs the kernels do not take
@@ -89,6 +101,7 @@ delta-given ones (``launches_delta``, ``launches_delta_d``).
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Optional, Tuple
 
@@ -294,6 +307,44 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool = False,
     ds = (p * (dp - delta.float()[..., None])).to(q.dtype).float()
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+@contextlib.contextmanager
+def _full_fp32():
+    """fp32 products in full fp32 on the card (TF32 off) for the block."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def hybrid_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
+               bias=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The hybrid route's forward, the port of the JAX ``_xla_fwd``
+    (:307): (out [b, sq, h, d] in q's dtype, lse [b, h, sq] fp32) from
+    plain products, on any device. S = q·kᵀ·scale in fp32 (bf16 operands
+    are upcast, which is exact, and TF32 stays off: the JAX product's
+    ``preferred_element_type=float32``), plus ``bias`` [h, sq, sk], the
+    causal mask, then P = exp(S - m), l = rowsum(P), (P / l) cast to v's
+    dtype before the fp32 product with V, lse = m + log(l). Not a kernel:
+    the library's products and elementwise ops."""
+    scale = _scale(q, scale)
+    qt, kt, vt = (t.transpose(1, 2).float() for t in (q, k, v))
+    with _full_fp32():
+        s = torch.matmul(qt, kt.transpose(-1, -2)) * scale
+        if bias is not None:
+            s = s + bias[None].float()
+        if causal:
+            s = s.masked_fill(~_causal_keep(q.shape[1], k.shape[1],
+                                            q.device), _NEG_INF)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(-1, keepdim=True)
+        out = torch.matmul((p / l).to(v.dtype).float(), vt)
+    return (out.to(q.dtype).transpose(1, 2).contiguous(),
+            (m + torch.log(l))[..., 0])
 
 
 # ------------------------------------------------------- input contract
@@ -640,11 +691,27 @@ class _FlashAttention(torch.autograd.Function):
     the split route it also saves ``out``, whose rowsum with dO is the
     delta the split kernels read, and the bias or table when given. The
     backward returns the gradient of the bias (dbias) or of the table
-    (dtable), as the JAX custom VJP returns ``dbias, drel``."""
+    (dtable), as the JAX custom VJP returns ``dbias, drel``.
+
+    ``hybrid`` (the JAX ``fwd_xla``) takes the forward from ``hybrid_fwd``
+    instead of the forward kernel, a table materialized as
+    ``relpos.relative_bias`` for it; the saved residuals and the backward
+    are the same (the table, not the bias, is saved)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, rel_table, causal, scale, fused, rel):
-        out, lse = flash_fwd(q, k, v, causal, scale, bias, rel_table, *rel)
+    def forward(ctx, q, k, v, bias, rel_table, causal, scale, fused, rel,
+                hybrid):
+        if hybrid:
+            with torch.profiler.record_function("bps::hybrid_fwd"):
+                dense = bias
+                if rel_table is not None:
+                    dense = relpos.relative_bias(rel_table.T, q.shape[1],
+                                                 k.shape[1], rel[0],
+                                                 rel_table.shape[1], rel[1])
+                out, lse = hybrid_fwd(q, k, v, causal, scale, dense)
+        else:
+            out, lse = flash_fwd(q, k, v, causal, scale, bias, rel_table,
+                                 *rel)
         form = _form(bias, rel_table)
         extra = {FORM_NONE: (), FORM_BIAS: (bias,), FORM_REL: (rel_table,)}
         if fused:
@@ -677,47 +744,76 @@ class _FlashAttention(torch.autograd.Function):
                 dq, drel = dq
             dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal,
                                    ctx.scale, bias, table, *ctx.rel)
-        return dq, dk, dv, dbias, drel, None, None, None, None
+        return dq, dk, dv, dbias, drel, None, None, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None, bias=None,
                     rel_table=None, block_q: int = BLOCK,
                     block_k: int = BLOCK, rel_bidirectional: bool = True,
-                    rel_max_distance: int = 128):
+                    rel_max_distance: int = 128, hybrid: bool = False):
     """Differentiable flash attention: q [b, sq, h, d], k/v [b, sk, h, d]
     -> [b, sq, h, d]. ``block_q`` / ``block_k`` are the JAX package's
     blocks: they choose the backward route (``backward_route``), as
     there. ``bias`` [h, sq, sk] or ``rel_table`` [h, nb] (T5's table, with
     ``rel_bidirectional`` and ``rel_max_distance``) add to the scores;
-    both are differentiable and take the split backward."""
+    both are differentiable and take the split backward. ``hybrid``: the
+    forward from ``hybrid_fwd`` (the JAX ``fwd_xla``), the backward the
+    same kernels."""
     check_forms(q, k, causal, bias, rel_table)
     biased = bias is not None or rel_table is not None
     fused = backward_route(q.shape[1], k.shape[1], block_q, block_k,
                            biased) == "fused"
     return _FlashAttention.apply(q, k, v, bias, rel_table, causal, scale,
                                  fused, (bool(rel_bidirectional),
-                                         int(rel_max_distance)))
+                                         int(rel_max_distance)), hybrid)
+
+
+def supported(q_shape, k_shape=None) -> bool:
+    """The JAX package's predicate (``supported``, :828): each sequence a
+    multiple of 128 and head_dim <= 256. It is not the Hopper kernels'
+    own test (``check_kernel_inputs``: bf16, d in ``KERNEL_DS``, sequences
+    a multiple of ``KERNEL_TILE``), and ``route`` does not read it: a
+    shape it accepts that the kernels refuse raises, and one it rejects
+    that the kernels take (a sequence of 192) runs them."""
+    _, sq, _, d = q_shape
+    sk = sq if k_shape is None else k_shape[1]
+    return sq % 128 == 0 and sk % 128 == 0 and d <= 256
+
+
+def route(q, k, v, impl: str = "auto", causal: bool = False, bias=None,
+          rel_table=None) -> str:
+    """The path ``attention`` takes: "flash", "hybrid" or "naive".
+
+    "naive" only where asked for. On the card (any device but the CPU;
+    the tests pass meta tensors for the card's) "auto", "flash" and
+    "hybrid" check the kernels' inputs first, so what they refuse raises
+    here and never reaches the plain attention. CPU tensors take "flash"
+    (the kernels' plain versions) under "auto"."""
+    if impl not in ("auto", "flash", "hybrid", "naive"):
+        raise ValueError(
+            f"attn impl must be auto|flash|hybrid|naive, got {impl!r}")
+    if impl == "naive":
+        return "naive"
+    if q.device.type != "cpu":
+        check_kernel_inputs(q, k, v, causal, bias, rel_table)
+    return "flash" if impl == "auto" else impl
 
 
 def attention(q, k, v, causal: bool = False, scale: Optional[float] = None,
               impl: str = "auto", bias=None, rel_table=None,
               rel_bidirectional: bool = True, rel_max_distance: int = 128):
-    """Dispatcher the models call.
+    """Dispatcher the models call (``route`` picks the path).
 
     impl: "auto" | "flash" -> ``flash_attention`` (the Hopper kernels on
     the card, their plain versions on the CPU; refused inputs raise);
-    "naive" -> ``parallel.ring.local_attention``, the plain O(s²) oracle,
-    only when asked for, with a rel table materialized through
-    ``relpos.relative_bias``; "hybrid" is not ported."""
-    if impl not in ("auto", "flash", "hybrid", "naive"):
-        raise ValueError(
-            f"attn impl must be auto|flash|hybrid|naive, got {impl!r}")
-    if impl == "hybrid":
-        raise NotImplementedError(
-            "impl='hybrid' (library forward + flash backward) is not "
-            "ported (ROADMAP.md)")
-    if impl == "naive":
+    "hybrid" -> ``flash_attention(hybrid=True)``: plain products forward,
+    the kernels backward (on the CPU, their plain versions); "naive" ->
+    ``parallel.ring.local_attention``, the plain O(s²) oracle, with a rel
+    table materialized through ``relpos.relative_bias``, only where asked
+    for."""
+    way = route(q, k, v, impl, causal, bias, rel_table)
+    if way == "naive":
         if rel_table is not None:
             bias = relpos.relative_bias(rel_table.T, q.shape[1], k.shape[1],
                                         rel_bidirectional,
@@ -727,4 +823,5 @@ def attention(q, k, v, causal: bool = False, scale: Optional[float] = None,
     return flash_attention(q, k, v, causal=causal, scale=scale, bias=bias,
                            rel_table=rel_table,
                            rel_bidirectional=rel_bidirectional,
-                           rel_max_distance=rel_max_distance)
+                           rel_max_distance=rel_max_distance,
+                           hybrid=way == "hybrid")

@@ -10,7 +10,8 @@ the bucketed all-reduce over the data-parallel group, then
 ``inner.step()``. With ``compression`` (the reference's string kwargs,
 e.g. onebit with error feedback and Nesterov momentum) the reduction is
 ``ops.compression.CompressionPlan``'s compressed exchange instead
-(counterpart of ``byteps_tpu/optim.py::_make_compressed``).
+(counterpart of ``byteps_tpu/optim.py::_make_compressed``), and with a
+custom ``reducer`` each bucket goes through it in place of the sum.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
-from .parallel.collectives import bucketed_allreduce, leaf_specs
+from .parallel.collectives import Reducer, bucketed_allreduce, leaf_specs
+from .parallel.mesh import dp_size
 
 
 def adamw(params, learning_rate: float, b1: float = 0.9, b2: float = 0.999,
@@ -53,7 +55,14 @@ class DistributedOptimizer:
     take the plain sum. The compressor state (error feedback, momentum)
     is this process's own, on the parameters' device. Unlike the dense
     path, the compressed one runs at world 1 too: only the collective is
-    skipped.
+    skipped. The plan's rs exchange shards each bucket over ``group``'s
+    size.
+
+    ``reducer``: ``reducer(buf, group) -> buf`` for each bucket in place
+    of the sum over ``group`` (``parallel.collectives.Reducer``; the
+    average still divides by the group size). Like compression it runs at
+    world 1 too, with ``group`` None. The two are exclusive: the
+    compressed exchange is its own reduction.
     """
 
     def __init__(self, inner: torch.optim.Optimizer,
@@ -61,9 +70,15 @@ class DistributedOptimizer:
                  group=None, partition_bytes: int = 4 << 20,
                  backward_passes_per_step: int = 1,
                  compression: Optional[Dict[str, str]] = None,
-                 min_compress_bytes: int = 65536) -> None:
+                 min_compress_bytes: int = 65536,
+                 reducer: Optional[Reducer] = None) -> None:
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
+        if reducer is not None and compression:
+            raise ValueError("a custom reducer and compression are "
+                             "exclusive: the compressed exchange is the "
+                             "reduction")
+        self.reducer = reducer
         self.inner = inner
         self.group = group
         self.partition_bytes = partition_bytes
@@ -82,7 +97,7 @@ class DistributedOptimizer:
                 leaf_specs([self._params[i] for i in self._order],
                            [self._names[i] for i in self._order]),
                 partition_bytes, {k: str(v) for k, v in compression.items()},
-                min_compress_bytes)
+                min_compress_bytes, world=dp_size(group))
             self.comp_states = None     # made at the first sync
 
     def step(self) -> bool:
@@ -104,7 +119,8 @@ class DistributedOptimizer:
             if self.plan is None:
                 bucketed_allreduce(grads, group=self.group,
                                    partition_bytes=self.partition_bytes,
-                                   average=True, names=self._names)
+                                   average=True, names=self._names,
+                                   reducer=self.reducer)
             else:
                 if self.comp_states is None:
                     self.comp_states = self.plan.init_state(grads[0].device)

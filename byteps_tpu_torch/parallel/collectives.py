@@ -12,7 +12,9 @@ common.h:88-102, core_loops.cc) in a data-parallel all-reduce:
      scheduled_queue.cc:82-102).
 
 Each bucket is one ``torch.distributed.all_reduce`` (NCCL on the card,
-gloo on the CPU) on the data-parallel group.
+gloo on the CPU) on the data-parallel group, or one call of a custom
+reducer: a ``Reducer``, ``reducer(buf, group) -> buf`` (the JAX package's
+``Reducer``, which takes mesh axes where this one takes the group).
 
 One bucket loop, ``reduce_buckets``, serves both callers:
 ``bucketed_allreduce``, in place, which the trainer's optimizer calls;
@@ -25,7 +27,7 @@ from __future__ import annotations
 import collections
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +37,9 @@ from ..common.naming import NameRegistry
 from ..common.partition import Bucket, LeafSpec, plan_buckets
 from ..obs.metrics import observe_stage
 from .mesh import data_group, dp_size
+
+
+Reducer = Callable[[torch.Tensor, Optional[object]], torch.Tensor]
 
 
 def psum_reducer(buf: torch.Tensor, group) -> torch.Tensor:
@@ -68,27 +73,29 @@ def _unpack_bucket(buf: torch.Tensor, bucket: Bucket,
 
 def bucketed_allreduce(tensors: Sequence[torch.Tensor], group=None,
                        partition_bytes: int = 4 << 20, average: bool = True,
-                       names: Optional[Sequence[str]] = None) -> None:
+                       names: Optional[Sequence[str]] = None,
+                       reducer: Optional[Reducer] = None) -> None:
     """Bucketed gradient all-reduce, IN PLACE on ``tensors``.
 
     Flattens the leaves, packs them into ~partition_bytes buckets in
     reverse declaration order, sums each bucket over ``group`` (default:
-    the data group), divides by the group size when ``average``, and
-    copies the result back: ``reduce_buckets`` landing in the leaves
-    themselves, on the caller's stream (the host does not wait for the
-    card). At world 1 there is nothing to reduce and the call returns at
-    once, as the JAX trainer drops size-1 axes
-    (``training.py:337-342``).
+    the data group) or hands it to ``reducer``, divides by the group size
+    when ``average``, and copies the result back: ``reduce_buckets``
+    landing in the leaves themselves, on the caller's stream (the host
+    does not wait for the card). At world 1 the plain sum has nothing to
+    do and the call returns at once, as the JAX trainer drops size-1 axes
+    (``training.py:337-342``); a custom reducer still runs there, with
+    ``group`` None, as the JAX trainer keeps the axis for it.
     """
     if group is None:
         group = data_group()
-    if not tensors or dp_size(group) == 1:
+    if not tensors or (dp_size(group) == 1 and reducer is None):
         return
     buckets = plan_buckets(leaf_specs(tensors, names), partition_bytes,
                            reverse_order=True)
     flat = [t.view(-1) for t in tensors]
-    reduce_buckets(flat, buckets, group, average, outs=flat) \
-        .result(block=False)
+    reduce_buckets(flat, buckets, group, average, outs=flat,
+                   reducer=reducer).result(block=False)
 
 
 # ---------------------------------------------------------------------------
@@ -262,23 +269,38 @@ class _Credit:
             self._bytes += nbytes
 
 
+class _Done:
+    """The work of a reduction that ran in the caller (a custom
+    reducer): already complete."""
+
+    @staticmethod
+    def wait() -> None:
+        pass
+
+    @staticmethod
+    def is_completed() -> bool:
+        return True
+
+
 def reduce_buckets(flat: List[torch.Tensor], buckets: Sequence[Bucket],
                    group, average: bool = True,
                    outs: Optional[List[torch.Tensor]] = None,
-                   credit: Optional[_Credit] = None) -> _Reduction:
+                   credit: Optional[_Credit] = None,
+                   reducer: Optional[Reducer] = None) -> _Reduction:
     """The bucket loop behind every all-reduce of the port: each bucket of
     the flat leaves ``flat`` packed and summed over ``group`` with one
-    ``dist.all_reduce(..., async_op=True)``, in the order given; the
-    landing divides by the group size when ``average`` and copies each
-    bucket into ``outs``: new tensors by default, landed on a side
-    stream; ``outs=flat`` reduces in place, every bucket packed before
-    any lands, on the caller's stream (the caller's next use of its
-    leaves must follow it). With ``credit``, dispatch waits under its
-    byte budget first. At world 1 nothing is launched: the outputs hold
-    the inputs."""
+    ``dist.all_reduce(..., async_op=True)``, or by ``reducer(buf,
+    group)`` in the caller, in the order given; the landing divides by
+    the group size when ``average`` and copies each bucket into ``outs``:
+    new tensors by default, landed on a side stream; ``outs=flat``
+    reduces in place, every bucket packed before any lands, on the
+    caller's stream (the caller's next use of its leaves must follow it).
+    With ``credit``, dispatch waits under its byte budget first. At world
+    1 the plain sum launches nothing: the outputs hold the inputs; a
+    custom reducer runs at every world."""
     n = dp_size(group)
     cuda = any(f.is_cuda for f in flat)
-    if n == 1:
+    if n == 1 and reducer is None:
         return _Reduction([f.clone() for f in flat] if outs is None
                           else outs, [], 1, cuda)
     if outs is None:
@@ -288,8 +310,11 @@ def reduce_buckets(flat: List[torch.Tensor], buckets: Sequence[Bucket],
         if credit is not None:
             credit.wait(cuda)
         buf = _pack_bucket(flat, b)
-        work = dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group,
-                               async_op=True)
+        if reducer is not None:
+            buf, work = reducer(buf, group), _Done()
+        else:
+            work = dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group,
+                                   async_op=True)
         items.append((work, buf, b))
         if credit is not None:
             credit.admit(b.nbytes, work)

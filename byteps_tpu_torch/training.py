@@ -23,10 +23,9 @@ The port always runs that monolithic tail, the JAX package's
 cross-step driver and the sharded update overlap work without changing a
 number, and are not ported yet.
 
-The async path, custom reducers, the legacy ``compression=`` kwargs in PS
-mode, gradient accumulation in PS mode and pipeline parallelism
-(``BPS_PP_STAGES`` > 1) are not ported yet (ROADMAP.md): their options
-raise.
+The async path, the legacy ``compression=`` kwargs in PS mode, gradient
+accumulation in PS mode and pipeline parallelism (``BPS_PP_STAGES`` > 1)
+are not ported yet (ROADMAP.md): their options raise.
 
 ``ShardedTrainer`` is the data × sequence-parallel step (counterpart of
 the JAX ``ShardedTrainer`` on a mesh whose only axes above 1 are
@@ -78,6 +77,12 @@ class DistributedTrainer:
         ``BPS_PARTITION_BYTES``).
       backward_passes_per_step: local gradient accumulation (reference:
         torch/__init__.py:83-113).
+      reducer: ``reducer(buf, group) -> buf``, the collective of each
+        gradient bucket in place of the sum (``parallel.collectives.
+        Reducer``); None for the sum. Like compression it runs at world 1
+        too (``group`` None there), as the JAX trainer keeps the size-1
+        data axis for it. PS mode refuses it (ValueError), as the JAX
+        trainer does.
       compression: gradient compression kwargs in the reference's format,
         e.g. ``{"compressor_type": "onebit",
         "compressor_onebit_scaling": "true", "ef_type": "vanilla",
@@ -104,8 +109,6 @@ class DistributedTrainer:
                  reducer=None, compression: Optional[dict] = None,
                  min_compress_bytes: Optional[int] = None,
                  device=None, group=None, name: Optional[str] = None) -> None:
-        if reducer is not None:
-            raise NotImplementedError(f"custom reducers: the port {_NOT_PORTED}")
         gs = GlobalState._instance
         cfg = gs.config if gs is not None else Config.from_env()
         if cfg.pp_stages > 1:
@@ -125,6 +128,12 @@ class DistributedTrainer:
         self.step_count = 0
         self.ps_exchange = None
         if cfg.enable_ps:
+            if reducer is not None:
+                # the JAX trainer's refusal (byteps_tpu/training.py:238-242)
+                raise ValueError(
+                    "custom reducers run on the collective path and would "
+                    "be silently unused in PS mode — express lossy "
+                    "exchange via compression kwargs instead")
             self._init_ps(gs, optimizer, partition_bytes,
                           backward_passes_per_step, compression,
                           min_compress_bytes, name)
@@ -139,7 +148,8 @@ class DistributedTrainer:
             compression=compression,
             min_compress_bytes=(cfg.min_compress_bytes
                                 if min_compress_bytes is None
-                                else min_compress_bytes))
+                                else min_compress_bytes),
+            reducer=reducer)
 
     # ------------------------------------------------------------ PS mode
 

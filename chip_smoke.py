@@ -111,6 +111,20 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
      what that path launches (remat runs each layer's forward twice):
        - BERT-large MLM, 24 x 1024 x 16, vocab 30522, seq 512: 144
          forward and 72 fused-backward launches, all at head dim 64;
+       - BERT-large with ``attn_impl="hybrid"``: attention's forward
+         from plain products (``flash_attention.hybrid_fwd``), no forward
+         kernel; 72 fused-backward launches at head dim 64; step 1's loss
+         within HYBRID_TOL of the flash run's; its step time, peak memory
+         and the plain forward's device time (the ``bps::hybrid_fwd``
+         range) printed beside the flash run's; then ``check_hybrid``:
+         ``hybrid_fwd`` against the forward kernel on the same inputs at
+         the path's shape (lse within HYBRID_LSE_TOL, out within a bf16
+         step), the attention's gradients there within HYBRID_OP_TOL of
+         the flash route's and the step-1 gradients of fresh weights
+         within HYBRID_GRAD_TOL of the flash path's, with the fault
+         controls of HYBRID_CONTROLS (bf16 products, an lse one bf16 step
+         high, TF32; T5 also without its relative bias) read beside them,
+         the gated ones above the limit;
        - BERT-large at 8 heads of 128 (``bench.py``'s dh128 variant,
          ``dataclasses.replace(bert_large, heads=8)``): 144 forward and 72
          fused-backward launches, all at head dim 128, none at 64; its step
@@ -123,6 +137,18 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          as the dense run, plus 3 x nc pack and 3 x 2 x nc unpack
          launches for the nc compressed buckets of the plan (world 1:
          error feedback's decompress and the one gathered payload's);
+       - GPT-2 medium with the compressors beyond onebit
+         (``GPT2_COMPRESSION``): topk and randomk at 1% with error
+         feedback, dithering at 4 linear levels, and the README's onebit
+         over the rs exchange (the dense run's launches, plus 3 x 2 x nc
+         pack and 3 x 4 x nc unpack launches for onebit over rs).
+         topk, randomk and dithering then reduce one step's real
+         gradients (fresh weights, step 1) with a fresh plan: the result
+         must differ from the dense gradient, and be bit for bit the CPU
+         route's on the gradients copied to the host (randomk and
+         dithering with both routes' draws injected from one stream; topk
+         but for elements at a tied k-th magnitude). Both onebit paths
+         (gather and rs) run ``check_onebit_reduction`` instead;
        - BERT-large MLM through the parameter-server path (``bps.init()``
          with ``BPS_ENABLE_PS=1``: the in-process server at world 1),
          once with ``BPS_COMPRESS=int8`` and once with ``fp8_e4m3``, each
@@ -142,6 +168,10 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          no-bias forward (cross-attention), 36 table-form dq and dk/dv, 18
          no-bias dq and dk/dv (cross-attention over two 512 blocks of
          source takes the split backward), 0 fused, 0 dense-bias;
+         then with ``attn_impl="hybrid"``: no forward kernel, the same
+         dq and dk/dv launches, step 1 within HYBRID_TOL of the flash
+         run's, printed beside it, and ``check_hybrid`` at the encoder,
+         decoder and cross shapes;
        - sequence parallelism through the port's ``ShardedTrainer`` on a
          ``{"seq": 1}`` mesh (a ring of one; ``sp_axis="seq"``):
          BERT-large MLM at seq 512 with the full-sequence head, 144
@@ -182,8 +212,10 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
      and T5 repeat step 1 with ``attn_impl="naive"`` (plain attention on
      the card) as the reference for the loss; every run prints step time,
      rates, peak memory and one profiled step's device busy/idle split,
-     its device time by kernel group and each codec kernel's device time
-     and launches. The compressed run then
+     its device time by kernel group, each codec kernel's device time
+     and launches, and the device time of the kernels inside the port's
+     profiler ranges (``RANGES``: the hybrid forward, the compressed
+     exchange). The compressed run then
      holds one step's compressed reduction of real gradients through the
      kernels against the same reduction through their plain versions,
      bit for bit: packed words, scales, decompressed values, error
@@ -215,10 +247,27 @@ checkout at PARENT (built here, each called through its own C entry
 point with its own launch plan), in turns in one process, the int8
 quantize beside ``torch.quantize_per_tensor``, as one JSON line.
 
+    python3 chip_smoke.py --hybrid-check
+
+runs only ``check_hybrid`` for BERT-large and T5-small (the kernels
+built first), printing every reading and gating none: the way to read
+the controls again before HYBRID_GRAD_TOL moves.
+
     python3 chip_smoke.py --ps-profile
 
 prints only where the PS API's fp8 tree path spends its time beside the
 trainer's exchange of the same BERT-large gradients (``ps_profile``).
+
+    python3 chip_smoke.py --world 2
+
+runs only the BytePS API and the compressed rs exchange over 2 cards (one
+process per card, NCCL over ``tcp://localhost``): BERT-large through the
+plugin's ``DistributedOptimizer`` (every rank rank 0's weights after it),
+``push_pull`` and ``push_pull_async`` of one backward's gradients against
+their mean, and one round of the README's onebit over the rs exchange on
+those gradients (``world_rs_round``: the kernels and the plain versions
+bit for bit, every rank the same bits, the pack and unpack launches). It
+prints ``{"world": {...}}``, the card line and the same last line.
 
     python3 chip_smoke.py --sp 4
 
@@ -237,6 +286,8 @@ prints ``{"sp": {...}}``, the card line and the same last line.
 
 from __future__ import annotations
 
+import bisect
+import contextlib
 import ctypes
 import json
 import math
@@ -351,6 +402,52 @@ SPEED_FACTOR = 1.25
 README_COMPRESSION = {"compressor_type": "onebit",
                       "compressor_onebit_scaling": "true",
                       "ef_type": "vanilla", "momentum_type": "nesterov"}
+# GPT-2 medium's compressed paths beyond the README's onebit: the other
+# three compressors (k = 1% of a bucket for the sparsifiers, 4 linear
+# levels under max normalization for dithering: int8 codes), and onebit
+# over the reduce-scatter-shaped exchange
+GPT2_COMPRESSION = {
+    "topk": {"compressor_type": "topk", "compressor_k": "0.01",
+             "ef_type": "vanilla"},
+    "randomk": {"compressor_type": "randomk", "compressor_k": "0.01",
+                "seed": "7", "ef_type": "vanilla"},
+    "dithering": {"compressor_type": "dithering", "compressor_k": "4",
+                  "seed": "7"},
+    "onebit_rs": dict(README_COMPRESSION, exchange="rs"),
+}
+# |step-1 loss under attn_impl="hybrid" - the flash path's| (the same
+# weights and batch; attention's forward computed two ways)
+HYBRID_TOL = 2e-2
+# hybrid_fwd against the forward kernel on the same card inputs at the
+# hybrid paths' shapes: max |lse difference| over max |lse| (both fp32:
+# the same max and sum in another order); out within one bf16 step at
+# max |out| (each rounds its probabilities to bf16 at another point)
+HYBRID_LSE_TOL = 1e-5
+# ||step-1 gradients under hybrid - the flash path's|| / ||the flash
+# path's|| over every parameter (fresh weights from seed 0, the path's
+# batch), and the same ratio for the attention's own gradients (dq, dk, dv,
+# dtable) at the paths' shapes, one set of inputs: each limit lies between
+# the sound readings and the gated fault controls' (``HybridControl``).
+# All are deterministic: a second flash run reads 0 and two calls read
+# the same bits. Readings on an H100 80GB HBM3 at 700 W (PERF.md §6, PR
+# 13): step-1 gradients BERT sound 1.357e-2, lse control 1.604e-2; T5
+# sound 1.050e-2, no-bias control 1.838e-2; attention gradients BERT
+# sound 8.3e-5, bf16 control 1.9e-3; T5 sound at most 2.55e-3, lse
+# control at least 5.25e-3, no-bias at least 1.07
+HYBRID_GRAD_TOL = 1.5e-2
+HYBRID_OP_TOL = {"bert_large_hybrid": 5e-4, "t5_small_hybrid": 4e-3}
+# each control, and the levels ("op": the attention's gradients, "grad":
+# the step-1 gradients) where it must read above the limit; elsewhere it
+# is printed only: TF32 is exact on bf16 operands, bf16 products and a
+# one-step lse shift sit inside T5's split-route noise at those levels
+HYBRID_CONTROLS = {
+    "bert_large_hybrid": {"tf32": (), "bf16": ("op",), "lse": ("op", "grad")},
+    "t5_small_hybrid": {"tf32": (), "bf16": (), "lse": ("op",),
+                        "no_bias": ("op", "grad")}}
+# the port's profiler ranges (``record_function``) whose device time
+# phase 4 attributes: the hybrid route's plain forward, the compressed
+# exchange
+RANGES = ("bps::hybrid_fwd", "bps::compressed_reduce")
 
 
 def log(*a):
@@ -1982,6 +2079,8 @@ _KERNEL_GROUPS = (      # first match wins; names as the profiler reports them
     ("quantize (port)", tuple(CODEC_KERNEL_NAMES[s] for s in
                               ("int8_quantize", "int8_dequantize",
                                "fp8_sr_quantize"))),
+    ("topk / draws (library)", ("topk", "radixselect", "philox",
+                                "distribution_")),
     ("nccl", ("nccl",)),
     ("matmul", ("gemm", "xmma", "cutlass", "matmul", "nvjet", "sm90_")),
     ("optimizer", ("multi_tensor", "adam", "foreach")),
@@ -2060,9 +2159,40 @@ def profile_step(trainer, data, tag):
         log(f"[profile {tag}]   codec {stem:16s} {r['ms']:9.3f} ms over "
             f"{r['launches']} launches ({r['ms'] * 1e3 / r['launches']:.2f} "
             f"µs each)")
+    ranges = range_ms(prof.events(), kernels)
+    for name in RANGES:
+        if name in ranges:
+            log(f"[profile {tag}]   range {name:24s} {ranges[name]:9.3f} ms "
+                f"{ranges[name] * 1e3 / total:6.1%} of device time")
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
             "idle_share": 1 - busy / wall_us, "device_ops": len(kernels),
-            "codec": codec}
+            "device_ms": total / 1e3, "codec": codec, "ranges": ranges}
+
+
+def range_ms(events, kernels, names=RANGES):
+    """Device ms of the kernels inside each profiler range of ``names``
+    (the port's ``record_function`` ranges): the range's spans on the
+    device track (the profiler's annotation of a range there runs from
+    the first kernel launched inside it to the end of the last), and each
+    device kernel of ``kernels`` that starts inside one. A range with no
+    span on the device reads nothing: not measured."""
+    from torch.autograd import DeviceType
+    spans = {}
+    for e in events:
+        if e.name in names and e.device_type == DeviceType.CUDA:
+            spans.setdefault(e.name, []).append((e.time_range.start,
+                                                 e.time_range.end))
+    out = {}
+    for name, sp in spans.items():
+        sp.sort()
+        starts = [a for a, _ in sp]
+        us = 0.0
+        for k in kernels:
+            i = bisect.bisect_right(starts, k.time_range.start) - 1
+            if i >= 0 and k.time_range.start < sp[i][1]:
+                us += k.time_range.end - k.time_range.start
+        out[name] = us / 1e3
+    return out
 
 
 def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
@@ -2227,6 +2357,304 @@ def train_bert_dh128():
             f"wall {p.get('wall_ms', float('nan')):.2f} ms, device busy "
             f"{p.get('busy_ms', float('nan')):.2f} ms, idle share "
             f"{p.get('idle_share', float('nan')):.3f}")
+    return launches
+
+
+def _hybrid_vs_flash(tag, flash_tag, losses):
+    """Step 1's loss of a hybrid path against its flash path's in this
+    call (the same weights and batch), and both paths' step time, peak
+    memory and device time beside each other, with the plain forward's
+    share of the hybrid path's (the ``bps::hybrid_fwd`` range)."""
+    ref = SUMMARY[flash_tag]["losses"][0]
+    diff = abs(losses[0] - ref)
+    log(f"[{tag}] step-1 loss {losses[0]!r}, the flash path's {ref!r}: "
+        f"|diff| {diff:.3e} (tolerance {HYBRID_TOL})")
+    for t in (flash_tag, tag):
+        r = SUMMARY[t]
+        p = r["profile"] or {}
+        fwd = (p.get("ranges") or {}).get("bps::hybrid_fwd")
+        share = ("" if t == flash_tag else
+                 ", plain forward not measured (no bps::hybrid_fwd span)"
+                 if fwd is None or not p.get("device_ms") else
+                 f", plain forward {fwd:.3f} ms = "
+                 f"{fwd / p['device_ms']:.1%} of device time")
+        log(f"[hybrid vs flash, this call] {t}: step {r['step_ms']:.1f} ms "
+            f"(median of steps 4-6), {r['samples_per_s']:.2f} samples/s, "
+            f"peak {r['peak_gb']:.2f} GB; profiled step: wall "
+            f"{p.get('wall_ms', float('nan')):.2f} ms, device busy "
+            f"{p.get('busy_ms', float('nan')):.2f} ms, summed device time "
+            f"{p.get('device_ms', float('nan')):.2f} ms{share}")
+    if not diff <= HYBRID_TOL:
+        raise AssertionError(f"{tag}: step-1 loss differs from the flash "
+                             "path's")
+
+
+def _bf16_step(x) -> float:
+    """The spacing of bf16 at max |x|."""
+    m = x.float().abs().max().item()
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def _step1_grads(cfg, model_cls, loss_fn, data):
+    """(loss, gradients) of one forward and backward of fresh weights from
+    seed 0 on the card, as a path's trainer takes its step 1."""
+    from byteps_tpu_torch.models.transformer import Transformer
+    from byteps_tpu_torch.training import _to_device
+    model = (model_cls or Transformer)(
+        cfg, generator=torch.Generator().manual_seed(0)).cuda()
+    loss = loss_fn(model, _to_device(data, "cuda"))
+    loss.backward()
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in model.parameters()]
+    return loss.item(), grads
+
+
+def _grad_rel(grads, ref):
+    """||grads - ref|| / ||ref|| over all the tensors together, summed in
+    fp64."""
+    num = sum((g.double() - r.double()).square().sum().item()
+              for g, r in zip(grads, ref))
+    den = sum(r.double().square().sum().item() for r in ref)
+    return math.sqrt(num / den)
+
+
+def _op_grads(q, k, v, do, causal, scale, rel, hybrid):
+    """(dq, dk, dv[, dtable]) of ``flash_attention`` on the card."""
+    from byteps_tpu_torch.ops import flash_attention as fa
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    kw = {}
+    if rel is not None:
+        kw = {"rel_table": rel[0].detach().clone().requires_grad_(),
+              "rel_bidirectional": rel[1]}
+        leaves.append(kw["rel_table"])
+    fa.flash_attention(*leaves[:3], causal=causal, scale=scale,
+                       hybrid=hybrid, **kw).backward(do)
+    return [t.grad for t in leaves]
+
+
+def _hybrid_fwd_bf16(q, k, v, causal=False, scale=None, bias=None):
+    """``hybrid_fwd`` with the trap it avoids: products of bf16 operands,
+    whose result torch rounds to bf16 (the scores, then the output)."""
+    from byteps_tpu_torch.ops import flash_attention as fa
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    s = torch.matmul(qt, kt.transpose(-1, -2)).float() * fa._scale(q, scale)
+    if bias is not None:
+        s = s + bias[None].float()
+    if causal:
+        s = s.masked_fill(~fa._causal_keep(q.shape[1], k.shape[1], q.device),
+                          fa._NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    out = torch.matmul((p / l).to(v.dtype), vt)
+    return out.transpose(1, 2).contiguous(), (m + torch.log(l))[..., 0]
+
+
+class HybridControl:
+    """A deliberately wrong hybrid forward, patched into
+    ``flash_attention`` inside the block: ``"bf16"`` multiplies in bf16
+    (``_hybrid_fwd_bf16``), ``"lse"`` returns an lse one bf16 step (2^-8)
+    high, ``"no_bias"`` drops the bias (T5's table), ``"tf32"`` lets the
+    fp32 products run in TF32."""
+
+    def __init__(self, kind):
+        from byteps_tpu_torch.ops import flash_attention as fa
+        self.fa, self.kind = fa, kind
+
+    def __enter__(self):
+        fa, fwd, full = self.fa, self.fa.hybrid_fwd, self.fa._full_fp32
+        self.saved = fwd, full
+        if self.kind == "bf16":
+            fa.hybrid_fwd = _hybrid_fwd_bf16
+        elif self.kind == "lse":
+            def wrong(*a, **kw):
+                out, lse = fwd(*a, **kw)
+                return out, lse + 2.0 ** -8
+            fa.hybrid_fwd = wrong
+        elif self.kind == "no_bias":
+            fa.hybrid_fwd = lambda q, k, v, causal=False, scale=None, \
+                bias=None: fwd(q, k, v, causal, scale, None)
+        else:
+            @contextlib.contextmanager
+            def tf32():
+                prev = torch.backends.cuda.matmul.allow_tf32
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    yield
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = prev
+            fa._full_fp32 = tf32
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.hybrid_fwd, self.fa._full_fp32 = self.saved
+
+
+def check_hybrid(tag, cfg, flash_cfg, model_cls, loss_fn, data, fwd_cases,
+                 gate=True):
+    """The hybrid route held on the card beyond its step-1 loss, against
+    the flash route on the same inputs, with the fault controls of
+    ``HYBRID_CONTROLS[tag]`` beside it (``HybridControl``):
+
+    - at each of ``fwd_cases`` (name, q, k, v, dO, causal, scale, (table,
+      bidirectional) or None): ``hybrid_fwd`` against the forward kernel,
+      lse within HYBRID_LSE_TOL of max |lse| and out within one bf16 step
+      at max |out|; then the attention's gradients (dq, dk, dv and dtable)
+      under hybrid against flash's, ||difference|| / ||flash's|| at most
+      HYBRID_OP_TOL[tag], the controls gated at "op" above it;
+    - the step-1 gradients of fresh weights under ``cfg`` (hybrid)
+      against those under ``flash_cfg`` over every parameter,
+      ||difference|| / ||flash's|| at most HYBRID_GRAD_TOL, as is a second
+      flash run's, the controls gated at "grad" above it.
+
+    Returns the readings. The flash launches here fall outside every
+    counted window. ``gate=False`` prints the readings and gates none."""
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.ops import relpos
+    controls = HYBRID_CONTROLS[tag]
+    out = {"fwd": {}, "op": {}, "grad": {}}
+    bad = []
+
+    def gated(what, level, readings, tol):
+        """The sound readings at most ``tol``, the controls gated at
+        ``level`` above it."""
+        for k, v in readings.items():
+            if k not in controls and not v <= tol:
+                bad.append(f"{what}: the {k} reading over the limit")
+            if level in controls.get(k, ()) and not v > tol:
+                bad.append(f"{what}: the {k} control at or under the limit")
+
+    for name, q, k, v, do, causal, scale, rel in fwd_cases:
+        kw, bias = {}, None
+        if rel is not None:
+            table, bidir = rel
+            kw = {"rel_table": table, "rel_bidirectional": bidir}
+            bias = relpos.relative_bias(table.T, q.shape[1], k.shape[1],
+                                        bidir, table.shape[1])
+        out_h, lse_h = fa.hybrid_fwd(q, k, v, causal, scale, bias)
+        out_f, lse_f = fa.flash_fwd(q, k, v, causal, scale, **kw)
+        torch.cuda.synchronize()
+        e_lse = ((lse_h - lse_f).abs().max() / lse_f.abs().max()).item()
+        e_out = (out_h.float() - out_f.float()).abs().max().item()
+        step = _bf16_step(out_f)
+        out["fwd"][name] = {"lse_rel": e_lse, "out_abs": e_out,
+                            "bf16_step": step}
+        del out_h, lse_h, out_f, lse_f, bias
+        if not (e_lse <= HYBRID_LSE_TOL and e_out <= step):
+            bad.append(f"hybrid_fwd at {name}")
+        ref = _op_grads(q, k, v, do, causal, scale, rel, False)
+        op = {"sound": _grad_rel(_op_grads(q, k, v, do, causal, scale, rel,
+                                           True), ref)}
+        for kind in controls:
+            if kind == "no_bias" and rel is None:   # nothing to drop
+                continue
+            with HybridControl(kind):
+                op[kind] = _grad_rel(_op_grads(q, k, v, do, causal, scale,
+                                               rel, True), ref)
+        del ref
+        out["op"][name] = op
+        log(f"[{tag}] hybrid vs flash, {name}: forward lse {e_lse:.3e} of "
+            f"max |lse| (tolerance {HYBRID_LSE_TOL}), out {e_out:.3e} (one "
+            f"bf16 step at max |out|: {step:.3e}); attention gradients "
+            "||difference|| / ||flash's||: " + ", ".join(
+                f"{c} {r:.3e}" for c, r in op.items())
+            + f" (limit {HYBRID_OP_TOL[tag]})")
+        gated(f"attention gradients at {name}", "op", op, HYBRID_OP_TOL[tag])
+    torch.cuda.empty_cache()
+
+    loss_f, ref = _step1_grads(flash_cfg, model_cls, loss_fn, data)
+    _, grads = _step1_grads(flash_cfg, model_cls, loss_fn, data)
+    grad = out["grad"]
+    grad["flash_again"] = _grad_rel(grads, ref)
+    loss_h, grads = _step1_grads(cfg, model_cls, loss_fn, data)
+    grad["sound"] = _grad_rel(grads, ref)
+    del grads
+    for kind in controls:
+        with HybridControl(kind):
+            _, grads = _step1_grads(cfg, model_cls, loss_fn, data)
+        grad[kind] = _grad_rel(grads, ref)
+        del grads
+    del ref
+    torch.cuda.empty_cache()
+    log(f"[{tag}] step-1 loss of fresh weights: flash {loss_f!r}, hybrid "
+        f"{loss_h!r}; gradients ||difference|| / ||flash's|| over every "
+        "parameter: " + ", ".join(f"{k} {v:.3e}" for k, v in grad.items())
+        + f" (limit {HYBRID_GRAD_TOL})")
+    gated("step-1 gradients", "grad", grad, HYBRID_GRAD_TOL)
+    if gate and bad:
+        raise AssertionError(f"{tag}: hybrid against flash: "
+                             + "; ".join(bad))
+    return out
+
+
+def _bert_hybrid_check(gate=True):
+    import dataclasses
+    cfg, loss_fn, data, _ = _bert_setup()
+    q, k, v, do = _inputs(TRAIN_BATCH, BERT_SEQ, HEADS, HEAD_DIM, seed=80)
+    return check_hybrid(
+        "bert_large_hybrid", dataclasses.replace(cfg, attn_impl="hybrid"),
+        cfg, None, loss_fn, data,
+        [(f"b{TRAIN_BATCH} s{BERT_SEQ} h{HEADS} d{HEAD_DIM} full", q, k, v,
+          do, False, None, None)], gate)
+
+
+def _t5_hybrid_check(gate=True):
+    from byteps_tpu_torch.models import t5
+    cfg, data, _ = _t5_setup(attn_impl="hybrid")
+    b, dec = TRAIN_BATCH, T5_TGT - 1
+    enc = _t5_inputs(b, T5_SRC, seed=81)
+    causal = _t5_inputs(b, dec, seed=82)
+    q, k, v, do = _inputs(b, T5_SRC, T5_HEADS, HEAD_DIM, seed=83)
+    q, do = q[:, :dec].contiguous(), do[:, :dec].contiguous()
+    q, k = (t * HEAD_DIM ** -0.25 for t in (q, k))
+    cases = [(f"b{b} s{T5_SRC} h{T5_HEADS} rel bidirectional", *enc[:4],
+              False, 1.0, (enc[4], True)),
+             (f"b{b} s{dec} h{T5_HEADS} rel causal", *causal[:4], True, 1.0,
+              (causal[4], False)),
+             (f"b{b} sq{dec} sk{T5_SRC} h{T5_HEADS} cross", q, k, v, do,
+              False, 1.0, None)]
+    return check_hybrid("t5_small_hybrid", cfg, t5.t5_small(), t5.T5,
+                        t5.seq2seq_loss, data, cases, gate)
+
+
+def hybrid_check_main() -> int:
+    """``--hybrid-check``: build the kernels, then every ``check_hybrid``
+    reading, ungated."""
+    toolchain()
+    readings = {"bert_large_hybrid": _bert_hybrid_check(gate=False),
+                "t5_small_hybrid": _t5_hybrid_check(gate=False)}
+    print(json.dumps({"hybrid": readings}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def _hybrid_launches(cfg, backward):
+    """A hybrid path: no forward kernel; ``backward`` once a layer."""
+    def want(trainer):
+        w = dict.fromkeys(COUNT_KEYS, 0)
+        for name in backward:
+            w[name] = STEPS * cfg.layers
+        return by_width(w, cfg.head_dim)
+    return want
+
+
+def train_bert_hybrid():
+    """BERT-large with ``attn_impl="hybrid"``: attention's forward from
+    plain products (no forward kernel), the fused backward kernel; step
+    1 against the flash path's."""
+    import dataclasses
+    cfg, loss_fn, data, fps = _bert_setup()
+    cfg = dataclasses.replace(cfg, attn_impl="hybrid")
+    launches, trainer, losses, _ = run_path(
+        "bert_large_hybrid", cfg, loss_fn, data, fps,
+        _hybrid_launches(cfg, ("flash_bwd_fused",)))
+    del trainer
+    torch.cuda.empty_cache()
+    _hybrid_vs_flash("bert_large_hybrid", "bert_large", losses)
+    _bert_hybrid_check()
     return launches
 
 
@@ -2854,13 +3282,87 @@ def _same_bits(a, b):
     return torch.equal(a, b)
 
 
-def train_gpt2_onebit():
-    """The README's compression; then one step's compressed reduction of
-    real gradients through the kernels and through their plain versions
-    (``compressor_backend="jnp"``), from the states the 3 steps left."""
-    from byteps_tpu_torch.ops.compression import base
+def _state_leaves(st):
+    """The tensors of a compressor state tree, in order."""
+    if torch.is_tensor(st):
+        return [st]
+    if isinstance(st, dict):
+        return [t for k in sorted(st) for t in _state_leaves(st[k])]
+    if isinstance(st, (tuple, list)):
+        return [t for x in st for t in _state_leaves(x)]
+    return []
+
+
+def check_onebit_reduction(tag, trainer, loss_fn, data, kwargs):
+    """One step's compressed reduction of real gradients (the trained
+    weights' next backward) from the compressor states the path's steps
+    left, so error feedback and momentum are live, through the kernels
+    and through their plain versions on the card
+    (``compressor_backend="jnp"``), for either exchange: the reduced
+    gradient and every leaf of the new states (for rs, each shard's chain
+    and the merge chain's) bit for bit, and the reduction off the
+    gradient on the compressed buckets. Also ``check_onebit`` on the
+    largest compressed bucket of that gradient."""
     from byteps_tpu_torch.ops.compression.reducer import CompressionPlan
     from byteps_tpu_torch.parallel.collectives import _pack_bucket
+    from byteps_tpu_torch.training import _to_device
+    plan, states = trainer.tx.plan, trainer.tx.comp_states
+    log(f"[{tag}] plan: {len(plan.buckets)} buckets, {plan.n_compressed} "
+        f"compressed, exchange {plan.exchange}, "
+        f"{sum(b.size for b in plan.buckets)} gradient floats")
+    plain = CompressionPlan(plan.specs, PARTITION_BYTES,
+                            dict(kwargs, compressor_backend="jnp"),
+                            MIN_COMPRESS_BYTES, world=plan.world)
+    if [c is None for c in plain.compressors] != \
+            [c is None for c in plan.compressors]:
+        raise AssertionError(f"{tag}: the plain plan compresses other "
+                             "buckets")
+    old = _state_leaves(states)
+    live = sum(bool(t.any()) for t in old)
+    if not live:
+        raise AssertionError(f"{tag}: the trained compressor states are "
+                             "all zero")
+
+    named = dict(trainer.model.named_parameters())
+    trainer.model.zero_grad(set_to_none=True)
+    loss_fn(trainer.model, _to_device(data, "cuda")).backward()
+    grads = [named[s.name].grad for s in plan.specs]
+    flat = [g.view(-1) for g in grads]
+    full = max((b for b, c in zip(plan.buckets, plan.compressors)
+                if c is not None), key=lambda b: b.size)
+    check_onebit(_pack_bucket(flat, full),
+                 f"bucket {full.index} of a real gradient")
+    red_k = [g.clone() for g in grads]
+    red_p = [g.clone() for g in grads]
+    new_k = _state_leaves(plan.reduce(red_k, states))
+    new_p = _state_leaves(plain.reduce(red_p, states))
+    if not all(_same_bits(a, c) for a, c in zip(red_k, red_p)):
+        raise AssertionError(f"{tag}: the compressed reduction through the "
+                             "kernels differs from the one through the "
+                             "plain versions")
+    if not (len(new_k) == len(new_p) == len(old) and all(
+            _same_bits(a, c) for a, c in zip(new_k, new_p))):
+        raise AssertionError(f"{tag}: the new compressor states through "
+                             "the kernels differ from the plain versions'")
+    red = [t.view(-1) for t in red_k]
+    moved = sum(not torch.equal(_pack_bucket(red, b), _pack_bucket(flat, b))
+                for b, c in zip(plan.buckets, plan.compressors)
+                if c is not None)
+    if not moved:
+        raise AssertionError(f"{tag}: the compressed buckets' reduction is "
+                             "the gradient itself")
+    log(f"[{tag}] one step's compressed reduction of real gradients from "
+        f"the trained states ({live} of {len(old)} state tensors non-zero): "
+        f"the reduced gradient and all {len(new_k)} new state tensors "
+        f"bit-identical through the kernels and through their plain "
+        f"versions; {moved} of {plan.n_compressed} compressed buckets moved "
+        f"off the gradient")
+    del grads, red_k, red_p, new_k, new_p
+    trainer.model.zero_grad(set_to_none=True)
+
+
+def train_gpt2_onebit():
+    """The README's compression, then ``check_onebit_reduction``."""
     cfg, loss_fn, data, fps = _gpt2_setup()
     attn = _attention_launches(cfg, ("flash_bwd_dq", "flash_bwd_dkv"))
 
@@ -2874,60 +3376,144 @@ def train_gpt2_onebit():
     launches, trainer, _, _ = run_path("gpt2_medium onebit", cfg, loss_fn,
                                        data, fps, want,
                                        compression=README_COMPRESSION)
-    tx = trainer.tx
-    plan, states = tx.plan, tx.comp_states
-    log(f"[gpt2_medium onebit] plan: {len(plan.buckets)} buckets, "
-        f"{plan.n_compressed} compressed, {sum(b.size for b in plan.buckets)}"
-        f" gradient floats")
-
-    named = dict(trainer.model.named_parameters())
-    trainer.model.zero_grad(set_to_none=True)
-    loss_fn(trainer.model, torch.from_numpy(data).cuda()).backward()
-    grads = [named[s.name].grad for s in plan.specs]
-    plain = CompressionPlan(
-        plan.specs, PARTITION_BYTES,
-        dict(README_COMPRESSION, compressor_backend="jnp"),
-        min_compress_bytes=MIN_COMPRESS_BYTES)
-    if [c is None for c in plain.compressors] != \
-            [c is None for c in plan.compressors]:
-        raise AssertionError("the plain plan compresses other buckets")
-
-    flat = [g.view(-1) for g in grads]
-    full = max((b for b, c in zip(plan.buckets, plan.compressors)
-                if c is not None), key=lambda b: b.size)
-    check_onebit(_pack_bucket(flat, full),
-                 f"bucket {full.index} of a real gradient")
-    for b, ck, cp, st in zip(plan.buckets, plan.compressors,
-                             plain.compressors, states):
-        if ck is None:
-            continue
-        buf = _pack_bucket(flat, b)
-        pk, sk = ck.compress(buf, st)
-        pp, sp = cp.compress(buf, st)
-        pairs = [("packed words", pk["packed"], pp["packed"]),
-                 ("scale", pk["scale"], pp["scale"]),
-                 ("decompressed", ck.decompress(pk), cp.decompress(pp)),
-                 ("momentum", sk["m"], sp["m"]),
-                 ("error feedback", sk["inner"]["error"],
-                  sp["inner"]["error"])]
-        for what, a, c in pairs:
-            if not _same_bits(a, c):
-                raise AssertionError(f"bucket {b.index}: {what} through the "
-                                     "kernels differs from the plain versions")
-    red_k = [g.clone() for g in grads]
-    red_p = [g.clone() for g in grads]
-    plan.reduce(red_k, states)
-    plain.reduce(red_p, states)
-    if not all(_same_bits(a, c) for a, c in zip(red_k, red_p)):
-        raise AssertionError("the compressed reduction through the kernels "
-                             "differs from the one through the plain versions")
-    log(f"[gpt2_medium onebit] one step's compressed reduction of real "
-        f"gradients ({plan.n_compressed} compressed buckets): packed words, "
-        f"scales, decompressed values, error feedback, momentum and the "
-        f"reduced gradient bit-identical through the kernels and through "
-        f"their plain versions")
-    del trainer, grads, red_k, red_p
+    check_onebit_reduction("gpt2_medium onebit", trainer, loss_fn, data,
+                           README_COMPRESSION)
+    del trainer
     torch.cuda.empty_cache()
+    return launches
+
+
+class InjectedDraws:
+    """randomk's indices or dithering's uniforms (``kind``) drawn from one
+    numpy stream keyed by the bucket's size, on every device alike: the
+    compressor class's ``draw`` is patched inside the block."""
+
+    def __init__(self, kind):
+        from byteps_tpu_torch.ops.compression import dithering, randomk
+        self.cls = {"randomk": randomk.RandomkCompressor,
+                    "dithering": dithering.DitheringCompressor}.get(kind)
+        self.kind, self.cache = kind, {}
+
+    def draw(self, comp, state, device):
+        if comp.size not in self.cache:
+            rng = np.random.RandomState(comp.size)
+            self.cache[comp.size] = torch.from_numpy(
+                rng.randint(0, comp.size, comp.k).astype(np.int32)
+                if self.kind == "randomk"
+                else rng.uniform(size=comp.size).astype(np.float32))
+        return self.cache[comp.size].to(device), state
+
+    def __enter__(self):
+        if self.cls is not None:
+            self.orig = self.cls.draw
+            inj = self
+            self.cls.draw = lambda comp, state, device: inj.draw(
+                comp, state, device)
+        return self
+
+    def __exit__(self, *exc):
+        if self.cls is not None:
+            self.cls.draw = self.orig
+
+
+def _innermost(comp):
+    while hasattr(comp, "inner"):
+        comp = comp.inner
+    return comp
+
+
+def check_step1_reduction(tag, name, cfg, loss_fn, data, specs):
+    """Step 1's gradients of a compressed path (fresh weights from seed 0,
+    the path's batch), reduced by a fresh plan of its kwargs on the card,
+    must differ from the dense gradient (at world 1 the gradient itself)
+    on the compressed buckets, and be bit for bit the same plan's
+    reduction of the gradients copied to the host (the CPU route): for
+    randomk and dithering with both routes' draws injected from one
+    stream; for topk except where the bucket's k-th magnitude is tied
+    (``torch.topk`` on the card promises no order among ties)."""
+    from byteps_tpu_torch.models.transformer import Transformer
+    from byteps_tpu_torch.ops.compression.reducer import CompressionPlan
+    from byteps_tpu_torch.parallel.collectives import _pack_bucket
+    kw = GPT2_COMPRESSION[name]
+    model = Transformer(cfg, generator=torch.Generator().manual_seed(0)).cuda()
+    loss_fn(model, torch.from_numpy(data).cuda()).backward()
+    named = dict(model.named_parameters())
+    grads = [named[s.name].grad if named[s.name].grad is not None
+             else torch.zeros_like(named[s.name]) for s in specs]
+    del model, named
+    plan = CompressionPlan(specs, PARTITION_BYTES, kw, MIN_COMPRESS_BYTES)
+    with InjectedDraws(name):
+        red = [g.clone() for g in grads]
+        plan.reduce(red, plan.init_state(grads[0].device))
+        torch.cuda.synchronize()
+        ref = [g.to("cpu", copy=True) for g in grads]
+        plan.reduce(ref, plan.init_state(torch.device("cpu")))
+    flat = [[t.view(-1) for t in ts] for ts in (grads, red, ref)]
+    moved = ties = 0
+    for b, comp in zip(plan.buckets, plan.compressors):
+        g, got, want = (_pack_bucket(f, b).cpu() for f in flat)
+        if comp is not None:
+            moved += int(not torch.equal(got, g))
+        bad = got.view(torch.int32) != want.view(torch.int32)
+        if not bool(bad.any()):
+            continue
+        k = getattr(_innermost(comp), "k", None)
+        if name != "topk" or comp is None or not bool(
+                (g.abs()[bad] == torch.topk(g.abs(), k).values.min()).all()):
+            raise AssertionError(
+                f"{tag}: bucket {b.index}'s step-1 reduction through the "
+                f"card differs from the CPU route's at {int(bad.sum())} "
+                "elements")
+        ties += int(bad.sum())
+    if not moved:
+        raise AssertionError(f"{tag}: the compressed buckets' step-1 "
+                             "reduction is the dense gradient")
+    log(f"[{tag}] step 1's reduced gradient: {moved} of "
+        f"{plan.n_compressed} compressed buckets moved off the dense "
+        f"gradient; bit for bit the CPU route"
+        + ("" if name not in ("randomk", "dithering")
+           else " (draws injected on both routes)")
+        + (f", but for {ties} elements at a tied k-th magnitude"
+           if name == "topk" else ""))
+
+
+def train_gpt2_compressed(name):
+    """GPT-2 medium through ``DistributedTrainer(compression=
+    GPT2_COMPRESSION[name])``: finite falling losses, the flash launches
+    (onebit over rs also 2·nc pack and 4·nc unpack launches a step), then
+    ``check_onebit_reduction`` (onebit over rs) or
+    ``check_step1_reduction`` (the others)."""
+    cfg, loss_fn, data, fps = _gpt2_setup()
+    attn = _attention_launches(cfg, ("flash_bwd_dq", "flash_bwd_dkv"))
+    tag = f"gpt2_medium {name}"
+
+    def want(trainer):
+        w = attn(trainer)
+        if name == "onebit_rs":
+            # world 1: the one shard and the merge each pack once; the
+            # shard's and the merge's error feedback, the received shard
+            # and the gathered merge each unpack once
+            nc = trainer.tx.plan.n_compressed
+            w["onebit_pack"] = STEPS * 2 * nc
+            w["onebit_unpack"] = STEPS * 4 * nc
+        return w
+
+    launches, trainer, _, _ = run_path(tag, cfg, loss_fn, data, fps, want,
+                                       compression=GPT2_COMPRESSION[name])
+    plan = trainer.tx.plan
+    log(f"[{tag}] payload "
+        f"{sum(c.payload_nbytes() for c in plan.compressors if c)} bytes "
+        f"of {sum(b.size * 4 for b, c in zip(plan.buckets, plan.compressors) if c)}"
+        " compressed-bucket bytes")
+    if name == "onebit_rs":
+        check_onebit_reduction(tag, trainer, loss_fn, data,
+                               GPT2_COMPRESSION[name])
+    specs = plan.specs
+    del trainer, plan
+    torch.cuda.empty_cache()
+    if name != "onebit_rs":
+        check_step1_reduction(tag, name, cfg, loss_fn, data, specs)
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -2948,16 +3534,47 @@ def t5_train_flops_per_sample(cfg, src, tgt):
     return 3.0 * fwd
 
 
+def _t5_setup(**kw):
+    from byteps_tpu_torch.models import t5
+    cfg = t5.t5_small(**kw)
+    data = t5.synth_seq2seq_batch(np.random.RandomState(0), TRAIN_BATCH,
+                                  T5_SRC, T5_TGT, cfg.vocab_size)
+    return cfg, data, t5_train_flops_per_sample(cfg, T5_SRC, T5_TGT - 1)
+
+
+def train_t5_hybrid():
+    """T5-small with ``attn_impl="hybrid"``: no forward kernel; the table
+    forms' split backward for self-attention (the table materialized for
+    the plain forward only), the no-bias split backward for
+    cross-attention; step 1 against the flash path's."""
+    from byteps_tpu_torch.models import t5
+    cfg, data, fps = _t5_setup(attn_impl="hybrid")
+    n_self = cfg.enc_layers + cfg.dec_layers
+
+    def want(trainer):
+        w = dict.fromkeys(COUNT_KEYS, 0)
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            w[f"{name}:rel"] = STEPS * n_self
+            w[name] = w[f"{name}:rel"] + STEPS * cfg.dec_layers
+        return by_width(w, cfg.head_dim)
+
+    launches, trainer, losses, _ = run_path(
+        "t5_small_hybrid", cfg, t5.seq2seq_loss, data, fps, want,
+        model_cls=t5.T5, tokens_per_sample=T5_SRC + T5_TGT - 1)
+    del trainer
+    torch.cuda.empty_cache()
+    _hybrid_vs_flash("t5_small_hybrid", "t5_small", losses)
+    _t5_hybrid_check()
+    return launches
+
+
 def train_t5():
     """T5-small seq2seq: self-attention through the rel-table forms
     (bidirectional encoder, causal decoder), cross-attention (512 queries
     over 1024 keys, two blocks: the split backward) with no bias."""
     from byteps_tpu_torch.models import t5
-    cfg = t5.t5_small()
+    cfg, data, fps = _t5_setup()
     dec = T5_TGT - 1
-    data = t5.synth_seq2seq_batch(np.random.RandomState(0), TRAIN_BATCH,
-                                  T5_SRC, T5_TGT, cfg.vocab_size)
-    fps = t5_train_flops_per_sample(cfg, T5_SRC, dec)
     log(f"[t5_small] model FLOPs {fps / 1e9:.2f} G a sample "
         f"({fps / 3e9:.2f} G forward), {TRAIN_BATCH * fps / 1e12:.3f} T a step")
     n_self = cfg.enc_layers + cfg.dec_layers
@@ -3410,6 +4027,7 @@ def world_rank(rank, n, port, out, device="cuda", tiny=False):
                 if not torch.equal(got[k], mean / n):
                     raise AssertionError(f"rank {rank}: {how} of {k} is not "
                                          "the mean of the ranks' gradients")
+        res.update(world_rs_round(n, grads, ctr, sync, cuda, dist))
         nbytes = sum(g.nbytes for g in grads.values())
         res.update({"losses": losses, "step_ms": [x * 1e3 for x in times],
                     "api_host_ms": [x * 1e3 for x in api],
@@ -3423,6 +4041,53 @@ def world_rank(rank, n, port, out, device="cuda", tiny=False):
     finally:
         bt.shutdown()
     return 0
+
+
+def world_rs_round(n, grads, ctr, sync, cuda, dist):
+    """One round of the README's onebit over the rs exchange on this
+    rank's gradients ``grads`` at world ``n``: through the kernels and
+    through their plain versions (``compressor_backend="jnp"``) from fresh
+    states, which must agree bit for bit, be finite and be the same on
+    every rank; (n + 1)·nc pack and (3n + 1)·nc unpack launches (n shard
+    packs and their error feedback's unpacks, n received shards, the
+    merge's pack and unpack, n gathered merges)."""
+    from byteps_tpu_torch.ops.compression.reducer import CompressionPlan
+    from byteps_tpu_torch.parallel.collectives import leaf_specs
+    names = sorted(grads)
+    specs = leaf_specs([grads[k] for k in names], names)
+    kw = GPT2_COMPRESSION["onebit_rs"]
+    outs = {}
+    for backend in ("auto", "jnp"):
+        plan = CompressionPlan(specs, PARTITION_BYTES,
+                               dict(kw, compressor_backend=backend),
+                               MIN_COMPRESS_BYTES, world=n)
+        red = [grads[k].clone() for k in names]
+        state = plan.init_state(red[0].device)
+        zero_counts(ctr)
+        sync()
+        t = time.perf_counter()
+        plan.reduce(red, state, group=dist.group.WORLD)
+        sync()
+        outs[backend] = (red, (time.perf_counter() - t) * 1e3,
+                         read_counts(ctr))
+    (red, ms, counts), (plain, _, _) = outs["auto"], outs["jnp"]
+    nc = plan.n_compressed
+    if cuda and (counts["onebit_pack"], counts["onebit_unpack"]) != \
+            ((n + 1) * nc, (3 * n + 1) * nc):
+        raise AssertionError(f"rs round: {counts['onebit_pack']} pack, "
+                             f"{counts['onebit_unpack']} unpack launches "
+                             f"for {nc} compressed buckets at world {n}")
+    for k, a, b in zip(names, red, plain):
+        if not (torch.isfinite(a).all() and _same_bits(a, b)):
+            raise AssertionError(f"rs round: {k} through the kernels is not "
+                                 "the plain versions' bit for bit")
+        ref = a.clone()
+        dist.broadcast(ref, 0)
+        if not _same_bits(ref, a):
+            raise AssertionError(f"rs round: {k} differs from rank 0's")
+    return {"rs_ms": ms, "rs_compressed_buckets": nc,
+            "rs_launches": {k: counts[k] for k in ("onebit_pack",
+                                                   "onebit_unpack")}}
 
 
 def world_main(n) -> int:
@@ -3466,7 +4131,9 @@ def world_main(n) -> int:
             f"synchronize) {statistics.median(res['api_host_ms'][STEPS:]):.1f}"
             f" ms; engine push_pull of {res['grad_bytes']} bytes "
             f"{res['push_pull_ms']:.1f} ms, push_pull_async + synchronize "
-            f"{res['push_pull_async_ms']:.1f} ms; on {card}")
+            f"{res['push_pull_async_ms']:.1f} ms; onebit over rs "
+            f"{res['rs_ms']:.1f} ms ({res['rs_compressed_buckets']} "
+            f"compressed buckets, launches {res['rs_launches']}); on {card}")
     print(json.dumps({"world": {"cards": n, "ranks": ranks}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3742,6 +4409,8 @@ def main() -> int:
         return world_main(int(args[1]))
     if args == ["--ps-profile"]:
         return ps_profile()
+    if args == ["--hybrid-check"]:
+        return hybrid_check_main()
     if args:
         print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
         return 2
@@ -3795,12 +4464,16 @@ def main() -> int:
     host = {HEAD_DIM: time_host(), DH128: time_host(DH128_HEADS, DH128)}
     bert_launches, bert_losses = train_bert()
     paths = {"bert_large": bert_launches,
+             "bert_large_hybrid": train_bert_hybrid(),
              "bert_large_dh128": train_bert_dh128(),
              "gpt2_medium_dense": train_gpt2_dense(),
-             "gpt2_medium_onebit": train_gpt2_onebit(),
-             "t5_small": train_t5(),
-             "bert_large_sp": train_bert_sp(),
-             "gpt2_medium_sp": train_gpt2_sp()}
+             "gpt2_medium_onebit": train_gpt2_onebit()}
+    for name in GPT2_COMPRESSION:
+        paths[f"gpt2_medium_{name}"] = train_gpt2_compressed(name)
+    paths.update({"t5_small": train_t5(),
+                  "t5_small_hybrid": train_t5_hybrid(),
+                  "bert_large_sp": train_bert_sp(),
+                  "gpt2_medium_sp": train_gpt2_sp()})
     step2_misses = []
     for codec in ("int8", "fp8_e4m3"):
         paths[f"bert_large_ps_{codec}"] = train_bert_ps(codec, bert_losses,

@@ -16,6 +16,12 @@ MODE "trainer": ``ShardedTrainer`` on the mesh INPUTS names (``data`` ×
 holds; 3 steps on the global batches INPUTS holds. Saves the losses, the
 parameters after the steps and GPT-2's next-token targets of the first
 batch's shard.
+
+MODE "rs": the compressed exchange ``CompressionPlan(exchange="rs")``
+over the world, for each compression case INPUTS names: 3 rounds of this
+rank's rows of the gradients INPUTS holds. Saves each round's reduced
+leaves and, after the rounds, every compressed bucket's per-shard and
+merge states (flattened to their leaves).
 """
 
 import datetime
@@ -94,6 +100,39 @@ def run_trainer(rank, world, z):
     return res
 
 
+def _state_leaves(st, prefix, out):
+    if isinstance(st, dict):
+        for k in sorted(st):
+            _state_leaves(st[k], f"{prefix}.{k}", out)
+    elif isinstance(st, (list, tuple)):
+        for i, v in enumerate(st):
+            _state_leaves(v, f"{prefix}.{i}", out)
+    else:
+        out[prefix] = st.numpy()
+
+
+def run_rs(rank, world, z):
+    from byteps_tpu_torch.common.partition import LeafSpec
+    from byteps_tpu_torch.ops.compression.reducer import CompressionPlan
+    specs = [LeafSpec(f"l{i}", int(n), "float32")
+             for i, n in enumerate(z["sizes"])]
+    res = {}
+    for case in z["cases"]:
+        kw = dict(zip(z[f"{case}.keys"], z[f"{case}.values"]))
+        plan = CompressionPlan(specs, int(z["partition"]), kw,
+                               int(z["min_compress"]), world=world)
+        st = plan.init_state()
+        for r, rows in enumerate(z["grads"]):       # [rounds, world, total]
+            flat = torch.from_numpy(rows[rank].copy())
+            leaves = list(flat.split([s.size for s in specs]))
+            st = plan.reduce(leaves, st, group=dist.group.WORLD)
+            res[f"{case}.out{r}"] = flat.numpy().copy()
+        for i, s in enumerate(st):
+            if s != ():
+                _state_leaves(s, f"{case}.state{i}", res)
+    return res
+
+
 class Ranks:
     """``world`` worker processes of ``mode`` on ``src``, started at once
     (the caller computes its reference meanwhile). ``result()`` waits at
@@ -146,7 +185,8 @@ def main():
                             timeout=datetime.timedelta(seconds=60))
     try:
         z = np.load(src)
-        res = (run_ring if mode == "ring" else run_trainer)(rank, world, z)
+        run = {"ring": run_ring, "trainer": run_trainer, "rs": run_rs}[mode]
+        res = run(rank, world, z)
         np.savez(out, **res)
     finally:
         dist.destroy_process_group()

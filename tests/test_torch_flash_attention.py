@@ -132,11 +132,16 @@ def test_naive_impl_is_the_local_attention_oracle(causal):
 
 
 def test_attention_rejects_unknown_and_unported_impls():
-    q = torch.zeros(1, 64, 1, 64)
+    """An unknown impl raises; "hybrid", refused until its port, now runs
+    (``test_torch_attention_dispatch.py`` holds it against the JAX
+    package): on the CPU the same output as "flash" within fp32
+    rounding."""
+    q = torch.from_numpy(_qkv(4, 128)[0])
     with pytest.raises(ValueError, match="auto|flash|hybrid|naive"):
         tfa.attention(q, q, q, impl="bogus")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        tfa.attention(q, q, q, impl="hybrid")
+    np.testing.assert_allclose(tfa.attention(q, q, q, impl="hybrid").numpy(),
+                               tfa.attention(q, q, q, impl="flash").numpy(),
+                               **TOL)
 
 
 def _meta(*shape, dtype=torch.bfloat16):

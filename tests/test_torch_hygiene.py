@@ -165,14 +165,26 @@ def test_init_defaults_to_the_card_and_world_one_needs_no_group():
     ({"compression": {"compressor_type": "onebit", "exchange": "rs"}},
      "compression"),
 ])
-def test_trainer_refuses_unported_options(kw, match):
+def test_trainer_refuses_unported_options(kw, match, monkeypatch):
+    """Where the options that ``DistributedTrainer`` now takes (topk,
+    the rs exchange, a custom reducer) are still refused: compression in
+    ``ShardedTrainer`` is not ported (NotImplementedError), and a custom
+    reducer in PS mode is the JAX trainer's ValueError, raised before the
+    PS path needs ``bps.init()``."""
     from byteps_tpu_torch.models import bert
     from byteps_tpu_torch.optim import adamw
-    from byteps_tpu_torch.training import DistributedTrainer
+    from byteps_tpu_torch.parallel.mesh import make_mesh
+    from byteps_tpu_torch.training import DistributedTrainer, ShardedTrainer
     model = bert.Transformer(bert.bert_tiny())
+    opt = adamw(model.parameters(), 1e-3)
+    if "reducer" in kw:
+        monkeypatch.setenv("BPS_ENABLE_PS", "1")
+        with pytest.raises(ValueError, match=f"{match}.*PS mode"):
+            DistributedTrainer(lambda m, b: 0, model, opt, device="cpu", **kw)
+        return
     with pytest.raises(NotImplementedError, match=match):
-        DistributedTrainer(lambda m, b: 0, model,
-                           adamw(model.parameters(), 1e-3), device="cpu", **kw)
+        ShardedTrainer(lambda m, b: 0, model, opt, make_mesh({"seq": 1}),
+                       device="cpu", **kw)
 
 
 @pytest.mark.parametrize("env", ["BPS_ENABLE_PS", "BPS_ENABLE_ASYNC"])

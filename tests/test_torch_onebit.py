@@ -140,9 +140,24 @@ def test_create_builds_the_jax_packages_chain(ef, mom, scaling):
 
 @pytest.mark.parametrize("kind", ["topk", "randomk", "dithering"])
 def test_unported_compressors_raise(kind):
-    assert kind in jbase.registered_names()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        base.create({"compressor_type": kind}, 100)
+    """The JAX package's other three compressors, refused until their
+    port, now build: ``create`` gives the JAX package's chain (momentum
+    -> error feedback -> the compressor) and the chain round-trips a
+    buffer; only a name neither package registers raises."""
+    assert base.registered_names() == jbase.registered_names()
+    kw = {"compressor_type": kind, "ef_type": "vanilla",
+          "momentum_type": "nesterov", "compressor_k": "0.5"
+          if kind != "dithering" else "4"}
+    comp = base.create(kw, 100)
+    assert _chain(comp) == _chain(jbase.create(kw, 100))
+    assert comp.payload_nbytes() == jbase.create(kw, 100).payload_nbytes()
+    x = torch.from_numpy(np.random.RandomState(1).randn(100)
+                         .astype(np.float32))
+    pay, st = comp.compress(x, comp.init_state())
+    y = comp.decompress(pay)
+    assert y.shape == x.shape and y.dtype == x.dtype and bool(y.any())
+    assert torch.allclose(st["inner"]["error"], x * 1.9 - y,   # (1 + μ)x
+                          atol=1e-5)
     with pytest.raises(ValueError, match="no compressor"):
         base.create({"compressor_type": "bogus"}, 100)
 
@@ -197,9 +212,18 @@ def test_plan_compresses_the_buckets_the_jax_plan_does():
 
 
 def test_plan_refuses_the_rs_exchange():
-    specs, _ = _specs([100])
-    with pytest.raises(NotImplementedError, match="rs"):
-        CompressionPlan(specs, 4096, dict(README_KW, exchange="rs"))
+    """The rs exchange builds (``test_torch_compress_rs.py`` holds it
+    against the JAX plan); the plan refuses it only without a world to
+    shard over, and refuses an unknown exchange, as the JAX plan does."""
+    specs, jspecs = _specs([100, 5000])
+    kw = dict(README_KW, exchange="rs")
+    plan = CompressionPlan(specs, 4096, kw, min_compress_bytes=1024, world=3)
+    jplan = JPlan(jspecs, 4096, kw, min_compress_bytes=1024, world=3)
+    assert plan.shard_sizes == jplan.shard_sizes and plan.n_compressed > 0
+    assert [_chain(c) for c in plan.merge_compressors] == \
+        [_chain(c) for c in jplan.merge_compressors]
+    with pytest.raises(ValueError, match="world"):
+        CompressionPlan(specs, 4096, kw, world=0)
     with pytest.raises(ValueError, match="gather"):
         CompressionPlan(specs, 4096, dict(README_KW, exchange="bogus"))
 

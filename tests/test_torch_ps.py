@@ -28,10 +28,11 @@ from byteps_tpu_torch.server import engine as tengine
 from byteps_tpu_torch.server.engine import HostPSBackend
 from byteps_tpu_torch.server.ps_mode import PSGradientExchange
 
-CODECS = ("none", "int8", "fp8_e4m3", "fp8_e5m2")
-# one code step relative to the bucket's largest value
+CODECS = ("none", "int8", "fp8_e4m3", "fp8_e5m2", "fp16", "topk")
+# one code step relative to the bucket's largest value (fp16 and topk run
+# the host codec on both sides, whose rounds are bit for bit)
 STEP = {"none": 0.0, "int8": 1 / 127, "fp8_e4m3": 2.0 ** -3,
-        "fp8_e5m2": 2.0 ** -2}
+        "fp8_e5m2": 2.0 ** -2, "fp16": 0.0, "topk": 0.0}
 
 
 @pytest.fixture(autouse=True)
