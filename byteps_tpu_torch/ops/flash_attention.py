@@ -684,6 +684,19 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
 
 # ------------------------------------------------------------ public API
 
+def _attention_fwd(q, k, v, bias, rel_table, causal, scale, rel, hybrid):
+    """(out, lse) of the forward: ``flash_fwd`` or, with ``hybrid``,
+    ``hybrid_fwd`` (a table materialized as ``relpos.relative_bias``)."""
+    if not hybrid:
+        return flash_fwd(q, k, v, causal, scale, bias, rel_table, *rel)
+    with torch.profiler.record_function("bps::hybrid_fwd"):
+        dense = bias
+        if rel_table is not None:
+            dense = relpos.relative_bias(rel_table.T, q.shape[1], k.shape[1],
+                                         rel[0], rel_table.shape[1], rel[1])
+        return hybrid_fwd(q, k, v, causal, scale, dense)
+
+
 class _FlashAttention(torch.autograd.Function):
     """On the fused route the forward saves (q, k, v, lse) — not ``out``:
     the fused backward computes delta from P∘dP, so under remat the
@@ -696,22 +709,23 @@ class _FlashAttention(torch.autograd.Function):
     ``hybrid`` (the JAX ``fwd_xla``) takes the forward from ``hybrid_fwd``
     instead of the forward kernel, a table materialized as
     ``relpos.relative_bias`` for it; the saved residuals and the backward
-    are the same (the table, not the bias, is saved)."""
+    are the same (the table, not the bias, is saved).
+
+    ``keep`` (a dict, or None) holds the forward's (out, lse) across a
+    checkpoint (``remat_policy="save_attn"``): the first forward records
+    them, a recompute returns them and launches nothing."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, rel_table, causal, scale, fused, rel,
-                hybrid):
-        if hybrid:
-            with torch.profiler.record_function("bps::hybrid_fwd"):
-                dense = bias
-                if rel_table is not None:
-                    dense = relpos.relative_bias(rel_table.T, q.shape[1],
-                                                 k.shape[1], rel[0],
-                                                 rel_table.shape[1], rel[1])
-                out, lse = hybrid_fwd(q, k, v, causal, scale, dense)
+                hybrid, keep):
+        kept = None if keep is None else keep.get("attention")
+        if kept is None:
+            out, lse = _attention_fwd(q, k, v, bias, rel_table, causal,
+                                      scale, rel, hybrid)
+            if keep is not None:
+                keep["attention"] = out.detach(), lse
         else:
-            out, lse = flash_fwd(q, k, v, causal, scale, bias, rel_table,
-                                 *rel)
+            out, lse = kept[0].detach(), kept[1]
         form = _form(bias, rel_table)
         extra = {FORM_NONE: (), FORM_BIAS: (bias,), FORM_REL: (rel_table,)}
         if fused:
@@ -744,14 +758,15 @@ class _FlashAttention(torch.autograd.Function):
                 dq, drel = dq
             dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal,
                                    ctx.scale, bias, table, *ctx.rel)
-        return dq, dk, dv, dbias, drel, None, None, None, None, None
+        return (dq, dk, dv, dbias, drel) + (None,) * 6
 
 
 def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None, bias=None,
                     rel_table=None, block_q: int = BLOCK,
                     block_k: int = BLOCK, rel_bidirectional: bool = True,
-                    rel_max_distance: int = 128, hybrid: bool = False):
+                    rel_max_distance: int = 128, hybrid: bool = False,
+                    keep: Optional[dict] = None):
     """Differentiable flash attention: q [b, sq, h, d], k/v [b, sk, h, d]
     -> [b, sq, h, d]. ``block_q`` / ``block_k`` are the JAX package's
     blocks: they choose the backward route (``backward_route``), as
@@ -759,14 +774,16 @@ def flash_attention(q, k, v, causal: bool = False,
     ``rel_bidirectional`` and ``rel_max_distance``) add to the scores;
     both are differentiable and take the split backward. ``hybrid``: the
     forward from ``hybrid_fwd`` (the JAX ``fwd_xla``), the backward the
-    same kernels."""
+    same kernels. ``keep``: a dict that keeps the forward's (out, lse)
+    for a checkpoint's recompute (``remat_policy="save_attn"``)."""
     check_forms(q, k, causal, bias, rel_table)
     biased = bias is not None or rel_table is not None
     fused = backward_route(q.shape[1], k.shape[1], block_q, block_k,
                            biased) == "fused"
     return _FlashAttention.apply(q, k, v, bias, rel_table, causal, scale,
                                  fused, (bool(rel_bidirectional),
-                                         int(rel_max_distance)), hybrid)
+                                         int(rel_max_distance)), hybrid,
+                                 keep)
 
 
 def supported(q_shape, k_shape=None) -> bool:
@@ -802,7 +819,8 @@ def route(q, k, v, impl: str = "auto", causal: bool = False, bias=None,
 
 def attention(q, k, v, causal: bool = False, scale: Optional[float] = None,
               impl: str = "auto", bias=None, rel_table=None,
-              rel_bidirectional: bool = True, rel_max_distance: int = 128):
+              rel_bidirectional: bool = True, rel_max_distance: int = 128,
+              keep: Optional[dict] = None):
     """Dispatcher the models call (``route`` picks the path).
 
     impl: "auto" | "flash" -> ``flash_attention`` (the Hopper kernels on
@@ -811,7 +829,8 @@ def attention(q, k, v, causal: bool = False, scale: Optional[float] = None,
     the kernels backward (on the CPU, their plain versions); "naive" ->
     ``parallel.ring.local_attention``, the plain O(s²) oracle, with a rel
     table materialized through ``relpos.relative_bias``, only where asked
-    for."""
+    for. ``keep``: see ``flash_attention`` (the naive route keeps
+    nothing, and recomputes)."""
     way = route(q, k, v, impl, causal, bias, rel_table)
     if way == "naive":
         if rel_table is not None:
@@ -824,4 +843,4 @@ def attention(q, k, v, causal: bool = False, scale: Optional[float] = None,
                            rel_table=rel_table,
                            rel_bidirectional=rel_bidirectional,
                            rel_max_distance=rel_max_distance,
-                           hybrid=way == "hybrid")
+                           hybrid=way == "hybrid", keep=keep)

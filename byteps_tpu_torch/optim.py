@@ -100,6 +100,10 @@ class DistributedOptimizer:
                 min_compress_bytes, world=dp_size(group))
             self.comp_states = None     # made at the first sync
 
+    def syncs_next(self) -> bool:
+        """True when the next ``step()`` ends the accumulation window."""
+        return (self._passes + 1) % self.backward_passes_per_step == 0
+
     def step(self) -> bool:
         """Returns True when this call synced and applied an update,
         False mid-window."""

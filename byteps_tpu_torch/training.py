@@ -31,8 +31,9 @@ are not ported yet (ROADMAP.md): their options raise.
 the JAX ``ShardedTrainer`` on a mesh whose only axes above 1 are
 ``data`` and ``seq``): each rank trains on the sequence shard of its data
 shard, ring attention joins the shards, replicated parameters' gradients
-are summed over the ``seq`` group and then all-reduced over the ``data``
-group by ``DistributedOptimizer``.
+are summed over the ``seq`` group and then all-reduced (or exchanged
+compressed) over the ``data`` group by ``DistributedOptimizer``, at each
+sync boundary of its gradient accumulation.
 """
 
 from __future__ import annotations
@@ -271,6 +272,19 @@ class ShardedTrainer:
       partition_bytes: the data all-reduce's bucket size (default
         ``BPS_PARTITION_BYTES``).
       device: None means the card (``cuda``) and raises without one.
+      compression: the reference's compression kwargs, as in
+        ``DistributedTrainer``: the exchange runs over the ``data`` axis
+        only (at size 1 too: only the collective is skipped), with this
+        rank's own compressor state, as the JAX trainer keeps one state
+        per device of the whole mesh.
+      min_compress_bytes: buckets below it skip compression (default
+        ``BPS_MIN_COMPRESS_BYTES``).
+      backward_passes_per_step: local gradient accumulation. The
+        accumulators hold this rank's local gradients between sync
+        boundaries; at a boundary the ``seq`` sum and the ``data``
+        exchange run once, on the accumulated sum (the sum over ``seq``
+        commutes with the accumulation), and the mean over the window is
+        stepped, as the JAX trainer's ``optax.MultiSteps`` takes it.
 
     ``step(batch)`` takes the GLOBAL batch (every rank the same), whose
     leaves are [batch, seq, ...] (or [batch]): rank (i, j) of the mesh
@@ -279,19 +293,20 @@ class ShardedTrainer:
     backward of the loss's seq sum is the identity) summed over the
     ``seq`` group, then averaged over the ``data`` group with the
     bucketed all-reduce, as the JAX trainer's psum-then-rescale gives
-    them. The returned loss is the global one averaged over ``data``.
+    them. The returned loss is the global one averaged over ``data``,
+    every micro-step.
 
     Tensor, pipeline and expert parallelism (mesh axes ``model``,
-    ``pipe``, ``expert`` and ``dcn`` above 1), a ``param_spec_tree``,
-    compression and ``backward_passes_per_step`` > 1 are not ported
-    (ROADMAP.md): they raise.
+    ``pipe``, ``expert`` and ``dcn`` above 1) and a ``param_spec_tree``
+    are not ported (ROADMAP.md): they raise.
     """
 
     def __init__(self, loss_fn: Callable, model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer, mesh: Mesh,
                  partition_bytes: Optional[int] = None, device=None,
                  param_spec_tree=None, compression: Optional[dict] = None,
-                 backward_passes_per_step: int = 1) -> None:
+                 backward_passes_per_step: int = 1,
+                 min_compress_bytes: Optional[int] = None) -> None:
         over = [a for a in ("model", "pipe", "expert", "dcn")
                 if mesh.size(a) > 1]
         if over:
@@ -301,13 +316,6 @@ class ShardedTrainer:
         if param_spec_tree is not None:
             raise NotImplementedError(f"param_spec_tree (sharded parameters) "
                                       f"{_NOT_PORTED}")
-        if compression:
-            raise NotImplementedError(
-                f"compression in ShardedTrainer {_NOT_PORTED}")
-        if backward_passes_per_step != 1:
-            raise NotImplementedError(
-                f"backward_passes_per_step > 1 in ShardedTrainer "
-                f"{_NOT_PORTED}")
         gs = GlobalState._instance
         cfg = gs.config if gs is not None else Config.from_env()
         if device is None and gs is not None:
@@ -318,11 +326,17 @@ class ShardedTrainer:
         self.mesh = mesh
         self._loss_fn = loss_fn
         self._seq = mesh.ring("seq") if "seq" in mesh.shape else None
-        self.tx = DistributedOptimizer(
-            optimizer, named_parameters=self.model.named_parameters(),
-            group=mesh.group("data") if "data" in mesh.shape else None,
-            partition_bytes=(cfg.partition_bytes if partition_bytes is None
-                             else partition_bytes))
+        with use_mesh(mesh):    # the plan's world: the data axis's size
+            self.tx = DistributedOptimizer(
+                optimizer, named_parameters=self.model.named_parameters(),
+                group=data_group(),
+                partition_bytes=(cfg.partition_bytes if partition_bytes is None
+                                 else partition_bytes),
+                backward_passes_per_step=backward_passes_per_step,
+                compression=compression,
+                min_compress_bytes=(cfg.min_compress_bytes
+                                    if min_compress_bytes is None
+                                    else min_compress_bytes))
         self.step_count = 0
 
     def shard_batch(self, batch):
@@ -342,13 +356,15 @@ class ShardedTrainer:
         return _shard(batch, rows, cols)
 
     def step(self, batch) -> torch.Tensor:
-        """One step on the global ``batch``; returns the global loss
-        averaged over the data group, detached, on the device."""
+        """One step (a micro-step under accumulation) on the global
+        ``batch``; returns the global loss averaged over the data group,
+        detached, on the device."""
         batch = _to_device(self.shard_batch(batch), self.device)
         with use_mesh(self.mesh):
             loss = self._loss_fn(self.model, batch)
             loss.backward()
-            if self._seq is not None and self._seq.size > 1:
+            if (self._seq is not None and self._seq.size > 1
+                    and self.tx.syncs_next()):
                 grads = []
                 for p in self.model.parameters():
                     if p.grad is None:

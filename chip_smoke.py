@@ -74,6 +74,10 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          with delta computed and given at the BERT shapes; dq and dk/dv
          at b 8, s 1024 causal; forward, dq and dk/dv in the dense and
          table forms at T5's encoder shape), at head dims 64 and 128;
+       - GPT-2's long context: the forward, dq and dk/dv kernels at b 1,
+         s 32768, h 16, d 64, causal, launched on all 16 heads; heads 0
+         and 15 held against the plain versions run on that head alone
+         (all 16 heads' fp32 scores would be 68.7 GB);
        - the flash ring's schedule at sp 4 in one process
          (``parallel/ring.py::ring_schedule``: the shards are slices; each
          rank's blocks in the ring's order, kv rank (rank - step) mod 4,
@@ -96,13 +100,13 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
      only, on four buckets at once, beside the harness's floor: an almost
      empty launch, ``torch.cuda._sleep(0)``, timed the same way; pack of
      ``x[1:]`` and dequantize of ``q[1:]``, their instances for views,
-     under ``view`` in the kernel line); the
-     ring's forms
-     1f and 2d at the BERT shape (d 64) and the dh128 shape (d 128), full,
+     under ``view`` in the kernel line); the forward, dq and dk/dv at
+     b 1, s 32768, h 16, d 64 causal (their plain versions head by head,
+     median of 3); the ring's forms 1f and 2d at the BERT shape (d 64) and the dh128 shape (d 128), full,
      against the library's forward and backward; and each flash
      wrapper's host microseconds per call at the BERT shapes (checks,
      allocations, tensor maps and launches, enqueued while the card is
-     busy).
+     busy), and the autograd Function's forward.
   4. training through the port's ``DistributedTrainer``, random weights
      from seed 0, AdamW(1e-4, weight_decay 1e-4), 3 steps on one fixed
      synthetic batch of 8, at full width (bf16 compute over fp32 params,
@@ -111,6 +115,13 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
      what that path launches (remat runs each layer's forward twice):
        - BERT-large MLM, 24 x 1024 x 16, vocab 30522, seq 512: 144
          forward and 72 fused-backward launches, all at head dim 64;
+       - BERT-large under ``examples/perf_lab.py``'s other ``--remat``
+         arms (``BERT_REMAT``): no remat, ``dots``, ``mlp_only``,
+         ``save_attn``: 72 forward launches (144 under ``dots``, which
+         recomputes the flash forward) and 72 fused; step 1's loss bit
+         for bit the whole-block run's; the step-1 gradients' norm of
+         fresh weights within GRAD_NORM_TOL of its (printed whether bit
+         for bit); peak memory and step beside whole-block remat's;
        - BERT-large with ``attn_impl="hybrid"``: attention's forward
          from plain products (``flash_attention.hybrid_fwd``), no forward
          kernel; 72 fused-backward launches at head dim 64; step 1's loss
@@ -132,6 +143,13 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
        - GPT-2 medium, 24 x 1024 x 16, vocab 50257, seq 1024 (two 512
          attention blocks, so the split backward): 144 forward, 72 dq and
          72 dk/dv launches;
+       - the LM head at GPT-2's shape (b 8, s 1024, vocab 50257): the
+         bf16 x bf16 -> fp32 GEMM against the fp32 product of the rounded
+         operands on the same inputs (logits within HEAD_LOGITS_TOL ·
+         max|ref|, dh and dE within REL_TOL), both timed forward and
+         forward + backward; then GPT-2 medium dense again with the fp32
+         route (``gpt2_medium dense fp32 head``): step 1 within
+         HEAD_LOSS_TOL of the dense run's, its step beside it;
        - GPT-2 medium with the README's gradient compression (onebit with
          the L1-mean scale, vanilla error feedback, Nesterov momentum):
          as the dense run, plus 3 x nc pack and 3 x 2 x nc unpack
@@ -182,7 +200,21 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          forward, 72 dq, 72 dk/dv, 0 fused, step 1's loss within 1e-5 of
          this call's dense GPT-2 step 1 (the same weights and batch; a
          ring of one's merge returns the block's partial unchanged), and
-         whether it is bit for bit.
+         whether it is bit for bit; then GPT-2 medium through
+         ``ShardedTrainer`` on ``{"seq": 1}`` with
+         ``backward_passes_per_step=2`` and the README's onebit kwargs, 4
+         micro-steps on one batch, each counted on its own: the ring's
+         launches every micro-step, onebit's pack nc and unpack 2·nc at
+         each sync boundary (``gpt2_medium onebit``'s step) and none in
+         between; the second micro-step's loss bit for bit the first's
+         (no update mid-window), the third's lower;
+       - GPT-2 medium at ``examples/long_context_bench.py``'s long context
+         (``max_seq`` 32768, batch 1, ``lm_head_chunk=2048``, whole-block
+         remat): 144 forward, 72 dq, 72 dk/dv launches, all at s 32768;
+         then one step with the full head (the control): its loss within
+         LONG_HEAD_TOL of the chunked run's step 1, the chunked run's
+         peak memory lower by at least one fp32 [s, vocab] tensor (6.59
+         GB);
        - the BytePS API (``bps.init()`` first, world 1), BERT-large at
          the dense run's weights, batch and AdamW: ``bert_large_plugin``,
          the optimizer wrapped by ``byteps_tpu_torch.torch.
@@ -215,14 +247,15 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
      its device time by kernel group, each codec kernel's device time
      and launches, and the device time of the kernels inside the port's
      profiler ranges (``RANGES``: the hybrid forward, the compressed
-     exchange). The compressed run then
+     exchange, the LM head's GEMMs). The compressed run then
      holds one step's compressed reduction of real gradients through the
      kernels against the same reduction through their plain versions,
      bit for bit: packed words, scales, decompressed values, error
      feedback, momentum and the reduced gradient.
   5. one JSON line ``{"kernels": [...]}`` (each flash kernel at head dim
      64, with its bias and table forms under ``forms``, the ring's forms
-     under ``fp32_out`` (forward) and ``delta`` (fused backward), its
+     under ``fp32_out`` (forward) and ``delta`` (fused backward), the
+     forward, dq and dk/dv at s 32768 under ``s32768``, its
      ptxas rows, and the same entry at head dim 128 under ``d128``), the
      card's name
      and power limit, and as the last line
@@ -444,10 +477,38 @@ HYBRID_CONTROLS = {
     "bert_large_hybrid": {"tf32": (), "bf16": ("op",), "lse": ("op", "grad")},
     "t5_small_hybrid": {"tf32": (), "bf16": (), "lse": ("op",),
                         "no_bias": ("op", "grad")}}
+# examples/perf_lab.py's --remat arms of BERT-large beside whole-block
+# remat (the bert_large path): (config change, forward launches a layer
+# per step). dots recomputes the flash forward, which is no matmul
+BERT_REMAT = {"bert_large_remat_none": ({"remat": False}, 1),
+              "bert_large_dots": ({"remat_policy": "dots"}, 2),
+              "bert_large_mlp_only": ({"remat_policy": "mlp_only"}, 1),
+              "bert_large_save_attn": ({"remat_policy": "save_attn"}, 1)}
+# |step-1 gradient norm under a policy - whole-block remat's| / the
+# latter: a policy keeps or recomputes the same values
+GRAD_NORM_TOL = 1e-6
+# GPT-2 medium at examples/long_context_bench.py's long context: its 8192
+# tokens a step round up to one sample of 32768, and past 16384 it
+# chunks the head at 2048
+LONG_SEQ, LONG_BATCH, LONG_CHUNK = 32768, 1, 2048
+# |step-1 loss, full head - chunked head| / chunked: the same logits in
+# chunks, their nll sums added in another order
+LONG_HEAD_TOL = 1e-4
+# the LM head's bf16 GEMM against the fp32 route on the same inputs:
+# logits max err <= HEAD_LOGITS_TOL · max|ref| (the same exact products,
+# fp32 sums in another order); dh and dE within REL_TOL (the cotangent
+# rounded to bf16); GPT-2's step-1 loss through either route within
+# HEAD_LOSS_TOL relative
+HEAD_LOGITS_TOL = 1e-5
+HEAD_LOSS_TOL = 1e-5
+# ShardedTrainer's accumulation path: micro-steps a sync, micro-steps run
+SP_ACCUM, SP_ACCUM_STEPS = 2, 4
+# rounds of steps_in_turns: BERT's remat arms, GPT-2's two head routes
+TURNS = 8
 # the port's profiler ranges (``record_function``) whose device time
 # phase 4 attributes: the hybrid route's plain forward, the compressed
-# exchange
-RANGES = ("bps::hybrid_fwd", "bps::compressed_reduce")
+# exchange, the LM head's GEMMs (forward and backward)
+RANGES = ("bps::hybrid_fwd", "bps::compressed_reduce", "bps::lm_head")
 
 
 def log(*a):
@@ -1781,7 +1842,9 @@ def host_us(fn, n=50, repeats=5):
 def time_host(h=HEADS, d=HEAD_DIM):
     """Host microseconds per call of each flash wrapper at the BERT shape
     (b 8, s 512, full, h heads of d): the cost a host-bound step pays per
-    launch, tensor map encoding included."""
+    launch, tensor map encoding included; and of the autograd Function's
+    forward (``flash_attention``: the checks and the route before the
+    wrapper)."""
     from byteps_tpu_torch.ops import flash_attention as fa
     b, s = TRAIN_BATCH, BERT_SEQ
     q, k, v, do = _inputs(b, s, h, d, seed=99)
@@ -1792,7 +1855,8 @@ def time_host(h=HEADS, d=HEAD_DIM):
         ("flash_bwd_fused", lambda: fa.flash_bwd_fused(q, k, v, do, lse)),
         ("flash_bwd_dq", lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta)),
         ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(q, k, v, do, lse,
-                                                   delta)))}
+                                                   delta)),
+        ("flash_attention", lambda: fa.flash_attention(q, k, v)))}
     log(f"[host b{b} s{s} h{h} d{d}] us per wrapper call: " + ", ".join(
         f"{k} {v:.1f}" for k, v in res.items()))
     return res
@@ -2197,7 +2261,8 @@ def range_ms(events, kernels, names=RANGES):
 
 def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
              compression=None, naive_cfg=None, more_steps=STEPS,
-             model_cls=None, tokens_per_sample=None, mesh=None):
+             model_cls=None, tokens_per_sample=None, mesh=None,
+             batch=TRAIN_BATCH):
     """Train ``STEPS`` steps through ``DistributedTrainer`` (with a
     ``mesh``: ``ShardedTrainer`` on it, the global batch ``data``) with
     every launch counter zeroed just before and read just after; check finite
@@ -2205,7 +2270,8 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
     more for steadier times, one profiled step, and (``naive_cfg``) step 1
     of a fresh trainer with plain attention as the loss's reference.
     ``model_cls`` builds the model from ``cfg`` (default the transformer
-    core). Returns (launches, trainer, losses, metrics): ``metrics`` is the
+    core); ``batch`` is the rows of ``data``, for the rates. Returns
+    (launches, trainer, losses, metrics): ``metrics`` is the
     port's metrics registry over the counted steps (the parameter-server
     path's byte counters and stage times). The run's step time, rates,
     peak memory and profiled step go to ``SUMMARY[tag]``."""
@@ -2251,7 +2317,7 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     def rates(step_s):
-        sps = TRAIN_BATCH / step_s
+        sps = batch / step_s
         util = mfu(sps, flops_per_sample)
         toks = ("" if tokens_per_sample is None
                 else f"{sps * tokens_per_sample:.0f} tokens/s, ")
@@ -2285,8 +2351,8 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
             f"median {rates(statistics.median(more))}")
     step_s = statistics.median(more) if more else min(times[1:])
     SUMMARY[tag] = {"step_ms": step_s * 1e3,
-                    "samples_per_s": TRAIN_BATCH / step_s,
-                    "mfu": mfu(TRAIN_BATCH / step_s, flops_per_sample),
+                    "samples_per_s": batch / step_s,
+                    "mfu": mfu(batch / step_s, flops_per_sample),
                     "peak_gb": peak_gb, "losses": losses,
                     "profile": profile_step(trainer, data, tag)}
 
@@ -2307,10 +2373,12 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
 SUMMARY = {}
 
 
-def _attention_launches(cfg, backward):
+def _attention_launches(cfg, backward, forwards=2):
+    """``forwards`` launches of the forward a layer per step (2 under
+    whole-block remat: the backward's recompute), ``backward`` once."""
     def want(trainer):
         w = dict.fromkeys(COUNT_KEYS, 0)
-        w["flash_fwd"] = STEPS * cfg.layers * 2   # remat: forward twice
+        w["flash_fwd"] = STEPS * cfg.layers * forwards
         for name in backward:
             w[name] = STEPS * cfg.layers
         return by_width(w, cfg.head_dim)
@@ -3274,6 +3342,456 @@ def train_gpt2_sp():
         raise AssertionError("gpt2_medium_sp: step-1 loss differs from the "
                              "dense run's on the same weights and batch")
     return launches
+
+
+# ------------------------------------------ the model options (remat
+# policies, the chunked LM head, the head's GEMM, ShardedTrainer's
+# accumulation and compression)
+
+def _grad_norm(grads) -> float:
+    return math.sqrt(sum(g.double().square().sum().item() for g in grads))
+
+
+def _trainer(cfg, loss_fn):
+    """A ``DistributedTrainer`` of the transformer core on the card, fresh
+    weights from seed 0, AdamW(1e-4)."""
+    from byteps_tpu_torch.models.transformer import Transformer
+    from byteps_tpu_torch.optim import adamw
+    from byteps_tpu_torch.training import DistributedTrainer
+    model = Transformer(cfg, generator=torch.Generator().manual_seed(0))
+    return DistributedTrainer(loss_fn, model, adamw(model.parameters(), 1e-4),
+                              partition_bytes=PARTITION_BYTES)
+
+
+def steps_in_turns(tag, arms, data, rounds=TURNS):
+    """Step time of each arm (``arms``: {name: (trainer, context)}, the
+    context entered around that arm's steps, or None) in turns: one warm
+    step each, then ``rounds`` rounds of one step each, each timed on
+    the host clock to its synchronize. Host-bound steps move by tens of
+    ms between calls and phases, so two arms compare only in turns.
+    Returns {name: median ms} and prints each arm's ratio to the
+    first's."""
+    times = {name: [] for name in arms}
+    for r in range(rounds + 1):
+        for name, (trainer, context) in arms.items():
+            with context() if context is not None else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                trainer.step(data)
+                torch.cuda.synchronize()
+            if r:
+                times[name].append((time.perf_counter() - t) * 1e3)
+    med = {name: statistics.median(v) for name, v in times.items()}
+    first = next(iter(med.values()))
+    log(f"[{tag} in turns, {rounds} rounds, this call] " + "; ".join(
+        f"{name} {m:.1f} ms ({m / first:.3f}x; quartiles "
+        f"{statistics.quantiles(times[name], n=4)[0]:.1f}-"
+        f"{statistics.quantiles(times[name], n=4)[2]:.1f})"
+        for name, m in med.items()))
+    return med
+
+
+def train_bert_remat():
+    """BERT-large under ``examples/perf_lab.py``'s other ``--remat`` arms
+    (``BERT_REMAT``) beside this call's whole-block run (``bert_large``):
+    step 1's loss bit for bit (the forward is the same computation), the
+    step-1 gradients' norm of fresh weights within GRAD_NORM_TOL relative
+    (printed whether every gradient is bit for bit the whole-block
+    run's), each path's forward and fused launches, its peak memory
+    beside whole-block remat's."""
+    import dataclasses
+    cfg0, loss_fn, data, fps = _bert_setup()
+    base = SUMMARY["bert_large"]
+    _, ref = _step1_grads(cfg0, None, loss_fn, data)
+    ref_norm = _grad_norm(ref)
+    paths = {}
+    for tag, (change, forwards) in BERT_REMAT.items():
+        cfg = dataclasses.replace(cfg0, **change)
+        launches, trainer, losses, _ = run_path(
+            tag, cfg, loss_fn, data, fps,
+            _attention_launches(cfg, ("flash_bwd_fused",), forwards),
+            more_steps=2)
+        del trainer
+        torch.cuda.empty_cache()
+        _, grads = _step1_grads(cfg, None, loss_fn, data)
+        norm = _grad_norm(grads)
+        bitwise = all(_same_bits(g, r) for g, r in zip(grads, ref))
+        del grads
+        torch.cuda.empty_cache()
+        rel = abs(norm - ref_norm) / ref_norm
+        r = SUMMARY[tag]
+        log(f"[{tag} vs whole-block remat, this call] step-1 loss "
+            f"{losses[0]!r} vs {base['losses'][0]!r} "
+            f"({'bit for bit' if losses[0] == base['losses'][0] else 'differs'}); "
+            f"step-1 gradient norm {norm!r} vs {ref_norm!r}, rel "
+            f"{rel:.3e} (tolerance {GRAD_NORM_TOL}), gradients "
+            f"{'bit for bit' if bitwise else 'not bit for bit'}; peak "
+            f"{r['peak_gb']:.2f} GB vs {base['peak_gb']:.2f} GB; step "
+            f"{r['step_ms']:.1f} ms vs {base['step_ms']:.1f} ms")
+        if losses[0] != base["losses"][0]:
+            raise AssertionError(f"{tag}: step-1 loss is not the whole-block "
+                                 "run's bit for bit")
+        if not rel <= GRAD_NORM_TOL:
+            raise AssertionError(f"{tag}: step-1 gradient norm differs from "
+                                 "the whole-block run's")
+        paths[tag] = launches
+    del ref
+    torch.cuda.empty_cache()
+    arms = {"whole-block": (_trainer(cfg0, loss_fn), None)}
+    for tag, (change, _) in BERT_REMAT.items():
+        arms[tag] = (_trainer(dataclasses.replace(cfg0, **change), loss_fn),
+                     None)
+    SUMMARY["bert_remat_turns"] = steps_in_turns("bert_large remat arms",
+                                                 arms, data)
+    del arms
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _head_plain(hidden, emb, dt):
+    """The head's route before the bf16 GEMM: both operands rounded to
+    ``dt``, multiplied in fp32 (TF32 is off in this script)."""
+    return hidden.to(dt).float() @ emb.to(dt).float().t()
+
+
+def check_head_gemm():
+    """The LM head at GPT-2 medium's shape (b 8, s 1024, hidden 1024,
+    vocab 50257): logits and their gradients through the bf16 GEMM
+    (``transformer.head_logits`` on the card) against the fp32 route on
+    the same inputs, with the cotangent a mean cross-entropy gives;
+    logits within HEAD_LOGITS_TOL · max|ref|, dh and dE within REL_TOL ·
+    max|ref|. Then both routes' forward and forward + backward times
+    beside the bound."""
+    from byteps_tpu_torch.models import gpt2
+    from byteps_tpu_torch.models import transformer as tr
+    cfg = gpt2.gpt2_medium()
+    n, hid, vocab = TRAIN_BATCH * GPT2_SEQ, cfg.hidden, cfg.vocab_size
+    g = torch.Generator().manual_seed(41)
+    h = torch.randn(n, hid, generator=g).to(torch.bfloat16).cuda()
+    emb = (torch.randn(vocab, hid, generator=g) * 0.02).cuda()
+    tgt = torch.randint(0, vocab, (n,), generator=g).cuda()
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        ct = torch.softmax(_head_plain(h, emb, bf16), -1)
+        ct[torch.arange(n, device=ct.device), tgt] -= 1.0
+        ct /= n
+    res = {}
+    for route, fn in (("bf16_gemm", tr.head_logits), ("fp32", _head_plain)):
+        ha, ea = h.clone().requires_grad_(), emb.clone().requires_grad_()
+        lg = fn(ha, ea, bf16)
+        lg.backward(ct)
+        torch.cuda.synchronize()
+        res[route] = (lg.detach(), ha.grad, ea.grad)
+        del lg
+    worst = {}
+    for name, got, ref, tol in zip(
+            ("logits", "dh", "dE"), res["bf16_gemm"], res["fp32"],
+            (HEAD_LOGITS_TOL, REL_TOL, REL_TOL)):
+        e, r = _rel_err(got, ref)
+        worst[name] = r
+        log(f"[check lm head b{TRAIN_BATCH} s{GPT2_SEQ} h{hid} v{vocab}] "
+            f"{name}: bf16 GEMM vs fp32 route err {e:.3e} (rel {r:.2e}, "
+            f"tolerance {tol})")
+        if not r <= tol:
+            raise AssertionError(f"lm head {name}: the bf16 GEMM disagrees "
+                                 "with the fp32 route")
+    del res
+    torch.cuda.empty_cache()
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    ha, ea = h.clone().requires_grad_(), emb.clone().requires_grad_()
+    flops = 2 * n * hid * vocab
+    nbytes = n * hid * 2 + vocab * hid * 4 + n * vocab * 4
+    times = {}
+    for route, fn in (("bf16_gemm", tr.head_logits), ("fp32", _head_plain)):
+        times[route] = {
+            "fwd_ms": time_ms(lambda: fn(h, emb, bf16), n=10, flush=flush),
+            "fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                fn(ha, ea, bf16), (ha, ea), ct), n=10, flush=flush)}
+    # forward: h and E read, the logits written; the backward also reads
+    # the cotangent, h and E and writes dh and dE
+    bound = {"fwd": _bound(flops, nbytes),
+             "fwd_bwd": _bound(3 * flops, nbytes + n * vocab * 4
+                               + 2 * (n * hid * 2 + vocab * hid * 4))}
+    log(f"[time lm head b{TRAIN_BATCH} s{GPT2_SEQ} v{vocab}] " + "; ".join(
+        f"{r}: forward {t['fwd_ms']:.4f} ms, forward + backward "
+        f"{t['fwd_bwd_ms']:.4f} ms" for r, t in times.items())
+        + f"; bound forward {bound['fwd']['bound_ms']:.4f} ms "
+        f"({bound['fwd']['bound_by']}), forward + backward "
+        f"{bound['fwd_bwd']['bound_ms']:.4f} ms")
+    del flush, ha, ea, ct
+    torch.cuda.empty_cache()
+    SUMMARY["lm_head"] = {"rel_err": worst, "times": times,
+                          "bound_ms": {k: v["bound_ms"]
+                                       for k, v in bound.items()}}
+
+
+@contextlib.contextmanager
+def _fp32_head():
+    """The head's route before the bf16 GEMM, inside the block."""
+    from byteps_tpu_torch.models import transformer as tr
+    head, tr.head_logits = tr.head_logits, _head_plain
+    try:
+        yield
+    finally:
+        tr.head_logits = head
+
+
+def train_gpt2_fp32_head():
+    """GPT-2 medium dense again with the head's route before the bf16 GEMM
+    (``_head_plain``), for its step beside the bf16 GEMM's in this call:
+    step 1's loss within HEAD_LOSS_TOL relative of the dense run's (the
+    forward's logits differ only in summation order)."""
+    cfg, loss_fn, data, fps = _gpt2_setup()
+    with _fp32_head():
+        launches, trainer, losses, _ = run_path(
+            "gpt2_medium dense fp32 head", cfg, loss_fn, data, fps,
+            _attention_launches(cfg, ("flash_bwd_dq", "flash_bwd_dkv")))
+    del trainer
+    torch.cuda.empty_cache()
+    SUMMARY["head_turns"] = steps_in_turns(
+        "gpt2_medium dense head routes",
+        {"bf16 GEMM": (_trainer(cfg, loss_fn), None),
+         "fp32 route": (_trainer(cfg, loss_fn), _fp32_head)}, data)
+    torch.cuda.empty_cache()
+    dense = SUMMARY["gpt2_medium dense"]
+    rel = abs(losses[0] - dense["losses"][0]) / abs(dense["losses"][0])
+    old = SUMMARY["gpt2_medium dense fp32 head"]
+    log(f"[lm head, this call] gpt2_medium dense step-1 loss: bf16 GEMM "
+        f"{dense['losses'][0]!r}, fp32 route {losses[0]!r} (rel {rel:.3e}, "
+        f"tolerance {HEAD_LOSS_TOL}); step {dense['step_ms']:.1f} ms vs "
+        f"{old['step_ms']:.1f} ms; profiled device busy "
+        f"{(dense['profile'] or {}).get('busy_ms', float('nan')):.2f} ms vs "
+        f"{(old['profile'] or {}).get('busy_ms', float('nan')):.2f} ms")
+    if not rel <= HEAD_LOSS_TOL:
+        raise AssertionError("gpt2_medium: the bf16 head's step-1 loss "
+                             "differs from the fp32 route's")
+    return launches
+
+
+def train_gpt2_long():
+    """GPT-2 medium at ``LONG_SEQ`` (batch ``LONG_BATCH``) with the head
+    chunked at ``LONG_CHUNK``, whole-block remat, through
+    ``DistributedTrainer``: every attention launch at s 32768 (the one
+    attention of a [1, 32768] batch), the split backward; then one step
+    of the same model with the full head (the control): its step-1 loss
+    within LONG_HEAD_TOL relative, and the chunked run's peak memory
+    lower by at least one fp32 [s, vocab] tensor."""
+    import dataclasses
+
+    from byteps_tpu_torch.models import gpt2
+    from byteps_tpu_torch.models.flops import transformer_train_flops_per_sample
+    from byteps_tpu_torch.models.transformer import Transformer
+    from byteps_tpu_torch.optim import adamw
+    from byteps_tpu_torch.training import DistributedTrainer
+    cfg = gpt2.gpt2_medium(max_seq=LONG_SEQ, lm_head_chunk=LONG_CHUNK)
+    data = gpt2.synth_lm_batch(np.random.RandomState(0), LONG_BATCH,
+                               LONG_SEQ, cfg.vocab_size)
+    fps = transformer_train_flops_per_sample(cfg, LONG_SEQ)
+    launches, trainer, losses, _ = run_path(
+        "gpt2_medium_32k", cfg, gpt2.causal_lm_loss, data, fps,
+        _attention_launches(cfg, ("flash_bwd_dq", "flash_bwd_dkv")),
+        more_steps=2, tokens_per_sample=LONG_SEQ, batch=LONG_BATCH)
+    del trainer
+    torch.cuda.empty_cache()
+    full = dataclasses.replace(cfg, lm_head_chunk=0)
+    model = Transformer(full, generator=torch.Generator().manual_seed(0))
+    trainer = DistributedTrainer(gpt2.causal_lm_loss, model,
+                                 adamw(model.parameters(), 1e-4),
+                                 partition_bytes=PARTITION_BYTES)
+    ctr = counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(ctr)
+    t = time.perf_counter()
+    loss = trainer.step(data).item()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    full_launches = read_counts(ctr)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del trainer, model
+    torch.cuda.empty_cache()
+    want = _attention_launches(full, ("flash_bwd_dq", "flash_bwd_dkv"))(None)
+    want = {k: v // STEPS for k, v in want.items()}    # one step
+    chunked = SUMMARY["gpt2_medium_32k"]["peak_gb"]
+    one = LONG_SEQ * cfg.vocab_size * 4 / 1e9
+    rel = abs(loss - losses[0]) / abs(losses[0])
+    log(f"[gpt2_medium_32k_full_head] step-1 loss {loss!r}, chunked "
+        f"{losses[0]!r}: rel {rel:.3e} (tolerance {LONG_HEAD_TOL}); step "
+        f"{step_s * 1e3:.1f} ms (step 1, cold); peak memory {peak:.2f} GB, "
+        f"chunked {chunked:.2f} GB: {peak - chunked:.2f} GB saved, one fp32 "
+        f"[s, vocab] tensor {one:.2f} GB; launches {full_launches}")
+    SUMMARY["gpt2_medium_32k_full_head"] = {"peak_gb": peak,
+                                            "loss": loss,
+                                            "step1_ms": step_s * 1e3}
+    if full_launches != want:
+        raise AssertionError(f"gpt2_medium_32k_full_head: launches "
+                             f"{full_launches}, expected {want}")
+    if not rel <= LONG_HEAD_TOL:
+        raise AssertionError("gpt2_medium_32k: the chunked head's step-1 "
+                             "loss differs from the full head's")
+    if not peak - chunked >= one:
+        raise AssertionError("gpt2_medium_32k: the chunked head saved less "
+                             "than one fp32 [s, vocab] tensor of memory")
+    return launches, full_launches
+
+
+def train_gpt2_sp_accum(onebit_launches):
+    """GPT-2 medium through ``ShardedTrainer`` on ``{"seq": 1}`` with
+    ``backward_passes_per_step=SP_ACCUM`` and the README's onebit
+    compression, ``SP_ACCUM_STEPS`` micro-steps on one batch, each
+    counted on its own: the ring's launches every micro-step (fp32-out
+    forward twice a layer, dq and dk/dv once); at each sync boundary
+    onebit's pack and unpack launches of one ``gpt2_medium_onebit`` step
+    (``onebit_launches``: that path's counts over its STEPS), none in
+    between. The micro-step after a window's first sees unchanged
+    weights: the same loss bit for bit; the next window's first a lower
+    one."""
+    from byteps_tpu_torch.models import gpt2
+    from byteps_tpu_torch.models.transformer import Transformer
+    from byteps_tpu_torch.optim import adamw
+    from byteps_tpu_torch.parallel.mesh import make_mesh
+    from byteps_tpu_torch.training import ShardedTrainer
+    _, loss_fn, data, _ = _gpt2_setup()
+    cfg = gpt2.gpt2_medium(sp_axis="seq")
+    model = Transformer(cfg, generator=torch.Generator().manual_seed(0))
+    trainer = ShardedTrainer(loss_fn, model, adamw(model.parameters(), 1e-4),
+                             make_mesh({"seq": 1}),
+                             partition_bytes=PARTITION_BYTES,
+                             compression=README_COMPRESSION,
+                             min_compress_bytes=MIN_COMPRESS_BYTES,
+                             backward_passes_per_step=SP_ACCUM)
+    nc = trainer.tx.plan.n_compressed
+    per_sync = {k: onebit_launches[k] // STEPS
+                for k in ("onebit_pack", "onebit_unpack")}
+    if per_sync != {"onebit_pack": nc, "onebit_unpack": 2 * nc}:
+        raise AssertionError(f"gpt2_medium_sp_accum: {nc} compressed "
+                             f"buckets, gpt2_medium_onebit's step {per_sync}")
+    ring = _sp_launches(cfg, ("flash_bwd_dq", "flash_bwd_dkv"))(None)
+    ring = {k: v // STEPS for k, v in ring.items()}     # one micro-step
+    ctr = counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total = dict.fromkeys(COUNT_KEYS, 0)
+    losses, times = [], []
+    for i in range(SP_ACCUM_STEPS):
+        zero_counts(ctr)
+        t = time.perf_counter()
+        loss = trainer.step(data)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(loss.item())
+        got = read_counts(ctr)
+        want = dict(ring)
+        if (i + 1) % SP_ACCUM == 0:
+            want.update(per_sync)
+        log(f"[gpt2_medium_sp_accum] micro-step {i + 1}: loss {losses[-1]!r}, "
+            f"{times[-1] * 1e3:.1f} ms, onebit pack "
+            f"{got['onebit_pack']}, unpack {got['onebit_unpack']}")
+        if got != want:
+            raise AssertionError(f"gpt2_medium_sp_accum micro-step {i + 1}: "
+                                 f"launches {got}, expected {want}")
+        total = {k: total[k] + got[k] for k in total}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del trainer, model
+    torch.cuda.empty_cache()
+    log(f"[gpt2_medium_sp_accum] losses {losses}; micro-step times s "
+        f"{times}; peak memory {peak:.2f} GB; {nc} compressed buckets")
+    SUMMARY["gpt2_medium_sp_accum"] = {"losses": losses, "peak_gb": peak,
+                                       "times_ms": [x * 1e3 for x in times]}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"gpt2_medium_sp_accum: non-finite loss: "
+                             f"{losses}")
+    if losses[1] != losses[0] or not losses[SP_ACCUM] < losses[0]:
+        raise AssertionError("gpt2_medium_sp_accum: the weights moved "
+                             "mid-window or not at the sync boundary: "
+                             f"{losses}")
+    return total
+
+
+def check_long_kernels(worst):
+    """The forward, dq and dk/dv kernels at GPT-2's long context (b 1, s
+    ``LONG_SEQ``, h 16, d 64, causal) on all 16 heads; heads 0 and 15
+    held against the plain versions run on that head alone (the plain
+    version's fp32 scores of all 16 heads would be 68.7 GB)."""
+    from byteps_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = _inputs(LONG_BATCH, LONG_SEQ, HEADS, HEAD_DIM, seed=60)
+    out, lse = fa.flash_fwd(q, k, v, True)
+    delta = fa.bwd_delta(do, out)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, True)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    for hd in (0, HEADS - 1):
+        sl = slice(hd, hd + 1)
+        tag = (f"b{LONG_BATCH} s{LONG_SEQ} head {hd} of {HEADS} d{HEAD_DIM} "
+               "causal")
+        qh, kh, vh, doh = (t[:, :, sl] for t in (q, k, v, do))
+        ref_out, ref_lse = fa.flash_fwd_plain(qh, kh, vh, True)
+        e_lse = (lse[:, sl] - ref_lse).abs().max().item()
+        log(f"[check {tag}] lse err {e_lse:.3e}")
+        if not e_lse <= LSE_TOL:
+            raise AssertionError(f"flash_fwd lse disagrees at {tag}")
+        worst["flash_fwd"] = max(worst["flash_fwd"], _check(
+            "fwd out", tag, out[:, :, sl], ref_out))
+        del ref_out, ref_lse
+        args = (qh, kh, vh, doh, lse[:, sl], delta[:, sl], True)
+        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], _check(
+            "split dq", tag, dq[:, :, sl], fa.flash_bwd_dq_plain(*args)))
+        ref_dk, ref_dv = fa.flash_bwd_dkv_plain(*args)
+        worst["flash_bwd_dkv"] = max(
+            worst["flash_bwd_dkv"],
+            _check("split dk", tag, dk[:, :, sl], ref_dk),
+            _check("split dv", tag, dv[:, :, sl], ref_dv))
+        del ref_dk, ref_dv
+        torch.cuda.empty_cache()
+    del q, k, v, do, out, lse, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+
+
+def time_long_attention():
+    """The forward, dq and dk/dv kernels at (b 1, s ``LONG_SEQ``, h 16, d
+    64, causal) beside their bounds and the library's attention; the
+    plain versions run head by head over the 16 heads (median of 3)."""
+    from byteps_tpu_torch.ops import flash_attention as fa
+    b, s, h, d = LONG_BATCH, LONG_SEQ, HEADS, HEAD_DIM
+    q, k, v, do = _inputs(b, s, h, d, seed=61)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    out, lse = fa.flash_fwd(q, k, v, True)
+    delta = fa.bwd_delta(do, out)
+
+    def heads(fn):
+        def run():
+            for i in range(h):
+                sl = slice(i, i + 1)
+                fn(*(t[:, :, sl] for t in (q, k, v, do)), lse[:, sl],
+                   delta[:, sl])
+        return run
+
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, True),
+                      heads(lambda qh, kh, vh, doh, l_, d_:
+                            fa.flash_fwd_plain(qh, kh, vh, True))),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True),
+            heads(lambda *a: fa.flash_bwd_dq_plain(*a, True))),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+            heads(lambda *a: fa.flash_bwd_dkv_plain(*a, True))),
+    }
+    lib = library_attention_ms(q, k, v, do, True, flush)
+    bounds = attention_bounds(b, s, h, d, True)
+    res = {}
+    for name, (kernel, plain) in calls.items():
+        r = {"ms": time_ms(kernel, flush=flush),
+             "plain_ms": time_ms(plain, n=3, flush=flush),
+             "plain": "one head at a time, all 16",
+             "library_ms": lib[0] if name == "flash_fwd" else lib[1],
+             "timed_shape": [b, s, h, d], "causal": True}
+        r.update(bounds[name])
+        _log_time(name, f"b{b} s{s} h{h} d{d} causal", r)
+        res[name] = r
+    del q, k, v, do, out, lse, delta, flush
+    torch.cuda.empty_cache()
+    return res
 
 
 def _same_bits(a, b):
@@ -4427,6 +4945,7 @@ def main() -> int:
     check_dh128_kernels(worst128)
     check_ring_forms(ring_worst)
     check_ring_schedule()
+    check_long_kernels(worst)
     check_determinism()
     check_onebit(_adversarial(), "adversarial vector")
     check_quant()
@@ -4459,21 +4978,29 @@ def main() -> int:
     form_timing128 = {
         (f, "encoder"): time_forms(TRAIN_BATCH, T5_SRC, False, f, DH128)
         for f in FORMS}
+    long_timing = time_long_attention()
     ring_timing = {HEAD_DIM: time_ring_forms(),
                    DH128: time_ring_forms(DH128_HEADS, DH128)}
     host = {HEAD_DIM: time_host(), DH128: time_host(DH128_HEADS, DH128)}
     bert_launches, bert_losses = train_bert()
-    paths = {"bert_large": bert_launches,
-             "bert_large_hybrid": train_bert_hybrid(),
-             "bert_large_dh128": train_bert_dh128(),
-             "gpt2_medium_dense": train_gpt2_dense(),
-             "gpt2_medium_onebit": train_gpt2_onebit()}
+    paths = {"bert_large": bert_launches}
+    paths.update(train_bert_remat())
+    paths.update({"bert_large_hybrid": train_bert_hybrid(),
+                  "bert_large_dh128": train_bert_dh128(),
+                  "gpt2_medium_dense": train_gpt2_dense()})
+    check_head_gemm()
+    paths["gpt2_medium_dense_fp32_head"] = train_gpt2_fp32_head()
+    paths["gpt2_medium_onebit"] = train_gpt2_onebit()
     for name in GPT2_COMPRESSION:
         paths[f"gpt2_medium_{name}"] = train_gpt2_compressed(name)
     paths.update({"t5_small": train_t5(),
                   "t5_small_hybrid": train_t5_hybrid(),
                   "bert_large_sp": train_bert_sp(),
                   "gpt2_medium_sp": train_gpt2_sp()})
+    paths["gpt2_medium_sp_accum"] = train_gpt2_sp_accum(
+        paths["gpt2_medium_onebit"])
+    paths["gpt2_medium_32k"], paths["gpt2_medium_32k_full_head"] = \
+        train_gpt2_long()
     step2_misses = []
     for codec in ("int8", "fp8_e4m3"):
         paths[f"bert_large_ps_{codec}"] = train_bert_ps(codec, bert_losses,
@@ -4502,6 +5029,10 @@ def main() -> int:
                 (DH128, worst128, timing128, form_timing128, split128)):
             entry = kernel_entry(name, paths, w, tm, card, ptxas, d)
             entry["host_us"] = host[d][name]
+            if name == "flash_fwd":
+                entry["host_us_function"] = host[d]["flash_attention"]
+            if d == HEAD_DIM and name in long_timing:   # GPT-2 at 32k
+                entry[f"s{LONG_SEQ}"] = long_timing[name]
             if name == "flash_fwd":    # also timed past one block
                 g = other["flash_fwd"]
                 entry["gpt2" if d == HEAD_DIM else "s1024"] = {

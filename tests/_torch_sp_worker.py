@@ -17,6 +17,12 @@ holds; 3 steps on the global batches INPUTS holds. Saves the losses, the
 parameters after the steps and GPT-2's next-token targets of the first
 batch's shard.
 
+MODE "options": ``ShardedTrainer`` on the mesh INPUTS names, GPT-2 at
+small width with the options INPUTS holds (``accum``:
+``backward_passes_per_step``; ``onebit``: the README's compression;
+``chunk``: ``lm_head_chunk``), one step on each global batch INPUTS
+holds. Saves the losses and the parameters after the steps.
+
 MODE "rs": the compressed exchange ``CompressionPlan(exchange="rs")``
 over the world, for each compression case INPUTS names: 3 rounds of this
 rank's rows of the gradients INPUTS holds. Saves each round's reduced
@@ -97,6 +103,32 @@ def run_trainer(rank, world, z):
                 res["gpt2.targets"] = gpt2.next_token_targets(
                     shard, "seq").numpy()
     res["coords"] = np.array([mesh.ring(a).index for a in mesh.shape])
+    return res
+
+
+README_KW = {"compressor_type": "onebit", "compressor_onebit_scaling": "true",
+             "ef_type": "vanilla", "momentum_type": "nesterov"}
+
+
+def run_options(rank, world, z):
+    axes = {a: int(n) for a, n in zip(z["axes"], z["sizes"])}
+    mesh = make_mesh(axes)
+    cfg = gpt2.gpt2_config(dtype="float32", sp_axis="seq",
+                           lm_head_chunk=int(z["chunk"]), **WIDTH)
+    model = Transformer(cfg)
+    model.load_state_dict({k[len("gpt2.p."):]: torch.from_numpy(z[k])
+                           for k in z.files if k.startswith("gpt2.p.")})
+    tr = ShardedTrainer(gpt2.causal_lm_loss, model,
+                        adamw(model.parameters(), float(z["lr"]),
+                              eps=float(z["eps"])),
+                        mesh, device="cpu",
+                        partition_bytes=int(z["partition"]),
+                        min_compress_bytes=int(z["min_compress"]),
+                        backward_passes_per_step=int(z["accum"]),
+                        compression=README_KW if int(z["onebit"]) else None)
+    res = {"losses": np.array([tr.step(b).item() for b in z["gpt2_tokens"]])}
+    for k, p in model.state_dict().items():
+        res[f"p.{k}"] = p.numpy()
     return res
 
 
@@ -185,7 +217,8 @@ def main():
                             timeout=datetime.timedelta(seconds=60))
     try:
         z = np.load(src)
-        run = {"ring": run_ring, "trainer": run_trainer, "rs": run_rs}[mode]
+        run = {"ring": run_ring, "trainer": run_trainer, "rs": run_rs,
+               "options": run_options}[mode]
         res = run(rank, world, z)
         np.savez(out, **res)
     finally:

@@ -166,11 +166,12 @@ def test_init_defaults_to_the_card_and_world_one_needs_no_group():
      "compression"),
 ])
 def test_trainer_refuses_unported_options(kw, match, monkeypatch):
-    """Where the options that ``DistributedTrainer`` now takes (topk,
-    the rs exchange, a custom reducer) are still refused: compression in
-    ``ShardedTrainer`` is not ported (NotImplementedError), and a custom
-    reducer in PS mode is the JAX trainer's ValueError, raised before the
-    PS path needs ``bps.init()``."""
+    """Where the options that ``DistributedTrainer`` takes (topk, the rs
+    exchange, a custom reducer) are refused: a custom reducer in PS mode
+    is the JAX trainer's ValueError, raised before the PS path needs
+    ``bps.init()``. Compression in ``ShardedTrainer``, refused until it
+    was ported, now builds the compressed plan over the data axis
+    (``test_torch_sp.py``, ``test_torch_sp_options_gloo.py``)."""
     from byteps_tpu_torch.models import bert
     from byteps_tpu_torch.optim import adamw
     from byteps_tpu_torch.parallel.mesh import make_mesh
@@ -182,9 +183,9 @@ def test_trainer_refuses_unported_options(kw, match, monkeypatch):
         with pytest.raises(ValueError, match=f"{match}.*PS mode"):
             DistributedTrainer(lambda m, b: 0, model, opt, device="cpu", **kw)
         return
-    with pytest.raises(NotImplementedError, match=match):
-        ShardedTrainer(lambda m, b: 0, model, opt, make_mesh({"seq": 1}),
-                       device="cpu", **kw)
+    tr = ShardedTrainer(lambda m, b: 0, model, opt, make_mesh({"seq": 1}),
+                        device="cpu", **kw)
+    assert tr.tx.plan is not None and tr.tx.plan.world == 1
 
 
 @pytest.mark.parametrize("env", ["BPS_ENABLE_PS", "BPS_ENABLE_ASYNC"])
@@ -208,7 +209,15 @@ def test_trainer_refuses_the_ps_paths(env, monkeypatch):
                                 {"pp_axis": "pipe"}, {"lm_head_chunk": 128},
                                 {"remat_policy": "dots"}])
 def test_unported_model_options_raise(kw):
+    """Tensor and pipeline parallelism raise; the chunked head and the
+    remat policies, refused until they were ported, now construct
+    (``test_torch_model_options.py`` and ``test_torch_lm_head.py`` hold
+    them against the JAX package)."""
     from byteps_tpu_torch.models import bert
+    if "tp_axis" not in kw and "pp_axis" not in kw:
+        cfg = bert.bert_large(**kw)
+        assert all(getattr(cfg, k) == v for k, v in kw.items())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bert.bert_large(**kw)
 

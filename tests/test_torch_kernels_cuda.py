@@ -1098,3 +1098,91 @@ def test_cuda_bias_forms_the_kernels_do_not_take_raise(cuda):
     with pytest.raises(ValueError, match="different devices"):
         fa.flash_fwd(q, q, q, bias=torch.zeros(2, 64, 64))
     assert fa.flash_fwd.launches == n0
+
+
+# ------------------------------------------- the model options (the LM head,
+# the save_attn policy's op, the long-context shapes)
+
+def test_head_gemm_matches_the_fp32_route(cuda):
+    """The LM head's bf16 x bf16 -> fp32 GEMM (``_HeadGemm``) against the
+    fp32 product of the same rounded operands (the CPU's route, run on
+    the card with TF32 off), at a GPT-2-like head with an odd vocabulary
+    (the GEMM pads it to a multiple of 8): logits within 1e-5 ·
+    max|ref| (the same products, fp32 sums in another order); dh and dE
+    within 1e-2 · max|ref| (the route rounds the fp32 cotangent to bf16,
+    one bf16 step of each product)."""
+    from byteps_tpu_torch.models import transformer as tr
+    g = torch.Generator().manual_seed(11)
+    h = torch.randn(2, 256, 1024, generator=g).to(cuda, torch.bfloat16)
+    emb = (torch.randn(4097, 1024, generator=g) * 0.02).to(cuda)
+    ct = torch.randn(2, 256, 4097, generator=g).to(cuda) * 1e-3
+    ha, ea = h.clone().requires_grad_(), emb.clone().requires_grad_()
+    lg = tr.head_logits(ha, ea, torch.bfloat16)
+    assert lg.dtype == torch.float32
+    lg.backward(ct)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        hb, eb = h.clone().requires_grad_(), emb.clone().requires_grad_()
+        ref = hb.to(torch.bfloat16).float() @ eb.to(torch.bfloat16).float().t()
+        ref.backward(ct)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    _close(lg, ref, "logits", rel=1e-5)
+    _close(ha.grad, hb.grad, "dh")
+    _close(ea.grad, eb.grad, "dE")
+
+
+def test_save_attn_launches_the_forward_once_never_the_plain_version(
+        cuda, monkeypatch):
+    """A ``save_attn`` model on CUDA tensors: the forward kernel once a
+    layer (the recompute reads the kept (out, lse)), the plain forward
+    never."""
+    from byteps_tpu_torch.models import transformer as tr
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain forward")
+
+    monkeypatch.setattr(fa, "flash_fwd_plain", refuse)
+    cfg = tr.TransformerConfig(vocab_size=256, hidden=128, layers=2, heads=2,
+                               mlp_dim=512, max_seq=128, causal=True,
+                               remat_policy="save_attn")
+    model = tr.Transformer(cfg).to(cuda)
+    tokens = torch.randint(1, 256, (2, 128), device=cuda)
+    fa.zero_counts(fa.flash_fwd)
+    tr.lm_loss(model, (tokens, tokens)).backward()
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches == cfg.layers
+    assert all(p.grad is not None for p in model.parameters())
+
+
+LONG_SEQ = 32768
+
+
+def test_kernels_at_seq_32768_match_plain_per_head(cuda):
+    """The forward, dq and dk/dv kernels at GPT-2's long context (b 1, s
+    32768, causal, d 64) on two heads, each head held against the plain
+    version run on that head alone (its fp32 scores are 4.3 GB)."""
+    q, k, v, do = _inputs(cuda, 1, LONG_SEQ, LONG_SEQ, 2, seed=5)
+    out, lse = fa.flash_fwd(q, k, v, True)
+    delta = fa.bwd_delta(do, out)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, True)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    for i in range(2):
+        sl = slice(i, i + 1)
+        qh, kh, vh, doh = (t[:, :, sl] for t in (q, k, v, do))
+        ref_out, ref_lse = fa.flash_fwd_plain(qh, kh, vh, True)
+        _close(out[:, :, sl], ref_out, f"out head {i}")
+        assert (lse[:, sl] - ref_lse).abs().max().item() <= 1e-3
+        del ref_out, ref_lse
+        ref_dq = fa.flash_bwd_dq_plain(qh, kh, vh, doh, lse[:, sl],
+                                       delta[:, sl], True)
+        _close(dq[:, :, sl], ref_dq, f"dq head {i}")
+        del ref_dq
+        ref_dk, ref_dv = fa.flash_bwd_dkv_plain(qh, kh, vh, doh, lse[:, sl],
+                                                delta[:, sl], True)
+        _close(dk[:, :, sl], ref_dk, f"dk head {i}")
+        _close(dv[:, :, sl], ref_dv, f"dv head {i}")
+        del ref_dk, ref_dv
+        torch.cuda.empty_cache()

@@ -189,11 +189,83 @@ def test_sp_model_without_a_mesh_raises():
     ({"seq": 1}, {"backward_passes_per_step": 2}, "backward_passes"),
 ])
 def test_sharded_trainer_refusals(axes, kw, match):
+    """A ``param_spec_tree`` raises. Compression and accumulation,
+    refused until they were ported, now construct
+    (``test_seq1_trainer_options_match_jax_sharded_trainer``)."""
     _, tcfg = _cfgs("bert", sp_axis="seq")
     m = Transformer(tcfg)
+    if match != "param_spec_tree":
+        tr = ShardedTrainer(tbert.mlm_loss, m, adamw(m.parameters(), LR),
+                            tmesh.make_mesh(axes), device="cpu", **kw)
+        assert (tr.tx.plan is not None) == ("compression" in kw)
+        assert tr.tx.backward_passes_per_step == \
+            kw.get("backward_passes_per_step", 1)
+        return
     with pytest.raises(NotImplementedError, match=match):
         ShardedTrainer(tbert.mlm_loss, m, adamw(m.parameters(), LR),
                        tmesh.make_mesh(axes), device="cpu", **kw)
+
+
+README_KW = {"compressor_type": "onebit", "compressor_onebit_scaling": "true",
+             "ef_type": "vanilla", "momentum_type": "nesterov"}
+# small enough that the tiny model's plan holds compressed buckets and
+# plain-sum ones side by side
+PARTITION, MIN_COMPRESS = 16384, 8192
+OPTIONS = {"accumulate2": {"backward_passes_per_step": 2},
+           "onebit": {"compression": README_KW},
+           "accumulate2_onebit": {"backward_passes_per_step": 2,
+                                  "compression": README_KW}}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_options_run(option):
+    """4 steps of the JAX ShardedTrainer on a one-device ``data`` ×
+    ``seq`` mesh with ``OPTIONS[option]``."""
+    jcfg, _ = _cfgs("gpt2", sp_axis="seq")
+    params = jtr.init_params(jax.random.PRNGKey(0), jcfg)
+    mesh = JMesh(np.asarray(jax.devices()[:1]).reshape(1, 1), ("data", "seq"))
+    tr = JaxShardedTrainer(_jax_loss("gpt2", jcfg), params,
+                           jax.tree.map(lambda _: P(), params),
+                           optax.adamw(LR, eps=EPS), mesh=mesh, donate=False,
+                           partition_bytes=PARTITION,
+                           min_compress_bytes=MIN_COMPRESS,
+                           **OPTIONS[option])
+    losses = [float(tr.step(b)) for b in _batches("gpt2") + _batches("gpt2")[:1]]
+    return (convert.params_from_jax(jax.tree.map(np.asarray, params)),
+            losses, {k: v.numpy() for k, v in convert.params_from_jax(
+                jax.tree.map(np.asarray, tr.params)).items()})
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+def test_seq1_trainer_options_match_jax_sharded_trainer(option):
+    """``backward_passes_per_step=2`` and the README's onebit compression
+    on a ring of one: 4 steps (two sync boundaries under accumulation)
+    against the JAX trainer's. Parameters within 1e-5 for all but 1 in
+    1000 elements of a leaf, the rest within two lr steps a step
+    (``test_torch_compress_trainer.py``: a compressed value within
+    rounding of a sign)."""
+    init, jlosses, jparams = _jax_options_run(option)
+    _, tcfg = _cfgs("gpt2", sp_axis="seq", attn_impl="flash")
+    m = _port_model(tcfg, init)
+    tr = ShardedTrainer(_port_loss("gpt2"), m,
+                        adamw(m.parameters(), LR, eps=EPS),
+                        tmesh.make_mesh({"data": 1, "seq": 1}), device="cpu",
+                        partition_bytes=PARTITION,
+                        min_compress_bytes=MIN_COMPRESS, **OPTIONS[option])
+    losses = []
+    for i, b in enumerate(_batches("gpt2") + _batches("gpt2")[:1]):
+        losses.append(tr.step(b).item())
+        if i == 0:      # mid-window under accumulation: no update yet
+            moved = any(not torch.equal(p, init[n])
+                        for n, p in m.state_dict().items())
+            assert moved != ("backward_passes_per_step" in OPTIONS[option])
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
+    for name, p in m.state_dict().items():
+        diff = np.abs(p.numpy() - jparams[name])
+        off = int((diff > 1e-5).sum())
+        assert off <= diff.size // 1000 and diff.max() <= 2 * LR * 4, \
+            f"{name}: {off} of {diff.size} elements off, max {diff.max()}"
+    assert (tr.tx.plan is not None) == ("compression" in OPTIONS[option])
 
 
 def test_sharded_trainer_refuses_tp_pp_expert_axes():
