@@ -20,10 +20,11 @@ package, resolved once into a frozen ``Config``:
   BPS_SERVER_ADDRS         (standalone servers: not ported, raises)
   BYTEPS_SERVER_ENGINE_THREAD → BPS_SERVER_ENGINE_THREAD
   BYTEPS_SERVER_ENABLE_SCHEDULE → BPS_SERVER_ENABLE_SCHEDULE
-  BPS_COMPRESS             (the fused compression plane: none | fp16 |
-                             int8 | fp8_e4m3 | fp8_e5m2 | topk; auto
-                             raises)
-  BPS_WATCHDOG_SEC         (the stall watchdog: not ported, > 0 raises)
+  BPS_COMPRESS             (the fused compression plane: none | auto |
+                             fp16 | int8 | fp8_e4m3 | fp8_e5m2 | topk)
+  BPS_WATCHDOG_SEC         (the stall watchdog of the PS exchange: > 0
+                             logs a wedged key after that many seconds
+                             without progress; 0 = off)
   BPS_PP_STAGES            (pipeline depth: DistributedTrainer raises
                              above 1, as the JAX trainer does)
   BYTEPS_SCHEDULING_CREDIT → BPS_SCHEDULING_CREDIT (bytes of bucket
@@ -33,6 +34,15 @@ package, resolved once into a frozen ``Config``:
                              window behind ``get_pushpull_speed``)
   BYTEPS_DEBUG_SAMPLE_TENSOR → BPS_DEBUG_SAMPLE_TENSOR (push_pull names
                              holding it log their results' mean and std)
+
+As in the JAX package, some knobs are read where they act rather than
+here: ``BPS_COMPRESS_EF``, ``BPS_COMPRESS_INTERVAL`` (rounds between the
+auto controller's decisions), ``BPS_COMPRESS_MAX`` (its ladder's top
+rung) and ``BPS_COMPRESS_TOPK_DIV`` by ``compress/plane.py``;
+``BPS_FLIGHT_RECORDER`` and ``BPS_FLIGHT_RECORDER_SIZE`` by
+``obs/flight.py`` (``bps.init()`` re-reads them); ``BPS_NATIVE_CODEC``
+(the host codecs' native primitives, default on) by
+``ops/compression/host.py`` and ``server/compressed.py``.
 
 The knobs of ``REFUSED`` select behaviour the port does not have yet:
 at their defaults they change nothing, and any other value raises

@@ -130,6 +130,8 @@ class GlobalState:
                 return cls._instance
             cfg = config or Config.from_env()
             check_ps_config(cfg)
+            from ..obs import flight
+            flight.configure()      # re-read BPS_FLIGHT_RECORDER*
             dev = resolve_device(device)
             if dev.type == "cuda" and dev.index is None:
                 dev = torch.device("cuda", cfg.local_rank)

@@ -6,7 +6,9 @@ exchange, holding
 
   - per-PS-key codec eligibility (size floor, fp32-only lossy math) and the
     LAYER identity the controller decides on (``<decl>.<bucket>``),
-  - the controller (pinned: ``BPS_COMPRESS=<codec>``),
+  - the controller: adaptive (``BPS_COMPRESS=auto``, the ladder capped
+    by ``BPS_COMPRESS_MAX``, one decision every ``BPS_COMPRESS_INTERVAL``
+    rounds) or pinned (``BPS_COMPRESS=<codec>``),
   - per-key ERROR-FEEDBACK residual state with a commit-on-pull protocol:
     ``encode`` stages the round's new residual as PENDING and ``commit``
     (called when that round's pull lands) installs it. A round that dies
@@ -21,7 +23,10 @@ two is explicit (``.cpu().numpy()``, ``torch.from_numpy(...).to(dev)``):
 
 Levels are PINNED PER ROUND: the exchange snapshots ``level_of`` for every
 bucket when the round opens, and both the push and the pull of that round
-use the snapshot.
+use the snapshot, so the controller deciding again mid-round can never make
+a worker pull a codec the server did not encode. A key whose level decays
+back to ``none`` flushes its residual into one dense round and restarts its
+fp8 sequence (``fold_residual``).
 """
 
 from __future__ import annotations
@@ -32,9 +37,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..obs.metrics import MetricsRegistry, get_registry
+from ..obs.metrics import MetricsRegistry, get_registry, metrics_enabled
 from . import wire
-from .controller import FixedController
+from .controller import CompressController, FixedController
 
 #: BPS_COMPRESS values that mean "plane off" (the dense path)
 OFF_VALUES = ("", "0", "none", "off", "false")
@@ -75,23 +80,23 @@ class CompressionPlane:
     """Per-exchange fused-compression state and controller front."""
 
     def __init__(self, mode: str, min_bytes: int = 65536, ef: bool = True,
+                 interval: int = 1, max_level: str = "int8",
                  topk_div: int = wire.TOPK_DIV,
                  registry: Optional[MetricsRegistry] = None) -> None:
         mode = (mode or "none").strip().lower()
         if mode in OFF_VALUES:
             raise ValueError("CompressionPlane constructed with mode off "
                              "— callers must skip construction instead")
-        if mode == "auto":
-            raise NotImplementedError(
-                "BPS_COMPRESS=auto (the adaptive controller) is not ported "
-                "yet (see ROADMAP.md, 'Modules still to port'); pin a codec, "
-                "e.g. BPS_COMPRESS=int8")
         self.mode = mode
         self.min_bytes = int(min_bytes)
         self.ef = bool(ef)
         self.topk_div = int(topk_div)
         self.reg = registry if registry is not None else get_registry()
-        self.controller = FixedController(mode, registry=self.reg)
+        if mode == "auto":
+            self.controller = CompressController(
+                registry=self.reg, max_level=max_level, interval=interval)
+        else:
+            self.controller = FixedController(mode, registry=self.reg)
         self._keys: Dict[int, _KeyState] = {}
         self._lock = threading.Lock()
         self._m_raw = self.reg.counter("compress/raw_bytes")
@@ -102,16 +107,28 @@ class CompressionPlane:
                     registry: Optional[MetricsRegistry] = None
                     ) -> Optional["CompressionPlane"]:
         """The one construction recipe: env-resolved knobs
-        (``BPS_COMPRESS``, ``BPS_COMPRESS_EF``, ``BPS_COMPRESS_TOPK_DIV``),
-        None when the plane is off."""
+        (``BPS_COMPRESS``, ``BPS_COMPRESS_EF``, ``BPS_COMPRESS_INTERVAL``,
+        ``BPS_COMPRESS_MAX``, ``BPS_COMPRESS_TOPK_DIV``), None when the
+        plane is off."""
         from ..common.config import _env, _env_bool, _env_int
         mode = mode if mode is not None else _env("BPS_COMPRESS", None,
                                                   "none")
         if (mode or "none").strip().lower() in OFF_VALUES:
             return None
+        if mode.strip().lower() == "auto" and not metrics_enabled():
+            # BPS_STATS=0 freezes every signal the controller reads at
+            # zero: auto would stay at `none` forever without a word
+            from ..common.logging import get_logger
+            get_logger().warning(
+                "BPS_COMPRESS=auto with BPS_STATS=0: the congestion "
+                "signals the controller reads are frozen, so every "
+                "layer will stay at `none` — enable BPS_STATS or pin "
+                "a codec (BPS_COMPRESS=int8)")
         return CompressionPlane(
             mode, min_bytes=min_bytes,
             ef=_env_bool("BPS_COMPRESS_EF", None, True),
+            interval=_env_int("BPS_COMPRESS_INTERVAL", None, 1),
+            max_level=_env("BPS_COMPRESS_MAX", None, "int8"),
             topk_div=_env_int("BPS_COMPRESS_TOPK_DIV", None, wire.TOPK_DIV),
             registry=registry)
 

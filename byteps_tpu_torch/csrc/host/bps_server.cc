@@ -226,6 +226,12 @@ class EngineThread {
 
   std::atomic<uint64_t> assigned_bytes{0};
 
+  // Tasks enqueued and not yet taken by the thread: its backlog.
+  uint64_t Backlog() {
+    std::lock_guard<std::mutex> lk(mu_);
+    return schedule_ ? (uint64_t)pending_ : (uint64_t)queue_.size();
+  }
+
  private:
   void Run();
   bool PopNext(Task* out);   // callers hold mu_; false iff nothing queued
@@ -756,6 +762,11 @@ class Server {
     return engines_[(size_t)tid]->assigned_bytes.load();
   }
 
+  uint64_t EngineBacklog(int tid) {
+    if (tid < 0 || (size_t)tid >= engines_.size()) return 0;
+    return engines_[(size_t)tid]->Backlog();
+  }
+
   int KeyThread(uint64_t key) {
     CallGuard g(inflight_, dying_);
     if (g.refused) return -1;
@@ -888,6 +899,12 @@ uint64_t bps_server_round(void* h, uint64_t key) {
 
 uint64_t bps_server_engine_load(void* h, int tid) {
   return ((Server*)h)->EngineLoad(tid);
+}
+
+// The port's addition: pushes enqueued on engine thread tid and not yet
+// summed (engine_load above is the bytes of the keys assigned to it).
+uint64_t bps_server_engine_backlog(void* h, int tid) {
+  return ((Server*)h)->EngineBacklog(tid);
 }
 
 int bps_server_key_thread(void* h, uint64_t key) {

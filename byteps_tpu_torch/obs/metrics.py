@@ -76,7 +76,8 @@ class Counter:
 
 
 class Gauge:
-    """Last-value gauge."""
+    """Last-value gauge, with inc/dec for level gauges such as
+    ``ps/rounds_in_flight``."""
 
     __slots__ = ("name", "_v", "_lock")
 
@@ -90,6 +91,15 @@ class Gauge:
             return
         with self._lock:
             self._v = float(v)
+
+    def inc(self, n: float = 1.0) -> None:
+        if not _enabled:
+            return
+        with self._lock:
+            self._v += n
+
+    def dec(self, n: float = 1.0) -> None:
+        self.inc(-n)
 
     @property
     def value(self) -> float:

@@ -100,6 +100,18 @@ def load() -> ctypes.CDLL:
             "bps_server_push": (I, [P, U64, P, U64]),
             "bps_server_pull": (I, [P, U64, P, U64, U64, I]),
             "bps_server_round": (U64, [P, U64]),
+            "bps_server_engine_load": (U64, [P, I]),
+            "bps_server_engine_backlog": (U64, [P, I]),
+            "bps_server_push_onebit": (I, [P, U64, P, U64]),
+            "bps_server_pull_onebit": (I, [P, U64, P, U64, U64, I, I]),
+            "bps_server_push_topk": (I, [P, U64, P, U64]),
+            "bps_server_pull_topk": (I, [P, U64, P, U64, U64, I]),
+            "bps_codec_onebit_decompress": (None, [P, U64, P]),
+            "bps_codec_topk_select": (I, [P, U64, U64, P, P]),
+            "bps_codec_scatter_f32": (I, [P, P, U64, U64, P]),
+            "bps_codec_xorshift_indices": (None, [U64, U64, P, P]),
+            "bps_codec_dithering_compress": (
+                None, [P, U64, ctypes.c_float, I, I, I, P, P]),
             "bps_reduce_sum": (None, [P, P, U64, I]),
             "bps_pack_segments": (None, [P, P, P, U64, P]),
             "bps_unpack_segments": (None, [P, P, P, P, U64]),

@@ -5,7 +5,9 @@
 round k's pull of that key completed, because the server publishes one
 round per key at a time. ``PullQueue`` drains landed buckets oldest round
 first, then by next-step first-use priority. ``AdmissionPlane`` is the
-facade an exchange owns.
+facade an exchange owns. Every grant is a flight-recorder event
+(``admit``; a deferred grant says how long it waited), and ``state()`` is
+the watchdog's view of the gate.
 
 Not ported yet (ROADMAP.md): ``BPS_MAX_LAG`` > 1 (the bounded-staleness
 store, a gate of depth K) and the two-class wire send scheduler.
@@ -20,6 +22,7 @@ import time
 from collections import deque
 from typing import Dict, List, Optional
 
+from ..obs import flight
 from ..obs.metrics import get_registry
 
 
@@ -45,12 +48,16 @@ class KeyGate:
                 t0 = time.time()
 
                 def deferred(submit=submit, t0=t0):
-                    self._m_wait.observe(time.time() - t0)
+                    wait = time.time() - t0
+                    self._m_wait.observe(wait)
+                    flight.record("admit", key=pskey,
+                                  detail=f"deferred {wait:.3f}s")
                     submit()
 
                 self._waiters.setdefault(pskey, deque()).append(deferred)
                 return
             self._held.add(pskey)
+        flight.record("admit", key=pskey)
         submit()
 
     def release(self, pskey: int) -> None:
@@ -63,6 +70,12 @@ class KeyGate:
             if not waiters:
                 del self._waiters[pskey]
         submit()                     # the slot passes to the successor
+
+    def state(self) -> dict:
+        """Holders and queued waiters: the watchdog's dump shape."""
+        with self._lock:
+            return {"busy": sorted(self._held),
+                    "waiters": {k: len(v) for k, v in self._waiters.items()}}
 
 
 class PullQueue:

@@ -9,11 +9,15 @@ drives a set of shards from the worker side, giving the sync exchange its
 PS route: host numpy → key stores placed by hash (``common.naming.place_key``)
 → summation engine → pull. Keys declared ``fused=True`` have their rounds
 owned by the homogeneous fused store (``server/homog.py``), which alone
-takes fused payloads.
+takes fused payloads. Keys declared with ``compression=`` kwargs (the
+legacy chains) register a server chain in ``server/compressed.py``: their
+pushes arrive compressed and are decompressed into the summation, their
+pulls are the merged round recompressed once (reference:
+server.cc:86-113, 222-252).
 
 Not ported yet (ROADMAP.md): key migration and the placement ring,
-bounded-staleness rounds, row-sparse pushes, the param mailbox, the legacy
-compressed-push chains and the remote transport.
+bounded-staleness rounds, row-sparse pushes, the param mailbox and the
+remote transport.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..common.naming import log_key_placement, place_key
-from ..obs.metrics import get_registry
+from ..obs.metrics import get_registry, metrics_enabled
 
 _DTYPES = {"float32": 0, "float64": 1, "int32": 2, "int64": 3,
            "float16": 4, "bfloat16": 5, "uint8": 6}
@@ -163,6 +167,65 @@ class PSServer:
     def round(self, key: int) -> int:
         return int(self._call(self._lib.bps_server_round, key))
 
+    def _check(self, what: str, key: int, rc: int, round: int = 0,
+               timeout_ms: int = 0) -> None:
+        if rc == -2:
+            raise TimeoutError(f"{what}({key}) round={round} timed out "
+                               f"after {timeout_ms}ms")
+        if rc == -5:
+            raise ServerClosed(f"{what}({key}): server shutting down")
+        if rc != 0:
+            raise RuntimeError(f"{what}({key}) failed rc={rc} (bad payload "
+                               f"length or a key that is not fp32)")
+
+    def push_onebit(self, key: int, payload) -> None:
+        """Decompress a onebit payload into the key's summation, in the
+        engine (fp32 keys)."""
+        buf = np.frombuffer(bytes(payload), np.uint8)
+        self._check("push_onebit", key, self._call(
+            self._lib.bps_server_push_onebit, key, _addr(buf), buf.nbytes))
+
+    def pull_onebit(self, key: int, payload_nbytes: int, round: int = 0,
+                    timeout_ms: int = 30000,
+                    use_scale: bool = False) -> bytes:
+        """The merged round's pull and its onebit recompress in one call."""
+        out = np.empty(payload_nbytes, np.uint8)
+        self._check("pull_onebit", key, self._call(
+            self._lib.bps_server_pull_onebit, key, _addr(out), out.nbytes,
+            round, timeout_ms, int(use_scale)), round, timeout_ms)
+        return out.tobytes()
+
+    def push_topk(self, key: int, payload) -> None:
+        """Scatter a (k int32 indices | k fp32 values) payload into the
+        key's summation; a repeated index keeps its last value."""
+        buf = np.frombuffer(bytes(payload), np.uint8)
+        self._check("push_topk", key, self._call(
+            self._lib.bps_server_push_topk, key, _addr(buf), buf.nbytes))
+
+    def pull_topk(self, key: int, payload_nbytes: int, round: int = 0,
+                  timeout_ms: int = 30000) -> bytes:
+        """The merged round's pull and its top-k reselection (largest |x|,
+        ties to the lower index: ``HostTopk``'s)."""
+        out = np.empty(payload_nbytes, np.uint8)
+        self._check("pull_topk", key, self._call(
+            self._lib.bps_server_pull_topk, key, _addr(out), out.nbytes,
+            round, timeout_ms), round, timeout_ms)
+        return out.tobytes()
+
+    def engine_load(self, tid: int) -> int:
+        """The bytes of the keys assigned to engine thread ``tid`` (the
+        reference's engine_load, which balances keys over threads)."""
+        return int(self._call(self._lib.bps_server_engine_load, tid))
+
+    def queue_depth(self) -> int:
+        """Enqueued-but-unsummed pushes across the engine's threads: the
+        shard's backlog. The JAX package sums ``engine_load`` here, the
+        assigned bytes, which never fall back once a key is declared; a
+        backlog gauge that never reads 0 would hold the auto controller
+        wire-bound for good."""
+        return sum(int(self._call(self._lib.bps_server_engine_backlog, t))
+                   for t in range(self.engine_threads))
+
 
 class HostPSBackend:
     """Worker-side driver over in-process ``PSServer`` shards.
@@ -181,9 +244,15 @@ class HostPSBackend:
         # fused=True at init have their rounds owned by this store; lazy,
         # so plain deployments never allocate it
         self._homog = None
+        from .compressed import CompressedKeyStore
+        self.compressed = CompressedKeyStore()
         self._declared: set = set()
         self._shard_bytes: Dict[int, int] = {}
-        self._m_pull_wait = get_registry().histogram("server/pull_wait_s")
+        reg = get_registry()
+        self._m_pull_wait = reg.histogram("server/pull_wait_s")
+        # the server's backlog, which the auto controller reads
+        self._m_queue_depth = reg.gauge("server/engine_queue_depth")
+        self._qd_next_sample = 0.0
 
     def close(self) -> None:
         for s in self.servers:
@@ -200,12 +269,23 @@ class HostPSBackend:
 
     def init_key(self, key: int, nbytes: int, dtype: str = "float32",
                  init: Optional[np.ndarray] = None,
+                 compression: Optional[Dict[str, str]] = None,
                  fused: bool = False) -> None:
-        """Declare ``key``'s dense store. ``fused=True`` (the exchange's
-        plan-time declaration for compression-plane-managed keys) hands the
-        key's rounds to the homogeneous fused store; a re-init resets it
-        (a new tenancy)."""
+        """Declare ``key``'s dense store. ``compression`` kwargs register
+        the key's server chain (reference: server.cc:222-252): its pushes
+        arrive compressed and are decompressed into that store.
+        ``fused=True`` (the exchange's plan-time declaration for
+        compression-plane-managed keys) hands the key's rounds to the
+        homogeneous fused store; a re-init resets it (a new tenancy). A key
+        is one or the other: the two codecs' payloads differ."""
         from .homog import FusedSumStore
+        if compression and fused:
+            raise ValueError(
+                f"key {key}: declared both with compression kwargs (a legacy "
+                f"chain) and fused=True (the fused plane)")
+        if compression:
+            self.compressed.register(
+                key, compression, nbytes // np.dtype(dtype).itemsize, dtype)
         if fused:
             if self._homog is None:
                 self._homog = FusedSumStore(self.num_workers)
@@ -225,6 +305,32 @@ class HostPSBackend:
             self._homog.ingest_dense(key, data)
         else:
             self._shard(key).push(key, data)
+        self._sample_queue_depth()
+
+    def _sample_queue_depth(self) -> None:
+        """Set ``server/engine_queue_depth`` from a dense push, at most
+        once in 0.05 s: a sample is a locked call per engine thread and
+        shard, too dear for every push
+        (``byteps_tpu/server/engine.py:560-572``)."""
+        if not metrics_enabled():
+            return
+        now = time.time()
+        if now < self._qd_next_sample:
+            return
+        self._qd_next_sample = now + 0.05
+        try:
+            self._m_queue_depth.set(self.queue_depth())
+        except ServerClosed:    # the push landed; a sample racing close()
+            pass                # must not fail it
+
+    def queue_depth(self) -> int:
+        """Enqueued-but-unsummed pushes across every shard's engine, plus
+        the fused store's buffered arrivals: the backlog signal must keep
+        seeing fused-managed keys, whose rounds never reach the engine."""
+        n = sum(s.queue_depth() for s in self.servers)
+        if self._homog is not None:
+            n += self._homog.pending()
+        return n
 
     def pull(self, key: int, out: np.ndarray, round: int = 0,
              timeout_ms: int = 30000) -> None:
@@ -243,7 +349,28 @@ class HostPSBackend:
             return self._homog.round(key)
         return self._shard(key).round(key)
 
+    def push_bytes(self, key: int, payload) -> None:
+        """A legacy chain's push: decompressed into the key's summation
+        (reference: decompress before SUM_RECV, server.cc:86-113)."""
+        from .compressed import compressed_push
+        compressed_push(self.compressed, self._shard(key), key, payload)
+
+    def pull_bytes(self, key: int, round: int = 0,
+                   timeout_ms: int = 30000) -> bytes:
+        """A legacy chain's pull: the merged round recompressed once, the
+        same bytes to every worker."""
+        from .compressed import compressed_pull
+        t0 = time.time()
+        out = compressed_pull(self.compressed, self._shard(key), key, round,
+                              timeout_ms)
+        self._m_pull_wait.observe(time.time() - t0)
+        return out
+
     def _fused_store(self, key: int):
+        if self.compressed.has(key):
+            raise KeyError(f"key {key} carries a legacy compression chain: "
+                           f"its payloads go through push_bytes/pull_bytes, "
+                           f"never the fused store")
         if not self._homog_managed(key):
             raise KeyError(f"key {key} was not declared fused=True: only the "
                            f"homogeneous fused store takes fused payloads")

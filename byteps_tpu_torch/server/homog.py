@@ -293,3 +293,10 @@ class FusedSumStore:
         st = self._st(key)
         with st.cv:
             return st.completed
+
+    def pending(self) -> int:
+        """Buffered-but-unmerged arrivals across keys, folded into the
+        server's backlog gauge."""
+        with self._lock:
+            keys = list(self._keys.values())
+        return sum(len(st.arrivals) for st in keys)

@@ -13,16 +13,34 @@ only the encoded payload is copied to the host), or by the numpy codec on
 the host; the server merges same-codec payloads and serves the merged
 round re-encoded, which the worker decodes on the host.
 
+A declaration with legacy ``compression=`` kwargs (``compressor_type``
+onebit, topk, randomk or dithering, with ``ef_type`` / ``momentum_type``)
+gives each of its buckets at or above ``min_compress_bytes`` a worker chain
+(``ops/compression/host.py``: momentum → ef → compressor): the bucket is
+copied to the host dense, compressed there and pushed; the server
+decompresses every push, sums, and recompresses the merged round once
+(``server/compressed.py``); the pull is decompressed on the host. That is
+the reference's design, its compressor running on the worker's CPU staging
+buffer (core_loops.cc:498-536, server.cc:86-113), and the JAX package's: a
+host path by definition, not a fallback from a kernel. Such buckets stay
+out of the fused plane, which keeps the legacy keys' precedence.
+
 The exchange is PIPELINED per bucket (``BPS_PS_PIPELINE`` threads, default
 4; ≤ 1 = serial): bucket k+1's encode and push run while bucket k's pull
 waits for the server's merge, and landed buckets are pulled by next-step
 first-use priority. A per-key admission gate keeps one round per key in
 flight.
 
+Every wire push and pull is a flight-recorder event (``obs/flight.py``),
+and a failed pull dumps its key's events. ``BPS_WATCHDOG_SEC`` > 0 starts a
+``StallWatchdog`` (``obs/watchdog.py``) with the first exchange: when
+buckets are in flight and none has completed for that long, it logs which
+key wedged, from ``debug_state()``, with the flight events of the keys it
+implicates.
+
 Not ported yet (ROADMAP.md): the streaming and ingest rounds, sharded
-rounds, bounded-staleness routing, the legacy ``compression=`` kwargs
-chains, the stall watchdog, the flight recorder, ``AsyncPSWorker`` and the
-row-sparse exchange.
+rounds, bounded-staleness routing (and its ``lag_admit`` events),
+``AsyncPSWorker`` and the row-sparse exchange.
 """
 
 from __future__ import annotations
@@ -30,20 +48,20 @@ from __future__ import annotations
 import os
 import threading
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..common.logging import get_logger
 from ..common.naming import NameRegistry
 from ..common.partition import LeafSpec, plan_buckets
+from ..obs import flight
 from ..obs.metrics import get_registry, observe_stage
 from .admission import AdmissionPlane
 from .engine import pack_segments, unpack_segments
-
-_NOT_PORTED = "is not ported yet (see ROADMAP.md, 'Modules still to port')"
-
 
 def _dtype_name(t) -> str:
     return (str(t.dtype).removeprefix("torch.") if torch.is_tensor(t)
@@ -96,6 +114,7 @@ class _Round:
         if self.clevels is not None and ex._device_encode_on(sources):
             from ..compress.device import DEVICE_CODECS
             dev = [lvl in DEVICE_CODECS and ex._cplane.active(pskey)
+                   and pskey not in ex._chains
                    for (pskey, _), lvl in zip(self.keyed, self.clevels)]
             if any(dev):
                 self.dev_bucket = dev
@@ -121,8 +140,14 @@ class _Round:
         self._pull_lock = threading.Lock()
         self._pull_err: Optional[BaseException] = None
         self._pull_done = threading.Event()
+        # each bucket's life for the watchdog's dump: pending -> pushed ->
+        # pulled (or failed); "pushed" forever is a wedge
+        self.bucket_state = ["pending"] * len(self.keyed)
+        self._finished = False
         if not self.keyed:
             self._pull_done.set()
+        else:
+            ex._register_round(self)
 
     # ------------------------------------------------------ host leaves
 
@@ -145,7 +170,10 @@ class _Round:
         self.rounds[idx] = ex._next_round(pskey)
         try:
             if self.dev_bucket is not None and self.dev_bucket[idx]:
-                return ex._push_bucket_device(self, idx)
+                buf = ex._push_bucket_device(self, idx)
+                self.bucket_state[idx] = "pushed"
+                ex._mark_progress()
+                return buf
             t0 = time.time()
             buf = np.empty(b.size, dtype=b.dtype)
             item = buf.itemsize
@@ -158,6 +186,8 @@ class _Round:
             ex._d2h_account(pskey, buf.nbytes)
             ex._push_bucket(pskey, buf, self, idx)
             ex._record("PS_PUSH", t0)
+            self.bucket_state[idx] = "pushed"
+            ex._mark_progress()
             return buf
         except Exception:
             # the round counter advanced but the push never landed: drop
@@ -180,7 +210,9 @@ class _Round:
                          + s.leaf_offset * item for s in b.segments],
                         [s.length * item for s in b.segments])
         ex._record("PS_UNPACK", t0)
+        self.bucket_state[idx] = "pulled"
         ex._m_buckets.inc()
+        ex._mark_progress()
 
     def assemble(self) -> List[np.ndarray]:
         return [o.reshape(shp) for o, shp in zip(self.out, self.shapes)]
@@ -200,6 +232,7 @@ class _Round:
         try:
             buf = self.push_one(idx)
         except BaseException as e:   # noqa: BLE001 — relayed to drain()
+            self.bucket_state[idx] = "failed"
             self.ex.plane.gate.release(pskey)
             self._pull_finished(e)
             return
@@ -212,7 +245,17 @@ class _Round:
             self._pulls_left -= 1
             done = self._pulls_left <= 0
         if done:
+            self._mark_finished()
             self._pull_done.set()
+
+    def _mark_finished(self) -> None:
+        """Terminal accounting for ``ps/rounds_in_flight`` and the
+        watchdog (idempotent)."""
+        with self._pull_lock:
+            if self._finished:
+                return
+            self._finished = True
+        self.ex._m_rounds.dec()
 
     def drain(self) -> List[np.ndarray]:
         self._pull_done.wait()
@@ -242,11 +285,6 @@ class PSGradientExchange:
                  compress: Optional[str] = None,
                  max_lag: Optional[int] = None,
                  device=None) -> None:
-        if watchdog_sec is None:
-            watchdog_sec = float(os.environ.get("BPS_WATCHDOG_SEC", "0") or 0)
-        if watchdog_sec > 0:
-            raise NotImplementedError(
-                f"the stall watchdog (BPS_WATCHDOG_SEC) {_NOT_PORTED}")
         self.backend = backend
         self.partition_bytes = partition_bytes
         self.registry = registry or NameRegistry()
@@ -275,22 +313,100 @@ class PSGradientExchange:
         self._m_pull_bytes = reg.counter("ps/pull_bytes")
         self._m_d2h_bytes = reg.counter("ps/d2h_bytes")
         self._m_buckets = reg.counter("ps/buckets_completed")
+        self._m_rounds = reg.gauge("ps/rounds_in_flight")
+        # per-PS-key worker chain (momentum → ef → compressor): it holds
+        # the error feedback and momentum state, so it outlives the plan
+        # (reference: the per-partition compressor_list, common.h:202)
+        self._chains: Dict[int, object] = {}
+        # the watchdog's clock, monotonic: a wall-clock step must neither
+        # fake a stall nor hide one
+        self._progress_t = time.monotonic()
+        self._live_rounds: List = []      # weakrefs, pruned on register
+        self._rounds_reg_lock = threading.Lock()
+        self._watchdog = None
+        # the explicit argument (Config.watchdog_sec, from bps.init and the
+        # trainer) wins; the env covers exchanges built by hand
+        self._watchdog_sec = (float(watchdog_sec) if watchdog_sec is not None
+                              else float(os.environ.get("BPS_WATCHDOG_SEC",
+                                                        "0") or 0))
         self._dev_enc: Optional[bool] = None
         if device is not None and self._cplane is not None:
             from ..compress.device import device_encode_enabled
             self._dev_enc = device_encode_enabled(device)
 
     def close(self) -> None:
-        """Stop the pipeline's threads (idempotent)."""
+        """Stop the pipeline's threads and the watchdog (idempotent)."""
+        with self._rounds_reg_lock:
+            wd, self._watchdog = self._watchdog, None
+        if wd is not None:
+            wd.stop()
         with self._ex_lock:
             for ex in (self._push_ex, self._pull_ex):
                 if ex is not None:
                     ex.shutdown(wait=False)
             self._push_ex = self._pull_ex = None
 
+    # ---------------------------------------------------- observability
+
+    def _mark_progress(self) -> None:
+        """A bucket advanced (push landed, pull completed): re-arm the
+        watchdog's clock."""
+        self._progress_t = time.monotonic()
+
+    def _register_round(self, rnd: _Round) -> None:
+        with self._rounds_reg_lock:
+            alive = []
+            for ref in self._live_rounds:
+                r = ref()
+                if r is not None and not r._finished:
+                    alive.append(ref)
+            alive.append(weakref.ref(rnd))
+            self._live_rounds = alive
+        self._m_rounds.inc()
+
+    def _live(self) -> List[_Round]:
+        with self._rounds_reg_lock:
+            live = [ref() for ref in self._live_rounds]
+        return [r for r in live if r is not None and not r._finished]
+
+    def in_flight_buckets(self) -> int:
+        """Buckets of live rounds whose pull has not completed."""
+        return sum(max(0, r._pulls_left) for r in self._live())
+
+    def progress_state(self):
+        """(last progress on the monotonic clock, buckets in flight): the
+        watchdog's poll."""
+        return self._progress_t, self.in_flight_buckets()
+
+    def debug_state(self) -> dict:
+        """Every unfinished round's buckets (PS key, round, pending /
+        pushed / pulled / failed) and the admission gate's holders and
+        queued waiters: what the watchdog dumps."""
+        rounds = [{"name": r.decl_name, "step": None, "seq": r.round_seq,
+                   "pulls_left": r._pulls_left,
+                   "buckets": [{"pskey": pskey, "round": r.rounds[i],
+                                "state": r.bucket_state[i]}
+                               for i, (pskey, _) in enumerate(r.keyed)]}
+                  for r in self._live()]
+        return {"in_flight": self.in_flight_buckets(), "rounds": rounds,
+                "admission": self.plane.gate.state()}
+
+    def _ensure_watchdog(self) -> None:
+        if self._watchdog is not None or self._watchdog_sec <= 0:
+            return
+        from ..obs.watchdog import StallWatchdog
+        # two first exchanges at once must not start two watchdogs
+        with self._rounds_reg_lock:
+            if self._watchdog is None:
+                self._watchdog = StallWatchdog(self, self._watchdog_sec)
+
     def n_compressed(self) -> int:
         """How many buckets of the planned trees the plane compresses."""
         return 0 if self._cplane is None else self._cplane.n_active
+
+    def n_chained(self) -> int:
+        """How many buckets of the planned trees a legacy chain compresses."""
+        return len(self._chains)
 
     # ------------------------------------------------------------ plan
 
@@ -319,8 +435,24 @@ class PSGradientExchange:
         # operations.cc:301-317)
         keyed = [(decl.key_for_partition(b.index), b) for b in buckets]
         reg = get_registry()
+        ckw = decl.compression_kwargs
         for pskey, b in keyed:
             nbytes = b.size * np.dtype(b.dtype).itemsize
+            self._pull_layer.setdefault(pskey, reg.counter(
+                f"ps/pull_bytes/{decl_name}.{b.index}"))
+            self._d2h_layer.setdefault(pskey, reg.counter(
+                f"ps/d2h_bytes/{decl_name}.{b.index}"))
+            # legacy kwargs chains first, for buckets at or above the floor
+            # (reference: BYTEPS_MIN_COMPRESS_BYTES, operations.cc:362-364);
+            # they stay out of the fused plane
+            if ckw.get("compressor_type") and nbytes >= self.min_compress_bytes:
+                from ..ops.compression.host import create_host_chain
+                if pskey not in self._chains:
+                    self._chains[pskey] = create_host_chain(ckw, b.size,
+                                                            b.dtype)
+                self.backend.init_key(pskey, nbytes, b.dtype,
+                                      compression=ckw)
+                continue
             # fused-plane eligibility is decided before the server learns
             # the key: fused-managed keys' rounds go to the homog store
             fused = (self._cplane is not None
@@ -328,10 +460,6 @@ class PSGradientExchange:
                          pskey, b.size, b.dtype,
                          layer=f"{decl_name}.{b.index}"))
             self.backend.init_key(pskey, nbytes, b.dtype, fused=fused)
-            self._pull_layer.setdefault(pskey, reg.counter(
-                f"ps/pull_bytes/{decl_name}.{b.index}"))
-            self._d2h_layer.setdefault(pskey, reg.counter(
-                f"ps/d2h_bytes/{decl_name}.{b.index}"))
         return decl_name, keyed
 
     def _record(self, stage: str, t0: float) -> float:
@@ -387,11 +515,44 @@ class PSGradientExchange:
                        if s.leaf_index in rnd.host_leaves)
         self._d2h_account(pskey, d2h)
         self._m_push_bytes.inc(len(payload))
-        self.backend.push_fused(pskey, payload)
+        try:
+            self.backend.push_fused(pskey, payload)
+        except BaseException as e:
+            flight.record("push", key=pskey, round=rnd.rounds[idx],
+                          nbytes=len(payload), stage="PS_COMPRESS_DEV",
+                          outcome=f"error:{type(e).__name__}")
+            raise
+        flight.record("push", key=pskey, round=rnd.rounds[idx],
+                      nbytes=len(payload), stage="PS_COMPRESS_DEV")
         return np.empty(b.size, dtype=b.dtype)
 
     def _push_bucket(self, pskey: int, buf: np.ndarray, rnd: _Round,
                      idx: int) -> None:
+        """Push one host bucket (compressed by its chain or the plane, or
+        dense), with one flight event for it."""
+        try:
+            self._push_bucket_impl(pskey, buf, rnd, idx)
+        except BaseException as e:
+            flight.record("push", key=pskey, round=rnd.rounds[idx],
+                          nbytes=buf.nbytes,
+                          outcome=f"error:{type(e).__name__}")
+            raise
+        flight.record("push", key=pskey, round=rnd.rounds[idx],
+                      nbytes=buf.nbytes)
+
+    def _push_bucket_impl(self, pskey: int, buf: np.ndarray, rnd: _Round,
+                          idx: int) -> None:
+        chain = self._chains.get(pskey)
+        if chain is not None:
+            # the legacy COMPRESS stage right before PUSH (reference:
+            # core_loops.cc:498-536); the server decompresses, sums and
+            # recompresses the merged round
+            t0 = time.time()
+            payload = chain.compress(buf)
+            self._record("PS_COMPRESS", t0)
+            self._m_push_bytes.inc(len(payload))
+            self.backend.push_bytes(pskey, payload)
+            return
         plane = self._cplane
         if plane is not None and plane.active(pskey):
             level = rnd.clevels[idx]
@@ -413,6 +574,33 @@ class PSGradientExchange:
 
     def _pull_bucket(self, pskey: int, b, buf: np.ndarray, rnd_num: int,
                      rnd: _Round, idx: int) -> np.ndarray:
+        """Pull one bucket, with one flight event for it; a refused decode
+        dumps the key's recent events beside the error."""
+        try:
+            out = self._pull_bucket_impl(pskey, b, buf, rnd_num, rnd, idx)
+        except BaseException as e:
+            flight.record("pull", key=pskey, round=rnd_num,
+                          outcome=f"error:{type(e).__name__}")
+            from ..compress.wire import CodecError
+            if isinstance(e, CodecError):
+                flight.dump(get_logger(), keys=[pskey],
+                            reason=f"CodecError on pull key={pskey} "
+                                   f"round={rnd_num}: {e}")
+            raise
+        flight.record("pull", key=pskey, round=rnd_num, nbytes=buf.nbytes)
+        return out
+
+    def _pull_bucket_impl(self, pskey: int, b, buf: np.ndarray, rnd_num: int,
+                          rnd: _Round, idx: int) -> np.ndarray:
+        chain = self._chains.get(pskey)
+        if chain is not None:
+            payload = self.backend.pull_bytes(pskey, round=rnd_num)
+            self._m_pull_bytes.inc(len(payload))
+            self._pull_layer[pskey].inc(len(payload))
+            t0 = time.time()
+            merged = chain.decompress(payload).astype(b.dtype, copy=False)
+            self._record("PS_DECOMPRESS", t0)
+            return merged
         plane = self._cplane
         if plane is not None and plane.active(pskey) and rnd.clevels[idx]:
             nbytes = b.size * np.dtype(b.dtype).itemsize
@@ -449,6 +637,13 @@ class PSGradientExchange:
             rnd.pull_one(idx, buf)
         except BaseException as e:   # noqa: BLE001 — relayed to drain()
             exc = e
+            rnd.bucket_state[idx] = "failed"
+            # the error surfaces at the caller's next drain, maybe seconds
+            # from now: dump the key's events while the ring holds them
+            flight.dump(get_logger(), keys=[pskey],
+                        reason=f"pull failure key={pskey} "
+                               f"round={rnd.rounds[idx]}: "
+                               f"{type(e).__name__}: {e}")
         finally:
             self.plane.gate.release(pskey)
             rnd._pull_finished(exc)
@@ -486,15 +681,24 @@ class PSGradientExchange:
         server without waiting for any pull, so a caller that holds a
         thread through ``.result()`` cannot keep a peer's round from
         completing (``byteps_tpu/server/ps_mode.py:1342-1360``)."""
+        self._ensure_watchdog()
         rnd = _Round(self, list(tree), name)
         if self.pipeline_depth <= 1 or len(rnd.keyed) <= 1:
             # serial: push everything (the server sums as they land),
             # then drain the pulls in the same order
-            bufs = [rnd.push_one(i) for i in range(len(rnd.keyed))]
+            try:
+                bufs = [rnd.push_one(i) for i in range(len(rnd.keyed))]
+            except BaseException:
+                rnd._mark_finished()
+                raise
 
             def drain() -> List[np.ndarray]:
-                for i, buf in enumerate(bufs):
-                    rnd.pull_one(i, buf)
+                try:
+                    for i, buf in enumerate(bufs):
+                        rnd.pull_one(i, buf)
+                        rnd._pull_finished(None)
+                finally:
+                    rnd._mark_finished()
                 return rnd.assemble()
             return _PendingExchange(drain)
         self._ensure_executors()

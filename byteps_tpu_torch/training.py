@@ -17,15 +17,18 @@ JAX trainer's sync PS branch (``training.py:228-299``, ``_ps_step``
 gradients in the JAX tree's order (encoded on the card under
 ``BPS_COMPRESS=int8`` or ``fp8_e4m3``); the summed gradients copied back
 to the card (the port's PS runs one worker, so the sum is the mean); the
-inner optimizer's step.
+inner optimizer's step. ``compression`` kwargs in PS mode ride the
+trainer's declaration (``byteps_tpu/training.py:243-244``): the exchange
+gives each bucket at or above ``min_compress_bytes`` the legacy host chain
+(``server/ps_mode.py``), which keeps precedence over the fused plane.
 The port always runs that monolithic tail, the JAX package's
 ``BPS_APPLY_CHUNKED=0`` route: the streamed tail, the staged head, the
 cross-step driver and the sharded update overlap work without changing a
 number, and are not ported yet.
 
-The async path, the legacy ``compression=`` kwargs in PS mode, gradient
-accumulation in PS mode and pipeline parallelism (``BPS_PP_STAGES`` > 1)
-are not ported yet (ROADMAP.md): their options raise.
+The async path, gradient accumulation in PS mode and pipeline
+parallelism (``BPS_PP_STAGES`` > 1) are not ported yet (ROADMAP.md): their
+options raise.
 
 ``ShardedTrainer`` is the data × sequence-parallel step (counterpart of
 the JAX ``ShardedTrainer`` on a mesh whose only axes above 1 are
@@ -160,10 +163,6 @@ class DistributedTrainer:
         if gs is None or gs.ps_backend is None:
             raise RuntimeError("BPS_ENABLE_PS: call bps.init() first; it "
                                "builds the parameter-server backend")
-        if compression:
-            raise NotImplementedError(
-                f"the legacy compression= kwargs chains in PS mode "
-                f"{_NOT_PORTED}; BPS_COMPRESS selects the fused plane")
         if backward_passes_per_step != 1:
             raise NotImplementedError(
                 f"backward_passes_per_step > 1 in PS mode {_NOT_PORTED}")
@@ -181,8 +180,10 @@ class DistributedTrainer:
             name = base if n == 0 else f"{base}-{n}"
         self._name = name
         # declared now, before any other tree: keys follow declaration
-        # order, and the fp8 noise seed follows the keys
-        gs.registry.declare(name)
+        # order, and the fp8 noise seed follows the keys. The compression
+        # kwargs ride the declaration: the exchange gives each bucket at or
+        # above the floor its host chain (byteps_tpu/training.py:243-244)
+        gs.registry.declare(name, **(compression or {}))
         self.ps_exchange = PSGradientExchange(
             gs.ps_backend,
             partition_bytes=(cfg.partition_bytes if partition_bytes is None

@@ -239,7 +239,30 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          versions by a second exchange on its own server, its keys
          declared in the same order. Each prints its step time, samples/s
          and the API's own host time a step (dispatch to the last
-         ``synchronize``) beside the card's name and power limit.
+         ``synchronize``) beside the card's name and power limit;
+       - compression on the PS side, BERT-large at the dense run's
+         weights and batch, ``BPS_ENABLE_PS=1``, world 1:
+         ``bert_large_ps_onebit``, ``DistributedTrainer(compression=
+         README_COMPRESSION)``: the legacy chains on the host, the flash
+         launches dense BERT's and no codec kernel, ``ps/push_bytes`` at
+         most PS_ONEBIT_BYTES of the dense PS run's (the gradient's bytes),
+         step 1's loss the dense run's, and step 1's summed gradient as
+         the worker received it bit for bit ``replay_chains``: the same
+         dense gradient through fresh worker and server chains in numpy;
+         ``bert_large_ps_auto`` (``BPS_COMPRESS=auto``), run (a) on live
+         signals and run (b) with nic/stalls injected before each of the
+         first AUTO_STALL_ROUNDS rounds under ``BPS_COMPRESS_MAX=
+         fp8_e4m3``, each round's backlog sample, verdict and levels
+         printed: the level trace equals a fresh controller's replay of
+         the recorded signals, each round's int8 quantize / dequantize
+         and fp8 SR launches are its buckets at those rungs, the
+         ``compress/decisions`` counter is the level changes; (b) must
+         climb none -> fp16 -> int8 -> fp8_e4m3; ``bert_large_ps_watchdog``
+         (int8, ``BPS_WATCHDOG_SEC=2``): an unwedged run of 5 steps with
+         no dump, then 3 steps with no dump and a fourth whose last
+         bucket's pull ``PullHold`` (a fault injection) holds 6 s: the
+         dump names that key within 4 s and carries its push from the
+         flight ring, and the 5 losses are the unwedged run's bit for bit.
      Losses must be finite and falling. BERT (both widths), dense GPT-2
      and T5 repeat step 1 with ``attn_impl="naive"`` (plain attention on
      the card) as the reference for the loss; every run prints step time,
@@ -2846,6 +2869,502 @@ def train_bert_ps(codec, dense_losses, step2_misses):
                 os.environ[k] = v
 
 
+# -------------------- compression on the PS side: chains, auto, watchdog
+
+# ps/push_bytes of the onebit chains against a dense PS run's, which pushes
+# every bucket dense: the gradient's bytes (onebit is 1/32 a bucket and a
+# 4-byte scale; the buckets under BPS_MIN_COMPRESS_BYTES stay dense)
+PS_ONEBIT_BYTES = 1 / 25
+# the auto run on injected signals: nic/stalls raised by this much before
+# each of the first rounds (a fixed schedule), then not at all; the ladder
+# capped at fp8_e4m3 (BPS_COMPRESS_MAX)
+AUTO_STALLS, AUTO_STALL_ROUNDS, AUTO_MAX = 1, 6, "fp8_e4m3"
+AUTO_MAX_ROUNDS = 16        # decay rounds the boundary verdict may add
+AUTO_LIVE_ROUNDS = STEPS
+# the watchdog path: BPS_WATCHDOG_SEC, and the pull held 3 periods
+WATCHDOG_SEC, WATCHDOG_HOLD = 2.0, 3
+
+
+@contextlib.contextmanager
+def _ps_world(env):
+    """``env`` set and ``bps.init()`` (the in-process server, world 1) for
+    one PS run; ``bps.shutdown()`` and the env restored after it."""
+    import os
+
+    import byteps_tpu_torch as bps
+    env = dict({"BPS_ENABLE_PS": "1"}, **env)
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    bps.init()
+    try:
+        yield
+    finally:
+        bps.shutdown()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _ps_trainer(cfg, loss_fn, compression=None):
+    """BERT-large from seed 0 through ``DistributedTrainer`` in PS mode,
+    the metrics registry zeroed just before it is built."""
+    from byteps_tpu_torch.models.transformer import Transformer
+    from byteps_tpu_torch.obs.metrics import get_registry
+    from byteps_tpu_torch.optim import adamw
+    from byteps_tpu_torch.training import DistributedTrainer
+    get_registry().reset()
+    model = Transformer(cfg, generator=torch.Generator().manual_seed(0))
+    return DistributedTrainer(loss_fn, model, adamw(model.parameters(), 1e-4),
+                              partition_bytes=PARTITION_BYTES,
+                              compression=compression,
+                              min_compress_bytes=MIN_COMPRESS_BYTES)
+
+
+def _timed_step(trainer, data):
+    t = time.perf_counter()
+    loss = trainer.step(data)
+    torch.cuda.synchronize()
+    return loss.item(), time.perf_counter() - t
+
+
+def _log_stages(tag, metrics, steps):
+    stages = {k[6:]: v for k, v in metrics.items()
+              if k.startswith("stage/") and v["count"]}
+    log(f"[{tag}] host stage times over the {steps} counted steps (summed "
+        "over buckets and pipeline threads): " + ", ".join(
+            f"{k} {v['sum_ms']:.1f} ms / {v['count']}"
+            for k, v in sorted(stages.items())))
+
+
+class _FirstExchange:
+    """Keeps the first exchange's gradients, copied to the host just before
+    it, and its summed result, by wrapping ``PSGradientExchange.exchange``
+    (the wrapper adds a copy to step 1 and nothing to later steps)."""
+
+    def __init__(self):
+        from byteps_tpu_torch.server.ps_mode import PSGradientExchange
+        self.cls, self.orig = PSGradientExchange, PSGradientExchange.exchange
+        self.grads = self.out = None
+        kept = self
+
+        def exchange(ex, tree, name=None):
+            tree = list(tree)
+            first = kept.grads is None
+            if first:
+                kept.grads = [t.detach().to("cpu", copy=True).numpy()
+                              .reshape(-1) for _, t in tree]
+            out = kept.orig(ex, tree, name)
+            if first:
+                kept.out = [np.array(o, copy=True).reshape(-1) for o in out]
+            return out
+
+        PSGradientExchange.exchange = exchange
+
+    def restore(self):
+        self.cls.exchange = self.orig
+
+
+def replay_chains(ex, grads, kwargs):
+    """Step 1's summed gradient as the chains give it, in numpy, off the
+    exchange (no server, no threads): each bucket packed from the dense
+    gradient; a chained bucket through a fresh worker chain, the server
+    chain's decompress (the world-1 sum is that one push), its recompress,
+    and the worker chain's decompress; the others as they are."""
+    import os
+
+    from byteps_tpu_torch.ops.compression.host import (create_host_chain,
+                                                       create_server_chain)
+    (_, keyed), = ex._plans.values()
+    out = [np.empty_like(g) for g in grads]
+    old = os.environ.get("BPS_NATIVE_CODEC")
+    os.environ["BPS_NATIVE_CODEC"] = "0"         # the numpy route
+    try:
+        for pskey, b in keyed:
+            buf = np.empty(b.size, b.dtype)
+            for s in b.segments:
+                buf[s.bucket_offset:s.bucket_offset + s.length] = \
+                    grads[s.leaf_index][s.leaf_offset:s.leaf_offset + s.length]
+            if pskey in ex._chains:
+                worker = create_host_chain(kwargs, b.size, b.dtype)
+                server = create_server_chain(kwargs, b.size, b.dtype)
+                merged = server.decompress(worker.compress(buf))
+                buf = worker.decompress(server.compress(merged)).astype(
+                    b.dtype, copy=False)
+            for s in b.segments:
+                out[s.leaf_index][s.leaf_offset:s.leaf_offset + s.length] = \
+                    buf[s.bucket_offset:s.bucket_offset + s.length]
+    finally:
+        if old is None:
+            os.environ.pop("BPS_NATIVE_CODEC", None)
+        else:
+            os.environ["BPS_NATIVE_CODEC"] = old
+    return out
+
+
+def train_bert_ps_onebit(dense_losses):
+    """BERT-large through the PS path with the README's onebit kwargs in
+    the legacy chains (``DistributedTrainer(compression=...)``): each
+    bucket at or above the floor copied to the host dense, compressed by
+    the worker chain (momentum, error feedback, onebit), decompressed,
+    summed and recompressed by the server chain, decompressed by the
+    worker. No kernel of the card runs in the exchange: the flash launches
+    are dense BERT's."""
+    cfg, loss_fn, data, fps = _bert_setup()
+    tag = "bert_large ps onebit"
+    want = _attention_launches(cfg, ("flash_bwd_fused",))
+    first = _FirstExchange()
+    with _ps_world({}):
+        try:
+            launches, trainer, losses, metrics = run_path(
+                tag, cfg, loss_fn, data, fps, want,
+                compression=README_COMPRESSION, more_steps=0)
+        finally:
+            first.restore()
+        ex = trainer.ps_exchange
+        (_, keyed), = ex._plans.values()
+        dense_bytes = 4 * sum(p.numel() for p in trainer.model.parameters())
+        pushed = metrics["ps/push_bytes"] / STEPS
+        log(f"[{tag}] plan: {len(keyed)} buckets, {ex.n_chained()} through "
+            f"the chains, {ex.n_compressed()} on the fused plane; per step "
+            f"ps/push_bytes {pushed:.0f} = {pushed / dense_bytes:.5f} x the "
+            f"dense PS run's {dense_bytes} (limit {PS_ONEBIT_BYTES:.3f}); "
+            f"ps/pull_bytes {metrics['ps/pull_bytes'] / STEPS:.0f}, "
+            f"ps/d2h_bytes {metrics['ps/d2h_bytes'] / STEPS:.0f}")
+        _log_stages(tag, metrics, STEPS)
+        if not pushed <= PS_ONEBIT_BYTES * dense_bytes:
+            raise AssertionError(f"{tag}: {pushed} bytes pushed a step, over "
+                                 f"{PS_ONEBIT_BYTES} of the dense {dense_bytes}")
+        if ex.n_chained() < len(keyed) - 2 or ex.n_compressed():
+            raise AssertionError(f"{tag}: {ex.n_chained()} of {len(keyed)} "
+                                 "buckets took the chains")
+        log(f"[{tag}] step-1 loss {losses[0]:.6f}, dense run "
+            f"{dense_losses[0]:.6f}")
+        if losses[0] != dense_losses[0]:
+            raise AssertionError(f"{tag}: step-1 loss differs from the dense "
+                                 "run's on the same weights and batch")
+        t = time.perf_counter()
+        ref = replay_chains(ex, first.grads, README_COMPRESSION)
+        same = all(np.array_equal(a.view(np.uint32), b.view(np.uint32))
+                   for a, b in zip(first.out, ref))
+        log(f"[{tag}] step 1's summed gradient as the worker received it vs "
+            f"the chains replayed in numpy on the same dense gradient "
+            f"({sum(g.size for g in ref)} floats, {time.perf_counter() - t:.1f}"
+            f" s): {'bit for bit' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"{tag}: the exchange's step-1 sum is not the "
+                                 "chains' numpy replay, bit for bit")
+        first.grads = first.out = ref = None
+        del trainer
+        torch.cuda.empty_cache()
+    return launches
+
+
+class _Decisions:
+    """Records every decision of an exchange's ``CompressController``: the
+    signals it read (the two counters, the backlog gauge, each layer's
+    ``ps/push_bytes``) and each layer's level after it."""
+
+    def __init__(self, ctl, reg):
+        self.ctl, self.rows = ctl, []
+        self.start = (ctl._last_stalls, ctl._last_resends)
+        orig = ctl.decide_locked
+
+        def decide_locked():
+            sig = {"stalls": reg.counter("nic/stalls").value,
+                   "resends": reg.counter("transport/resends").value,
+                   "depth": reg.gauge("server/engine_queue_depth").value,
+                   "bytes": {n: c.value for n, c in ctl._bytes.items()}}
+            orig()
+            self.rows.append((sig, dict(ctl._layers)))
+
+        ctl.decide_locked = decide_locked
+
+    def replay(self):
+        """The same decisions by a fresh ``CompressController`` over a
+        fresh registry fed the recorded signals: (verdicts, levels)."""
+        from byteps_tpu_torch.compress.controller import CompressController
+        from byteps_tpu_torch.obs.metrics import MetricsRegistry
+        live, reg = self.ctl, MetricsRegistry()
+        reg.counter("nic/stalls").inc(self.start[0])
+        reg.counter("transport/resends").inc(self.start[1])
+        rep = CompressController(registry=reg, max_level=wire_name(
+            live.max_level), hold=live.hold,
+            queue_depth_min=live.queue_depth_min, interval=live.interval)
+        for layer in live._layers:
+            rep.register_layer(layer)
+        verdicts, levels, v0 = [], [], rep._verdict
+
+        def verdict():
+            verdicts.append(v0())
+            return verdicts[-1]
+
+        rep._verdict = verdict
+        for sig, _ in self.rows:
+            for name in ("stalls", "resends"):
+                c = reg.counter({"stalls": "nic/stalls",
+                                 "resends": "transport/resends"}[name])
+                c.inc(sig[name] - c.value)
+            reg.gauge("server/engine_queue_depth").set(sig["depth"])
+            for layer, v in sig["bytes"].items():
+                c = reg.counter(f"ps/push_bytes/{layer}")
+                c.inc(v - c.value)
+            levels.append(rep.decide())
+        return verdicts, levels, reg.counter("compress/decisions").value
+
+
+def wire_name(cid):
+    from byteps_tpu_torch.compress import wire
+    return wire.LEVELS[cid]
+
+
+def _level_counts(levels):
+    """{level name: layers at it} of one round."""
+    out = {}
+    for lv in levels.values():
+        out[wire_name(lv)] = out.get(wire_name(lv), 0) + 1
+    return out
+
+
+def _auto_run(tag, cfg, loss_fn, data, dense_losses, rounds, inject=None,
+              until_back=False):
+    """One ``BPS_COMPRESS=auto`` run: ``rounds`` steps (with
+    ``until_back``, up to ``AUTO_MAX_ROUNDS``, stopping once the ladder
+    has climbed and come back to none), ``inject(r)`` before round ``r``.
+    Every count zeroed before the run, read after it and after each round.
+    Gates: the level trace is the replay's, each round's codec launches
+    are its eligible buckets at that round's rung, the decisions counter
+    is the level changes, step 1 the dense run's loss. Returns the run's
+    launches and its trace."""
+    from byteps_tpu_torch.compress import wire
+    from byteps_tpu_torch.obs.metrics import get_registry
+    trainer = _ps_trainer(cfg, loss_fn)
+    ex = trainer.ps_exchange
+    reg = get_registry()
+    rec = _Decisions(ex._cplane.controller, reg)
+    attn = _attention_launches(cfg, ("flash_bwd_fused",))(trainer)
+    per_step = {k: v // STEPS for k, v in attn.items()}
+    torch.cuda.synchronize()
+    ctr = counters()
+    zero_counts(ctr)
+    prev, losses, times, per_round = read_counts(ctr), [], [], []
+    for r in range(1, AUTO_MAX_ROUNDS + 1 if until_back else rounds + 1):
+        if inject is not None:
+            inject(r)
+        loss, dt = _timed_step(trainer, data)
+        losses.append(loss)
+        times.append(dt)
+        now = read_counts(ctr)
+        per_round.append({k: now[k] - prev[k] for k in now})
+        prev = now
+        top = max(rec.rows[-1][1].values())
+        if until_back and r >= rounds and top == wire.CODEC_NONE:
+            break
+    launches = read_counts(ctr)
+    metrics = reg.snapshot()
+    verdicts, replayed, rep_decisions = rec.replay()
+    trace = [lv for _, lv in rec.rows]
+    for r, ((sig, lv), v, dt) in enumerate(zip(rec.rows, verdicts, times), 1):
+        log(f"[{tag}] round {r}: queue depth {sig['depth']:g}, nic/stalls "
+            f"{sig['stalls']}, transport/resends {sig['resends']}, verdict "
+            f"{ {True: 'wire-bound', False: 'idle', None: 'boundary'}[v]}, "
+            f"levels {_level_counts(lv)}; step {dt * 1e3:.1f} ms, loss "
+            f"{losses[r - 1]:.6f}")
+    changes = sum(a != b for prev_lv, cur in
+                  zip([dict.fromkeys(trace[0], 0)] + trace, trace)
+                  for a, b in ((prev_lv[k], cur[k]) for k in cur))
+    decisions = metrics["compress/decisions"]
+    log(f"[{tag}] {len(trace)} rounds, level trace equals the replay: "
+        f"{trace == replayed}; compress/decisions {decisions}, level "
+        f"changes {changes}, replay's counter {rep_decisions}; "
+        f"{len(trace[0])} layers")
+    _log_stages(tag, metrics, len(trace))
+    if trace != replayed:
+        raise AssertionError(f"{tag}: the level trace differs from the "
+                             "replay of the recorded signals")
+    if not decisions == changes == rep_decisions:
+        raise AssertionError(f"{tag}: compress/decisions {decisions}, level "
+                             f"changes {changes}, replay {rep_decisions}")
+    for r, (got, lv) in enumerate(zip(per_round, trace), 1):
+        want = dict.fromkeys(COUNT_KEYS, 0)
+        want.update(per_step)
+        want = by_width(want, cfg.head_dim)
+        n_int8 = sum(v == wire.CODEC_INT8 for v in lv.values())
+        want["int8_quantize"] = want["int8_dequantize"] = n_int8
+        want["fp8_sr_quantize"] = sum(v == wire.CODEC_FP8_E4M3
+                                      for v in lv.values())
+        if got != want:
+            raise AssertionError(f"{tag}: round {r} launches {got}, expected "
+                                 f"{want}")
+    if losses[0] != dense_losses[0] or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{tag}: losses {losses}, dense step 1 "
+                             f"{dense_losses[0]}")
+    log(f"[{tag}] launches {launches}")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, trace, times
+
+
+def train_bert_ps_auto(dense_losses):
+    """``BPS_COMPRESS=auto`` on BERT-large through the PS path, two runs.
+    (a) live signals: at world 1 in one process nothing raises nic/stalls
+    or transport/resends, so the backlog gauge alone votes; the trace may
+    stay at none. (b) signals injected: nic/stalls raised before each of
+    the first AUTO_STALL_ROUNDS rounds, then not, the ladder capped at
+    fp8_e4m3: it climbs none -> fp16 -> int8 -> fp8_e4m3 and, where the
+    backlog reads 0, decays back."""
+    from byteps_tpu_torch.compress import wire
+    from byteps_tpu_torch.obs.metrics import get_registry
+    cfg, loss_fn, data, _ = _bert_setup()
+    with _ps_world({"BPS_COMPRESS": "auto"}):
+        live, _, live_times = _auto_run(
+            "bert_large ps auto (a) live signals", cfg, loss_fn, data,
+            dense_losses, AUTO_LIVE_ROUNDS)
+
+    def inject(r):
+        if r <= AUTO_STALL_ROUNDS:
+            get_registry().counter("nic/stalls").inc(AUTO_STALLS)
+
+    tag = "bert_large ps auto (b) signals injected"
+    with _ps_world({"BPS_COMPRESS": "auto", "BPS_COMPRESS_MAX": AUTO_MAX}):
+        injected, trace, times = _auto_run(tag, cfg, loss_fn, data,
+                                           dense_losses, 2 * AUTO_STALL_ROUNDS,
+                                           inject=inject, until_back=True)
+    tops = [max(lv.values()) for lv in trace]
+    climbed = [wire.CODEC_NONE, wire.CODEC_FP16, wire.CODEC_INT8,
+               wire.CODEC_FP8_E4M3]
+    seen = [lv for i, lv in enumerate(tops) if i == 0 or lv != tops[i - 1]]
+    log(f"[{tag}] rungs in order {[wire_name(t) for t in seen]}")
+    if seen[:4] != climbed:
+        raise AssertionError(f"{tag}: the ladder went {seen}, not none -> fp16"
+                             " -> int8 -> fp8_e4m3")
+    SUMMARY["bert_large_ps_auto"] = {
+        "live_step_ms": [t * 1e3 for t in live_times],
+        "injected_step_ms": {wire_name(lv): [t * 1e3 for t, top in
+                                             zip(times, tops) if top == lv]
+                             for lv in sorted(set(tops))}}
+    log(f"[{tag}] step ms by rung: {SUMMARY['bert_large_ps_auto']}")
+    return live, injected
+
+
+class PullHold:
+    """Fault injection: the backend's pull of one PS key waits ``hold_s``
+    seconds before it is served, once, when armed. It stands for a lost
+    or late pull, the wedge the stall watchdog exists to name."""
+
+    def __init__(self, backend, key, hold_s):
+        self.backend, self.key, self.hold_s = backend, key, hold_s
+        self.armed, self.t_hold = False, None
+        self.orig = {n: getattr(backend, n) for n in ("pull", "pull_fused")}
+        for name, fn in self.orig.items():
+            setattr(backend, name, self._held(fn))
+
+    def _held(self, fn):
+        def pull(key, *a, **kw):
+            if self.armed and key == self.key:
+                self.armed = False
+                self.t_hold = time.monotonic()
+                time.sleep(self.hold_s)
+            return fn(key, *a, **kw)
+        return pull
+
+    def remove(self):
+        for name, fn in self.orig.items():
+            setattr(self.backend, name, fn)
+
+
+def train_bert_ps_watchdog(dense_losses):
+    """BERT-large through the PS path under int8 with BPS_WATCHDOG_SEC=2.
+    An unwedged run of 5 steps (no dump) is the reference; then the path:
+    3 steps (no dump), then step 4 with the pull of the last bucket held
+    WATCHDOG_HOLD periods by ``PullHold``: the dump names that key within
+    2 periods of the hold, with its push in the flight events, and step 4
+    completes; steps 4 and 5 have the unwedged run's losses, bit for bit."""
+    from byteps_tpu_torch.common.global_state import GlobalState
+    from byteps_tpu_torch.obs.watchdog import implicated_keys
+    cfg, loss_fn, data, _ = _bert_setup()
+    tag = "bert_large ps watchdog"
+    env = {"BPS_COMPRESS": "int8", "BPS_WATCHDOG_SEC": str(WATCHDOG_SEC)}
+    with _ps_world(env):
+        ref = _ps_trainer(cfg, loss_fn)
+        ref_losses = [_timed_step(ref, data)[0] for _ in range(5)]
+        ref_dumps = ref.ps_exchange._watchdog.dumps
+        del ref
+    log(f"[{tag}] unwedged run: losses {ref_losses}, watchdog dumps "
+        f"{ref_dumps}")
+    if ref_dumps:
+        raise AssertionError(f"{tag}: the unwedged run dumped {ref_dumps}x")
+    attn = _attention_launches(cfg, ("flash_bwd_fused",))
+    with _ps_world(env):
+        trainer = _ps_trainer(cfg, loss_fn)
+        ex = trainer.ps_exchange
+        torch.cuda.synchronize()
+        ctr = counters()
+        zero_counts(ctr)
+        losses, times = [], []
+        for _ in range(STEPS):
+            loss, dt = _timed_step(trainer, data)
+            losses.append(loss)
+            times.append(dt)
+        wd = ex._watchdog
+        if wd is None or wd.stall_sec != WATCHDOG_SEC or wd.dumps:
+            raise AssertionError(f"{tag}: watchdog {wd} after {STEPS} steps")
+        dumps = []
+        wd._on_dump = lambda state, stalled: dumps.append(
+            (time.monotonic(), state, stalled))
+        (_, keyed), = ex._plans.values()
+        key = keyed[-1][0]
+        hold = PullHold(GlobalState.get().ps_backend, key,
+                        WATCHDOG_HOLD * WATCHDOG_SEC)
+        hold.armed = True
+        try:
+            for _ in range(2):
+                loss, dt = _timed_step(trainer, data)
+                losses.append(loss)
+                times.append(dt)
+        finally:
+            hold.remove()
+        n = len(losses)
+        launches = read_counts(ctr)
+        nc = ex.n_compressed()
+        want = attn(trainer)
+        want = {k: v * n // STEPS for k, v in want.items()}
+        want["int8_quantize"] = want["int8_dequantize"] = n * nc
+        del trainer
+    torch.cuda.empty_cache()
+    log(f"[{tag}] losses {losses}; step times s {times}; held key {key} "
+        f"for {WATCHDOG_HOLD * WATCHDOG_SEC:.0f} s in step 4")
+    if hold.t_hold is None or not dumps:
+        raise AssertionError(f"{tag}: hold {hold.t_hold}, dumps {len(dumps)}")
+    t_dump, state, stalled = dumps[0]
+    after = t_dump - hold.t_hold
+    keys = implicated_keys(state)
+    wedged = [b for r in state["rounds"] for b in r["buckets"]
+              if b["pskey"] == key]
+    pushes = [e for e in state["flight"]["events"]
+              if e["kind"] == "push" and e.get("key") == key]
+    log(f"[{tag}] first dump {after:.2f} s after the hold began (stalled "
+        f"{stalled:.2f} s; limit {2 * WATCHDOG_SEC:.0f} s), {len(dumps)} "
+        f"dump(s); it names keys {sorted(keys)}, the held bucket "
+        f"{wedged[0]['state'] if wedged else 'absent'}, its flight events "
+        f"{[(e['kind'], e.get('round'), e.get('stage')) for e in pushes]}")
+    if not after <= 2 * WATCHDOG_SEC or key not in keys or not wedged \
+            or wedged[0]["state"] != "pushed":
+        raise AssertionError(f"{tag}: the dump did not name key {key} "
+                             f"within {2 * WATCHDOG_SEC} s")
+    if not any(e.get("round") == wedged[0]["round"] for e in pushes):
+        raise AssertionError(f"{tag}: the dump's flight events lack key "
+                             f"{key}'s push of round {wedged[0]['round']}")
+    if losses != ref_losses or losses[0] != dense_losses[0]:
+        raise AssertionError(f"{tag}: losses {losses}, unwedged {ref_losses}")
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, expected {want}")
+    SUMMARY["bert_large_ps_watchdog"] = {"step_ms": [t * 1e3 for t in times],
+                                         "dump_after_s": after}
+    return launches
+
+
 # --------------------------- the BytePS API: the plugin and push_pull paths
 
 # the tensors whose step-1 exchange the int8 push_pull path holds against
@@ -5005,6 +5524,10 @@ def main() -> int:
     for codec in ("int8", "fp8_e4m3"):
         paths[f"bert_large_ps_{codec}"] = train_bert_ps(codec, bert_losses,
                                                         step2_misses)
+    paths["bert_large_ps_onebit"] = train_bert_ps_onebit(bert_losses)
+    paths["bert_large_ps_auto_live"], paths["bert_large_ps_auto_injected"] = \
+        train_bert_ps_auto(bert_losses)
+    paths["bert_large_ps_watchdog"] = train_bert_ps_watchdog(bert_losses)
     paths["bert_large_plugin"] = train_bert_plugin(bert_losses)
     for codec in ("int8", "fp8_e4m3"):
         paths[f"bert_large_pushpull_{codec.split('_')[0]}"] = \

@@ -86,6 +86,10 @@ def test_importing_the_port_loads_no_jax():
             "byteps_tpu_torch.ops._build_host, "
             "byteps_tpu_torch.server.ps_mode, byteps_tpu_torch.server.homog, "
             "byteps_tpu_torch.compress.plane, byteps_tpu_torch.compress.device, "
+            "byteps_tpu_torch.compress.controller, byteps_tpu_torch.obs.flight, "
+            "byteps_tpu_torch.obs.watchdog, byteps_tpu_torch.server.compressed, "
+            "byteps_tpu_torch.ops.compression.host, "
+            "byteps_tpu_torch.ops.compression.rng, "
             "byteps_tpu_torch.torch, byteps_tpu_torch.telemetry; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
@@ -284,6 +288,29 @@ def test_every_reference_knob_is_read_or_refused():
     groups = [ours, set(READ_ELSEWHERE), set(REFUSED), set(SUBORDINATE),
               set(EXEMPT)]
     assert sum(map(len, groups)) == len(set().union(*groups))
+
+
+# Knobs the port acts on outside its Config, where the JAX package reads
+# them: env var -> the modules that read it. ``BPS_WATCHDOG_SEC``, refused
+# until the watchdog was ported, is a Config field the exchange acts on.
+ACTED_ON = {
+    "BPS_WATCHDOG_SEC": ("common/config.py", "server/ps_mode.py"),
+    "BPS_COMPRESS_INTERVAL": ("compress/plane.py",),
+    "BPS_COMPRESS_MAX": ("compress/plane.py",),
+    "BPS_FLIGHT_RECORDER": ("obs/flight.py",),
+    "BPS_FLIGHT_RECORDER_SIZE": ("obs/flight.py",),
+    "BPS_NATIVE_CODEC": ("ops/compression/host.py", "server/compressed.py"),
+}
+
+
+@pytest.mark.parametrize("env", sorted(ACTED_ON))
+def test_knob_is_read_where_it_acts_and_listed(env):
+    from byteps_tpu_torch.common import config
+    from byteps_tpu_torch.common.config import REFUSED
+    for module in ACTED_ON[env]:
+        assert env in (PORT / module).read_text(), (env, module)
+    assert env in config.__doc__
+    assert env not in {e for e, *_ in REFUSED.values()}
 
 
 def _refused_cases():

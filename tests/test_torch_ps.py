@@ -373,15 +373,28 @@ def test_host_leaves_of_a_mixed_plan_are_copied_and_counted(n1, dense):
 
 @pytest.mark.parametrize("env,value,exc", [
     ("BPS_MAX_LAG", "2", NotImplementedError),
-    ("BPS_WATCHDOG_SEC", "5", NotImplementedError),
-    ("BPS_COMPRESS", "auto", NotImplementedError),
+    ("BPS_WATCHDOG_SEC", "5", None),
+    ("BPS_COMPRESS", "auto", None),
 ])
 def test_exchange_refuses_what_is_not_ported(env, value, exc, monkeypatch):
+    """Bounded staleness raises. The stall watchdog and the auto
+    controller, refused until they were ported, now construct
+    (``test_torch_flight_watchdog.py``, ``test_torch_compress_controller.py``
+    hold them against the JAX package)."""
+    from byteps_tpu_torch.compress.controller import CompressController
     monkeypatch.setenv(env, value)
     be = HostPSBackend(num_servers=1, num_workers=1, engine_threads=1)
     try:
-        with pytest.raises(exc, match="ROADMAP"):
-            PSGradientExchange(be)
+        if exc is not None:
+            with pytest.raises(exc, match="ROADMAP"):
+                PSGradientExchange(be)
+            return
+        ex = PSGradientExchange(be)
+        if env == "BPS_WATCHDOG_SEC":
+            assert ex._watchdog_sec == 5.0 and ex._watchdog is None
+        else:
+            assert isinstance(ex._cplane.controller, CompressController)
+        ex.close()
     finally:
         be.close()
 
