@@ -42,7 +42,14 @@ rung) and ``BPS_COMPRESS_TOPK_DIV`` by ``compress/plane.py``;
 ``BPS_FLIGHT_RECORDER`` and ``BPS_FLIGHT_RECORDER_SIZE`` by
 ``obs/flight.py`` (``bps.init()`` re-reads them); ``BPS_NATIVE_CODEC``
 (the host codecs' native primitives, default on) by
-``ops/compression/host.py`` and ``server/compressed.py``.
+``ops/compression/host.py`` and ``server/compressed.py``; the overlap
+schedule of the PS step by ``training.py`` when a trainer is built, each
+default 1: ``BPS_APPLY_CHUNKED`` (the streamed tail; 0 = the monolithic
+one), ``BPS_BWD_STAGED`` (the staged head), ``BPS_CROSS_STEP`` (the
+cross-step driver, ``cross_step.py``) and ``BPS_BWD_GROUPS`` (a cap on the
+staged head's feed batches; default 0, the JAX package's cap).
+``BPS_STAGED_CACHE`` sizes the JAX package's cache of compiled backward
+segments; eager PyTorch compiles none, and the port has no such cache.
 
 The knobs of ``REFUSED`` select behaviour the port does not have yet:
 at their defaults they change nothing, and any other value raises

@@ -12,14 +12,21 @@ e.g. onebit with error feedback and Nesterov momentum) the reduction is
 ``ops.compression.CompressionPlan``'s compressed exchange instead
 (counterpart of ``byteps_tpu/optim.py::_make_compressed``), and with a
 custom ``reducer`` each bucket goes through it in place of the sum.
+
+``ChunkedApply`` is the parameter-server step's per-group apply of the
+inner optimizer (counterpart of ``byteps_tpu/optim.py::ChunkedApply``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Tuple
+import contextlib
+import threading
+import time
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from .obs.metrics import observe_stage
 from .parallel.collectives import Reducer, bucketed_allreduce, leaf_specs
 from .parallel.mesh import dp_size
 
@@ -139,3 +146,226 @@ class DistributedOptimizer:
 def distributed_optimizer(inner: torch.optim.Optimizer, **kwargs
                           ) -> DistributedOptimizer:
     return DistributedOptimizer(inner, **kwargs)
+
+
+# ------------------------------------------------------- chunked apply
+#
+# The sync-PS step's tail applies the optimizer per bucket group as the
+# group's summed gradients land (the port of ``byteps_tpu/optim.py:141-335``):
+# group 0's weights update while group N's gradients are still on the wire.
+# The inner torch optimizer is stepped through CHILD instances of its own
+# class, one per group, that share the parent's ``state`` (the plugin's
+# ``torch/cross_barrier.py`` does the same per parameter), so checkpoints and
+# ``state_dict()`` see one source of truth and no second state exists.
+
+def _hyper(optimizer) -> List[dict]:
+    """The hyper-parameters of each of ``optimizer``'s param groups."""
+    return [{k: v for k, v in g.items() if k != "params"}
+            for g in optimizer.param_groups]
+
+
+def _group_index(optimizer) -> Dict[int, int]:
+    """id(param) -> index of the optimizer's param group holding it."""
+    return {id(p): j for j, g in enumerate(optimizer.param_groups)
+            for p in g["params"]}
+
+
+def _child(cls, params, hyper, group_of) -> Tuple[object, List[int]]:
+    """A ``cls`` instance over ``params``, one param group per parent group
+    they come from, with that group's hyper-parameters; the parent group
+    indices in the child's group order. None when the parent steps none of
+    ``params``."""
+    by: Dict[int, list] = {}
+    for p in params:
+        j = group_of.get(id(p))
+        if j is not None:
+            by.setdefault(j, []).append(p)
+    if not by:
+        return None, []
+    order = sorted(by)
+    return cls([dict(hyper[j], params=by[j]) for j in order]), order
+
+
+def leafwise_decomposable(optimizer, params, groups, steps: int = 2) -> bool:
+    """Numeric probe: does ``optimizer``'s class update each leaf
+    independently of the others, so that stepping it one group at a time
+    equals one fused ``step()`` bit for bit?
+
+    ``steps`` updates of a tiny same-structure problem (two elements a
+    leaf, seeded values, on the parameters' device, in the parent's param
+    groups with its hyper-parameters), fused and per group, must give
+    identical parameters. A value-coupled optimizer (one that scales by a
+    norm over all its parameters) differs on any non-degenerate values; one
+    that cannot run on the probe raises, and counts as coupled too."""
+    gen = torch.Generator().manual_seed(0)
+
+    def tiny(p):
+        return torch.randn(2, generator=gen).to(device=p.device,
+                                                dtype=p.dtype)
+
+    start = [tiny(p) for p in params]
+    grads = [[tiny(p) for p in params] for _ in range(steps)]
+    cls, hyper = type(optimizer), _hyper(optimizer)
+    real_group = _group_index(optimizer)
+    try:
+        fused_p = [torch.nn.Parameter(t.clone()) for t in start]
+        part_p = [torch.nn.Parameter(t.clone()) for t in start]
+        # the probe's params fall in the groups their real leaves are in
+        group_of = {}
+        for i, p in enumerate(params):
+            j = real_group.get(id(p))
+            if j is not None:
+                group_of[id(fused_p[i])] = group_of[id(part_p[i])] = j
+        fused, _ = _child(cls, fused_p, hyper, group_of)
+        parts = [_child(cls, [part_p[i] for i in g], hyper, group_of)[0]
+                 for g in groups]
+        for s in range(steps):
+            for ps in (fused_p, part_p):
+                for p, g in zip(ps, grads[s]):
+                    p.grad = g.clone()
+            if fused is not None:
+                fused.step()
+            for o in parts:
+                if o is not None:
+                    o.step()
+        return all(torch.equal(a, b) for a, b in zip(fused_p, part_p))
+    except Exception:       # noqa: BLE001 — an optimizer the probe cannot
+        return False        # run keeps the fused apply
+
+
+class ChunkedApply:
+    """The inner optimizer applied per bucket group of the flat parameter
+    list ``params`` (the trainer's leaves, in the JAX tree's order), the
+    groups being ``PSGradientExchange.leaf_groups``.
+
+    When the optimizer is leafwise decomposable (``leafwise_decomposable``)
+    ``apply_group`` steps one group's child optimizer; its result is the
+    fused ``step()``'s bit for bit, each leaf seeing the same operations.
+    Otherwise ``decomposable`` is False and the caller keeps the fused
+    ``apply_fused`` (its H2D copies still stream).
+
+    For the cross-step driver each leaf has a readiness EPOCH (the last
+    step whose apply was enqueued for it, ``mark_epoch`` / ``wait_epoch``)
+    and each group the CUDA event recorded after its latest apply
+    (``wait_device``): the host gate and the device order a later reader
+    needs."""
+
+    def __init__(self, optimizer, params, groups) -> None:
+        self.opt = optimizer
+        self.params = list(params)
+        self.groups = [tuple(g) for g in groups if g]
+        self.leaf_group = {li: gi for gi, g in enumerate(self.groups)
+                           for li in g}
+        covered = sorted(self.leaf_group) == list(range(len(self.params)))
+        self.decomposable = covered and leafwise_decomposable(
+            optimizer, self.params, self.groups)
+        self.ready_epoch = [0] * len(self.params)
+        self._epoch_cv = threading.Condition()
+        self.apply_events: List = [None] * len(self.groups)
+        self._children: List = [None] * len(self.groups)
+
+    def hyper(self) -> List[dict]:
+        """The parent's hyper-parameters now: a step's applies use those in
+        force when its gradients were produced, even when its tail runs
+        after the caller changed them."""
+        return _hyper(self.opt)
+
+    def _child_for(self, gi: int, hyper):
+        if self._children[gi] is None:
+            self._children[gi] = _child(
+                type(self.opt), [self.params[li] for li in self.groups[gi]],
+                hyper, _group_index(self.opt))
+        child, order = self._children[gi]
+        if child is not None:
+            for cg, j in zip(child.param_groups, order):
+                cg.update(hyper[j])
+            # ONE state table: re-bound every time, since the parent's
+            # load_state_dict replaces its state dict
+            child.state = self.opt.state
+        return child
+
+    def _run(self, leaf_ids, grads, step, events, stream):
+        """``step()`` with ``grads`` as the leaves' ``.grad``, after
+        ``events``, on ``stream`` (the card's compute stream; None: the
+        current one); returns the event recorded after it (None on the
+        CPU)."""
+        ps = [self.params[li] for li in leaf_ids]
+        cuda = bool(ps) and ps[0].is_cuda
+        ctx = (torch.cuda.stream(stream) if cuda and stream is not None
+               else contextlib.nullcontext())
+        with ctx:
+            ev = None
+            if cuda:
+                cur = torch.cuda.current_stream(ps[0].device)
+                for e in events:
+                    cur.wait_event(e)
+                for g in grads:
+                    # made on the H2D stream, read here: not recycled
+                    # before this stream is done with it
+                    g.record_stream(cur)
+            for p, g in zip(ps, grads):
+                p.grad = g
+            try:
+                step()
+            finally:
+                for p in ps:
+                    p.grad = None
+            if cuda:
+                ev = torch.cuda.Event()
+                ev.record(cur)
+        return ev
+
+    def apply_group(self, gi: int, grads, hyper, events=(),
+                    stream=None) -> None:
+        """Step group ``gi`` with ``grads`` (in ``groups[gi]`` order)."""
+        t0 = time.time()
+        child = self._child_for(gi, hyper)
+        ev = self._run(self.groups[gi], grads,
+                       child.step if child is not None else (lambda: None),
+                       events, stream)
+        self.apply_events[gi] = ev
+        observe_stage("PS_APPLY_CHUNK", time.time() - t0)
+
+    def apply_fused(self, grads, events=(), stream=None) -> None:
+        """The parent's own ``step()`` over every leaf (a non-decomposable
+        optimizer)."""
+        t0 = time.time()
+        ev = self._run(range(len(self.params)), grads, self.opt.step,
+                       events, stream)
+        self.apply_events = [ev] * len(self.groups)
+        observe_stage("PS_APPLY_CHUNK", time.time() - t0)
+
+    def mark_epoch(self, leaf_ids, epoch: int) -> None:
+        """Publish ``leaf_ids`` as applied through step ``epoch`` (after
+        the apply was enqueued and its event recorded)."""
+        with self._epoch_cv:
+            for li in leaf_ids:
+                self.ready_epoch[li] = epoch
+            self._epoch_cv.notify_all()
+
+    def wait_epoch(self, leaf_ids, epoch: int, should_abort=None) -> float:
+        """Block until every leaf of ``leaf_ids`` reached ``epoch``;
+        returns the seconds waited. ``should_abort()`` is polled, so a
+        dead tail cannot leave the gate waiting forever."""
+        t0 = time.time()
+        with self._epoch_cv:
+            while not all(self.ready_epoch[li] >= epoch for li in leaf_ids):
+                if should_abort is not None and should_abort():
+                    break
+                self._epoch_cv.wait(0.05)
+        return time.time() - t0
+
+    def wait_device(self, leaf_ids) -> None:
+        """Order the current CUDA stream after the latest apply of every
+        group holding one of ``leaf_ids``: a host flag alone would let a
+        reader on another stream see a half-written parameter."""
+        seen = set()
+        for li in leaf_ids:
+            gi = self.leaf_group.get(li)
+            if gi is None or gi in seen:
+                continue
+            seen.add(gi)
+            ev = self.apply_events[gi]
+            if ev is not None:
+                torch.cuda.current_stream(self.params[li].device) \
+                    .wait_event(ev)

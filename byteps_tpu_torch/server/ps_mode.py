@@ -38,14 +38,31 @@ buckets are in flight and none has completed for that long, it logs which
 key wedged, from ``debug_state()``, with the flight events of the keys it
 implicates.
 
-Not ported yet (ROADMAP.md): the streaming and ingest rounds, sharded
-rounds, bounded-staleness routing (and its ``lag_admit`` events),
-``AsyncPSWorker`` and the row-sparse exchange.
+Besides the all-at-once ``exchange``, two round forms serve the trainer's
+default PS step (``byteps_tpu/server/ps_mode.py:54-158``):
+``exchange_stream`` yields each leaf the moment its last covering bucket's
+pull unpacks (``ready()``), so the trainer's H2D copies and per-group
+optimizer applies run while later buckets are still on the wire; and
+``exchange_ingest`` takes its leaves as the backward produces them
+(``feed``), pushing each bucket the moment its last leaf arrives. A fed
+leaf carries the CUDA event recorded where autograd produced it: the
+bucket's device encode or D2H copy then runs on the push thread's own
+side stream, which waits on those events, and the round holds the fed
+tensors until that stream was synchronized, so neither a half-written
+gradient nor a reused block is ever read. ``leaf_groups`` partitions the
+leaves by the bucket whose pull completes them: the granularity of the
+chunked apply.
+
+Not ported yet (ROADMAP.md): sharded rounds, bounded-staleness routing
+(and its ``lag_admit`` events), ``AsyncPSWorker`` and the row-sparse
+exchange.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import queue
 import threading
 import time
 import weakref
@@ -89,18 +106,76 @@ class _PendingExchange:
         return self._drain()
 
 
+class _StreamingExchange:
+    """Handle returned by ``PSGradientExchange.exchange_stream``: the
+    pushes are in flight and ``ready()`` yields ``(leaf_index, flat host
+    array)`` in COMPLETION order, each the moment its last covering
+    bucket's pull unpacked. A failed push or pull surfaces as an
+    exception from the iterator (and from ``result()``)."""
+
+    __slots__ = ("_r",)
+
+    def __init__(self, round_: "_Round") -> None:
+        self._r = round_
+
+    @property
+    def round_state(self) -> "_Round":
+        return self._r
+
+    def ready(self, timeout: Optional[float] = None):
+        """Iterate (leaf_index, flat host array) as leaves complete;
+        ``timeout`` bounds each wait (TimeoutError)."""
+        return self._r.ready_iter(timeout)
+
+    def result(self) -> List[np.ndarray]:
+        """Drain every pull and return the summed leaves."""
+        return self._r.drain()
+
+
+class _IngestExchange(_StreamingExchange):
+    """Handle returned by ``PSGradientExchange.exchange_ingest``: the
+    ingress mirror of ``exchange_stream``. The caller ``feed``s leaves as
+    they materialize; every bucket's encode or D2H and push is submitted
+    the moment its last covering leaf arrives. ``ready()`` / ``result()``
+    stream as for ``exchange_stream``. ``finish()`` asserts every leaf was
+    fed; ``abort(exc)`` wakes a consumer when the producer died."""
+
+    __slots__ = ()
+
+    def feed(self, leaf_ids, values, events=None) -> None:
+        """Hand over tensors (or host arrays) for ``leaf_ids`` (flat
+        indices); ``events``: the CUDA event recorded where each was
+        produced, or None. Thread-safe (autograd's device thread feeds)."""
+        self._r.feed(leaf_ids, values, events)
+
+    def finish(self) -> None:
+        """Declare feeding complete; raises if any leaf is missing."""
+        self._r.finish_feed()
+
+    def abort(self, exc: BaseException) -> None:
+        """Producer-side failure: wake ``ready()``/``result()`` with
+        ``exc``."""
+        self._r.abort(exc)
+
+
 class _Round:
     """One sync exchange round: host leaves materialized lazily under
-    per-leaf locks, bucket pack/encode + push, pull + decode + unpack."""
+    per-leaf locks, bucket pack/encode + push, pull + decode + unpack;
+    with ``stream`` the leaf-completion queue, with ``ingest`` leaves fed
+    as they materialize (``byteps_tpu/server/ps_mode.py:134-611``)."""
 
     def __init__(self, ex: "PSGradientExchange",
                  tree: Sequence[Tuple[str, object]],
-                 name: Optional[str]) -> None:
+                 name: Optional[str], stream: bool = False,
+                 ingest: bool = False, step: Optional[int] = None,
+                 host_alloc=None) -> None:
         self.ex = ex
+        self.step_tag = step
         self.decl_name, self.keyed = ex._plan(tree, name)
         sources = [t for _, t in tree]
         # the decision trace, PINNED per round: the push and the pull of
-        # every bucket in this round use this snapshot
+        # every bucket in this round use this snapshot (two rounds in
+        # flight under the cross-step driver each carry their own)
         self.clevels = None
         if ex._cplane is not None:
             ex._cplane.on_round()
@@ -124,12 +199,20 @@ class _Round:
                 sources = [torch.from_numpy(np.ascontiguousarray(s))
                            if isinstance(s, np.ndarray) else s
                            for s in sources]
-        self.sources = sources
         self.shapes = [tuple(s.shape) for s in sources]
+        self.dtypes = [_dtype_name(s) for s in sources]
+        self.device = next((s.device for s in sources if torch.is_tensor(s)),
+                           torch.device("cpu"))
+        # ingest rounds get their sources fed later: the template (the
+        # parameters) supplies only shapes and dtypes
+        self.sources: List = [None] * len(sources) if ingest else sources
+        # per leaf: the CUDA event its producer recorded (fed leaves)
+        self.events: List = [None] * len(sources)
         self.flat: List[Optional[np.ndarray]] = [None] * len(sources)
         self.flat_locks = [threading.Lock() for _ in sources]
-        self.out = [np.empty(int(np.prod(s.shape)), np.dtype(_dtype_name(s)))
-                    for s in sources]
+        alloc = host_alloc or (lambda n, dt: np.empty(n, dt))
+        self.out = [alloc(int(np.prod(shp)), np.dtype(dt))
+                    for shp, dt in zip(self.shapes, self.dtypes)]
         self.rounds: List[Optional[int]] = [None] * len(self.keyed)
         # pull order: among landed buckets, the one holding the
         # earliest-declared (input-side) leaves first
@@ -140,6 +223,7 @@ class _Round:
         self._pull_lock = threading.Lock()
         self._pull_err: Optional[BaseException] = None
         self._pull_done = threading.Event()
+        self.aborted: Optional[BaseException] = None
         # each bucket's life for the watchdog's dump: pending -> pushed ->
         # pulled (or failed); "pushed" forever is a wedge
         self.bucket_state = ["pending"] * len(self.keyed)
@@ -148,6 +232,31 @@ class _Round:
             self._pull_done.set()
         else:
             ex._register_round(self)
+        self.readyq: Optional[queue.Queue] = None
+        if stream or ingest:
+            self.readyq = queue.Queue()
+            self.seg_left = [0] * len(sources)
+            for _, b in self.keyed:
+                for s in b.segments:
+                    self.seg_left[s.leaf_index] += 1
+            self.seg_lock = threading.Lock()
+            for li, n in enumerate(self.seg_left):
+                if n == 0:          # zero-size leaf: no covering bucket
+                    self.readyq.put((li, self.out[li]))
+        self.ingest = ingest
+        if ingest:
+            # bucket -> distinct covering leaves; a bucket is pushable
+            # once all of them were fed
+            bucket_leaves = [sorted({s.leaf_index for s in b.segments})
+                             for _, b in self.keyed]
+            self.bucket_need = [len(ls) for ls in bucket_leaves]
+            self.leaf_buckets: Dict[int, List[int]] = {}
+            for bi, ls in enumerate(bucket_leaves):
+                for li in ls:
+                    self.leaf_buckets.setdefault(li, []).append(bi)
+            self.fed = [False] * len(sources)
+            self.feed_lock = threading.Lock()
+            self.feed_done = False
 
     # ------------------------------------------------------ host leaves
 
@@ -165,6 +274,13 @@ class _Round:
     # ------------------------------------------------------ push / pull
 
     def push_one(self, idx: int) -> np.ndarray:
+        _, b = self.keyed[idx]
+        events = [self.events[s.leaf_index] for s in b.segments
+                  if self.events[s.leaf_index] is not None]
+        with self.ex._side_stream(events, self.device):
+            return self._push_one(idx)
+
+    def _push_one(self, idx: int) -> np.ndarray:
         ex = self.ex
         pskey, b = self.keyed[idx]
         self.rounds[idx] = ex._next_round(pskey)
@@ -213,6 +329,16 @@ class _Round:
         self.bucket_state[idx] = "pulled"
         ex._m_buckets.inc()
         ex._mark_progress()
+        if self.readyq is not None:
+            for s in b.segments:
+                self._segment_done(s.leaf_index)
+
+    def _segment_done(self, li: int) -> None:
+        with self.seg_lock:
+            self.seg_left[li] -= 1
+            done = self.seg_left[li] == 0
+        if done:
+            self.readyq.put((li, self.out[li]))
 
     def assemble(self) -> List[np.ndarray]:
         return [o.reshape(shp) for o, shp in zip(self.out, self.shapes)]
@@ -239,8 +365,11 @@ class _Round:
         self.ex._enqueue_pull(self, idx, buf)
 
     def _pull_finished(self, exc: Optional[BaseException]) -> None:
-        if exc is not None and self._pull_err is None:
-            self._pull_err = exc
+        if exc is not None:
+            if self._pull_err is None:
+                self._pull_err = exc
+            if self.readyq is not None:
+                self.readyq.put(exc)
         with self._pull_lock:
             self._pulls_left -= 1
             done = self._pulls_left <= 0
@@ -258,10 +387,86 @@ class _Round:
         self.ex._m_rounds.dec()
 
     def drain(self) -> List[np.ndarray]:
+        if self.aborted is not None:
+            raise self.aborted
+        if self.ingest:
+            # an incompletely fed round never submits some buckets, so
+            # waiting would hang: fail loudly instead
+            with self.feed_lock:
+                missing = sum(not f for f in self.fed)
+            if missing:
+                raise RuntimeError(
+                    f"exchange_ingest result() with {missing} leaves never "
+                    f"fed: call feed() for every leaf and finish() before "
+                    f"draining")
         self._pull_done.wait()
+        if self.aborted is not None:
+            raise self.aborted
         if self._pull_err is not None:
             raise self._pull_err
         return self.assemble()
+
+    def ready_iter(self, timeout: Optional[float] = None):
+        for _ in range(len(self.out)):
+            try:
+                item = self.readyq.get(timeout=timeout)
+            except queue.Empty:
+                raise TimeoutError(
+                    f"no leaf of round {self.round_seq} completed within "
+                    f"{timeout} s") from None
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+
+    # ------------------------------------------------------ ingest
+
+    def feed(self, leaf_ids, values, events=None) -> None:
+        pairs = list(zip(leaf_ids, values,
+                         events if events is not None
+                         else [None] * len(leaf_ids)))
+        for li, v, _ in pairs:
+            # the bucket plan's offsets come from the template: a leaf of
+            # another size would send the native pack out of bounds
+            if (int(np.prod(tuple(v.shape))) != int(np.prod(self.shapes[li]))
+                    or _dtype_name(v) != self.dtypes[li]):
+                raise ValueError(
+                    f"fed leaf {li} is {tuple(v.shape)}/{_dtype_name(v)}, "
+                    f"the plan expects {self.shapes[li]}/{self.dtypes[li]}")
+        self.ex._mark_progress()
+        fire: List[int] = []
+        with self.feed_lock:
+            if self.feed_done:
+                raise RuntimeError("feed() after finish()")
+            for li, v, ev in pairs:
+                if self.fed[li]:
+                    raise ValueError(f"leaf {li} fed twice")
+                self.fed[li] = True
+                self.sources[li] = v
+                self.events[li] = ev
+                for bi in self.leaf_buckets.get(li, ()):
+                    self.bucket_need[bi] -= 1
+                    if self.bucket_need[bi] == 0:
+                        fire.append(bi)
+        for bi in fire:
+            self.submit_bucket(bi)
+
+    def finish_feed(self) -> None:
+        with self.feed_lock:
+            missing = [li for li, f in enumerate(self.fed) if not f]
+            self.feed_done = True
+        if missing:
+            raise ValueError(
+                f"exchange_ingest round finished with {len(missing)} leaves "
+                f"never fed (first missing: {missing[:5]}): every flat leaf "
+                f"must be handed over exactly once")
+
+    def abort(self, exc: BaseException) -> None:
+        self.aborted = exc
+        if self.keyed:              # the in-flight gauge and the watchdog
+            self._mark_finished()   # must not count a dead round forever
+        self._pull_done.set()
+        if self.readyq is not None:
+            self.readyq.put(exc)
 
 
 class PSGradientExchange:
@@ -333,9 +538,21 @@ class PSGradientExchange:
         if device is not None and self._cplane is not None:
             from ..compress.device import device_encode_enabled
             self._dev_enc = device_encode_enabled(device)
+        # each push thread's own side stream (fed rounds, on the card)
+        self._tls = threading.local()
+        self._close_hooks: List = []
+
+    def add_close_hook(self, fn) -> None:
+        """``fn()`` runs first in ``close()``: a trainer joins the tails
+        that still pull through this exchange (held weakly by the caller,
+        so the exchange keeps no trainer alive)."""
+        self._close_hooks.append(fn)
 
     def close(self) -> None:
         """Stop the pipeline's threads and the watchdog (idempotent)."""
+        hooks, self._close_hooks = self._close_hooks, []
+        for fn in hooks:
+            fn()
         with self._rounds_reg_lock:
             wd, self._watchdog = self._watchdog, None
         if wd is not None:
@@ -382,7 +599,8 @@ class PSGradientExchange:
         """Every unfinished round's buckets (PS key, round, pending /
         pushed / pulled / failed) and the admission gate's holders and
         queued waiters: what the watchdog dumps."""
-        rounds = [{"name": r.decl_name, "step": None, "seq": r.round_seq,
+        rounds = [{"name": r.decl_name, "step": r.step_tag,
+                   "seq": r.round_seq,
                    "pulls_left": r._pulls_left,
                    "buckets": [{"pskey": pskey, "round": r.rounds[i],
                                 "state": r.bucket_state[i]}
@@ -489,6 +707,28 @@ class PSGradientExchange:
                        torch.device("cpu"))
             self._dev_enc = device_encode_enabled(dev)
         return self._dev_enc
+
+    @contextlib.contextmanager
+    def _side_stream(self, events, device):
+        """Run a bucket's encode or D2H on this push thread's own CUDA
+        stream, after the ``events`` its fed leaves were produced under
+        (no events: the thread's current stream, as ``exchange`` runs).
+        The work ends with a host synchronization of that stream (the
+        amax and payload copies, or ``.cpu()``), before the round lets go
+        of the leaves."""
+        if not events:
+            yield
+            return
+        streams = getattr(self._tls, "streams", None)
+        if streams is None:
+            streams = self._tls.streams = {}
+        side = streams.get(device)
+        if side is None:
+            side = streams[device] = torch.cuda.Stream(device=device)
+        for ev in events:
+            side.wait_event(ev)
+        with torch.cuda.stream(side):
+            yield
 
     def _d2h_account(self, pskey: int, nbytes: int) -> None:
         self._m_d2h_bytes.inc(nbytes)
@@ -666,6 +906,60 @@ class PSGradientExchange:
         dispatch order on every worker whatever order its exchanges
         later run in (``byteps_tpu/server/ps_mode.py:934-940``)."""
         self._plan(list(tree), name)
+
+    def leaf_groups(self, tree: Sequence[Tuple[str, object]],
+                    name: Optional[str] = None) -> List[List[int]]:
+        """Partition ``tree``'s flat leaf indices by the LAST bucket that
+        covers each leaf, the bucket whose pull completes it
+        (``byteps_tpu/server/ps_mode.py:941-961``): groups in bucket
+        order, empty ones dropped, together covering every leaf once
+        (zero-size leaves join group 0)."""
+        tree = list(tree)
+        _, keyed = self._plan(tree, name)
+        last: Dict[int, int] = {}
+        for bi, (_, b) in enumerate(keyed):
+            for s in b.segments:
+                last[s.leaf_index] = bi
+        groups: List[List[int]] = [[] for _ in keyed]
+        for li in sorted(last):
+            groups[last[li]].append(li)
+        extras = [li for li in range(len(tree)) if li not in last]
+        if extras:
+            if not groups:
+                groups = [[]]
+            groups[0].extend(extras)
+        return [g for g in groups if g]
+
+    def exchange_stream(self, tree: Sequence[Tuple[str, object]],
+                        name: Optional[str] = None,
+                        host_alloc=None) -> _StreamingExchange:
+        """A streaming round: every bucket is pushed now, and ``ready()``
+        of the returned handle yields each leaf as its last covering
+        bucket's pull unpacks. ``host_alloc(n, dtype)`` makes the
+        round's flat host leaves (the trainer's pinned staging buffers);
+        default ``np.empty``."""
+        self._ensure_watchdog()
+        self._ensure_executors()
+        rnd = _Round(self, list(tree), name, stream=True,
+                     host_alloc=host_alloc)
+        for i in range(len(rnd.keyed)):
+            rnd.submit_bucket(i)
+        return _StreamingExchange(rnd)
+
+    def exchange_ingest(self, template: Sequence[Tuple[str, object]],
+                        name: Optional[str] = None,
+                        step: Optional[int] = None,
+                        host_alloc=None) -> _IngestExchange:
+        """An ingest round: ``template`` (the parameters, as ``(path,
+        tensor)`` pairs) gives the plan; the caller ``feed``s the
+        gradients as the backward makes them, and each bucket is pushed
+        once its last leaf arrived. ``step`` tags the round in the
+        watchdog's dump."""
+        self._ensure_watchdog()
+        self._ensure_executors()
+        return _IngestExchange(_Round(self, list(template), name,
+                                      ingest=True, step=step,
+                                      host_alloc=host_alloc))
 
     def exchange(self, tree: Sequence[Tuple[str, object]],
                  name: Optional[str] = None) -> List[np.ndarray]:

@@ -44,12 +44,93 @@ from __future__ import annotations
 import queue
 import threading
 import time
+import weakref
+from typing import Optional
 
 import torch
 
 from .ops import _Dispatcher, size, synchronize
 
-__all__ = ["CrossBarrier"]
+__all__ = ["CrossBarrier", "ForwardGates"]
+
+
+class ForwardGates:
+    """Forward pre-hooks that hold each module's forward until the
+    parameters it owns may be read: ``wait(params)`` runs at the pre-hook
+    of every module owning some of ``params``.
+
+    A module whose forward never runs (one whose parameters its parent
+    reads, such as the port's stacked layer weights) gates nothing: the
+    first forward seen records which modules run, and ``learn()`` then
+    moves each silent module's parameters to the nearest ancestor that
+    ran; parameters with no such ancestor, or owned by no module, are
+    ``ungated`` and their owner must wait for them another way. The
+    plugin's ``CrossBarrier`` and the trainer's cross-step driver
+    (``byteps_tpu_torch/cross_step.py``) share this mechanism."""
+
+    def __init__(self, model: torch.nn.Module, params, wait) -> None:
+        params = set(params)
+        self._wait = wait
+        self._gates = {}
+        self._parent = {}
+        self._seen: Optional[set] = set()
+        for mod in model.modules():
+            for child in mod.children():
+                self._parent.setdefault(child, mod)
+            self._gates[mod] = [p for p in mod.parameters(recurse=False)
+                                if p in params]
+
+        me = weakref.ref(self)      # the modules keep no gates alive
+
+        def pre_hook(mod, inputs):
+            gates = me()
+            if gates is not None:
+                gates._pre_hook(mod)
+
+        self._handles = [mod.register_forward_pre_hook(pre_hook)
+                         for mod in model.modules()]
+        covered = {p for ps in self._gates.values() for p in ps}
+        self.ungated = params - covered
+
+    def _pre_hook(self, mod) -> None:
+        if self._seen is not None:
+            self._seen.add(mod)
+        gated = self._gates.get(mod)
+        if gated:
+            self._wait(gated)
+
+    @property
+    def learned(self) -> bool:
+        return self._seen is None
+
+    def learn(self) -> bool:
+        """After the first forward seen: move each parameter of a module
+        that did not run to the nearest ancestor that did (with none, it
+        joins ``ungated``). False while no forward was seen yet."""
+        if self._seen is None:
+            return True
+        if not self._seen:
+            return False
+        ungated = set(self.ungated)
+        for mod, params in self._gates.items():
+            if mod in self._seen or not params:
+                continue
+            up = self._parent.get(mod)
+            while up is not None and up not in self._seen:
+                up = self._parent.get(up)
+            if up is None:
+                ungated.update(params)
+            else:
+                self._gates[up] = self._gates[up] + params
+            self._gates[mod] = []
+        self._seen = None
+        self.ungated = ungated
+        return True
+
+    def remove(self) -> None:
+        for h in self._handles:
+            h.remove()
+        self._handles = []
 
 
 class CrossBarrier:
@@ -79,13 +160,14 @@ class CrossBarrier:
         self._error = None
         self._poller = None
         self._ungated: set = set()
-        self._seen = None
+        self._gates = None
         if size() > 1:
             # intercept the parent's dispatch: every push_pull now also
             # takes the param's lock and lands on the poller's queue
             self._orig_dispatch = optimizer._push_pull_grad_async
             optimizer._push_pull_grad_async = self._dispatch
-            self._register_forward_hooks()
+            self._gates = ForwardGates(model, self._locks, self._wait_params)
+            self._set_ungated(self._gates.ungated)
             self._poller = threading.Thread(target=self._poll_loop,
                                             daemon=True,
                                             name="bps-cross-barrier")
@@ -189,54 +271,19 @@ class CrossBarrier:
 
     # -- forward blocking --------------------------------------------------
 
-    def _register_forward_hooks(self):
-        """Gate each parameter at the forward pre-hook of the module that
-        owns it. A module whose forward never runs (one whose parameters
-        its parent reads, such as stacked layer weights) gates nothing:
-        the first forward seen records which modules run, and ``step``
-        then moves each silent module's parameters to the nearest
-        ancestor that ran (``_learn_gates``)."""
-        self._gates = {}
-        self._parent = {}
-        self._seen = set()
-        for mod in self._model.modules():
-            for child in mod.children():
-                self._parent.setdefault(child, mod)
-            self._gates[mod] = [p for p in mod.parameters(recurse=False)
-                                if p in self._locks]
-
-        def pre_hook(mod, inputs):
-            if self._seen is not None:
-                self._seen.add(mod)
-            for p in self._gates[mod]:
-                self._opt._handles.pop(p, None)
-                with self._locks[p]:   # wait until the poller released it
-                    pass
-        for mod in self._model.modules():
-            mod.register_forward_pre_hook(pre_hook)
-        covered = {p for ps in self._gates.values() for p in ps}
-        self._set_ungated(set(self._locks) - covered)
+    def _wait_params(self, params) -> None:
+        """A module's forward may read ``params`` once their in-flight
+        updates were applied (the poller releases each lock)."""
+        for p in params:
+            self._opt._handles.pop(p, None)
+            with self._locks[p]:
+                pass
 
     def _learn_gates(self) -> None:
-        """After the first forward seen: move each parameter of a module
-        that did not run to the nearest ancestor that did; with none, it
-        joins the ungated ones."""
-        if not self._seen:
-            return                   # no forward seen yet: keep learning
-        ungated = set(self._ungated)
-        for mod, params in self._gates.items():
-            if mod in self._seen or not params:
-                continue
-            up = self._parent.get(mod)
-            while up is not None and up not in self._seen:
-                up = self._parent.get(up)
-            if up is None:
-                ungated.update(params)
-            else:
-                self._gates[up] = self._gates[up] + params
-            self._gates[mod] = []
-        self._seen = None
-        self._set_ungated(ungated)
+        """After the first forward seen: silent modules' parameters move
+        to the nearest ancestor that ran (``ForwardGates.learn``)."""
+        if self._gates.learn():
+            self._set_ungated(self._gates.ungated)
 
     def _set_ungated(self, ungated: set) -> None:
         """Parameters no forward pre-hook gates (functional use, tied
@@ -279,7 +326,7 @@ class CrossBarrier:
         # documented usage has no bare init step, and a plain local
         # update here would race the poller's averaged update
         inflight = any(l.locked() for l in self._locks.values())
-        if size() > 1 and self._seen is not None:
+        if self._gates is not None and not self._gates.learned:
             self._learn_gates()
         if size() > 1 and (self._step_count > 0 or inflight):
             opt = self._opt

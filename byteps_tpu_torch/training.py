@@ -12,23 +12,52 @@ all-reduce over the data-parallel group, or the compressed exchange when
 
 With ``BPS_ENABLE_PS=1`` (and ``bps.init()``, which builds the in-process
 server) the same script trains through the parameter server instead, the
-JAX trainer's sync PS branch (``training.py:228-299``, ``_ps_step``
-``:563-599``): the local backward; ``PSGradientExchange.exchange`` of the
-gradients in the JAX tree's order (encoded on the card under
-``BPS_COMPRESS=int8`` or ``fp8_e4m3``); the summed gradients copied back
-to the card (the port's PS runs one worker, so the sum is the mean); the
-inner optimizer's step. ``compression`` kwargs in PS mode ride the
-trainer's declaration (``byteps_tpu/training.py:243-244``): the exchange
-gives each bucket at or above ``min_compress_bytes`` the legacy host chain
-(``server/ps_mode.py``), which keeps precedence over the fused plane.
-The port always runs that monolithic tail, the JAX package's
-``BPS_APPLY_CHUNKED=0`` route: the streamed tail, the staged head, the
-cross-step driver and the sharded update overlap work without changing a
-number, and are not ported yet.
+JAX trainer's sync PS branch (``byteps_tpu/training.py:228-299``): the
+gradients go through ``PSGradientExchange`` in the JAX tree's order
+(encoded on the card under ``BPS_COMPRESS=int8`` or ``fp8_e4m3``), the
+summed gradients come back to the card (the port's PS runs one worker, so
+the sum is the mean), and the inner optimizer steps. ``compression`` kwargs
+in PS mode ride the trainer's declaration (``byteps_tpu/training.py:243-244``):
+the exchange gives each bucket at or above ``min_compress_bytes`` the legacy
+host chain (``server/ps_mode.py``), which keeps precedence over the fused
+plane.
 
-The async path, gradient accumulation in PS mode and pipeline
-parallelism (``BPS_PP_STAGES`` > 1) are not ported yet (ROADMAP.md): their
-options raise.
+By default the PS step is the JAX package's full BytePS pipeline, bwd ∥ push
+∥ server sum ∥ pull ∥ apply (``byteps_tpu/training.py:254-290``), in three
+parts that each change no number:
+
+  - the staged head (``BPS_BWD_STAGED``, default 1): a
+    ``register_post_accumulate_grad_hook`` on every parameter hands each
+    gradient, with a CUDA event recorded where autograd produced it, to an
+    ``exchange_ingest`` round; a bucket group (``BPS_BWD_GROUPS`` > 0 caps
+    their number) is fed when its last leaf landed, and its buckets' encode
+    or D2H and push start on side streams while earlier layers are still
+    being differentiated. The backward itself is unchanged, so the
+    gradients are the monolithic head's bit for bit;
+  - the streamed tail (``BPS_APPLY_CHUNKED``, default 1): each summed leaf
+    is copied to the card as its last bucket's pull lands (pinned buffers,
+    ``non_blocking`` on a side stream, ``staging.py``), and the optimizer
+    is applied per bucket group as the group completes
+    (``optim.ChunkedApply``, bit for bit the fused step; an optimizer the
+    probe finds coupled keeps the fused step). A failure after some groups
+    applied raises loudly: the step is partial;
+  - the cross-step driver (``BPS_CROSS_STEP``, default 1;
+    ``cross_step.py``): from the second step, ``step()`` returns after the
+    backward, the tail runs on a background thread, and the next forward
+    is gated per module on the applies it reads. ``model``, ``tx``,
+    ``state_dict()`` and ``drain()`` wait for the tails;
+    ``load_state_dict`` installs fresh state over them.
+
+``BPS_APPLY_CHUNKED=0`` is the monolithic tail (every bucket pulled, the
+whole tree copied back, one optimizer step); the staged head and the
+cross-step driver ride on the streamed tail and switch off with it, as in
+the JAX trainer. ``backward_passes_per_step`` > 1 accumulates the JAX
+package's running mean in fp32 on the card, ``acc + (g - acc) / n``, and
+exchanges it at the window's end through the streamed tail (the staged
+head stays off, ``byteps_tpu/training.py:517-518``).
+
+The async path and pipeline parallelism (``BPS_PP_STAGES`` > 1) are not
+ported yet (ROADMAP.md): their options raise.
 
 ``ShardedTrainer`` is the data × sequence-parallel step (counterpart of
 the JAX ``ShardedTrainer`` on a mesh whose only axes above 1 are
@@ -42,8 +71,11 @@ sync boundary of its gradient accumulation.
 from __future__ import annotations
 
 import hashlib
+import os
+import threading
 import time
-from typing import Callable, Optional
+import weakref
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -51,8 +83,8 @@ import torch.distributed as dist
 
 from .common.config import Config
 from .common.global_state import GlobalState, check_ps_config, resolve_device
-from .obs.metrics import observe_stage
-from .optim import DistributedOptimizer
+from .obs.metrics import get_registry, observe_stage
+from .optim import ChunkedApply, DistributedOptimizer
 from .parallel.collectives import bucketed_allreduce
 from .parallel.mesh import Mesh, data_group, dp_size, use_mesh
 
@@ -67,6 +99,67 @@ def _to_device(x, device):
     if isinstance(x, (tuple, list)):
         return type(x)(_to_device(v, device) for v in x)
     return x
+
+
+def _runs(groups: List[List[int]], cap: int) -> List[List[int]]:
+    """``groups`` merged into at most ``cap`` contiguous runs of near-equal
+    count, each run one list of leaves."""
+    if cap <= 0 or cap >= len(groups):
+        return [list(g) for g in groups]
+    out, n = [], len(groups)
+    for r in range(cap):
+        lo, hi = r * n // cap, (r + 1) * n // cap
+        out.append([li for g in groups[lo:hi] for li in g])
+    return out
+
+
+class _HeadFeed:
+    """One staged backward's hand-over: gradients land one leaf at a time
+    (autograd's device thread calls ``landed``); a feed batch goes to the
+    ingest round the moment its last leaf landed."""
+
+    def __init__(self, handle, batches: List[List[int]]) -> None:
+        self.handle = handle
+        self.batches = batches
+        self.batch_of = {li: bi for bi, b in enumerate(batches) for li in b}
+        self.need = [len(b) for b in batches]
+        self.pending: List[list] = [[] for _ in batches]
+        self.landed_ids: set = set()
+        self.lock = threading.Lock()
+
+    def landed(self, li: int, grad, event) -> None:
+        with self.lock:
+            if li in self.landed_ids:
+                raise RuntimeError(
+                    f"the gradient of leaf {li} landed twice in one backward "
+                    f"(a reentrant checkpoint?): the staged head feeds each "
+                    f"leaf once; run with BPS_BWD_STAGED=0")
+            self.landed_ids.add(li)
+            bi = self.batch_of[li]
+            self.pending[bi].append((li, grad, event))
+            self.need[bi] -= 1
+            items = self.pending[bi] if self.need[bi] == 0 else None
+        if items:
+            self.handle.feed([i for i, _, _ in items],
+                             [g for _, g, _ in items],
+                             [e for _, _, e in items])
+
+    def flush(self, params) -> None:
+        """After the backward: the leaves whose hook never fired (no
+        gradient) are fed as zeros, as the monolithic head sends them."""
+        for bi, b in enumerate(self.batches):
+            with self.lock:
+                rest = [li for li in b if li not in self.landed_ids]
+                if not rest:
+                    continue
+                items = self.pending[bi]
+                self.landed_ids.update(rest)
+                self.need[bi] = 0
+            items = items + [(li, torch.zeros_like(params[li]), None)
+                             for li in rest]
+            self.handle.feed([i for i, _, _ in items],
+                             [g for _, g, _ in items],
+                             [e for _, _, e in items])
 
 
 class DistributedTrainer:
@@ -100,6 +193,12 @@ class DistributedTrainer:
       name: the PS declaration name of the gradients (PS mode); defaults
         to a hash of the parameters' names, shapes and dtypes, with
         positional suffixes for later trainers of the same structure.
+
+    In PS mode the cross-step driver may still be applying the last
+    step's update when ``step()`` returns: read the weights through
+    ``model``, ``tx`` or ``state_dict()``, which wait for it (``drain()``
+    is the explicit barrier), and install weights through
+    ``load_state_dict``.
     """
 
     # per-structure-hash creation counts (never pruned: a freed name could
@@ -122,15 +221,18 @@ class DistributedTrainer:
                 f"data-parallel step — its whole-model step would silently "
                 f"train only replicas; pipeline parallelism {_NOT_PORTED}")
         check_ps_config(cfg)
+        if backward_passes_per_step < 1:
+            raise ValueError("backward_passes_per_step must be >= 1")
         if device is None and gs is not None:
             self.device = gs.device
         else:
             self.device = resolve_device(device)
-        self.model = model.to(self.device)
+        self._model = model.to(self.device)
         self.backward_passes_per_step = backward_passes_per_step
         self._loss_fn = loss_fn
         self.step_count = 0
         self.ps_exchange = None
+        self._cross_driver = None
         if cfg.enable_ps:
             if reducer is not None:
                 # the JAX trainer's refusal (byteps_tpu/training.py:238-242)
@@ -138,13 +240,12 @@ class DistributedTrainer:
                     "custom reducers run on the collective path and would "
                     "be silently unused in PS mode — express lossy "
                     "exchange via compression kwargs instead")
-            self._init_ps(gs, optimizer, partition_bytes,
-                          backward_passes_per_step, compression,
+            self._init_ps(gs, optimizer, partition_bytes, compression,
                           min_compress_bytes, name)
             return
         self.group = group if group is not None else data_group()
-        self.tx = DistributedOptimizer(
-            optimizer, named_parameters=self.model.named_parameters(),
+        self._tx = DistributedOptimizer(
+            optimizer, named_parameters=self._model.named_parameters(),
             group=self.group,
             partition_bytes=(cfg.partition_bytes if partition_bytes is None
                              else partition_bytes),
@@ -155,22 +256,69 @@ class DistributedTrainer:
                                 else min_compress_bytes),
             reducer=reducer)
 
+    # ------------------------------------------------- draining readers
+
+    @property
+    def model(self) -> torch.nn.Module:
+        """The model. Reading it waits for the cross-step tails, so a
+        reader sees fully applied weights; a trainer whose tail failed
+        keeps raising here (its weights are partially stepped)."""
+        self._drain_pipeline()
+        return self._model
+
+    @property
+    def tx(self):
+        """The optimizer (in PS mode the inner one), after the tails."""
+        self._drain_pipeline()
+        return self._tx
+
+    def _drain_pipeline(self) -> None:
+        d = self._cross_driver
+        if d is not None and (d.pending or d.failed):
+            d.drain()
+
+    def drain(self) -> None:
+        """Join every in-flight cross-step tail (a no-op otherwise): the
+        explicit end-of-training barrier. Raises a tail's failure."""
+        self._drain_pipeline()
+
+    def _inner(self) -> torch.optim.Optimizer:
+        tx = self._tx
+        return tx.inner if isinstance(tx, DistributedOptimizer) else tx
+
+    def state_dict(self) -> dict:
+        """The model's and the inner optimizer's state and the step
+        count, after the tails."""
+        self._drain_pipeline()
+        return {"model": self._model.state_dict(),
+                "optimizer": self._inner().state_dict(),
+                "step_count": self.step_count}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Install ``state`` (from ``state_dict()``). In-flight tails are
+        joined first and do not overwrite it; a failed tail's poison is
+        lifted, since fresh state is its remedy. The optimizer keeps the
+        tensors it is given: pass a copy of a state to restore it twice."""
+        if self._cross_driver is not None:
+            self._cross_driver.supersede()
+        self._model.load_state_dict(state["model"])
+        self._inner().load_state_dict(state["optimizer"])
+        self.step_count = int(state.get("step_count", self.step_count))
+        self._accum = None
+
     # ------------------------------------------------------------ PS mode
 
-    def _init_ps(self, gs, optimizer, partition_bytes,
-                 backward_passes_per_step, compression, min_compress_bytes,
-                 name) -> None:
+    def _init_ps(self, gs, optimizer, partition_bytes, compression,
+                 min_compress_bytes, name) -> None:
         if gs is None or gs.ps_backend is None:
             raise RuntimeError("BPS_ENABLE_PS: call bps.init() first; it "
                                "builds the parameter-server backend")
-        if backward_passes_per_step != 1:
-            raise NotImplementedError(
-                f"backward_passes_per_step > 1 in PS mode {_NOT_PORTED}")
         from .server.ps_mode import PSGradientExchange
         cfg = gs.config
         # the JAX tree's flatten order: dotted names sorted by path
-        self._ps_params = sorted(self.model.named_parameters(),
+        self._ps_params = sorted(self._model.named_parameters(),
                                  key=lambda kv: kv[0].split("."))
+        self._ps_index = {p: i for i, (_, p) in enumerate(self._ps_params)}
         if name is None:
             sig = "|".join(f"{n}:{tuple(p.shape)}:{p.dtype}"
                            for n, p in self._ps_params)
@@ -195,31 +343,269 @@ class DistributedTrainer:
             watchdog_sec=cfg.watchdog_sec, compress=cfg.compress,
             device=self.device)
         gs.exchanges.append(self.ps_exchange)
-        self.tx = optimizer          # the plain inner optimizer
+        self._tx = optimizer          # the plain inner optimizer
+        # the overlap schedule, read where the JAX trainer reads it
+        # (byteps_tpu/training.py:254-290): none changes a number
+        self._apply_chunked = os.environ.get("BPS_APPLY_CHUNKED", "1") != "0"
+        self._bwd_staged = os.environ.get("BPS_BWD_STAGED", "1") != "0"
+        self._bwd_groups = int(os.environ.get("BPS_BWD_GROUPS", "0") or 0)
+        if self._bwd_groups < 0:
+            raise ValueError(f"BPS_BWD_GROUPS={self._bwd_groups}: expected "
+                             f"0 (one feed batch a bucket group, capped as "
+                             f"in the JAX package) or a positive cap")
+        self._cross_step = os.environ.get("BPS_CROSS_STEP", "1") != "0"
+        self._accum = None
+        self._chunked = None          # built at the first streamed step
+        self._stager = None
+        self._head = None             # the staged backward's feed, if any
+        self._gate_fn = None          # the cross step's forward gate
+        self._gates = None
+        # the hooks hold the trainer weakly: the model keeps no trainer
+        # alive, and dropping the trainer frees the model without the
+        # cycle collector
+        me = weakref.ref(self)
+        if self._staged_route():
+            def landed(p):
+                tr = me()
+                if tr is not None:
+                    tr._grad_landed(p)
 
-    def _ps_step(self) -> None:
-        """Exchange the gradients through the server, copy the sum back
-        to the card, step the inner optimizer."""
-        grads = []
-        for n, p in self._ps_params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            grads.append((n, p.grad))
+            for _, p in self._ps_params:
+                if p.requires_grad:
+                    p.register_post_accumulate_grad_hook(landed)
+            if self._cross_step:
+                from .torch.cross_barrier import ForwardGates
+
+                def wait(params):
+                    tr = me()
+                    if tr is not None:
+                        tr._gate_wait(params)
+
+                self._gates = ForwardGates(
+                    self._model, [p for _, p in self._ps_params], wait)
+        # bps.shutdown() closes the exchange: in-flight tails end first
+
+        def join_tails():
+            tr = me()
+            if tr is not None:
+                tr._join_tails()
+
+        self.ps_exchange.add_close_hook(join_tails)
+
+    def _staged_route(self) -> bool:
+        return (self._apply_chunked and self._bwd_staged
+                and self.backward_passes_per_step == 1)
+
+    def _join_tails(self) -> None:
+        if self._cross_driver is not None:
+            self._cross_driver.join()
+
+    # ------------------------------------------------------------ head
+
+    def _grad_landed(self, p) -> None:
+        """Post-accumulate hook (autograd's device thread): hand the
+        finished gradient to the staged backward's feed, with the event
+        of the stream that produced it; the gradient leaves ``p.grad``."""
+        feed = self._head
+        if feed is None:
+            return
+        g = p.grad
+        p.grad = None
+        ev = None
+        if g.is_cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(g.device))
+        feed.landed(self._ps_index[p], g, ev)
+
+    def _gate_wait(self, params) -> None:
+        gate = self._gate_fn
+        if gate is not None:
+            gate([self._ps_index[p] for p in params])
+
+    def _feed_batches(self) -> List[List[int]]:
+        groups = [list(g) for g in self._chunked.groups]
+        cap = self._bwd_groups or max(
+            2, min(16 if self._cross_step else 8, len(groups)))
+        return _runs(groups, cap)
+
+    def _staged_backward(self, batch, handle, gate=None) -> torch.Tensor:
+        """Forward and backward with the gradients fed to ``handle`` as
+        they land; ``gate`` holds each module's forward for the leaves it
+        reads (cross steps). Aborts the round on a failure."""
+        feed = _HeadFeed(handle, self._feed_batches())
+        pushed = get_registry().counter("ps/push_bytes")
+        before = pushed.value
+        self._gate_fn = gate
+        self._head = feed
+        try:
+            try:
+                loss = self._loss_fn(self._model, batch)
+                loss.backward()
+            finally:
+                self._head = None
+                self._gate_fn = None
+            # bytes that reached the wire before the backward ended
+            get_registry().counter("ps/push_bytes_in_backward").inc(
+                pushed.value - before)
+            feed.flush([p for _, p in self._ps_params])
+            handle.finish()
+        except BaseException as exc:
+            handle.abort(exc)        # wake the tail's consumer
+            raise
+        return loss.detach()
+
+    # ------------------------------------------------------------ tail
+
+    def _ensure_streamed_tail(self) -> None:
+        """First streamed step: the exchange's bucket groups, the chunked
+        apply (or the probe's verdict that the optimizer is coupled) and
+        the H2D stager."""
+        if self._chunked is not None:
+            return
+        from .staging import H2DStager
+        groups = self.ps_exchange.leaf_groups(self._ps_params,
+                                              name=self._name)
+        self._chunked = ChunkedApply(self._tx,
+                                     [p for _, p in self._ps_params], groups)
+        self._stager = H2DStager(self.device)
+
+    def _ps_step_streamed(self, grads=None, handle=None) -> None:
+        """The streamed tail: each leaf goes to the card as it lands, the
+        optimizer applies per group as the group completes (a coupled
+        optimizer keeps one fused step at the end). ``handle``: the staged
+        head's ingest round; otherwise ``grads`` start a streaming one."""
+        self._ensure_streamed_tail()
+        chunked, stager = self._chunked, self._stager
+        t_ex = time.time()
+        if handle is None:
+            handle = self.ps_exchange.exchange_stream(
+                [(n, g) for (n, _), g in zip(self._ps_params, grads)],
+                name=self._name, host_alloc=stager.host_alloc)
+        hyper = chunked.hyper()
+        shapes = [tuple(p.shape) for _, p in self._ps_params]
+        landed: dict = {}
+        remaining = [len(g) for g in chunked.groups]
+        applied = 0
+        try:
+            for li, arr in handle.ready():
+                landed[li] = stager.copy(arr, shapes[li])
+                if not chunked.decomposable:
+                    continue
+                gi = chunked.leaf_group[li]
+                remaining[gi] -= 1
+                if remaining[gi] == 0:
+                    items = [landed.pop(i) for i in chunked.groups[gi]]
+                    chunked.apply_group(gi, [t for t, _ in items], hyper,
+                                        [e for _, e in items if e is not None])
+                    applied += 1
+            if not chunked.decomposable:
+                items = [landed.pop(i) for i in range(len(shapes))]
+                chunked.apply_fused([t for t, _ in items],
+                                    [e for _, e in items if e is not None])
+        except BaseException as e:
+            if applied:
+                # the chunked tail is not atomic like the fused one: a
+                # retried step would apply the early groups twice
+                raise RuntimeError(
+                    f"streamed PS step failed after {applied}/"
+                    f"{len(chunked.groups)} optimizer groups applied — "
+                    f"parameters and optimizer state are PARTIALLY stepped; "
+                    f"do not retry this step on the same trainer (install "
+                    f"fresh state with load_state_dict, or run with "
+                    f"BPS_APPLY_CHUNKED=0 for an all-or-nothing tail)") from e
+            raise
+        finally:
+            observe_stage("PS_PUSH_PULL", time.time() - t_ex)
+
+    def _ps_step_mono(self, grads) -> None:
+        """The monolithic tail (``BPS_APPLY_CHUNKED=0``): exchange every
+        bucket, copy the sums back into the gradients, step once."""
         t0 = time.time()
-        summed = self.ps_exchange.exchange(grads, name=self._name)
+        summed = self.ps_exchange.exchange(
+            [(n, g) for (n, _), g in zip(self._ps_params, grads)],
+            name=self._name)
         observe_stage("PS_PUSH_PULL", time.time() - t0)
         t0 = time.time()
         with torch.no_grad():
-            for (_, g), s in zip(grads, summed):
+            for (_, p), g, s in zip(self._ps_params, grads, summed):
                 g.copy_(torch.from_numpy(s).view_as(g), non_blocking=False)
+                p.grad = g
         observe_stage("PS_H2D", time.time() - t0)
-        self.tx.step()
-        self.tx.zero_grad(set_to_none=True)
+        self._tx.step()
+        self._tx.zero_grad(set_to_none=True)
+
+    def _take_grads(self) -> list:
+        """The gradients of the backward that just ran, in the tree's
+        order (zeros where none came), taken off the parameters."""
+        grads = []
+        for _, p in self._ps_params:
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            p.grad = None
+            grads.append(g)
+        return grads
+
+    def _accumulate(self, grads):
+        """The running mean over the ``backward_passes_per_step`` window,
+        in the JAX package's order of operations (``acc + (g - acc) / n``
+        in fp32, ``byteps_tpu/training.py:438-457``), kept on the card.
+        None mid-window; the mean at the window's end."""
+        k = self.backward_passes_per_step
+        i = self.step_count % k
+        self.step_count += 1
+        if k == 1:
+            return grads
+        if i == 0:
+            self._accum = grads
+        else:
+            with torch.no_grad():
+                # a divisor on the device: CUDA divides by a host scalar
+                # as a product with its reciprocal, which can round apart
+                # from numpy's quotient
+                self._accum = [a + (g - a) / torch.tensor(
+                                   i + 1, dtype=a.dtype, device=a.device)
+                               for a, g in zip(self._accum, grads)]
+        if i + 1 < k:
+            return None
+        out, self._accum = self._accum, None
+        return out
+
+    def _ps_step(self, batch) -> torch.Tensor:
+        if self._staged_route():
+            self._ensure_streamed_tail()
+            self.step_count += 1
+            if self._cross_driver is not None:
+                return self._cross_driver.step(batch)
+            handle = self.ps_exchange.exchange_ingest(
+                self._ps_params, name=self._name, step=self.step_count,
+                host_alloc=self._stager.host_alloc)
+            loss = self._staged_backward(batch, handle)
+            self._ps_step_streamed(handle=handle)
+            if (self._cross_step and self._chunked.decomposable
+                    and self._gates.learn()):
+                # the first forward showed which modules run: engage the
+                # pipeline from the next step on
+                from .cross_step import CrossStepDriver
+                self._cross_driver = CrossStepDriver(
+                    self, [self._ps_index[p] for p in self._gates.ungated])
+            return loss
+        loss = self._loss_fn(self._model, batch)
+        loss.backward()
+        grads = self._accumulate(self._take_grads())
+        if grads is not None:
+            if self._apply_chunked:
+                self._ps_step_streamed(grads)
+            else:
+                self._ps_step_mono(grads)
+        return loss.detach()
 
     def close(self) -> None:
-        """Stop the PS exchange's threads (``bps.shutdown()`` does too)."""
-        if self.ps_exchange is not None:
-            self.ps_exchange.close()
+        """Join the tails, then stop the PS exchange's threads
+        (``bps.shutdown()`` does too); raises a tail's failure."""
+        try:
+            self._drain_pipeline()
+        finally:
+            if self.ps_exchange is not None:
+                self.ps_exchange.close()
 
     # ---------------------------------------------------------------- step
 
@@ -228,13 +614,11 @@ class DistributedTrainer:
         returns the loss averaged over the data-parallel group (in PS mode
         this process's loss), detached and still on the device."""
         batch = _to_device(batch, self.device)
-        loss = self._loss_fn(self.model, batch)
-        loss.backward()
         if self.ps_exchange is not None:
-            self._ps_step()
-            self.step_count += 1
-            return loss.detach()
-        self.tx.step()
+            return self._ps_step(batch)
+        loss = self._loss_fn(self._model, batch)
+        loss.backward()
+        self._tx.step()
         self.step_count += 1
         loss = loss.detach()
         n = dp_size(self.group)

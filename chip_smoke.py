@@ -178,7 +178,20 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          ``ps/d2h_bytes`` must read the payload sizes, under 0.3 x the
          dense gradient bytes. Then one step's real gradient buckets,
          encoded through the kernels and through their plain versions,
-         must agree bit for bit: payload, scale and new residual.
+         must agree bit for bit: payload, scale and new residual. Those
+         runs take the default route (the staged head, the streamed tail,
+         the cross-step driver): the push bytes sent before the backward
+         ended and the PS_APPLY_CHUNK / PS_XSTEP_GATE spans are printed;
+         then, in turn on a fresh server, the monolithic route
+         (``BPS_APPLY_CHUNKED=0``) on the same weights and batch must end
+         its 3 steps with the same parameters bit for bit, push step 1's
+         payloads with the same bytes and launch the same kernels as often;
+         each route's steps 2-3 (the last tail drained) are printed beside
+         the card. ``bert_large_ps_int8_accum2``: ``backward_passes_per_step
+         =2``, 4 micro-steps on two batches, the launches of 4 forwards and
+         backwards and 2 rounds of codecs, step 1's loss the dense run's,
+         and the exchanged means of two leaves bit for bit numpy's running
+         mean (``check_running_mean`` first holds the card's at k 3).
        - T5-small seq2seq (``t5_small()``: 6 + 6 layers x 512 x 8 heads of
          64, vocab 32000, relative position tables, 32 buckets), source
          1024, target 513 (the decoder sees 512): 72 table-form forward
@@ -314,6 +327,16 @@ the controls again before HYBRID_GRAD_TOL moves.
 prints only where the PS API's fp8 tree path spends its time beside the
 trainer's exchange of the same BERT-large gradients (``ps_profile``).
 
+    python3 chip_smoke.py --ps-routes [CODEC ...]
+
+runs only BERT-large through ``DistributedTrainer`` in PS mode under each
+CODEC (default int8 and fp8_e4m3) on four routes in turns (the default,
+``BPS_CROSS_STEP=0``, ``BPS_BWD_STAGED=0``, ``BPS_APPLY_CHUNKED=0``): each
+route's steps 2-3 with the last tail drained, its host stage sums, every
+thread group's CPU seconds over those steps and a 2 ms stack sampler over
+step 3 (``ps_routes``). Prints ``{"ps_routes": ...}``, also written to
+``chiprun_out/ps_routes.json``, the card line and the same last line.
+
     python3 chip_smoke.py --world 2
 
 runs only the BytePS API and the compressed rs exchange over 2 cards (one
@@ -345,6 +368,7 @@ from __future__ import annotations
 import bisect
 import contextlib
 import ctypes
+import hashlib
 import json
 import math
 import re
@@ -2204,6 +2228,7 @@ def profile_step(trainer, data, tag):
                  acc_events=True) as prof:
         t = time.perf_counter()
         trainer.step(data)
+        _drain(trainer)     # the step's own tail, on the cross-step route
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     # device work only: user annotations ("Optimizer.step#...") also ride
@@ -2282,10 +2307,17 @@ def range_ms(events, kernels, names=RANGES):
     return out
 
 
+def _drain(trainer):
+    """Join a PS trainer's cross-step tails (a no-op elsewhere)."""
+    drain = getattr(trainer, "drain", None)
+    if drain is not None:
+        drain()
+
+
 def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
              compression=None, naive_cfg=None, more_steps=STEPS,
              model_cls=None, tokens_per_sample=None, mesh=None,
-             batch=TRAIN_BATCH):
+             batch=TRAIN_BATCH, setup=None, after_counted=None):
     """Train ``STEPS`` steps through ``DistributedTrainer`` (with a
     ``mesh``: ``ShardedTrainer`` on it, the global batch ``data``) with
     every launch counter zeroed just before and read just after; check finite
@@ -2297,7 +2329,10 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
     (launches, trainer, losses, metrics): ``metrics`` is the
     port's metrics registry over the counted steps (the parameter-server
     path's byte counters and stage times). The run's step time, rates,
-    peak memory and profiled step go to ``SUMMARY[tag]``."""
+    peak memory and profiled step go to ``SUMMARY[tag]``. ``setup(trainer)``
+    runs before the first step, ``after_counted(trainer, times, drain_s)``
+    after the counted ones (a PS trainer's cross-step tails drained, in
+    ``drain_s`` seconds, before the counts are read)."""
     from byteps_tpu_torch.models.flops import mfu
     from byteps_tpu_torch.models.transformer import Transformer
     from byteps_tpu_torch.obs.metrics import get_registry
@@ -2322,6 +2357,8 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
     n_params = sum(p.numel() for p in trainer.model.parameters())
     log(f"[{tag}] {n_params / 1e6:.1f}M params on {trainer.device}, built "
         f"in {time.perf_counter() - t0:.1f} s")
+    if setup is not None:
+        setup(trainer)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2335,9 +2372,14 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
         losses.append(loss.item())
+    t = time.perf_counter()
+    _drain(trainer)
+    drain_s = time.perf_counter() - t
     launches = read_counts(ctr)
     metrics = get_registry().snapshot()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if after_counted is not None:
+        after_counted(trainer, times, drain_s)
 
     def rates(step_s):
         sps = batch / step_s
@@ -2349,9 +2391,18 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
                 + ("not known for this card" if util is None
                    else f"{util:.4f}"))
 
+    # a cross-step trainer's step returns before its tail ran, and the
+    # next step waits for it: its steps 2-3 count whole, the last tail
+    # drained
+    piped = getattr(trainer, "_cross_driver", None) is not None
+    counted_s = ((sum(times[1:]) + drain_s) / (len(times) - 1) if piped
+                 else min(times[1:]))
     log(f"[{tag}] losses {losses}")
-    log(f"[{tag}] step times s {times}; peak memory {peak_gb:.2f} GB; "
-        f"fastest of steps 2-3: {rates(min(times[1:]))}")
+    log(f"[{tag}] step times s {times}" + (f", the last tail drained in "
+                                           f"{drain_s:.3f} s" if piped else "")
+        + f"; peak memory {peak_gb:.2f} GB; "
+        + ("steps 2-3 a step: " if piped else "fastest of steps 2-3: ")
+        + rates(counted_s))
     log(f"[{tag}] kernel launches in the {STEPS} steps: {launches}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{tag}: non-finite loss: {losses}")
@@ -2369,10 +2420,11 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
         trainer.step(data)
         torch.cuda.synchronize()
         more.append(time.perf_counter() - t)
+    _drain(trainer)
     if more:
         log(f"[{tag}] steps {STEPS + 1}-{STEPS + more_steps} s {more}: "
             f"median {rates(statistics.median(more))}")
-    step_s = statistics.median(more) if more else min(times[1:])
+    step_s = statistics.median(more) if more else counted_s
     SUMMARY[tag] = {"step_ms": step_s * 1e3,
                     "samples_per_s": batch / step_s,
                     "mfu": mfu(batch / step_s, flops_per_sample),
@@ -2801,9 +2853,72 @@ def check_ps_encode(trainer, loss_fn, data, tag):
         "the kernels and through their plain versions")
 
 
+class _StepOnePayloads:
+    """A digest of each PS key's first pushed payload (step 1's) by
+    wrapping the backend's pushes; ``by_bucket(ex)`` lists them in bucket
+    order, so two trainers' keys compare."""
+
+    def __init__(self, backend):
+        self.backend, self.digests = backend, {}
+        self.orig = {n: getattr(backend, n)
+                     for n in ("push", "push_fused", "push_bytes")
+                     if hasattr(backend, n)}
+        for name, fn in self.orig.items():
+            setattr(self.backend, name, self._wrap(fn))
+
+    def _wrap(self, fn):
+        def push(key, data, *a, **kw):
+            if key not in self.digests:
+                self.digests[key] = hashlib.sha1(memoryview(data)).hexdigest()
+            return fn(key, data, *a, **kw)
+        return push
+
+    def by_bucket(self, ex):
+        (_, keyed), = ex._plans.values()
+        return [self.digests.get(pskey) for pskey, _ in keyed]
+
+    def remove(self):
+        for name, fn in self.orig.items():
+            setattr(self.backend, name, fn)
+
+
+def _param_digests(trainer):
+    """A digest of each parameter's bytes (the tails drained first)."""
+    return {n: hashlib.sha1(p.detach().cpu().numpy()).hexdigest()
+            for n, p in trainer.model.named_parameters()}
+
+
+def _route_ms(times, drain_s):
+    """Steps 2-3 of a counted run, the last tail drained, a step."""
+    return (sum(times[1:]) + drain_s) / (len(times) - 1) * 1e3
+
+
+def _log_overlap(tag, metrics, steps):
+    """The default route's own readings: bytes on the wire before the
+    backward ended, the per-group applies and the cross-step gate."""
+    stages = {k[6:]: v for k, v in metrics.items() if k.startswith("stage/")}
+    inb = metrics.get("ps/push_bytes_in_backward", 0)
+    pushed = metrics["ps/push_bytes"]
+    log(f"[{tag}] per step: ps/push_bytes_in_backward {inb / steps:.0f} of "
+        f"ps/push_bytes {pushed / steps:.0f} ({inb / max(pushed, 1):.4f} of "
+        f"the pushed bytes left before the backward ended)")
+    for name in ("PS_APPLY_CHUNK", "PS_XSTEP_GATE", "PS_H2D",
+                 "PS_PUSH_PULL"):
+        v = stages.get(name, {"count": 0, "sum_ms": 0.0})
+        log(f"[{tag}] span {name}: {v['count']} over {steps} steps, "
+            f"{v['sum_ms']:.1f} ms summed")
+    return inb / steps
+
+
 def train_bert_ps(codec, dense_losses, step2_misses):
     """BERT-large through the parameter-server path under ``BPS_COMPRESS=
-    codec``: the same model, weights and batch as the dense BERT run."""
+    codec``: the same model, weights and batch as the dense BERT run, on
+    the default route (staged head, streamed tail, cross-step driver);
+    then in turn the monolithic route (``BPS_APPLY_CHUNKED=0``) on the
+    same weights and batch, which must end its counted steps with the
+    default route's parameters bit for bit, push step 1's payloads with
+    the same bytes, and launch the same kernels as often. Returns both
+    routes' launches."""
     import os
 
     import byteps_tpu_torch as bps
@@ -2820,6 +2935,19 @@ def train_bert_ps(codec, dense_losses, step2_misses):
             w["fp8_sr_quantize"] = STEPS * nc
         return w
 
+    turn = {}
+
+    def setup(trainer):
+        turn["payloads"] = _StepOnePayloads(trainer.ps_exchange.backend)
+
+    def after_counted(trainer, times, drain_s):
+        turn["payloads"].remove()
+        turn["payload_digests"] = turn["payloads"].by_bucket(
+            trainer.ps_exchange)
+        turn["params"] = _param_digests(trainer)
+        turn["ms"] = _route_ms(times, drain_s)
+        turn["cross"] = trainer._cross_driver is not None
+
     env = {"BPS_ENABLE_PS": "1", "BPS_COMPRESS": codec}
     old = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
@@ -2828,7 +2956,8 @@ def train_bert_ps(codec, dense_losses, step2_misses):
         # no steps past the counted window but the profiled one: the PS
         # step is host-bound and long (steps 2-3 give its time)
         launches, trainer, losses, metrics = run_path(
-            tag, cfg, loss_fn, data, fps, want, more_steps=0)
+            tag, cfg, loss_fn, data, fps, want, more_steps=0, setup=setup,
+            after_counted=after_counted)
         ex = trainer.ps_exchange
         nc, nb = ex.n_compressed(), len(next(iter(ex._plans.values()))[1])
         dense_bytes = 4 * sum(p.numel() for p in trainer.model.parameters())
@@ -2844,6 +2973,10 @@ def train_bert_ps(codec, dense_losses, step2_misses):
             "(summed over buckets and pipeline threads): " + ", ".join(
                 f"{k} {v['sum_ms']:.1f} ms / {v['count']}"
                 for k, v in sorted(stages.items())))
+        in_bwd = _log_overlap(tag, metrics, STEPS)
+        if not turn["cross"] or not trainer._chunked.decomposable:
+            raise AssertionError(f"{tag}: the default route did not engage "
+                                 "the chunked apply and the cross-step driver")
         if not d2h < 0.3 * dense_bytes:
             raise AssertionError(f"{tag}: {d2h} bytes a step crossed to the "
                                  "host, not the payloads alone")
@@ -2859,7 +2992,12 @@ def train_bert_ps(codec, dense_losses, step2_misses):
         check_ps_encode(trainer, loss_fn, data, tag)
         del trainer
         torch.cuda.empty_cache()
-        return launches
+        mono = _ps_monolithic_turn(tag, cfg, loss_fn, data, launches, losses,
+                                   turn)
+        SUMMARY[tag].update({"route_ms": turn["ms"],
+                             "monolithic_route_ms": SUMMARY[tag + " =0"],
+                             "push_bytes_in_backward": in_bwd})
+        return launches, mono
     finally:
         bps.shutdown()
         for k, v in old.items():
@@ -2867,6 +3005,171 @@ def train_bert_ps(codec, dense_losses, step2_misses):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def _ps_monolithic_turn(tag, cfg, loss_fn, data, launches, losses, default):
+    """The monolithic route (``BPS_APPLY_CHUNKED=0``) on the weights and
+    batch the default route just trained: ``STEPS`` steps with every count
+    zeroed before; the launches, the losses, step 1's payload digests and
+    the parameters after the steps must be the default route's."""
+    import os
+
+    import byteps_tpu_torch as bps
+    # a fresh server and registry: the trainer's keys, and with them the
+    # fp8 noise seeds, are the default route's
+    bps.shutdown()
+    bps.init()
+    os.environ["BPS_APPLY_CHUNKED"] = "0"
+    try:
+        trainer = _ps_trainer(cfg, loss_fn)
+    finally:
+        os.environ.pop("BPS_APPLY_CHUNKED")
+    payloads = _StepOnePayloads(trainer.ps_exchange.backend)
+    torch.cuda.synchronize()
+    ctr = counters()
+    zero_counts(ctr)
+    got, times = [], []
+    try:
+        for _ in range(STEPS):
+            loss, dt = _timed_step(trainer, data)
+            got.append(loss)
+            times.append(dt)
+    finally:
+        payloads.remove()
+    mono = read_counts(ctr)
+    ms = _route_ms(times, 0.0)
+    SUMMARY[tag + " =0"] = ms
+    digests = payloads.by_bucket(trainer.ps_exchange)
+    params = _param_digests(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    same_params = params == default["params"]
+    same_payloads = digests == default["payload_digests"] \
+        and None not in digests
+    log(f"[{tag}] routes in turns, steps 2-3 a step (the last tail "
+        f"drained): default {default['ms']:.1f} ms, BPS_APPLY_CHUNKED=0 "
+        f"{ms:.1f} ms ({card_line()}); =0 losses {got}")
+    log(f"[{tag}] after {STEPS} steps the parameters of the two routes: "
+        f"{'bit for bit' if same_params else 'DIFFERENT'}; step 1's "
+        f"{len(digests)} payloads: "
+        f"{'the same bytes' if same_payloads else 'DIFFERENT'}; "
+        f"launches {'the same' if mono == launches else 'DIFFERENT'}")
+    if not same_params or not same_payloads or got != losses:
+        raise AssertionError(f"{tag}: the monolithic route differs from the "
+                             "default route on the same weights and batch")
+    if mono != launches:
+        raise AssertionError(f"{tag}: launches {mono} on the monolithic "
+                             f"route, {launches} on the default route")
+    return mono
+
+
+# the running mean of PS accumulation on the card: the JAX package's
+# acc + (g - acc) / n, checked at n = 2 and 3 against numpy on the same
+# gradients (CUDA divides by a host scalar as a product with its
+# reciprocal, which can round apart from numpy's quotient)
+ACCUM_K, ACCUM_MICRO = 2, 4
+
+
+class _Window:
+    def __init__(self, k):
+        self.backward_passes_per_step, self.step_count, self._accum = k, 0, None
+
+
+def _running_mean_np(gs):
+    acc = gs[0]
+    for n, g in enumerate(gs[1:], 2):
+        acc = acc + (g - acc) / n
+    return acc
+
+
+def check_running_mean():
+    """``DistributedTrainer._accumulate`` on the card at k = 3 (the divisor
+    3 is not a power of two) against numpy's running mean, bit for bit."""
+    from byteps_tpu_torch.training import DistributedTrainer
+    rng = np.random.RandomState(11)
+    gs = [(rng.randn(1 << 20) * 10.0 ** e).astype(np.float32)
+          for e in (-2, 1, 3)]
+    w = _Window(3)
+    res = None
+    for g in gs:
+        res = DistributedTrainer._accumulate(w, [torch.from_numpy(g).cuda()])
+    got = res[0].cpu().numpy()
+    want = _running_mean_np(gs)
+    same = got.tobytes() == want.tobytes()
+    log(f"[accumulate] running mean of 3 gradients of 2^20 floats on the "
+        f"card vs numpy: {'bit for bit' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("the running mean on the card differs from the "
+                             "JAX package's order of operations in numpy")
+
+
+def train_bert_ps_accum(dense_losses):
+    """BERT-large PS int8 with ``backward_passes_per_step=2``: ACCUM_MICRO
+    micro-steps on two batches in turn, one exchange a window through the
+    streamed tail (the staged head stays off): the flash launches of every
+    micro-step, the codec launches of ACCUM_MICRO / ACCUM_K rounds, step
+    1's loss the dense run's, and at each window's end the exchanged mean
+    of two leaves bit for bit numpy's running mean of the same
+    gradients."""
+    from byteps_tpu_torch.models import bert
+    cfg, loss_fn, data, _ = _bert_setup()
+    tag = "bert_large ps int8 accum2"
+    check_running_mean()
+    other = bert.synth_mlm_batch(np.random.RandomState(1), TRAIN_BATCH,
+                                 BERT_SEQ, cfg.vocab_size)
+    attn = _attention_launches(cfg, ("flash_bwd_fused",))
+    with _ps_world({"BPS_COMPRESS": "int8"}):
+        trainer = _ps_trainer(cfg, loss_fn,
+                              backward_passes_per_step=ACCUM_K)
+        names = ("embed.pos", "blocks.ln1.scale")
+        idx = [i for i, (n, _) in enumerate(trainer._ps_params)
+               if n in names]
+        seen, accumulate = [], trainer._accumulate
+
+        def recording(grads):
+            gin = [grads[i].detach().cpu().numpy() for i in idx]
+            out = accumulate(grads)
+            seen.append((gin, None if out is None else
+                         [out[i].detach().cpu().numpy() for i in idx]))
+            return out
+
+        trainer._accumulate = recording
+        torch.cuda.synchronize()
+        ctr = counters()
+        zero_counts(ctr)
+        losses, times = [], []
+        for i in range(ACCUM_MICRO):
+            loss, dt = _timed_step(trainer, data if i % 2 == 0 else other)
+            losses.append(loss)
+            times.append(dt)
+        launches = read_counts(ctr)
+        nc = trainer.ps_exchange.n_compressed()
+        want = {k: v * ACCUM_MICRO // STEPS
+                for k, v in attn(trainer).items()}
+        want["int8_quantize"] = want["int8_dequantize"] = \
+            ACCUM_MICRO // ACCUM_K * nc
+        staged = trainer._staged_route()
+        del trainer
+    torch.cuda.empty_cache()
+    exact = []
+    for w in range(ACCUM_MICRO // ACCUM_K):
+        window = seen[w * ACCUM_K:(w + 1) * ACCUM_K]
+        out = window[-1][1]
+        for j in range(len(idx)):
+            want_mean = _running_mean_np([g[j] for g, _ in window])
+            exact.append(out[j].tobytes() == want_mean.tobytes())
+    log(f"[{tag}] losses {losses}; micro-step times s {times} "
+        f"({card_line()}); launches {launches}; the exchanged means of "
+        f"{names} at each window's end vs numpy: "
+        f"{'bit for bit' if all(exact) else 'DIFFERENT'}")
+    if staged or not all(exact) or losses[0] != dense_losses[0] \
+            or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{tag}: staged {staged}, exact {exact}, "
+                             f"losses {losses}")
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, expected {want}")
+    SUMMARY[tag] = {"micro_step_ms": [t * 1e3 for t in times]}
+    return launches
 
 
 # -------------------- compression on the PS side: chains, auto, watchdog
@@ -2907,7 +3210,7 @@ def _ps_world(env):
                 os.environ[k] = v
 
 
-def _ps_trainer(cfg, loss_fn, compression=None):
+def _ps_trainer(cfg, loss_fn, compression=None, **kw):
     """BERT-large from seed 0 through ``DistributedTrainer`` in PS mode,
     the metrics registry zeroed just before it is built."""
     from byteps_tpu_torch.models.transformer import Transformer
@@ -2919,12 +3222,15 @@ def _ps_trainer(cfg, loss_fn, compression=None):
     return DistributedTrainer(loss_fn, model, adamw(model.parameters(), 1e-4),
                               partition_bytes=PARTITION_BYTES,
                               compression=compression,
-                              min_compress_bytes=MIN_COMPRESS_BYTES)
+                              min_compress_bytes=MIN_COMPRESS_BYTES, **kw)
 
 
 def _timed_step(trainer, data):
+    """One whole step: on the cross-step route its tail too, so the
+    launches and the metrics read after it are the step's."""
     t = time.perf_counter()
     loss = trainer.step(data)
+    _drain(trainer)
     torch.cuda.synchronize()
     return loss.item(), time.perf_counter() - t
 
@@ -2939,31 +3245,65 @@ def _log_stages(tag, metrics, steps):
 
 
 class _FirstExchange:
-    """Keeps the first exchange's gradients, copied to the host just before
-    it, and its summed result, by wrapping ``PSGradientExchange.exchange``
-    (the wrapper adds a copy to step 1 and nothing to later steps)."""
+    """Keeps the first exchange's gradients, copied to the host as they
+    reach it, and its summed result: on the monolithic route by wrapping
+    ``PSGradientExchange.exchange``, on the default route the first
+    ingest round's ``feed`` and ``ready_iter`` (the wrappers add copies to
+    step 1 and nothing to later steps)."""
 
     def __init__(self):
-        from byteps_tpu_torch.server.ps_mode import PSGradientExchange
-        self.cls, self.orig = PSGradientExchange, PSGradientExchange.exchange
-        self.grads = self.out = None
+        from byteps_tpu_torch.server import ps_mode
+        ex_cls, rnd_cls = ps_mode.PSGradientExchange, ps_mode._Round
+        self.orig = [(ex_cls, "exchange", ex_cls.exchange),
+                     (ex_cls, "exchange_ingest", ex_cls.exchange_ingest),
+                     (rnd_cls, "feed", rnd_cls.feed),
+                     (rnd_cls, "ready_iter", rnd_cls.ready_iter)]
+        self.grads = self.out = self.first = None
         kept = self
+        exchange, ingest, feed, ready_iter = (f for _, _, f in self.orig)
 
-        def exchange(ex, tree, name=None):
+        def exchange_(ex, tree, name=None):
             tree = list(tree)
             first = kept.grads is None
             if first:
                 kept.grads = [t.detach().to("cpu", copy=True).numpy()
                               .reshape(-1) for _, t in tree]
-            out = kept.orig(ex, tree, name)
+            out = exchange(ex, tree, name)
             if first:
                 kept.out = [np.array(o, copy=True).reshape(-1) for o in out]
             return out
 
-        PSGradientExchange.exchange = exchange
+        def ingest_(ex, template, *a, **kw):
+            h = ingest(ex, template, *a, **kw)
+            if kept.grads is None:
+                kept.first = h.round_state
+                kept.grads = [None] * len(template)
+                kept.out = [None] * len(template)
+            return h
+
+        def feed_(rnd, leaf_ids, values, events=None):
+            if rnd is kept.first:      # autograd's thread, its own stream
+                for li, v in zip(leaf_ids, values):
+                    kept.grads[li] = v.detach().to("cpu", copy=True) \
+                        .numpy().reshape(-1)
+            return feed(rnd, leaf_ids, values, events)
+
+        def ready_iter_(rnd, timeout=None):
+            for li, arr in ready_iter(rnd, timeout):
+                if rnd is kept.first:
+                    kept.out[li] = np.array(arr, copy=True).reshape(-1)
+                yield li, arr
+            if rnd is kept.first:
+                kept.first = None
+
+        for (cls, name, _), fn in zip(self.orig, (exchange_, ingest_, feed_,
+                                                  ready_iter_)):
+            setattr(cls, name, fn)
 
     def restore(self):
-        self.cls.exchange = self.orig
+        for cls, name, fn in self.orig:
+            setattr(cls, name, fn)
+        self.first = None
 
 
 def replay_chains(ex, grads, kwargs):
@@ -5255,6 +5595,75 @@ class _Sampler:
                 for g, c in self.counts.items()}
 
 
+PS_ROUTES = (("default", {}), ("draining", {"BPS_CROSS_STEP": "0"}),
+             ("unstaged", {"BPS_BWD_STAGED": "0"}),
+             ("monolithic", {"BPS_APPLY_CHUNKED": "0"}))
+
+
+def ps_routes(codecs=("int8", "fp8_e4m3")) -> int:
+    """``--ps-routes``: the PS step's routes in turns, per codec, on
+    BERT-large at the dense run's weights and batch (each route a fresh
+    server, so its keys and fp8 noise are the others'): 3 steps, the
+    first one warm; over steps 2-3 (the last tail drained) the wall time,
+    the host stage sums (``stage/PS_*``) and each thread group's CPU
+    seconds (``/proc/self/task``); step 3 again under a 2 ms stack
+    sampler."""
+    import os
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.obs.metrics import get_registry
+    cfg, loss_fn, data, _ = _bert_setup()
+    out = {}
+    for codec in codecs:
+        for route, env in PS_ROUTES:
+            old = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            with _ps_world({"BPS_COMPRESS": codec}):
+                try:
+                    trainer = _ps_trainer(cfg, loss_fn)
+                finally:
+                    for k, v in old.items():
+                        if v is None:
+                            os.environ.pop(k, None)
+                        else:
+                            os.environ[k] = v
+                _timed_step(trainer, data)
+                get_registry().reset()
+                cpu0, t0 = _thread_cpu(), time.perf_counter()
+                for _ in range(2):
+                    trainer.step(data)
+                _drain(trainer)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                cpu1 = _thread_cpu()
+                stages = {k[6:]: round(v["sum_ms"], 1) for k, v in
+                          get_registry().snapshot().items()
+                          if k.startswith("stage/") and v["count"]}
+                with _Sampler() as smp:
+                    _timed_step(trainer, data)
+                del trainer
+            torch.cuda.empty_cache()
+            r = out.setdefault(codec, {})[route] = {
+                "step_ms": wall / 2 * 1e3, "stages_ms": stages,
+                "cpu_s": {g: round(cpu1[g] - cpu0.get(g, 0.0), 2)
+                          for g in cpu1 if cpu1[g] - cpu0.get(g, 0.0) > 0.05},
+                "sampler": smp.top(8)}
+            log(f"[ps routes {codec}] {route}: {r['step_ms']:.1f} ms a step "
+                f"(steps 2-3, the last tail drained; {card_line()}); "
+                f"CPU s by thread group {r['cpu_s']}; stages {stages}")
+            for g, top in r["sampler"].items():
+                log(f"[ps routes {codec}] {route} sampler {g}: {top[:4]}")
+    line = json.dumps({"ps_routes": out})
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "ps_routes.json").write_text(line + "\n")
+    print(line)
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def ps_profile(reps: int = 3, device: str = "cuda") -> int:
     """``--ps-profile``: where the PS API's fp8 tree path spends its time,
     beside the trainer's exchange, in one process on one card. BERT-large
@@ -5444,6 +5853,9 @@ def main() -> int:
         return world_rank(int(args[1]), int(args[2]), int(args[3]), args[4])
     if args[:1] == ["--world"]:
         return world_main(int(args[1]))
+    if args[:1] == ["--ps-routes"]:
+        toolchain()
+        return ps_routes(tuple(args[1:]) or ("int8", "fp8_e4m3"))
     if args == ["--ps-profile"]:
         return ps_profile()
     if args == ["--hybrid-check"]:
@@ -5522,8 +5934,10 @@ def main() -> int:
         train_gpt2_long()
     step2_misses = []
     for codec in ("int8", "fp8_e4m3"):
-        paths[f"bert_large_ps_{codec}"] = train_bert_ps(codec, bert_losses,
-                                                        step2_misses)
+        paths[f"bert_large_ps_{codec}"], \
+            paths[f"bert_large_ps_{codec}_monolithic"] = \
+            train_bert_ps(codec, bert_losses, step2_misses)
+    paths["bert_large_ps_int8_accum2"] = train_bert_ps_accum(bert_losses)
     paths["bert_large_ps_onebit"] = train_bert_ps_onebit(bert_losses)
     paths["bert_large_ps_auto_live"], paths["bert_large_ps_auto_injected"] = \
         train_bert_ps_auto(bert_losses)

@@ -249,11 +249,10 @@ SUBORDINATE = {
 }
 # Knobs that need no refusal, with the reason.
 EXEMPT = {
-    # read by the JAX trainer outside its Config: they choose an overlap
-    # schedule of the PS step, not its numbers, and the port's monolithic
-    # tail is the JAX package's BPS_APPLY_CHUNKED=0 route
-    "apply_chunked": "an overlap schedule (BPS_APPLY_CHUNKED)",
-    "cross_step": "an overlap schedule (BPS_CROSS_STEP)",
+    # read by the JAX trainer outside its Config: the staged head's cache
+    # of compiled segment programs per batch signature. Eager PyTorch
+    # compiles no segments, so there is nothing to cache or bound
+    "staged_cache": "no compiled segments in eager mode (BPS_STAGED_CACHE)",
     # jax.distributed's process count and index; the port's process group
     # is num_worker / worker_id, which fall back to the same DMLC_ names
     "num_processes": "jax.distributed only",
@@ -300,6 +299,11 @@ ACTED_ON = {
     "BPS_FLIGHT_RECORDER": ("obs/flight.py",),
     "BPS_FLIGHT_RECORDER_SIZE": ("obs/flight.py",),
     "BPS_NATIVE_CODEC": ("ops/compression/host.py", "server/compressed.py"),
+    # the overlap schedule of the PS step (read when a trainer is built)
+    "BPS_APPLY_CHUNKED": ("training.py",),
+    "BPS_CROSS_STEP": ("training.py",),
+    "BPS_BWD_STAGED": ("training.py",),
+    "BPS_BWD_GROUPS": ("training.py",),
 }
 
 

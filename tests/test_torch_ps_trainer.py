@@ -223,9 +223,14 @@ def test_ps_trainer_needs_init_and_refuses_unported_options(monkeypatch):
     with pytest.raises(RuntimeError, match="bps.init"):
         DistributedTrainer(lambda m, b: 0, model, opt, device="cpu")
     bps.init(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # accumulation in PS mode, refused until it was ported, now takes the
+    # JAX package's running mean (test_torch_ps_overlap.py)
+    tt = DistributedTrainer(lambda m, b: 0, model, opt, device="cpu",
+                            backward_passes_per_step=2)
+    assert tt.backward_passes_per_step == 2 and not tt._staged_route()
+    with pytest.raises(ValueError, match="backward_passes_per_step"):
         DistributedTrainer(lambda m, b: 0, model, opt, device="cpu",
-                           backward_passes_per_step=2)
+                           backward_passes_per_step=0)
     # the legacy compression kwargs in PS mode, refused until they were
     # ported, now ride the declaration (test_torch_ps_legacy_compress.py)
     tt = DistributedTrainer(lambda m, b: 0, model, opt, device="cpu",

@@ -79,14 +79,16 @@ def _jax_ring(sp, impl, causal):
 @pytest.mark.parametrize("impl", ["flash", "naive"])
 @pytest.mark.parametrize("sp", SPS)
 def test_ring_over_gloo_matches_jax_rings(ranks, sp, impl, causal):
+    # the JAX references first: the ranks run meanwhile
+    refs = {jimpl: _jax_ring(sp, jimpl, causal) for jimpl in ("flash",
+                                                              "naive")}
     res = ranks[sp].result()
     tag = f"{impl}_{int(causal)}"
     out = np.concatenate([r[f"o_{tag}"] for r in res], axis=1)
     grads = [np.concatenate([r[f"d{n}_{tag}"] for r in res], axis=1)
              for n in "qkv"]
     loss = float((out.astype(np.float64) * (out + 1.0)).sum())
-    for jimpl in ("flash", "naive"):
-        jl, jo, jg = _jax_ring(sp, jimpl, causal)
+    for jimpl, (jl, jo, jg) in refs.items():
         np.testing.assert_allclose(loss, jl, rtol=1e-4, err_msg=jimpl)
         np.testing.assert_allclose(out, jo, rtol=2e-3, atol=2e-3,
                                    err_msg=jimpl)

@@ -103,8 +103,8 @@ def _jax_run(mesh_name, model):
 @pytest.mark.parametrize("model", ["bert", "gpt2"])
 @pytest.mark.parametrize("mesh_name", sorted(MESHES))
 def test_sharded_trainer_over_gloo_matches_jax(ranks, mesh_name, model):
+    jlosses, jparams = _jax_run(mesh_name, model)   # the ranks run meanwhile
     res = ranks[mesh_name].result()
-    jlosses, jparams = _jax_run(mesh_name, model)
     for r in res:
         np.testing.assert_allclose(r[f"{model}.losses"], jlosses, rtol=1e-5)
     for name, ref in jparams.items():

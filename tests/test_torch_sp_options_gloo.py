@@ -109,8 +109,8 @@ def _jax_run(name):
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_sharded_trainer_options_over_gloo_match_jax(ranks, name):
+    jlosses, jparams = _jax_run(name)       # the ranks run meanwhile
     res = ranks[name].result()
-    jlosses, jparams = _jax_run(name)
     c = CASES[name]
     for r in res:
         np.testing.assert_allclose(r["losses"], jlosses, rtol=1e-5)
