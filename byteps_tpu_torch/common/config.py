@@ -16,8 +16,13 @@ package, resolved once into a frozen ``Config``:
                              skip gradient compression)
   BYTEPS_ENABLE_ASYNC      → BPS_ENABLE_ASYNC    (not ported: raises)
   BYTEPS_ENABLE_PS         → BPS_ENABLE_PS       (the sync parameter-server
-                             path, in-process server at world 1)
-  BPS_SERVER_ADDRS         (standalone servers: not ported, raises)
+                             path: the in-process server at world 1, or
+                             standalone servers)
+  BPS_SERVER_ADDRS         (host:port,... of standalone servers, started
+                             with ``python -m byteps_tpu_torch.launcher.launch
+                             --server``; the worker's ``RemotePSBackend``,
+                             ``server/transport.py``; needed at
+                             BPS_NUM_WORKER > 1 in PS mode)
   BYTEPS_SERVER_ENGINE_THREAD → BPS_SERVER_ENGINE_THREAD
   BYTEPS_SERVER_ENABLE_SCHEDULE → BPS_SERVER_ENABLE_SCHEDULE
   BPS_COMPRESS             (the fused compression plane: none | auto |
@@ -29,7 +34,10 @@ package, resolved once into a frozen ``Config``:
                              above 1, as the JAX trainer does)
   BYTEPS_SCHEDULING_CREDIT → BPS_SCHEDULING_CREDIT (bytes of bucket
                              collectives in flight before the engine's
-                             synchronous push_pull waits; 0 = no limit)
+                             synchronous push_pull waits; 0 = no limit;
+                             with standalone servers also the wire credit
+                             of the transport's gradient frames,
+                             ``server/admission.py::SendScheduler``)
   BYTEPS_TELEMETRY_ON      → BPS_TELEMETRY_ON    (the push_pull MB/s
                              window behind ``get_pushpull_speed``)
   BYTEPS_DEBUG_SAMPLE_TENSOR → BPS_DEBUG_SAMPLE_TENSOR (push_pull names
@@ -50,6 +58,19 @@ cross-step driver, ``cross_step.py``) and ``BPS_BWD_GROUPS`` (a cap on the
 staged head's feed batches; default 0, the JAX package's cap).
 ``BPS_STAGED_CACHE`` sizes the JAX package's cache of compiled backward
 segments; eager PyTorch compiles none, and the port has no such cache.
+The remote transport (``server/transport.py``) reads its own knobs where
+they act: ``BPS_PS_CONNS`` (pooled connections a server, default 4),
+``BPS_RECONNECT_SECS`` (the redial budget of a dropped connection, default
+30; 0 = fail at once), ``BPS_PULL_TIMEOUT_MS`` (a pull's deadline, default
+30000) and, on the server, ``BPS_PUSH_DEDUP_TTL_SECS`` (how long a dead
+incarnation's dedup record lives, default 600); those it does not port
+raise at a non-default value where a client, a server or the launcher
+would read them (``transport.CLIENT_REFUSED``, ``SERVER_REFUSED``,
+``LAUNCHER_REFUSED``). The server process (``python -m
+byteps_tpu_torch.launcher.launch --server``) builds no ``Config``: it reads
+``BPS_SERVER_PORT`` (default 9090), ``BPS_NUM_WORKER``,
+``BPS_SERVER_ENGINE_THREAD`` and ``BPS_SERVER_ENABLE_SCHEDULE`` itself, as
+the JAX launcher does.
 
 The knobs of ``REFUSED`` select behaviour the port does not have yet:
 at their defaults they change nothing, and any other value raises
@@ -95,8 +116,13 @@ def _env_bool(name: str, legacy: Optional[str], default: bool = False) -> bool:
 # what a non-default value selects there)
 REFUSED = {
     "role": ("BPS_ROLE", "DMLC_ROLE", "worker", str,
-             "a server or scheduler process (the port runs workers, its "
-             "server in-process)"),
+             "a server or scheduler role in a worker's Config (the port's "
+             "server process is `python -m byteps_tpu_torch.launcher.launch "
+             "--server`, which builds no Config; there is no scheduler)"),
+    "plane_replicas": ("BPS_PLANE_REPLICAS", None, 0, int,
+                       "the managed server plane (replicated shards)"),
+    "emu_nic_rate": ("BPS_EMU_NIC_RATE", None, 0.0, float,
+                     "the emulated NIC of a worker"),
     "host_only": ("BPS_HOST_ONLY", None, False, bool,
                   "the host-only runtime"),
     "key_hash_fn": ("BPS_KEY_HASH_FN", "BYTEPS_KEY_HASH_FN", "djb2", str,

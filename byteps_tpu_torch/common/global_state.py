@@ -10,13 +10,18 @@ It holds the name registry that keeps keys stable, the ``PushPullEngine``
 behind ``bps.push_pull`` and, with ``BPS_TELEMETRY_ON``, the push_pull
 speed window (``byteps_tpu/common/global_state.py:110-118``). With
 ``BPS_ENABLE_PS`` (the sync parameter-server path) it also builds the
-in-process server backend and gives the engine the recipe of its
+server backend and gives the engine the recipe of its
 ``PSGradientExchange`` on its own device, as
-``byteps_tpu/common/global_state.py:193-218`` does; the engine builds
+``byteps_tpu/common/global_state.py:129-218`` does; the engine builds
 that exchange at its first use, so a run that trains through
-``DistributedTrainer`` alone holds only the trainer's.
-Standalone servers (``BPS_SERVER_ADDRS``) and the async path are not
-ported yet.
+``DistributedTrainer`` alone holds only the trainer's. The backend is the
+in-process server at world 1, or, with ``BPS_SERVER_ADDRS``, a
+``RemotePSBackend`` to standalone servers (``python -m
+byteps_tpu_torch.launcher.launch --server``), which any number of worker
+processes share: PS mode joins no process group, the workers meet only at
+the servers, and the engine divides the sums by ``BPS_NUM_WORKER``
+(``engine.ps_world``). The async path and the managed server plane are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -40,10 +45,6 @@ def check_ps_config(cfg: Config) -> None:
         raise NotImplementedError(
             f"the async parameter-server path (BPS_ENABLE_ASYNC) "
             f"{_NOT_PORTED}")
-    if cfg.enable_ps and cfg.server_addrs:
-        raise NotImplementedError(
-            f"standalone PS servers (BPS_SERVER_ADDRS, the remote "
-            f"transport) {_NOT_PORTED}")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -83,17 +84,28 @@ class GlobalState:
         self.ps_backend = None
         self.exchanges: list = []        # closed by shutdown()
         if config.enable_ps:
-            if config.num_worker > 1:
-                raise ValueError(
-                    "BPS_ENABLE_PS with BPS_NUM_WORKER>1 needs "
-                    "BPS_SERVER_ADDRS (standalone servers reachable by "
-                    "every worker) — a private in-process backend would "
-                    "wait forever for the other workers' pushes")
-            from ..server.engine import HostPSBackend
-            self.ps_backend = HostPSBackend(
-                num_servers=1, num_workers=config.num_worker,
-                engine_threads=config.server_engine_threads,
-                enable_schedule=config.server_enable_schedule)
+            # workers are independent processes; the cross-worker hop is
+            # the server: in process at world 1, over TCP otherwise
+            if config.server_addrs:
+                from ..server.admission import configure_send
+                from ..server.transport import RemotePSBackend
+                addrs = [a.strip() for a in config.server_addrs.split(",")
+                         if a.strip()]
+                configure_send(config.scheduling_credit)
+                self.ps_backend = RemotePSBackend(addrs)
+            else:
+                if config.num_worker > 1:
+                    raise ValueError(
+                        "BPS_ENABLE_PS with BPS_NUM_WORKER>1 needs "
+                        "BPS_SERVER_ADDRS (standalone servers reachable by "
+                        "every worker) — a private in-process backend "
+                        "would wait forever for the other workers' pushes")
+                from ..server.engine import HostPSBackend
+                self.ps_backend = HostPSBackend(
+                    num_servers=1, num_workers=config.num_worker,
+                    engine_threads=config.server_engine_threads,
+                    enable_schedule=config.server_enable_schedule)
+            self.engine.ps_world = config.num_worker
             # sync PS: the eager push_pull takes the host hop. The recipe
             # holds what it needs, not this state: a reference back would
             # keep the exchanges, and their residuals on the card, alive

@@ -22,12 +22,15 @@ loss. Signals:
                                  pick the layers an up-step applies to
 
 and the ladder is ``wire.LEVELS`` (none → fp16 → int8 → fp8_e4m3 → ...),
-clamped at ``max_level`` (``BPS_COMPRESS_MAX``). In this port at world 1
-the two counters move only when a caller raises them: the token-bucket
-pacer and the TCP transport that raise them in the JAX package are not
-ported (ROADMAP.md queue 1), so a live run reads the backlog gauge alone.
-The JAX controller can also take the backlog from a fleet scraper's
-maximum over the server shards; the fleet scraper
+clamped at ``max_level`` (``BPS_COMPRESS_MAX``). ``nic/stalls`` moves
+only when a caller raises it: the token-bucket pacer that raises it in the
+JAX package is not ported (ROADMAP.md queue 1). With the in-process server
+a live run reads the backlog gauge; with standalone servers
+(``BPS_SERVER_ADDRS``) the gauge lives in the server processes, so a
+worker's controller reads ``transport/resends`` alone (the remote
+transport raises it), as the JAX package's does until its fleet scraper
+brings the servers' backlog over. The JAX controller can take the backlog
+from a fleet scraper's maximum over the server shards; the fleet scraper
 (``BPS_FLEET_SCRAPE_SEC``) is refused in this port, so there is no such
 branch here.
 

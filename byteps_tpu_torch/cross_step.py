@@ -8,7 +8,10 @@ ByteScheduler design the reference ships as ``bps.CrossBarrier``).
 exact sync-SGD semantics:
 
   - step k's tail (pull -> H2D -> per-group optimizer apply) runs on a
-    background thread; after each group's apply is enqueued and its CUDA
+    background thread; the trainer's H2D stager divides each pulled sum by
+    the worker processes first, the JAX driver's ``/ world``
+    (``byteps_tpu/cross_step.py:74``); after each group's apply is
+    enqueued and its CUDA
     event recorded, ``ChunkedApply`` publishes the group's leaves in its
     per-leaf readiness EPOCH table;
   - step k+1's forward is gated per module by forward pre-hooks

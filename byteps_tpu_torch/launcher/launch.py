@@ -1,0 +1,100 @@
+"""The port's process launcher, its ``--server`` role (the port of
+``byteps_tpu/launcher/launch.py:76-165``; reference: ``python3 -c 'import
+byteps.server'``, launcher/launch.py).
+
+    python -m byteps_tpu_torch.launcher.launch --server
+
+runs a standalone host reduction server: the native summation engine
+(``server/engine.py::PSServer``) behind the TCP transport
+(``server/transport.py::PSTransportServer``) on ``BPS_SERVER_PORT``
+(default 9090; 0 picks a free port). It reads ``BPS_NUM_WORKER`` (the
+workers every round waits for; ``BPS_NUM_PROCESSES`` is the launcher-local
+spelling), ``BPS_SERVER_ENGINE_THREAD`` and ``BPS_SERVER_ENABLE_SCHEDULE``,
+as the JAX launcher does, and never builds a worker ``Config``. It prints
+``server up on :<port>`` to stderr once it accepts, so a caller that asked
+for port 0 learns the port, and runs until SIGTERM or SIGINT. The server
+touches no card.
+
+``BPS_SERVER_SNAPSHOT`` and ``BPS_NIC_RATE`` raise at a value other than
+their default (``transport.LAUNCHER_REFUSED``), as does ``BPS_ENABLE_ASYNC``
+(the async store). The worker half of the JAX launcher (exec of a training
+command, ``--numa``, the SSH fan-out, ``BPS_ENABLE_GDB``) is not ported
+(ROADMAP.md, queue 1, item 8).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import sys
+import threading
+from typing import List, Optional
+
+_NOT_PORTED = "is not ported yet (see ROADMAP.md, 'Modules still to port'"
+
+
+def _env_flag(env: dict, name: str) -> bool:
+    return env.get(name, "").strip().lower() in ("1", "true", "yes", "on")
+
+
+def run_server(env: Optional[dict] = None,
+               stop: Optional[threading.Event] = None) -> int:
+    """Serve until ``stop`` is set (or SIGTERM / SIGINT on the main
+    thread)."""
+    env = dict(os.environ if env is None else env)
+    from ..server.transport import LAUNCHER_REFUSED, check_refused_env
+    check_refused_env(LAUNCHER_REFUSED, env)
+    if _env_flag(env, "BPS_ENABLE_ASYNC") \
+            or _env_flag(env, "BYTEPS_ENABLE_ASYNC"):
+        raise NotImplementedError(
+            f"BPS_ENABLE_ASYNC: the async server store {_NOT_PORTED}, "
+            f"queue 1, item 6)")
+    from ..server.engine import PSServer
+    from ..server.transport import PSTransportServer
+    n = int(env.get("BPS_NUM_WORKER", env.get("BPS_NUM_PROCESSES", "1")))
+    srv = PSServer(num_workers=n,
+                   engine_threads=int(env.get("BPS_SERVER_ENGINE_THREAD",
+                                              "4")),
+                   enable_schedule=env.get("BPS_SERVER_ENABLE_SCHEDULE",
+                                           "") == "1")
+    try:
+        tsrv = PSTransportServer(srv, port=int(env.get("BPS_SERVER_PORT",
+                                                       "9090")))
+    except BaseException:
+        srv.close()
+        raise
+    stop = stop or threading.Event()
+    if threading.current_thread() is threading.main_thread():
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, lambda *a: stop.set())
+    print(f"[byteps_tpu_torch.launch] server up on :{tsrv.port} "
+          f"(workers={n}); SIGTERM to stop", file=sys.stderr, flush=True)
+    try:
+        while not stop.wait(1.0):
+            pass
+    finally:
+        tsrv.close()
+        srv.close()
+    return 0
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m byteps_tpu_torch.launcher.launch",
+        description="standalone host reduction server of the port")
+    parser.add_argument("--server", action="store_true",
+                        help="run a standalone host reduction server")
+    parser.add_argument("cmd", nargs=argparse.REMAINDER,
+                        help="a worker command (not ported)")
+    args = parser.parse_args(argv)
+    if not args.server or args.cmd:
+        raise NotImplementedError(
+            f"the launcher's worker role (exec of a training command, "
+            f"--numa, --hosts, BPS_ENABLE_GDB) {_NOT_PORTED}, queue 1, "
+            f"item 8); start each worker process yourself with BPS_* set")
+    return run_server()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

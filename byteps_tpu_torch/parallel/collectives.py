@@ -326,13 +326,13 @@ class _Record:
     """An async handle's state (reference: handle_manager.cc)."""
 
     __slots__ = ("red", "treedef", "paths", "shapes", "t0", "nbytes",
-                 "name", "hopped")
+                 "name", "hopped", "average")
 
     def __init__(self, red, treedef, paths, shapes, t0, nbytes,
-                 name) -> None:
+                 name, average) -> None:
         self.red, self.treedef, self.paths = red, treedef, paths
         self.shapes, self.t0, self.nbytes = shapes, t0, nbytes
-        self.name, self.hopped = name, None
+        self.name, self.hopped, self.average = name, None, average
 
 
 class PushPullEngine:
@@ -363,8 +363,9 @@ class PushPullEngine:
     PS mode (``ps_factory`` set, ``BPS_ENABLE_PS``): after the group's
     reduction this rank's leaves go through the parameter-server
     exchange, which ``ps_factory`` builds at its first use, and come back
-    summed. The port's PS runs one worker (more need standalone servers,
-    not ported yet), so the sum is the mean. ``push_pull_async`` declares
+    summed over the ``ps_world`` worker processes, divided by it for the
+    mean (``byteps_tpu/parallel/collectives.py:311-313``: the pulled sum,
+    then ``/ ps_world`` on the host). ``push_pull_async`` declares
     the exchange's keys at dispatch and defers the exchange to
     ``synchronize``, which drains deferred exchanges in dispatch order.
 
@@ -383,6 +384,7 @@ class PushPullEngine:
             else None
         self.debug_sample = debug_sample   # name substring to sample-log
         self.ps_factory = None
+        self.ps_world = 1       # worker processes a PS sum spans
         self._ps_exchange = None
         self._ps_lock = threading.Lock()
         self._plans: Dict[tuple, List[Bucket]] = {}
@@ -454,14 +456,17 @@ class PushPullEngine:
 
     # -- the PS hop and the sampler -------------------------------------------
     def _ps_hop(self, outs: List[torch.Tensor], paths, shapes,
-                name: Optional[str]) -> List[torch.Tensor]:
+                name: Optional[str], average: bool) -> List[torch.Tensor]:
         """PS mode's cross-worker hop (reference: PUSH/PULL after the
         local reduce, core_loops.cc:538-618): this rank's reduced leaves,
         in their shapes (the exchange's plan is keyed by them), through
-        the host service; the sums come back on the leaves' device."""
+        the host service; the sums (``average``: divided by ``ps_world``
+        on the host) come back on the leaves' device."""
         summed = self.ps_exchange.exchange(
             [(p, o.view(s)) for p, o, s in zip(paths, outs, shapes)],
             name=name)
+        if average and self.ps_world > 1:
+            summed = [s / self.ps_world for s in summed]
         return [torch.from_numpy(np.ascontiguousarray(s)).reshape(-1)
                 .to(o.device) for o, s in zip(outs, summed)]
 
@@ -495,7 +500,7 @@ class PushPullEngine:
         outs = self._reduce(leaves, buckets, average, credit=True).result()
         if self.ps_exchange is not None:
             outs = self._ps_hop(outs, paths, [t.shape for t in leaves],
-                                name)
+                                name, average)
         return self._finish(outs, t0, sum(t.nbytes for t in leaves), paths,
                             [t.shape for t in leaves], treedef, name)
 
@@ -513,7 +518,7 @@ class PushPullEngine:
         if self.ps_exchange is not None:
             self.ps_exchange.plan_for(list(zip(paths, leaves)), name=name)
         rec = _Record(red, treedef, paths, [t.shape for t in leaves], t0,
-                      sum(t.nbytes for t in leaves), name)
+                      sum(t.nbytes for t in leaves), name, average)
         with self._lock:
             h = self._next_handle
             self._next_handle += 1
@@ -540,7 +545,7 @@ class PushPullEngine:
                         return
                     rec = self._handles[self._ps_pending[0]]
                 rec.hopped = self._ps_hop(rec.red.result(), rec.paths,
-                                          rec.shapes, rec.name)
+                                          rec.shapes, rec.name, rec.average)
                 with self._lock:
                     self._ps_pending.pop(0)
 

@@ -15,9 +15,13 @@ pushes arrive compressed and are decompressed into the summation, their
 pulls are the merged round recompressed once (reference:
 server.cc:86-113, 222-252).
 
+A ``PSServer`` also serves other processes: ``server/transport.py``'s
+``PSTransportServer`` fronts it over TCP (``python -m
+byteps_tpu_torch.launcher.launch --server``), and the workers'
+``RemotePSBackend`` stands in for ``HostPSBackend``.
+
 Not ported yet (ROADMAP.md): key migration and the placement ring,
-bounded-staleness rounds, row-sparse pushes, the param mailbox and the
-remote transport.
+bounded-staleness rounds, row-sparse pushes and the param mailbox.
 """
 
 from __future__ import annotations
@@ -232,7 +236,8 @@ class HostPSBackend:
 
     Keys are placed on shards by hash (reference: global.cc:628-677). The
     in-process shards model the colocated-server deployment (reference:
-    BYTEPS_ENABLE_IPC); at world 1 it is the whole server side.
+    BYTEPS_ENABLE_IPC); at world 1 it is the whole server side, and more
+    workers share standalone servers instead (``server/transport.py``).
     """
 
     def __init__(self, num_servers: int = 1, num_workers: int = 1,

@@ -1,6 +1,7 @@
 """Codec-homogeneous server summation for the fused compression plane (the
-port's copy of ``byteps_tpu/server/homog.py``, without the transport
-server's ``FusedFront``).
+port's copy of ``byteps_tpu/server/homog.py``). ``FusedSumStore`` serves
+``HostPSBackend``; ``FusedFront`` gives a raw ``PSServer`` behind the
+transport server (``server/transport.py``) the same store.
 
 The store takes over the ROUND of every fused-managed key:
 
@@ -300,3 +301,72 @@ class FusedSumStore:
         with self._lock:
             keys = list(self._keys.values())
         return sum(len(st.arrivals) for st in keys)
+
+
+class FusedFront:
+    """Fused and dense front for a raw dense backend (the native
+    ``PSServer`` behind a transport server): managed keys go to a
+    ``FusedSumStore``, every other key straight through, the split
+    ``HostPSBackend`` makes internally (``byteps_tpu/server/homog.py:325``).
+    As in ``HostPSBackend``, only a key declared ``fused=True`` takes fused
+    payloads: the JAX package's decode-into-the-engine route for the
+    others (``BPS_FUSED_HOMOG=0``) is not ported.
+
+    A fused re-declaration with the key's size and dtype keeps its rounds
+    and buffered arrivals, as the engine keeps a dense key's: every worker
+    of a standalone server declares every key, and a client replays its
+    declarations after a reconnect, so a reset there would drop the
+    arrivals of workers that pushed first and wedge the round. The JAX
+    package's front resets the key on every fused init (a new tenancy,
+    its key-migration rule; ROADMAP.md queue 3). Another size or dtype is
+    a new tenancy here too."""
+
+    def __init__(self, backend, num_workers: int) -> None:
+        self.backend = backend
+        self.store = FusedSumStore(num_workers)
+
+    def init_key(self, key: int, nbytes: int, dtype: str = "float32",
+                 init: Optional[np.ndarray] = None,
+                 fused: bool = False) -> None:
+        if fused:
+            st = self.store._keys.get(int(key))
+            if (st is None or st.nbytes != int(nbytes)
+                    or st.dtype != np.dtype(dtype)):
+                self.store.init_key(key, nbytes, dtype, init)
+        elif self.store.managed(key):
+            self.store.drop(key)    # re-declared non-fused: hand back
+        self.backend.init_key(key, nbytes, dtype, init)
+
+    def push(self, key: int, data: np.ndarray) -> None:
+        if self.store.managed(key):
+            self.store.ingest_dense(key, data)
+        else:
+            self.backend.push(key, data)
+
+    def pull(self, key: int, out: np.ndarray, round: int = 0,
+             timeout_ms: int = 30000) -> None:
+        if self.store.managed(key):
+            self.store.pull_dense(key, out, round, timeout_ms)
+        else:
+            self.backend.pull(key, out, round=round, timeout_ms=timeout_ms)
+
+    def _managed(self, key: int) -> FusedSumStore:
+        if not self.store.managed(key):
+            raise KeyError(f"key {key} was not declared fused=True: only "
+                           f"the homogeneous fused store takes fused "
+                           f"payloads")
+        return self.store
+
+    def push_fused(self, key: int, payload) -> None:
+        self._managed(key).ingest(key, payload)
+
+    def pull_fused(self, key: int, nbytes: int, dtype: str, codec: int,
+                   round: int = 0, timeout_ms: int = 30000,
+                   div: Optional[int] = None) -> bytes:
+        return self._managed(key).pull_payload(
+            key, codec, round, timeout_ms, div=div or wire.TOPK_DIV)
+
+    def round(self, key: int) -> int:
+        if self.store.managed(key):
+            return self.store.round(key)
+        return int(self.backend.round(key))

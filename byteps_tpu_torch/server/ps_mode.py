@@ -678,6 +678,13 @@ class PSGradientExchange:
                          pskey, b.size, b.dtype,
                          layer=f"{decl_name}.{b.index}"))
             self.backend.init_key(pskey, nbytes, b.dtype, fused=fused)
+        if hasattr(self.backend, "set_send_priority"):
+            # the wire credit's order (a remote backend): the bucket
+            # holding the earliest-declared leaves sends first, the order
+            # the pull queue drains in (byteps_tpu/server/ps_mode.py:918-929)
+            for pskey, b in keyed:
+                first = min((s.leaf_index for s in b.segments), default=0)
+                self.backend.set_send_priority(pskey, len(tree) - first)
         return decl_name, keyed
 
     def _record(self, stage: str, t0: float) -> float:
@@ -687,7 +694,9 @@ class PSGradientExchange:
 
     def _next_round(self, pskey: int) -> int:
         """This push's round for ``pskey``, per key; the first use of a
-        key seeds from the server's completed round."""
+        key seeds from the server's completed round (``backend.round``, a
+        round trip on a remote backend), so a worker that joins a live job
+        resumes at the job's round."""
         with self._key_rounds_lock:
             cur = self._key_rounds.get(pskey)
         if cur is None:

@@ -1,0 +1,858 @@
+"""TCP transport for the host reduction service (the port's copy of the
+sync-PS part of ``byteps_tpu/server/transport.py``; reference: the ps-lite
+TCP van, worker call sites ZPush/ZPull core_loops.cc:567-613).
+
+Wire protocol, byte for byte the JAX package's: one persistent connection
+per pooled channel, length-prefixed binary frames::
+
+    request  := op:u8 | key:u64 | round:u64 | nbytes:u64 | timeout_ms:u64
+                | plen:u64 | dtype:u8[8] | payload[plen]
+    response := status:u8 | nbytes:u64 | payload[nbytes]
+
+Ported ops: 1=INIT (``nbytes`` = store size, payload = optional initial
+value, ``round`` bit 0 = the fused-plane declaration), 2=PUSH (``round`` =
+the dedup token ``incarnation << 32 | per-key seq``), 3=PULL (``round`` =
+the sync round, response = the merged buffer), 4=CLOSE, 5=INIT_C / 6=PUSH_C
+/ 7=PULL_C (the legacy compression chains, ``server/compressed.py``),
+9=ROUND (the key's latest completed round, u64), 17=PUSH_F / 18=PULL_F (the
+fused compression plane: a self-describing codec payload; the pull's
+payload is codec:u8 | topk div:u16le). Status: 0=OK, 1=error (the message
+rides as payload and the connection stays usable), 2=timeout, 3=gone (the
+server is shutting down: the client reconnects).
+
+Every other op of the JAX package answers ``ST_ERR`` with a message that
+names its ROADMAP.md item, and the connection stays usable.
+
+``PSTransportServer`` fronts a ``PSServer`` (wrapped in ``FusedFront``, so
+fused keys have their homogeneous store) or a ``HostPSBackend`` with one
+thread per connection. ``RemotePSBackend`` is the worker-side client with
+``HostPSBackend``'s interface, so ``PSGradientExchange`` runs unchanged
+across processes: keys placed over the servers by djb2, a pool of
+``BPS_PS_CONNS`` channels per server (a round-blocked pull holds its
+channel, so pushes need others), round-blocked pulls sliced into short
+server-side waits under one client deadline (``BPS_PULL_TIMEOUT_MS``),
+reconnect with init replay for ``BPS_RECONNECT_SECS``, and payload frames
+gated by the wire credit (``BPS_SCHEDULING_CREDIT``,
+``server/admission.py::SendScheduler``).
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import socket
+import struct
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+try:                       # registers "bfloat16" with numpy: the bf16
+    import ml_dtypes       # noqa: F401  wire transcode of OP_PUSH/OP_PULL
+except ImportError:        # pragma: no cover
+    pass
+
+from ..common.logging import get_logger
+from ..common.naming import log_key_placement, place_key
+from ..obs.metrics import get_registry
+
+_HDR = struct.Struct("!BQQQQQ8s")   # op, key, round, nbytes, timeout, plen, dtype
+_RSP = struct.Struct("!BQ")
+
+OP_INIT, OP_PUSH, OP_PULL, OP_CLOSE = 1, 2, 3, 4
+OP_INIT_C, OP_PUSH_C, OP_PULL_C = 5, 6, 7
+OP_ROUND = 9
+OP_PUSH_F, OP_PULL_F = 17, 18
+ST_OK, ST_ERR, ST_TIMEOUT, ST_GONE = 0, 1, 2, 3
+
+_NOT_PORTED = "is not ported yet (see ROADMAP.md, 'Modules still to port'"
+
+# the JAX package's other ops: op -> (what, ROADMAP queue 1 item)
+UNPORTED_OPS: Dict[int, Tuple[str, int]] = {
+    8: ("row-sparse push OP_PUSH_RS", 6),
+    10: ("shared-memory push OP_PUSH_SHM", 6),
+    11: ("shared-memory pull OP_PULL_SHM", 6),
+    12: ("striped push OP_PUSH_PART", 6),
+    13: ("striped pull OP_PULL_PART", 6),
+    14: ("replica log OP_REPL_PUT", 8),
+    15: ("replica log OP_REPL_GET", 8),
+    16: ("replica log OP_REPL_BASE", 8),
+    19: ("activation mailbox OP_ACT_PUSH", 7),
+    20: ("activation mailbox OP_ACT_PULL", 7),
+    21: ("sharded-update param mailbox OP_PARAM_PUT", 6),
+    22: ("sharded-update param mailbox OP_PARAM_GET", 6),
+    23: ("fleet stats scrape OP_STATS", 9),
+    24: ("sharded-update param mailbox OP_PARAM_SEQ", 6),
+    25: ("trace scrape OP_TRACE", 9),
+    26: ("bounded staleness OP_LAG_DECL", 6),
+    27: ("bounded staleness OP_PUSH_LAG", 6),
+    28: ("bounded staleness OP_PULL_LAG", 6),
+    29: ("embedding store OP_EMBED_INIT", 8),
+    30: ("embedding store OP_EMBED_PULL", 8),
+    31: ("embedding store OP_EMBED_PUSH", 8),
+    32: ("embedding store OP_EMBED_REPL", 8),
+    33: ("embedding store OP_EMBED_FAILOVER", 8),
+    34: ("embedding store OP_EMBED_SNAP", 8),
+    35: ("embedding store OP_EMBED_RESTORE", 8),
+}
+
+# env knobs the JAX transport and launcher read whose features are not
+# ported: env -> (legacy name, what it selects, ROADMAP queue 1 item, the
+# values that keep the JAX package's default). Any other value raises
+# where the role would read it.
+_OFF = ("", "0", "false")
+CLIENT_REFUSED = {
+    "BPS_STRIPE_MIN": (None, "connection striping", 6, _OFF),
+    "BPS_ENABLE_SHM": (None, "the shared-memory data plane", 6, _OFF),
+    "BPS_ENABLE_IPC": ("BYTEPS_ENABLE_IPC", "the Unix-socket upgrade", 6,
+                       _OFF),
+    "BPS_REDUCE_ROOTS": ("BYTEPS_REDUCE_ROOTS",
+                         "key placement over reduce roots", 8, ("",)),
+}
+SERVER_REFUSED = {
+    "BPS_ENABLE_IPC": ("BYTEPS_ENABLE_IPC", "the Unix-socket listener", 6,
+                       _OFF),
+    "BPS_KEY_LOG": ("PS_KEY_LOG", "the per-key traffic log", 9, _OFF),
+    # the port's fused store always owns fused keys (server/homog.py)
+    "BPS_FUSED_HOMOG": (None, "the engine-side fused route", 6,
+                        ("", "1", "on", "true", "yes")),
+}
+LAUNCHER_REFUSED = {
+    "BPS_SERVER_SNAPSHOT": (None, "server snapshots", 6, ("",)),
+    "BPS_NIC_RATE": (None, "the emulated NIC of a server", 8, _OFF),
+}
+
+
+def check_refused_env(table: Dict[str, tuple], env=None) -> None:
+    """Raise ``NotImplementedError`` for a knob of ``table`` set to a
+    value that selects its feature."""
+    env = os.environ if env is None else env
+    for name, (legacy, what, item, keep) in table.items():
+        for n in (name, legacy):
+            v = env.get(n) if n else None
+            if v is not None and v.strip().lower() not in keep:
+                raise NotImplementedError(
+                    f"{n}={v!r}: {what} {_NOT_PORTED}, queue 1, item "
+                    f"{item}); the port refuses the knob rather than run "
+                    f"its default path")
+
+
+class _ServerTimeout(TimeoutError):
+    """An ST_TIMEOUT reply: an application answer on a healthy connection,
+    unlike the OS's TimeoutError, which takes the reconnect path."""
+
+
+# applied seqs kept as an exact set above a contiguous floor
+_DEDUP_WINDOW = 256
+
+
+class _DedupState:
+    """Per-(key, worker-incarnation) push-dedup record."""
+
+    __slots__ = ("floor", "applied", "claims", "ts")
+
+    def __init__(self) -> None:
+        self.floor = 0              # every seq <= floor is applied
+        self.applied: set = set()   # applied seqs above the floor
+        self.claims: set = set()    # seqs whose apply is in flight
+        self.ts = 0.0
+
+    def is_applied(self, seq: int) -> bool:
+        return seq <= self.floor or seq in self.applied
+
+    def record(self, seq: int) -> None:
+        self.applied.add(seq)
+        while (self.floor + 1) in self.applied:
+            self.floor += 1
+            self.applied.discard(self.floor)
+        while len(self.applied) > _DEDUP_WINDOW:
+            low = min(self.applied)
+            self.applied.discard(low)
+            self.floor = max(self.floor, low)
+
+
+def _as_bytes(arr) -> memoryview:
+    """Byte view of a numpy array; dtypes outside the buffer protocol
+    (bfloat16) go through a uint8 reinterpret."""
+    a = np.ascontiguousarray(arr)
+    try:
+        return memoryview(a).cast("B")
+    except (ValueError, TypeError):
+        return memoryview(a.view(np.uint8))
+
+
+def _recv_exact(sock, n: int) -> memoryview:
+    buf = bytearray(n)
+    _recv_exact_into(sock, memoryview(buf))
+    return memoryview(buf)
+
+
+def _recv_exact_into(sock, view: memoryview) -> None:
+    """Fill ``view`` from the socket: dense pulls land in the caller's
+    array."""
+    n = len(view)
+    got = 0
+    while got < n:
+        r = sock.recv_into(view[got:], n - got)
+        if r == 0:
+            raise ConnectionError("peer closed")
+        got += r
+
+
+def _byteview(p) -> memoryview:
+    v = p if isinstance(p, memoryview) else memoryview(p)
+    if v.itemsize != 1 or v.ndim != 1:
+        v = v.cast("B")
+    return v
+
+
+def _send_frame(sock, hdr, parts) -> None:
+    """Header and payload parts in one vectored ``sendmsg``; a short write
+    resumes at the first unsent byte."""
+    bufs = [_byteview(hdr)] + [_byteview(p) for p in parts]
+    while bufs:
+        n = sock.sendmsg(bufs[:1024])       # IOV_MAX
+        while bufs and n >= len(bufs[0]):
+            n -= len(bufs[0])
+            bufs.pop(0)
+        if n:
+            bufs[0] = bufs[0][n:]
+
+
+def _send_req(sock, op: int, key: int, rnd: int, nbytes: int,
+              timeout_ms: int, dtype: str, payload) -> None:
+    """One request frame; ``payload``: None, one buffer, or a sequence of
+    buffers sent back to back."""
+    parts = ([] if payload is None
+             else list(payload) if isinstance(payload, (tuple, list))
+             else [payload])
+    parts = [_byteview(p) for p in parts]
+    plen = sum(len(p) for p in parts)
+    hdr = _HDR.pack(op, key, rnd, nbytes, timeout_ms, plen,
+                    dtype.encode()[:8].ljust(8, b"\0"))
+    if not parts:
+        sock.sendall(hdr)
+        return
+    _send_frame(sock, hdr, parts)
+
+
+# ops whose handlers consume the payload before the next frame is read, so
+# a large payload may land in the connection's reused buffer
+_REUSE_SAFE_OPS = frozenset({OP_INIT, OP_PUSH, OP_PUSH_C, OP_PUSH_F})
+
+
+def _recv_req(sock, rholder: Optional[list] = None):
+    op, key, rnd, nbytes, timeout, plen, dt = _HDR.unpack(
+        _recv_exact(sock, _HDR.size))
+    if not plen:
+        payload = None
+    elif (rholder is not None and plen > (64 << 10)
+            and op in _REUSE_SAFE_OPS):
+        # grown by replacement: the caller may still hold a view of the
+        # previous frame, and resizing an exported bytearray raises
+        if len(rholder[0]) < plen:
+            rholder[0] = bytearray(plen)
+        payload = memoryview(rholder[0])[:plen]
+        _recv_exact_into(sock, payload)
+    else:
+        payload = _recv_exact(sock, plen)
+    return op, key, rnd, nbytes, timeout, dt.rstrip(b"\0").decode(), payload
+
+
+# ------------------------------------------------------------------ server
+
+class PSTransportServer:
+    """Threaded TCP front for a local summation backend (``PSServer`` or
+    ``HostPSBackend``): one thread per connection, one request at a time
+    on each."""
+
+    def __init__(self, backend, host: str = "0.0.0.0",
+                 port: int = 0) -> None:
+        check_refused_env(SERVER_REFUSED)
+        self.backend = backend
+        # the fused front: a backend with a fused surface of its own
+        # (HostPSBackend) handles managed keys itself; a raw PSServer is
+        # wrapped so the homogeneous store exists on every deployment
+        if hasattr(backend, "push_fused"):
+            self._fb = backend
+        else:
+            from .homog import FusedFront
+            self._fb = FusedFront(backend,
+                                  getattr(backend, "num_workers", 1))
+        from .compressed import CompressedKeyStore
+        self.compressed = CompressedKeyStore()
+        # key -> (nbytes, dtype) from INIT/INIT_C: the wire transcode's
+        # store dtype
+        self._key_meta: Dict[int, Tuple[int, str]] = {}
+        # (key, incarnation) -> _DedupState: a push retried after a lost
+        # ACK carries its token again and is acknowledged, not re-applied;
+        # a retry racing the original's apply waits for its outcome
+        self._push_seen: Dict[Tuple[int, int], _DedupState] = {}
+        self._push_lock = threading.Lock()
+        self._push_cv = threading.Condition(self._push_lock)
+        self._dedup_ttl = float(os.environ.get(
+            "BPS_PUSH_DEDUP_TTL_SECS", "600"))
+        self._dedup_sweep_at = 0.0
+        reg = get_registry()
+        self._m_requests = reg.counter("transport/requests")
+        self._m_merge_wait = reg.histogram("server/merge_wait_s")
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._sock.bind((host, port))
+        self.port = self._sock.getsockname()[1]
+        self._sock.listen(64)
+        self._stop = threading.Event()
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, daemon=True, name="bps-ps-accept")
+        self._accept_thread.start()
+
+    def _accept_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._sock.accept()
+            except OSError:
+                return
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            threading.Thread(target=self._serve_conn, args=(conn,),
+                             daemon=True, name="bps-ps-conn").start()
+
+    def _handle(self, conn, op, key, rnd, nbytes, timeout, dtype,
+                payload) -> None:
+        """One request; backend errors become ST_ERR / ST_TIMEOUT / ST_GONE
+        responses and the connection stays up."""
+        self._m_requests.inc()
+        try:
+            if op == OP_INIT:
+                init = (np.frombuffer(payload, dtype=dtype)
+                        if payload is not None else None)
+                self._fb.init_key(key, nbytes, dtype, init=init,
+                                  fused=bool(int(rnd) & 1))
+                self._key_meta[key] = (int(nbytes), dtype)
+                conn.sendall(_RSP.pack(ST_OK, 0))
+            elif op == OP_PUSH:
+                # wire transcode: a frame dtype narrower than the store
+                # lands in the store's dtype
+                arr = np.frombuffer(payload, dtype=dtype)
+                meta = self._key_meta.get(key)
+                if meta is not None and meta[1] != dtype:
+                    arr = arr.astype(meta[1])
+                self._apply_push_once(key, rnd,
+                                      lambda: self._fb.push(key, arr))
+                conn.sendall(_RSP.pack(ST_OK, 0))
+            elif op == OP_PULL:
+                out = self._pull_dense(key, rnd, nbytes, dtype, timeout)
+                _send_frame(conn, _RSP.pack(ST_OK, out.nbytes),
+                            [_as_bytes(out)])
+            elif op == OP_INIT_C:
+                from ..ops.compression.host import deserialize_kwargs
+                kwargs = deserialize_kwargs(bytes(payload or b""))
+                if hasattr(self.backend, "push_bytes"):
+                    self.backend.init_key(key, nbytes, dtype,
+                                          compression=kwargs)
+                else:
+                    self.compressed.register(
+                        key, kwargs, nbytes // np.dtype(dtype).itemsize,
+                        dtype)
+                    self.backend.init_key(key, nbytes, dtype)
+                self._key_meta[key] = (int(nbytes), dtype)
+                conn.sendall(_RSP.pack(ST_OK, 0))
+            elif op == OP_PUSH_C:
+                pay = bytes(payload or b"")
+                self._apply_push_once(key, rnd,
+                                      lambda: self._push_compressed(key, pay))
+                conn.sendall(_RSP.pack(ST_OK, 0))
+            elif op == OP_PULL_C:
+                if hasattr(self.backend, "pull_bytes"):
+                    buf = self.backend.pull_bytes(
+                        key, round=int(rnd), timeout_ms=int(timeout) or 30000)
+                else:
+                    from .compressed import compressed_pull
+                    buf = compressed_pull(self.compressed, self.backend, key,
+                                          int(rnd), int(timeout) or 30000)
+                conn.sendall(_RSP.pack(ST_OK, len(buf)))
+                conn.sendall(buf)
+            elif op == OP_PUSH_F:
+                pay = bytes(payload)
+                self._apply_push_once(
+                    key, rnd, lambda: self._fb.push_fused(key, pay))
+                conn.sendall(_RSP.pack(ST_OK, 0))
+            elif op == OP_PULL_F:
+                from ..compress import wire
+                pb = bytes(payload or b"\0")
+                cid = int(pb[0])
+                div = (struct.unpack("<H", pb[1:3])[0] if len(pb) >= 3
+                       else wire.TOPK_DIV)
+                t0 = time.time()
+                buf = self._fb.pull_fused(
+                    key, int(nbytes), dtype, cid, round=int(rnd),
+                    timeout_ms=int(timeout) or 30000,
+                    div=div or wire.TOPK_DIV)
+                self._m_merge_wait.observe(time.time() - t0)
+                conn.sendall(_RSP.pack(ST_OK, len(buf)))
+                conn.sendall(buf)
+            elif op == OP_ROUND:
+                rv = struct.pack("!Q", int(self._fb.round(key)))
+                conn.sendall(_RSP.pack(ST_OK, len(rv)) + rv)
+            elif op in UNPORTED_OPS:
+                what, item = UNPORTED_OPS[op]
+                raise NotImplementedError(
+                    f"op {op} ({what}) {_NOT_PORTED}, queue 1, item "
+                    f"{item})")
+            else:
+                conn.sendall(_RSP.pack(ST_ERR, 0))
+        except TimeoutError as e:
+            msg = str(e).encode()
+            conn.sendall(_RSP.pack(ST_TIMEOUT, len(msg)) + msg)
+        except Exception as e:   # noqa: BLE001 — relayed to the client
+            from .engine import ServerClosed
+            if isinstance(e, ServerClosed):
+                msg = str(e).encode()
+                conn.sendall(_RSP.pack(ST_GONE, len(msg)) + msg)
+            else:
+                msg = f"{type(e).__name__}: {e}".encode()[:4096]
+                conn.sendall(_RSP.pack(ST_ERR, len(msg)) + msg)
+
+    def _push_compressed(self, key: int, payload: bytes) -> None:
+        if hasattr(self.backend, "push_bytes"):
+            self.backend.push_bytes(key, payload)
+            return
+        from .compressed import compressed_push
+        compressed_push(self.compressed, self.backend, key, payload)
+
+    def _pull_dense(self, key, rnd, nbytes, dtype, timeout) -> np.ndarray:
+        """Round-blocked pull in the frame's dtype (a narrower one than the
+        store's downcasts on the way out)."""
+        t0 = time.time()
+        elems = int(nbytes) // np.dtype(dtype).itemsize
+        meta = self._key_meta.get(key)
+        if meta is not None and meta[1] != dtype:
+            store = np.empty(elems, dtype=meta[1])
+            self._fb.pull(key, store, round=int(rnd),
+                          timeout_ms=int(timeout) or 30000)
+            out = store.astype(dtype)
+        else:
+            out = np.empty(elems, dtype=dtype)
+            self._fb.pull(key, out, round=int(rnd),
+                          timeout_ms=int(timeout) or 30000)
+        # the merge's wait: sum time plus the slowest worker's push lag
+        self._m_merge_wait.observe(time.time() - t0)
+        return out
+
+    def _apply_push_once(self, key: int, rnd: int, apply_fn) -> bool:
+        """Run ``apply_fn`` once per dedup token; True when this call
+        applied. Tokenless pushes (``rnd`` 0) apply every time. A
+        duplicate of an applied seq is acknowledged; one racing the
+        original's apply waits for its outcome. The applied mark is
+        recorded only after the backend took the payload."""
+        if not rnd:
+            apply_fn()
+            return True
+        ident = (key, rnd >> 32)
+        seq = rnd & 0xFFFFFFFF
+        now = time.time()
+        with self._push_lock:
+            if now >= self._dedup_sweep_at:
+                self._dedup_sweep_at = now + self._dedup_ttl / 4
+                dead = [k for k, st in self._push_seen.items()
+                        if now - st.ts > self._dedup_ttl and not st.claims]
+                for k in dead:
+                    del self._push_seen[k]
+            st = self._push_seen.get(ident)
+            if st is None:
+                st = self._push_seen[ident] = _DedupState()
+            while True:
+                if st.is_applied(seq):
+                    st.ts = now
+                    return False
+                if seq not in st.claims:
+                    st.claims.add(seq)
+                    break
+                self._push_cv.wait(1.0)
+        try:
+            apply_fn()
+        except BaseException:
+            with self._push_lock:
+                st.claims.discard(seq)
+                self._push_cv.notify_all()
+            raise
+        with self._push_lock:
+            st.record(seq)
+            st.ts = time.time()
+            st.claims.discard(seq)
+            self._push_cv.notify_all()
+        return True
+
+    def _serve_conn(self, conn) -> None:
+        rholder = [bytearray()]  # reused across this connection's frames
+        try:
+            while True:
+                op, key, rnd, nbytes, timeout, dtype, payload = \
+                    _recv_req(conn, rholder)
+                if op == OP_CLOSE:
+                    conn.sendall(_RSP.pack(ST_OK, 0))
+                    return
+                self._handle(conn, op, key, rnd, nbytes, timeout, dtype,
+                             payload)
+        except (ConnectionError, OSError):
+            pass
+        finally:
+            conn.close()
+
+    def close(self) -> None:
+        """Stop accepting; open connections end with their clients."""
+        self._stop.set()
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+
+
+# ------------------------------------------------------------------ client
+
+class _Channel:
+    """One pooled connection; ``sock`` is None until first use."""
+
+    __slots__ = ("sock",)
+
+    def __init__(self, sock) -> None:
+        self.sock = sock
+
+
+class RemotePSBackend:
+    """Worker-side client with ``HostPSBackend``'s interface over N
+    transport servers (keys placed by djb2; reference: global.cc:628-677).
+
+    A dropped connection is redialed with backoff for ``reconnect_secs``
+    (``BPS_RECONNECT_SECS``, default 30; 0 disables), the accepted
+    ``init_key`` calls are replayed on the fresh connection, and the
+    request is re-sent whole (``transport/resends``). A push carries the
+    token ``incarnation << 32 | per-key seq``, so a push whose ACK was lost
+    is applied once by a server that survived; the incarnation is fresh
+    for every client, so a restarted worker's pushes are never taken for
+    its predecessor's."""
+
+    # payload frames of the gradient class under the wire credit
+    _SCHED_GRAD_OPS = frozenset({OP_PUSH, OP_PUSH_C, OP_PUSH_F})
+    # round-blocked pulls wait on the server in slices of this length, so
+    # connection churn costs at most one slice of the caller's deadline
+    _PULL_SLICE_MS = 2000
+
+    def __init__(self, addrs: Sequence[str],
+                 reconnect_secs: Optional[float] = None,
+                 conns_per_shard: Optional[int] = None) -> None:
+        check_refused_env(CLIENT_REFUSED)
+        if not addrs:
+            raise ValueError("RemotePSBackend needs at least one host:port")
+        self._addrs = [a.rsplit(":", 1) for a in addrs]
+        self._dead = False      # set by close(): aborts redial loops
+        self.reconnect_secs = (
+            float(os.environ.get("BPS_RECONNECT_SECS", "30"))
+            if reconnect_secs is None else reconnect_secs)
+        # the pool of channels a server: the server serves one request a
+        # connection at a time, so a round-blocked pull holds its channel
+        # and pushes need the others
+        self._nconns = max(1, int(os.environ.get("BPS_PS_CONNS", "4"))
+                           if conns_per_shard is None else conns_per_shard)
+        self._send_prio: Dict[int, int] = {}
+        self._rounds: Dict[int, int] = {}
+        self._wid = int.from_bytes(os.urandom(4), "big") or 1
+        self._push_seq: Dict[int, int] = {}
+        self._push_seq_lock = threading.Lock()
+        self._shard_bytes: Dict[int, int] = {}
+        self._placed: set = set()
+        # init_key replay log per server: key -> args
+        self._inits: List[Dict[int, tuple]] = [dict() for _ in addrs]
+        self._pools: List[queue.Queue] = []
+        for i in range(len(addrs)):
+            pool: queue.Queue = queue.Queue()
+            pool.put(_Channel(self._dial(i)))   # eager: validate the address
+            for _ in range(self._nconns - 1):
+                pool.put(_Channel(None))        # dialed at first use
+            self._pools.append(pool)
+
+    def _dial(self, i: int) -> socket.socket:
+        host, port = self._addrs[i]
+        s = socket.create_connection((host, int(port)))
+        s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        return s
+
+    def _shard(self, key: int) -> int:
+        return place_key(key, len(self._pools))
+
+    def _reconnect(self, i: int, ch: _Channel, deadline: float) -> None:
+        """Redial ``ch`` with backoff until ``deadline``, then replay the
+        server's init log (a restarted server has an empty key table)."""
+        get_registry().counter("transport/reconnects").inc()
+        delay = 0.1
+        while True:
+            if self._dead:
+                raise ConnectionError(
+                    f"PS backend closed while reconnecting to "
+                    f"{':'.join(self._addrs[i])}")
+            try:
+                old, ch.sock = ch.sock, self._dial(i)
+                if old is not None:
+                    try:
+                        old.close()
+                    except OSError:
+                        pass
+                break
+            except OSError as e:
+                if time.time() + delay > deadline:
+                    raise ConnectionError(
+                        f"PS server {':'.join(self._addrs[i])} unreachable "
+                        f"for {self.reconnect_secs:.0f}s: {e}") from e
+                time.sleep(delay)
+                delay = min(delay * 2, 2.0)
+        get_logger().warning("reconnected to PS server %s; replaying %d key "
+                             "inits", ":".join(self._addrs[i]),
+                             len(self._inits[i]))
+        for args in self._inits[i].values():
+            self._send_init(ch.sock, *args)
+
+    def _send_init(self, sock, key, nbytes, dtype, init, compression,
+                   fused=False) -> None:
+        if compression:
+            from ..ops.compression.host import serialize_kwargs
+            self._roundtrip(sock, OP_INIT_C, key, 0, nbytes, 0, dtype,
+                            memoryview(serialize_kwargs(compression)))
+        else:
+            payload = None if init is None else _as_bytes(init)
+            self._roundtrip(sock, OP_INIT, key, 1 if fused else 0, nbytes,
+                            0, dtype, payload)
+
+    @staticmethod
+    def _roundtrip(sock, op, key, rnd, nbytes, timeout_ms, dtype, payload,
+                   recv_into=None):
+        _send_req(sock, op, key, rnd, nbytes, timeout_ms, dtype, payload)
+        status, rbytes = _RSP.unpack(_recv_exact(sock, _RSP.size))
+        if (recv_into is not None and status == ST_OK
+                and rbytes == len(recv_into)):
+            _recv_exact_into(sock, recv_into)     # straight into the array
+            return memoryview(b"")
+        data = _recv_exact(sock, rbytes) if rbytes else memoryview(b"")
+        if status == ST_TIMEOUT:
+            raise _ServerTimeout(bytes(data).decode() or
+                                 f"pull({key}) timed out")
+        if status == ST_GONE:
+            # the server announced its shutdown: reconnect
+            raise ConnectionError(bytes(data).decode() or "server gone")
+        if status != ST_OK:
+            raise RuntimeError(f"PS server rejected key={key} op={op}: "
+                               f"{bytes(data).decode()!r}")
+        return data
+
+    def _roundtrip_with_retry(self, i: int, ch: _Channel, op, key, rnd,
+                              nbytes, timeout_ms, dtype, payload,
+                              recv_into=None):
+        """One roundtrip on ``ch``; a dropped connection is redialed and
+        the request re-sent, all redials drawing on one budget."""
+        try:
+            if ch.sock is None:
+                ch.sock = self._dial(i)
+            return self._roundtrip(ch.sock, op, key, rnd, nbytes,
+                                   timeout_ms, dtype, payload,
+                                   recv_into=recv_into)
+        except _ServerTimeout:
+            # an application reply (and TimeoutError is an OSError): never
+            # the reconnect path
+            raise
+        except (ConnectionError, OSError):
+            if self.reconnect_secs <= 0:
+                raise
+            deadline = time.time() + self.reconnect_secs
+            while True:
+                try:
+                    self._reconnect(i, ch, deadline)
+                    # re-sent whole; the push token keeps it exactly-once
+                    get_registry().counter("transport/resends").inc()
+                    return self._roundtrip(ch.sock, op, key, rnd, nbytes,
+                                           timeout_ms, dtype, payload,
+                                           recv_into=recv_into)
+                except _ServerTimeout:
+                    raise
+                except (ConnectionError, OSError):
+                    if time.time() >= deadline:
+                        raise
+                    time.sleep(0.2)
+
+    def _rpc(self, op: int, key: int, rnd: int, nbytes: int,
+             timeout_ms: int, dtype: str, payload,
+             pull_into: Optional[np.ndarray] = None) -> bytes:
+        """One request on a pooled channel of ``key``'s server. A payload
+        frame of the gradient class waits for the wire credit and holds it
+        across its roundtrip (``BPS_SCHEDULING_CREDIT``)."""
+        ticket = scheduler = None
+        if payload is not None and op in self._SCHED_GRAD_OPS:
+            from .admission import CLASS_GRAD, send_scheduler
+            scheduler = send_scheduler()
+            if scheduler is not None:
+                ticket = scheduler.acquire(
+                    CLASS_GRAD, self._send_prio.get(key, 0), key,
+                    len(_byteview(payload)))
+        try:
+            return self._rpc_unscheduled(op, key, rnd, nbytes, timeout_ms,
+                                         dtype, payload, pull_into)
+        finally:
+            if ticket is not None:
+                scheduler.release(ticket)
+
+    def _rpc_unscheduled(self, op, key, rnd, nbytes, timeout_ms, dtype,
+                         payload, pull_into=None) -> bytes:
+        i = self._shard(key)
+        ch = self._pools[i].get()        # blocks while every channel is busy
+        try:
+            recv_into = None
+            if pull_into is not None and pull_into.flags["C_CONTIGUOUS"]:
+                try:
+                    recv_into = memoryview(pull_into).cast("B")
+                except (ValueError, TypeError):   # bfloat16
+                    recv_into = memoryview(pull_into.view(np.uint8))
+            data = self._roundtrip_with_retry(i, ch, op, key, rnd, nbytes,
+                                              timeout_ms, dtype, payload,
+                                              recv_into=recv_into)
+            if pull_into is not None:
+                if len(data):
+                    np.copyto(pull_into,
+                              np.frombuffer(data, dtype=pull_into.dtype)
+                              .reshape(pull_into.shape))
+                return b""
+            return bytes(data)
+        finally:
+            # back even with a dead socket: the next user redials
+            self._pools[i].put(ch)
+
+    def init_key(self, key: int, nbytes: int, dtype: str = "float32",
+                 init: Optional[np.ndarray] = None,
+                 compression: Optional[Dict[str, str]] = None,
+                 fused: bool = False) -> None:
+        if compression:
+            from ..ops.compression.host import serialize_kwargs
+            self._rpc(OP_INIT_C, key, 0, nbytes, 0, dtype,
+                      memoryview(serialize_kwargs(compression)))
+        else:
+            payload = None if init is None else _as_bytes(init)
+            self._rpc(OP_INIT, key, 1 if fused else 0, nbytes, 0, dtype,
+                      payload)
+        # replayed after a reconnect, recorded only once accepted
+        i = self._shard(key)
+        self._inits[i][key] = (key, nbytes, dtype,
+                               None if init is None else np.array(init),
+                               dict(compression) if compression else None,
+                               bool(fused))
+        if key not in self._placed:
+            self._placed.add(key)
+            log_key_placement(key, nbytes, i, self._shard_bytes)
+
+    def set_send_priority(self, key: int, prio: int) -> None:
+        """The wire credit's priority for ``key``'s frames (higher is sent
+        first); the exchange sets reverse first-use order at plan time."""
+        self._send_prio[key] = int(prio)
+
+    def _push_token(self, key: int) -> int:
+        with self._push_seq_lock:
+            seq = self._push_seq.get(key, 0) + 1
+            if seq > 0xFFFFFFFF:
+                # the seq field is spent: a fresh incarnation resets dedup
+                self._wid = int.from_bytes(os.urandom(4), "big") or 1
+                self._push_seq.clear()
+                seq = 1
+            self._push_seq[key] = seq
+        return (self._wid << 32) | seq
+
+    def push(self, key: int, data: np.ndarray) -> None:
+        self._rpc(OP_PUSH, key, self._push_token(key), 0, 0,
+                  str(data.dtype), _as_bytes(data))
+
+    def _sliced_pull(self, attempt, timeout_ms: int, descr: str):
+        """``attempt(slice_ms)`` until it succeeds or one deadline passes;
+        each server-side wait is one slice, and the channel goes back to
+        the pool between slices."""
+        deadline = time.time() + timeout_ms / 1e3
+        while True:
+            left_ms = max(1, int((deadline - time.time()) * 1e3))
+            try:
+                return attempt(min(self._PULL_SLICE_MS, left_ms))
+            except TimeoutError:
+                if time.time() >= deadline:
+                    raise TimeoutError(
+                        f"{descr} timed out after {timeout_ms}ms "
+                        f"(sliced waits)") from None
+
+    def pull(self, key: int, out: np.ndarray, round: int = 0,
+             timeout_ms: Optional[int] = None) -> None:
+        if timeout_ms is None:
+            timeout_ms = int(os.environ.get("BPS_PULL_TIMEOUT_MS", "30000")
+                             or 30000)
+        self._sliced_pull(
+            lambda slice_ms: self._rpc(OP_PULL, key, round, out.nbytes,
+                                       slice_ms, str(out.dtype), None,
+                                       pull_into=out),
+            timeout_ms, f"pull({key}) round={round}")
+
+    def round(self, key: int) -> int:
+        """The server's latest completed round of ``key``."""
+        data = self._rpc(OP_ROUND, key, 0, 0, 0, "uint8", None)
+        return struct.unpack("!Q", data)[0]
+
+    def push_bytes(self, key: int, payload) -> None:
+        """A legacy chain's push: the compressed payload as it is."""
+        self._rpc(OP_PUSH_C, key, self._push_token(key), 0, 0, "uint8",
+                  memoryview(payload))
+
+    def pull_bytes(self, key: int, round: int = 0,
+                   timeout_ms: int = 30000) -> bytes:
+        """A legacy chain's pull: the merged round recompressed once."""
+        return self._sliced_pull(
+            lambda slice_ms: self._rpc(OP_PULL_C, key, round, 0, slice_ms,
+                                       "uint8", None),
+            timeout_ms, f"pull_bytes({key}) round={round}")
+
+    def push_fused(self, key: int, payload) -> None:
+        """Fused-plane push: a self-describing codec payload."""
+        self._rpc(OP_PUSH_F, key, self._push_token(key), 0, 0, "uint8",
+                  memoryview(payload))
+
+    def pull_fused(self, key: int, nbytes: int, dtype: str, codec: int,
+                   round: int = 0, timeout_ms: int = 30000,
+                   div: Optional[int] = None) -> bytes:
+        """Fused-plane pull: the merged round encoded on the server at
+        ``codec`` with this worker's topk divisor."""
+        from ..compress.wire import TOPK_DIV
+        payload = bytes((int(codec),)) + struct.pack(
+            "<H", int(div) if div else TOPK_DIV)
+        return self._sliced_pull(
+            lambda slice_ms: self._rpc(OP_PULL_F, key, round, int(nbytes),
+                                       slice_ms, dtype, payload),
+            timeout_ms, f"pull_fused({key}) round={round}")
+
+    def push_pull(self, key: int, data: np.ndarray,
+                  timeout_ms: int = 30000) -> np.ndarray:
+        """One sync round: push, then pull the round this push completes
+        (a per-key round counter, as ``HostPSBackend`` keeps)."""
+        self.push(key, data)
+        rnd = self._rounds.get(key, 0) + 1
+        self._rounds[key] = rnd
+        out = np.empty_like(data)
+        self.pull(key, out, rnd, timeout_ms)
+        return out
+
+    def close(self) -> None:
+        # the flag first: a thread in a redial loop holds its channel
+        # outside the pool and must stop dialing a dead address
+        self._dead = True
+        for pool in self._pools:
+            while True:
+                try:
+                    ch = pool.get_nowait()
+                except queue.Empty:
+                    break
+                if ch.sock is None:
+                    continue
+                try:
+                    _send_req(ch.sock, OP_CLOSE, 0, 0, 0, 0, "", None)
+                    _recv_exact(ch.sock, _RSP.size)
+                except (ConnectionError, OSError):
+                    pass
+                ch.sock.close()

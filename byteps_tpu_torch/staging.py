@@ -73,10 +73,13 @@ class H2DStager:
     """The tail's host-to-device copies for gradients on ``device``:
     ``host_alloc`` makes the round's host leaves (pinned, from the pool, on
     the card; None on the CPU: the exchange's own ``np.empty``), ``copy``
-    moves one summed leaf to the device."""
+    moves one summed leaf to the device, divided first on the host by the
+    ``world`` worker processes whose sum it is (the JAX package's per-leaf
+    divide, ``byteps_tpu/training.py:911-918``)."""
 
-    def __init__(self, device) -> None:
+    def __init__(self, device, world: int = 1) -> None:
         self.device = torch.device(device)
+        self.world = int(world)
         self.cuda = self.device.type == "cuda"
         self.pool = PinnedPool() if self.cuda else None
         self.stream = (torch.cuda.Stream(device=self.device) if self.cuda
@@ -93,6 +96,9 @@ class H2DStager:
         card the copy is asynchronous on the H2D stream, and ``arr`` goes
         back to the pool with its event."""
         t0 = time.time()
+        if self.world > 1:
+            # in place: the buffer is this round's own
+            np.divide(arr, self.world, out=arr)
         src = torch.from_numpy(arr)
         if not self.cuda:
             out = src.view(shape)

@@ -52,7 +52,11 @@ def shutdown() -> None:
 
 
 def size() -> int:
-    """World size: the data-parallel processes, one per GPU."""
+    """World size: the data-parallel processes, one per GPU. In PS mode,
+    which joins no process group, the worker processes
+    (``BPS_NUM_WORKER``), as the JAX plugin counts them."""
+    if GlobalState.initialized() and GlobalState.get().config.enable_ps:
+        return GlobalState.get().config.num_worker
     from .. import size as _size
     return _size()
 
@@ -264,16 +268,20 @@ class _Dispatcher:
                         cls._handles.setdefault(h, handles[h])
 
 
-def _exchange_start(ex, pairs, name: str, device: torch.device):
+def _exchange_start(ex, pairs, name: str, device: torch.device,
+                    average: bool, world: int):
     """Start one tensor's PS exchange: its pushes are in flight when this
     returns; the returned resolver (run on a pull worker) waits for the
-    merged result and puts it on ``device``. The port's PS runs one
-    worker, so the sum is also the mean."""
+    merged sum, divides it by the ``world`` worker processes on the host
+    for ``average`` (``byteps_tpu/torch/ops.py:285-304``) and puts it on
+    ``device``."""
     pend = ex.exchange_async(pairs, name=name)
 
     def resolve() -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(pend.result()[0])) \
-            .to(device)
+        out = pend.result()[0]
+        if average and world > 1:
+            out = out / world
+        return torch.from_numpy(np.ascontiguousarray(out)).to(device)
     return resolve
 
 
@@ -297,9 +305,10 @@ def _dispatch(tensor: torch.Tensor, average: bool, name: Optional[str],
     pairs = [("['t']", tensor.detach().clone())]
     ex.plan_for(pairs, name=name)
     device = tensor.device
+    world = eng.ps_world
 
     def start():
-        return _exchange_start(ex, pairs, name, device)
+        return _exchange_start(ex, pairs, name, device, average, world)
 
     return _Dispatcher.submit(start, tensor, inplace, priority=priority)
 

@@ -29,7 +29,8 @@ import torch
 
 from ..common.global_state import GlobalState
 from .compression import Compression
-from .ops import declare_model_keys, push_pull_async, size, synchronize
+from .ops import (declare_model_keys, push_pull_async, rank, size,
+                  synchronize)
 
 
 class _DistributedOptimizer(torch.optim.Optimizer):
@@ -162,11 +163,14 @@ def DistributedOptimizer(optimizer, named_parameters=None,
 
 def broadcast_parameters(params, root_rank, prefix="Parameter."):
     """Root's values into every worker's tensors, in place (reference:
-    torch/__init__.py:259-291, whose zero-the-others + sum the port
-    replaces with ``dist.broadcast``: root's bits exactly, a -0.0
-    included). ``params``: a dict (a ``state_dict()``, broadcast in
-    sorted name order) or a list of tensors or (name, tensor) pairs.
-    ``prefix`` named the reference's keys; a broadcast declares none."""
+    torch/__init__.py:259-291). Over a process group the port replaces the
+    reference's zero-the-others + sum with ``dist.broadcast``: root's bits
+    exactly, a -0.0 included, and no key declared. PS mode joins no
+    group, so there it is the JAX plugin's way
+    (``byteps_tpu/torch/optimizer.py:205-229``): every worker but root
+    zeroes its tensors and all push_pull the sum through the servers under
+    ``prefix + name``. ``params``: a dict (a ``state_dict()``, broadcast in
+    sorted name order) or a list of tensors or (name, tensor) pairs."""
     if isinstance(params, dict):
         items = sorted(params.items())
     elif isinstance(params, list):
@@ -174,6 +178,22 @@ def broadcast_parameters(params, root_rank, prefix="Parameter."):
     else:
         raise ValueError(f"invalid params of type {type(params)}")
     if size() <= 1:
+        return
+    if GlobalState.get().config.enable_ps:
+        handles = []
+        for name, p in items:
+            if not isinstance(p, torch.Tensor):
+                continue
+            with torch.no_grad():
+                if rank() != root_rank:
+                    p.fill_(0)
+            handles.append((p, push_pull_async(
+                p, average=False,
+                name=(prefix + name) if name else None)))
+        for p, h in handles:
+            out = synchronize(h)
+            with torch.no_grad():
+                p.copy_(out)
         return
     GlobalState.get().engine.broadcast_(
         [p for _, p in items if isinstance(p, torch.Tensor)], root_rank)

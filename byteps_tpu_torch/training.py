@@ -10,13 +10,15 @@ and hands the gradients to ``optim.DistributedOptimizer`` (bucketed
 all-reduce over the data-parallel group, or the compressed exchange when
 ``compression`` is given, then the inner step).
 
-With ``BPS_ENABLE_PS=1`` (and ``bps.init()``, which builds the in-process
-server) the same script trains through the parameter server instead, the
-JAX trainer's sync PS branch (``byteps_tpu/training.py:228-299``): the
-gradients go through ``PSGradientExchange`` in the JAX tree's order
-(encoded on the card under ``BPS_COMPRESS=int8`` or ``fp8_e4m3``), the
-summed gradients come back to the card (the port's PS runs one worker, so
-the sum is the mean), and the inner optimizer steps. ``compression`` kwargs
+With ``BPS_ENABLE_PS=1`` (and ``bps.init()``, which builds the server
+backend: in process at world 1, ``BPS_SERVER_ADDRS`` for standalone servers
+that ``BPS_NUM_WORKER`` worker processes share) the same script trains
+through the parameter server instead, the JAX trainer's sync PS branch
+(``byteps_tpu/training.py:228-299``): the gradients go through
+``PSGradientExchange`` in the JAX tree's order (encoded on the card under
+``BPS_COMPRESS=int8`` or ``fp8_e4m3``), the summed gradients are divided by
+the worker count on the host and come back to the card, and the inner
+optimizer steps. ``compression`` kwargs
 in PS mode ride the trainer's declaration (``byteps_tpu/training.py:243-244``):
 the exchange gives each bucket at or above ``min_compress_bytes`` the legacy
 host chain (``server/ps_mode.py``), which keeps precedence over the fused
@@ -343,6 +345,8 @@ class DistributedTrainer:
             watchdog_sec=cfg.watchdog_sec, compress=cfg.compress,
             device=self.device)
         gs.exchanges.append(self.ps_exchange)
+        # the sums span the worker processes: the tails divide by them
+        self._ps_world = gs.engine.ps_world
         self._tx = optimizer          # the plain inner optimizer
         # the overlap schedule, read where the JAX trainer reads it
         # (byteps_tpu/training.py:254-290): none changes a number
@@ -467,7 +471,7 @@ class DistributedTrainer:
                                               name=self._name)
         self._chunked = ChunkedApply(self._tx,
                                      [p for _, p in self._ps_params], groups)
-        self._stager = H2DStager(self.device)
+        self._stager = H2DStager(self.device, world=self._ps_world)
 
     def _ps_step_streamed(self, grads=None, handle=None) -> None:
         """The streamed tail: each leaf goes to the card as it lands, the
@@ -525,6 +529,8 @@ class DistributedTrainer:
             [(n, g) for (n, _), g in zip(self._ps_params, grads)],
             name=self._name)
         observe_stage("PS_PUSH_PULL", time.time() - t0)
+        if self._ps_world > 1:
+            summed = [s / self._ps_world for s in summed]
         t0 = time.time()
         with torch.no_grad():
             for (_, p), g, s in zip(self._ps_params, grads, summed):

@@ -275,7 +275,25 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          no dump, then 3 steps with no dump and a fourth whose last
          bucket's pull ``PullHold`` (a fault injection) holds 6 s: the
          dump names that key within 4 s and carries its push from the
-         flight ring, and the 5 losses are the unwedged run's bit for bit.
+         flight ring, and the 5 losses are the unwedged run's bit for bit;
+       - remote PS: BERT-large PS int8 on the default route through the
+         port's standalone server (``python -m
+         byteps_tpu_torch.launcher.launch --server`` on port 0, the port
+         read from its ``server up on :<port>`` line; the transport of
+         ``server/transport.py``). (a) world 1: 3 steps through the
+         server, then in turn 3 steps in process from the same seed and
+         batch: the same losses and every parameter bit for bit, the same
+         launches (BERT's plus 3·nc int8 quantize and dequantize), no
+         resend, each arm's steps 2-3 printed beside the card. (b) world 2:
+         a server for two workers and two worker processes on ``cuda:0``
+         (``--remote-ps-worker``), each from seed 0 on its own batch (seed
+         = worker id): both end with the same parameters bit for bit (a
+         sha1 of every parameter's bytes), finite losses, each worker's
+         launches (those of (a)), ``transport/resends`` 0; each worker's
+         steps 2-3 (two processes sharing one card: not a scaling figure)
+         and push and pull bytes a step printed. A worker's failure or
+         timeout (REMOTE_WAIT) fails the phase; every process it started
+         is stopped.
      Losses must be finite and falling. BERT (both widths), dense GPT-2
      and T5 repeat step 1 with ``attn_impl="naive"`` (plain attention on
      the card) as the reference for the loss; every run prints step time,
@@ -336,6 +354,17 @@ route's steps 2-3 with the last tail drained, its host stage sums, every
 thread group's CPU seconds over those steps and a 2 ms stack sampler over
 step 3 (``ps_routes``). Prints ``{"ps_routes": ...}``, also written to
 ``chiprun_out/ps_routes.json``, the card line and the same last line.
+
+    python3 chip_smoke.py --remote-ps
+
+runs only phase 4's remote PS runs (the kernels and the server engine
+built first) and prints ``{"remote_ps": ...}``, the card line and the same
+last line.
+
+    python3 chip_smoke.py --remote-ps-worker WID ADDR OUT
+
+is one worker of phase 4's remote PS run at world 2 (``remote_ps_worker``);
+the phase starts two of them itself.
 
     python3 chip_smoke.py --world 2
 
@@ -5041,6 +5070,272 @@ def kernel_entry(name, paths, worst, timing, card, ptxas, d=None):
     return entry
 
 
+# ----------------------------- remote PS: standalone servers over TCP
+
+REMOTE_WAIT = 600       # seconds a server or worker process may take
+
+
+def start_ps_server(workers):
+    """``python -m byteps_tpu_torch.launcher.launch --server`` on port 0
+    for ``workers`` workers; returns (process, its stderr lines, address)
+    once it printed ``server up on :<port>``."""
+    import os
+    import threading
+    env = dict(os.environ, BPS_SERVER_PORT="0", BPS_NUM_WORKER=str(workers))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "byteps_tpu_torch.launcher.launch",
+         "--server"], cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    lines = []
+
+    def read():                 # drained to the end: the pipe never fills
+        for line in proc.stderr:
+            lines.append(line.rstrip())
+
+    threading.Thread(target=read, daemon=True).start()
+    deadline = time.time() + 120
+    while not any("server up on :" in x for x in lines):
+        if proc.poll() is not None or time.time() > deadline:
+            stop_ps_server(proc)
+            raise AssertionError("the PS server did not come up:\n"
+                                 + "\n".join(lines[-20:]))
+        time.sleep(0.05)
+    line = next(x for x in lines if "server up on :" in x)
+    port = int(line.split("server up on :", 1)[1].split()[0])
+    log(f"[remote ps] {line}")
+    return proc, lines, f"127.0.0.1:{port}"
+
+
+def stop_ps_server(proc):
+    """SIGTERM, then SIGKILL after 15 s; returns the exit code."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=15)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    return proc.returncode
+
+
+def _remote_want(cfg):
+    """BERT-large's launches under PS int8 for one worker."""
+    attn = _attention_launches(cfg, ("flash_bwd_fused",))
+
+    def want(trainer):
+        w = attn(trainer)
+        nc = trainer.ps_exchange.n_compressed()
+        w["int8_quantize"] = w["int8_dequantize"] = STEPS * nc
+        return w
+    return want
+
+
+def _counted_ps_steps(trainer, data):
+    """``STEPS`` steps with every launch counter and the metrics registry
+    zeroed just before and read just after (the last cross-step tail
+    drained first)."""
+    from byteps_tpu_torch.obs.metrics import get_registry
+    torch.cuda.synchronize()
+    ctr = counters()
+    zero_counts(ctr)
+    get_registry().reset()
+    losses, times = [], []
+    for _ in range(STEPS):
+        t = time.perf_counter()
+        loss = trainer.step(data)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(loss.item())
+    t = time.perf_counter()
+    _drain(trainer)
+    drain_s = time.perf_counter() - t
+    return {"losses": losses, "launches": read_counts(ctr),
+            "ms": _route_ms(times, drain_s),
+            "metrics": get_registry().snapshot(),
+            "params": _param_digests(trainer)}
+
+
+def _ps_bytes(metrics):
+    return (metrics["ps/push_bytes"] / STEPS, metrics["ps/pull_bytes"] / STEPS,
+            metrics.get("transport/resends", 0))
+
+
+def train_bert_ps_tcp():
+    """Phase "remote PS" (a), world 1: BERT-large PS int8 on the default
+    route through the port's standalone server (``launch --server``, port
+    0) and, in turn, in process, from the same seed and batch: the same
+    losses, launches and parameters bit for bit (the transport changes no
+    number), each arm's steps 2-3 printed beside the card."""
+    cfg, loss_fn, data, _ = _bert_setup()
+    want = _remote_want(cfg)
+    tag = "bert_large ps int8 tcp"
+    arms = {}
+    server, lines, addr = start_ps_server(1)
+    try:
+        for arm, env in (("tcp", {"BPS_SERVER_ADDRS": addr}),
+                         ("in-process", {})):
+            with _ps_world(dict(env, BPS_COMPRESS="int8")):
+                trainer = _ps_trainer(cfg, loss_fn)
+                r = arms[arm] = _counted_ps_steps(trainer, data)
+                r["want"] = want(trainer)
+                del trainer
+                torch.cuda.empty_cache()
+            push, pull, resends = _ps_bytes(r["metrics"])
+            log(f"[{tag}] {arm}: losses {r['losses']}, steps 2-3 "
+                f"{r['ms']:.1f} ms a step, ps/push_bytes {push:.0f} and "
+                f"ps/pull_bytes {pull:.0f} a step, transport/resends "
+                f"{resends}; launches {r['launches']}")
+    finally:
+        rc = stop_ps_server(server)
+    tcp, local = arms["tcp"], arms["in-process"]
+    log(f"[{tag}] in turns: tcp {tcp['ms']:.1f} ms, in-process "
+        f"{local['ms']:.1f} ms a step ({card_line()}); server exit {rc}")
+    for arm, r in arms.items():
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"{tag} {arm}: non-finite losses")
+        if r["launches"] != r["want"]:
+            raise AssertionError(f"{tag} {arm}: launches {r['launches']}, "
+                                 f"expected {r['want']}")
+    if tcp["losses"] != local["losses"] or tcp["params"] != local["params"]:
+        raise AssertionError(f"{tag}: the TCP run's losses or parameters "
+                             "differ from the in-process run's")
+    if tcp["metrics"].get("transport/resends", 0):
+        raise AssertionError(f"{tag}: transport/resends is not 0")
+    if rc != 0:
+        raise AssertionError(f"{tag}: the server exited {rc}:\n"
+                             + "\n".join(lines[-20:]))
+    log(f"[{tag}] losses and all {len(tcp['params'])} parameters bit for "
+        "bit the in-process run's")
+    SUMMARY[tag] = {"tcp_ms": tcp["ms"], "in_process_ms": local["ms"]}
+    return tcp["launches"]
+
+
+def remote_ps_worker(wid, addr, out) -> int:
+    """``--remote-ps-worker WID ADDR OUT``: one of the world-2 workers of
+    phase "remote PS" (b), on ``cuda:0``: BERT-large PS int8 from seed 0
+    on its own batch (seed WID), ``STEPS`` counted steps; writes its
+    losses, launches, wanted launches, bytes, resends, step time and a
+    digest of every parameter's bytes to OUT."""
+    import os
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import bert
+    os.environ.update(BPS_ENABLE_PS="1", BPS_COMPRESS="int8",
+                      BPS_NUM_WORKER="2", BPS_WORKER_ID=str(wid),
+                      BPS_LOCAL_RANK="0", BPS_SERVER_ADDRS=addr)
+    bps.init()
+    try:
+        cfg, loss_fn, _, _ = _bert_setup()
+        data = bert.synth_mlm_batch(np.random.RandomState(wid), TRAIN_BATCH,
+                                    BERT_SEQ, cfg.vocab_size)
+        trainer = _ps_trainer(cfg, loss_fn)
+        r = _counted_ps_steps(trainer, data)
+        push, pull, resends = _ps_bytes(r["metrics"])
+        digest = hashlib.sha1()
+        for _, p in sorted(trainer.model.named_parameters()):
+            digest.update(p.detach().cpu().numpy().tobytes())
+        Path(out).write_text(json.dumps({
+            "losses": r["losses"], "launches": r["launches"],
+            "want": _remote_want(cfg)(trainer), "ms": r["ms"],
+            "push_bytes": push, "pull_bytes": pull, "resends": resends,
+            "params": digest.hexdigest(),
+            "buckets": len(next(iter(trainer.ps_exchange._plans.values()))[1]),
+            "compressed": trainer.ps_exchange.n_compressed()}))
+        trainer.close()
+    finally:
+        bps.shutdown()
+    return 0
+
+
+def train_bert_ps_world2():
+    """Phase "remote PS" (b), world 2: one server (``BPS_NUM_WORKER=2``)
+    and two worker processes on ``cuda:0`` (``remote_ps_worker``), each
+    from seed 0 on its own batch: both end with the same parameters bit
+    for bit (two arrivals sum alike in either order), finite losses, the
+    launches their path makes and no resend. The step times are two
+    processes sharing one card, not a scaling figure."""
+    import os
+    import tempfile
+    tag = "bert_large ps int8 world 2"
+    tmp = Path(tempfile.mkdtemp())
+    server, lines, addr = start_ps_server(2)
+    procs, logs = [], []
+    try:
+        for wid in (0, 1):
+            logf = open(tmp / f"worker{wid}.log", "w")
+            logs.append(logf)
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, "--remote-ps-worker", str(wid),
+                 addr, str(tmp / f"worker{wid}.json")], cwd=ROOT,
+                env=dict(os.environ), stdout=logf, stderr=subprocess.STDOUT))
+        deadline = time.time() + REMOTE_WAIT
+        while any(p.poll() is None for p in procs):
+            failed = [p for p in procs if p.poll() not in (None, 0)]
+            if failed or time.time() > deadline:
+                break               # a dead peer would wedge the other
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+        for f in logs:
+            f.close()
+        rc = stop_ps_server(server)
+    for wid, p in enumerate(procs):
+        text = (tmp / f"worker{wid}.log").read_text()
+        log(f"----- remote PS worker {wid} (exit {p.returncode})")
+        log(text if p.returncode else text[-1500:])
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"{tag}: a worker failed or timed out")
+    res = [json.loads((tmp / f"worker{w}.json").read_text()) for w in (0, 1)]
+    card = card_line()
+    for wid, r in enumerate(res):
+        log(f"[{tag}] worker {wid}: losses {r['losses']}, steps 2-3 "
+            f"{r['ms']:.1f} ms a step (two worker processes share one "
+            f"card), ps/push_bytes {r['push_bytes']:.0f} and ps/pull_bytes "
+            f"{r['pull_bytes']:.0f} a step, transport/resends "
+            f"{r['resends']}, {r['compressed']} of {r['buckets']} buckets "
+            f"compressed; {card}")
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"{tag} worker {wid}: non-finite losses")
+        if r["launches"] != r["want"]:
+            raise AssertionError(f"{tag} worker {wid}: launches "
+                                 f"{r['launches']}, expected {r['want']}")
+        if r["resends"]:
+            raise AssertionError(f"{tag} worker {wid}: transport/resends "
+                                 f"{r['resends']}")
+    if res[0]["params"] != res[1]["params"]:
+        raise AssertionError(f"{tag}: the workers' parameters differ")
+    if res[0]["losses"] == res[1]["losses"]:
+        raise AssertionError(f"{tag}: both workers read the same batch")
+    if rc != 0:
+        raise AssertionError(f"{tag}: the server exited {rc}:\n"
+                             + "\n".join(lines[-20:]))
+    log(f"[{tag}] both workers' parameters bit for bit the same "
+        f"(sha1 {res[0]['params']})")
+    SUMMARY[tag] = {"ms": [r["ms"] for r in res]}
+    return {k: res[0]["launches"][k] + res[1]["launches"][k]
+            for k in res[0]["launches"]}
+
+
+def remote_ps_main() -> int:
+    """``--remote-ps``: the toolchain, then only phase 4's remote PS runs."""
+    t = time.perf_counter()
+    toolchain()
+    paths = {"bert_large_ps_int8_tcp": train_bert_ps_tcp(),
+             "bert_large_ps_int8_world2": train_bert_ps_world2()}
+    log(f"remote PS in {time.perf_counter() - t:.1f} s")
+    print(json.dumps({"remote_ps": {
+        "launches": {p: {k: v for k, v in c.items() if v and ":" not in k}
+                     for p, c in paths.items()}, **SUMMARY}}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 # ------------------------------------------- --sp N: the ring over N cards
 
 SP_TRAIN_TOL = 2e-2     # |step-1 loss over the ring - the dense model's|
@@ -5853,6 +6148,10 @@ def main() -> int:
         return world_rank(int(args[1]), int(args[2]), int(args[3]), args[4])
     if args[:1] == ["--world"]:
         return world_main(int(args[1]))
+    if args[:1] == ["--remote-ps-worker"]:
+        return remote_ps_worker(int(args[1]), args[2], args[3])
+    if args == ["--remote-ps"]:
+        return remote_ps_main()
     if args[:1] == ["--ps-routes"]:
         toolchain()
         return ps_routes(tuple(args[1:]) or ("int8", "fp8_e4m3"))
@@ -5942,6 +6241,8 @@ def main() -> int:
     paths["bert_large_ps_auto_live"], paths["bert_large_ps_auto_injected"] = \
         train_bert_ps_auto(bert_losses)
     paths["bert_large_ps_watchdog"] = train_bert_ps_watchdog(bert_losses)
+    paths["bert_large_ps_int8_tcp"] = train_bert_ps_tcp()
+    paths["bert_large_ps_int8_world2"] = train_bert_ps_world2()
     paths["bert_large_plugin"] = train_bert_plugin(bert_losses)
     for codec in ("int8", "fp8_e4m3"):
         paths[f"bert_large_pushpull_{codec.split('_')[0]}"] = \

@@ -1,0 +1,197 @@
+"""Worker process of the remote-PS tests: one of the independent worker
+processes that meet only at standalone servers over TCP, the BytePS
+deployment (``BPS_ENABLE_PS=1``, ``BPS_NUM_WORKER``, ``BPS_WORKER_ID``;
+no process group).
+
+    python _torch_ps_remote_worker.py MODE WID ADDRS OUT [INPUTS]
+
+ADDRS is ``codec=host:port,...`` for the trainer modes (one server a codec)
+and ``host:port`` for "plugin". Prints ``WORKER_OK`` at the end.
+
+MODE "port": the port's ``DistributedTrainer`` on the small BERT of
+``test_torch_ps_trainer.py`` (the weights INPUTS holds, from
+``convert.params_from_jax``) takes STEPS steps on this worker's batches
+(seed WID) on the default PS route, once a codec; saves the losses and the
+parameters in the JAX tree's layout (``torch.save``).
+
+MODE "jax": the same with the JAX package's trainer (weights from
+``init_params(PRNGKey(0))``, a one-device mesh; the JAX staged head reads
+``jax.core.Var``, which jax 0.9 lacks, so it runs the streamed tail without
+the staged head and the cross-step driver: the routes give the same bits).
+Both JAX workers declare their keys and meet at a file barrier before the
+first step: the JAX server's fused front resets a key at every
+declaration, so a declaration landing after the other worker's first push
+would wedge the round (ROADMAP.md queue 3; the port's server keeps it).
+
+MODE "plugin": the assertions of ``tests/_ps_worker.py`` on the port's API
+(``push_pull`` averages to 2.5 and sums to 10.0; async handles synchronized
+in a divergent order), through the top-level API and the torch plugin,
+then the plugin's ``broadcast_parameters`` from root 0 and one
+``DistributedOptimizer`` step; saves what it read.
+"""
+
+import os
+import sys
+from pathlib import Path
+
+import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+WIDTH = dict(hidden=128, layers=2, heads=4, vocab_size=512, max_seq=64)
+SEQ, BATCH, MAX_PRED, LR, EPS, STEPS = 64, 4, 10, 1e-3, 1e-6, 3
+
+
+def _addrs(spec):
+    return dict(kv.split("=", 1) for kv in spec.split(","))
+
+
+def _batch(wid, step):
+    from byteps_tpu_torch.models import bert as tbert
+    return tbert.synth_mlm_batch(np.random.RandomState(100 * wid + step),
+                                 BATCH, SEQ, WIDTH["vocab_size"])
+
+
+def run_port(wid, addrs, out, inputs):
+    import torch
+    torch.set_num_threads(1)
+    torch.set_float32_matmul_precision("highest")
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch import convert
+    from byteps_tpu_torch.models import bert as tbert
+    from byteps_tpu_torch.optim import adamw
+    from byteps_tpu_torch.training import DistributedTrainer
+    state = torch.load(inputs)
+    res = {}
+    for codec, addr in _addrs(addrs).items():
+        os.environ.update(BPS_COMPRESS=codec, BPS_SERVER_ADDRS=addr)
+        bps.init(device="cpu")
+        model = tbert.Transformer(tbert.bert_config(dtype="float32",
+                                                    **WIDTH))
+        model.load_state_dict(state)
+        tt = DistributedTrainer(
+            lambda m, b: tbert.mlm_loss(m, b, max_predictions=MAX_PRED),
+            model, adamw(model.parameters(), LR, eps=EPS), device="cpu")
+        losses = [tt.step(_batch(wid, i)).item() for i in range(STEPS)]
+        tt.drain()
+        res[codec] = (losses, convert.params_to_jax_layout(tt.model))
+        tt.close()
+        bps.shutdown()
+    torch.save(res, out)
+
+
+def run_jax(wid, addrs, out, inputs):
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import optax
+    import torch
+
+    import byteps_tpu as jbps
+    from byteps_tpu.models import bert as jbert
+    from byteps_tpu.models import transformer as jtr
+    from byteps_tpu.parallel.mesh import make_mesh
+    from byteps_tpu.training import DistributedTrainer as JaxTrainer
+    jcfg = jbert.bert_config(dtype="float32", attn_impl="naive", **WIDTH)
+    jp = jtr.init_params(jax.random.PRNGKey(0), jcfg)
+    res = {}
+    for codec, addr in _addrs(addrs).items():
+        os.environ.update(BPS_COMPRESS=codec, BPS_SERVER_ADDRS=addr)
+        mesh = make_mesh({"data": 1}, devices=jax.devices()[:1])
+        jbps.init(mesh=mesh)
+        jt = JaxTrainer(lambda p, b: jbert.mlm_loss(p, jcfg, b,
+                                                    max_predictions=MAX_PRED),
+                        jp, optax.adamw(LR, eps=EPS), mesh=mesh)
+        jt._ps_exchange.leaf_groups(jt.params, name=jt._name)
+        _barrier(out, wid, codec)
+        losses = [float(jt.step(_batch(wid, i))) for i in range(STEPS)]
+        res[codec] = (losses, jax.tree.map(np.asarray, jt.params))
+        jbps.shutdown()
+    torch.save(res, out)
+
+
+def _barrier(out, wid, tag, timeout=120.0):
+    """Wait, bounded, until the other worker wrote its ready file."""
+    import time
+    Path(f"{out}.{tag}.ready").touch()
+    peer = Path(f"{out[:-len(f'{wid}.out')]}{1 - wid}.out.{tag}.ready")
+    deadline = time.time() + timeout
+    while not peer.exists():
+        if time.time() > deadline:
+            raise TimeoutError(f"worker {1 - wid} never reached the barrier")
+        time.sleep(0.05)
+
+
+def run_plugin(wid, addr, out):
+    import torch
+    torch.set_num_threads(1)
+    os.environ["BPS_SERVER_ADDRS"] = addr
+    import byteps_tpu_torch as bps
+    import byteps_tpu_torch.torch as bt
+    res = {}
+    bps.init(device="cpu")
+    assert bt.size() == 2 and bt.rank() == wid, (bt.size(), bt.rank())
+    # the JAX worker's local means and sums, one tensor a worker here
+    mean = bps.push_pull({"t": torch.full((64,), 2.0 + wid)}, average=True,
+                         name="grads")["t"]
+    total = bps.push_pull({"t": torch.full((64,), 4.0 + 2 * wid)},
+                          average=False, name="grads")["t"]
+    res["api_mean"], res["api_sum"] = mean.numpy(), total.numpy()
+    a = {"t": torch.full((32,), 2.0 + 2 * wid)}
+    b = {"t": torch.full((32,), 10.0 + 2 * wid)}
+    ha = bps.push_pull_async(a, average=False, name="async_a")
+    hb = bps.push_pull_async(b, average=False, name="async_b")
+    first, second = (hb, ha) if wid == 0 else (ha, hb)
+    out_first, out_second = bps.synchronize(first), bps.synchronize(second)
+    oa = out_second if wid == 0 else out_first
+    ob = out_first if wid == 0 else out_second
+    res["api_async_a"], res["api_async_b"] = oa["t"].numpy(), ob["t"].numpy()
+    # the plugin: the same through its dispatcher's pool
+    res["plugin_mean"] = bt.push_pull(torch.full((64,), 2.0 + wid),
+                                      average=True, name="p.mean").numpy()
+    res["plugin_sum"] = bt.push_pull(torch.full((64,), 4.0 + 2 * wid),
+                                     average=False, name="p.sum").numpy()
+    ha = bt.push_pull_async(torch.full((32,), 2.0 + 2 * wid), average=False,
+                            name="p.async_a")
+    hb = bt.push_pull_async(torch.full((32,), 10.0 + 2 * wid),
+                            average=False, name="p.async_b")
+    order = (hb, ha) if wid == 0 else (ha, hb)
+    got = {h: bt.synchronize(h) for h in order}
+    res["plugin_async_a"], res["plugin_async_b"] = (got[ha].numpy(),
+                                                    got[hb].numpy())
+    # broadcast from root 0 and one averaged optimizer step
+    torch.manual_seed(wid)
+    model = torch.nn.Linear(8, 4)
+    bt.broadcast_parameters(model.state_dict(), root_rank=0)
+    res["bcast"] = torch.cat([p.detach().reshape(-1)
+                              for p in model.parameters()]).numpy()
+    opt = bt.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.5),
+        named_parameters=model.named_parameters())
+    x = torch.full((2, 8), 1.0 + wid)
+    model(x).sum().backward()
+    opt.step()
+    res["grads"] = torch.cat([p.grad.reshape(-1)
+                              for p in model.parameters()]).numpy()
+    res["stepped"] = torch.cat([p.detach().reshape(-1)
+                                for p in model.parameters()]).numpy()
+    bps.shutdown()
+    np.savez(out, **res)
+
+
+def main():
+    mode, wid, addrs, out = sys.argv[1:5]
+    inputs = sys.argv[5] if len(sys.argv) > 5 else None
+    wid = int(wid)
+    os.environ.update(BPS_ENABLE_PS="1", BPS_NUM_WORKER="2",
+                      BPS_WORKER_ID=str(wid))
+    if mode == "port":
+        run_port(wid, addrs, out, inputs)
+    elif mode == "jax":
+        run_jax(wid, addrs, out, inputs)
+    else:
+        run_plugin(wid, addrs, out)
+    print("WORKER_OK", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -12,6 +12,7 @@
 """
 
 import ast
+import os
 import re
 import subprocess
 import sys
@@ -90,7 +91,9 @@ def test_importing_the_port_loads_no_jax():
             "byteps_tpu_torch.obs.watchdog, byteps_tpu_torch.server.compressed, "
             "byteps_tpu_torch.ops.compression.host, "
             "byteps_tpu_torch.ops.compression.rng, "
-            "byteps_tpu_torch.torch, byteps_tpu_torch.telemetry; "
+            "byteps_tpu_torch.torch, byteps_tpu_torch.telemetry, "
+            "byteps_tpu_torch.server.transport, "
+            "byteps_tpu_torch.launcher.launch; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -194,15 +197,16 @@ def test_trainer_refuses_unported_options(kw, match, monkeypatch):
 
 @pytest.mark.parametrize("env", ["BPS_ENABLE_PS", "BPS_ENABLE_ASYNC"])
 def test_trainer_refuses_the_ps_paths(env, monkeypatch):
-    """The async path is not ported; the sync PS path is, with its
-    in-process server only: standalone servers (the remote transport)
-    are not."""
+    """The async path is not ported; the sync PS path is, with the
+    in-process server and with standalone servers (the remote transport),
+    but not the managed server plane over them (``BPS_PLANE_REPLICAS``)."""
     from byteps_tpu_torch.models import bert
     from byteps_tpu_torch.optim import adamw
     from byteps_tpu_torch.training import DistributedTrainer
     monkeypatch.setenv(env, "1")
     if env == "BPS_ENABLE_PS":
-        monkeypatch.setenv("BPS_SERVER_ADDRS", "localhost:1")
+        monkeypatch.setenv("BPS_SERVER_ADDRS", "localhost:1,localhost:2")
+        monkeypatch.setenv("BPS_PLANE_REPLICAS", "1")
     model = bert.Transformer(bert.bert_tiny())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DistributedTrainer(lambda m, b: 0, model,
@@ -241,11 +245,12 @@ SUBORDINATE = {
     "trace_start_step": "trace_on", "trace_end_step": "trace_on",
     "trace_dir": "trace_on", "trace_profiler": "trace_on",
     "stats_every": "stats_file",
-    # the managed server plane and the emulated NIC act only on remote
-    # servers (more than one BPS_SERVER_ADDRS)
-    "plane_replicas": "server_addrs", "plane_rebalance_sec": "server_addrs",
-    "plane_vnodes": "server_addrs", "plane_liveness": "server_addrs",
-    "emu_nic_rate": "server_addrs", "emu_nic_latency": "server_addrs",
+    # the managed server plane's and the emulated NIC's tuning knobs act
+    # only with the plane (BPS_PLANE_REPLICAS) or the NIC
+    # (BPS_EMU_NIC_RATE), both refused
+    "plane_rebalance_sec": "plane_replicas", "plane_vnodes": "plane_replicas",
+    "plane_liveness": "plane_replicas",
+    "emu_nic_latency": "emu_nic_rate",
 }
 # Knobs that need no refusal, with the reason.
 EXEMPT = {
@@ -304,6 +309,16 @@ ACTED_ON = {
     "BPS_CROSS_STEP": ("training.py",),
     "BPS_BWD_STAGED": ("training.py",),
     "BPS_BWD_GROUPS": ("training.py",),
+    # standalone servers and the remote transport
+    "BPS_SERVER_ADDRS": ("common/config.py", "common/global_state.py"),
+    "BPS_PS_CONNS": ("server/transport.py",),
+    "BPS_RECONNECT_SECS": ("server/transport.py",),
+    "BPS_PULL_TIMEOUT_MS": ("server/transport.py",),
+    "BPS_PUSH_DEDUP_TTL_SECS": ("server/transport.py",),
+    # the wire credit of the transport beside the engine's collectives
+    "BPS_SCHEDULING_CREDIT": ("common/config.py", "server/admission.py"),
+    # the launcher's server role (it builds no Config)
+    "BPS_SERVER_PORT": ("launcher/launch.py",),
 }
 
 
@@ -322,7 +337,8 @@ def _refused_cases():
     values = {"role": "server", "host_only": "1",
               "key_hash_fn": "naive", "sharded_update": "1", "trace_on": "1",
               "stats_file": "stats.json", "fleet_scrape_sec": "30",
-              "metrics_port": "9100"}
+              "metrics_port": "9100", "plane_replicas": "1",
+              "emu_nic_rate": "1e9"}
     assert set(values) == set(REFUSED)
     return [pytest.param(f, REFUSED[f][0], v, id=f)
             for f, v in values.items()]
@@ -454,6 +470,70 @@ def test_debug_sampler_logs_matching_names(env, monkeypatch):
     finally:
         bps.shutdown()
         get_logger().removeHandler(handler)
+
+
+def _transport_cases():
+    from byteps_tpu_torch.server import transport as t
+    values = {"BPS_STRIPE_MIN": "4194304", "BPS_ENABLE_SHM": "1",
+              "BPS_ENABLE_IPC": "1", "BYTEPS_ENABLE_IPC": "1",
+              "BPS_REDUCE_ROOTS": "0", "BYTEPS_REDUCE_ROOTS": "0",
+              "BPS_KEY_LOG": "1", "PS_KEY_LOG": "1", "BPS_FUSED_HOMOG": "0",
+              "BPS_SERVER_SNAPSHOT": "ps_state.npz", "BPS_NIC_RATE": "1e9"}
+    cases = []
+    for role, table in (("client", t.CLIENT_REFUSED),
+                        ("server", t.SERVER_REFUSED),
+                        ("launcher", t.LAUNCHER_REFUSED)):
+        for env, (legacy, *_rest) in table.items():
+            for name in (env, legacy):
+                if name:
+                    cases.append(pytest.param(role, name, values[name],
+                                              id=f"{role}-{name}"))
+    assert {c.values[1] for c in cases} == set(values)
+    return cases
+
+
+# where the JAX package reads each of those knobs
+_JAX_READERS = ("server/transport.py", "server/homog.py",
+                "common/naming.py", "launcher/launch.py")
+
+
+@pytest.mark.parametrize("role,env,value", _transport_cases())
+def test_transport_knob_raises_at_a_non_default_value(role, env, value,
+                                                      monkeypatch):
+    """The knobs the JAX transport, its fused front and its launcher read
+    and the port does not act on: the role that would read one raises at
+    a non-default value, and runs at the default."""
+    from byteps_tpu_torch.launcher import launch
+    from byteps_tpu_torch.server import transport as t
+    from byteps_tpu_torch.server.engine import PSServer
+    jax_src = "".join((REPO / "byteps_tpu" / f).read_text()
+                      for f in _JAX_READERS)
+    assert f'"{env}"' in jax_src
+    for name in [n for tab in (t.CLIENT_REFUSED, t.SERVER_REFUSED,
+                               t.LAUNCHER_REFUSED)
+                 for k, v in tab.items() for n in (k, v[0]) if n]:
+        monkeypatch.delenv(name, raising=False)
+    eng = PSServer(num_workers=1, engine_threads=1)
+    srv = t.PSTransportServer(eng, host="127.0.0.1", port=0)
+    try:
+        def build():
+            if role == "client":
+                t.RemotePSBackend([f"127.0.0.1:{srv.port}"]).close()
+            elif role == "server":
+                t.PSTransportServer(PSServer(1, 1), host="127.0.0.1").close()
+            else:
+                stop = __import__("threading").Event()
+                stop.set()
+                launch.run_server(dict(os.environ, BPS_SERVER_PORT="0"),
+                                  stop=stop)
+
+        build()                                   # the default runs
+        monkeypatch.setenv(env, value)
+        with pytest.raises(NotImplementedError, match=f"{env}.*ROADMAP"):
+            build()
+    finally:
+        srv.close()
+        eng.close()
 
 
 def test_refused_knob_raises_under_its_legacy_name(monkeypatch):

@@ -241,9 +241,27 @@ def test_ps_trainer_needs_init_and_refuses_unported_options(monkeypatch):
     monkeypatch.setenv("BPS_NUM_WORKER", "2")
     with pytest.raises(ValueError, match="BPS_SERVER_ADDRS"):
         bps.init(device="cpu")
-    monkeypatch.setenv("BPS_SERVER_ADDRS", "localhost:1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # standalone servers, refused until the transport was ported, now give
+    # world 2 its remote backend (test_torch_ps_remote.py); the managed
+    # server plane over them stays refused
+    from byteps_tpu_torch.server.engine import PSServer
+    from byteps_tpu_torch.server.transport import (PSTransportServer,
+                                                   RemotePSBackend)
+    eng = PSServer(num_workers=2, engine_threads=1)
+    srv = PSTransportServer(eng, host="127.0.0.1")
+    try:
+        monkeypatch.setenv("BPS_SERVER_ADDRS", f"127.0.0.1:{srv.port}")
         bps.init(device="cpu")
+        gs = GlobalState.get()
+        assert isinstance(gs.ps_backend, RemotePSBackend)
+        assert gs.engine.ps_world == 2
+        bps.shutdown()
+        monkeypatch.setenv("BPS_PLANE_REPLICAS", "1")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            bps.init(device="cpu")
+    finally:
+        srv.close()
+        eng.close()
 
 
 def test_a_trainer_run_holds_only_the_trainers_exchange(monkeypatch):
