@@ -32,6 +32,14 @@ package, resolved once into a frozen ``Config``:
                              without progress; 0 = off)
   BPS_PP_STAGES            (pipeline depth: DistributedTrainer raises
                              above 1, as the JAX trainer does)
+  BPS_SHARDED_UPDATE       (the sharded weight update of the PS path,
+                             ``sharded_update.py``: each worker pulls and
+                             applies only the bucket groups it owns and
+                             fetches the others' parameters; a case it
+                             cannot serve keeps the full update with one
+                             INFO line)
+  BPS_SHARD_RANK           (this worker's ownership rank; -1 = BPS_WORKER_ID)
+  BPS_SHARD_WORLD          (the ownership degree; 0 = BPS_NUM_WORKER)
   BYTEPS_SCHEDULING_CREDIT → BPS_SCHEDULING_CREDIT (bytes of bucket
                              collectives in flight before the engine's
                              synchronous push_pull waits; 0 = no limit;
@@ -56,6 +64,9 @@ default 1: ``BPS_APPLY_CHUNKED`` (the streamed tail; 0 = the monolithic
 one), ``BPS_BWD_STAGED`` (the staged head), ``BPS_CROSS_STEP`` (the
 cross-step driver, ``cross_step.py``) and ``BPS_BWD_GROUPS`` (a cap on the
 staged head's feed batches; default 0, the JAX package's cap).
+``BPS_PARAM_TIMEOUT_MS`` (how long a sharded-update fetch waits for its
+owner's frame before it raises, default 30000) is read by
+``sharded_update.py``.
 ``BPS_STAGED_CACHE`` sizes the JAX package's cache of compiled backward
 segments; eager PyTorch compiles none, and the port has no such cache.
 The remote transport (``server/transport.py``) reads its own knobs where
@@ -127,8 +138,6 @@ REFUSED = {
                   "the host-only runtime"),
     "key_hash_fn": ("BPS_KEY_HASH_FN", "BYTEPS_KEY_HASH_FN", "djb2", str,
                     "a key placement other than djb2"),
-    "sharded_update": ("BPS_SHARDED_UPDATE", None, False, bool,
-                       "the sharded weight update"),
     "trace_on": ("BPS_TRACE_ON", "BYTEPS_TRACE_ON", False, bool,
                  "the step-window tracer"),
     "stats_file": ("BPS_STATS_FILE", None, "", str,
@@ -179,6 +188,9 @@ class Config:
     compress: str = "none"               # BPS_COMPRESS
     watchdog_sec: float = 0.0            # BPS_WATCHDOG_SEC (0 = off)
     pp_stages: int = 1                   # BPS_PP_STAGES (1 = no pipeline)
+    sharded_update: bool = False         # BPS_SHARDED_UPDATE
+    shard_rank: int = -1                 # BPS_SHARD_RANK (-1 = worker_id)
+    shard_world: int = 0                 # BPS_SHARD_WORLD (0 = num_worker)
     scheduling_credit: int = 0           # 0 = disabled, scheduled_queue.cc:35-45
     telemetry_on: bool = False
     debug_sample_tensor: str = ""        # BYTEPS_DEBUG_SAMPLE_TENSOR
@@ -204,6 +216,9 @@ class Config:
             compress=(_env("BPS_COMPRESS", None, "none") or "none").lower(),
             watchdog_sec=float(_env("BPS_WATCHDOG_SEC", None, "0") or 0),
             pp_stages=_env_int("BPS_PP_STAGES", None, 1),
+            sharded_update=_env_bool("BPS_SHARDED_UPDATE", None),
+            shard_rank=_env_int("BPS_SHARD_RANK", None, -1),
+            shard_world=_env_int("BPS_SHARD_WORLD", None, 0),
             scheduling_credit=_env_int("BPS_SCHEDULING_CREDIT",
                                        "BYTEPS_SCHEDULING_CREDIT", 0),
             telemetry_on=_env_bool("BPS_TELEMETRY_ON", "BYTEPS_TELEMETRY_ON"),

@@ -13,7 +13,11 @@ exchange, holding
     ``encode`` stages the round's new residual as PENDING and ``commit``
     (called when that round's pull lands) installs it. A round that dies
     between push and pull never commits, leaving the state consistent for
-    a retry.
+    a retry. Under the sharded weight update a worker does not pull the
+    buckets of groups it does not own: it commits such a bucket's residual
+    when the owners' param frames for it land, the moment it knows the
+    round's sum was consumed (``server/ps_mode.py::_Round.release_skipped``),
+    and the owner on its pull as before.
 
 The committed residual is a numpy array on the host-codec path and a
 tensor on the device of the gradients (the card, or the CPU in tests)

@@ -39,6 +39,14 @@ modules whose forward never runs, so the gates of those leaves move to the
 model's root: the next forward starts once the whole previous tail was
 applied. That granularity is the model's; the JAX package cuts its forward
 at bucket-group boundaries instead.
+
+Under the sharded weight update (``sharded_update.py``) a tail runs
+``ShardedUpdateState.run_tail`` with the round's view: owned groups are
+pulled, applied and published, the others installed from their owners'
+frames, and a fetched group marks the same epoch an applied one does (the
+install is ordered on the forward's stream, its event is the group's
+apply event). The epoch counter continues the trainer's: its first,
+draining step already marked epoch 1 (``byteps_tpu/cross_step.py:81-86``).
 """
 
 from __future__ import annotations
@@ -69,7 +77,8 @@ class CrossStepDriver:
         self._chunked = trainer._chunked
         self._ex = trainer.ps_exchange
         self._ungated = sorted(ungated)
-        self._epoch = 0
+        # a draining sharded step already marked its epoch: continue it
+        self._epoch = trainer._sharded_epoch
         self._tails: List[threading.Thread] = []
         self._err = None             # (exc, applied groups, epoch)
         self._err_lock = threading.Lock()
@@ -164,9 +173,14 @@ class CrossStepDriver:
         hyper = chunked.hyper()
         compute = (torch.cuda.current_stream(tr.device)
                    if tr.device.type == "cuda" else None)
-        handle = self._ex.exchange_ingest(tr._ps_params, name=tr._name,
-                                          step=e,
-                                          host_alloc=tr._stager.host_alloc)
+        # re-resolved every step: None is an unsharded round
+        st = tr._sharded_active()
+        handle = self._ex.exchange_ingest(
+            tr._ps_params, name=tr._name, step=e,
+            host_alloc=tr._stager.host_alloc,
+            sharded=st.plan.round_view() if st is not None else None)
+        if st is not None:
+            tr._sharded_epoch = e
 
         def gate(leaf_ids) -> None:
             self._gate(e, leaf_ids)
@@ -179,9 +193,14 @@ class CrossStepDriver:
             # later gate waits for marks that never come (the staged
             # backward aborted the round)
             self._epoch = e - 1
+            if st is not None:
+                tr._sharded_epoch = e - 1
             raise
+        # the param-frame seq is taken at tail launch, in step order, so
+        # equal seqs are the same step on every replica
+        seq = st.next_seq() if st is not None else None
         t = threading.Thread(target=self._tail,
-                             args=(handle, e, hyper, compute, t_ex),
+                             args=(handle, e, hyper, compute, t_ex, st, seq),
                              name=f"bps-xstep-tail-{e}", daemon=True)
         self._tails.append(t)
         t.start()
@@ -189,12 +208,30 @@ class CrossStepDriver:
 
     # ------------------------------------------------------------ tail
 
-    def _tail(self, handle, e: int, hyper, compute, t_ex: float) -> None:
+    def _tail(self, handle, e: int, hyper, compute, t_ex: float, st=None,
+              seq=None) -> None:
         """Step ``e``'s straggler consumer: a reader thread copies each
         leaf to the card as it lands and queues complete groups by
         next-use priority; this thread applies them, each once its
-        step-(e-1) apply was enqueued, on the forward's stream."""
+        step-(e-1) apply was enqueued, on the forward's stream. ``st``,
+        ``seq``: the sharded state and the step's param-frame seq (its
+        ``run_tail`` then consumes the round, with the same gating and
+        the same poison on failure)."""
         chunked, stager = self._chunked, self._tr._stager
+        if st is not None:
+            applied = 0
+            try:
+                applied = st.run_tail(
+                    handle, chunked, e, seq, stager.copy, self._tr._put_param,
+                    hyper, stream=compute,
+                    should_abort=lambda: self._err is not None)
+                observe_stage("PS_PUSH_PULL", time.time() - t_ex)
+            except BaseException as exc:   # noqa: BLE001 — surfaced on the
+                with self._err_lock:       # next step(), drain() or read
+                    if self._err is None:
+                        self._err = (exc, applied, e)
+                chunked.mark_epoch((), e)
+            return
         shapes = [tuple(p.shape) for _, p in self._tr._ps_params]
         cv = threading.Condition()
         ready: List = []             # (first leaf, group) min-heap

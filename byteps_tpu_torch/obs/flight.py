@@ -7,7 +7,9 @@ cannot answer *what happened*: the wedge is only the last frame of a
 sequence (the pushes that landed, the admission grants that ordered them,
 the codec the controller picked two rounds ago). This module records that
 sequence: every push, pull, admission grant and codec decision of the
-ported paths appends one small event to a per-process ring
+ported paths, and the sharded update's param frames (``param_put`` by the
+owner's publisher, ``param_fetch`` by a non-owner, a timed-out fetch with
+its error), appends one small event to a per-process ring
 (``BPS_FLIGHT_RECORDER``, default on; ``BPS_FLIGHT_RECORDER_SIZE``
 events, default 1024, at least 16), and the failure paths (the
 watchdog's stall dump, a failed pull, a refused decode) dump the last N

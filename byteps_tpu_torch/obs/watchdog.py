@@ -12,9 +12,12 @@ missing buckets, the admission gate's holders and queued waiters) through
 for the implicated keys, once a stall period, re-armed by progress.
 
 Enabled by ``BPS_WATCHDOG_SEC`` (``PSGradientExchange`` starts one with
-its pipeline threads); tests drive it directly. The JAX package's dump
-also names the sharded update's param waits and the pipeline stages'
-activation waits: neither is ported, so neither state occurs here.
+its pipeline threads); tests drive it directly. Under the sharded weight
+update a bucket this replica does not pull waits in ``await_param`` for
+its owners' param frames, and the dump names the owner rank: a dead
+owner's wedge is attributable from the dump alone. The JAX package's dump
+also names the pipeline stages' activation waits: pipeline parallelism is
+not ported, so that state does not occur here.
 """
 
 from __future__ import annotations
@@ -29,11 +32,12 @@ from . import metrics as _metrics
 
 def implicated_keys(state: dict) -> set:
     """The keys a stall dump points at: buckets that reached the wire
-    (pushed, or failed) and the admission gate's holders."""
+    (pushed, failed, or awaiting a param frame) and the admission gate's
+    holders."""
     keys: set = set()
     for r in state.get("rounds", ()):
         for b in r.get("buckets", ()):
-            if b.get("state") in ("pushed", "failed"):
+            if b.get("state") in ("pushed", "failed", "await_param"):
                 k = b.get("pskey")
                 if k is not None:
                     keys.add(int(k))
@@ -57,6 +61,12 @@ def format_dump(state: dict, stalled_s: float) -> str:
             mark = ""
             if st == "pushed":
                 mark = "  <-- pushed, pull never completed (wedge)"
+            elif st == "await_param":
+                # sharded update: this replica does not pull the bucket,
+                # it waits for the owner's param publish
+                mark = (f"  <-- pushed, awaiting param publish from "
+                        f"owner replica {b.get('owner', '?')} "
+                        f"(sharded update)")
             elif st == "failed":
                 mark = "  <-- failed"
             lines.append(
@@ -77,6 +87,14 @@ def format_dump(state: dict, stalled_s: float) -> str:
             "pull was lost (server death past the reconnect budget, or a "
             "peer that never pushed its share) and the per-key admission "
             "gate cannot release without it")
+    elif any(b.get("state") == "await_param"
+             for r in state.get("rounds", ()) for b in r.get("buckets", ())):
+        lines.append(
+            "  an await_param bucket above is the wedge: the named owner "
+            "replica never published its param frame (it died between its "
+            "grad pull and its param publish, or its publisher is "
+            "stalled) — non-owners cannot release the bucket's admission "
+            "key without the frame")
     else:
         lines.append(
             "  no bucket reached the wire yet: the stall is upstream of "
@@ -139,7 +157,8 @@ class StallWatchdog:
         # lost) or pushes queued behind the admission gate. Rounds whose
         # buckets are all still "pending" with an idle gate are upstream
         # latency, not a wedge
-        wired = any(b.get("state") in ("pushed", "pulled", "failed")
+        wired = any(b.get("state") in ("pushed", "pulled", "failed",
+                                       "await_param", "param_done")
                     for r in state.get("rounds", ())
                     for b in r.get("buckets", ()))
         if not wired and not state.get("admission", {}).get("waiters"):

@@ -248,9 +248,15 @@ class ChunkedApply:
     step whose apply was enqueued for it, ``mark_epoch`` / ``wait_epoch``)
     and each group the CUDA event recorded after its latest apply
     (``wait_device``): the host gate and the device order a later reader
-    needs."""
+    needs.
 
-    def __init__(self, optimizer, params, groups) -> None:
+    ``owned`` (the sharded weight update, ``sharded_update.py``): the
+    groups this replica applies. A group's child optimizer is made at its
+    first apply, and a torch optimizer makes a parameter's state at its
+    first step, so optimizer state exists for the owned groups only;
+    applying another group raises (its state lives on its owner)."""
+
+    def __init__(self, optimizer, params, groups, owned=None) -> None:
         self.opt = optimizer
         self.params = list(params)
         self.groups = [tuple(g) for g in groups if g]
@@ -263,6 +269,7 @@ class ChunkedApply:
         self._epoch_cv = threading.Condition()
         self.apply_events: List = [None] * len(self.groups)
         self._children: List = [None] * len(self.groups)
+        self.owned = None if owned is None else frozenset(owned)
 
     def hyper(self) -> List[dict]:
         """The parent's hyper-parameters now: a step's applies use those in
@@ -318,6 +325,12 @@ class ChunkedApply:
     def apply_group(self, gi: int, grads, hyper, events=(),
                     stream=None) -> None:
         """Step group ``gi`` with ``grads`` (in ``groups[gi]`` order)."""
+        if self.owned is not None and gi not in self.owned:
+            raise RuntimeError(
+                f"apply_group({gi}) on a non-owned group: this replica "
+                f"holds no optimizer state for it (sharded update) — "
+                f"non-owned groups are installed from the owner's "
+                f"param frames, never applied locally")
         t0 = time.time()
         child = self._child_for(gi, hyper)
         ev = self._run(self.groups[gi], grads,
@@ -334,6 +347,12 @@ class ChunkedApply:
                        events, stream)
         self.apply_events = [ev] * len(self.groups)
         observe_stage("PS_APPLY_CHUNK", time.time() - t0)
+
+    def groups_with_state(self) -> List[int]:
+        """The groups of which some parameter has optimizer state."""
+        state = self.opt.state
+        return [gi for gi, g in enumerate(self.groups)
+                if any(state.get(self.params[li]) for li in g)]
 
     def mark_epoch(self, leaf_ids, epoch: int) -> None:
         """Publish ``leaf_ids`` as applied through step ``epoch`` (after

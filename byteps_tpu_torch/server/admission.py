@@ -3,7 +3,11 @@
 
 ``KeyGate`` is the per-key push gate: round k+1's push of a key waits until
 round k's pull of that key completed, because the server publishes one
-round per key at a time. ``PullQueue`` drains landed buckets oldest round
+round per key at a time. Under the sharded weight update a replica does
+not pull the buckets of groups it does not own: such a key is released
+when the owners' param frames of every group the bucket covers have
+landed (``server/ps_mode.py::_Round.release_skipped``), which implies the
+owner pulled that round. ``PullQueue`` drains landed buckets oldest round
 first, then by next-step first-use priority. ``AdmissionPlane`` is the
 facade an exchange owns. Every grant is a flight-recorder event
 (``admit``; a deferred grant says how long it waited), and ``state()`` is
@@ -12,9 +16,11 @@ the watchdog's view of the gate.
 ``SendScheduler`` is the wire credit gate of the remote transport
 (``BPS_SCHEDULING_CREDIT`` > 0): a payload frame of the gradient class
 waits until it is the highest-priority queued frame and its bytes fit the
-credit, and holds the credit across its roundtrip. The transport ports
-only gradient ops, so only ``CLASS_GRAD`` frames reach it; the latency
-class's constants stay for the ops that will use them.
+credit, and holds the credit across its roundtrip. Gradient frames are
+``CLASS_GRAD``; the sharded update's param PUT frames are ``CLASS_ACT``,
+the latency class, with next-step first-use priority among themselves:
+they gate the next step's forward, so a small one overtakes a queued
+gradient burst.
 
 Not ported yet (ROADMAP.md): ``BPS_MAX_LAG`` > 1 (the bounded-staleness
 store, a gate of depth K).

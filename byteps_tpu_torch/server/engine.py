@@ -20,8 +20,12 @@ A ``PSServer`` also serves other processes: ``server/transport.py``'s
 byteps_tpu_torch.launcher.launch --server``), and the workers'
 ``RemotePSBackend`` stands in for ``HostPSBackend``.
 
-Not ported yet (ROADMAP.md): key migration and the placement ring,
-bounded-staleness rounds, row-sparse pushes and the param mailbox.
+``HostPSBackend`` also holds the sharded weight update's param mailbox
+(``param_put`` / ``param_get`` / ``param_latest``, a
+``sharded_update.ParamStore`` made at first use).
+
+Not ported yet (ROADMAP.md): key migration, bounded-staleness rounds and
+row-sparse pushes.
 """
 
 from __future__ import annotations
@@ -258,6 +262,9 @@ class HostPSBackend:
         # the server's backlog, which the auto controller reads
         self._m_queue_depth = reg.gauge("server/engine_queue_depth")
         self._qd_next_sample = 0.0
+        # the sharded update's param mailbox, made at first use
+        self._param_store = None
+        self._param_lock = threading.Lock()
 
     def close(self) -> None:
         for s in self.servers:
@@ -359,6 +366,28 @@ class HostPSBackend:
         (reference: decompress before SUM_RECV, server.cc:86-113)."""
         from .compressed import compressed_push
         compressed_push(self.compressed, self._shard(key), key, payload)
+
+    def param_store(self):
+        if self._param_store is None:
+            with self._param_lock:
+                if self._param_store is None:
+                    from ..sharded_update import ParamStore
+                    self._param_store = ParamStore()
+        return self._param_store
+
+    def param_put(self, key: int, seq: int, payload) -> None:
+        """Publish a sharded-update param frame (last-wins per (key,
+        seq))."""
+        self.param_store().put(key, seq, payload)
+
+    def param_get(self, key: int, seq: int,
+                  timeout_ms: int = 30000) -> bytes:
+        """The (key, seq) param frame, waiting for it; not consumed."""
+        return self.param_store().get(key, seq, timeout_ms=timeout_ms)
+
+    def param_latest(self, key: int) -> int:
+        """The newest retained param seq of ``key`` (0: none)."""
+        return self.param_store().latest(key)
 
     def pull_bytes(self, key: int, round: int = 0,
                    timeout_ms: int = 30000) -> bytes:

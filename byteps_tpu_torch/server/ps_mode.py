@@ -53,9 +53,17 @@ gradient nor a reused block is ever read. ``leaf_groups`` partitions the
 leaves by the bucket whose pull completes them: the granularity of the
 chunked apply.
 
-Not ported yet (ROADMAP.md): sharded rounds, bounded-staleness routing
-(and its ``lag_admit`` events), ``AsyncPSWorker`` and the row-sparse
-exchange.
+Both round forms take ``sharded=``, a round view of the sharded weight
+update (``sharded_update.py``): every bucket is still pushed, but only
+the buckets covering this replica's owned groups are pulled, and only the
+owned leaves stream. A bucket that is not pulled goes ``pending ->
+await_param -> param_done``: its admission key stays held until the
+owners' param frames for every group it covers have landed
+(``release_skipped``), which also commits its error-feedback residual, as
+a pull would.
+
+Not ported yet (ROADMAP.md): bounded-staleness routing (and its
+``lag_admit`` events), ``AsyncPSWorker`` and the row-sparse exchange.
 """
 
 from __future__ import annotations
@@ -168,8 +176,12 @@ class _Round:
                  tree: Sequence[Tuple[str, object]],
                  name: Optional[str], stream: bool = False,
                  ingest: bool = False, step: Optional[int] = None,
-                 host_alloc=None) -> None:
+                 host_alloc=None, sharded=None) -> None:
         self.ex = ex
+        # a sharded round pulls only the owned groups' buckets; the rest
+        # wait in "await_param" for the owners' frames (None: every
+        # bucket is pulled)
+        self.sharded = sharded
         self.step_tag = step
         self.decl_name, self.keyed = ex._plan(tree, name)
         sources = [t for _, t in tree]
@@ -211,34 +223,61 @@ class _Round:
         self.flat: List[Optional[np.ndarray]] = [None] * len(sources)
         self.flat_locks = [threading.Lock() for _ in sources]
         alloc = host_alloc or (lambda n, dt: np.empty(n, dt))
-        self.out = [alloc(int(np.prod(shp)), np.dtype(dt))
-                    for shp, dt in zip(self.shapes, self.dtypes)]
+        # a sharded round's leaves that never stream get a plain buffer:
+        # no tail copies them, so none would go back to a staging pool
+        self.out = [(alloc if sharded is None or li in sharded.stream_leaves
+                     else np.empty)(int(np.prod(shp)), np.dtype(dt))
+                    for li, (shp, dt) in enumerate(zip(self.shapes,
+                                                       self.dtypes))]
         self.rounds: List[Optional[int]] = [None] * len(self.keyed)
         # pull order: among landed buckets, the one holding the
         # earliest-declared (input-side) leaves first
         self.pull_prio = [min((s.leaf_index for s in b.segments), default=0)
                           for _, b in self.keyed]
         self.round_seq = ex.plane.pulls.next_round_seq()
-        self._pulls_left = len(self.keyed)
+        self.skip_buckets = frozenset(
+            () if sharded is None else
+            (i for i in range(len(self.keyed))
+             if i not in sharded.pull_buckets))
+        self._pulls_left = len(self.keyed) - len(self.skip_buckets)
+        self._skips_left = len(self.skip_buckets)
+        self._skip_lock = threading.Lock()
+        # skipped buckets whose release came before their own push's
+        # bookkeeping finished (an owner may publish as soon as every
+        # worker's push reached the server)
+        self._skip_release_pending: set = set()
         self._pull_lock = threading.Lock()
         self._pull_err: Optional[BaseException] = None
         self._pull_done = threading.Event()
         self.aborted: Optional[BaseException] = None
         # each bucket's life for the watchdog's dump: pending -> pushed ->
-        # pulled (or failed); "pushed" forever is a wedge
+        # pulled (or failed), and pending -> await_param -> param_done for
+        # a sharded round's skipped buckets; "pushed" or "await_param"
+        # forever is a wedge
         self.bucket_state = ["pending"] * len(self.keyed)
         self._finished = False
         if not self.keyed:
             self._pull_done.set()
         else:
             ex._register_round(self)
+            if self._pulls_left <= 0:
+                self._pull_done.set()
         self.readyq: Optional[queue.Queue] = None
+        self._stream_n = len(sources)
         if stream or ingest:
             self.readyq = queue.Queue()
             self.seg_left = [0] * len(sources)
             for _, b in self.keyed:
                 for s in b.segments:
                     self.seg_left[s.leaf_index] += 1
+            if sharded is not None:
+                # only the owned leaves stream; the others complete by
+                # param fetch, and a boundary bucket's partial sums of
+                # them must never reach the consumer as a finished leaf
+                for li in range(len(sources)):
+                    if li not in sharded.stream_leaves:
+                        self.seg_left[li] = -1
+                self._stream_n = sum(1 for n in self.seg_left if n >= 0)
             self.seg_lock = threading.Lock()
             for li, n in enumerate(self.seg_left):
                 if n == 0:          # zero-size leaf: no covering bucket
@@ -335,6 +374,8 @@ class _Round:
 
     def _segment_done(self, li: int) -> None:
         with self.seg_lock:
+            if self.seg_left[li] < 0:    # sharded: a leaf that does not
+                return                   # stream (its frame installs it)
             self.seg_left[li] -= 1
             done = self.seg_left[li] == 0
         if done:
@@ -355,14 +396,71 @@ class _Round:
 
     def _push_task(self, idx: int) -> None:
         pskey, _ = self.keyed[idx]
+        skip = idx in self.skip_buckets
         try:
             buf = self.push_one(idx)
         except BaseException as e:   # noqa: BLE001 — relayed to drain()
             self.bucket_state[idx] = "failed"
             self.ex.plane.gate.release(pskey)
-            self._pull_finished(e)
+            if skip:
+                self._skip_finished(e)
+            else:
+                self._pull_finished(e)
             return
-        self.ex._enqueue_pull(self, idx, buf)
+        if not skip:
+            self.ex._enqueue_pull(self, idx, buf)
+            return
+        # a sharded round's bucket that is not pulled: the admission key
+        # stays held until the owners' frames of every group it covers
+        # have landed; a release that came first completes here
+        with self._skip_lock:
+            self.bucket_state[idx] = "await_param"
+            fire = idx in self._skip_release_pending
+            self._skip_release_pending.discard(idx)
+        if fire:
+            self._finish_skip_release(idx)
+
+    def release_skipped(self, idx: int) -> None:
+        """The param frames of every group that bucket ``idx`` covers have
+        landed (sharded update): release the bucket's admission key, so
+        the next round's push may go, and commit the compression plane's
+        pending residual: the frames prove the owner consumed this
+        round's sum, the signal a pull gives an unsharded round."""
+        if idx not in self.skip_buckets:
+            raise ValueError(f"bucket {idx} is not a skipped bucket of "
+                             f"this round")
+        with self._skip_lock:
+            if self.bucket_state[idx] == "param_done":
+                return
+            if self.bucket_state[idx] != "await_param":
+                # the owner published before this worker's push
+                # bookkeeping finished: the push task completes it
+                self._skip_release_pending.add(idx)
+                return
+        self._finish_skip_release(idx)
+
+    def _finish_skip_release(self, idx: int) -> None:
+        ex = self.ex
+        pskey, _ = self.keyed[idx]
+        plane = ex._cplane
+        if plane is not None and plane.active(pskey):
+            plane.commit(pskey, self.rounds[idx])
+        self.bucket_state[idx] = "param_done"
+        ex._mark_progress()
+        ex.plane.gate.release(pskey)
+        self._skip_finished(None)
+
+    def _skip_finished(self, exc: Optional[BaseException]) -> None:
+        if exc is not None:
+            if self._pull_err is None:
+                self._pull_err = exc
+            if self.readyq is not None:
+                self.readyq.put(exc)
+        with self._pull_lock:
+            self._skips_left -= 1
+            done = self._pulls_left <= 0 and self._skips_left <= 0
+        if done:
+            self._mark_finished()
 
     def _pull_finished(self, exc: Optional[BaseException]) -> None:
         if exc is not None:
@@ -372,9 +470,11 @@ class _Round:
                 self.readyq.put(exc)
         with self._pull_lock:
             self._pulls_left -= 1
-            done = self._pulls_left <= 0
+            pulls_done = self._pulls_left <= 0
+            done = pulls_done and self._skips_left <= 0
         if done:
             self._mark_finished()
+        if pulls_done:
             self._pull_done.set()
 
     def _mark_finished(self) -> None:
@@ -407,7 +507,7 @@ class _Round:
         return self.assemble()
 
     def ready_iter(self, timeout: Optional[float] = None):
-        for _ in range(len(self.out)):
+        for _ in range(self._stream_n):
             try:
                 item = self.readyq.get(timeout=timeout)
             except queue.Empty:
@@ -587,8 +687,11 @@ class PSGradientExchange:
         return [r for r in live if r is not None and not r._finished]
 
     def in_flight_buckets(self) -> int:
-        """Buckets of live rounds whose pull has not completed."""
-        return sum(max(0, r._pulls_left) for r in self._live())
+        """Buckets of live rounds whose pull has not completed, and those
+        of a sharded round still waiting for their owners' frames (their
+        admission keys are held: a dead owner's wedge is in flight)."""
+        return sum(max(0, r._pulls_left) + max(0, r._skips_left)
+                   for r in self._live())
 
     def progress_state(self):
         """(last progress on the monotonic clock, buckets in flight): the
@@ -597,15 +700,28 @@ class PSGradientExchange:
 
     def debug_state(self) -> dict:
         """Every unfinished round's buckets (PS key, round, pending /
-        pushed / pulled / failed) and the admission gate's holders and
-        queued waiters: what the watchdog dumps."""
-        rounds = [{"name": r.decl_name, "step": r.step_tag,
-                   "seq": r.round_seq,
-                   "pulls_left": r._pulls_left,
-                   "buckets": [{"pskey": pskey, "round": r.rounds[i],
-                                "state": r.bucket_state[i]}
-                               for i, (pskey, _) in enumerate(r.keyed)]}
-                  for r in self._live()]
+        pushed / pulled / failed, or await_param / param_done with the
+        owner ranks whose frames a skipped bucket waits for) and the
+        admission gate's holders and queued waiters: what the watchdog
+        dumps."""
+        rounds = []
+        for r in self._live():
+            buckets = []
+            for i, (pskey, _) in enumerate(r.keyed):
+                b = {"pskey": pskey, "round": r.rounds[i],
+                     "state": r.bucket_state[i]}
+                if r.sharded is not None and i in r.skip_buckets:
+                    # every owner a frame must come from (a boundary
+                    # bucket may wait on two), so a dead owner's wedge is
+                    # attributable from the dump
+                    owners = r.sharded.skip_owner.get(i, ())
+                    b["owner"] = (owners[0] if len(owners) == 1
+                                  else list(owners))
+                buckets.append(b)
+            rounds.append({"name": r.decl_name, "step": r.step_tag,
+                           "seq": r.round_seq, "pulls_left": r._pulls_left,
+                           "skips_left": r._skips_left,
+                           "buckets": buckets})
         return {"in_flight": self.in_flight_buckets(), "rounds": rounds,
                 "admission": self.plane.gate.state()}
 
@@ -941,16 +1057,18 @@ class PSGradientExchange:
 
     def exchange_stream(self, tree: Sequence[Tuple[str, object]],
                         name: Optional[str] = None,
-                        host_alloc=None) -> _StreamingExchange:
+                        host_alloc=None, sharded=None) -> _StreamingExchange:
         """A streaming round: every bucket is pushed now, and ``ready()``
         of the returned handle yields each leaf as its last covering
         bucket's pull unpacks. ``host_alloc(n, dtype)`` makes the
         round's flat host leaves (the trainer's pinned staging buffers);
-        default ``np.empty``."""
+        default ``np.empty``. ``sharded``: a sharded-update round view
+        (push every bucket, pull only the owned ones, stream only the
+        owned leaves)."""
         self._ensure_watchdog()
         self._ensure_executors()
         rnd = _Round(self, list(tree), name, stream=True,
-                     host_alloc=host_alloc)
+                     host_alloc=host_alloc, sharded=sharded)
         for i in range(len(rnd.keyed)):
             rnd.submit_bucket(i)
         return _StreamingExchange(rnd)
@@ -958,17 +1076,18 @@ class PSGradientExchange:
     def exchange_ingest(self, template: Sequence[Tuple[str, object]],
                         name: Optional[str] = None,
                         step: Optional[int] = None,
-                        host_alloc=None) -> _IngestExchange:
+                        host_alloc=None, sharded=None) -> _IngestExchange:
         """An ingest round: ``template`` (the parameters, as ``(path,
         tensor)`` pairs) gives the plan; the caller ``feed``s the
         gradients as the backward makes them, and each bucket is pushed
         once its last leaf arrived. ``step`` tags the round in the
-        watchdog's dump."""
+        watchdog's dump; ``sharded`` as for ``exchange_stream``."""
         self._ensure_watchdog()
         self._ensure_executors()
         return _IngestExchange(_Round(self, list(template), name,
                                       ingest=True, step=step,
-                                      host_alloc=host_alloc))
+                                      host_alloc=host_alloc,
+                                      sharded=sharded))
 
     def exchange(self, tree: Sequence[Tuple[str, object]],
                  name: Optional[str] = None) -> List[np.ndarray]:

@@ -16,7 +16,13 @@ the sync round, response = the merged buffer), 4=CLOSE, 5=INIT_C / 6=PUSH_C
 / 7=PULL_C (the legacy compression chains, ``server/compressed.py``),
 9=ROUND (the key's latest completed round, u64), 17=PUSH_F / 18=PULL_F (the
 fused compression plane: a self-describing codec payload; the pull's
-payload is codec:u8 | topk div:u16le). Status: 0=OK, 1=error (the message
+payload is codec:u8 | topk div:u16le), 21=PARAM_PUT / 22=PARAM_GET /
+24=PARAM_SEQ (the sharded weight update's param mailbox,
+``sharded_update.py::ParamStore``: ``key`` = the param-class key, bit 41 |
+decl << 16 | group, ``round`` = the step's seq; PUT is last-wins per
+(key, seq), GET blocks server-side until the frame arrives and does not
+consume it, SEQ answers the newest retained seq as u64, 0 = none). Status:
+0=OK, 1=error (the message
 rides as payload and the connection stays usable), 2=timeout, 3=gone (the
 server is shutting down: the client reconnects).
 
@@ -33,7 +39,14 @@ channel, so pushes need others), round-blocked pulls sliced into short
 server-side waits under one client deadline (``BPS_PULL_TIMEOUT_MS``),
 reconnect with init replay for ``BPS_RECONNECT_SECS``, and payload frames
 gated by the wire credit (``BPS_SCHEDULING_CREDIT``,
-``server/admission.py::SendScheduler``).
+``server/admission.py::SendScheduler``): gradient frames in its gradient
+class, param PUT frames in its latency class. The param mailbox's ops ride
+connections of their own, a pool that grows to the number of ops in flight
+(dialed at first use), so a mailbox op never waits for a connection: a GET
+waits (sliced like a pull) for a frame that its owner publishes only after
+this worker's pushes reached it, and holding a data-plane connection, or
+one a PUT needs, could keep those pushes or this worker's own frames off
+the wire and wedge both workers.
 """
 
 from __future__ import annotations
@@ -64,6 +77,7 @@ OP_INIT, OP_PUSH, OP_PULL, OP_CLOSE = 1, 2, 3, 4
 OP_INIT_C, OP_PUSH_C, OP_PULL_C = 5, 6, 7
 OP_ROUND = 9
 OP_PUSH_F, OP_PULL_F = 17, 18
+OP_PARAM_PUT, OP_PARAM_GET, OP_PARAM_SEQ = 21, 22, 24
 ST_OK, ST_ERR, ST_TIMEOUT, ST_GONE = 0, 1, 2, 3
 
 _NOT_PORTED = "is not ported yet (see ROADMAP.md, 'Modules still to port'"
@@ -80,10 +94,7 @@ UNPORTED_OPS: Dict[int, Tuple[str, int]] = {
     16: ("replica log OP_REPL_BASE", 8),
     19: ("activation mailbox OP_ACT_PUSH", 7),
     20: ("activation mailbox OP_ACT_PULL", 7),
-    21: ("sharded-update param mailbox OP_PARAM_PUT", 6),
-    22: ("sharded-update param mailbox OP_PARAM_GET", 6),
     23: ("fleet stats scrape OP_STATS", 9),
-    24: ("sharded-update param mailbox OP_PARAM_SEQ", 6),
     25: ("trace scrape OP_TRACE", 9),
     26: ("bounded staleness OP_LAG_DECL", 6),
     27: ("bounded staleness OP_PUSH_LAG", 6),
@@ -239,7 +250,8 @@ def _send_req(sock, op: int, key: int, rnd: int, nbytes: int,
 
 # ops whose handlers consume the payload before the next frame is read, so
 # a large payload may land in the connection's reused buffer
-_REUSE_SAFE_OPS = frozenset({OP_INIT, OP_PUSH, OP_PUSH_C, OP_PUSH_F})
+_REUSE_SAFE_OPS = frozenset({OP_INIT, OP_PUSH, OP_PUSH_C, OP_PUSH_F,
+                             OP_PARAM_PUT})   # the store copies: bytes()
 
 
 def _recv_req(sock, rholder: Optional[list] = None):
@@ -297,6 +309,10 @@ class PSTransportServer:
         reg = get_registry()
         self._m_requests = reg.counter("transport/requests")
         self._m_merge_wait = reg.histogram("server/merge_wait_s")
+        # the param mailbox (the sharded weight update), made at its
+        # first use: plain deployments never allocate it
+        self._params = None
+        self._params_lock = threading.Lock()
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._sock.bind((host, port))
@@ -394,6 +410,16 @@ class PSTransportServer:
             elif op == OP_ROUND:
                 rv = struct.pack("!Q", int(self._fb.round(key)))
                 conn.sendall(_RSP.pack(ST_OK, len(rv)) + rv)
+            elif op == OP_PARAM_PUT:
+                self.param_store().put(key, int(rnd), bytes(payload or b""))
+                conn.sendall(_RSP.pack(ST_OK, 0))
+            elif op == OP_PARAM_GET:
+                data = self.param_store().get(
+                    key, int(rnd), timeout_ms=int(timeout) or 30000)
+                _send_frame(conn, _RSP.pack(ST_OK, len(data)), [data])
+            elif op == OP_PARAM_SEQ:
+                rv = struct.pack("!Q", int(self.param_store().latest(key)))
+                conn.sendall(_RSP.pack(ST_OK, len(rv)) + rv)
             elif op in UNPORTED_OPS:
                 what, item = UNPORTED_OPS[op]
                 raise NotImplementedError(
@@ -412,6 +438,15 @@ class PSTransportServer:
             else:
                 msg = f"{type(e).__name__}: {e}".encode()[:4096]
                 conn.sendall(_RSP.pack(ST_ERR, len(msg)) + msg)
+
+    def param_store(self):
+        """This server's param mailbox (``sharded_update.ParamStore``)."""
+        if self._params is None:
+            with self._params_lock:
+                if self._params is None:
+                    from ..sharded_update import ParamStore
+                    self._params = ParamStore()
+        return self._params
 
     def _push_compressed(self, key: int, payload: bytes) -> None:
         if hasattr(self.backend, "push_bytes"):
@@ -534,6 +569,8 @@ class RemotePSBackend:
 
     # payload frames of the gradient class under the wire credit
     _SCHED_GRAD_OPS = frozenset({OP_PUSH, OP_PUSH_C, OP_PUSH_F})
+    # the param mailbox's ops, on channels of their own
+    _PARAM_OPS = frozenset({OP_PARAM_PUT, OP_PARAM_GET, OP_PARAM_SEQ})
     # round-blocked pulls wait on the server in slices of this length, so
     # connection churn costs at most one slice of the caller's deadline
     _PULL_SLICE_MS = 2000
@@ -570,6 +607,8 @@ class RemotePSBackend:
             for _ in range(self._nconns - 1):
                 pool.put(_Channel(None))        # dialed at first use
             self._pools.append(pool)
+        # the param mailbox's channels: a new one whenever all are busy
+        self._param_pools: List[queue.Queue] = [queue.Queue() for _ in addrs]
 
     def _dial(self, i: int) -> socket.socket:
         host, port = self._addrs[i]
@@ -681,15 +720,18 @@ class RemotePSBackend:
              timeout_ms: int, dtype: str, payload,
              pull_into: Optional[np.ndarray] = None) -> bytes:
         """One request on a pooled channel of ``key``'s server. A payload
-        frame of the gradient class waits for the wire credit and holds it
-        across its roundtrip (``BPS_SCHEDULING_CREDIT``)."""
+        frame of the gradient class, or a param PUT of the latency class,
+        waits for the wire credit and holds it across its roundtrip
+        (``BPS_SCHEDULING_CREDIT``)."""
         ticket = scheduler = None
-        if payload is not None and op in self._SCHED_GRAD_OPS:
-            from .admission import CLASS_GRAD, send_scheduler
+        if payload is not None and (op in self._SCHED_GRAD_OPS
+                                    or op == OP_PARAM_PUT):
+            from .admission import CLASS_ACT, CLASS_GRAD, send_scheduler
             scheduler = send_scheduler()
             if scheduler is not None:
                 ticket = scheduler.acquire(
-                    CLASS_GRAD, self._send_prio.get(key, 0), key,
+                    CLASS_ACT if op == OP_PARAM_PUT else CLASS_GRAD,
+                    self._send_prio.get(key, 0), key,
                     len(_byteview(payload)))
         try:
             return self._rpc_unscheduled(op, key, rnd, nbytes, timeout_ms,
@@ -701,7 +743,15 @@ class RemotePSBackend:
     def _rpc_unscheduled(self, op, key, rnd, nbytes, timeout_ms, dtype,
                          payload, pull_into=None) -> bytes:
         i = self._shard(key)
-        ch = self._pools[i].get()        # blocks while every channel is busy
+        if op in self._PARAM_OPS:
+            pools = self._param_pools
+            try:
+                ch = pools[i].get_nowait()
+            except queue.Empty:
+                ch = _Channel(None)      # dialed in the roundtrip below
+        else:
+            pools = self._pools
+            ch = pools[i].get()          # blocks while every channel is busy
         try:
             recv_into = None
             if pull_into is not None and pull_into.flags["C_CONTIGUOUS"]:
@@ -721,7 +771,7 @@ class RemotePSBackend:
             return bytes(data)
         finally:
             # back even with a dead socket: the next user redials
-            self._pools[i].put(ch)
+            pools[i].put(ch)
 
     def init_key(self, key: int, nbytes: int, dtype: str = "float32",
                  init: Optional[np.ndarray] = None,
@@ -827,6 +877,28 @@ class RemotePSBackend:
                                        slice_ms, dtype, payload),
             timeout_ms, f"pull_fused({key}) round={round}")
 
+    def param_put(self, key: int, seq: int, payload) -> None:
+        """Publish one param frame (the sharded update); last-wins per
+        (key, seq), so a resend stores the same bytes again."""
+        self._rpc(OP_PARAM_PUT, key, int(seq), 0, 0, "uint8",
+                  memoryview(payload))
+
+    def param_get(self, key: int, seq: int,
+                  timeout_ms: int = 30000) -> bytes:
+        """The (key, seq) param frame, waiting for it and leaving it in
+        the mailbox; sliced like a pull. A timeout is the owner-death
+        signal the sharded tail turns into its diagnostic."""
+        return self._sliced_pull(
+            lambda slice_ms: self._rpc(OP_PARAM_GET, key, int(seq), 0,
+                                       slice_ms, "uint8", None),
+            timeout_ms, f"param_get({key:#x}) seq={seq}")
+
+    def param_latest(self, key: int) -> int:
+        """The newest seq the server's param mailbox retains for ``key``
+        (0: none)."""
+        data = self._rpc(OP_PARAM_SEQ, key, 0, 0, 0, "uint8", None)
+        return struct.unpack("!Q", data)[0]
+
     def push_pull(self, key: int, data: np.ndarray,
                   timeout_ms: int = 30000) -> np.ndarray:
         """One sync round: push, then pull the round this push completes
@@ -842,7 +914,7 @@ class RemotePSBackend:
         # the flag first: a thread in a redial loop holds its channel
         # outside the pool and must stop dialing a dead address
         self._dead = True
-        for pool in self._pools:
+        for pool in self._pools + self._param_pools:
             while True:
                 try:
                     ch = pool.get_nowait()

@@ -58,6 +58,22 @@ package's running mean in fp32 on the card, ``acc + (g - acc) / n``, and
 exchanges it at the window's end through the streamed tail (the staged
 head stays off, ``byteps_tpu/training.py:517-518``).
 
+``BPS_SHARDED_UPDATE=1`` (with ``BPS_NUM_WORKER`` > 1) shards the streamed
+tail across the workers (``BPS_SHARD_WORLD`` of them, default
+``BPS_NUM_WORKER``; ``sharded_update.py``, the JAX trainer's
+``byteps_tpu/training.py:305-330``): each worker still pushes every bucket,
+but pulls and applies only the bucket groups it owns (``shard_rank=``,
+default ``BPS_SHARD_RANK``, else ``BPS_WORKER_ID``), publishes their
+updated parameters through the server's param mailbox, and installs the
+other groups from their owners' frames, as they are (a pulled sum is
+divided by the workers, a fetched parameter never is). The optimizer then
+holds state for the owned groups only. It needs the streamed tail and
+``backward_passes_per_step`` 1, and is built at the first step, where a
+case it cannot serve keeps the full update with one INFO line; both the
+draining and the cross-step tails run it. A failed sharded step raises: it
+may be partial. A live membership change (``reshard``) and sharded
+checkpoints (``restore_sharded``) are not ported yet and raise.
+
 The async path and pipeline parallelism (``BPS_PP_STAGES`` > 1) are not
 ported yet (ROADMAP.md): their options raise.
 
@@ -195,6 +211,9 @@ class DistributedTrainer:
       name: the PS declaration name of the gradients (PS mode); defaults
         to a hash of the parameters' names, shapes and dtypes, with
         positional suffixes for later trainers of the same structure.
+      shard_rank: this worker's ownership rank under
+        ``BPS_SHARDED_UPDATE`` (default ``BPS_SHARD_RANK``, else
+        ``BPS_WORKER_ID``).
 
     In PS mode the cross-step driver may still be applying the last
     step's update when ``step()`` returns: read the weights through
@@ -213,7 +232,8 @@ class DistributedTrainer:
                  backward_passes_per_step: int = 1,
                  reducer=None, compression: Optional[dict] = None,
                  min_compress_bytes: Optional[int] = None,
-                 device=None, group=None, name: Optional[str] = None) -> None:
+                 device=None, group=None, name: Optional[str] = None,
+                 shard_rank: Optional[int] = None) -> None:
         gs = GlobalState._instance
         cfg = gs.config if gs is not None else Config.from_env()
         if cfg.pp_stages > 1:
@@ -243,7 +263,7 @@ class DistributedTrainer:
                     "be silently unused in PS mode — express lossy "
                     "exchange via compression kwargs instead")
             self._init_ps(gs, optimizer, partition_bytes, compression,
-                          min_compress_bytes, name)
+                          min_compress_bytes, name, shard_rank)
             return
         self.group = group if group is not None else data_group()
         self._tx = DistributedOptimizer(
@@ -278,10 +298,17 @@ class DistributedTrainer:
         d = self._cross_driver
         if d is not None and (d.pending or d.failed):
             d.drain()
+        st = getattr(self, "_sharded", None)
+        if st is not None:
+            # the frames this worker owes its peers are out, or a dead
+            # publisher says why not
+            st.flush()
 
     def drain(self) -> None:
-        """Join every in-flight cross-step tail (a no-op otherwise): the
-        explicit end-of-training barrier. Raises a tail's failure."""
+        """Join every in-flight cross-step tail and, under the sharded
+        update, wait until this worker's param frames are out (a no-op
+        otherwise): the explicit end-of-training barrier. Raises a tail's
+        or the publisher's failure."""
         self._drain_pipeline()
 
     def _inner(self) -> torch.optim.Optimizer:
@@ -311,7 +338,7 @@ class DistributedTrainer:
     # ------------------------------------------------------------ PS mode
 
     def _init_ps(self, gs, optimizer, partition_bytes, compression,
-                 min_compress_bytes, name) -> None:
+                 min_compress_bytes, name, shard_rank) -> None:
         if gs is None or gs.ps_backend is None:
             raise RuntimeError("BPS_ENABLE_PS: call bps.init() first; it "
                                "builds the parameter-server backend")
@@ -364,6 +391,23 @@ class DistributedTrainer:
         self._head = None             # the staged backward's feed, if any
         self._gate_fn = None          # the cross step's forward gate
         self._gates = None
+        # the sharded weight update: resolved here, built at the first
+        # step, once the exchange's backend is final (tests swap it) and
+        # before the first round, so step 1 already pulls only its share
+        self._sharded = None
+        self._sharded_epoch = 0
+        self._sharded_cfg = None
+        self._put_param = None
+        if cfg.sharded_update and self._apply_chunked \
+                and self.backward_passes_per_step == 1:
+            rank = (shard_rank if shard_rank is not None
+                    else cfg.shard_rank if cfg.shard_rank >= 0
+                    else cfg.worker_id)
+            self._sharded_cfg = (rank, cfg.shard_world or self._ps_world)
+        elif cfg.sharded_update:
+            from .sharded_update import _fallback
+            _fallback("BPS_APPLY_CHUNKED=0 or backward_passes_per_step>1 "
+                      "(the sharded tail is the chunked tail)")
         # the hooks hold the trainer weakly: the model keeps no trainer
         # alive, and dropping the trainer frees the model without the
         # cycle collector
@@ -403,6 +447,67 @@ class DistributedTrainer:
     def _join_tails(self) -> None:
         if self._cross_driver is not None:
             self._cross_driver.join()
+        st, self._sharded = self._sharded, None
+        if st is not None:
+            try:
+                st.close()            # flush the frames owed to peers
+            except Exception as e:   # noqa: BLE001 — the exchange closes
+                from .common.logging import get_logger   # regardless
+                get_logger().warning("sharded update at shutdown: %s", e)
+
+    # ------------------------------------------------------ sharded update
+
+    def _ensure_sharded(self) -> None:
+        """First step: build the sharded state, or fall back with the
+        reference's INFO line."""
+        if self._sharded_cfg is None:
+            return
+        rank, world = self._sharded_cfg
+        self._sharded_cfg = None
+        from .sharded_update import build_sharded_state
+        self._sharded = build_sharded_state(
+            self.ps_exchange, self._ps_params, self._tx, self._name, rank,
+            world)
+        if self._sharded is not None:
+            self._put_param = self._sharded.param_installer(self.device)
+
+    def _sharded_active(self):
+        """The live sharded state, or None; checked at every round, so a
+        round never restricts its pulls under an unsharded tail."""
+        st = self._sharded
+        if st is not None and self._chunked is not None \
+                and not self._chunked.decomposable:
+            st.close()
+            self._sharded = None
+            return None
+        return st
+
+    def _round_view(self):
+        st = self._sharded_active()
+        return st.plan.round_view() if st is not None else None
+
+    def _next_shard_epoch(self) -> int:
+        """One monotonic epoch counter for the sharded tails, whichever
+        route runs the step."""
+        d = self._cross_driver
+        self._sharded_epoch = max(self._sharded_epoch,
+                                  d._epoch if d is not None else 0) + 1
+        return self._sharded_epoch
+
+    def reshard(self, live, weights=None, handoff_timeout_ms=None):
+        """A live membership change of the sharded update: not ported."""
+        raise NotImplementedError(
+            "DistributedTrainer.reshard (a live membership change of the "
+            "sharded update, with its optimizer-state handoff) is not "
+            "ported yet (see ROADMAP.md, 'Modules still to port', queue 1, "
+            "item 6)")
+
+    def restore_sharded(self, path: str):
+        """A sharded checkpoint's restore: not ported."""
+        raise NotImplementedError(
+            "DistributedTrainer.restore_sharded (sharded checkpoints) is "
+            "not ported yet (see ROADMAP.md, 'Modules still to port', "
+            "queue 1, item 6)")
 
     # ------------------------------------------------------------ head
 
@@ -469,8 +574,10 @@ class DistributedTrainer:
         from .staging import H2DStager
         groups = self.ps_exchange.leaf_groups(self._ps_params,
                                               name=self._name)
+        st = self._sharded
         self._chunked = ChunkedApply(self._tx,
-                                     [p for _, p in self._ps_params], groups)
+                                     [p for _, p in self._ps_params], groups,
+                                     owned=st.plan.owned_set if st else None)
         self._stager = H2DStager(self.device, world=self._ps_world)
 
     def _ps_step_streamed(self, grads=None, handle=None) -> None:
@@ -484,8 +591,12 @@ class DistributedTrainer:
         if handle is None:
             handle = self.ps_exchange.exchange_stream(
                 [(n, g) for (n, _), g in zip(self._ps_params, grads)],
-                name=self._name, host_alloc=stager.host_alloc)
+                name=self._name, host_alloc=stager.host_alloc,
+                sharded=self._round_view())
         hyper = chunked.hyper()
+        if handle.round_state.sharded is not None:
+            self._sharded_tail(handle, hyper, t_ex)
+            return
         shapes = [tuple(p.shape) for _, p in self._ps_params]
         landed: dict = {}
         remaining = [len(g) for g in chunked.groups]
@@ -518,6 +629,29 @@ class DistributedTrainer:
                     f"fresh state with load_state_dict, or run with "
                     f"BPS_APPLY_CHUNKED=0 for an all-or-nothing tail)") from e
             raise
+        finally:
+            observe_stage("PS_PUSH_PULL", time.time() - t_ex)
+
+    def _sharded_tail(self, handle, hyper, t_ex: float) -> None:
+        """A draining sharded round: owned groups pulled, applied and
+        published, the others installed from their owners' frames; returns
+        once every group is applied or installed."""
+        st = self._sharded
+        if st is None:
+            raise RuntimeError("sharded round created but the sharded state "
+                               "is gone — a bug in the enable/disable path")
+        e = self._next_shard_epoch()
+        seq = st.next_seq()
+        try:
+            st.run_tail(handle, self._chunked, e, seq, self._stager.copy,
+                        self._put_param, hyper)
+        except BaseException as exc:
+            raise RuntimeError(
+                "sharded PS step failed — parameters and optimizer state "
+                "may be PARTIALLY stepped (owned groups apply and fetched "
+                "groups install independently); do not retry this step on "
+                "the same trainer (install fresh state with "
+                "load_state_dict, or run with BPS_SHARDED_UPDATE=0)") from exc
         finally:
             observe_stage("PS_PUSH_PULL", time.time() - t_ex)
 
@@ -576,6 +710,7 @@ class DistributedTrainer:
         return out
 
     def _ps_step(self, batch) -> torch.Tensor:
+        self._ensure_sharded()
         if self._staged_route():
             self._ensure_streamed_tail()
             self.step_count += 1
@@ -583,7 +718,8 @@ class DistributedTrainer:
                 return self._cross_driver.step(batch)
             handle = self.ps_exchange.exchange_ingest(
                 self._ps_params, name=self._name, step=self.step_count,
-                host_alloc=self._stager.host_alloc)
+                host_alloc=self._stager.host_alloc,
+                sharded=self._round_view())
             loss = self._staged_backward(batch, handle)
             self._ps_step_streamed(handle=handle)
             if (self._cross_step and self._chunked.decomposable
@@ -605,13 +741,19 @@ class DistributedTrainer:
         return loss.detach()
 
     def close(self) -> None:
-        """Join the tails, then stop the PS exchange's threads
-        (``bps.shutdown()`` does too); raises a tail's failure."""
+        """Join the tails, flush the sharded update's frames, then stop the
+        PS exchange's threads (``bps.shutdown()`` does too); raises a
+        tail's or the publisher's failure."""
         try:
             self._drain_pipeline()
         finally:
-            if self.ps_exchange is not None:
-                self.ps_exchange.close()
+            st, self._sharded = getattr(self, "_sharded", None), None
+            try:
+                if st is not None:
+                    st.close()
+            finally:
+                if self.ps_exchange is not None:
+                    self.ps_exchange.close()
 
     # ---------------------------------------------------------------- step
 

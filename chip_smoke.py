@@ -293,7 +293,22 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          steps 2-3 (two processes sharing one card: not a scaling figure)
          and push and pull bytes a step printed. A worker's failure or
          timeout (REMOTE_WAIT) fails the phase; every process it started
-         is stopped.
+         is stopped. (b) runs twice in turn, each arm on a fresh server
+         and the same batches: (b0) as above, then (b1) with
+         ``BPS_SHARDED_UPDATE=1`` (each worker pulls and applies only the
+         bucket groups it owns, publishes their parameters and installs
+         the others'): both (b1) workers end with (b0)'s sha1; each
+         engaged the sharded state (no fallback line); optimizer state
+         exists for its owned groups only, and the two owned sets
+         partition the groups; the launches are (b0)'s (every worker
+         still encodes every bucket, whose error-feedback fold runs the
+         dequantize kernel); the pull sets cover every bucket and share
+         only the boundary ones; each worker's ``ps/pull_bytes`` is below
+         (1/2 + 0.2) x its (b0) figure; summed over the workers,
+         ``ps/param_put_bytes`` and ``ps/param_fetch_bytes`` are each
+         ``STEPS`` x the parameters' fp32 bytes; no resend. Optimizer-state
+         bytes, peak memory, the plan's balance and each step are printed
+         beside (b0)'s.
      Losses must be finite and falling. BERT (both widths), dense GPT-2
      and T5 repeat step 1 with ``attn_impl="naive"`` (plain attention on
      the card) as the reference for the loss; every run prints step time,
@@ -399,6 +414,7 @@ import contextlib
 import ctypes
 import hashlib
 import json
+import logging
 import math
 import re
 import statistics
@@ -5210,53 +5226,106 @@ def train_bert_ps_tcp():
     return tcp["launches"]
 
 
-def remote_ps_worker(wid, addr, out) -> int:
-    """``--remote-ps-worker WID ADDR OUT``: one of the world-2 workers of
-    phase "remote PS" (b), on ``cuda:0``: BERT-large PS int8 from seed 0
-    on its own batch (seed WID), ``STEPS`` counted steps; writes its
-    losses, launches, wanted launches, bytes, resends, step time and a
-    digest of every parameter's bytes to OUT."""
+class _FallbackLines(logging.Handler):
+    """The port logger's lines that say the sharded update fell back."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if "BPS_SHARDED_UPDATE falls back" in msg:
+            self.lines.append(msg)
+
+
+def _sharded_report(trainer):
+    """What the (b1) gates read off a worker's trainer: the plan (owned
+    groups, pull set, the groups covering each bucket, balance) and the
+    groups whose parameters hold optimizer state."""
+    st = trainer._sharded
+    if st is None:
+        return {"engaged": False}
+    plan = st.plan
+    return {"engaged": True, "owned": sorted(plan.owned),
+            "groups": len(plan.groups),
+            "with_state": trainer._chunked.groups_with_state(),
+            "pull_buckets": sorted(plan.pull_buckets),
+            "bucket_groups": [sorted(gi for gi, n in enumerate(plan.needed)
+                                     if bi in n)
+                              for bi in range(len(plan.bucket_labels))],
+            "owner": plan.owner, "balance": plan.balance_ratio(),
+            "load": plan.load}
+
+
+def remote_ps_worker(wid, addr, out, arm="unsharded") -> int:
+    """``--remote-ps-worker WID ADDR OUT [ARM]``: one of the world-2
+    workers of phase "remote PS" (b), on ``cuda:0``: BERT-large PS int8
+    from seed 0 on its own batch (seed WID), ``STEPS`` counted steps, ARM
+    ``unsharded`` (b0) or ``sharded`` (b1, ``BPS_SHARDED_UPDATE=1``);
+    writes its losses, launches, wanted launches, bytes, resends, step
+    time, a digest of every parameter's bytes, its optimizer state's
+    bytes, its peak memory and, under (b1), the sharded plan and any
+    fallback line to OUT."""
     import os
 
     import byteps_tpu_torch as bps
+    from byteps_tpu_torch.common.logging import get_logger
     from byteps_tpu_torch.models import bert
     os.environ.update(BPS_ENABLE_PS="1", BPS_COMPRESS="int8",
                       BPS_NUM_WORKER="2", BPS_WORKER_ID=str(wid),
-                      BPS_LOCAL_RANK="0", BPS_SERVER_ADDRS=addr)
+                      BPS_LOCAL_RANK="0", BPS_SERVER_ADDRS=addr,
+                      BPS_SHARDED_UPDATE="1" if arm == "sharded" else "0")
+    fallbacks = _FallbackLines()
+    get_logger().addHandler(fallbacks)
     bps.init()
     try:
         cfg, loss_fn, _, _ = _bert_setup()
         data = bert.synth_mlm_batch(np.random.RandomState(wid), TRAIN_BATCH,
                                     BERT_SEQ, cfg.vocab_size)
+        torch.cuda.reset_peak_memory_stats()
         trainer = _ps_trainer(cfg, loss_fn)
         r = _counted_ps_steps(trainer, data)
         push, pull, resends = _ps_bytes(r["metrics"])
         digest = hashlib.sha1()
+        param_bytes = 0
         for _, p in sorted(trainer.model.named_parameters()):
             digest.update(p.detach().cpu().numpy().tobytes())
+            param_bytes += p.numel() * p.element_size()
+        opt_bytes = sum(t.numel() * t.element_size()
+                        for st in trainer.tx.state.values()
+                        for t in st.values() if torch.is_tensor(t))
+        (_, keyed), = trainer.ps_exchange._plans.values()
+        plane = trainer.ps_exchange._cplane
         Path(out).write_text(json.dumps({
-            "losses": r["losses"], "launches": r["launches"],
+            "arm": arm, "losses": r["losses"], "launches": r["launches"],
             "want": _remote_want(cfg)(trainer), "ms": r["ms"],
             "push_bytes": push, "pull_bytes": pull, "resends": resends,
-            "params": digest.hexdigest(),
-            "buckets": len(next(iter(trainer.ps_exchange._plans.values()))[1]),
-            "compressed": trainer.ps_exchange.n_compressed()}))
+            "param_put_bytes": r["metrics"].get("ps/param_put_bytes", 0),
+            "param_fetch_bytes": r["metrics"].get("ps/param_fetch_bytes", 0),
+            "params": digest.hexdigest(), "param_bytes": param_bytes,
+            "opt_state_bytes": opt_bytes,
+            "peak_mem": torch.cuda.max_memory_allocated(),
+            "buckets": len(keyed),
+            "compressed": trainer.ps_exchange.n_compressed(),
+            "compressed_buckets": [bi for bi, (k, _) in enumerate(keyed)
+                                   if plane.active(k)],
+            "sharded": _sharded_report(trainer),
+            "fallbacks": fallbacks.lines}))
         trainer.close()
     finally:
+        get_logger().removeHandler(fallbacks)
         bps.shutdown()
     return 0
 
 
-def train_bert_ps_world2():
-    """Phase "remote PS" (b), world 2: one server (``BPS_NUM_WORKER=2``)
-    and two worker processes on ``cuda:0`` (``remote_ps_worker``), each
-    from seed 0 on its own batch: both end with the same parameters bit
-    for bit (two arrivals sum alike in either order), finite losses, the
-    launches their path makes and no resend. The step times are two
-    processes sharing one card, not a scaling figure."""
+def _world2_arm(arm):
+    """One arm of phase "remote PS" (b): a fresh server for two workers
+    and the two worker processes; returns (the workers' reports, the
+    server's exit code, its last lines)."""
     import os
     import tempfile
-    tag = "bert_large ps int8 world 2"
+    tag = f"bert_large ps int8 world 2 {arm}"
     tmp = Path(tempfile.mkdtemp())
     server, lines, addr = start_ps_server(2)
     procs, logs = [], []
@@ -5266,7 +5335,7 @@ def train_bert_ps_world2():
             logs.append(logf)
             procs.append(subprocess.Popen(
                 [sys.executable, __file__, "--remote-ps-worker", str(wid),
-                 addr, str(tmp / f"worker{wid}.json")], cwd=ROOT,
+                 addr, str(tmp / f"worker{wid}.json"), arm], cwd=ROOT,
                 env=dict(os.environ), stdout=logf, stderr=subprocess.STDOUT))
         deadline = time.time() + REMOTE_WAIT
         while any(p.poll() is None for p in procs):
@@ -5284,12 +5353,60 @@ def train_bert_ps_world2():
         rc = stop_ps_server(server)
     for wid, p in enumerate(procs):
         text = (tmp / f"worker{wid}.log").read_text()
-        log(f"----- remote PS worker {wid} (exit {p.returncode})")
+        log(f"----- remote PS worker {wid}, {arm} (exit {p.returncode})")
         log(text if p.returncode else text[-1500:])
     if any(p.returncode for p in procs):
         raise AssertionError(f"{tag}: a worker failed or timed out")
     res = [json.loads((tmp / f"worker{w}.json").read_text()) for w in (0, 1)]
+    return res, rc, lines
+
+
+def train_bert_ps_world2():
+    """Phase "remote PS" (b), world 2, two arms in turn, each on its own
+    server (``BPS_NUM_WORKER=2``) with two worker processes on ``cuda:0``
+    (``remote_ps_worker``), each worker from seed 0 on its own batch.
+
+    (b0), unsharded: both workers end with the same parameters bit for bit
+    (two arrivals sum alike in either order), finite losses, the launches
+    their path makes and no resend.
+
+    (b1), ``BPS_SHARDED_UPDATE=1``: each worker pulls and applies only the
+    bucket groups it owns and installs the others from their owner's
+    param frames. Both workers end with (b0)'s parameters bit for bit: at
+    two workers the server's sums are (b0)'s, and an owner's frame is the
+    bytes its apply made. That gate also holds the error feedback: a
+    non-owner commits a skipped bucket's int8 residual when the bucket's
+    frames land, and a missed commit would change its next push, the sum
+    and so the parameters. Each worker engaged the sharded state (no
+    fallback line); its optimizer state covers exactly its owned groups,
+    and the two owned sets partition the groups; its launches are (b0)'s
+    (every bucket is still encoded, and the dequantize kernel runs in the
+    encode's error-feedback fold; a pulled payload is decoded on the
+    host); the pull sets cover every bucket and share only the boundary
+    buckets; its ``ps/pull_bytes`` is below (1/2 + 0.2) x its (b0) figure
+    (the JAX test's bound); the put and the fetched param bytes, summed
+    over the workers, are each ``STEPS`` x the parameters' fp32 bytes; no
+    resend.
+
+    The step times are two processes sharing one card, not a scaling
+    figure. Returns each arm's launches summed over its workers."""
     card = card_line()
+    arms = {}
+    for arm in ("unsharded", "sharded"):
+        res, rc, lines = _world2_arm(arm)
+        _check_world2(arm, res, rc, lines, card)
+        arms[arm] = res
+    _check_sharded(arms["unsharded"], arms["sharded"], card)
+    SUMMARY["bert_large ps int8 world 2"] = {
+        arm: {"ms": [r["ms"] for r in res]} for arm, res in arms.items()}
+    return tuple({k: res[0]["launches"][k] + res[1]["launches"][k]
+                  for k in res[0]["launches"]}
+                 for res in (arms["unsharded"], arms["sharded"]))
+
+
+def _check_world2(arm, res, rc, lines, card):
+    """(b0)'s gates, which (b1) keeps."""
+    tag = f"bert_large ps int8 world 2 {arm}"
     for wid, r in enumerate(res):
         log(f"[{tag}] worker {wid}: losses {r['losses']}, steps 2-3 "
             f"{r['ms']:.1f} ms a step (two worker processes share one "
@@ -5313,18 +5430,79 @@ def train_bert_ps_world2():
         raise AssertionError(f"{tag}: the server exited {rc}:\n"
                              + "\n".join(lines[-20:]))
     log(f"[{tag}] both workers' parameters bit for bit the same "
-        f"(sha1 {res[0]['params']})")
-    SUMMARY[tag] = {"ms": [r["ms"] for r in res]}
-    return {k: res[0]["launches"][k] + res[1]["launches"][k]
-            for k in res[0]["launches"]}
+        f"(sha1 {res[0]['params']}); optimizer state "
+        f"{[r['opt_state_bytes'] for r in res]} bytes, peak memory "
+        f"{[r['peak_mem'] for r in res]} bytes")
+
+
+def _check_sharded(b0, b1, card):
+    """(b1)'s own gates, against (b0)."""
+    tag = "bert_large ps int8 world 2 sharded"
+    if b1[0]["params"] != b0[0]["params"]:
+        raise AssertionError(f"{tag}: the parameters differ from the "
+                             f"unsharded run's")
+    for wid, r in enumerate(b1):
+        sh = r["sharded"]
+        if not sh["engaged"] or r["fallbacks"]:
+            raise AssertionError(f"{tag} worker {wid}: the sharded update "
+                                 f"fell back: {r['fallbacks']}")
+        if sh["with_state"] != sh["owned"]:
+            raise AssertionError(
+                f"{tag} worker {wid}: optimizer state for groups "
+                f"{sh['with_state']}, owned {sh['owned']}")
+    groups = b1[0]["sharded"]["groups"]
+    owned = [set(r["sharded"]["owned"]) for r in b1]
+    if owned[0] & owned[1] or owned[0] | owned[1] != set(range(groups)):
+        raise AssertionError(f"{tag}: owned groups {owned} do not partition "
+                             f"the {groups} groups")
+    pulls = [set(r["sharded"]["pull_buckets"]) for r in b1]
+    owner = b1[0]["sharded"]["owner"]
+    boundary = {bi for bi, gs in enumerate(b1[0]["sharded"]["bucket_groups"])
+                if len({owner[g] for g in gs}) > 1}
+    if pulls[0] | pulls[1] != set(range(b1[0]["buckets"])) \
+            or pulls[0] & pulls[1] != boundary:
+        raise AssertionError(f"{tag}: the pull sets do not cover every "
+                             f"bucket once but the boundary ones {boundary}")
+    for wid, (r0, r1) in enumerate(zip(b0, b1)):
+        if not r1["pull_bytes"] < (0.5 + 0.2) * r0["pull_bytes"]:
+            raise AssertionError(
+                f"{tag} worker {wid}: ps/pull_bytes {r1['pull_bytes']} a "
+                f"step, not below 0.7 x the unsharded {r0['pull_bytes']}")
+    want = STEPS * b1[0]["param_bytes"]
+    for key in ("param_put_bytes", "param_fetch_bytes"):
+        got = b1[0][key] + b1[1][key]
+        if got != want:
+            raise AssertionError(f"{tag}: ps/{key} {got} summed over the "
+                                 f"workers, expected {want}")
+    comp = set(b1[0]["compressed_buckets"])
+    log(f"[{tag}] balance_ratio {b1[0]['sharded']['balance']:.4f}, owned "
+        f"bytes {b1[0]['sharded']['load']}, {groups} groups; owned "
+        f"{[sorted(o) for o in owned]}; pull sets "
+        f"{[len(p) for p in pulls]} of {b1[0]['buckets']} buckets "
+        f"({len(boundary)} boundary), compressed buckets in each pull set "
+        f"(decoded on the host) {[len(comp & p) for p in pulls]}")
+    for wid, (r0, r1) in enumerate(zip(b0, b1)):
+        log(f"[{tag}] worker {wid}: steps 2-3 {r1['ms']:.1f} ms a step "
+            f"(unsharded {r0['ms']:.1f}), ps/pull_bytes "
+            f"{r1['pull_bytes']:.0f} a step (unsharded "
+            f"{r0['pull_bytes']:.0f}: {r1['pull_bytes'] / r0['pull_bytes']:.4f}), "
+            f"ps/param_put_bytes {r1['param_put_bytes']} and "
+            f"ps/param_fetch_bytes {r1['param_fetch_bytes']} in {STEPS} "
+            f"steps, AdamW state {r1['opt_state_bytes']} bytes (unsharded "
+            f"{r0['opt_state_bytes']}), peak memory {r1['peak_mem']} bytes "
+            f"(unsharded {r0['peak_mem']}); {card}")
+    log(f"[{tag}] both workers' parameters bit for bit the unsharded run's "
+        f"(sha1 {b1[0]['params']}); optimizer state for owned groups only; "
+        f"every gate held")
 
 
 def remote_ps_main() -> int:
     """``--remote-ps``: the toolchain, then only phase 4's remote PS runs."""
     t = time.perf_counter()
     toolchain()
-    paths = {"bert_large_ps_int8_tcp": train_bert_ps_tcp(),
-             "bert_large_ps_int8_world2": train_bert_ps_world2()}
+    paths = {"bert_large_ps_int8_tcp": train_bert_ps_tcp()}
+    paths["bert_large_ps_int8_world2"], \
+        paths["bert_large_ps_int8_world2_sharded"] = train_bert_ps_world2()
     log(f"remote PS in {time.perf_counter() - t:.1f} s")
     print(json.dumps({"remote_ps": {
         "launches": {p: {k: v for k, v in c.items() if v and ":" not in k}
@@ -6149,7 +6327,7 @@ def main() -> int:
     if args[:1] == ["--world"]:
         return world_main(int(args[1]))
     if args[:1] == ["--remote-ps-worker"]:
-        return remote_ps_worker(int(args[1]), args[2], args[3])
+        return remote_ps_worker(int(args[1]), args[2], args[3], *args[4:5])
     if args == ["--remote-ps"]:
         return remote_ps_main()
     if args[:1] == ["--ps-routes"]:
@@ -6242,7 +6420,8 @@ def main() -> int:
         train_bert_ps_auto(bert_losses)
     paths["bert_large_ps_watchdog"] = train_bert_ps_watchdog(bert_losses)
     paths["bert_large_ps_int8_tcp"] = train_bert_ps_tcp()
-    paths["bert_large_ps_int8_world2"] = train_bert_ps_world2()
+    paths["bert_large_ps_int8_world2"], \
+        paths["bert_large_ps_int8_world2_sharded"] = train_bert_ps_world2()
     paths["bert_large_plugin"] = train_bert_plugin(bert_losses)
     for codec in ("int8", "fp8_e4m3"):
         paths[f"bert_large_pushpull_{codec.split('_')[0]}"] = \

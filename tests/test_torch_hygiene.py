@@ -241,7 +241,6 @@ READ_ELSEWHERE = {"log_level": ("common/logging.py", "BPS_LOG_LEVEL"),
 SUBORDINATE = {
     "pp_rank": "pp_stages", "pp_microbatch": "pp_stages",
     "pp_virtual": "pp_stages",
-    "shard_rank": "sharded_update", "shard_world": "sharded_update",
     "trace_start_step": "trace_on", "trace_end_step": "trace_on",
     "trace_dir": "trace_on", "trace_profiler": "trace_on",
     "stats_every": "stats_file",
@@ -319,6 +318,11 @@ ACTED_ON = {
     "BPS_SCHEDULING_CREDIT": ("common/config.py", "server/admission.py"),
     # the launcher's server role (it builds no Config)
     "BPS_SERVER_PORT": ("launcher/launch.py",),
+    # the sharded weight update
+    "BPS_SHARDED_UPDATE": ("common/config.py", "training.py"),
+    "BPS_SHARD_RANK": ("common/config.py", "training.py"),
+    "BPS_SHARD_WORLD": ("common/config.py", "training.py"),
+    "BPS_PARAM_TIMEOUT_MS": ("sharded_update.py",),
 }
 
 
@@ -335,7 +339,7 @@ def test_knob_is_read_where_it_acts_and_listed(env):
 def _refused_cases():
     from byteps_tpu_torch.common.config import REFUSED
     values = {"role": "server", "host_only": "1",
-              "key_hash_fn": "naive", "sharded_update": "1", "trace_on": "1",
+              "key_hash_fn": "naive", "trace_on": "1",
               "stats_file": "stats.json", "fleet_scrape_sec": "30",
               "metrics_port": "9100", "plane_replicas": "1",
               "emu_nic_rate": "1e9"}
@@ -616,3 +620,29 @@ def test_the_server_is_built_from_the_ports_own_source():
     assert path.parent == PORT / "_build"
     lib = _build_host.load()
     assert Path(lib._name).resolve() == path.resolve()
+
+
+# -- what the sharded update leaves for later: each raises, citing its item
+
+@pytest.mark.parametrize("call", ["reshard", "restore_sharded",
+                                  "state_reshard", "adopt_membership",
+                                  "pack_opt_state", "unpack_opt_state"])
+def test_sharded_update_leftovers_raise_citing_their_item(call):
+    """A live membership change, its optimizer-state handoff and sharded
+    checkpoints are not ported: each raises ``NotImplementedError`` naming
+    ROADMAP.md queue 1 item 6, none is silently ignored."""
+    from byteps_tpu_torch import sharded_update as su
+    from byteps_tpu_torch.training import DistributedTrainer
+    calls = {
+        "reshard": lambda: DistributedTrainer.reshard(None, [0]),
+        "restore_sharded": lambda: DistributedTrainer.restore_sharded(
+            None, "ckpt"),
+        "state_reshard": lambda: su.ShardedUpdateState.reshard(None, [0]),
+        "adopt_membership": lambda: su.ShardedUpdateState.adopt_membership(
+            None, [0], 2),
+        "pack_opt_state": lambda: su.pack_opt_state({}),
+        "unpack_opt_state": lambda: su.unpack_opt_state(b"", {}),
+    }
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP\.md.*queue 1, item 6"):
+        calls[call]()
