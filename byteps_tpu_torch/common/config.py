@@ -66,7 +66,11 @@ cross-step driver, ``cross_step.py``) and ``BPS_BWD_GROUPS`` (a cap on the
 staged head's feed batches; default 0, the JAX package's cap).
 ``BPS_PARAM_TIMEOUT_MS`` (how long a sharded-update fetch waits for its
 owner's frame before it raises, default 30000) is read by
-``sharded_update.py``.
+``sharded_update.py``. ``BPS_MAX_LAG`` (the bounded-staleness bound K,
+default 1: the sync path) and ``BPS_LAG_GRACE_MS`` (how long a server
+lets a round wait for its stragglers before it seals the round without
+them, default 0) are read by ``server/admission.py``, as in the JAX
+package; the trainer hands K and ``BPS_WORKER_ID`` to its exchange.
 ``BPS_STAGED_CACHE`` sizes the JAX package's cache of compiled backward
 segments; eager PyTorch compiles none, and the port has no such cache.
 The remote transport (``server/transport.py``) reads its own knobs where

@@ -43,8 +43,9 @@ def check_ps_config(cfg: Config) -> None:
     """Refuse the parameter-server options the port does not run yet."""
     if cfg.enable_async:
         raise NotImplementedError(
-            f"the async parameter-server path (BPS_ENABLE_ASYNC) "
-            f"{_NOT_PORTED}")
+            "the async parameter-server path (BPS_ENABLE_ASYNC: "
+            "AsyncPSWorker) is not ported yet (see ROADMAP.md, 'Modules "
+            "still to port', queue 1, item 6)")
 
 
 def resolve_device(device=None) -> torch.device:

@@ -21,8 +21,8 @@ exact sync-SGD semantics:
     device (``PS_XSTEP_GATE`` measures the stall); leaves no module's
     forward gates are waited for before the forward starts;
   - the exchange admits step k+1's pushes while step k's straggler pulls
-    are outstanding (the depth-1 ``KeyGate`` keeps the server's one
-    published round per key exact), and landed buckets are pulled by
+    are outstanding (at K=1 the depth-1 ``KeyGate`` keeps the server's
+    one published round per key exact), and landed buckets are pulled by
     next-step first-use priority (``PullQueue``); the tail applies complete
     groups input side first.
 
@@ -31,7 +31,7 @@ apply was enqueued (host gate) and ordered before the read (device event),
 and never after its step-k+1 apply, because step k+1's tail starts only once
 its backward has run; the applies are the same per-group steps in the same
 per-group order (a tail waits for the previous step's apply of each group),
-so the trajectory is the draining step's bit for bit.
+so the trajectory is the draining step's bit for bit (at K=1).
 ``BPS_CROSS_STEP=0`` restores the draining step.
 
 The port's transformer stacks its layers' weights on a leading axis in
@@ -39,6 +39,26 @@ modules whose forward never runs, so the gates of those leaves move to the
 model's root: the next forward starts once the whole previous tail was
 applied. That granularity is the model's; the JAX package cuts its forward
 at bucket-group boundaries instead.
+
+Bounded staleness (``BPS_MAX_LAG=K`` > 1, ``byteps_tpu/cross_step.py:88-96``):
+step e's readers wait for epoch ``plane.gate_round(e) = e - K`` instead of
+``e - 1``, so up to K rounds ride the server at once and a straggler costs
+lag rather than wall-clock; tails still apply in step order. The JAX
+package's arrays are immutable, so its forward of step e reads each leaf
+as some whole epoch however the tail e-1 runs. The port's applies write
+the parameters in place, so at K > 1 the tail applies only outside the
+forward and backward: the driver holds a compute lock from the gate
+through the end of the backward, and each group's apply and epoch mark
+run under it. Every leaf a forward reads therefore holds one epoch in
+[e-K, e-1] for the whole step, the same one in the forward and in the
+backward, and no apply touches a tensor autograd saved (which would be a
+version-counter error, or, through a swapped storage, a silently wrong
+gradient). A tail blocked on the lock keeps landing its leaves on the
+card; the cost is those gradients, up to one fp32 copy of the parameters,
+held on the card until the backward ends (1.34 GB for BERT-large), and no
+second copy of the parameters. The gate itself waits at the root: every
+leaf before the forward, outside the lock. At K=1 none of this runs, and
+the step is unchanged.
 
 Under the sharded weight update (``sharded_update.py``) a tail runs
 ``ShardedUpdateState.run_tail`` with the round's view: owned groups are
@@ -51,6 +71,7 @@ draining step already marked epoch 1 (``byteps_tpu/cross_step.py:81-86``).
 
 from __future__ import annotations
 
+import contextlib
 import heapq
 import threading
 import time
@@ -79,6 +100,12 @@ class CrossStepDriver:
         self._ungated = sorted(ungated)
         # a draining sharded step already marked its epoch: continue it
         self._epoch = trainer._sharded_epoch
+        # bounded staleness: the readers of step e wait for epoch
+        # gate_round(e) (e - 1 at K=1); at K > 1 the applies and the
+        # forward/backward exclude each other (module docstring)
+        plane = self._ex.plane
+        self._gate_round = plane.gate_round
+        self._compute = (threading.Lock() if plane.max_lag > 1 else None)
         self._tails: List[threading.Thread] = []
         self._err = None             # (exc, applied groups, epoch)
         self._err_lock = threading.Lock()
@@ -141,13 +168,13 @@ class CrossStepDriver:
     # ------------------------------------------------------------ step
 
     def _gate(self, e: int, leaf_ids) -> None:
-        """Step ``e``'s reader of ``leaf_ids`` waits for their step-(e-1)
-        applies: on the host (epochs), then on the device (the current
-        stream waits on the groups' apply events)."""
+        """Step ``e``'s reader of ``leaf_ids`` waits for their applies of
+        step ``gate_round(e)``: on the host (epochs), then on the device
+        (the current stream waits on the groups' apply events)."""
         if not leaf_ids:
             return
         t0 = time.time()
-        self._chunked.wait_epoch(leaf_ids, e - 1,
+        self._chunked.wait_epoch(leaf_ids, self._gate_round(e),
                                  should_abort=lambda: self._err is not None)
         self._check_err()
         self._chunked.wait_device(leaf_ids)
@@ -186,8 +213,15 @@ class CrossStepDriver:
             self._gate(e, leaf_ids)
 
         try:
-            gate(self._ungated)
-            loss = tr._staged_backward(batch, handle, gate)
+            if self._compute is None:
+                gate(self._ungated)
+                loss = tr._staged_backward(batch, handle, gate)
+            else:
+                # every leaf before the lock: a gate inside it would wait
+                # for applies that the lock holds back
+                gate(range(len(chunked.params)))
+                with self._compute:
+                    loss = tr._staged_backward(batch, handle, None)
         except BaseException:
             # no tail will mark epoch e: roll the counter back, or every
             # later gate waits for marks that never come (the staged
@@ -279,13 +313,15 @@ class CrossStepDriver:
                 self._check_err()
                 with cv:
                     items = [landed.pop(i) for i in group]
-                chunked.apply_group(gi, [t for t, _ in items], hyper,
-                                    [ev for _, ev in items if ev is not None],
-                                    stream=compute)
-                # published only after the apply was enqueued and its
-                # event recorded: a gate waking earlier would read the
-                # step-(e-1) weights
-                chunked.mark_epoch(group, e)
+                with self._compute or contextlib.nullcontext():
+                    chunked.apply_group(
+                        gi, [t for t, _ in items], hyper,
+                        [ev for _, ev in items if ev is not None],
+                        stream=compute)
+                    # published only after the apply was enqueued and its
+                    # event recorded: a gate waking earlier would read
+                    # the step-(e-1) weights
+                    chunked.mark_epoch(group, e)
                 applied += 1
             observe_stage("PS_PUSH_PULL", time.time() - t_ex)
         except BaseException as exc:   # noqa: BLE001 — surfaced on the

@@ -12,8 +12,12 @@ workers every round waits for; ``BPS_NUM_PROCESSES`` is the launcher-local
 spelling), ``BPS_SERVER_ENGINE_THREAD`` and ``BPS_SERVER_ENABLE_SCHEDULE``,
 as the JAX launcher does, and never builds a worker ``Config``. It prints
 ``server up on :<port>`` to stderr once it accepts, so a caller that asked
-for port 0 learns the port, and runs until SIGTERM or SIGINT. The server
-touches no card.
+for port 0 learns the port, and runs until SIGTERM or SIGINT. When it
+stops it prints one line ``server stats <json>``: its ``lag/*`` counters
+and gauges (bounded staleness; the stats scrape, op 23, is not ported)
+and its peak resident set (``VmHWM``, or where the kernel has none the
+largest resident set its serve loop sampled). The server touches no
+card.
 
 ``BPS_SERVER_SNAPSHOT`` and ``BPS_NIC_RATE`` raise at a value other than
 their default (``transport.LAUNCHER_REFUSED``), as does ``BPS_ENABLE_ASYNC``
@@ -25,6 +29,7 @@ command, ``--numa``, the SSH fan-out, ``BPS_ENABLE_GDB``) is not ported
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import signal
 import sys
@@ -70,13 +75,59 @@ def run_server(env: Optional[dict] = None,
             signal.signal(sig, lambda *a: stop.set())
     print(f"[byteps_tpu_torch.launch] server up on :{tsrv.port} "
           f"(workers={n}); SIGTERM to stop", file=sys.stderr, flush=True)
+    peak = 0
     try:
-        while not stop.wait(1.0):
-            pass
+        while not stop.wait(RSS_SAMPLE_S):
+            peak = max(peak, _rss_now())
     finally:
         tsrv.close()
         srv.close()
+        print(f"[byteps_tpu_torch.launch] server stats "
+              f"{json.dumps(server_stats(max(peak, _rss_now())))}",
+              file=sys.stderr, flush=True)
     return 0
+
+
+# the serve loop's wake-up, which samples the RSS: a sandboxed kernel may
+# walk the whole address space for each read of /proc/self/statm, and at
+# 0.05 s that slowed every remote-PS step on the card by 1.2-1.7x
+RSS_SAMPLE_S = 1.0
+
+
+def _rss_now() -> int:
+    """This process's resident set in bytes (``/proc/self/statm``); 0
+    where it cannot be read."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError, IndexError):
+        return 0
+
+
+def _own_peak_rss(sampled: int, status: str = "/proc/self/status"):
+    """(bytes, source) of this process's peak resident set: ``VmHWM``, the
+    high-water mark of its own memory map, where the kernel reports it,
+    else the largest resident set the serve loop sampled. Not
+    ``ru_maxrss``: Linux carries it across ``exec``, so a server started
+    by a large process would report its parent's resident set."""
+    try:
+        with open(status) as f:
+            for line in f:
+                if line.startswith("VmHWM:"):
+                    return int(line.split()[1]) * 1024, "VmHWM"   # kB
+    except OSError:
+        pass
+    return sampled, f"sampled every {RSS_SAMPLE_S} s"
+
+
+def server_stats(sampled_rss: int = 0) -> dict:
+    """This process's ``lag/*`` metrics and its peak resident set."""
+    from ..obs.metrics import get_registry
+    snap = get_registry().snapshot()
+    out = {k: v for k, v in snap.items() if k.startswith("lag/")}
+    out["peak_rss_bytes"], out["peak_rss_source"] = \
+        _own_peak_rss(sampled_rss)
+    return out
 
 
 def main(argv: Optional[List[str]] = None) -> int:

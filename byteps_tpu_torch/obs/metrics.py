@@ -38,6 +38,14 @@ COMPRESS_COUNTERS: Tuple[str, ...] = (
     "server/fused_pull_hits", "server/fused_pull_encodes")
 
 
+# bounded staleness (server/admission.py::StaleStore): pre-registered so
+# a server's report says 0 before any round sealed
+LAG_COUNTERS: Tuple[str, ...] = (
+    "lag/stale_serves", "lag/barrier_falls", "lag/late_folds",
+    "lag/evicted_serves")
+LAG_GAUGES: Tuple[str, ...] = ("lag/max_streak",)
+
+
 def _env_stats_on() -> bool:
     return os.environ.get("BPS_STATS", "1").strip().lower() in _TRUE
 
@@ -186,8 +194,10 @@ class MetricsRegistry:
         self._metrics: Dict[str, object] = {}
         for s in STAGES:
             self.histogram(f"stage/{s}")
-        for c in COMPRESS_COUNTERS:
+        for c in COMPRESS_COUNTERS + LAG_COUNTERS:
             self.counter(c)
+        for g in LAG_GAUGES:
+            self.gauge(g)
 
     def _get(self, name: str, cls, *args):
         with self._lock:

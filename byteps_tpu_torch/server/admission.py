@@ -1,9 +1,11 @@
-"""Admission for the sync exchange (the port's copy of the depth-1 part of
+"""Admission for the PS exchange (the port's copy of
 ``byteps_tpu/server/admission.py``).
 
-``KeyGate`` is the per-key push gate: round k+1's push of a key waits until
-round k's pull of that key completed, because the server publishes one
-round per key at a time. Under the sharded weight update a replica does
+``KeyGate`` is the per-key push gate: at most ``depth`` rounds of a key may
+be pushed but not yet pulled (depth 1 at the default K=1: round k+1's push
+waits until round k's pull completed, because the server publishes one
+round per key at a time; depth K under bounded staleness, whose store
+holds K rounds a key). Under the sharded weight update a replica does
 not pull the buckets of groups it does not own: such a key is released
 when the owners' param frames of every group the bucket covers have
 landed (``server/ps_mode.py::_Round.release_skipped``), which implies the
@@ -22,8 +24,23 @@ the latency class, with next-step first-use priority among themselves:
 they gate the next step's forward, so a small one overtakes a queued
 gradient burst.
 
-Not ported yet (ROADMAP.md): ``BPS_MAX_LAG`` > 1 (the bounded-staleness
-store, a gate of depth K).
+K-round bounded staleness (``BPS_MAX_LAG=K`` > 1; the port's copy of
+``byteps_tpu/server/admission.py:391-669``): ``StaleStore`` is the
+server's versioned round store of the lag-managed (dense) keys. The pull
+of the oldest unpublished round decides per (key, round) whether to
+serve the complete sum (every worker contributed, ``LAG_COMPLETE``: the
+only verdict at K=1), to SEAL it without the stragglers when each missing
+worker still has slack under its bound (a worker may miss at most K-1
+consecutive rounds; after ``BPS_LAG_GRACE_MS``, ``LAG_STALE``), or to
+BARRIER until a worker at its bound pushed (``LAG_BARRIER``). A push for
+a sealed round folds into the open round (a late fold), so no gradient is
+dropped; sealed sums are immutable snapshots, the same bytes to every
+puller, so replicas stay identical. Stale serves, barriers and evictions
+are key-less ``lag_admit`` flight events and the ``lag/*`` metrics. The
+reference's span ring (``spans``) is not ported yet (ROADMAP.md queue 1,
+item 9): ``spans`` stays None. ``KeyGate`` has depth K, and
+``AdmissionPlane.gate_round(e)`` is the cross-step driver's wait target,
+``e - K``.
 """
 
 from __future__ import annotations
@@ -36,28 +53,37 @@ import time
 from collections import deque
 from typing import Dict, List, Optional
 
+import numpy as np
+
 from ..obs import flight
 from ..obs.metrics import get_registry
 
+# pull_lag verdict flags (bits 0 and 1 of the pull reply's verdict byte)
+LAG_COMPLETE = 0       # every worker contributed: the K=1 verdict
+LAG_STALE = 1          # sealed under the bound without some workers
+LAG_BARRIER = 2        # a bound was exhausted; the pull waited it out
+
 
 class KeyGate:
-    """Per-key push admission: at most one round of a key may be
+    """Per-key push admission: at most ``depth`` rounds of a key may be
     pushed-but-unpulled at once; excess pushes queue FIFO per key, so
     rounds stay ordered. Deferred admissions are counted and their wait
     timed: the gate is where a lost pull would turn into a wedge."""
 
-    def __init__(self) -> None:
+    def __init__(self, depth: int = 1) -> None:
+        self.depth = max(1, int(depth))
         self._lock = threading.Lock()
-        self._held: set = set()
+        self._held: Dict[int, int] = {}
         self._waiters: Dict[int, deque] = {}
         reg = get_registry()
         self._m_wait = reg.histogram("ps/admission_wait_s")
         self._m_defer = reg.counter("ps/admission_deferred")
 
     def admit(self, pskey: int, submit) -> None:
-        """Run ``submit`` now if ``pskey`` is free, else when it frees."""
+        """Run ``submit`` now if ``pskey`` has a slot free, else when one
+        frees (FIFO per key)."""
         with self._lock:
-            if pskey in self._held:
+            if self._held.get(pskey, 0) >= self.depth:
                 self._m_defer.inc()
                 t0 = time.time()
 
@@ -70,19 +96,24 @@ class KeyGate:
 
                 self._waiters.setdefault(pskey, deque()).append(deferred)
                 return
-            self._held.add(pskey)
+            self._held[pskey] = self._held.get(pskey, 0) + 1
         flight.record("admit", key=pskey)
         submit()
 
     def release(self, pskey: int) -> None:
         with self._lock:
             waiters = self._waiters.get(pskey)
-            if not waiters:
-                self._held.discard(pskey)
+            if waiters:
+                submit = waiters.popleft()
+                if not waiters:
+                    del self._waiters[pskey]
+            else:
+                n = self._held.get(pskey, 0) - 1
+                if n <= 0:
+                    self._held.pop(pskey, None)
+                else:
+                    self._held[pskey] = n
                 return
-            submit = waiters.popleft()
-            if not waiters:
-                del self._waiters[pskey]
         submit()                     # the slot passes to the successor
 
     def state(self) -> dict:
@@ -121,24 +152,267 @@ class PullQueue:
 
 
 def resolve_max_lag(explicit: Optional[int] = None) -> int:
-    """The declared staleness bound K (``BPS_MAX_LAG``, default 1)."""
+    """The declared staleness bound K (``BPS_MAX_LAG``, default 1: the
+    sync path, a round publishes only when every worker contributed)."""
     if explicit is not None:
         return max(1, int(explicit))
     return max(1, int(os.environ.get("BPS_MAX_LAG", "1") or 1))
 
 
-class AdmissionPlane:
-    """The admission decisions of one exchange: the per-key push gate and
-    the landed-bucket pull queue."""
+def lag_grace_s() -> float:
+    """``BPS_LAG_GRACE_MS``: how long a seal-eligible pull waits for the
+    round to complete before sealing it (0 = seal at once)."""
+    return max(0.0, float(os.environ.get("BPS_LAG_GRACE_MS", "0")
+                          or 0)) / 1e3
 
-    def __init__(self, max_lag: Optional[int] = None) -> None:
+
+class AdmissionPlane:
+    """The admission decisions of one exchange: the per-key push gate
+    (depth K), the landed-bucket pull queue and the cross-step epoch
+    bound. The server's ``StaleStore`` is its peer across the wire."""
+
+    def __init__(self, max_lag: Optional[int] = None,
+                 worker_id: Optional[int] = None) -> None:
         self.max_lag = resolve_max_lag(max_lag)
-        if self.max_lag > 1:
-            raise NotImplementedError(
-                f"BPS_MAX_LAG={self.max_lag} (bounded staleness) is not "
-                f"ported yet (see ROADMAP.md, 'Modules still to port')")
-        self.gate = KeyGate()
+        self.worker_id = (int(os.environ.get("BPS_WORKER_ID", "0") or 0)
+                          if worker_id is None else int(worker_id))
+        self.gate = KeyGate(depth=self.max_lag)
         self.pulls = PullQueue()
+
+    def gate_round(self, e: int) -> int:
+        """The newest epoch whose parameters must be applied before step
+        ``e`` may read them: the cross-step driver's wait target (``e - 1``
+        at K=1)."""
+        return e - self.max_lag
+
+
+# -- K-round bounded staleness, the server side
+# (byteps_tpu/server/admission.py:391-641)
+
+class _LagKey:
+    __slots__ = ("size", "dtype", "max_lag", "cv", "acc", "contrib",
+                 "published", "published_upto", "streak", "late_folds")
+
+    def __init__(self, size: int, dtype: str, max_lag: int,
+                 num_workers: int) -> None:
+        self.size = int(size)
+        self.dtype = np.dtype(dtype)
+        self.max_lag = int(max_lag)
+        self.cv = threading.Condition()
+        self.acc: Dict[int, np.ndarray] = {}       # open rounds' sums
+        self.contrib: Dict[int, set] = {}          # round -> worker ids
+        self.published: Dict[int, tuple] = {}      # round -> (sum, flags)
+        self.published_upto = 0
+        # consecutive published rounds each worker missed; the bound is
+        # streak <= max_lag - 1, enforced at seal time
+        self.streak = [0] * num_workers
+        self.late_folds = 0
+
+
+class StaleStore:
+    """Server-side versioned round store of the lag-managed keys.
+
+    The decision table, evaluated by the pull of the oldest unpublished
+    round (earlier rounds are served from their published snapshots):
+
+      every worker contributed          -> publish COMPLETE (flags 0)
+      missing workers all have slack
+        (streak + 1 <= K - 1)           -> wait ``BPS_LAG_GRACE_MS``,
+                                           then SEAL (a stale serve)
+      some missing worker is at bound   -> BARRIER: block until its push
+                                           arrives, then publish
+
+    K=1 makes the seal condition unsatisfiable, so the store serves
+    complete rounds only. A push for an already-published round folds into
+    the current open round and counts as that worker's contribution to it
+    (a late fold): sums are conserved, and a slow worker alternates miss
+    and contribute instead of drifting into a permanent barrier. Published
+    rounds are kept for 2K+4 rounds; a pull of an evicted round is served
+    the newest snapshot, flagged stale. A fresh store whose first push is
+    of round r > 1 adopts r - 1 as its published head (a rejoining worker
+    or a replacement server meets the fleet at its live round)."""
+
+    def __init__(self, num_workers: int, spans=None) -> None:
+        self.num_workers = max(1, int(num_workers))
+        self.spans = spans
+        self._lock = threading.Lock()
+        self._keys: Dict[int, _LagKey] = {}
+        reg = get_registry()
+        self._m_stale = reg.counter("lag/stale_serves")
+        self._m_barrier = reg.counter("lag/barrier_falls")
+        self._m_late = reg.counter("lag/late_folds")
+        self._m_evicted = reg.counter("lag/evicted_serves")
+        self._g_streak = reg.gauge("lag/max_streak")
+
+    def declare(self, key: int, size: int, dtype: str,
+                max_lag: int) -> None:
+        """Route ``key``'s rounds through this store with bound
+        ``max_lag``. Idempotent; workers disagreeing on K raise."""
+        key, max_lag = int(key), int(max_lag)
+        with self._lock:
+            st = self._keys.get(key)
+            if st is not None:
+                if st.max_lag != max_lag:
+                    raise ValueError(
+                        f"key {key} lag bound re-declared {max_lag} != "
+                        f"{st.max_lag} — workers disagree on BPS_MAX_LAG")
+                return
+            self._keys[key] = _LagKey(size, dtype, max_lag,
+                                      self.num_workers)
+
+    def managed(self, key: int) -> bool:
+        with self._lock:
+            return int(key) in self._keys
+
+    def declared(self, key: int) -> Optional[int]:
+        with self._lock:
+            st = self._keys.get(int(key))
+            return None if st is None else st.max_lag
+
+    def streaks(self, key: int) -> List[int]:
+        st = self._st(key)
+        with st.cv:
+            return list(st.streak)
+
+    def round(self, key: int) -> int:
+        """The last published round: what a rejoining worker seeds from."""
+        st = self._st(key)
+        with st.cv:
+            return st.published_upto
+
+    def _st(self, key: int) -> _LagKey:
+        with self._lock:
+            st = self._keys.get(int(key))
+        if st is None:
+            raise KeyError(f"key {key} is not lag-managed "
+                           f"(declare_lag never reached this server)")
+        return st
+
+    def push(self, key: int, worker: int, rnd: int,
+             data: np.ndarray) -> int:
+        """Fold one worker's gradient; returns the round it landed in:
+        ``rnd``, or the open round when ``rnd`` was already sealed."""
+        st = self._st(key)
+        worker, rnd = int(worker), int(rnd)
+        data = np.asarray(data).reshape(-1)
+        with st.cv:
+            if st.published_upto == 0 and not st.acc and rnd > 1:
+                st.published_upto = rnd - 1      # failover/rejoin adopt
+            if rnd <= st.published_upto:
+                tgt = st.published_upto + 1      # late fold
+                st.late_folds += 1
+                self._m_late.inc()
+            else:
+                tgt = rnd
+            acc = st.acc.get(tgt)
+            if acc is None:
+                acc = st.acc[tgt] = np.zeros(st.size, st.dtype)
+                st.contrib[tgt] = set()
+            if data.dtype != st.dtype:
+                data = data.astype(st.dtype)
+            acc += data
+            st.contrib[tgt].add(worker)
+            st.cv.notify_all()
+        return tgt
+
+    def pull(self, key: int, worker: int, rnd: int, out: np.ndarray,
+             timeout_ms: int = 30000) -> int:
+        """Block until every round <= ``rnd`` is published (publishing
+        them per the decision table), then copy round ``rnd``'s snapshot
+        into ``out``. Returns the verdict flags (LAG_COMPLETE or
+        LAG_STALE, with LAG_BARRIER when this pull waited out an
+        exhausted bound)."""
+        st = self._st(key)
+        rnd = int(rnd)
+        grace = lag_grace_s()
+        deadline = time.monotonic() + int(timeout_ms) / 1e3
+        flags = 0
+        barrier_logged: set = set()
+        with st.cv:
+            t_wait0 = time.monotonic()
+            while st.published_upto < rnd:
+                nxt = st.published_upto + 1
+                contrib = st.contrib.get(nxt, ())
+                missing = [w for w in range(self.num_workers)
+                           if w not in contrib]
+                if not missing:
+                    self._publish(st, key, nxt, sealed=False)
+                    continue
+                can_seal = all(st.streak[m] + 1 <= st.max_lag - 1
+                               for m in missing)
+                now = time.monotonic()
+                if can_seal and now - t_wait0 >= grace:
+                    self._publish(st, key, nxt, sealed=True,
+                                  missing=missing)
+                    continue
+                if not can_seal and nxt not in barrier_logged:
+                    barrier_logged.add(nxt)
+                    flags |= LAG_BARRIER
+                    self._m_barrier.inc()
+                    self._decision("barrier", key, nxt, missing, st)
+                if now >= deadline:
+                    raise TimeoutError(
+                        f"pull_lag key={key} round={rnd} blocked "
+                        f"{int(timeout_ms)}ms at round {nxt} "
+                        f"(missing workers {missing}, "
+                        f"streaks {list(st.streak)})")
+                # a seal-eligible pull sleeps only to the end of its grace
+                # (a floor against spinning, far below any grace)
+                st.cv.wait(min(
+                    deadline - now,
+                    max(grace - (now - t_wait0), 0.0005)
+                    if can_seal else 0.25))
+            ent = st.published.get(rnd)
+            if ent is None:
+                # beyond the retention window: the newest sum, flagged
+                # stale (its pushes late-fold, so they still land once)
+                ent = st.published[st.published_upto]
+                flags |= LAG_STALE
+                self._m_evicted.inc()
+                self._decision("evicted", key, rnd, (), st)
+            arr, f = ent
+            flags |= f
+            view = out.reshape(-1)
+            if view.dtype == arr.dtype:
+                np.copyto(view, arr)
+            else:
+                view[:] = arr.astype(view.dtype)
+        return flags
+
+    def _publish(self, st: _LagKey, key: int, rnd: int, sealed: bool,
+                 missing=()) -> None:
+        """Publish round ``rnd``'s sum as an immutable snapshot and advance
+        the streaks. The caller holds ``st.cv``."""
+        acc = st.acc.pop(rnd, None)
+        contrib = st.contrib.pop(rnd, set())
+        if acc is None:             # nobody pushed (a drained rejoin gap)
+            acc = np.zeros(st.size, st.dtype)
+        st.published[rnd] = (acc, LAG_STALE if sealed else LAG_COMPLETE)
+        st.published_upto = rnd
+        for w in range(self.num_workers):
+            st.streak[w] = 0 if w in contrib else st.streak[w] + 1
+        cut = rnd - (2 * st.max_lag + 4)
+        for old in [r for r in st.published if r <= cut]:
+            del st.published[old]
+        if sealed:
+            self._m_stale.inc()
+            self._g_streak.set(max(st.streak))
+            get_registry().gauge(f"lag/streak/{key}").set(max(st.streak))
+            self._decision("stale", key, rnd, missing, st)
+            if self.spans is not None:
+                self.spans.note_seal(key, rnd, missing)
+        st.cv.notify_all()
+
+    def _decision(self, verdict: str, key: int, rnd: int, missing,
+                  st: _LagKey) -> None:
+        # key-less like send_admit: a sealed round is context for every
+        # key's postmortem (the enabled check first)
+        if flight.get_recorder().enabled:
+            flight.record(
+                "lag_admit",
+                detail=f"verdict={verdict} key={key} round={rnd} "
+                       f"missing={sorted(missing)} "
+                       f"streaks={list(st.streak)} K={st.max_lag}")
 
 
 # -- the two-class wire send scheduler (byteps_tpu/server/admission.py:223-390)

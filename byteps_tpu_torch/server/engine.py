@@ -22,10 +22,13 @@ byteps_tpu_torch.launcher.launch --server``), and the workers'
 
 ``HostPSBackend`` also holds the sharded weight update's param mailbox
 (``param_put`` / ``param_get`` / ``param_latest``, a
-``sharded_update.ParamStore`` made at first use).
+``sharded_update.ParamStore`` made at first use), and the bounded-staleness
+round store (``declare_lag`` / ``push_lag`` / ``pull_lag``, a
+``server/admission.py::StaleStore`` made at the first declaration, so a
+K=1 deployment never allocates it; ``round`` answers from it for a
+managed key).
 
-Not ported yet (ROADMAP.md): key migration, bounded-staleness rounds and
-row-sparse pushes.
+Not ported yet (ROADMAP.md): key migration and row-sparse pushes.
 """
 
 from __future__ import annotations
@@ -257,6 +260,12 @@ class HostPSBackend:
         self.compressed = CompressedKeyStore()
         self._declared: set = set()
         self._shard_bytes: Dict[int, int] = {}
+        # key -> (nbytes, dtype) of its first declaration: the lag store
+        # sizes a key from it
+        self._key_meta: Dict[int, tuple] = {}
+        # the bounded-staleness round store (server/admission.StaleStore),
+        # made at the first declare_lag: K=1 never allocates it
+        self._stale = None
         reg = get_registry()
         self._m_pull_wait = reg.histogram("server/pull_wait_s")
         # the server's backlog, which the auto controller reads
@@ -305,6 +314,7 @@ class HostPSBackend:
         elif self._homog_managed(key):
             self._homog.drop(key)           # re-declared non-fused
         self._shard(key).init_key(key, nbytes, dtype, init)
+        self._key_meta.setdefault(key, (int(nbytes), dtype))
         if key not in self._declared:       # re-inits are no-ops server-side
             self._declared.add(key)
             log_key_placement(key, nbytes, self._shard_index(key),
@@ -356,10 +366,44 @@ class HostPSBackend:
         self._m_pull_wait.observe(time.time() - t0)
 
     def round(self, key: int) -> int:
-        """Latest completed sync round for ``key`` (0 = none yet)."""
+        """Latest completed sync round for ``key`` (0 = none yet); a
+        lag-managed key's last published round."""
+        if self._stale is not None and self._stale.managed(key):
+            return self._stale.round(key)
         if self._homog_managed(key):
             return self._homog.round(key)
         return self._shard(key).round(key)
+
+    def declare_lag(self, key: int, max_lag: int) -> None:
+        """Hand ``key``'s rounds to the bounded-staleness store with bound
+        ``max_lag`` (idempotent; a conflicting K raises). The key must be
+        declared first: the store takes its size and dtype from that."""
+        meta = self._key_meta.get(key)
+        if meta is None:
+            raise KeyError(f"declare_lag({key}) before init_key")
+        nbytes, dtype = meta
+        if self._stale is None:
+            with self._param_lock:
+                if self._stale is None:
+                    from .admission import StaleStore
+                    self._stale = StaleStore(self.num_workers)
+        self._stale.declare(key, nbytes // np.dtype(dtype).itemsize, dtype,
+                            max_lag)
+
+    def push_lag(self, key: int, worker: int, rnd: int,
+                 data: np.ndarray) -> None:
+        """A versioned push: ``worker``'s round-``rnd`` gradient folds into
+        that round, or into the open round when ``rnd`` was sealed."""
+        self._stale.push(key, worker, rnd, data)
+
+    def pull_lag(self, key: int, worker: int, rnd: int, out: np.ndarray,
+                 timeout_ms: int = 30000) -> int:
+        """A versioned pull; returns the verdict flags
+        (``admission.LAG_COMPLETE`` / ``LAG_STALE`` / ``LAG_BARRIER``)."""
+        t0 = time.time()
+        flags = self._stale.pull(key, worker, rnd, out, timeout_ms)
+        self._m_pull_wait.observe(time.time() - t0)
+        return flags
 
     def push_bytes(self, key: int, payload) -> None:
         """A legacy chain's push: decompressed into the key's summation

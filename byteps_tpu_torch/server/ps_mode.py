@@ -29,7 +29,18 @@ The exchange is PIPELINED per bucket (``BPS_PS_PIPELINE`` threads, default
 4; ≤ 1 = serial): bucket k+1's encode and push run while bucket k's pull
 waits for the server's merge, and landed buckets are pulled by next-step
 first-use priority. A per-key admission gate keeps one round per key in
-flight.
+flight (K rounds under bounded staleness).
+
+Bounded staleness (``BPS_MAX_LAG=K`` > 1,
+``byteps_tpu/server/ps_mode.py:704-713, 910-917, 1060-1076``): the backend
+must have ``declare_lag`` / ``push_lag`` / ``pull_lag`` (checked at
+construction). At plan time every dense key is declared with bound K; a
+key with a legacy chain or an active compression-plane key stays at K=1,
+because its codec assumes complete sums. The lag keys' pushes and pulls
+carry (worker id, round) on every route (the one-shot exchange, the
+ingest rounds of the staged head, the streamed tail); a pull's verdict is
+counted (``ps/lag_complete``, ``ps/lag_stale``, ``ps/lag_barrier``) and a
+stale or barrier verdict is a ``lag_admit`` flight event of this worker.
 
 Every wire push and pull is a flight-recorder event (``obs/flight.py``),
 and a failed pull dumps its key's events. ``BPS_WATCHDOG_SEC`` > 0 starts a
@@ -62,8 +73,8 @@ owners' param frames for every group it covers have landed
 (``release_skipped``), which also commits its error-feedback residual, as
 a pull would.
 
-Not ported yet (ROADMAP.md): bounded-staleness routing (and its
-``lag_admit`` events), ``AsyncPSWorker`` and the row-sparse exchange.
+Not ported yet (ROADMAP.md): ``AsyncPSWorker`` and the row-sparse
+exchange.
 """
 
 from __future__ import annotations
@@ -85,7 +96,7 @@ from ..common.naming import NameRegistry
 from ..common.partition import LeafSpec, plan_buckets
 from ..obs import flight
 from ..obs.metrics import get_registry, observe_stage
-from .admission import AdmissionPlane
+from .admission import LAG_BARRIER, LAG_STALE, AdmissionPlane
 from .engine import pack_segments, unpack_segments
 
 def _dtype_name(t) -> str:
@@ -589,6 +600,7 @@ class PSGradientExchange:
                  watchdog_sec: Optional[float] = None,
                  compress: Optional[str] = None,
                  max_lag: Optional[int] = None,
+                 worker_id: Optional[int] = None,
                  device=None) -> None:
         self.backend = backend
         self.partition_bytes = partition_bytes
@@ -603,7 +615,16 @@ class PSGradientExchange:
                 f"push_fused/pull_fused; {type(backend).__name__} has neither")
         self.pipeline_depth = (int(os.environ.get("BPS_PS_PIPELINE", "4"))
                                if pipeline_depth is None else pipeline_depth)
-        self.plane = AdmissionPlane(max_lag=max_lag)
+        # the push gate's depth is K; K > 1 routes the dense rounds
+        # through the server's bounded-staleness store
+        self.plane = AdmissionPlane(max_lag=max_lag, worker_id=worker_id)
+        if self.plane.max_lag > 1 and not hasattr(backend, "push_lag"):
+            # a backend without the versioned rounds would train at K=1
+            # while the worker runs ahead
+            raise ValueError(
+                f"BPS_MAX_LAG={self.plane.max_lag} needs a backend with "
+                f"declare_lag/push_lag/pull_lag; {type(backend).__name__} "
+                f"has none")
         self._plans: Dict = {}
         self._plan_lock = threading.Lock()
         self._pull_layer: Dict[int, object] = {}
@@ -619,6 +640,10 @@ class PSGradientExchange:
         self._m_d2h_bytes = reg.counter("ps/d2h_bytes")
         self._m_buckets = reg.counter("ps/buckets_completed")
         self._m_rounds = reg.gauge("ps/rounds_in_flight")
+        # the server's verdicts on this worker's lag pulls
+        self._m_lag = {f: reg.counter(f"ps/lag_{n}") for f, n in
+                       ((0, "complete"), (LAG_STALE, "stale"),
+                        (LAG_BARRIER, "barrier"))}
         # per-PS-key worker chain (momentum → ef → compressor): it holds
         # the error feedback and momentum state, so it outlives the plan
         # (reference: the per-partition compressor_list, common.h:202)
@@ -794,6 +819,12 @@ class PSGradientExchange:
                          pskey, b.size, b.dtype,
                          layer=f"{decl_name}.{b.index}"))
             self.backend.init_key(pskey, nbytes, b.dtype, fused=fused)
+        if self.plane.max_lag > 1:
+            # dense keys only: chains and plane keys keep their one-round
+            # stores (byteps_tpu/server/ps_mode.py:910-917)
+            for pskey, _ in keyed:
+                if self._lag_routes(pskey):
+                    self.backend.declare_lag(pskey, self.plane.max_lag)
         if hasattr(self.backend, "set_send_priority"):
             # the wire credit's order (a remote backend): the bucket
             # holding the earliest-declared leaves sends first, the order
@@ -821,6 +852,26 @@ class PSGradientExchange:
             nxt = self._key_rounds.get(pskey, cur) + 1
             self._key_rounds[pskey] = nxt
         return nxt
+
+    def _lag_routes(self, pskey: int) -> bool:
+        """Does ``pskey`` ride the bounded-staleness store? Only at K > 1,
+        and only a dense key."""
+        return (self.plane.max_lag > 1
+                and pskey not in self._chains
+                and (self._cplane is None
+                     or not self._cplane.active(pskey)))
+
+    def _lag_verdict(self, pskey: int, rnd_num: int, flags: int) -> None:
+        """This worker's note of the server's verdict on a lag pull (the
+        server records the decision)."""
+        if flags & LAG_BARRIER:
+            self._m_lag[LAG_BARRIER].inc()
+        self._m_lag[flags & LAG_STALE].inc()
+        if flags and flight.get_recorder().enabled:
+            verdict = "barrier" if flags & LAG_BARRIER else "stale"
+            flight.record("lag_admit",
+                          detail=f"verdict={verdict} key={pskey} "
+                                 f"round={rnd_num} (served)")
 
     def _device_encode_on(self, sources) -> bool:
         """Resolve (once) whether the plane encodes on the gradients'
@@ -935,6 +986,12 @@ class PSGradientExchange:
             plane.note_dense_push(pskey, buf.nbytes)
             buf = plane.fold_residual(pskey, buf, rnd.rounds[idx])
         self._m_push_bytes.inc(buf.nbytes)
+        if self._lag_routes(pskey):
+            # a versioned push: the server folds it into its round, or
+            # into the open round if that one sealed without it
+            self.backend.push_lag(pskey, self.plane.worker_id,
+                                  rnd.rounds[idx], buf)
+            return
         self.backend.push(pskey, buf)
 
     def _pull_bucket(self, pskey: int, b, buf: np.ndarray, rnd_num: int,
@@ -979,6 +1036,13 @@ class PSGradientExchange:
             merged = plane.decode(pskey, payload, rnd_num)
             self._record("PS_DECOMPRESS", t0)
             return merged
+        if rnd_num and self._lag_routes(pskey):
+            flags = self.backend.pull_lag(pskey, self.plane.worker_id,
+                                          rnd_num, buf)
+            self._lag_verdict(pskey, rnd_num, flags)
+            self._m_pull_bytes.inc(buf.nbytes)
+            self._pull_layer[pskey].inc(buf.nbytes)
+            return buf
         self.backend.pull(pskey, buf, round=rnd_num)
         self._m_pull_bytes.inc(buf.nbytes)
         self._pull_layer[pskey].inc(buf.nbytes)

@@ -21,7 +21,13 @@ payload is codec:u8 | topk div:u16le), 21=PARAM_PUT / 22=PARAM_GET /
 ``sharded_update.py::ParamStore``: ``key`` = the param-class key, bit 41 |
 decl << 16 | group, ``round`` = the step's seq; PUT is last-wins per
 (key, seq), GET blocks server-side until the frame arrives and does not
-consume it, SEQ answers the newest retained seq as u64, 0 = none). Status:
+consume it, SEQ answers the newest retained seq as u64, 0 = none),
+26=LAG_DECL / 27=PUSH_LAG / 28=PULL_LAG (bounded staleness,
+``server/admission.py::StaleStore``: DECL declares a key's bound,
+``round`` = K, and is replayed after the inits on a reconnect; PUSH_LAG and
+PULL_LAG carry ``round = worker << 48 | round``, which is also the push's
+dedup token, and the pull's reply leads with one verdict byte, the
+``admission.LAG_*`` flags, before the dense sum). Status:
 0=OK, 1=error (the message
 rides as payload and the connection stays usable), 2=timeout, 3=gone (the
 server is shutting down: the client reconnects).
@@ -30,7 +36,9 @@ Every other op of the JAX package answers ``ST_ERR`` with a message that
 names its ROADMAP.md item, and the connection stays usable.
 
 ``PSTransportServer`` fronts a ``PSServer`` (wrapped in ``FusedFront``, so
-fused keys have their homogeneous store) or a ``HostPSBackend`` with one
+fused keys have their homogeneous store, and given a ``StaleStore`` of the
+transport's own at the first lag declaration, whose rounds ``OP_ROUND``
+then answers) or a ``HostPSBackend`` (which keeps both itself) with one
 thread per connection. ``RemotePSBackend`` is the worker-side client with
 ``HostPSBackend``'s interface, so ``PSGradientExchange`` runs unchanged
 across processes: keys placed over the servers by djb2, a pool of
@@ -78,7 +86,10 @@ OP_INIT_C, OP_PUSH_C, OP_PULL_C = 5, 6, 7
 OP_ROUND = 9
 OP_PUSH_F, OP_PULL_F = 17, 18
 OP_PARAM_PUT, OP_PARAM_GET, OP_PARAM_SEQ = 21, 22, 24
+OP_LAG_DECL, OP_PUSH_LAG, OP_PULL_LAG = 26, 27, 28
 ST_OK, ST_ERR, ST_TIMEOUT, ST_GONE = 0, 1, 2, 3
+# a lag frame's round field: worker << 48 | round
+_LAG_ROUND_MASK = (1 << 48) - 1
 
 _NOT_PORTED = "is not ported yet (see ROADMAP.md, 'Modules still to port'"
 
@@ -96,9 +107,6 @@ UNPORTED_OPS: Dict[int, Tuple[str, int]] = {
     20: ("activation mailbox OP_ACT_PULL", 7),
     23: ("fleet stats scrape OP_STATS", 9),
     25: ("trace scrape OP_TRACE", 9),
-    26: ("bounded staleness OP_LAG_DECL", 6),
-    27: ("bounded staleness OP_PUSH_LAG", 6),
-    28: ("bounded staleness OP_PULL_LAG", 6),
     29: ("embedding store OP_EMBED_INIT", 8),
     30: ("embedding store OP_EMBED_PULL", 8),
     31: ("embedding store OP_EMBED_PUSH", 8),
@@ -251,7 +259,8 @@ def _send_req(sock, op: int, key: int, rnd: int, nbytes: int,
 # ops whose handlers consume the payload before the next frame is read, so
 # a large payload may land in the connection's reused buffer
 _REUSE_SAFE_OPS = frozenset({OP_INIT, OP_PUSH, OP_PUSH_C, OP_PUSH_F,
-                             OP_PARAM_PUT})   # the store copies: bytes()
+                             OP_PARAM_PUT,    # the store copies: bytes()
+                             OP_PUSH_LAG})    # the store folds (+=)
 
 
 def _recv_req(sock, rholder: Optional[list] = None):
@@ -313,6 +322,10 @@ class PSTransportServer:
         # first use: plain deployments never allocate it
         self._params = None
         self._params_lock = threading.Lock()
+        # the bounded-staleness store of a raw engine, made at the first
+        # lag declaration (a HostPSBackend keeps its own)
+        self._stale = None
+        self._stale_lock = threading.Lock()
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._sock.bind((host, port))
@@ -408,7 +421,12 @@ class PSTransportServer:
                 conn.sendall(_RSP.pack(ST_OK, len(buf)))
                 conn.sendall(buf)
             elif op == OP_ROUND:
-                rv = struct.pack("!Q", int(self._fb.round(key)))
+                # a transport-owned lag store versions the key's rounds
+                # itself: a rejoining worker must see its counter
+                if self._stale is not None and self._stale.managed(key):
+                    rv = struct.pack("!Q", int(self._stale.round(key)))
+                else:
+                    rv = struct.pack("!Q", int(self._fb.round(key)))
                 conn.sendall(_RSP.pack(ST_OK, len(rv)) + rv)
             elif op == OP_PARAM_PUT:
                 self.param_store().put(key, int(rnd), bytes(payload or b""))
@@ -420,6 +438,31 @@ class PSTransportServer:
             elif op == OP_PARAM_SEQ:
                 rv = struct.pack("!Q", int(self.param_store().latest(key)))
                 conn.sendall(_RSP.pack(ST_OK, len(rv)) + rv)
+            elif op == OP_LAG_DECL:
+                self._lag_declare(key, int(rnd))
+                conn.sendall(_RSP.pack(ST_OK, 0))
+            elif op == OP_PUSH_LAG:
+                w, r = int(rnd) >> 48, int(rnd) & _LAG_ROUND_MASK
+                arr = np.frombuffer(payload, dtype=dtype)
+                meta = self._key_meta.get(key)
+                if meta is not None and meta[1] != dtype:
+                    arr = arr.astype(meta[1])
+                # the packed round is the dedup token: ident (key,
+                # worker << 16), seq the round, so a retried (worker,
+                # round) folds once
+                self._apply_push_once(
+                    key, rnd, lambda: self._lag_push(key, w, r, arr))
+                conn.sendall(_RSP.pack(ST_OK, 0))
+            elif op == OP_PULL_LAG:
+                w, r = int(rnd) >> 48, int(rnd) & _LAG_ROUND_MASK
+                out = np.empty(int(nbytes) // np.dtype(dtype).itemsize,
+                               dtype=dtype)
+                flags = self._lag_pull(key, w, r, out,
+                                       int(timeout) or 30000)
+                _send_frame(conn,
+                            _RSP.pack(ST_OK, 1 + out.nbytes)
+                            + bytes([flags & 0xFF]),
+                            [_as_bytes(out)])
             elif op in UNPORTED_OPS:
                 what, item = UNPORTED_OPS[op]
                 raise NotImplementedError(
@@ -447,6 +490,47 @@ class PSTransportServer:
                     from ..sharded_update import ParamStore
                     self._params = ParamStore()
         return self._params
+
+    # -- bounded staleness: a backend with a lag surface of its own
+    # (HostPSBackend) serves the versioned rounds itself; a raw engine
+    # gets a store of the transport's, as it gets FusedFront
+
+    def _lag_local(self):
+        if self._stale is None:
+            with self._stale_lock:
+                if self._stale is None:
+                    from .admission import StaleStore
+                    self._stale = StaleStore(
+                        getattr(self.backend, "num_workers", 1))
+        return self._stale
+
+    def _lag_declare(self, key: int, max_lag: int) -> None:
+        if hasattr(self.backend, "declare_lag"):
+            self.backend.declare_lag(key, max_lag)
+            return
+        meta = self._key_meta.get(key)
+        if meta is None:
+            raise KeyError(f"declare_lag({key}) before init")
+        nbytes, dtype = meta
+        self._lag_local().declare(
+            key, nbytes // np.dtype(dtype).itemsize, dtype, max_lag)
+
+    def _lag_push(self, key: int, worker: int, rnd: int,
+                  arr: np.ndarray) -> None:
+        if hasattr(self.backend, "push_lag"):
+            self.backend.push_lag(key, worker, rnd, arr)
+            return
+        self._lag_local().push(key, worker, rnd, arr)
+
+    def _lag_pull(self, key: int, worker: int, rnd: int, out: np.ndarray,
+                  timeout_ms: int) -> int:
+        if hasattr(self.backend, "pull_lag"):
+            return int(self.backend.pull_lag(key, worker, rnd, out,
+                                             timeout_ms))
+        t0 = time.time()
+        flags = self._lag_local().pull(key, worker, rnd, out, timeout_ms)
+        self._m_merge_wait.observe(time.time() - t0)
+        return int(flags)
 
     def _push_compressed(self, key: int, payload: bytes) -> None:
         if hasattr(self.backend, "push_bytes"):
@@ -568,7 +652,8 @@ class RemotePSBackend:
     its predecessor's."""
 
     # payload frames of the gradient class under the wire credit
-    _SCHED_GRAD_OPS = frozenset({OP_PUSH, OP_PUSH_C, OP_PUSH_F})
+    _SCHED_GRAD_OPS = frozenset({OP_PUSH, OP_PUSH_C, OP_PUSH_F,
+                                 OP_PUSH_LAG})
     # the param mailbox's ops, on channels of their own
     _PARAM_OPS = frozenset({OP_PARAM_PUT, OP_PARAM_GET, OP_PARAM_SEQ})
     # round-blocked pulls wait on the server in slices of this length, so
@@ -600,6 +685,9 @@ class RemotePSBackend:
         self._placed: set = set()
         # init_key replay log per server: key -> args
         self._inits: List[Dict[int, tuple]] = [dict() for _ in addrs]
+        # lag declarations per server, key -> K, replayed after the inits:
+        # a restarted server's empty store would refuse the next lag frame
+        self._lag_decls: List[Dict[int, int]] = [dict() for _ in addrs]
         self._pools: List[queue.Queue] = []
         for i in range(len(addrs)):
             pool: queue.Queue = queue.Queue()
@@ -649,6 +737,10 @@ class RemotePSBackend:
                              len(self._inits[i]))
         for args in self._inits[i].values():
             self._send_init(ch.sock, *args)
+        # the lag bounds after the inits: a declaration needs the key
+        for k, lag in self._lag_decls[i].items():
+            self._roundtrip(ch.sock, OP_LAG_DECL, k, int(lag), 0, 0,
+                            "uint8", None)
 
     def _send_init(self, sock, key, nbytes, dtype, init, compression,
                    fused=False) -> None:
@@ -845,6 +937,40 @@ class RemotePSBackend:
         """The server's latest completed round of ``key``."""
         data = self._rpc(OP_ROUND, key, 0, 0, 0, "uint8", None)
         return struct.unpack("!Q", data)[0]
+
+    def declare_lag(self, key: int, max_lag: int) -> None:
+        """Declare ``key``'s staleness bound K; kept for the replay to a
+        restarted server."""
+        self._rpc(OP_LAG_DECL, key, int(max_lag), 0, 0, "uint8", None)
+        self._lag_decls[self._shard(key)][key] = int(max_lag)
+
+    def push_lag(self, key: int, worker: int, rnd: int,
+                 data: np.ndarray) -> None:
+        """A versioned push into ``key``'s round ``rnd``; the packed round
+        field is the server's dedup token, so a retried (worker, round)
+        folds once."""
+        packed = (int(worker) << 48) | (int(rnd) & _LAG_ROUND_MASK)
+        self._rpc(OP_PUSH_LAG, key, packed, 0, 0, str(data.dtype),
+                  _as_bytes(data))
+
+    def pull_lag(self, key: int, worker: int, rnd: int, out: np.ndarray,
+                 timeout_ms: Optional[int] = None) -> int:
+        """Round ``rnd``'s published sum into ``out``; returns the verdict
+        flags. Sliced like a pull."""
+        if timeout_ms is None:
+            timeout_ms = int(os.environ.get("BPS_PULL_TIMEOUT_MS", "30000")
+                             or 30000)
+        packed = (int(worker) << 48) | (int(rnd) & _LAG_ROUND_MASK)
+
+        def attempt(slice_ms: int) -> int:
+            data = self._rpc(OP_PULL_LAG, key, packed, out.nbytes, slice_ms,
+                             str(out.dtype), None)
+            np.copyto(out, np.frombuffer(data[1:], dtype=out.dtype)
+                      .reshape(out.shape))
+            return data[0]
+
+        return self._sliced_pull(attempt, timeout_ms,
+                                 f"pull_lag({key}) round={rnd}")
 
     def push_bytes(self, key: int, payload) -> None:
         """A legacy chain's push: the compressed payload as it is."""

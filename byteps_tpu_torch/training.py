@@ -74,6 +74,13 @@ draining and the cross-step tails run it. A failed sharded step raises: it
 may be partial. A live membership change (``reshard``) and sharded
 checkpoints (``restore_sharded``) are not ported yet and raise.
 
+``BPS_MAX_LAG=K`` > 1 (bounded staleness; ``BPS_LAG_GRACE_MS`` on the
+server) sends the dense buckets through the server's versioned round
+store with this worker's id (``BPS_WORKER_ID``), and lets the cross-step
+driver's forward of step e read epoch e-K or later (``cross_step.py``
+says how the in-place applies stay out of its way). K > 1 together with
+the sharded update raises NotImplementedError.
+
 The async path and pipeline parallelism (``BPS_PP_STAGES`` > 1) are not
 ported yet (ROADMAP.md): their options raise.
 
@@ -103,6 +110,7 @@ from .common.config import Config
 from .common.global_state import GlobalState, check_ps_config, resolve_device
 from .obs.metrics import get_registry, observe_stage
 from .optim import ChunkedApply, DistributedOptimizer
+from .server.admission import resolve_max_lag
 from .parallel.collectives import bucketed_allreduce
 from .parallel.mesh import Mesh, data_group, dp_size, use_mesh
 
@@ -370,6 +378,7 @@ class DistributedTrainer:
                                 if min_compress_bytes is None
                                 else min_compress_bytes),
             watchdog_sec=cfg.watchdog_sec, compress=cfg.compress,
+            max_lag=resolve_max_lag(), worker_id=cfg.worker_id,
             device=self.device)
         gs.exchanges.append(self.ps_exchange)
         # the sums span the worker processes: the tails divide by them
@@ -398,6 +407,15 @@ class DistributedTrainer:
         self._sharded_epoch = 0
         self._sharded_cfg = None
         self._put_param = None
+        if cfg.sharded_update and self.ps_exchange.plane.max_lag > 1:
+            # the JAX package's sharded tails keep e - 1 while its server
+            # runs the lag store (byteps_tpu/sharded_update.py:966, 1019)
+            self.ps_exchange.close()
+            raise NotImplementedError(
+                f"BPS_MAX_LAG={self.ps_exchange.plane.max_lag} with "
+                f"BPS_SHARDED_UPDATE=1 (bounded staleness under the sharded "
+                f"weight update) is not ported yet (see ROADMAP.md, "
+                f"'Modules still to port', queue 1, item 6)")
         if cfg.sharded_update and self._apply_chunked \
                 and self.backward_passes_per_step == 1:
             rank = (shard_rank if shard_rank is not None

@@ -308,7 +308,22 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          ``ps/param_put_bytes`` and ``ps/param_fetch_bytes`` are each
          ``STEPS`` x the parameters' fp32 bytes; no resend. Optimizer-state
          bytes, peak memory, the plan's balance and each step are printed
-         beside (b0)'s.
+         beside (b0)'s. (c) ``bert_large_ps_lag``, bounded staleness:
+         BERT-large dense PS (no ``BPS_COMPRESS``) on the default route at
+         world 2, two worker processes (``--lag-ps-worker``) and a fresh
+         server each arm, the same batches in every arm: (c0) K=1; (c1)
+         ``BPS_MAX_LAG=2`` with the server's ``BPS_LAG_GRACE_MS=60000``;
+         (c2) K=2, grace 0, under ``LagHold`` (round 1 met by files, then
+         worker 1's round-2 pushes held until worker 0 pulled a round-2
+         key, and 2 s more). Every arm: both workers the same sha1 of
+         their parameters, finite losses, BERT's launches (144 / 72) and
+         no codec launch; (c0) no resend; (c1) every verdict complete and
+         the server's ``lag/stale_serves`` and ``lag/late_folds`` 0; (c2)
+         worker 0 saw a stale verdict, the server's ``lag/stale_serves``
+         and ``lag/late_folds`` >= 1 and ``lag/max_streak`` <= 1 (the
+         ``server stats`` line its launcher prints when it stops). Each
+         arm prints steps 2-3, bytes, verdicts, the largest
+         ``xstep/epoch_lag``, peak memory and the server's peak RSS.
      Losses must be finite and falling. BERT (both widths), dense GPT-2
      and T5 repeat step 1 with ``attn_impl="naive"`` (plain attention on
      the card) as the reference for the loss; every run prints step time,
@@ -377,9 +392,10 @@ built first) and prints ``{"remote_ps": ...}``, the card line and the same
 last line.
 
     python3 chip_smoke.py --remote-ps-worker WID ADDR OUT
+    python3 chip_smoke.py --lag-ps-worker WID DIR
 
-is one worker of phase 4's remote PS run at world 2 (``remote_ps_worker``);
-the phase starts two of them itself.
+is one worker of phase 4's remote PS runs at world 2 (``remote_ps_worker``,
+``lag_ps_worker``); the phase starts two of them itself.
 
     python3 chip_smoke.py --world 2
 
@@ -2362,7 +2378,8 @@ def _drain(trainer):
 def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
              compression=None, naive_cfg=None, more_steps=STEPS,
              model_cls=None, tokens_per_sample=None, mesh=None,
-             batch=TRAIN_BATCH, setup=None, after_counted=None):
+             batch=TRAIN_BATCH, setup=None, after_counted=None,
+             profile=True):
     """Train ``STEPS`` steps through ``DistributedTrainer`` (with a
     ``mesh``: ``ShardedTrainer`` on it, the global batch ``data``) with
     every launch counter zeroed just before and read just after; check finite
@@ -2474,7 +2491,8 @@ def run_path(tag, cfg, loss_fn, data, flops_per_sample, want,
                     "samples_per_s": batch / step_s,
                     "mfu": mfu(batch / step_s, flops_per_sample),
                     "peak_gb": peak_gb, "losses": losses,
-                    "profile": profile_step(trainer, data, tag)}
+                    "profile": (profile_step(trainer, data, tag) if profile
+                                else None)}
 
     if naive_cfg is not None:
         naive = make_trainer(naive_cfg)
@@ -3000,9 +3018,11 @@ def train_bert_ps(codec, dense_losses, step2_misses):
     try:
         # no steps past the counted window but the profiled one: the PS
         # step is host-bound and long (steps 2-3 give its time)
+        # fp8's profiled step (15-20 s of host codec) is left out for the
+        # full run's time limit; int8's carries the codec kernels' times
         launches, trainer, losses, metrics = run_path(
             tag, cfg, loss_fn, data, fps, want, more_steps=0, setup=setup,
-            after_counted=after_counted)
+            after_counted=after_counted, profile=codec == "int8")
         ex = trainer.ps_exchange
         nc, nb = ex.n_compressed(), len(next(iter(ex._plans.values()))[1])
         dense_bytes = 4 * sum(p.numel() for p in trainer.model.parameters())
@@ -3921,44 +3941,6 @@ def _reference_exchange(codec, registry):
     return backend, ex
 
 
-def route_turns(tag, model, opt, loss_fn, batch, ex, exchange):
-    """The PS API path's steps in turns with the trainer's route in the same
-    phase: forward, backward, the exchange, AdamW, timed to the card's
-    end. ``trees`` is the path's own exchange; ``trainer_route`` sends
-    every gradient as one tree through ``exchange`` in the trainer's
-    order and copies the sums back, as ``DistributedTrainer._ps_step``
-    does. One untimed ``trainer_route`` step plans its keys first, then
-    trees, route, route, trees. Returns the two routes' mean step ms."""
-    whole = sorted(model.named_parameters(), key=lambda kv: kv[0].split("."))
-
-    def trainer_route(first):
-        grads = [(n, p.grad) for n, p in whole]
-        summed = ex.exchange(grads, name="trainer-route")
-        with torch.no_grad():
-            for (_, g), x in zip(grads, summed):
-                g.copy_(torch.from_numpy(x).view_as(g))
-
-    routes = {"trees": exchange, "trainer_route": trainer_route}
-    turns = {k: [] for k in routes}
-    for k in ("trainer_route", "trees", "trainer_route", "trainer_route",
-              "trees"):
-        t = time.perf_counter()
-        opt.zero_grad(set_to_none=True)
-        loss_fn(model, batch).backward()
-        routes[k](False)
-        opt.step()
-        torch.cuda.synchronize()
-        turns[k].append((time.perf_counter() - t) * 1e3)
-    turns["trainer_route"].pop(0)           # planned its keys
-    mean = {k: statistics.mean(v) for k, v in turns.items()}
-    log(f"[{tag}] in turns in this phase, step ms: trees {turns['trees']}, "
-        f"the trainer's route {turns['trainer_route']}; trees / trainer's "
-        f"route {mean['trees'] / mean['trainer_route']:.3f}, on "
-        f"{card_line()}")
-    SUMMARY[tag]["turns_ms"] = turns
-    return mean
-
-
 def train_bert_pushpull(codec, dense_losses, step2_misses):
     """BERT-large through the BytePS API in PS mode (``BPS_ENABLE_PS=1``,
     ``BPS_COMPRESS=codec``, telemetry on). int8: every gradient through
@@ -4119,8 +4101,6 @@ def train_bert_pushpull(codec, dense_losses, step2_misses):
                                  "run's on the same weights and batch")
         if not abs(losses[1] - dense_losses[1]) <= PS_STEP2_TOL:
             step2_misses.append(tag)
-        if codec != "int8":
-            route_turns(tag, model, opt, loss_fn, batch, ex, exchange)
         # step 1's exchange again on CPU copies, through the plain versions
         t = time.perf_counter()
         backend, ref = _reference_exchange(codec, gs.registry)
@@ -5091,13 +5071,15 @@ def kernel_entry(name, paths, worst, timing, card, ptxas, d=None):
 REMOTE_WAIT = 600       # seconds a server or worker process may take
 
 
-def start_ps_server(workers):
+def start_ps_server(workers, env=None):
     """``python -m byteps_tpu_torch.launcher.launch --server`` on port 0
-    for ``workers`` workers; returns (process, its stderr lines, address)
-    once it printed ``server up on :<port>``."""
+    for ``workers`` workers (``env``: more variables for it); returns
+    (process, its stderr lines, address) once it printed ``server up on
+    :<port>``."""
     import os
     import threading
-    env = dict(os.environ, BPS_SERVER_PORT="0", BPS_NUM_WORKER=str(workers))
+    env = dict(os.environ, BPS_SERVER_PORT="0", BPS_NUM_WORKER=str(workers),
+               **(env or {}))
     proc = subprocess.Popen(
         [sys.executable, "-m", "byteps_tpu_torch.launcher.launch",
          "--server"], cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
@@ -5496,6 +5478,349 @@ def _check_sharded(b0, b1, card):
         f"every gate held")
 
 
+# ------------------ remote PS: bounded staleness at world 2 (dense PS)
+
+# arm -> (BPS_MAX_LAG, the server's BPS_LAG_GRACE_MS, worker 1 held)
+LAG_ARMS = {"c0": (1, 0, False), "c1": (2, 60000, False),
+            "c2": (2, 0, True)}
+LAG_HOLD_S = 2.0        # worker 1's hold before its step-2 push, (c2)
+
+
+class LagHold:
+    """Fault injection of arm (c2), on a worker's backend: each worker's
+    round-1 pulls wait until the other worker pushed its whole round 1
+    (files in ``where``), so round 1 completes: at grace 0 a round-1 pull
+    that sealed before the other worker's first push of that key would
+    make that worker seed its round from the server (the rejoin adopt)
+    and join at round 2, and the two would apply different sums. Worker 1
+    then holds every round-2 push until worker 0 has pulled a round-2 key
+    (which the server therefore sealed without worker 1), and LAG_HOLD_S
+    more."""
+
+    def __init__(self, backend, wid, nkeys, where):
+        import threading
+        self.backend, self.wid, self.nkeys = backend, wid, nkeys
+        self.where = Path(where)
+        self.lock = threading.Lock()
+        self.pushed, self.held = 0, False
+        self.released = threading.Event()
+        self.orig = (backend.push_lag, backend.pull_lag)
+        backend.push_lag, backend.pull_lag = self._push, self._pull
+
+    def _wait(self, name, timeout=REMOTE_WAIT):
+        deadline = time.time() + timeout
+        while not (self.where / name).exists():
+            if time.time() > deadline:
+                raise AssertionError(f"LagHold: {name} never appeared")
+            time.sleep(0.005)
+
+    def _push(self, key, worker, rnd, data):
+        if self.wid == 1 and rnd == 2:
+            with self.lock:
+                first, self.held = not self.held, True
+            if first:
+                self._wait("w0.pulled2")
+                time.sleep(LAG_HOLD_S)
+                self.released.set()
+            elif not self.released.wait(REMOTE_WAIT):
+                raise AssertionError("LagHold: never released")
+        self.orig[0](key, worker, rnd, data)
+        if rnd == 1:
+            with self.lock:
+                self.pushed += 1
+                done = self.pushed == self.nkeys
+            if done:
+                (self.where / f"w{self.wid}.pushed1").touch()
+
+    def _pull(self, key, worker, rnd, out, timeout_ms=None):
+        if rnd == 1:
+            self._wait(f"w{1 - self.wid}.pushed1")
+        flags = self.orig[1](key, worker, rnd, out, timeout_ms)
+        if rnd == 2 and self.wid == 0:
+            (self.where / "w0.pulled2").touch()
+        return flags
+
+
+def lag_ps_worker(wid, where) -> int:
+    """``--lag-ps-worker WID DIR``: one of the two worker processes of the
+    phase ``bert_large_ps_lag`` on ``cuda:0``, for every arm in turn (one
+    process for the three arms: a process takes seconds to reach the
+    card). For each arm it waits for ``DIR/<arm>.addr``, the address of the
+    arm's fresh server, trains BERT-large dense PS (no ``BPS_COMPRESS``)
+    on the default route from seed 0 on its own batch (seed WID) at the
+    arm's ``BPS_MAX_LAG`` for ``STEPS`` counted steps ((c2) under
+    ``LagHold``, its files in ``DIR/<arm>``), writes
+    ``DIR/<arm>.w<WID>.json`` (losses, launches, wanted launches, bytes,
+    resends, the lag verdicts it counted, the largest ``xstep/epoch_lag``,
+    step time, a digest of every parameter's bytes, peak memory) and shuts
+    its PS state down."""
+    import gc
+    where = Path(where)
+    for arm in LAG_ARMS:
+        addr_f = where / f"{arm}.addr"
+        deadline = time.time() + REMOTE_WAIT
+        while not addr_f.exists():
+            if time.time() > deadline:
+                raise AssertionError(f"no server address for arm {arm}")
+            time.sleep(0.05)
+        report = _lag_worker_arm(wid, arm, addr_f.read_text(), where)
+        tmp = where / f"{arm}.w{wid}.json.tmp"
+        tmp.write_text(json.dumps(report))
+        tmp.rename(where / f"{arm}.w{wid}.json")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
+def _lag_worker_arm(wid, arm, addr, where) -> dict:
+    """One arm of ``lag_ps_worker``: its report."""
+    import os
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import bert
+    from byteps_tpu_torch.obs.metrics import get_registry
+    lag, _, hold = LAG_ARMS[arm]
+    os.environ.pop("BPS_COMPRESS", None)
+    os.environ.update(BPS_ENABLE_PS="1", BPS_NUM_WORKER="2",
+                      BPS_WORKER_ID=str(wid), BPS_LOCAL_RANK="0",
+                      BPS_SERVER_ADDRS=addr, BPS_MAX_LAG=str(lag),
+                      BPS_SHARDED_UPDATE="0")
+    bps.init()
+    try:
+        cfg, loss_fn, _, _ = _bert_setup()
+        data = bert.synth_mlm_batch(np.random.RandomState(wid), TRAIN_BATCH,
+                                    BERT_SEQ, cfg.vocab_size)
+        torch.cuda.reset_peak_memory_stats()
+        trainer = _ps_trainer(cfg, loss_fn)
+        ex = trainer.ps_exchange
+        ex.leaf_groups(trainer._ps_params, name=trainer._name)   # the plan
+        (_, keyed), = ex._plans.values()
+        if hold:
+            (where / arm).mkdir(exist_ok=True)
+            LagHold(ex.backend, wid, len(keyed), where / arm)
+        torch.cuda.synchronize()
+        ctr = counters()
+        zero_counts(ctr)
+        reg = get_registry()
+        reg.reset()
+        losses, times, epoch_lag = [], [], 0
+        for _ in range(STEPS):
+            t = time.perf_counter()
+            loss = trainer.step(data)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(loss.item())
+            epoch_lag = max(epoch_lag, reg.gauge("xstep/epoch_lag").value)
+        t = time.perf_counter()
+        _drain(trainer)
+        drain_s = time.perf_counter() - t
+        metrics = reg.snapshot()
+        push, pull, resends = _ps_bytes(metrics)
+        digest = hashlib.sha1()
+        for _, p in sorted(trainer.model.named_parameters()):
+            digest.update(p.detach().cpu().numpy().tobytes())
+        report = {
+            "arm": arm, "losses": losses, "launches": read_counts(ctr),
+            "want": _attention_launches(cfg, ("flash_bwd_fused",))(trainer),
+            "ms": _route_ms(times, drain_s), "push_bytes": push,
+            "pull_bytes": pull, "resends": resends,
+            "verdicts": {v: metrics.get(f"ps/lag_{v}", 0)
+                         for v in ("complete", "stale", "barrier")},
+            "lag_keys": sum(1 for k, _ in keyed if ex._lag_routes(k)),
+            "buckets": len(keyed), "epoch_lag": epoch_lag,
+            "params": digest.hexdigest(),
+            "peak_mem": torch.cuda.max_memory_allocated()}
+        trainer.close()
+        return report
+    finally:
+        bps.shutdown()
+
+
+def _await_reports(procs, reports, deadline):
+    """Wait until every worker wrote its report (``reports[i]`` is worker
+    ``i``'s); None then, else why not. A worker that exited after writing
+    its report is done, not dead: after the last arm each exits as soon
+    as its own report is out, maybe before its peer's. One that exited
+    without it failed, and would wedge its peer."""
+    while not all(f.exists() for f in reports):
+        gone = [i for i, (p, f) in enumerate(zip(procs, reports))
+                if p.poll() is not None and not f.exists()]
+        if gone:
+            return (f"worker {gone[0]} exited "
+                    f"{procs[gone[0]].returncode} without its report")
+        if time.time() > deadline:
+            return "a worker timed out"
+        time.sleep(0.2)
+    return None
+
+
+def _lag_arms():
+    """The arms of ``bert_large_ps_lag`` in turn: for each a fresh server
+    (``BPS_NUM_WORKER=2``, the arm's grace), served to the same two worker
+    processes (``lag_ps_worker``); returns {arm: (the workers' reports,
+    the server's stop-time stats)}. A worker's death or a timeout fails
+    the phase; every process is stopped."""
+    import os
+    import tempfile
+    tmp = Path(tempfile.mkdtemp())
+    procs, logs, out = [], [], {}
+    failed = None
+    try:
+        for wid in (0, 1):
+            logf = open(tmp / f"worker{wid}.log", "w")
+            logs.append(logf)
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, "--lag-ps-worker", str(wid),
+                 str(tmp)], cwd=ROOT, env=dict(os.environ), stdout=logf,
+                stderr=subprocess.STDOUT))
+        for arm, (_, grace, _) in LAG_ARMS.items():
+            server, lines, addr = start_ps_server(
+                2, {"BPS_LAG_GRACE_MS": str(grace)})
+            reports = [tmp / f"{arm}.w{w}.json" for w in (0, 1)]
+            try:
+                (tmp / f"{arm}.addr.tmp").write_text(addr)
+                (tmp / f"{arm}.addr.tmp").rename(tmp / f"{arm}.addr")
+                failed = _await_reports(procs, reports,
+                                        time.time() + REMOTE_WAIT)
+            finally:
+                rc = stop_ps_server(server)
+            stats = [json.loads(x.split("server stats ", 1)[1])
+                     for x in lines if "server stats " in x]
+            if failed is not None:
+                failed = f"arm {arm}: {failed}"
+                break
+            if rc != 0 or len(stats) != 1:
+                failed = (f"arm {arm}: the server exited {rc} with "
+                          f"{len(stats)} stats lines:\n"
+                          + "\n".join(lines[-20:]))
+                break
+            out[arm] = ([json.loads(f.read_text()) for f in reports],
+                        stats[0])
+        deadline = time.time() + 60
+        while failed is None and any(p.poll() is None for p in procs) \
+                and time.time() < deadline:
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+        for f in logs:
+            f.close()
+    for wid, p in enumerate(procs):
+        text = (tmp / f"worker{wid}.log").read_text()
+        log(f"----- lag PS worker {wid} (exit {p.returncode})")
+        log(text if failed or p.returncode else text[-1500:])
+        if failed or p.returncode:
+            # the error's end on stderr too, where a caller that keeps
+            # only that stream still sees why
+            print(f"----- lag PS worker {wid} (exit {p.returncode}), its "
+                  f"log's end:\n{text[-6000:]}", file=sys.stderr, flush=True)
+    if failed is None and any(p.returncode for p in procs):
+        failed = "a worker exited with an error"
+    if failed is not None:
+        raise AssertionError(f"bert_large ps lag: {failed}")
+    return out
+
+
+def train_bert_ps_lag():
+    """Phase ``bert_large_ps_lag``: bounded staleness at world 2, BERT-large
+    dense PS on the default route, two worker processes on ``cuda:0``
+    (``lag_ps_worker``) and a fresh server for each arm, the same batches
+    in every arm, the arms in turn:
+
+    (c0) K=1: both workers end with the same sha1 of every parameter's
+    bytes; finite losses; each worker's launches are BERT's (144 flash
+    forwards, 72 fused backwards) and no codec kernel; no resend.
+
+    (c1) K=2, the server's ``BPS_LAG_GRACE_MS=60000``: the same sha1 on
+    both workers; every pull's verdict complete (no stale, no barrier
+    counted by a worker); the server's ``lag/stale_serves`` and
+    ``lag/late_folds`` 0; (c0)'s launches; the largest
+    ``xstep/epoch_lag`` printed, and the sha1 beside (c0)'s (not gated: a
+    forward may read epoch e-2).
+
+    (c2) K=2, grace 0, ``LagHold`` on worker 1's step-2 push: the same
+    sha1 on both workers (published sums are immutable snapshots); worker
+    0 counted at least one stale verdict; the server's
+    ``lag/stale_serves`` >= 1, ``lag/late_folds`` >= 1 and
+    ``lag/max_streak`` <= 1 (its stop-time stats line: the stats scrape,
+    op 23, is not ported); finite losses; (c0)'s launches.
+
+    Each arm prints each worker's steps 2-3, push and pull bytes a step
+    and peak memory, and the server's peak RSS, beside the card; none is
+    gated (two processes share one card). Returns each arm's launches
+    summed over its workers."""
+    card = card_line()
+    arms = _lag_arms()
+    for arm, (res, stats) in arms.items():
+        tag = f"bert_large ps lag {arm}"
+        lag, grace, hold = LAG_ARMS[arm]
+        # the store's own counters and gauge (not its per-key streaks)
+        lag_stats = {k: v for k, v in stats.items()
+                     if k.startswith("lag/") and k.count("/") == 1}
+        for wid, r in enumerate(res):
+            log(f"[{tag}] K={lag}, grace {grace} ms{', held' if hold else ''}"
+                f"; worker {wid}: losses {r['losses']}, steps 2-3 "
+                f"{r['ms']:.1f} ms a step (two worker processes share one "
+                f"card), ps/push_bytes {r['push_bytes']:.0f} and "
+                f"ps/pull_bytes {r['pull_bytes']:.0f} a step, "
+                f"transport/resends {r['resends']}, verdicts "
+                f"{r['verdicts']}, {r['lag_keys']} of {r['buckets']} "
+                f"buckets on the lag store, largest xstep/epoch_lag "
+                f"{r['epoch_lag']}, peak memory {r['peak_mem']} bytes; "
+                f"{card}")
+        log(f"[{tag}] server: peak RSS {stats['peak_rss_bytes']} bytes "
+            f"({stats['peak_rss_source']}), "
+            f"{lag_stats}; workers' sha1 {res[0]['params']} / "
+            f"{res[1]['params']}")
+        for wid, r in enumerate(res):
+            if not all(math.isfinite(x) for x in r["losses"]):
+                raise AssertionError(f"{tag} worker {wid}: non-finite losses")
+            if r["launches"] != r["want"]:
+                raise AssertionError(f"{tag} worker {wid}: launches "
+                                     f"{r['launches']}, expected {r['want']}")
+            if r["lag_keys"] != (r["buckets"] if lag > 1 else 0):
+                raise AssertionError(f"{tag} worker {wid}: {r['lag_keys']} "
+                                     f"of {r['buckets']} buckets on the lag "
+                                     f"store")
+        if res[0]["params"] != res[1]["params"]:
+            raise AssertionError(f"{tag}: the workers' parameters differ")
+        if res[0]["losses"] == res[1]["losses"]:
+            raise AssertionError(f"{tag}: both workers read the same batch")
+        if arm == "c0" and any(r["resends"] for r in res):
+            raise AssertionError(f"{tag}: transport/resends is not 0")
+        if arm == "c1":
+            if any(r["verdicts"]["stale"] or r["verdicts"]["barrier"]
+                   or r["verdicts"]["complete"] != STEPS * r["buckets"]
+                   for r in res):
+                raise AssertionError(f"{tag}: a pull's verdict was not "
+                                     f"complete: {[r['verdicts'] for r in res]}")
+            if stats["lag/stale_serves"] or stats["lag/late_folds"]:
+                raise AssertionError(f"{tag}: the server sealed or folded "
+                                     f"late: {lag_stats}")
+        if arm == "c2":
+            if res[0]["verdicts"]["stale"] < 1:
+                raise AssertionError(f"{tag}: worker 0 saw no stale verdict")
+            if stats["lag/stale_serves"] < 1 or stats["lag/late_folds"] < 1 \
+                    or stats["lag/max_streak"] > 1:
+                raise AssertionError(f"{tag}: server {lag_stats}")
+    log(f"[bert_large ps lag] sha1 (c0) {arms['c0'][0][0]['params']}, (c1) "
+        f"{arms['c1'][0][0]['params']} (not gated: a forward may read epoch "
+        f"e-2), (c2) {arms['c2'][0][0]['params']}; every gate held")
+    SUMMARY["bert_large ps lag"] = {
+        arm: {"ms": [r["ms"] for r in res],
+              "epoch_lag": [r["epoch_lag"] for r in res],
+              "peak_mem": [r["peak_mem"] for r in res],
+              "server_peak_rss": stats["peak_rss_bytes"],
+              "lag": {k: v for k, v in stats.items()
+                      if k.startswith("lag/") and k.count("/") == 1}}
+        for arm, (res, stats) in arms.items()}
+    return tuple({k: res[0]["launches"][k] + res[1]["launches"][k]
+                  for k in res[0]["launches"]}
+                 for res, _ in arms.values())
+
+
 def remote_ps_main() -> int:
     """``--remote-ps``: the toolchain, then only phase 4's remote PS runs."""
     t = time.perf_counter()
@@ -5503,6 +5828,8 @@ def remote_ps_main() -> int:
     paths = {"bert_large_ps_int8_tcp": train_bert_ps_tcp()}
     paths["bert_large_ps_int8_world2"], \
         paths["bert_large_ps_int8_world2_sharded"] = train_bert_ps_world2()
+    (paths["bert_large_ps_lag_c0"], paths["bert_large_ps_lag_c1"],
+     paths["bert_large_ps_lag_c2"]) = train_bert_ps_lag()
     log(f"remote PS in {time.perf_counter() - t:.1f} s")
     print(json.dumps({"remote_ps": {
         "launches": {p: {k: v for k, v in c.items() if v and ":" not in k}
@@ -6328,6 +6655,8 @@ def main() -> int:
         return world_main(int(args[1]))
     if args[:1] == ["--remote-ps-worker"]:
         return remote_ps_worker(int(args[1]), args[2], args[3], *args[4:5])
+    if args[:1] == ["--lag-ps-worker"]:
+        return lag_ps_worker(int(args[1]), args[2])
     if args == ["--remote-ps"]:
         return remote_ps_main()
     if args[:1] == ["--ps-routes"]:
@@ -6422,6 +6751,8 @@ def main() -> int:
     paths["bert_large_ps_int8_tcp"] = train_bert_ps_tcp()
     paths["bert_large_ps_int8_world2"], \
         paths["bert_large_ps_int8_world2_sharded"] = train_bert_ps_world2()
+    (paths["bert_large_ps_lag_c0"], paths["bert_large_ps_lag_c1"],
+     paths["bert_large_ps_lag_c2"]) = train_bert_ps_lag()
     paths["bert_large_plugin"] = train_bert_plugin(bert_losses)
     for codec in ("int8", "fp8_e4m3"):
         paths[f"bert_large_pushpull_{codec.split('_')[0]}"] = \

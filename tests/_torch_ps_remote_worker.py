@@ -23,6 +23,18 @@ first step: the JAX server's fused front resets a key at every
 declaration, so a declaration landing after the other worker's first push
 would wedge the round (ROADMAP.md queue 3; the port's server keeps it).
 
+MODE "lag": bounded staleness at world 2 (``BPS_MAX_LAG=2``; the server
+runs with ``BPS_LAG_GRACE_MS=0``): the port's trainer on the default route,
+STEPS steps, with a scripted order kept by files beside OUT. Each
+worker's round-1 pulls wait until the other pushed its whole round 1, so
+round 1 completes: at grace 0 a pull that seals round 1 before the other
+worker's first push of that key makes that worker take the server's round
+as its seed (the elastic-rejoin adopt) and join at round 2, and the two
+would apply different rounds. Worker 1 holds its round-2 pushes until
+worker 0 pulled its whole round 2, which the server therefore seals
+without worker 1; worker 1's round 2 then late-folds into round 3. Saves
+the losses, the parameters' bytes and the verdicts it counted.
+
 MODE "plugin": the assertions of ``tests/_ps_worker.py`` on the port's API
 (``push_pull`` averages to 2.5 and sums to 10.0; async handles synchronized
 in a divergent order), through the top-level API and the torch plugin,
@@ -77,6 +89,81 @@ def run_port(wid, addrs, out, inputs):
         res[codec] = (losses, convert.params_to_jax_layout(tt.model))
         tt.close()
         bps.shutdown()
+    torch.save(res, out)
+
+
+def _wait_file(path, timeout=120.0):
+    import time
+    deadline = time.time() + timeout
+    while not Path(path).exists():
+        if time.time() > deadline:
+            raise TimeoutError(f"{path} never appeared")
+        time.sleep(0.01)
+
+
+def run_lag(wid, addr, out, inputs):
+    import threading
+    from collections import Counter
+
+    import torch
+    torch.set_num_threads(1)
+    torch.set_float32_matmul_precision("highest")
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import bert as tbert
+    from byteps_tpu_torch.obs.metrics import get_registry
+    from byteps_tpu_torch.optim import adamw
+    from byteps_tpu_torch.training import DistributedTrainer
+    os.environ.update(BPS_COMPRESS="none", BPS_SERVER_ADDRS=addr,
+                      BPS_MAX_LAG="2")
+    bps.init(device="cpu")
+    model = tbert.Transformer(tbert.bert_config(dtype="float32", **WIDTH))
+    model.load_state_dict(torch.load(inputs))
+    tt = DistributedTrainer(
+        lambda m, b: tbert.mlm_loss(m, b, max_predictions=MAX_PRED),
+        model, adamw(model.parameters(), LR, eps=EPS), device="cpu")
+    ex = tt.ps_exchange
+    ex.leaf_groups(tt._ps_params, name=tt._name)        # the plan
+    (_, keyed), = ex._plans.values()
+    nkeys = len(keyed)
+    assert all(ex._lag_routes(k) for k, _ in keyed)
+    base = str(out)[:-len(f"{wid}.out")]
+    be = ex.backend
+    real_push, real_pull = be.push_lag, be.pull_lag
+    lock = threading.Lock()
+    pushed, pulled = Counter(), Counter()
+
+    def tick(count, what, rnd):
+        with lock:
+            count[rnd] += 1
+            done = count[rnd] == nkeys
+        if done:
+            Path(f"{base}w{wid}.{what}.{rnd}").touch()
+
+    def push_lag(key, worker, rnd, data):
+        if wid == 1 and rnd == 2:
+            _wait_file(f"{base}w0.pulled.2")
+        real_push(key, worker, rnd, data)
+        tick(pushed, "pushed", rnd)
+
+    def pull_lag(key, worker, rnd, out_, timeout_ms=None):
+        if rnd == 1:
+            _wait_file(f"{base}w{1 - wid}.pushed.1")
+        flags = real_pull(key, worker, rnd, out_, timeout_ms)
+        tick(pulled, "pulled", rnd)
+        return flags
+
+    be.push_lag, be.pull_lag = push_lag, pull_lag
+    losses = [tt.step(_batch(wid, i)).item() for i in range(STEPS)]
+    tt.drain()
+    reg = get_registry()
+    res = {"losses": losses,
+           "params": b"".join(p.detach().numpy().tobytes()
+                              for _, p in tt._ps_params),
+           "verdicts": {n: reg.counter(f"ps/lag_{n}").value
+                        for n in ("complete", "stale", "barrier")},
+           "nkeys": nkeys}
+    tt.close()
+    bps.shutdown()
     torch.save(res, out)
 
 
@@ -188,6 +275,8 @@ def main():
         run_port(wid, addrs, out, inputs)
     elif mode == "jax":
         run_jax(wid, addrs, out, inputs)
+    elif mode == "lag":
+        run_lag(wid, addrs, out, inputs)
     else:
         run_plugin(wid, addrs, out)
     print("WORKER_OK", flush=True)

@@ -323,6 +323,10 @@ ACTED_ON = {
     "BPS_SHARD_RANK": ("common/config.py", "training.py"),
     "BPS_SHARD_WORLD": ("common/config.py", "training.py"),
     "BPS_PARAM_TIMEOUT_MS": ("sharded_update.py",),
+    # bounded staleness (the JAX package reads both in its admission
+    # module; no refusal is left for either)
+    "BPS_MAX_LAG": ("server/admission.py",),
+    "BPS_LAG_GRACE_MS": ("server/admission.py",),
 }
 
 
@@ -646,3 +650,41 @@ def test_sharded_update_leftovers_raise_citing_their_item(call):
     with pytest.raises(NotImplementedError,
                        match=r"ROADMAP\.md.*queue 1, item 6"):
         calls[call]()
+
+
+# -- async PS stays refused after bounded staleness came over
+
+@pytest.mark.parametrize("site", ["init", "trainer", "launcher"])
+def test_async_ps_still_raises_citing_its_item(site, monkeypatch):
+    """``BPS_ENABLE_ASYNC=1`` raises at each of its three sites (``bps.init``,
+    the trainer, the launcher's server role), each naming ROADMAP.md queue
+    1 item 6, while ``BPS_MAX_LAG`` > 1 no longer raises anywhere."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.common import config
+    from byteps_tpu_torch.launcher import launch
+    from byteps_tpu_torch.models import bert
+    from byteps_tpu_torch.optim import adamw
+    from byteps_tpu_torch.training import DistributedTrainer
+    for name in ("BPS_ENABLE_PS", "BYTEPS_ENABLE_PS", "BPS_SERVER_ADDRS",
+                 "BPS_NUM_WORKER", "DMLC_NUM_WORKER"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("BPS_MAX_LAG", "2")
+    assert "BPS_MAX_LAG" not in {e for e, *_ in config.REFUSED.values()}
+    monkeypatch.setenv("BPS_ENABLE_ASYNC", "1")
+    match = r"BPS_ENABLE_ASYNC.*ROADMAP\.md.*queue 1, item 6"
+    if site == "launcher":
+        with pytest.raises(NotImplementedError, match=match):
+            launch.run_server()
+        return
+    if site == "init":
+        monkeypatch.setenv("BPS_ENABLE_PS", "1")
+        try:
+            with pytest.raises(NotImplementedError, match=match):
+                bps.init(device="cpu")
+        finally:
+            bps.shutdown()
+        return
+    model = bert.Transformer(bert.bert_tiny())
+    with pytest.raises(NotImplementedError, match=match):
+        DistributedTrainer(lambda m, b: 0, model,
+                           adamw(model.parameters(), 1e-3), device="cpu")

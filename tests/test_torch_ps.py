@@ -372,15 +372,16 @@ def test_host_leaves_of_a_mixed_plan_are_copied_and_counted(n1, dense):
 
 
 @pytest.mark.parametrize("env,value,exc", [
-    ("BPS_MAX_LAG", "2", NotImplementedError),
+    ("BPS_MAX_LAG", "2", None),
     ("BPS_WATCHDOG_SEC", "5", None),
     ("BPS_COMPRESS", "auto", None),
 ])
 def test_exchange_refuses_what_is_not_ported(env, value, exc, monkeypatch):
-    """Bounded staleness raises. The stall watchdog and the auto
-    controller, refused until they were ported, now construct
-    (``test_torch_flight_watchdog.py``, ``test_torch_compress_controller.py``
-    hold them against the JAX package)."""
+    """Nothing left here raises. Bounded staleness, the stall watchdog and
+    the auto controller, refused until they were ported, now construct
+    (``test_torch_lag_exchange.py``, ``test_torch_flight_watchdog.py``,
+    ``test_torch_compress_controller.py`` hold them against the JAX
+    package); K=2 allocates no lag store before the first plan."""
     from byteps_tpu_torch.compress.controller import CompressController
     monkeypatch.setenv(env, value)
     be = HostPSBackend(num_servers=1, num_workers=1, engine_threads=1)
@@ -390,7 +391,10 @@ def test_exchange_refuses_what_is_not_ported(env, value, exc, monkeypatch):
                 PSGradientExchange(be)
             return
         ex = PSGradientExchange(be)
-        if env == "BPS_WATCHDOG_SEC":
+        if env == "BPS_MAX_LAG":
+            assert ex.plane.max_lag == 2 and ex.plane.gate.depth == 2
+            assert be._stale is None
+        elif env == "BPS_WATCHDOG_SEC":
             assert ex._watchdog_sec == 5.0 and ex._watchdog is None
         else:
             assert isinstance(ex._cplane.controller, CompressController)

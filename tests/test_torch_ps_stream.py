@@ -298,7 +298,11 @@ def test_landed_buckets_are_pulled_by_next_use_priority():
         h = ex.exchange_stream(t, name="prio")
         (_, keyed), = ex._plans.values()
         deadline = time.time() + WAIT
-        while any(ex._key_rounds.get(k) is None for k, _ in keyed):
+        # every push landed: the one pull thread holds the first bucket,
+        # the others wait in the pull queue (a round assigned is not yet
+        # a push landed, and under load a late push would be popped late)
+        while (any(ex._key_rounds.get(k) is None for k, _ in keyed)
+               or len(ex.plane.pulls._heap) < len(keyed) - 1):
             assert time.time() < deadline
             time.sleep(0.01)
         release.set()
