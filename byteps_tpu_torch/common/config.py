@@ -14,7 +14,10 @@ package, resolved once into a frozen ``Config``:
   BYTEPS_PARTITION_BYTES   → BPS_PARTITION_BYTES
   BYTEPS_MIN_COMPRESS_BYTES → BPS_MIN_COMPRESS_BYTES (buckets below it
                              skip gradient compression)
-  BYTEPS_ENABLE_ASYNC      → BPS_ENABLE_ASYNC    (not ported: raises)
+  BYTEPS_ENABLE_ASYNC      → BPS_ENABLE_ASYNC    (async PS, with
+                             BPS_ENABLE_PS: the servers fold weight
+                             deltas, ``server/ps_mode.py::AsyncPSWorker``;
+                             without BPS_ENABLE_PS it raises)
   BYTEPS_ENABLE_PS         → BPS_ENABLE_PS       (the sync parameter-server
                              path: the in-process server at world 1, or
                              standalone servers)
@@ -71,6 +74,13 @@ default 1: the sync path) and ``BPS_LAG_GRACE_MS`` (how long a server
 lets a round wait for its stragglers before it seals the round without
 them, default 0) are read by ``server/admission.py``, as in the JAX
 package; the trainer hands K and ``BPS_WORKER_ID`` to its exchange.
+``BPS_ASYNC_WIRE_DTYPE`` (the dtype of an async worker's weight-delta
+pushes, e.g. ``bfloat16``; default the parameters') is read from
+``os.environ`` by ``server/ps_mode.py`` (``async_wire_dtype``, which
+``AsyncPSWorker`` and the plugin's async step call; the trainer casts its
+deltas on the card to its worker's ``wire_dtype``), and
+``BPS_ASYNC_PULL_DTYPE`` (the dtype the weights' pulls cross in; default
+the store's) by ``server/ps_mode.py``, as the JAX package reads them.
 ``BPS_STAGED_CACHE`` sizes the JAX package's cache of compiled backward
 segments; eager PyTorch compiles none, and the port has no such cache.
 The remote transport (``server/transport.py``) reads its own knobs where
@@ -84,8 +94,8 @@ would read them (``transport.CLIENT_REFUSED``, ``SERVER_REFUSED``,
 ``LAUNCHER_REFUSED``). The server process (``python -m
 byteps_tpu_torch.launcher.launch --server``) builds no ``Config``: it reads
 ``BPS_SERVER_PORT`` (default 9090), ``BPS_NUM_WORKER``,
-``BPS_SERVER_ENGINE_THREAD`` and ``BPS_SERVER_ENABLE_SCHEDULE`` itself, as
-the JAX launcher does.
+``BPS_SERVER_ENGINE_THREAD``, ``BPS_SERVER_ENABLE_SCHEDULE`` and
+``BPS_ENABLE_ASYNC`` itself, as the JAX launcher does.
 
 The knobs of ``REFUSED`` select behaviour the port does not have yet:
 at their defaults they change nothing, and any other value raises
@@ -107,11 +117,14 @@ from typing import Optional
 _TRUE = {"1", "true", "yes", "on"}
 
 
-def _env(name: str, legacy: Optional[str] = None, default: Optional[str] = None) -> Optional[str]:
-    """Read BPS_* env var, falling back to the legacy BYTEPS_/DMLC_ name."""
-    v = os.environ.get(name)
+def _env(name: str, legacy: Optional[str] = None, default: Optional[str] = None,
+         env=None) -> Optional[str]:
+    """Read BPS_* env var, falling back to the legacy BYTEPS_/DMLC_ name
+    (from ``env``, default ``os.environ``)."""
+    env = os.environ if env is None else env
+    v = env.get(name)
     if v is None and legacy is not None:
-        v = os.environ.get(legacy)
+        v = env.get(legacy)
     return v if v is not None else default
 
 
@@ -120,8 +133,9 @@ def _env_int(name: str, legacy: Optional[str], default: int) -> int:
     return int(v) if v not in (None, "") else default
 
 
-def _env_bool(name: str, legacy: Optional[str], default: bool = False) -> bool:
-    v = _env(name, legacy)
+def _env_bool(name: str, legacy: Optional[str], default: bool = False,
+              env=None) -> bool:
+    v = _env(name, legacy, env=env)
     if v is None:
         return default
     return v.strip().lower() in _TRUE

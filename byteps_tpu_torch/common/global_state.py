@@ -20,8 +20,16 @@ in-process server at world 1, or, with ``BPS_SERVER_ADDRS``, a
 byteps_tpu_torch.launcher.launch --server``), which any number of worker
 processes share: PS mode joins no process group, the workers meet only at
 the servers, and the engine divides the sums by ``BPS_NUM_WORKER``
-(``engine.ps_world``). The async path and the managed server plane are
-not ported yet.
+(``engine.ps_world``). With ``BPS_ENABLE_ASYNC`` too, both backends are
+async (the servers fold weight deltas into their stores, and a pull never
+waits), and no ``PSGradientExchange`` is built for the eager
+``push_pull``, as ``byteps_tpu/common/global_state.py:206-218`` builds
+none: summing gradients into an async store would accumulate them for
+good. The async path runs through ``server/ps_mode.py::AsyncPSWorker``
+(the trainer's async step, the plugin's async ``DistributedOptimizer``);
+``push_pull`` then reduces over this process alone and returns its own
+values, as the JAX package's does. The managed server plane is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -40,12 +48,15 @@ _NOT_PORTED = "is not ported yet (see ROADMAP.md, 'Modules still to port')"
 
 
 def check_ps_config(cfg: Config) -> None:
-    """Refuse the parameter-server options the port does not run yet."""
-    if cfg.enable_async:
-        raise NotImplementedError(
-            "the async parameter-server path (BPS_ENABLE_ASYNC: "
-            "AsyncPSWorker) is not ported yet (see ROADMAP.md, 'Modules "
-            "still to port', queue 1, item 6)")
+    """Refuse ``BPS_ENABLE_ASYNC`` without ``BPS_ENABLE_PS``: the async path
+    runs on the PS backend, which the JAX package then does not build, so
+    there its trainer ignores the knob and its plugin's async step finds
+    no backend (ROADMAP.md, queue 3, 'Deliberate differences')."""
+    if cfg.enable_async and not cfg.enable_ps:
+        raise ValueError(
+            "BPS_ENABLE_ASYNC=1 needs BPS_ENABLE_PS=1: async PS folds "
+            "weight deltas on the parameter servers (see ROADMAP.md, queue "
+            "3, 'Deliberate differences')")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -93,7 +104,8 @@ class GlobalState:
                 addrs = [a.strip() for a in config.server_addrs.split(",")
                          if a.strip()]
                 configure_send(config.scheduling_credit)
-                self.ps_backend = RemotePSBackend(addrs)
+                self.ps_backend = RemotePSBackend(
+                    addrs, async_mode=config.enable_async)
             else:
                 if config.num_worker > 1:
                     raise ValueError(
@@ -105,7 +117,9 @@ class GlobalState:
                 self.ps_backend = HostPSBackend(
                     num_servers=1, num_workers=config.num_worker,
                     engine_threads=config.server_engine_threads,
-                    enable_schedule=config.server_enable_schedule)
+                    enable_schedule=config.server_enable_schedule,
+                    async_mode=config.enable_async)
+        if config.enable_ps and not config.enable_async:
             self.engine.ps_world = config.num_worker
             # sync PS: the eager push_pull takes the host hop. The recipe
             # holds what it needs, not this state: a reference back would

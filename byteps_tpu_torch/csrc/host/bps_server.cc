@@ -20,8 +20,9 @@
 //     queue.h heap compare);
 //   - sync mode: first push copies, later pushes sum, all-workers-pushed
 //     publishes (server.cc:290-369 COPY_FIRST/SUM_RECV/ALL_RECV);
-//   - async mode: pushes sum immediately into the store, pulls never wait
-//     (server.cc:310-314, BYTEPS_ENABLE_ASYNC).
+//   - async mode: pushes sum immediately into the store, one buffer a
+//     key and no round buffer, pulls never wait (server.cc:310-314,
+//     BYTEPS_ENABLE_ASYNC).
 
 #include <algorithm>
 #include <atomic>
@@ -393,7 +394,8 @@ class Server {
     ks.len = nbytes;
     ks.dtype = dtype;
     ks.merged.assign(nbytes, 0);
-    ks.accum.assign(nbytes, 0);
+    // async mode folds every push into the served store: no round buffer
+    if (!async_) ks.accum.assign(nbytes, 0);
     ks.push_count = ks.pull_count = 0;
     ks.round = 0;
     // sticky least-loaded thread assignment (reference: server.h:149-173);

@@ -19,9 +19,12 @@ and its peak resident set (``VmHWM``, or where the kernel has none the
 largest resident set its serve loop sampled). The server touches no
 card.
 
+``BPS_ENABLE_ASYNC`` (or ``BYTEPS_ENABLE_ASYNC``, read by the rule of the
+worker's ``Config``: 1, true, yes or on) makes it an async server (``PSServer(..., async_mode=True)``, as
+``byteps_tpu/launcher/launch.py:91-94`` does): every push of a weight delta
+folds into the store at once and a pull never waits.
 ``BPS_SERVER_SNAPSHOT`` and ``BPS_NIC_RATE`` raise at a value other than
-their default (``transport.LAUNCHER_REFUSED``), as does ``BPS_ENABLE_ASYNC``
-(the async store). The worker half of the JAX launcher (exec of a training
+their default (``transport.LAUNCHER_REFUSED``). The worker half of the JAX launcher (exec of a training
 command, ``--numa``, the SSH fan-out, ``BPS_ENABLE_GDB``) is not ported
 (ROADMAP.md, queue 1, item 8).
 """
@@ -36,11 +39,9 @@ import sys
 import threading
 from typing import List, Optional
 
+from ..common.config import _env_bool
+
 _NOT_PORTED = "is not ported yet (see ROADMAP.md, 'Modules still to port'"
-
-
-def _env_flag(env: dict, name: str) -> bool:
-    return env.get(name, "").strip().lower() in ("1", "true", "yes", "on")
 
 
 def run_server(env: Optional[dict] = None,
@@ -50,11 +51,6 @@ def run_server(env: Optional[dict] = None,
     env = dict(os.environ if env is None else env)
     from ..server.transport import LAUNCHER_REFUSED, check_refused_env
     check_refused_env(LAUNCHER_REFUSED, env)
-    if _env_flag(env, "BPS_ENABLE_ASYNC") \
-            or _env_flag(env, "BYTEPS_ENABLE_ASYNC"):
-        raise NotImplementedError(
-            f"BPS_ENABLE_ASYNC: the async server store {_NOT_PORTED}, "
-            f"queue 1, item 6)")
     from ..server.engine import PSServer
     from ..server.transport import PSTransportServer
     n = int(env.get("BPS_NUM_WORKER", env.get("BPS_NUM_PROCESSES", "1")))
@@ -62,7 +58,10 @@ def run_server(env: Optional[dict] = None,
                    engine_threads=int(env.get("BPS_SERVER_ENGINE_THREAD",
                                               "4")),
                    enable_schedule=env.get("BPS_SERVER_ENABLE_SCHEDULE",
-                                           "") == "1")
+                                           "") == "1",
+                   # read as the worker's Config reads it
+                   async_mode=_env_bool("BPS_ENABLE_ASYNC",
+                                        "BYTEPS_ENABLE_ASYNC", env=env))
     try:
         tsrv = PSTransportServer(srv, port=int(env.get("BPS_SERVER_PORT",
                                                        "9090")))

@@ -20,6 +20,16 @@ A ``PSServer`` also serves other processes: ``server/transport.py``'s
 byteps_tpu_torch.launcher.launch --server``), and the workers'
 ``RemotePSBackend`` stands in for ``HostPSBackend``.
 
+Both take ``async_mode`` (``BPS_ENABLE_ASYNC``, the async PS path of
+``server/ps_mode.py::AsyncPSWorker``): the engine then sums every push
+straight into the served store and bumps the key's round, and a pull
+copies the store without waiting (``csrc/host/bps_server.cc``).
+``PSServer`` records each key's store dtype at ``init_key``: a push of
+another dtype is cast to it, and a pull into another dtype goes through a
+buffer of the store's dtype, as ``byteps_tpu/server/engine.py:224-255``
+does in process (bfloat16 through ``common/bf16.py``): a bf16 weight
+delta lands in an fp32 store.
+
 ``HostPSBackend`` also holds the sharded weight update's param mailbox
 (``param_put`` / ``param_get`` / ``param_latest``, a
 ``sharded_update.ParamStore`` made at first use), and the bounded-staleness
@@ -40,6 +50,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from ..common import bf16
 from ..common.naming import log_key_placement, place_key
 from ..obs.metrics import get_registry, metrics_enabled
 
@@ -91,14 +102,18 @@ class PSServer:
     """One native server shard (reference: byteps_server(), server.cc:441-514)."""
 
     def __init__(self, num_workers: int, engine_threads: int = 4,
-                 enable_schedule: bool = False) -> None:
+                 enable_schedule: bool = False,
+                 async_mode: bool = False) -> None:
         self._lib = _lib()
         self._h = self._lib.bps_server_create(
-            num_workers, engine_threads, int(enable_schedule), 0)
+            num_workers, engine_threads, int(enable_schedule),
+            int(async_mode))
         if not self._h:
             raise RuntimeError("bps_server_create failed")
         self.num_workers = num_workers
         self.engine_threads = engine_threads
+        self.async_mode = async_mode
+        self._key_dtypes: Dict[int, str] = {}   # key -> its store's dtype
         # close() may race callers blocked in pull: an in-flight count plus
         # the native two-phase shutdown (begin_shutdown wakes and refuses,
         # destroy frees only after the drain)
@@ -150,8 +165,12 @@ class PSServer:
             raise ServerClosed(f"init_key({key}): server shutting down")
         if rc != 0:
             raise RuntimeError(f"init_key({key}) failed rc={rc}")
+        self._key_dtypes[key] = dtype
 
     def push(self, key: int, data: np.ndarray) -> None:
+        store = self._key_dtypes.get(key)
+        if store is not None and bf16.dtype_name(data) != store:
+            data = bf16.cast(data, store)   # a narrow delta, a wide store
         data = np.ascontiguousarray(data)
         rc = self._call(self._lib.bps_server_push, key, _addr(data),
                         data.nbytes)
@@ -164,7 +183,15 @@ class PSServer:
     def pull(self, key: int, out: np.ndarray, round: int = 0,
              timeout_ms: int = 30000) -> None:
         """Pull round ``round`` (1-based; 0 = latest published) into the
-        contiguous array ``out``."""
+        contiguous array ``out``; an ``out`` of another dtype than the
+        store's gets the store cast to it."""
+        store = self._key_dtypes.get(key)
+        if store is not None and bf16.dtype_name(out) != store:
+            tmp = np.empty(out.size, bf16.np_dtype(store))
+            self.pull(key, tmp, round=round, timeout_ms=timeout_ms)
+            np.copyto(out, bf16.cast(tmp, bf16.dtype_name(out))
+                      .reshape(out.shape))
+            return
         rc = self._call(self._lib.bps_server_pull, key, _addr(out),
                         out.nbytes, round, timeout_ms)
         if rc == -2:
@@ -248,10 +275,14 @@ class HostPSBackend:
     """
 
     def __init__(self, num_servers: int = 1, num_workers: int = 1,
-                 engine_threads: int = 4, enable_schedule: bool = False) -> None:
-        self.servers = [PSServer(num_workers, engine_threads, enable_schedule)
+                 engine_threads: int = 4, enable_schedule: bool = False,
+                 async_mode: bool = False) -> None:
+        self.servers = [PSServer(num_workers, engine_threads, enable_schedule,
+                                 async_mode)
                         for _ in range(num_servers)]
         self.num_workers = num_workers
+        self.async_mode = async_mode
+        self._rounds: Dict[int, int] = {}   # push_pull's rounds, per key
         # homogeneous fused summation (server/homog.py): keys declared
         # fused=True at init have their rounds owned by this store; lazy,
         # so plain deployments never allocate it
@@ -365,9 +396,22 @@ class HostPSBackend:
         # time plus the wait for the other workers' pushes
         self._m_pull_wait.observe(time.time() - t0)
 
+    def push_pull(self, key: int, data: np.ndarray,
+                  timeout_ms: int = 30000) -> np.ndarray:
+        """One round from this worker's view: push, then pull the round
+        this push completes (a per-key round counter), or in async mode
+        the store as it is (round 0; reference ``:868-876``)."""
+        self.push(key, data)
+        rnd = self._rounds.get(key, 0) + 1
+        self._rounds[key] = rnd
+        out = np.empty_like(data)
+        self.pull(key, out, 0 if self.async_mode else rnd, timeout_ms)
+        return out
+
     def round(self, key: int) -> int:
         """Latest completed sync round for ``key`` (0 = none yet); a
-        lag-managed key's last published round."""
+        lag-managed key's last published round; in async mode the pushes
+        folded so far."""
         if self._stale is not None and self._stale.managed(key):
             return self._stale.round(key)
         if self._homog_managed(key):

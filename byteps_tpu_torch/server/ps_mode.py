@@ -73,8 +73,11 @@ owners' param frames for every group it covers have landed
 (``release_skipped``), which also commits its error-feedback residual, as
 a pull would.
 
-Not ported yet (ROADMAP.md): ``AsyncPSWorker`` and the row-sparse
-exchange.
+``AsyncPSWorker`` is the async PS path (``BPS_ENABLE_ASYNC``): no
+gradient exchange, but each worker's weight delta folded into an async
+store, whose weights it pulls back.
+
+Not ported yet (ROADMAP.md): the row-sparse exchange.
 """
 
 from __future__ import annotations
@@ -91,6 +94,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..common import bf16
 from ..common.logging import get_logger
 from ..common.naming import NameRegistry
 from ..common.partition import LeafSpec, plan_buckets
@@ -1191,3 +1195,149 @@ class PSGradientExchange:
         for i in range(len(rnd.keyed)):
             rnd.submit_bucket(i)
         return _PendingExchange(rnd.drain)
+
+
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16, "float64": torch.float64}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of an async wire or pull dtype name."""
+    if name not in _TORCH_DTYPES:
+        raise ValueError(f"async PS dtype {name!r}: expected one of "
+                         f"{sorted(_TORCH_DTYPES)}")
+    return _TORCH_DTYPES[name]
+
+
+def async_wire_dtype() -> Optional[str]:
+    """``BPS_ASYNC_WIRE_DTYPE``, the dtype an async weight delta crosses
+    in (None: the parameters' own), read from ``os.environ`` where it
+    acts, as the JAX package reads it; a typo raises."""
+    wire = os.environ.get("BPS_ASYNC_WIRE_DTYPE") or None
+    if wire is not None:
+        bf16.np_dtype(wire)
+    return wire
+
+
+def host_leaf(src) -> np.ndarray:
+    """``_host_flat`` for a leaf that may be bfloat16: a torch bfloat16
+    tensor crosses as its bits, in a ``bf16.BF16`` array. A flat
+    contiguous host tensor is viewed, not copied: a pull may write into
+    the result."""
+    if torch.is_tensor(src) and src.dtype == torch.bfloat16:
+        return _host_flat(src.view(torch.int16)).view(bf16.BF16)
+    return _host_flat(src)
+
+
+class AsyncPSWorker:
+    """The async-PS worker (the port of ``byteps_tpu/server/ps_mode.py:
+    1434-1506``): a local optimizer step, a push of the weight delta, a
+    pull of the store's weights, with no barrier between workers. The
+    servers must be async (``async_mode=True``): each push folds into the
+    store at once, and a pull copies the store as it is.
+
+    It works on a list of leaves in the model's parameter order (tensors
+    or host arrays), not on a pytree; key ``i`` serves leaf ``i``. With a
+    ``registry`` the keys are the declaration's (``declare(name)
+    .key_for_partition(i)``), so several workers' models and other
+    declared tensors never share a key; without one they are the bare
+    range ``0 .. n-1``, for single-model scripts.
+
+    ``BPS_ASYNC_WIRE_DTYPE`` (e.g. ``bfloat16``) is the dtype a delta
+    crosses in: half the bytes, and the server casts it into the
+    full-precision store (``PSServer``, or the transport's transcode). A
+    delta tolerates the rounding, one step's worth folded into an fp32
+    store. The weights' pull stays at the store's dtype unless
+    ``BPS_ASYNC_PULL_DTYPE`` says otherwise. Both are read from
+    ``os.environ`` when the worker is built, as the JAX package reads
+    them. The bytes pushed and pulled count in ``ps/push_bytes`` and
+    ``ps/pull_bytes``, as the sync exchange's do."""
+
+    def __init__(self, backend, params: Sequence, name: str = "model",
+                 init_store: bool = True,
+                 registry: Optional[NameRegistry] = None) -> None:
+        self.backend = backend
+        self.wire_dtype = async_wire_dtype()
+        self.pull_dtype = os.environ.get("BPS_ASYNC_PULL_DTYPE") or None
+        if self.pull_dtype is not None:
+            bf16.np_dtype(self.pull_dtype)      # fail fast on a typo
+        params = list(params)
+        self.shapes = [tuple(p.shape) for p in params]
+        self.dtypes = [_dtype_name(p) for p in params]
+        self.sizes = [int(np.prod(s)) for s in self.shapes]
+        if registry is not None:
+            decl = registry.declare(name)   # idempotent per name
+            self.keys = [decl.key_for_partition(i)
+                         for i in range(len(params))]
+        else:
+            self.keys = list(range(len(params)))
+        self._staging = None    # pinned host leaves of push_delta_tree
+        reg = get_registry()
+        self._m_push_bytes = reg.counter("ps/push_bytes")
+        self._m_pull_bytes = reg.counter("ps/pull_bytes")
+        if init_store:
+            self.init_store(params)
+
+    def init_store(self, params: Sequence) -> None:
+        """Seed every key's store with ``params``. The server keeps the
+        first values it was given and takes a later init as a no-op, so
+        this is idempotent: every worker seeds with the same values and
+        goes on, without meeting the others."""
+        for k, p in zip(self.keys, params):
+            arr = host_leaf(p)
+            self.backend.init_key(k, arr.nbytes, bf16.dtype_name(arr),
+                                  init=arr)
+
+    def pull_into(self, bufs: Sequence[np.ndarray]) -> None:
+        """Pull every key's store into ``bufs`` (flat host arrays, one a
+        leaf, in the pull dtype): the store as it is, without waiting."""
+        for k, b in zip(self.keys, bufs):
+            self.backend.pull(k, b)
+            self._m_pull_bytes.inc(b.nbytes)
+
+    def pull_weights(self) -> List[np.ndarray]:
+        """The store's weights, one host array a leaf in its shape and
+        dtype (pulled in ``BPS_ASYNC_PULL_DTYPE`` if it is set)."""
+        bufs = [np.empty(n, bf16.np_dtype(self.pull_dtype or dt))
+                for n, dt in zip(self.sizes, self.dtypes)]
+        self.pull_into(bufs)
+        return [(bf16.cast(b, dt) if self.pull_dtype else b).reshape(shp)
+                for b, dt, shp in zip(bufs, self.dtypes, self.shapes)]
+
+    def _wire(self, arr: np.ndarray) -> np.ndarray:
+        if self.wire_dtype and bf16.dtype_name(arr) != self.wire_dtype:
+            arr = bf16.cast(arr, self.wire_dtype)
+        return np.ascontiguousarray(arr)
+
+    def push_delta(self, new_params: Sequence, old_params: Sequence) -> None:
+        """Push ``new - old`` a leaf, computed on the host; the server
+        folds it into the store's weights."""
+        for k, nw, od in zip(self.keys, new_params, old_params):
+            self._push(k, host_leaf(nw) - host_leaf(od))
+
+    def _push(self, key: int, arr: np.ndarray) -> None:
+        arr = self._wire(arr)
+        self.backend.push(key, arr)
+        self._m_push_bytes.inc(arr.nbytes)
+
+    def push_delta_tree(self, deltas: Sequence) -> None:
+        """Push deltas computed elsewhere, e.g. on the card in the wire
+        dtype (``DistributedTrainer``'s async step): one narrow tensor a
+        leaf crosses to the host, a CUDA leaf into a pinned buffer kept
+        for the next step, every copy started before the first push."""
+        cuda = [torch.is_tensor(d) and d.is_cuda for d in deltas]
+        if any(cuda):
+            if self._staging is None:
+                self._staging = [None] * len(deltas)
+            for i, (d, c) in enumerate(zip(deltas, cuda)):
+                if not c:
+                    continue
+                buf = self._staging[i]
+                if buf is None or buf.dtype != d.dtype:
+                    buf = self._staging[i] = torch.empty(
+                        d.numel(), dtype=d.dtype, pin_memory=True)
+                buf.copy_(d.detach().reshape(-1), non_blocking=True)
+            for dev in {d.device for d, c in zip(deltas, cuda) if c}:
+                torch.cuda.current_stream(dev).synchronize()
+        for i, (k, d) in enumerate(zip(self.keys, deltas)):
+            self._push(k, host_leaf(self._staging[i] if cuda[i] else d))

@@ -35,6 +35,15 @@ server is shutting down: the client reconnects).
 Every other op of the JAX package answers ``ST_ERR`` with a message that
 names its ROADMAP.md item, and the connection stays usable.
 
+A PUSH or PULL frame may name another dtype than the key's store: the
+server casts a push to the store's dtype and a pull's reply to the
+frame's, so an async worker's bf16 weight delta (``BPS_ASYNC_WIRE_DTYPE``)
+lands in an fp32 store; bfloat16 goes through ``common/bf16.py``, since
+the port runs without ``ml_dtypes``. With an async server (``PSServer(...,
+async_mode=True)``) a PULL never waits and ``OP_ROUND`` counts the pushes
+folded; ``RemotePSBackend(async_mode=True)``'s ``push_pull`` pulls the
+store as it is.
+
 ``PSTransportServer`` fronts a ``PSServer`` (wrapped in ``FusedFront``, so
 fused keys have their homogeneous store, and given a ``StaleStore`` of the
 transport's own at the first lag declaration, whose rounds ``OP_ROUND``
@@ -69,11 +78,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-try:                       # registers "bfloat16" with numpy: the bf16
-    import ml_dtypes       # noqa: F401  wire transcode of OP_PUSH/OP_PULL
-except ImportError:        # pragma: no cover
-    pass
-
+from ..common import bf16
 from ..common.logging import get_logger
 from ..common.naming import log_key_placement, place_key
 from ..obs.metrics import get_registry
@@ -353,7 +358,7 @@ class PSTransportServer:
         self._m_requests.inc()
         try:
             if op == OP_INIT:
-                init = (np.frombuffer(payload, dtype=dtype)
+                init = (bf16.frombuffer(payload, dtype)
                         if payload is not None else None)
                 self._fb.init_key(key, nbytes, dtype, init=init,
                                   fused=bool(int(rnd) & 1))
@@ -361,11 +366,11 @@ class PSTransportServer:
                 conn.sendall(_RSP.pack(ST_OK, 0))
             elif op == OP_PUSH:
                 # wire transcode: a frame dtype narrower than the store
-                # lands in the store's dtype
-                arr = np.frombuffer(payload, dtype=dtype)
+                # lands in the store's dtype (bf16 without ml_dtypes)
+                arr = bf16.frombuffer(payload, dtype)
                 meta = self._key_meta.get(key)
                 if meta is not None and meta[1] != dtype:
-                    arr = arr.astype(meta[1])
+                    arr = bf16.cast(arr, meta[1])
                 self._apply_push_once(key, rnd,
                                       lambda: self._fb.push(key, arr))
                 conn.sendall(_RSP.pack(ST_OK, 0))
@@ -443,10 +448,10 @@ class PSTransportServer:
                 conn.sendall(_RSP.pack(ST_OK, 0))
             elif op == OP_PUSH_LAG:
                 w, r = int(rnd) >> 48, int(rnd) & _LAG_ROUND_MASK
-                arr = np.frombuffer(payload, dtype=dtype)
+                arr = bf16.frombuffer(payload, dtype)
                 meta = self._key_meta.get(key)
                 if meta is not None and meta[1] != dtype:
-                    arr = arr.astype(meta[1])
+                    arr = bf16.cast(arr, meta[1])
                 # the packed round is the dedup token: ident (key,
                 # worker << 16), seq the round, so a retried (worker,
                 # round) folds once
@@ -455,8 +460,8 @@ class PSTransportServer:
                 conn.sendall(_RSP.pack(ST_OK, 0))
             elif op == OP_PULL_LAG:
                 w, r = int(rnd) >> 48, int(rnd) & _LAG_ROUND_MASK
-                out = np.empty(int(nbytes) // np.dtype(dtype).itemsize,
-                               dtype=dtype)
+                out = np.empty(int(nbytes) // bf16.np_dtype(dtype).itemsize,
+                               dtype=bf16.np_dtype(dtype))
                 flags = self._lag_pull(key, w, r, out,
                                        int(timeout) or 30000)
                 _send_frame(conn,
@@ -543,15 +548,15 @@ class PSTransportServer:
         """Round-blocked pull in the frame's dtype (a narrower one than the
         store's downcasts on the way out)."""
         t0 = time.time()
-        elems = int(nbytes) // np.dtype(dtype).itemsize
+        elems = int(nbytes) // bf16.np_dtype(dtype).itemsize
         meta = self._key_meta.get(key)
         if meta is not None and meta[1] != dtype:
-            store = np.empty(elems, dtype=meta[1])
+            store = np.empty(elems, dtype=bf16.np_dtype(meta[1]))
             self._fb.pull(key, store, round=int(rnd),
                           timeout_ms=int(timeout) or 30000)
-            out = store.astype(dtype)
+            out = bf16.cast(store, dtype)
         else:
-            out = np.empty(elems, dtype=dtype)
+            out = np.empty(elems, dtype=bf16.np_dtype(dtype))
             self._fb.pull(key, out, round=int(rnd),
                           timeout_ms=int(timeout) or 30000)
         # the merge's wait: sum time plus the slowest worker's push lag
@@ -662,11 +667,15 @@ class RemotePSBackend:
 
     def __init__(self, addrs: Sequence[str],
                  reconnect_secs: Optional[float] = None,
-                 conns_per_shard: Optional[int] = None) -> None:
+                 conns_per_shard: Optional[int] = None,
+                 async_mode: bool = False) -> None:
         check_refused_env(CLIENT_REFUSED)
         if not addrs:
             raise ValueError("RemotePSBackend needs at least one host:port")
         self._addrs = [a.rsplit(":", 1) for a in addrs]
+        # the servers fold weight deltas (BPS_ENABLE_ASYNC): push_pull
+        # reads the store as it is
+        self.async_mode = async_mode
         self._dead = False      # set by close(): aborts redial loops
         self.reconnect_secs = (
             float(os.environ.get("BPS_RECONNECT_SECS", "30"))
@@ -905,7 +914,7 @@ class RemotePSBackend:
 
     def push(self, key: int, data: np.ndarray) -> None:
         self._rpc(OP_PUSH, key, self._push_token(key), 0, 0,
-                  str(data.dtype), _as_bytes(data))
+                  bf16.dtype_name(data), _as_bytes(data))
 
     def _sliced_pull(self, attempt, timeout_ms: int, descr: str):
         """``attempt(slice_ms)`` until it succeeds or one deadline passes;
@@ -929,7 +938,7 @@ class RemotePSBackend:
                              or 30000)
         self._sliced_pull(
             lambda slice_ms: self._rpc(OP_PULL, key, round, out.nbytes,
-                                       slice_ms, str(out.dtype), None,
+                                       slice_ms, bf16.dtype_name(out), None,
                                        pull_into=out),
             timeout_ms, f"pull({key}) round={round}")
 
@@ -950,7 +959,7 @@ class RemotePSBackend:
         field is the server's dedup token, so a retried (worker, round)
         folds once."""
         packed = (int(worker) << 48) | (int(rnd) & _LAG_ROUND_MASK)
-        self._rpc(OP_PUSH_LAG, key, packed, 0, 0, str(data.dtype),
+        self._rpc(OP_PUSH_LAG, key, packed, 0, 0, bf16.dtype_name(data),
                   _as_bytes(data))
 
     def pull_lag(self, key: int, worker: int, rnd: int, out: np.ndarray,
@@ -964,7 +973,7 @@ class RemotePSBackend:
 
         def attempt(slice_ms: int) -> int:
             data = self._rpc(OP_PULL_LAG, key, packed, out.nbytes, slice_ms,
-                             str(out.dtype), None)
+                             bf16.dtype_name(out), None)
             np.copyto(out, np.frombuffer(data[1:], dtype=out.dtype)
                       .reshape(out.shape))
             return data[0]
@@ -1028,12 +1037,13 @@ class RemotePSBackend:
     def push_pull(self, key: int, data: np.ndarray,
                   timeout_ms: int = 30000) -> np.ndarray:
         """One sync round: push, then pull the round this push completes
-        (a per-key round counter, as ``HostPSBackend`` keeps)."""
+        (a per-key round counter, as ``HostPSBackend`` keeps), or in async
+        mode the store as it is (round 0)."""
         self.push(key, data)
         rnd = self._rounds.get(key, 0) + 1
         self._rounds[key] = rnd
         out = np.empty_like(data)
-        self.pull(key, out, rnd, timeout_ms)
+        self.pull(key, out, 0 if self.async_mode else rnd, timeout_ms)
         return out
 
     def close(self) -> None:

@@ -140,6 +140,10 @@ class CrossBarrier:
 
     def __init__(self, model: torch.nn.Module, optimizer,
                  num_steps: int = 10 ** 6) -> None:
+        if getattr(optimizer, "_enable_async", False):
+            # byteps_tpu/torch/cross_barrier.py:57-59
+            raise ValueError("CrossBarrier is a sync-mode scheduler; "
+                             "async-PS mode has no barrier to cross")
         self._model = model
         self._opt = optimizer
         self._step_count = 0

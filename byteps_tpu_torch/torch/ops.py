@@ -29,6 +29,7 @@ import os
 import queue
 import threading
 import time
+import weakref
 from concurrent.futures import Future
 from typing import Dict, Optional, Tuple
 
@@ -92,6 +93,33 @@ def declare_model_keys(names) -> None:
         reg.declare("Gradient." + name)
     for name in sorted(names):
         reg.declare("Parameter." + name)
+
+
+# the keys each backend's store was seeded under by async_param_exchange:
+# a fresh backend (a new init) is seeded again
+_async_inited: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def async_param_exchange(name: str, delta: np.ndarray,
+                         init: np.ndarray) -> np.ndarray:
+    """The async-PS exchange of one parameter (``byteps_tpu/torch/ops.py:
+    309-326``): seed the store with ``init`` the first time (the server
+    keeps the first worker's values, every worker seeds alike), push the
+    weight ``delta`` (its dtype is the wire's; the server casts it into
+    the store), pull the store's weights as they are (an async pull never
+    waits)."""
+    gs = GlobalState.get()
+    be = gs.ps_backend
+    key = gs.registry.declare(name).key_for_partition(0)
+    inited = _async_inited.setdefault(be, set())
+    if key not in inited:
+        init = np.ascontiguousarray(init)
+        be.init_key(key, init.nbytes, str(init.dtype), init=init)
+        inited.add(key)
+    be.push(key, np.ascontiguousarray(delta))
+    out = np.empty(init.size, init.dtype)
+    be.pull(key, out)
+    return out.reshape(init.shape)
 
 
 class _Dispatcher:

@@ -14,23 +14,35 @@ reference's trick) and:
   - counts ``backward_passes_per_step`` backwards before communicating
     (local gradient accumulation, reference :83-113);
   - ``synchronize()`` drains the handles and writes the averaged
-    gradients back, so gradient clipping between backward and step works.
-
-The async parameter-server mode of the JAX plugin (``BPS_ENABLE_ASYNC``:
-weight deltas through ``async_param_exchange``) is not ported:
-``init()`` refuses the knob.
+    gradients back, so gradient clipping between backward and step works;
+  - async-PS mode (``BPS_ENABLE_ASYNC`` as ``bps.init()``'s ``Config`` read
+    it; the JAX plugin's, ``byteps_tpu/torch/optimizer.py:157-187``): the
+    hooks dispatch nothing, and ``step()`` at ``size() > 1`` applies the
+    local update, then per parameter pushes the weight delta (on the
+    parameter's device in fp32, narrowed there to
+    ``BPS_ASYNC_WIRE_DTYPE`` if it is set, ``ps_mode.async_wire_dtype``)
+    and pulls the store's fp32
+    weights through ``ops.async_param_exchange("AsyncParam." + name)``,
+    the store seeded with the parameter's weights before the step.
+    ``CrossBarrier`` refuses an async optimizer. ``broadcast_parameters``
+    raises in async-PS mode at ``size() > 1``: there ``push_pull`` is this
+    worker's own values, so the JAX plugin's zero-then-sum broadcast
+    leaves every other worker's parameters at zero (ROADMAP.md, queue 3,
+    "Deliberate differences").
 """
 
 from __future__ import annotations
 
 from contextlib import contextmanager
 
+import numpy as np
 import torch
 
 from ..common.global_state import GlobalState
+from ..server.ps_mode import async_wire_dtype, host_leaf, torch_dtype
 from .compression import Compression
-from .ops import (declare_model_keys, push_pull_async, rank, size,
-                  synchronize)
+from .ops import (async_param_exchange, declare_model_keys, push_pull_async,
+                  rank, size, synchronize)
 
 
 class _DistributedOptimizer(torch.optim.Optimizer):
@@ -38,6 +50,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                  backward_passes_per_step=1):
         super(self.__class__, self).__init__(params)
         self._compression = compression
+        self._enable_async = GlobalState.get().config.enable_async
 
         named_parameters = list(named_parameters or [])
         if any(not isinstance(p, tuple) for p in named_parameters):
@@ -100,6 +113,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 
     def _push_pull_grad_async(self, p):
         name = self._parameter_names[p]
+        if self._enable_async:
+            return None, None        # the exchange is step()'s
         compressed, ctx = self._compression.compress(p.grad)
         # priority = forward position: on a busy PS pool earlier layers'
         # exchanges go first, so the next forward unblocks soonest
@@ -124,7 +139,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         for p in sorted(missing, key=self._param_index.get):
             self._handles[p] = self._push_pull_grad_async(p)
         for p, (handle, ctx) in list(self._handles.items()):
-            if handle is None:
+            if handle is None and not self._enable_async:
                 self._handles[p] = self._push_pull_grad_async(p)
         for p, (handle, ctx) in self._handles.items():
             if handle is None:
@@ -137,6 +152,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 
     @contextmanager
     def skip_synchronize(self):
+        if self._enable_async:
+            raise AssertionError(
+                "skip_synchronize cannot be used in async training")
         self._should_sync = False
         try:
             yield
@@ -144,9 +162,35 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             self._should_sync = True
 
     def step(self, closure=None):
+        if self._enable_async and size() > 1:
+            return self._async_step(closure)
         if self._should_sync:
             self.synchronize()
         return super(self.__class__, self).step(closure)
+
+    def _async_step(self, closure):
+        """Local update, then per parameter the delta pushed and the
+        store's weights pulled into it (no barrier between workers)."""
+        old = {p: p.detach().clone() for p in self._parameter_names}
+        loss = super(self.__class__, self).step(closure)
+        wire = async_wire_dtype()
+        wire = None if wire is None else torch_dtype(wire)
+        for p, name in self._parameter_names.items():
+            with torch.no_grad():
+                # the store is fp32 whatever the parameter's dtype
+                delta = (p.detach() - old[p]).float()
+                if wire is not None:
+                    delta = delta.to(wire)
+            fresh = async_param_exchange(
+                "AsyncParam." + name, host_leaf(delta),
+                host_leaf(old[p].float()).reshape(tuple(p.shape)))
+            with torch.no_grad():
+                p.copy_(torch.from_numpy(np.ascontiguousarray(fresh))
+                        .to(p.dtype))
+        self._handles.clear()
+        for p in self._push_pull_delay:
+            self._push_pull_delay[p] = self.backward_passes_per_step
+        return loss
 
 
 def DistributedOptimizer(optimizer, named_parameters=None,
@@ -179,7 +223,15 @@ def broadcast_parameters(params, root_rank, prefix="Parameter."):
         raise ValueError(f"invalid params of type {type(params)}")
     if size() <= 1:
         return
-    if GlobalState.get().config.enable_ps:
+    cfg = GlobalState.get().config
+    if cfg.enable_ps and cfg.enable_async:
+        raise NotImplementedError(
+            "broadcast_parameters in async-PS mode: push_pull is this "
+            "worker's own values there, so the JAX plugin's zero-then-sum "
+            "broadcast zeroes every other worker's parameters; the async "
+            "store is seeded by the first worker's weights instead (see "
+            "ROADMAP.md, queue 3, 'Deliberate differences')")
+    if cfg.enable_ps:
         handles = []
         for name, p in items:
             if not isinstance(p, torch.Tensor):

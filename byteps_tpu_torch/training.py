@@ -81,8 +81,27 @@ driver's forward of step e read epoch e-K or later (``cross_step.py``
 says how the in-place applies stay out of its way). K > 1 together with
 the sharded update raises NotImplementedError.
 
-The async path and pipeline parallelism (``BPS_PP_STAGES`` > 1) are not
-ported yet (ROADMAP.md): their options raise.
+``BPS_ENABLE_ASYNC=1`` (with ``BPS_ENABLE_PS``) is the JAX trainer's
+async PS branch (``byteps_tpu/training.py:179-227``, its step ``:1019-1046``):
+no gradient exchange, no staged head, streamed tail, cross-step driver or
+sharded update. Each step runs the forward and backward (accumulated over
+``backward_passes_per_step``), keeps a copy of the parameters on the card,
+applies the local optimizer, computes the delta new − old on the card in
+the wire dtype (``BPS_ASYNC_WIRE_DTYPE``), pushes every leaf's delta
+through ``server/ps_mode.py::AsyncPSWorker``, pulls every leaf's weights
+from the store and copies them into the parameters in place. The pulled
+weights land after the backward and before the next forward, on the
+step's own thread and stream, so no forward reads a leaf mid-copy. The
+optimizer's state stays this worker's own. As in the JAX package, the
+pull right after the pushes may read a store in which the server's engine
+has not yet folded this worker's own delta (ROADMAP.md, queue 3,
+"Deliberate differences": kept from the reference). A custom reducer and
+``compression`` raise ValueError, as in the JAX trainer; ``BPS_MAX_LAG`` >
+1 and ``BPS_SHARDED_UPDATE=1``, which its async branch never reads, raise
+NotImplementedError.
+
+Pipeline parallelism (``BPS_PP_STAGES`` > 1) is not ported yet
+(ROADMAP.md): it raises.
 
 ``ShardedTrainer`` is the data × sequence-parallel step (counterpart of
 the JAX ``ShardedTrainer`` on a mesh whose only axes above 1 are
@@ -263,6 +282,11 @@ class DistributedTrainer:
         self.step_count = 0
         self.ps_exchange = None
         self._cross_driver = None
+        self._async_worker = None
+        if cfg.enable_ps and getattr(gs and gs.ps_backend, "async_mode",
+                                     False):
+            self._init_async(gs, optimizer, reducer, compression, name)
+            return
         if cfg.enable_ps:
             if reducer is not None:
                 # the JAX trainer's refusal (byteps_tpu/training.py:238-242)
@@ -352,18 +376,8 @@ class DistributedTrainer:
                                "builds the parameter-server backend")
         from .server.ps_mode import PSGradientExchange
         cfg = gs.config
-        # the JAX tree's flatten order: dotted names sorted by path
-        self._ps_params = sorted(self._model.named_parameters(),
-                                 key=lambda kv: kv[0].split("."))
-        self._ps_index = {p: i for i, (_, p) in enumerate(self._ps_params)}
-        if name is None:
-            sig = "|".join(f"{n}:{tuple(p.shape)}:{p.dtype}"
-                           for n, p in self._ps_params)
-            base = "trainer-" + hashlib.sha1(sig.encode()).hexdigest()[:10]
-            n = DistributedTrainer._name_counts.get(base, 0)
-            DistributedTrainer._name_counts[base] = n + 1
-            name = base if n == 0 else f"{base}-{n}"
-        self._name = name
+        self._ps_leaves(name)
+        name = self._name
         # declared now, before any other tree: keys follow declaration
         # order, and the fp8 noise seed follows the keys. The compression
         # kwargs ride the declaration: the exchange gives each bucket at or
@@ -457,6 +471,116 @@ class DistributedTrainer:
                 tr._join_tails()
 
         self.ps_exchange.add_close_hook(join_tails)
+
+    def _ps_leaves(self, name: Optional[str]) -> None:
+        """The parameters in the JAX tree's flatten order (dotted names
+        sorted by path) and the PS declaration name."""
+        self._ps_params = sorted(self._model.named_parameters(),
+                                 key=lambda kv: kv[0].split("."))
+        self._ps_index = {p: i for i, (_, p) in enumerate(self._ps_params)}
+        if name is None:
+            sig = "|".join(f"{n}:{tuple(p.shape)}:{p.dtype}"
+                           for n, p in self._ps_params)
+            base = "trainer-" + hashlib.sha1(sig.encode()).hexdigest()[:10]
+            n = DistributedTrainer._name_counts.get(base, 0)
+            DistributedTrainer._name_counts[base] = n + 1
+            name = base if n == 0 else f"{base}-{n}"
+        self._name = name
+
+    # ---------------------------------------------------------- async PS
+
+    def _init_async(self, gs, optimizer, reducer, compression,
+                    name) -> None:
+        """The async PS branch's set-up (``byteps_tpu/training.py:179-227``):
+        the refusals, then the worker, whose keys the store is seeded under
+        with this worker's initial weights (first init wins)."""
+        if reducer is not None:
+            raise ValueError(
+                "custom reducers run on the collective path and would be "
+                "silently unused in async-PS mode")
+        if compression:
+            raise ValueError(
+                "compression is not supported in async-PS mode (the "
+                "reference's async server folds raw weight deltas, "
+                "server.cc:310-314) — drop BPS_ENABLE_ASYNC or the "
+                "compression kwargs")
+        lag = resolve_max_lag()
+        for knob, on in ((f"BPS_MAX_LAG={lag}", lag > 1),
+                         ("BPS_SHARDED_UPDATE=1", gs.config.sharded_update)):
+            if on:
+                # the JAX trainer's async branch returns before it reads
+                # either knob: there it would be silently unused
+                raise NotImplementedError(
+                    f"{knob} with BPS_ENABLE_ASYNC=1 is not ported yet: the "
+                    f"JAX package's async PS step never reads it (see "
+                    f"ROADMAP.md, 'Modules still to port', queue 1, item 6)")
+        from .server.ps_mode import AsyncPSWorker, torch_dtype
+        self._ps_leaves(name)
+        self._tx = optimizer          # the plain inner optimizer
+        self._accum = None
+        self._async_worker = AsyncPSWorker(
+            gs.ps_backend, [p.detach() for _, p in self._ps_params],
+            name=self._name, init_store=True, registry=gs.registry)
+        wire = self._async_worker.wire_dtype
+        self._wire = None if wire is None else torch_dtype(wire)
+        self._pulled = None           # the pulls' host buffers
+
+    def _pull_buffers(self):
+        """One host buffer a leaf in the pull dtype (pinned beside a
+        card), made at the first step: (torch tensors, numpy views)."""
+        if self._pulled is None:
+            from .server.ps_mode import host_leaf, torch_dtype
+            w = self._async_worker
+            pin = self.device.type == "cuda"
+            ts = [torch.empty(n, dtype=torch_dtype(w.pull_dtype or dt),
+                              pin_memory=pin)
+                  for n, dt in zip(w.sizes, w.dtypes)]
+            self._pulled = (ts, [host_leaf(t) for t in ts])
+        return self._pulled
+
+    def _async_ps_step(self, batch) -> torch.Tensor:
+        """The async PS step (``byteps_tpu/training.py:1019-1046``): local
+        gradients, the local optimizer step, the weight delta pushed, the
+        store's weights pulled and installed in place. No barrier: the
+        servers fold deltas as they arrive."""
+        loss = self._loss_fn(self._model, batch)
+        loss.backward()
+        grads = self._accumulate(self._take_grads())
+        if grads is None:
+            return loss.detach()
+        params = [p for _, p in self._ps_params]
+        t0 = time.time()
+        with torch.no_grad():
+            old = [p.detach().clone() for p in params]
+            for p, g in zip(params, grads):
+                p.grad = g
+            del grads
+            self._tx.step()
+            self._tx.zero_grad(set_to_none=True)
+            # new − old into the copy, then the wire dtype, on the card:
+            # one narrow tensor a leaf crosses to the host
+            deltas = [torch.sub(p, o, out=o) for p, o in zip(params, old)]
+            del old
+            if self._wire is not None:
+                deltas = [d if d.dtype == self._wire else d.to(self._wire)
+                          for d in deltas]
+        self._async_worker.push_delta_tree(deltas)
+        del deltas
+        observe_stage("ASYNC_PS_PUSH", time.time() - t0)
+        t1 = time.time()
+        hosts, views = self._pull_buffers()
+        self._async_worker.pull_into(views)
+        with torch.no_grad():
+            for p, h in zip(params, hosts):
+                src = h.view(p.shape)
+                if src.dtype != p.dtype:    # a narrow pull: widen on the card
+                    src = src.to(p.device, non_blocking=True)
+                p.copy_(src, non_blocking=True)
+        if self.device.type == "cuda":
+            # the host buffers serve the next step's pulls
+            torch.cuda.current_stream(self.device).synchronize()
+        observe_stage("ASYNC_PS_PULL", time.time() - t1)
+        return loss.detach()
 
     def _staged_route(self) -> bool:
         return (self._apply_chunked and self._bwd_staged
@@ -780,6 +904,8 @@ class DistributedTrainer:
         returns the loss averaged over the data-parallel group (in PS mode
         this process's loss), detached and still on the device."""
         batch = _to_device(batch, self.device)
+        if self._async_worker is not None:
+            return self._async_ps_step(batch)
         if self.ps_exchange is not None:
             return self._ps_step(batch)
         loss = self._loss_fn(self._model, batch)

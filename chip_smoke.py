@@ -246,7 +246,9 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          PS_STEP2_TOL, 3 x nc quantize (and dequantize) or fp8 launches
          for the nc compressed partitions the exchange's plan reports,
          ``ps/d2h_bytes`` under 0.3 x the dense bytes, a positive
-         ``get_pushpull_speed()``, and step 1's exchanged embedding and
+         ``get_pushpull_speed()`` (int8: each reading within
+         x``SPEED_FACTOR`` of ``window_mbps``, the 10 s window modelled per
+         exchange), and step 1's exchanged embedding and
          block gradients (``API_CHECK``, ``API_CHECK_TREES``) bit for bit
          the same tensors' CPU copies exchanged through the plain
          versions by a second exchange on its own server, its keys
@@ -323,7 +325,31 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          and ``lag/late_folds`` >= 1 and ``lag/max_streak`` <= 1 (the
          ``server stats`` line its launcher prints when it stops). Each
          arm prints steps 2-3, bytes, verdicts, the largest
-         ``xstep/epoch_lag``, peak memory and the server's peak RSS.
+         ``xstep/epoch_lag``, peak memory and the server's peak RSS. (d)
+         ``bert_large_ps_async``, async PS (``BPS_ENABLE_ASYNC=1``),
+         BERT-large dense at full depth: (d0) world 1 in process; (d1)
+         world 2, two worker processes (``--async-ps-worker``) against a
+         fresh async server, the fp32 wire; (d2) the same at
+         ``BPS_ASYNC_WIRE_DTYPE=bfloat16``. Every worker: BERT's launches
+         and no codec launch, finite losses with step 3 below step 1,
+         each key pushed once a step; each key's round, the engine
+         drained, ``STEPS`` x the workers; the store (d0) the fp32 replay
+         of init and the deltas in push order, bit for bit, (d1) and (d2)
+         within ``async_store_check``'s bound of the float64 sum of init
+         and both workers' reported deltas; push bytes 4 x the parameters
+         a step ((d2): half), pull bytes 4 x (the store stays fp32); the
+         card's bf16 rounding bit for bit the host codec's
+         (``check_bf16_card``); every parameter the weights its last
+         pull wrote, and at world 2 the other worker's deltas in them;
+         (d1)'s server RSS at each step's end, printed (``--async-ps``:
+         over 3 + 7 steps). The PS fp8 routes, the fp8 tree API, PS
+         auto, the PS watchdog, int8 over TCP at world 1, the world-2
+         arms (b0)/(b1) and the lag arms (c0)-(c2) run at
+         ``CUT_LAYERS`` of the 24 layers, for the run's time limit, their
+         losses held against a dense run at that depth; every other
+         path runs at full depth. Each PS and remote phase prints its
+         seconds (``[phase]``), all of them on one ``phase seconds``
+         line.
      Losses must be finite and falling. BERT (both widths), dense GPT-2
      and T5 repeat step 1 with ``attn_impl="naive"`` (plain attention on
      the card) as the reference for the loss; every run prints step time,
@@ -386,16 +412,20 @@ step 3 (``ps_routes``). Prints ``{"ps_routes": ...}``, also written to
 ``chiprun_out/ps_routes.json``, the card line and the same last line.
 
     python3 chip_smoke.py --remote-ps
+    python3 chip_smoke.py --async-ps
 
 runs only phase 4's remote PS runs (the kernels and the server engine
-built first) and prints ``{"remote_ps": ...}``, the card line and the same
-last line.
+built first), or of them only ``bert_large_ps_async`` with ``ASYNC_SOAK``
+more (d1) steps for the server's resident set, and prints
+``{"remote_ps": ...}``, the card line and the same last line.
 
     python3 chip_smoke.py --remote-ps-worker WID ADDR OUT
     python3 chip_smoke.py --lag-ps-worker WID DIR
+    python3 chip_smoke.py --async-ps-worker WID DIR SOAK
 
 is one worker of phase 4's remote PS runs at world 2 (``remote_ps_worker``,
-``lag_ps_worker``); the phase starts two of them itself.
+``lag_ps_worker``, ``async_ps_worker``); the phase starts two of them
+itself.
 
     python3 chip_smoke.py --world 2
 
@@ -432,6 +462,7 @@ import hashlib
 import json
 import logging
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -533,13 +564,22 @@ BUCKET_FLOATS = PARTITION_BYTES // 4    # one full gradient bucket
 # 1.7% short of it there, fp8 (stochastic rounding keeps the signs) 0.1%.
 PS_STEP2_TOL = 0.05
 # get_pushpull_speed() on the PS int8 API path, read just after each
-# step's last synchronize, against the gradient bytes of the steps whose
-# first transfer started in the window's last 10 s over the time since
-# the first of them: each transfer is back-dated to its dispatch, so the
-# two agree up to a transfer on the window's edge. A window that loses or
-# double-counts transfers, or reads seconds as milliseconds, is off by
-# far more than 1.25.
+# step's last synchronize, against the window modelled per exchange
+# (``window_mbps``): the gradient bytes of the exchanges that started in
+# the window's last 10 s over the time since the first of them, each by
+# its own dispatch, as the telemetry back-dates it; a step whose
+# exchanges straddle the window's edge counts in part. A window that
+# loses or double-counts transfers, or reads seconds as milliseconds, is
+# off by far more than 1.25.
 SPEED_FACTOR = 1.25
+# depth of the paths cut for the full run's time limit (of BERT-large's
+# 24 layers, full width): the PS fp8 routes, the fp8 tree API, PS auto, the
+# PS watchdog, int8 over TCP at world 1, the world-2 int8 arms (b0)/(b1)
+# and the bounded-staleness arms (c0)-(c2). Their host
+# costs scale with the parameter bytes; every gate stays, its expected
+# counts computed from the cut config, the losses held against a dense
+# run at the same depth. The async PS phase runs at full depth.
+CUT_LAYERS = 6
 README_COMPRESSION = {"compressor_type": "onebit",
                       "compressor_onebit_scaling": "true",
                       "ef_type": "vanilla", "momentum_type": "nesterov"}
@@ -2864,7 +2904,7 @@ def train_bert_hybrid():
     return launches
 
 
-def _bert_setup(heads=None):
+def _bert_setup(heads=None, layers=None):
     import dataclasses
 
     from byteps_tpu_torch.models import bert
@@ -2872,6 +2912,8 @@ def _bert_setup(heads=None):
     cfg = bert.bert_large(max_seq=BERT_SEQ)
     if heads is not None:          # bench.py:3084's replace(bert_large, heads=8)
         cfg = dataclasses.replace(cfg, heads=heads)
+    if layers is not None:         # a cut path (CUT_LAYERS)
+        cfg = dataclasses.replace(cfg, layers=layers)
     max_pred = max(1, int(0.2 * BERT_SEQ))
     data = bert.synth_mlm_batch(np.random.RandomState(0), TRAIN_BATCH,
                                 BERT_SEQ, cfg.vocab_size)
@@ -2973,20 +3015,22 @@ def _log_overlap(tag, metrics, steps):
     return inb / steps
 
 
-def train_bert_ps(codec, dense_losses, step2_misses):
+def train_bert_ps(codec, dense_losses, step2_misses, layers=None):
     """BERT-large through the parameter-server path under ``BPS_COMPRESS=
-    codec``: the same model, weights and batch as the dense BERT run, on
-    the default route (staged head, streamed tail, cross-step driver);
-    then in turn the monolithic route (``BPS_APPLY_CHUNKED=0``) on the
-    same weights and batch, which must end its counted steps with the
-    default route's parameters bit for bit, push step 1's payloads with
-    the same bytes, and launch the same kernels as often. Returns both
-    routes' launches."""
+    codec``: the same model, weights and batch as the dense BERT run (at
+    ``layers`` of its layers if given, against a dense run of that
+    depth), on the default route (staged head, streamed tail, cross-step
+    driver); then in turn the monolithic route (``BPS_APPLY_CHUNKED=0``)
+    on the same weights and batch, which must end its counted steps with
+    the default route's parameters bit for bit, push step 1's payloads
+    with the same bytes, and launch the same kernels as often. Returns
+    both routes' launches."""
     import os
 
     import byteps_tpu_torch as bps
-    cfg, loss_fn, data, fps = _bert_setup()
+    cfg, loss_fn, data, fps = _bert_setup(layers=layers)
     tag = f"bert_large ps {codec}"
+    log(f"[{tag}] {cfg.layers} of 24 layers")
     attn = _attention_launches(cfg, ("flash_bwd_fused",))
 
     def want(trainer):
@@ -3612,7 +3656,8 @@ def _auto_run(tag, cfg, loss_fn, data, dense_losses, rounds, inject=None,
 
 
 def train_bert_ps_auto(dense_losses):
-    """``BPS_COMPRESS=auto`` on BERT-large through the PS path, two runs.
+    """``BPS_COMPRESS=auto`` on BERT-large at ``CUT_LAYERS`` through the PS
+    path (``dense_losses``: the dense run's at that depth), two runs.
     (a) live signals: at world 1 in one process nothing raises nic/stalls
     or transport/resends, so the backlog gauge alone votes; the trace may
     stay at none. (b) signals injected: nic/stalls raised before each of
@@ -3621,7 +3666,7 @@ def train_bert_ps_auto(dense_losses):
     backlog reads 0, decays back."""
     from byteps_tpu_torch.compress import wire
     from byteps_tpu_torch.obs.metrics import get_registry
-    cfg, loss_fn, data, _ = _bert_setup()
+    cfg, loss_fn, data, _ = _bert_setup(layers=CUT_LAYERS)
     with _ps_world({"BPS_COMPRESS": "auto"}):
         live, _, live_times = _auto_run(
             "bert_large ps auto (a) live signals", cfg, loss_fn, data,
@@ -3680,7 +3725,8 @@ class PullHold:
 
 
 def train_bert_ps_watchdog(dense_losses):
-    """BERT-large through the PS path under int8 with BPS_WATCHDOG_SEC=2.
+    """BERT-large at ``CUT_LAYERS`` (``dense_losses``: the dense run's at
+    that depth) through the PS path under int8 with BPS_WATCHDOG_SEC=2.
     An unwedged run of 5 steps (no dump) is the reference; then the path:
     3 steps (no dump), then step 4 with the pull of the last bucket held
     WATCHDOG_HOLD periods by ``PullHold``: the dump names that key within
@@ -3688,7 +3734,7 @@ def train_bert_ps_watchdog(dense_losses):
     completes; steps 4 and 5 have the unwedged run's losses, bit for bit."""
     from byteps_tpu_torch.common.global_state import GlobalState
     from byteps_tpu_torch.obs.watchdog import implicated_keys
-    cfg, loss_fn, data, _ = _bert_setup()
+    cfg, loss_fn, data, _ = _bert_setup(layers=CUT_LAYERS)
     tag = "bert_large ps watchdog"
     env = {"BPS_COMPRESS": "int8", "BPS_WATCHDOG_SEC": str(WATCHDOG_SEC)}
     with _ps_world(env):
@@ -3941,7 +3987,37 @@ def _reference_exchange(codec, registry):
     return backend, ex
 
 
-def train_bert_pushpull(codec, dense_losses, step2_misses):
+def window_mbps(exchanges, now, window=None):
+    """``get_pushpull_speed()`` at ``now``, modelled per exchange as
+    ``telemetry.PushPullSpeed`` counts one: ``exchanges`` holds (start,
+    done, bytes) of each, recorded at ``done`` and back-dated to its start
+    (by at most 0.99 of the window); the reading is the bytes of those
+    within the window of ``now`` over the time since the earliest of them.
+    Returns (MB/s, how many exchanges are in the window)."""
+    from byteps_tpu_torch.telemetry import WINDOW_SEC
+    w = WINDOW_SEC if window is None else window
+    ts = [(done - min(max(done - start, 0.0), 0.99 * w), n)
+          for start, done, n in exchanges if done <= now]
+    inside = [(t, n) for t, n in ts if now - t <= w]
+    if not inside:
+        return 0.0, 0
+    span = max(now - min(t for t, _ in inside), 1e-6)
+    return sum(n for _, n in inside) / span / 1e6, len(inside)
+
+
+def _dense_losses(layers):
+    """Two dense steps of BERT-large at ``layers`` layers (seed 0, the
+    path's batch): the reference losses of a cut PS path."""
+    cfg, loss_fn, data, _ = _bert_setup(layers=layers)
+    trainer = _trainer(cfg, loss_fn)
+    losses = [trainer.step(data).item() for _ in range(2)]
+    log(f"[bert_large dense, {layers} of 24 layers] losses {losses}")
+    del trainer
+    torch.cuda.empty_cache()
+    return losses
+
+
+def train_bert_pushpull(codec, dense_losses, step2_misses, layers=None):
     """BERT-large through the BytePS API in PS mode (``BPS_ENABLE_PS=1``,
     ``BPS_COMPRESS=codec``, telemetry on). int8: every gradient through
     the plugin's ``push_pull_async_inplace`` in ``declare_model_keys``
@@ -3955,8 +4031,9 @@ def train_bert_pushpull(codec, dense_losses, step2_misses):
     from byteps_tpu_torch.common.global_state import GlobalState
     from byteps_tpu_torch.parallel.collectives import tree_flatten
     from byteps_tpu_torch.training import _to_device
-    cfg, loss_fn, data, fps = _bert_setup()
+    cfg, loss_fn, data, fps = _bert_setup(layers=layers)
     tag = f"bert_large_pushpull_{codec.split('_')[0]}"
+    log(f"[{tag}] {cfg.layers} of 24 layers")
     env = {"BPS_ENABLE_PS": "1", "BPS_COMPRESS": codec,
            "BPS_TELEMETRY_ON": "1", "BPS_COMPRESS_DEVICE": "1"}
     old = {k: os.environ.get(k) for k in env}
@@ -3981,13 +4058,16 @@ def train_bert_pushpull(codec, dense_losses, step2_misses):
             t = time.perf_counter()
             hs = []
             for n in names:
+                # each exchange's own start and bytes, as the telemetry
+                # counts it: it back-dates each to its handle's dispatch
+                starts.append(time.time())
                 hs.append(bt.push_pull_async_inplace(
                     params[n].grad, name="Gradient." + n,
                     priority=forward_pos[n]))
-                if len(hs) == 1:    # the step's first transfer starts
-                    dispatched.append(time.time())
-            for h in hs:
+            for n, h in zip(names, hs):
                 bt.synchronize(h)
+                exchanges.append((starts[len(exchanges)], time.time(),
+                                  params[n].grad.nbytes))
             api = time.perf_counter() - t
             if first:
                 got.update({n: params[n].grad.to("cpu", copy=True)
@@ -4017,7 +4097,7 @@ def train_bert_pushpull(codec, dense_losses, step2_misses):
 
         exchange = exchange_tensors if codec == "int8" else exchange_trees
 
-        speed, read_at, dispatched = [], [], []
+        speed, read_at, starts, exchanges = [], [], [], []
 
         def step(i):
             opt.zero_grad(set_to_none=True)
@@ -4069,17 +4149,13 @@ def train_bert_pushpull(codec, dense_losses, step2_misses):
             raise AssertionError(f"{tag}: get_pushpull_speed() {speed} with "
                                  "BPS_TELEMETRY_ON=1")
         if codec == "int8":
-            # every exchange of a step ends inside the window: each reading
-            # is the gradient bytes of the steps dispatched in the last
-            # WINDOW_SEC over the time since the first of them
-            from byteps_tpu_torch.telemetry import WINDOW_SEC
+            # each reading against the window modelled per exchange, each
+            # by its own start and bytes (a step's exchanges may straddle
+            # the window's edge)
             for k, (got_mbps, now) in enumerate(zip(speed, read_at)):
-                inside = [d for d in dispatched[:k + 1]
-                          if now - d <= WINDOW_SEC]
-                want_mbps = (len(inside) * dense_bytes
-                             / (now - min(inside)) / 1e6)
+                want_mbps, inside = window_mbps(exchanges, now)
                 log(f"[{tag}] after step {k + 1}: {got_mbps:.1f} MB/s, the "
-                    f"{len(inside)} steps' gradient bytes in the window over "
+                    f"{inside} exchanges' gradient bytes in the window over "
                     f"their time {want_mbps:.1f} MB/s (ratio "
                     f"{got_mbps / want_mbps:.3f}, held within "
                     f"x{SPEED_FACTOR})")
@@ -5159,12 +5235,12 @@ def _ps_bytes(metrics):
 
 
 def train_bert_ps_tcp():
-    """Phase "remote PS" (a), world 1: BERT-large PS int8 on the default
-    route through the port's standalone server (``launch --server``, port
+    """Phase "remote PS" (a), world 1: BERT-large at ``CUT_LAYERS``, PS int8
+    on the default route through the port's standalone server (``launch --server``, port
     0) and, in turn, in process, from the same seed and batch: the same
     losses, launches and parameters bit for bit (the transport changes no
     number), each arm's steps 2-3 printed beside the card."""
-    cfg, loss_fn, data, _ = _bert_setup()
+    cfg, loss_fn, data, _ = _bert_setup(layers=CUT_LAYERS)
     want = _remote_want(cfg)
     tag = "bert_large ps int8 tcp"
     arms = {}
@@ -5262,7 +5338,7 @@ def remote_ps_worker(wid, addr, out, arm="unsharded") -> int:
     get_logger().addHandler(fallbacks)
     bps.init()
     try:
-        cfg, loss_fn, _, _ = _bert_setup()
+        cfg, loss_fn, _, _ = _bert_setup(layers=CUT_LAYERS)
         data = bert.synth_mlm_batch(np.random.RandomState(wid), TRAIN_BATCH,
                                     BERT_SEQ, cfg.vocab_size)
         torch.cuda.reset_peak_memory_stats()
@@ -5587,7 +5663,7 @@ def _lag_worker_arm(wid, arm, addr, where) -> dict:
                       BPS_SHARDED_UPDATE="0")
     bps.init()
     try:
-        cfg, loss_fn, _, _ = _bert_setup()
+        cfg, loss_fn, _, _ = _bert_setup(layers=CUT_LAYERS)
         data = bert.synth_mlm_batch(np.random.RandomState(wid), TRAIN_BATCH,
                                     BERT_SEQ, cfg.vocab_size)
         torch.cuda.reset_peak_memory_stats()
@@ -5821,15 +5897,701 @@ def train_bert_ps_lag():
                  for res, _ in arms.values())
 
 
-def remote_ps_main() -> int:
-    """``--remote-ps``: the toolchain, then only phase 4's remote PS runs."""
+# ------------- async PS: BERT-large dense at world 1 and 2, an fp32 store
+
+# arm -> BPS_ASYNC_WIRE_DTYPE of the world-2 arms (d1) and (d2); (d0) is
+# world 1 in process at the fp32 wire
+ASYNC_ARMS = {"d1": None, "d2": "bfloat16"}
+ASYNC_FOLD_WAIT = 120       # seconds the engine may take for its last folds
+# the arm whose server's resident set the parent samples, and where
+# ``--async-ps`` has the workers, the store checked, take ASYNC_SOAK more
+# steps: 3 + 7 steps show whether it levels off or grows with the pushes
+# (the full run leaves the soak out, for its time limit)
+ASYNC_SOAK_ARM, ASYNC_SOAK = "d1", 7
+# glibc's HEAP_MAX_SIZE on 64-bit: each thread arena's heap is a mapping
+# aligned to it
+ARENA_ALIGN = 64 << 20
+
+
+class RssSampler:
+    """Another process's resident set (``/proc/<pid>/statm``) every
+    ``interval`` s on a thread; ``stop()`` returns [(wall time, bytes)]."""
+
+    def __init__(self, pid, interval=1.0):
+        import threading
+        self.samples = []
+        self._done = threading.Event()
+        page = os.sysconf("SC_PAGE_SIZE")
+
+        def run():
+            while True:
+                try:
+                    with open(f"/proc/{pid}/statm") as f:
+                        n = int(f.read().split()[1]) * page
+                except (OSError, ValueError, IndexError):
+                    return
+                self.samples.append((time.time(), n))
+                if self._done.wait(interval):
+                    return
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        self._done.set()
+        self._thread.join()
+        return self.samples
+
+
+def memory_map(pid=None, text=None):
+    """A process's resident set by kind of mapping, in bytes, from
+    ``/proc/<pid>/smaps`` (or its ``text``): ``brk`` (the main malloc
+    arena), ``arenas`` (anonymous mappings aligned to ``ARENA_ALIGN``: the
+    heaps of glibc's thread arenas), ``anon`` (other anonymous mappings:
+    the blocks malloc maps on their own, the store's among them),
+    ``files`` (libraries and other files); None where it cannot be
+    read."""
+    if text is None:
+        try:
+            with open(f"/proc/{pid}/smaps") as f:
+                text = f.read()
+        except OSError:
+            return None
+    out = dict.fromkeys(("brk", "arenas", "anon", "files"), 0)
+    kind = None
+    for line in text.splitlines():
+        head = line.split()
+        if not head:
+            continue
+        if not head[0].endswith(":"):           # a mapping's first line
+            path = head[5] if len(head) > 5 else ""
+            start = int(head[0].split("-")[0], 16)
+            kind = ("brk" if path == "[heap]" else
+                    "files" if path.startswith("/") else
+                    "arenas" if not path and start % ARENA_ALIGN == 0 else
+                    "anon")
+        elif head[0] == "Rss:" and kind is not None:
+            out[kind] += int(head[1]) * 1024
+    return out if kind is not None else None
+
+
+def rss_at(samples, ends):
+    """The largest sample taken up to each of ``ends`` (bytes)."""
+    return [max((n for t, n in samples if t <= end), default=0)
+            for end in ends]
+
+
+class DeltaLog:
+    """On a worker's PS backend: the host copy of every delta it pushed, a
+    list a key in push order (the arrays the backend was given: fp32, or
+    the bf16 bits under the bf16 wire)."""
+
+    def __init__(self, backend):
+        self.pushed = {}
+        self._backend = backend
+        real = backend.push
+
+        def push(key, data):
+            real(key, data)
+            self.pushed.setdefault(key, []).append(np.array(data, copy=True))
+
+        backend.push = push
+
+    def stop(self):
+        """The backend's own ``push`` again."""
+        del self._backend.push
+
+
+class PullRounds:
+    """On a worker's async PS backend, while ``on``: each key's round read
+    just before its pull. The engine bumps a key's round under the lock
+    that its fold and every pull take, so the pull saw at least that many
+    folds."""
+
+    def __init__(self, backend):
+        self.on, self.seen = False, {}
+        self._backend = backend
+        real = backend.pull
+
+        def pull(key, out, *args, **kwargs):
+            if self.on:
+                self.seen[key] = backend.round(key)
+            real(key, out, *args, **kwargs)
+
+        backend.pull = pull
+
+    def stop(self):
+        """The backend's own ``pull`` again."""
+        del self._backend.pull
+
+
+def async_installed(trainer):
+    """The leaves of an async PS trainer whose parameter is not, bit for
+    bit, the host buffer its last pull wrote: the store's weights that
+    the step must have installed (fp32 pulls into fp32 parameters)."""
+    hosts, _ = trainer._pulled
+    bad = 0
+    for (_, p), h in zip(trainer._ps_params, hosts):
+        got = p.detach().reshape(-1).to("cpu", copy=True)
+        bad += got.dtype != h.dtype or not torch.equal(
+            got.view(torch.int32), h.view(torch.int32))
+    return bad
+
+
+def async_own_only(init, pushed, seen, keys, hosts, own):
+    """At world 2: (the keys whose last pull began after the other
+    worker's folds, its round before the pull above ``own``, this worker's
+    pushes; those of them whose pulled weights are still init plus this
+    worker's own deltas alone, folded in push order in fp32, bit for
+    bit). ``pushed``: a key's deltas as pushed (bf16 bits widened)."""
+    from byteps_tpu_torch.common import bf16
+    other = same = 0
+    for k, key in enumerate(keys):
+        if seen.get(key, 0) <= own:
+            continue
+        other += 1
+        want = init[k]
+        for d in pushed[key]:
+            want = want + bf16.cast(d, "float32")
+        same += np.asarray(hosts[k]).tobytes() == want.tobytes()
+    return other, same
+
+
+def async_store_check(init, deltas, store, folds, device="cpu"):
+    """The async store against the float64 sum of ``init`` and every delta
+    (fp32 host arrays, folded by the server in an order nobody defined),
+    within the bound of ``folds`` fp32 folds: each rounds to nearest, so it
+    adds at most 2^-24 of its running value, and no running value exceeds
+    |init| + sum |delta|; one fold more covers the float64 sum and the
+    second-order terms. The float64 sums run on ``device`` (IEEE float64
+    there as on the host: the same result, faster on the card). Returns
+    (elements over the bound, the largest |store - sum| / bound)."""
+    def f64(x):
+        return torch.from_numpy(np.asarray(x)).to(device, torch.float64)
+
+    s = f64(init)
+    a = s.abs()
+    for d in deltas:
+        d = f64(d)
+        s += d
+        a += d.abs()
+    bound = a.mul_((folds + 1) * 2.0 ** -24)
+    err = (f64(store) - s).abs_()
+    over = int((err > bound).sum())
+    ratio = torch.where(bound > 0, err / bound, torch.zeros_like(err))
+    return over, float(ratio.max()) if ratio.numel() else 0.0
+
+
+def _await_folds(backend, keys, want, timeout=ASYNC_FOLD_WAIT):
+    """Every key's round (the pushes its async store folded) once each is
+    ``want``, or at the deadline."""
+    deadline = time.time() + timeout
+    while True:
+        rounds = [backend.round(k) for k in keys]
+        if all(r >= want for r in rounds) or time.time() > deadline:
+            return rounds
+        time.sleep(0.05)
+
+
+def _async_counted(trainer, data, rounds=None):
+    """``STEPS`` counted steps of an async PS trainer, every launch count
+    and the metrics registry zeroed just before: losses, launches, steps
+    2-3 a step, ``ps/push_bytes`` and ``ps/pull_bytes`` a step, each
+    step's end on the wall clock. ``rounds`` (a ``PullRounds``) records
+    the last step's pulls."""
+    from byteps_tpu_torch.obs.metrics import get_registry
+    torch.cuda.synchronize()
+    ctr = counters()
+    zero_counts(ctr)
+    reg = get_registry()
+    reg.reset()
+    losses, times, ends = [], [], []
+    for i in range(STEPS):
+        if rounds is not None:
+            rounds.on = i == STEPS - 1
+        t = time.perf_counter()
+        loss = trainer.step(data)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        ends.append(time.time())
+        losses.append(loss.item())
+    if rounds is not None:
+        rounds.on = False
+    m = reg.snapshot()
+    return {"losses": losses, "launches": read_counts(ctr),
+            "ms": _route_ms(times, 0.0), "ends": ends,
+            "push_bytes": m["ps/push_bytes"] / STEPS,
+            "pull_bytes": m["ps/pull_bytes"] / STEPS}
+
+
+def _async_init(cfg):
+    """The initial weights every worker seeds the store with (seed 0), a
+    flat fp32 array a leaf in the trainer's key order (the JAX tree's)."""
+    from byteps_tpu_torch.models.transformer import Transformer
+    model = Transformer(cfg, generator=torch.Generator().manual_seed(0))
+    named = sorted(model.named_parameters(), key=lambda kv: kv[0].split("."))
+    return [p.detach().reshape(-1).numpy() for _, p in named]
+
+
+def _async_d0():
+    """Arm (d0): world 1, the in-process async server, the fp32 wire. The
+    engine folds one pusher's pushes of a key in the order they were
+    queued (a key sticks to one engine thread, whose queue is FIFO), so
+    the store must be the fp32 replay of init and the pushed deltas in
+    push order, bit for bit."""
+    cfg, loss_fn, data, _ = _bert_setup()
+    with _ps_world({"BPS_ENABLE_ASYNC": "1"}):
+        torch.cuda.reset_peak_memory_stats()
+        trainer = _ps_trainer(cfg, loss_fn)
+        w = trainer._async_worker
+        init = [p.detach().reshape(-1).to("cpu", copy=True).numpy()
+                for _, p in trainer._ps_params]
+        dlog = DeltaLog(w.backend)
+        r = _async_counted(trainer, data)
+        r["peak_mem"] = torch.cuda.max_memory_allocated()
+        r["want"] = _attention_launches(cfg, ("flash_bwd_fused",))(trainer)
+        r["rounds"] = sorted(set(_await_folds(w.backend, w.keys, STEPS)))
+        r["pushes"] = sorted({len(v) for v in dlog.pushed.values()})
+        r["wire"] = sorted({str(a.dtype) for v in dlog.pushed.values()
+                            for a in v})
+        bad = 0
+        for k, key in enumerate(w.keys):
+            want = init[k]
+            for d in dlog.pushed[key]:
+                want = want + d            # fp32, in push order
+            got = np.empty(want.size, np.float32)
+            w.backend.pull(key, got)
+            bad += got.tobytes() != want.tobytes()
+        r["store_bad"] = bad
+        r["installed_bad"] = async_installed(trainer)
+        r["n_params"] = sum(w.sizes)
+        trainer.close()
+    del trainer, dlog, init
+    torch.cuda.empty_cache()
+    return r
+
+
+def _await_file(path, what):
+    """Wait for ``path`` (written by the phase's parent process)."""
+    deadline = time.time() + REMOTE_WAIT
+    while not path.exists():
+        if time.time() > deadline:
+            raise AssertionError(f"no {what}")
+        time.sleep(0.05)
+
+
+def _write_json(path, obj):
+    """``obj`` as JSON at ``path``, whole or not at all."""
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_text(json.dumps(obj))
+    tmp.rename(path)
+
+
+def async_ps_worker(wid, where, soak=0) -> int:
+    """``--async-ps-worker WID DIR SOAK``: one of the two worker processes
+    of the arms (d1) and (d2) of ``bert_large_ps_async`` on ``cuda:0``, for each
+    arm in turn (one process for both: a process takes seconds to reach
+    the card). For each arm it waits for ``DIR/<arm>.addr``, the address
+    of the arm's fresh async server, trains BERT-large dense async PS from
+    seed 0 on its own batch (seed WID) at the arm's
+    ``BPS_ASYNC_WIRE_DTYPE`` for ``STEPS`` counted steps, writes the host
+    copy of every delta it pushed, a file a step
+    (``DIR/<arm>.w<WID>.s<step>.bin``: the keys' deltas in key order),
+    then ``DIR/<arm>.w<WID>.json`` (losses, launches, wanted launches,
+    bytes a step, step times and ends, keys and sizes, the wire's dtype,
+    peak memory, the install and own-only checks). In arm
+    ``ASYNC_SOAK_ARM``, if ``soak``, it then waits for ``DIR/<arm>.checked``
+    (the store checked) and takes ``soak`` more steps, their ends in
+    ``DIR/<arm>.w<WID>.soak.json``. Then it shuts its PS state down."""
+    import gc
+    where = Path(where)
+    for arm in ASYNC_ARMS:
+        _await_file(where / f"{arm}.addr", f"server address for arm {arm}")
+        _async_worker_arm(wid, arm, (where / f"{arm}.addr").read_text(),
+                          where, soak)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
+def _async_worker_arm(wid, arm, addr, where, soak) -> None:
+    """One arm of ``async_ps_worker``."""
+    import os
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.common import bf16
+    from byteps_tpu_torch.models import bert
+    for name in ("BPS_COMPRESS", "BPS_MAX_LAG", "BPS_ASYNC_WIRE_DTYPE",
+                 "BPS_ASYNC_PULL_DTYPE"):
+        os.environ.pop(name, None)
+    if ASYNC_ARMS[arm]:
+        os.environ["BPS_ASYNC_WIRE_DTYPE"] = ASYNC_ARMS[arm]
+    os.environ.update(BPS_ENABLE_PS="1", BPS_ENABLE_ASYNC="1",
+                      BPS_NUM_WORKER="2", BPS_WORKER_ID=str(wid),
+                      BPS_LOCAL_RANK="0", BPS_SERVER_ADDRS=addr,
+                      BPS_SHARDED_UPDATE="0")
+    bps.init()
+    try:
+        cfg, loss_fn, _, _ = _bert_setup()
+        data = bert.synth_mlm_batch(np.random.RandomState(wid), TRAIN_BATCH,
+                                    BERT_SEQ, cfg.vocab_size)
+        torch.cuda.reset_peak_memory_stats()
+        trainer = _ps_trainer(cfg, loss_fn)
+        w = trainer._async_worker
+        init = [p.detach().reshape(-1).to("cpu", copy=True).numpy()
+                for _, p in trainer._ps_params]
+        dlog, rounds = DeltaLog(w.backend), PullRounds(w.backend)
+        r = _async_counted(trainer, data, rounds)
+        dlog.stop()
+        rounds.stop()
+        r["peak_mem"] = torch.cuda.max_memory_allocated()
+        r["want"] = _attention_launches(cfg, ("flash_bwd_fused",))(trainer)
+        r["keys"], r["sizes"] = list(w.keys), list(w.sizes)
+        r["pushes"] = sorted({len(v) for v in dlog.pushed.values()})
+        r["wire"] = sorted({bf16.dtype_name(a) for v in dlog.pushed.values()
+                            for a in v})
+        r["installed_bad"] = async_installed(trainer)
+        r["saw_other"], r["own_only"] = async_own_only(
+            init, dlog.pushed, rounds.seen, w.keys, trainer._pulled[1],
+            STEPS)
+        del init
+        for step in range(min(r["pushes"])):
+            with open(where / f"{arm}.w{wid}.s{step}.bin", "wb") as f:
+                for key in w.keys:
+                    f.write(memoryview(
+                        np.ascontiguousarray(dlog.pushed[key][step]))
+                        .cast("B"))
+        del dlog
+        _write_json(where / f"{arm}.w{wid}.json", r)
+        if arm == ASYNC_SOAK_ARM and soak:
+            _await_file(where / f"{arm}.checked", f"store check of {arm}")
+            ends = []
+            for _ in range(soak):
+                trainer.step(data)
+                torch.cuda.synchronize()
+                ends.append(time.time())
+            _write_json(where / f"{arm}.w{wid}.soak.json", ends)
+        trainer.close()
+    finally:
+        bps.shutdown()
+
+
+def _async_arm_store(addr, res, where, arm, init):
+    """An arm's store after both workers stopped: the folds awaited (each
+    key's round at ``STEPS`` x 2), then every key pulled and held against
+    the float64 sum of init and both workers' reported deltas
+    (``async_store_check``). Returns (rounds seen, elements over the
+    bound, the largest error over bound)."""
+    from byteps_tpu_torch.common import bf16
+    from byteps_tpu_torch.server.transport import RemotePSBackend
+    keys, sizes = res[0]["keys"], res[0]["sizes"]
+    if res[1]["keys"] != keys or sizes != [a.size for a in init]:
+        raise AssertionError(f"arm {arm}: the workers' keys or sizes differ")
+    wide = ASYNC_ARMS[arm] is None
+    files = [np.memmap(where / f"{arm}.w{wid}.s{step}.bin", mode="c",
+                       dtype=np.float32 if wide else np.uint16)
+             for wid in (0, 1) for step in range(STEPS)]
+    client = RemotePSBackend([addr], async_mode=True)
+    try:
+        rounds = _await_folds(client, keys, 2 * STEPS)
+        over, worst, off = 0, 0.0, 0
+        for key, n, x0 in zip(keys, sizes, init):
+            parts = [f[off:off + n] for f in files]
+            deltas = parts if wide else [bf16.widen(p) for p in parts]
+            store = np.empty(n, np.float32)
+            client.pull(key, store)
+            o, r = async_store_check(x0, deltas, store, 2 * STEPS, "cuda")
+            over, worst, off = over + o, max(worst, r), off + n
+    finally:
+        client.close()
+        del files
+    return sorted(set(rounds)), over, worst
+
+
+def _async_world2(init, soak):
+    """Arms (d1) and (d2) in turn: for each a fresh async server
+    (``BPS_NUM_WORKER=2 BPS_ENABLE_ASYNC=1``), served to the same two
+    worker processes (``async_ps_worker``); after both reported, the
+    store is checked against their deltas (then in ``ASYNC_SOAK_ARM``
+    the workers take ``soak`` more steps), then the server stops. Returns
+    {arm: (the workers' reports, the server's stop-time stats, (rounds,
+    over, worst), in ``ASYNC_SOAK_ARM`` (the server's resident set
+    sampled, its ``memory_map`` after the last step, each worker's step
+    ends))}. Every process is stopped."""
+    import os
+    import shutil
+    import tempfile
+    tmp = Path(tempfile.mkdtemp())
+    procs, logs, out = [], [], {}
+    failed = None
+    try:
+        for wid in (0, 1):
+            logf = open(tmp / f"worker{wid}.log", "w")
+            logs.append(logf)
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, "--async-ps-worker", str(wid),
+                 str(tmp), str(soak)], cwd=ROOT, env=dict(os.environ), stdout=logf,
+                stderr=subprocess.STDOUT))
+        for arm in ASYNC_ARMS:
+            server, lines, addr = start_ps_server(2, {"BPS_ENABLE_ASYNC": "1"})
+            reports = [tmp / f"{arm}.w{w}.json" for w in (0, 1)]
+            check = mem = None
+            rss = RssSampler(server.pid) if arm == ASYNC_SOAK_ARM else None
+            try:
+                (tmp / f"{arm}.addr.tmp").write_text(addr)
+                (tmp / f"{arm}.addr.tmp").rename(tmp / f"{arm}.addr")
+                failed = _await_reports(procs, reports,
+                                        time.time() + REMOTE_WAIT)
+                if failed is None:
+                    res = [json.loads(f.read_text()) for f in reports]
+                    check = _async_arm_store(addr, res, tmp, arm, init)
+                ends = [r["ends"] for r in res] if failed is None else None
+                if failed is None and rss is not None and soak:
+                    _write_json(tmp / f"{arm}.checked", True)
+                    soaks = [tmp / f"{arm}.w{w}.soak.json" for w in (0, 1)]
+                    failed = _await_reports(procs, soaks,
+                                            time.time() + REMOTE_WAIT)
+                    if failed is None:
+                        ends = [e + json.loads(f.read_text())
+                                for e, f in zip(ends, soaks)]
+                if failed is None and rss is not None:
+                    mem = (rss.stop(), memory_map(server.pid), ends)
+            finally:
+                if rss is not None:
+                    rss.stop()
+                rc = stop_ps_server(server)
+                for f in tmp.glob(f"{arm}.w*.s*.bin"):
+                    f.unlink()
+            stats = [json.loads(x.split("server stats ", 1)[1])
+                     for x in lines if "server stats " in x]
+            if failed is not None:
+                failed = f"arm {arm}: {failed}"
+                break
+            if rc != 0 or len(stats) != 1:
+                failed = (f"arm {arm}: the server exited {rc} with "
+                          f"{len(stats)} stats lines:\n"
+                          + "\n".join(lines[-20:]))
+                break
+            out[arm] = (res, stats[0], check, mem)
+        deadline = time.time() + 60
+        while failed is None and any(p.poll() is None for p in procs) \
+                and time.time() < deadline:
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+        for f in logs:
+            f.close()
+    for wid, p in enumerate(procs):
+        text = (tmp / f"worker{wid}.log").read_text()
+        log(f"----- async PS worker {wid} (exit {p.returncode})")
+        log(text if failed or p.returncode else text[-1500:])
+        if failed or p.returncode:
+            print(f"----- async PS worker {wid} (exit {p.returncode}), its "
+                  f"log's end:\n{text[-6000:]}", file=sys.stderr, flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    if failed is None and any(p.returncode for p in procs):
+        failed = "a worker exited with an error"
+    if failed is not None:
+        raise AssertionError(f"bert_large ps async: {failed}")
+    return out
+
+
+def check_bf16_card():
+    """The card's float32 -> bfloat16 conversion (torch's ``.to``, which
+    rounds the (d2) deltas) against the host codec (``common/bf16.py``,
+    ``ml_dtypes``' bytes in the CPU tests) on every value class and on
+    delta-like values at every magnitude: bit for bit but NaN, where each
+    writes a NaN of its own bits."""
+    from byteps_tpu_torch.common import bf16
+    rng = np.random.RandomState(0)
+    special = np.array(
+        [0x00000000, 0x80000000, 0x3F808000, 0x3F818000, 0x3F807FFF,
+         0x00000001, 0x00008000, 0x00018000, 0x007FFFFF, 0x807FFFFF,
+         0x00800000, 0x7F800000, 0xFF800000, 0x7F7F7FFF, 0x7F7F8000,
+         0xFF7FFFFF, 0x7F800001, 0xFFC12345], np.uint32)
+    x = np.concatenate([
+        special.view(np.float32),
+        rng.randint(0, 2 ** 32, 1 << 20, dtype=np.uint64).astype(
+            np.uint32).view(np.float32),
+        (rng.randn(1 << 20) * 10.0 ** rng.randint(-12, 3, 1 << 20)).astype(
+            np.float32)])
+    card = (torch.from_numpy(x).cuda().to(torch.bfloat16)
+            .view(torch.int16).cpu().numpy().view(np.uint16))
+    with np.errstate(invalid="ignore"):
+        host = bf16.narrow(x).view(np.uint16)
+    nan = np.isnan(x)
+    bad = int(np.count_nonzero(card[~nan] != host[~nan]))
+    log(f"[bert_large ps async] bf16 rounding on the card vs the host "
+        f"codec: {x.size - int(nan.sum())} values, {bad} differ; "
+        f"{int(nan.sum())} NaN inputs, card writes "
+        f"{sorted({hex(v) for v in card[nan]})}")
+    if bad or not np.isnan(bf16.widen(card[nan])).all():
+        raise AssertionError("bert_large ps async: the card's bf16 rounding "
+                             "differs from the host codec's")
+
+
+def train_bert_ps_async(soak=0):
+    """Phase ``bert_large_ps_async``: async PS (``BPS_ENABLE_ASYNC=1``),
+    BERT-large dense at full width and depth, batch 8, ``STEPS`` counted
+    steps, three arms: (d0) world 1 in process; (d1) world 2, two worker
+    processes on ``cuda:0`` on their own batches against a fresh ``launch
+    --server`` with ``BPS_ENABLE_ASYNC=1``, the fp32 wire; (d2) the same at
+    ``BPS_ASYNC_WIRE_DTYPE=bfloat16`` (one pair of workers for both, a
+    fresh server each).
+
+    Gates, every worker of every arm: the launches of BERT's path (144
+    flash forwards, 72 fused backwards, all d 64) and no codec kernel;
+    finite losses, step 3 below step 1; every key pushed once a step. Each
+    key's round, once the engine drained, is the pushes folded into it:
+    ``STEPS`` x the workers. The store: (d0) the fp32 replay of init and
+    its deltas in push order, bit for bit; (d1) and (d2) within
+    ``async_store_check``'s bound of the float64 sum of init and both
+    workers' reported deltas (the bf16 ones as pushed); before the arms,
+    the card's bf16 rounding bit for bit the host codec's. Bytes a step:
+    (d0) and (d1) push 4 x the parameters, (d2) exactly half; every arm
+    pulls 4 x the parameters (the store stays fp32). After the counted
+    steps every parameter is, bit for bit, the weights the last pull
+    wrote (``async_installed``); at world 2, a key whose last pull began
+    after the other worker's folds was not pulled as init plus the
+    worker's own deltas alone, and there is such a key
+    (``async_own_only``).
+
+    Printed, not gated: steps 2-3 and peak memory per worker, the
+    servers' peak RSS, beside the card; in (d1) the server's resident set
+    at the end of each of ``STEPS`` + ``soak`` steps (the soak steps
+    taken after the store check: ``--async-ps`` takes ``ASYNC_SOAK``, the
+    full run none) and by mapping after them (``memory_map``). Returns
+    each arm's launches summed over its workers."""
+    card = card_line()
+    check_bf16_card()
+    d0 = _async_d0()
+    cfg, _, _, _ = _bert_setup()
+    init = _async_init(cfg)
+    arms = _async_world2(init, soak)
+    del init
+    n = d0["n_params"]
+    rows = [("d0", 0, d0)] + [(arm, wid, r) for arm, (res, *_)
+                               in arms.items() for wid, r in enumerate(res)]
+    for arm, wid, r in rows:
+        tag = f"bert_large ps async {arm}"
+        log(f"[{tag}] worker {wid}: losses {r['losses']}, steps 2-3 "
+            f"{r['ms']:.1f} ms a step, ps/push_bytes {r['push_bytes']:.0f} "
+            f"and ps/pull_bytes {r['pull_bytes']:.0f} a step ({n} "
+            f"parameters), wire {r['wire']}, peak memory {r['peak_mem']} "
+            f"bytes; {card}")
+        if not all(math.isfinite(x) for x in r["losses"]) \
+                or not r["losses"][2] < r["losses"][0]:
+            raise AssertionError(f"{tag} worker {wid}: losses {r['losses']}")
+        if r["launches"] != r["want"]:
+            raise AssertionError(f"{tag} worker {wid}: launches "
+                                 f"{r['launches']}, expected {r['want']}")
+        if r["pushes"] != [STEPS]:
+            raise AssertionError(f"{tag} worker {wid}: pushes a key "
+                                 f"{r['pushes']}, expected {STEPS}")
+        if r["installed_bad"]:
+            raise AssertionError(f"{tag} worker {wid}: {r['installed_bad']} "
+                                 f"parameters are not the weights the last "
+                                 f"pull wrote")
+        narrow = ASYNC_ARMS.get(arm) == "bfloat16"
+        if r["wire"] != (["bfloat16"] if narrow else ["float32"]) \
+                or r["push_bytes"] != (2 if narrow else 4) * n \
+                or r["pull_bytes"] != 4 * n:
+            raise AssertionError(f"{tag} worker {wid}: wire {r['wire']}, "
+                                 f"push {r['push_bytes']} and pull "
+                                 f"{r['pull_bytes']} bytes a step")
+    if d0["rounds"] != [STEPS] or d0["store_bad"]:
+        raise AssertionError(f"bert_large ps async d0: rounds {d0['rounds']}"
+                             f", {d0['store_bad']} keys off the replay")
+    log(f"[bert_large ps async d0] every key's round {STEPS}; the store is "
+        f"the fp32 replay of init and the deltas in push order, bit for bit")
+    log(f"[bert_large ps async d0] every parameter is, bit for bit, the "
+        f"weights the last pull wrote")
+    for arm, (res, stats, (rounds, over, worst), mem) in arms.items():
+        tag = f"bert_large ps async {arm}"
+        log(f"[{tag}] rounds {rounds}; the store against the float64 sum of "
+            f"init and both workers' deltas: {over} elements over the bound "
+            f"of {2 * STEPS + 1} fp32 folds, the largest error "
+            f"{worst:.4f} of it; server peak RSS {stats['peak_rss_bytes']} "
+            f"bytes ({stats['peak_rss_source']}); {card}")
+        if rounds != [2 * STEPS] or over:
+            raise AssertionError(f"{tag}: rounds {rounds}, {over} elements "
+                                 f"over the bound")
+        if res[0]["losses"] == res[1]["losses"]:
+            raise AssertionError(f"{tag}: both workers read the same batch")
+        seen = [r["saw_other"] for r in res]
+        log(f"[{tag}] keys whose last pull began after the other worker's "
+            f"folds: {seen} of {len(res[0]['keys'])} (workers 0, 1); of "
+            f"them pulled as init plus the worker's own deltas alone: "
+            f"{[r['own_only'] for r in res]}")
+        if not sum(seen) or any(r["own_only"] for r in res):
+            raise AssertionError(f"{tag}: the pulled weights do not hold the "
+                                 f"other worker's deltas")
+        if mem is not None:
+            samples, mmap, ends = mem
+            log(f"[{tag}] server RSS, the largest sample (every 1 s) up to "
+                f"the end of each of {STEPS} + {soak} steps, bytes: "
+                f"worker 0 {rss_at(samples, ends[0])}, worker 1 "
+                f"{rss_at(samples, ends[1])}; after them by mapping "
+                f"{mmap}; {card}")
+    log("[bert_large ps async] every gate held")
+    SUMMARY["bert_large ps async"] = {
+        "d0": {"ms": d0["ms"], "peak_mem": d0["peak_mem"]},
+        **{arm: {"ms": [r["ms"] for r in res],
+                 "peak_mem": [r["peak_mem"] for r in res],
+                 "server_peak_rss": stats["peak_rss_bytes"],
+                 "store_worst": check[2]}
+           for arm, (res, stats, check, _) in arms.items()}}
+    return (d0["launches"],) + tuple(
+        {k: res[0]["launches"][k] + res[1]["launches"][k]
+         for k in res[0]["launches"]} for res, *_ in arms.values())
+
+
+PHASE_S = {}
+
+
+def _timed(name, fn, *args):
+    """``fn(*args)``, its seconds logged and kept in ``PHASE_S``."""
+    t = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_S[name] = round(time.perf_counter() - t, 1)
+        log(f"[phase] {name}: {PHASE_S[name]} s")
+
+
+def _remote_phases(paths):
+    """The phases over ``launch --server``: int8 over TCP at world 1, the
+    world-2 int8 arms, the bounded-staleness arms, async PS."""
+    paths["bert_large_ps_int8_tcp"] = _timed("bert_large_ps_int8_tcp (cut)",
+                                             train_bert_ps_tcp)
+    paths["bert_large_ps_int8_world2"], \
+        paths["bert_large_ps_int8_world2_sharded"] = _timed(
+            "bert_large_ps_int8_world2 (cut)", train_bert_ps_world2)
+    (paths["bert_large_ps_lag_c0"], paths["bert_large_ps_lag_c1"],
+     paths["bert_large_ps_lag_c2"]) = _timed("bert_large_ps_lag (cut)",
+                                             train_bert_ps_lag)
+    (paths["bert_large_ps_async_d0"], paths["bert_large_ps_async_d1"],
+     paths["bert_large_ps_async_d2"]) = _timed("bert_large_ps_async",
+                                               train_bert_ps_async)
+
+
+def remote_ps_main(only_async=False) -> int:
+    """``--remote-ps``: the toolchain, then only phase 4's remote PS runs;
+    ``--async-ps``: only ``bert_large_ps_async`` of them."""
     t = time.perf_counter()
     toolchain()
-    paths = {"bert_large_ps_int8_tcp": train_bert_ps_tcp()}
-    paths["bert_large_ps_int8_world2"], \
-        paths["bert_large_ps_int8_world2_sharded"] = train_bert_ps_world2()
-    (paths["bert_large_ps_lag_c0"], paths["bert_large_ps_lag_c1"],
-     paths["bert_large_ps_lag_c2"]) = train_bert_ps_lag()
+    paths = {}
+    if only_async:
+        (paths["bert_large_ps_async_d0"], paths["bert_large_ps_async_d1"],
+         paths["bert_large_ps_async_d2"]) = _timed("bert_large_ps_async",
+                                                   train_bert_ps_async,
+                                                   ASYNC_SOAK)
+    else:
+        _remote_phases(paths)
+    log(f"phase seconds {json.dumps(PHASE_S)}")
     log(f"remote PS in {time.perf_counter() - t:.1f} s")
     print(json.dumps({"remote_ps": {
         "launches": {p: {k: v for k, v in c.items() if v and ":" not in k}
@@ -6657,8 +7419,12 @@ def main() -> int:
         return remote_ps_worker(int(args[1]), args[2], args[3], *args[4:5])
     if args[:1] == ["--lag-ps-worker"]:
         return lag_ps_worker(int(args[1]), args[2])
+    if args[:1] == ["--async-ps-worker"]:
+        return async_ps_worker(int(args[1]), args[2], int(args[3]))
     if args == ["--remote-ps"]:
         return remote_ps_main()
+    if args == ["--async-ps"]:
+        return remote_ps_main(only_async=True)
     if args[:1] == ["--ps-routes"]:
         toolchain()
         return ps_routes(tuple(args[1:]) or ("int8", "fp8_e4m3"))
@@ -6739,27 +7505,35 @@ def main() -> int:
     paths["gpt2_medium_32k"], paths["gpt2_medium_32k_full_head"] = \
         train_gpt2_long()
     step2_misses = []
-    for codec in ("int8", "fp8_e4m3"):
-        paths[f"bert_large_ps_{codec}"], \
-            paths[f"bert_large_ps_{codec}_monolithic"] = \
-            train_bert_ps(codec, bert_losses, step2_misses)
-    paths["bert_large_ps_int8_accum2"] = train_bert_ps_accum(bert_losses)
-    paths["bert_large_ps_onebit"] = train_bert_ps_onebit(bert_losses)
+    cut_losses = _timed("bert_large dense cut", _dense_losses, CUT_LAYERS)
+    paths["bert_large_ps_int8"], paths["bert_large_ps_int8_monolithic"] = \
+        _timed("bert_large_ps_int8", train_bert_ps, "int8", bert_losses,
+               step2_misses)
+    paths["bert_large_ps_fp8_e4m3"], \
+        paths["bert_large_ps_fp8_e4m3_monolithic"] = _timed(
+            "bert_large_ps_fp8_e4m3 (cut)", train_bert_ps, "fp8_e4m3",
+            cut_losses, step2_misses, CUT_LAYERS)
+    paths["bert_large_ps_int8_accum2"] = _timed(
+        "bert_large_ps_int8_accum2", train_bert_ps_accum, bert_losses)
+    paths["bert_large_ps_onebit"] = _timed(
+        "bert_large_ps_onebit", train_bert_ps_onebit, bert_losses)
     paths["bert_large_ps_auto_live"], paths["bert_large_ps_auto_injected"] = \
-        train_bert_ps_auto(bert_losses)
-    paths["bert_large_ps_watchdog"] = train_bert_ps_watchdog(bert_losses)
-    paths["bert_large_ps_int8_tcp"] = train_bert_ps_tcp()
-    paths["bert_large_ps_int8_world2"], \
-        paths["bert_large_ps_int8_world2_sharded"] = train_bert_ps_world2()
-    (paths["bert_large_ps_lag_c0"], paths["bert_large_ps_lag_c1"],
-     paths["bert_large_ps_lag_c2"]) = train_bert_ps_lag()
-    paths["bert_large_plugin"] = train_bert_plugin(bert_losses)
-    for codec in ("int8", "fp8_e4m3"):
-        paths[f"bert_large_pushpull_{codec.split('_')[0]}"] = \
-            train_bert_pushpull(codec, bert_losses, step2_misses)
+        _timed("bert_large_ps_auto (cut)", train_bert_ps_auto, cut_losses)
+    paths["bert_large_ps_watchdog"] = _timed(
+        "bert_large_ps_watchdog (cut)", train_bert_ps_watchdog, cut_losses)
+    _remote_phases(paths)
+    paths["bert_large_plugin"] = _timed("bert_large_plugin",
+                                        train_bert_plugin, bert_losses)
+    paths["bert_large_pushpull_int8"] = _timed(
+        "bert_large_pushpull_int8", train_bert_pushpull, "int8", bert_losses,
+        step2_misses)
+    paths["bert_large_pushpull_fp8"] = _timed(
+        "bert_large_pushpull_fp8 (cut)", train_bert_pushpull, "fp8_e4m3",
+        cut_losses, step2_misses, CUT_LAYERS)
     if step2_misses:
         raise AssertionError(f"step-2 loss beyond {PS_STEP2_TOL} of the dense "
                              f"run's: {step2_misses}")
+    log(f"phase seconds {json.dumps(PHASE_S)}")
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
 
     card = card_line()

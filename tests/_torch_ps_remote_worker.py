@@ -35,6 +35,15 @@ worker 0 pulled its whole round 2, which the server therefore seals
 without worker 1; worker 1's round 2 then late-folds into round 3. Saves
 the losses, the parameters' bytes and the verdicts it counted.
 
+MODE "async": async PS at world 2 (``BPS_ENABLE_ASYNC=1``, an async
+server; ``BPS_ASYNC_WIRE_DTYPE`` as the caller set it): the port's trainer,
+STEPS steps, the two workers' pushes in a scripted order kept by files
+beside OUT: worker 0's step 1, worker 1's step 1, worker 0's step 2, ...
+each worker pushing a step's deltas only once the other has pushed its
+previous turn's. Saves the keys, its initial weights a key and the host
+copy of every delta it pushed (the dtype's name and the bytes), a step at
+a time.
+
 MODE "plugin": the assertions of ``tests/_ps_worker.py`` on the port's API
 (``push_pull`` averages to 2.5 and sums to 10.0; async handles synchronized
 in a divergent order), through the top-level API and the torch plugin,
@@ -167,6 +176,52 @@ def run_lag(wid, addr, out, inputs):
     torch.save(res, out)
 
 
+def run_async(wid, addr, out, inputs):
+    import torch
+    torch.set_num_threads(1)
+    torch.set_float32_matmul_precision("highest")
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.common import bf16
+    from byteps_tpu_torch.models import bert as tbert
+    from byteps_tpu_torch.optim import adamw
+    from byteps_tpu_torch.training import DistributedTrainer
+    os.environ.update(BPS_ENABLE_ASYNC="1", BPS_SERVER_ADDRS=addr)
+    bps.init(device="cpu")
+    model = tbert.Transformer(tbert.bert_config(dtype="float32", **WIDTH))
+    model.load_state_dict(torch.load(inputs))
+    tt = DistributedTrainer(
+        lambda m, b: tbert.mlm_loss(m, b, max_predictions=MAX_PRED),
+        model, adamw(model.parameters(), LR, eps=EPS), device="cpu")
+    w = tt._async_worker
+    init = [p.detach().numpy().reshape(-1).copy() for _, p in tt._ps_params]
+    nkeys = len(w.keys)
+    base = str(out)[:-len(f"{wid}.out")]
+    be = w.backend
+    real_push = be.push
+    pushed = []               # per step: (dtype name, bytes) a key
+
+    def push(key, data):
+        n = sum(len(s) for s in pushed)
+        turn = 2 * (n // nkeys) + wid
+        if n % nkeys == 0:
+            if turn:
+                _wait_file(f"{base}turn.{turn - 1}")
+            pushed.append([])
+        real_push(key, data)
+        pushed[-1].append((bf16.dtype_name(data),
+                           np.ascontiguousarray(data).tobytes()))
+        if len(pushed[-1]) == nkeys:
+            Path(f"{base}turn.{turn}").touch()
+
+    be.push = push
+    losses = [tt.step(_batch(wid, i)).item() for i in range(STEPS)]
+    res = {"losses": losses, "keys": list(w.keys), "init": init,
+           "pushed": pushed}
+    tt.close()
+    bps.shutdown()
+    torch.save(res, out)
+
+
 def run_jax(wid, addrs, out, inputs):
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -277,6 +332,8 @@ def main():
         run_jax(wid, addrs, out, inputs)
     elif mode == "lag":
         run_lag(wid, addrs, out, inputs)
+    elif mode == "async":
+        run_async(wid, addrs, out, inputs)
     else:
         run_plugin(wid, addrs, out)
     print("WORKER_OK", flush=True)

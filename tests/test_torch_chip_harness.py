@@ -1,0 +1,252 @@
+"""Repairs of ``chip_smoke.py``'s gates, held on the CPU.
+
+The push_pull speed gate of ``bert_large_pushpull_int8``: the reading of
+``get_pushpull_speed()`` (``telemetry.PushPullSpeed``, a 10 s window) is
+held within x``SPEED_FACTOR`` of a model of that window. Its first model
+counted whole steps by the dispatch of their first exchange, exact only
+while every counted step fits in the window; with three steps over 11.5 s
+(one of them 5.06 s), a step whose exchanges were dispatched across the
+window's edge is half in the telemetry's window and wholly out of the
+model's, and the gate failed a sound reading (313.6 MB/s against a
+modelled 424.9). ``chip_smoke.window_mbps`` models it per exchange, each
+by its own start and bytes, as the telemetry counts it: fed such a run's
+dispatch times it agrees with the telemetry, where the old model does
+not.
+"""
+
+import time
+import types
+
+import numpy as np
+import pytest
+
+import chip_smoke
+from byteps_tpu_torch import telemetry
+
+N_EXCH, BYTES = 391, 1_335_967_744 // 391    # BERT-large's gradients
+
+
+def _run_like_e():
+    """Three steps of 391 exchanges each: (start, done, bytes) of every
+    exchange, and when each step's last synchronize returned. Each step's
+    dispatch loop takes 2 s; step 1 ends at 5.06 s, step 3 at 11.5 s, so
+    step 1's dispatch loop straddles the window's edge at the last
+    reading."""
+    steps = [(1.2, 3.2, 5.06), (6.0, 8.0, 8.6), (9.2, 11.2, 11.5)]
+    exchanges, ends = [], []
+    for first, last, end in steps:
+        starts = np.linspace(first, last, N_EXCH)
+        dones = np.linspace(last + 0.05, end, N_EXCH)
+        exchanges += [(float(a), float(b), BYTES)
+                      for a, b in zip(starts, dones)]
+        ends.append(end)
+    return exchanges, ends
+
+
+def _telemetry_readings(exchanges, ends, monkeypatch):
+    clock = {"now": 0.0}
+    monkeypatch.setattr(telemetry, "time",
+                        types.SimpleNamespace(time=lambda: clock["now"]))
+    speed = telemetry.PushPullSpeed()
+    out, prev = [], 0.0
+    for end in ends:
+        for start, done, n in exchanges:
+            if prev < done <= end:          # this step's synchronizes
+                clock["now"] = done
+                speed.record(n, done - start)
+        clock["now"] = prev = end
+        out.append(speed.mbps())
+    return out
+
+
+def _old_model(exchanges, ends, per_step):
+    """The first model: whole steps by their first dispatch."""
+    firsts = [exchanges[i * per_step][0] for i in range(len(ends))]
+    out = []
+    for k, now in enumerate(ends):
+        inside = [d for d in firsts[:k + 1] if now - d <= 10.0]
+        out.append(len(inside) * per_step * BYTES / (now - min(inside))
+                   / 1e6)
+    return out
+
+
+def test_the_window_is_modelled_per_exchange(monkeypatch):
+    exchanges, ends = _run_like_e()
+    got = _telemetry_readings(exchanges, ends, monkeypatch)
+    new = [chip_smoke.window_mbps(exchanges, now)[0] for now in ends]
+    old = _old_model(exchanges, ends, N_EXCH)
+    f = chip_smoke.SPEED_FACTOR
+    assert f == 1.25
+    for g, w in zip(got, new):
+        assert 1 / f <= g / w <= f
+        assert g == pytest.approx(w, rel=1e-9)
+    # the last reading: part of step 1 is still in the telemetry's window
+    assert chip_smoke.window_mbps(exchanges, ends[-1])[1] < 3 * N_EXCH
+    assert not all(1 / f <= g / w <= f for g, w in zip(got, old))
+    assert got[-1] / old[-1] < 1 / f
+
+
+# -- the full run's time limit: paths cut in depth, every gate kept ----------
+
+def test_cut_paths_keep_their_width_and_recompute_their_counts():
+    """The cut paths (``CUT_LAYERS`` of BERT-large's 24 layers) keep its
+    full width, and their wanted launches follow the depth: 2 forwards
+    and 1 fused backward a layer a step (whole-block remat), at d 64. The
+    async phase's config is the full depth."""
+    full = chip_smoke._bert_setup()[0]
+    cut = chip_smoke._bert_setup(layers=chip_smoke.CUT_LAYERS)[0]
+    assert (full.layers, cut.layers) == (24, chip_smoke.CUT_LAYERS) \
+        and cut.layers < 24
+    for f in ("hidden", "heads", "mlp_dim", "vocab_size", "max_seq",
+              "dtype", "remat"):
+        assert getattr(cut, f) == getattr(full, f), f
+    for cfg in (full, cut):
+        want = chip_smoke._attention_launches(cfg, ("flash_bwd_fused",))(None)
+        n = chip_smoke.STEPS * cfg.layers
+        assert want["flash_fwd"] == want["flash_fwd:d64"] == 2 * n
+        assert want["flash_bwd_fused"] == want["flash_bwd_fused:d64"] == n
+        assert want["int8_quantize"] == want["fp8_sr_quantize"] == 0
+
+
+def test_timed_keeps_each_phases_seconds():
+    chip_smoke.PHASE_S.clear()
+    assert chip_smoke._timed("p", lambda a, b: a + b, 2, 3) == 5
+    with pytest.raises(ZeroDivisionError):
+        chip_smoke._timed("q", lambda: 1 / 0)
+    assert set(chip_smoke.PHASE_S) == {"p", "q"}
+    chip_smoke.PHASE_S.clear()
+
+
+# -- the async phase's store gate ---------------------------------------------
+
+def _folds(rng, n, k):
+    init = (rng.randn(n) * 10.0 ** rng.randint(-3, 3, n)).astype(np.float32)
+    deltas = [(rng.randn(n) * 10.0 ** rng.randint(-8, 0, n)).astype(
+        np.float32) for _ in range(k)]
+    return init, deltas
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_the_async_store_gate_holds_any_fold_order(seed):
+    """Two workers' folds have no defined order: the store, folded in fp32
+    in any order, is within ``async_store_check``'s bound of the float64
+    sum; a store that missed one delta, or folded one twice, is not."""
+    rng = np.random.RandomState(seed)
+    init, deltas = _folds(rng, 50_000, 6)
+    # near-cancelling deltas: the running value grows past the end's
+    deltas[0] += np.float32(1e3)
+    deltas[1] -= np.float32(1e3)
+    for order in (range(6), rng.permutation(6), rng.permutation(6)):
+        store = init.copy()
+        for i in order:
+            store = store + deltas[i]
+        over, worst = chip_smoke.async_store_check(init, deltas, store, 6)
+        assert over == 0 and worst <= 1.0
+    for bad in (store - deltas[3], store + deltas[3]):
+        over, _ = chip_smoke.async_store_check(init, deltas, bad, 6)
+        assert over > 0
+
+
+def test_the_async_store_gate_on_bf16_deltas():
+    """(d2): the deltas as pushed, bf16 bits widened exactly."""
+    from byteps_tpu_torch.common import bf16
+    rng = np.random.RandomState(9)
+    init, deltas = _folds(rng, 20_000, 6)
+    wide = [bf16.widen(bf16.narrow(d)) for d in deltas]
+    store = init.copy()
+    for d in wide[::-1]:
+        store = store + d
+    assert chip_smoke.async_store_check(init, wide, store, 6)[0] == 0
+    # against the unrounded deltas the bf16 store is off
+    assert chip_smoke.async_store_check(init, deltas, store, 6)[0] > 0
+
+
+# -- the async phase: the pulled weights installed, the other's deltas in them
+
+def test_the_install_gate_reads_every_parameter_bit_for_bit():
+    """``async_installed`` counts the parameters that are not the last
+    pull's host buffers: a trainer that pushed its deltas but kept its
+    own weights fails it, by one ulp or by the sign of a zero."""
+    import torch
+    rng = np.random.RandomState(3)
+    hosts = [torch.from_numpy(rng.randn(n).astype(np.float32))
+             for n in (5, 12, 1)]
+    hosts[2][0] = 0.0
+    params = [torch.nn.Parameter(h.clone().reshape(-1, 1)) for h in hosts]
+    trainer = types.SimpleNamespace(
+        _ps_params=[(str(i), p) for i, p in enumerate(params)],
+        _pulled=(hosts, [h.numpy() for h in hosts]))
+    assert chip_smoke.async_installed(trainer) == 0
+    with torch.no_grad():
+        params[1][4] = torch.from_numpy(np.nextafter(
+            hosts[1][4:5].numpy(), np.float32(np.inf)))
+        params[2][0] = -0.0
+    assert chip_smoke.async_installed(trainer) == 2
+
+
+@pytest.mark.parametrize("wire", ["float32", "bfloat16"])
+def test_the_own_only_gate_on_an_async_store(wire):
+    """On the port's async store: ``PullRounds`` reads each key's round
+    before the pull, and ``async_own_only`` finds the keys whose pull
+    began after another worker's fold; of them, pulled weights that are
+    init plus this worker's own deltas alone (a pull that missed the
+    other's delta) are counted."""
+    from byteps_tpu_torch.common import bf16
+    from byteps_tpu_torch.server.engine import HostPSBackend
+    rng = np.random.RandomState(4)
+    init = [rng.randn(n).astype(np.float32) for n in (300, 40)]
+    be = HostPSBackend(num_workers=2, async_mode=True)
+    try:
+        for k, a in enumerate(init):
+            be.init_key(k, a.nbytes, "float32", init=a)
+        log = chip_smoke.DeltaLog(be)
+        rounds = chip_smoke.PullRounds(be)
+        for _ in range(3):
+            for k, a in enumerate(init):
+                d = (rng.randn(a.size) * 1e-3).astype(np.float32)
+                be.push(k, d if wire == "float32" else bf16.narrow(d))
+        log.stop()
+        be.push(0, np.full(300, 1e-2, np.float32))    # the other worker
+        deadline = time.time() + 30         # the engine's folds
+        while (be.round(0), be.round(1)) != (4, 3):
+            assert time.time() < deadline, (be.round(0), be.round(1))
+            time.sleep(0.001)
+        hosts = [np.empty_like(a) for a in init]
+        rounds.on = True
+        for k, h in enumerate(hosts):
+            be.pull(k, h)
+        rounds.stop()
+    finally:
+        be.close()
+    assert rounds.seen == {0: 4, 1: 3}
+    assert chip_smoke.async_own_only(init, log.pushed, rounds.seen, [0, 1],
+                                     hosts, 3) == (1, 0)
+    own = init[0]
+    for d in log.pushed[0]:
+        own = own + bf16.cast(d, "float32")
+    assert chip_smoke.async_own_only(init, log.pushed, rounds.seen, [0, 1],
+                                     [own, hosts[1]], 3) == (1, 1)
+
+
+def test_the_servers_memory_by_mapping():
+    """``memory_map`` sorts ``/proc/<pid>/smaps``' resident sets: the brk
+    heap, anonymous mappings aligned to glibc's 64 MiB arena heaps, other
+    anonymous mappings, files; ``rss_at`` is the largest sample up to
+    each step's end."""
+    text = "\n".join([
+        "55d0c0a00000-55d0c0a21000 rw-p 00000000 00:00 0   [heap]",
+        "Size:  132 kB", "Rss:   100 kB", "VmFlags: rd wr mr",
+        "7f0004000000-7f0008000000 rw-p 00000000 00:00 0 ",
+        "Rss:   2048 kB",
+        "7f0008021000-7f000c000000 rw-p 00000000 00:00 0 ",
+        "Rss:   30 kB",
+        "7f1000000000-7f1000001000 r-xp 00000000 08:01 42   /usr/lib/libc.so.6",
+        "Rss:   4 kB",
+        "7ffd00000000-7ffd00021000 rw-p 00000000 00:00 0   [stack]",
+        "Rss:   8 kB"])
+    assert chip_smoke.memory_map(text=text) == {
+        "brk": 100 << 10, "arenas": 2048 << 10, "anon": 38 << 10,
+        "files": 4 << 10}
+    assert chip_smoke.memory_map(pid=-1) is None
+    samples = [(1.0, 5), (2.0, 9), (3.0, 7), (4.0, 8)]
+    assert chip_smoke.rss_at(samples, [0.5, 2.5, 3.5, 9.0]) == [0, 9, 9, 9]

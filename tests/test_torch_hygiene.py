@@ -197,20 +197,38 @@ def test_trainer_refuses_unported_options(kw, match, monkeypatch):
 
 @pytest.mark.parametrize("env", ["BPS_ENABLE_PS", "BPS_ENABLE_ASYNC"])
 def test_trainer_refuses_the_ps_paths(env, monkeypatch):
-    """The async path is not ported; the sync PS path is, with the
-    in-process server and with standalone servers (the remote transport),
-    but not the managed server plane over them (``BPS_PLANE_REPLICAS``)."""
+    """The sync PS path is ported, with the in-process server and with
+    standalone servers (the remote transport), but not the managed server
+    plane over them (``BPS_PLANE_REPLICAS``). The async path is ported (it
+    builds its worker), but not under ``BPS_MAX_LAG`` > 1, which the JAX
+    package's async step never reads."""
+    import byteps_tpu_torch as bps
     from byteps_tpu_torch.models import bert
     from byteps_tpu_torch.optim import adamw
     from byteps_tpu_torch.training import DistributedTrainer
     monkeypatch.setenv(env, "1")
+    model = bert.Transformer(bert.bert_tiny())
+
+    def build():
+        return DistributedTrainer(lambda m, b: 0, model,
+                                  adamw(model.parameters(), 1e-3),
+                                  device="cpu")
+
     if env == "BPS_ENABLE_PS":
         monkeypatch.setenv("BPS_SERVER_ADDRS", "localhost:1,localhost:2")
         monkeypatch.setenv("BPS_PLANE_REPLICAS", "1")
-    model = bert.Transformer(bert.bert_tiny())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DistributedTrainer(lambda m, b: 0, model,
-                           adamw(model.parameters(), 1e-3), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build()
+        return
+    monkeypatch.setenv("BPS_ENABLE_PS", "1")
+    bps.init(device="cpu")
+    try:
+        assert build()._async_worker is not None
+        monkeypatch.setenv("BPS_MAX_LAG", "2")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build()
+    finally:
+        bps.shutdown()
 
 
 @pytest.mark.parametrize("kw", [{"tp_axis": "model"},
@@ -327,6 +345,12 @@ ACTED_ON = {
     # module; no refusal is left for either)
     "BPS_MAX_LAG": ("server/admission.py",),
     "BPS_LAG_GRACE_MS": ("server/admission.py",),
+    # async PS: the Config field, which the launcher's server role (no
+    # Config there) reads by Config's rule, and the two knobs the JAX
+    # package reads from os.environ only
+    "BPS_ENABLE_ASYNC": ("common/config.py", "launcher/launch.py"),
+    "BPS_ASYNC_WIRE_DTYPE": ("server/ps_mode.py",),
+    "BPS_ASYNC_PULL_DTYPE": ("server/ps_mode.py",),
 }
 
 
@@ -652,39 +676,50 @@ def test_sharded_update_leftovers_raise_citing_their_item(call):
         calls[call]()
 
 
-# -- async PS stays refused after bounded staleness came over
+# -- async PS, refused at three sites until it was ported
 
 @pytest.mark.parametrize("site", ["init", "trainer", "launcher"])
-def test_async_ps_still_raises_citing_its_item(site, monkeypatch):
-    """``BPS_ENABLE_ASYNC=1`` raises at each of its three sites (``bps.init``,
-    the trainer, the launcher's server role), each naming ROADMAP.md queue
-    1 item 6, while ``BPS_MAX_LAG`` > 1 no longer raises anywhere."""
+def test_async_ps_constructs_at_each_site(site, monkeypatch):
+    """``BPS_ENABLE_ASYNC=1`` builds the async path at each of the three
+    sites that refused it (``bps.init``, the trainer, the launcher's server
+    role); ``BPS_MAX_LAG`` > 1 raises nowhere but in the async trainer."""
+    import threading
+
     import byteps_tpu_torch as bps
     from byteps_tpu_torch.common import config
+    from byteps_tpu_torch.common.global_state import GlobalState
     from byteps_tpu_torch.launcher import launch
     from byteps_tpu_torch.models import bert
     from byteps_tpu_torch.optim import adamw
+    from byteps_tpu_torch.server import engine
     from byteps_tpu_torch.training import DistributedTrainer
     for name in ("BPS_ENABLE_PS", "BYTEPS_ENABLE_PS", "BPS_SERVER_ADDRS",
                  "BPS_NUM_WORKER", "DMLC_NUM_WORKER"):
         monkeypatch.delenv(name, raising=False)
-    monkeypatch.setenv("BPS_MAX_LAG", "2")
     assert "BPS_MAX_LAG" not in {e for e, *_ in config.REFUSED.values()}
     monkeypatch.setenv("BPS_ENABLE_ASYNC", "1")
-    match = r"BPS_ENABLE_ASYNC.*ROADMAP\.md.*queue 1, item 6"
     if site == "launcher":
-        with pytest.raises(NotImplementedError, match=match):
-            launch.run_server()
+        made, real = [], engine.PSServer
+        monkeypatch.setattr(engine, "PSServer", lambda *a, **kw: made.append(
+            real(*a, **kw)) or made[-1])
+        stop = threading.Event()
+        stop.set()                  # serve, then stop at the first wake-up
+        th = threading.Thread(target=launch.run_server, args=(
+            {"BPS_ENABLE_ASYNC": "1", "BPS_SERVER_PORT": "0"}, stop))
+        th.start()
+        th.join(60)
+        assert not th.is_alive() and made[0].async_mode is True
         return
-    if site == "init":
-        monkeypatch.setenv("BPS_ENABLE_PS", "1")
-        try:
-            with pytest.raises(NotImplementedError, match=match):
-                bps.init(device="cpu")
-        finally:
-            bps.shutdown()
-        return
-    model = bert.Transformer(bert.bert_tiny())
-    with pytest.raises(NotImplementedError, match=match):
-        DistributedTrainer(lambda m, b: 0, model,
-                           adamw(model.parameters(), 1e-3), device="cpu")
+    monkeypatch.setenv("BPS_ENABLE_PS", "1")
+    bps.init(device="cpu")
+    try:
+        gs = GlobalState.get()
+        assert gs.ps_backend.async_mode and gs.engine.ps_factory is None
+        if site == "trainer":
+            model = bert.Transformer(bert.bert_tiny())
+            tr = DistributedTrainer(lambda m, b: 0, model,
+                                    adamw(model.parameters(), 1e-3),
+                                    device="cpu")
+            assert tr._async_worker is not None and tr.ps_exchange is None
+    finally:
+        bps.shutdown()
