@@ -166,9 +166,43 @@ def push_pull_async(tree, average: bool = True,
 
 def push_pull_rowsparse(indices, rows, num_rows: int, average: bool = False,
                         name: str = "rowsparse"):
-    """Row-sparse push_pull (the JAX package's rides its PS path)."""
-    raise NotImplementedError(
-        f"row-sparse push_pull {_NOT_PORTED}, queue 6)")
+    """Row-sparse push_pull (``byteps_tpu/__init__.py:228-261``): this
+    worker pushes only the touched (row index, row) pairs of a ``[num_rows,
+    cols]`` table and gets back the dense table summed over the PS workers
+    (``average``: divided by them), a tensor on ``rows``' device.
+    ``indices``: any integer dtype, ``[n]``; ``rows``: ``[n, cols]`` on any
+    device, moved to the host once. Duplicate indices within a push sum, in
+    index order (scatter-add). The reference reserved this request type
+    (kRowSparsePushPull, common.h:267-271) but shipped no handler; here it
+    rides the sync PS path (``BPS_ENABLE_PS=1``), whose server scatters
+    each worker's rows into a dense table and sums. Distinct tables need
+    distinct names; each round is pulled at its own number."""
+    gs = GlobalState.get()
+    eng = gs.engine
+    if eng.ps_factory is None:
+        if gs.ps_backend is not None:
+            raise NotImplementedError(
+                "row-sparse push_pull needs SYNC PS mode — drop "
+                "BPS_ENABLE_ASYNC (the async store folds weight deltas, "
+                "not per-round gradient merges)")
+        raise NotImplementedError(
+            "row-sparse push_pull rides the PS path — run with "
+            "BPS_ENABLE_PS=1 (sync mode); the collective path has no "
+            "sparse win (an all-reduce is dense)")
+    if rows.dtype == _torch.bfloat16:
+        raise TypeError("push_pull_rowsparse: bfloat16 rows have no numpy "
+                        "scatter-add on the host; pass float32 rows")
+    rsx = getattr(eng, "_rs_exchange", None)
+    if rsx is None:
+        from .server.ps_mode import RowSparseExchange
+        rsx = eng._rs_exchange = RowSparseExchange(gs.ps_backend,
+                                                   gs.registry)
+    idx = indices.detach().reshape(-1).to("cpu", _torch.int32).numpy()
+    host = rows.detach().to("cpu").contiguous().numpy()
+    out = rsx.exchange(idx, host, num_rows, name)
+    if average and eng.ps_world > 1:
+        out = out / eng.ps_world
+    return _torch.from_numpy(out).to(rows.device)
 
 
 def poll(handle: int) -> bool:

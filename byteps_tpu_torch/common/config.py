@@ -96,6 +96,12 @@ byteps_tpu_torch.launcher.launch --server``) builds no ``Config``: it reads
 ``BPS_SERVER_PORT`` (default 9090), ``BPS_NUM_WORKER``,
 ``BPS_SERVER_ENGINE_THREAD``, ``BPS_SERVER_ENABLE_SCHEDULE`` and
 ``BPS_ENABLE_ASYNC`` itself, as the JAX launcher does.
+``BPS_FUSED_HOMOG`` (default on; off is ``0``, ``off``, ``false`` or
+``no``) is read from ``os.environ`` by ``server/homog.py``
+(``homog_enabled``) at each fused declaration, in a worker's in-process
+server and in a standalone one, as the JAX package reads it: at off the
+summation engine owns the fused keys, whose pushes are decoded into it and
+whose pulls are its merged rounds re-encoded.
 
 The knobs of ``REFUSED`` select behaviour the port does not have yet:
 at their defaults they change nothing, and any other value raises

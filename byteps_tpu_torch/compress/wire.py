@@ -38,16 +38,19 @@ fixed codec decision trace makes compressed training reproducible
 bit-for-bit, and a server re-encoding a merged round serves
 byte-identical payloads to every puller.
 
-The JAX package's engine-side fused decode and pull re-encode
-(``decode_for_store``, ``FusedPullCache``, ``pull_encoded``) are not
-copied: in the port the homogeneous store (``server/homog.py``) owns every
-fused key.
+The engine-side fused route (``BPS_FUSED_HOMOG=0``, or a fused push to a
+key the homogeneous store does not own) shares three recipes with the JAX
+package's: ``decode_for_store`` decodes a push into the engine,
+``pull_encoded`` serves a pull as the merged round re-encoded under
+``sr_seed(key, round)``, and ``FusedPullCache`` keeps the last
+``_CACHE_ROUNDS`` encoded rounds of each key.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Optional
+import threading
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -198,6 +201,20 @@ def encode(cid: int, arr: np.ndarray, div: int = TOPK_DIV,
     raise ValueError(f"unknown fused codec id {cid}")
 
 
+def decode_for_store(payload, meta) -> np.ndarray:
+    """The one decode recipe the server-side push paths share
+    (``HostPSBackend.push_fused``, ``FusedFront.push_fused`` behind the
+    transport's OP_PUSH_F): validate the payload against the key's store
+    meta, ``(nbytes, dtype, ...)`` or None for an undeclared key, and
+    return the dense array in the store's dtype, ready for the engine."""
+    if meta is None:
+        return decode(payload)
+    nbytes, dtype = meta[0], meta[1]
+    return decode(payload,
+                  expect_elems=int(nbytes) // np.dtype(dtype).itemsize,
+                  expect_dtype=dtype)
+
+
 def peek(payload) -> tuple:
     """(codec_id, dtype_name, elems) of a payload's header, validated.
     Raises :class:`CodecError` on anything that is not a well-formed
@@ -320,3 +337,68 @@ def decode(payload, expect_elems: Optional[int] = None,
         raise CodecError(f"unknown codec id {cid}")
     want = np.dtype(expect_dtype) if expect_dtype is not None else dt
     return out.astype(want, copy=False)
+
+
+# how many re-encoded rounds each key keeps: every worker pulls round r
+# before it pushes r+1 (the admission gate), so r+2 cannot complete while
+# r is still wanted; 4 is well past the rounds in flight
+_CACHE_ROUNDS = 4
+
+
+class FusedPullCache:
+    """A backend's cache of encoded merged rounds for the engine-side fused
+    pull. Only a throughput cache: every codec is deterministic, so a miss
+    re-encodes the same bytes; a hit skips the dense copy out of the engine
+    and the encode for every puller after the first."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        # key -> {(round, codec, div): payload}, evicted in insertion order
+        self._cache: Dict[int, Dict[tuple, bytes]] = {}
+
+    def get(self, key: int, rnd: int, cid: int,
+            div: int = TOPK_DIV) -> Optional[bytes]:
+        if rnd == 0:
+            return None          # round 0 is "the latest": never cached
+        with self._lock:
+            return self._cache.get(key, {}).get((rnd, cid, div))
+
+    def put(self, key: int, rnd: int, cid: int, payload: bytes,
+            div: int = TOPK_DIV) -> None:
+        if rnd == 0:
+            return
+        with self._lock:
+            rounds = self._cache.setdefault(key, {})
+            rounds.setdefault((rnd, cid, div), payload)
+            while len(rounds) > _CACHE_ROUNDS:
+                rounds.pop(next(iter(rounds)))
+
+    def drop(self, key: int) -> None:
+        """Forget a key's cached rounds. Called at every (re-)init: a
+        re-initialized store may restart its rounds, and the cache would
+        then serve the previous tenancy's payloads for the recurring round
+        numbers."""
+        with self._lock:
+            self._cache.pop(key, None)
+
+
+def pull_encoded(backend, cache: Optional[FusedPullCache], key: int,
+                 nbytes: int, dtype: str, cid: int, rnd: int,
+                 timeout_ms: int = 30000, div: int = TOPK_DIV) -> bytes:
+    """The one engine-side fused-pull recipe (``HostPSBackend``,
+    ``FusedFront``): a cache hit, else the round-blocked dense pull out of
+    the engine, ``encode`` at the requested codec, cached. ``div`` is the
+    puller's topk divisor and part of the cache key."""
+    if cache is not None:
+        hit = cache.get(key, rnd, cid, div)
+        if hit is not None:
+            return hit
+    dense = np.empty(int(nbytes) // np.dtype(dtype).itemsize,
+                     dtype=np.dtype(dtype))
+    backend.pull(key, dense, round=rnd, timeout_ms=timeout_ms)
+    # the fp8 SR seed pinned to (key, round) at every serve site, so this
+    # re-encode and the homogeneous store's serve the same bytes
+    payload = encode(cid, dense, div=div, seed=sr_seed(key, rnd))
+    if cache is not None:
+        cache.put(key, rnd, cid, payload, div)
+    return payload

@@ -14,10 +14,14 @@ as the JAX launcher does, and never builds a worker ``Config``. It prints
 ``server up on :<port>`` to stderr once it accepts, so a caller that asked
 for port 0 learns the port, and runs until SIGTERM or SIGINT. When it
 stops it prints one line ``server stats <json>``: its ``lag/*`` counters
-and gauges (bounded staleness; the stats scrape, op 23, is not ported)
-and its peak resident set (``VmHWM``, or where the kernel has none the
-largest resident set its serve loop sampled). The server touches no
-card.
+and gauges (bounded staleness; the stats scrape, op 23, is not ported),
+its fused-plane merges (``server/fused_rounds_homog``, the rounds the
+homogeneous store merged, and ``server/fused_dense_decodes``, the lossy
+fused pushes decoded into the engine: the ``BPS_FUSED_HOMOG=0`` route),
+its row-sparse pushes (``server/rowsparse_pushes``, and their payloads'
+bytes, ``server/rowsparse_push_bytes``) and its peak resident set
+(``VmHWM``, or where the kernel has none the largest resident set its
+serve loop sampled). The server touches no card.
 
 ``BPS_ENABLE_ASYNC`` (or ``BYTEPS_ENABLE_ASYNC``, read by the rule of the
 worker's ``Config``: 1, true, yes or on) makes it an async server (``PSServer(..., async_mode=True)``, as
@@ -119,11 +123,20 @@ def _own_peak_rss(sampled: int, status: str = "/proc/self/status"):
     return sampled, f"sampled every {RSS_SAMPLE_S} s"
 
 
+# the server counters the stop-time line carries beside ``lag/*``
+STATS_COUNTERS = ("server/fused_rounds_homog", "server/fused_dense_decodes",
+                  "server/rowsparse_pushes", "server/rowsparse_push_bytes")
+
+
 def server_stats(sampled_rss: int = 0) -> dict:
-    """This process's ``lag/*`` metrics and its peak resident set."""
+    """This process's ``lag/*`` metrics, ``STATS_COUNTERS`` and its peak
+    resident set."""
     from ..obs.metrics import get_registry
-    snap = get_registry().snapshot()
+    reg = get_registry()
+    snap = reg.snapshot()
     out = {k: v for k, v in snap.items() if k.startswith("lag/")}
+    for name in STATS_COUNTERS:
+        out[name] = reg.counter(name).value
     out["peak_rss_bytes"], out["peak_rss_source"] = \
         _own_peak_rss(sampled_rss)
     return out

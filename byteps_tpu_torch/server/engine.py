@@ -8,9 +8,15 @@ summation engine, ``csrc/host/bps_server.cc``, built at first use by
 drives a set of shards from the worker side, giving the sync exchange its
 PS route: host numpy → key stores placed by hash (``common.naming.place_key``)
 → summation engine → pull. Keys declared ``fused=True`` have their rounds
-owned by the homogeneous fused store (``server/homog.py``), which alone
-takes fused payloads. Keys declared with ``compression=`` kwargs (the
-legacy chains) register a server chain in ``server/compressed.py``: their
+owned by the homogeneous fused store (``server/homog.py``) unless
+``BPS_FUSED_HOMOG`` is off; a fused push to any other key is decoded into
+the engine (``wire.decode_for_store``, counted in
+``server/fused_dense_decodes``) and its fused pull is the engine's merged
+round re-encoded (``wire.pull_encoded``, through a ``FusedPullCache`` that
+every ``init_key`` of the key clears), as
+``byteps_tpu/server/engine.py:499-530, 782-818`` does. Keys declared with
+``compression=`` kwargs (the legacy chains, which never take fused
+payloads) register a server chain in ``server/compressed.py``: their
 pushes arrive compressed and are decompressed into the summation, their
 pulls are the merged round recompressed once (reference:
 server.cc:86-113, 222-252).
@@ -38,7 +44,12 @@ round store (``declare_lag`` / ``push_lag`` / ``pull_lag``, a
 K=1 deployment never allocates it; ``round`` answers from it for a
 managed key).
 
-Not ported yet (ROADMAP.md): key migration and row-sparse pushes.
+``push_rowsparse`` is the row-sparse push (``server/rowsparse.py``): the
+touched rows scattered into a dense table, which the engine sums like any
+push, the table's cols pinned per key at its first push
+(``server/rowsparse_pushes`` counts them).
+
+Not ported yet (ROADMAP.md): key migration.
 """
 
 from __future__ import annotations
@@ -287,6 +298,9 @@ class HostPSBackend:
         # fused=True at init have their rounds owned by this store; lazy,
         # so plain deployments never allocate it
         self._homog = None
+        # the engine-side fused pulls' cache, made at the first such pull
+        self._fused_cache = None
+        self._rs_cols: Dict[int, int] = {}   # row-sparse: pinned cols a key
         from .compressed import CompressedKeyStore
         self.compressed = CompressedKeyStore()
         self._declared: set = set()
@@ -299,6 +313,8 @@ class HostPSBackend:
         self._stale = None
         reg = get_registry()
         self._m_pull_wait = reg.histogram("server/pull_wait_s")
+        self._m_dense_decodes = reg.counter("server/fused_dense_decodes")
+        self._m_rowsparse = reg.counter("server/rowsparse_pushes")
         # the server's backlog, which the auto controller reads
         self._m_queue_depth = reg.gauge("server/engine_queue_depth")
         self._qd_next_sample = 0.0
@@ -328,9 +344,11 @@ class HostPSBackend:
         arrive compressed and are decompressed into that store.
         ``fused=True`` (the exchange's plan-time declaration for
         compression-plane-managed keys) hands the key's rounds to the
-        homogeneous fused store; a re-init resets it (a new tenancy). A key
-        is one or the other: the two codecs' payloads differ."""
-        from .homog import FusedSumStore
+        homogeneous fused store when ``homog_enabled()``; a re-init resets
+        it (a new tenancy) and, either way, drops the key's cached fused
+        pulls. A key is one or the other: the two codecs' payloads
+        differ."""
+        from .homog import FusedSumStore, homog_enabled
         if compression and fused:
             raise ValueError(
                 f"key {key}: declared both with compression kwargs (a legacy "
@@ -338,12 +356,16 @@ class HostPSBackend:
         if compression:
             self.compressed.register(
                 key, compression, nbytes // np.dtype(dtype).itemsize, dtype)
-        if fused:
+        if fused and homog_enabled():
             if self._homog is None:
                 self._homog = FusedSumStore(self.num_workers)
             self._homog.init_key(key, nbytes, dtype, init)
         elif self._homog_managed(key):
             self._homog.drop(key)           # re-declared non-fused
+        # a re-init may restart the key's rounds: cached pulls of the
+        # previous tenancy would alias the recurring round numbers
+        if self._fused_cache is not None:
+            self._fused_cache.drop(key)
         self._shard(key).init_key(key, nbytes, dtype, init)
         self._key_meta.setdefault(key, (int(nbytes), dtype))
         if key not in self._declared:       # re-inits are no-ops server-side
@@ -488,28 +510,52 @@ class HostPSBackend:
         self._m_pull_wait.observe(time.time() - t0)
         return out
 
-    def _fused_store(self, key: int):
+    def _no_chain(self, key: int) -> None:
         if self.compressed.has(key):
             raise KeyError(f"key {key} carries a legacy compression chain: "
                            f"its payloads go through push_bytes/pull_bytes, "
-                           f"never the fused store")
-        if not self._homog_managed(key):
-            raise KeyError(f"key {key} was not declared fused=True: only the "
-                           f"homogeneous fused store takes fused payloads")
-        return self._homog
+                           f"never the fused plane")
 
     def push_fused(self, key: int, payload) -> None:
-        """Fused-plane push: the payload is self-describing (codec header)
-        and buffers in the homogeneous store. A torn or mismatched payload
-        raises ``wire.CodecError`` before any byte reaches the store."""
-        self._fused_store(key).ingest(key, payload)
+        """Fused-plane push: the payload is self-describing (codec header).
+        A key the homogeneous store owns buffers it there; any other is
+        decoded into the engine's dense sum (the lossy decodes counted). A
+        torn or mismatched payload raises ``wire.CodecError`` before any
+        byte reaches either store."""
+        from ..compress import wire
+        self._no_chain(key)
+        if self._homog_managed(key):
+            self._homog.ingest(key, payload)
+            return
+        dense = wire.decode_for_store(payload, self._key_meta.get(key))
+        if wire.lossy(wire.peek(payload)[0]):   # a `none` frame is a view
+            self._m_dense_decodes.inc()         # of its bytes, not a decode
+        self.push(key, dense)
 
     def pull_fused(self, key: int, nbytes: int, dtype: str, codec: int,
                    round: int = 0, timeout_ms: int = 30000,
                    div: Optional[int] = None) -> bytes:
         """Fused-plane pull: the merged round encoded at the codec the
         caller's decision trace pinned for it. Every codec is deterministic,
-        so every puller of (round, codec, div) gets the same bytes."""
+        so every puller of (round, codec, div) gets the same bytes, from the
+        homogeneous store's merged round or the engine's."""
         from ..compress import wire
-        return self._fused_store(key).pull_payload(
-            key, codec, round, timeout_ms, div=div or wire.TOPK_DIV)
+        self._no_chain(key)
+        if self._homog_managed(key):
+            return self._homog.pull_payload(
+                key, codec, round, timeout_ms, div=div or wire.TOPK_DIV)
+        if self._fused_cache is None:
+            self._fused_cache = wire.FusedPullCache()
+        return wire.pull_encoded(self, self._fused_cache, key, nbytes, dtype,
+                                 codec, round, timeout_ms=timeout_ms,
+                                 div=div or wire.TOPK_DIV)
+
+    def push_rowsparse(self, key: int, idx, rows, dense_nbytes: int,
+                       dtype=None) -> None:
+        """Row-sparse push: the touched rows scattered into a dense table on
+        the key's shard, which the engine sums (``server/rowsparse.py``).
+        ``dtype`` defaults to the rows' own."""
+        from .rowsparse import rowsparse_push
+        rowsparse_push(self._shard(key), key, idx, rows, dense_nbytes,
+                       dtype, meta=self._rs_cols)
+        self._m_rowsparse.inc()

@@ -22,13 +22,24 @@ The store takes over the ROUND of every fused-managed key:
     re-encode uses.
 
 Round numbering is shard-local starting at 0, matching the engine
-(``init_key`` on an existing key = a new tenancy = reset). The JAX
-package's ``BPS_FUSED_HOMOG=0`` route, which decodes fused pushes into the
-engine, is not ported: the store always owns fused keys.
+(``init_key`` on an existing key = a new tenancy = reset).
+
+``BPS_FUSED_HOMOG`` (``homog_enabled``, read from ``os.environ`` at each
+fused declaration, as ``byteps_tpu/server/homog.py:63-65`` reads it; off is
+``0``, ``off``, ``false`` or ``no``) selects who owns a key declared
+``fused=True``: this store (the default), or, at off, the summation engine.
+A fused push to a key the store does not own takes the engine-side route
+(``byteps_tpu/server/homog.py:325-395``): ``wire.decode_for_store`` decodes
+it into the engine, counted in ``server/fused_dense_decodes`` when its
+codec is lossy, and a fused pull is the engine's merged round re-encoded by
+``wire.pull_encoded`` through a ``wire.FusedPullCache``. Both routes give
+the same bytes: the store's first arrival copies and the rest add in
+arrival order, as the engine sums.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Dict, Optional
@@ -46,6 +57,13 @@ log = get_logger()
 #: union-sum is not a widen, and re-selection needs the dense merge
 DIRECT_CODECS = (wire.CODEC_FP16, wire.CODEC_INT8, wire.CODEC_FP8_E4M3,
                  wire.CODEC_FP8_E5M2)
+
+
+def homog_enabled() -> bool:
+    """Whether the homogeneous store owns the keys declared fused
+    (``BPS_FUSED_HOMOG``, default on)."""
+    return (os.environ.get("BPS_FUSED_HOMOG", "1") or "1") \
+        .strip().lower() not in ("0", "off", "false", "no")
 
 
 class _Merged:
@@ -308,9 +326,10 @@ class FusedFront:
     ``PSServer`` behind a transport server): managed keys go to a
     ``FusedSumStore``, every other key straight through, the split
     ``HostPSBackend`` makes internally (``byteps_tpu/server/homog.py:325``).
-    As in ``HostPSBackend``, only a key declared ``fused=True`` takes fused
-    payloads: the JAX package's decode-into-the-engine route for the
-    others (``BPS_FUSED_HOMOG=0``) is not ported.
+    A fused push or pull of a key the store does not own (every fused key
+    at ``BPS_FUSED_HOMOG=0``) takes the engine-side route of the module
+    docstring, with this front's ``FusedPullCache``, which every
+    ``init_key`` of the key clears.
 
     A fused re-declaration with the key's size and dtype keeps its rounds
     and buffered arrivals, as the engine keeps a dense key's: every worker
@@ -324,17 +343,21 @@ class FusedFront:
     def __init__(self, backend, num_workers: int) -> None:
         self.backend = backend
         self.store = FusedSumStore(num_workers)
+        self._cache = wire.FusedPullCache()
+        self._meta: Dict[int, tuple] = {}   # key -> (nbytes, dtype)
 
     def init_key(self, key: int, nbytes: int, dtype: str = "float32",
                  init: Optional[np.ndarray] = None,
                  fused: bool = False) -> None:
-        if fused:
+        if fused and homog_enabled():
             st = self.store._keys.get(int(key))
             if (st is None or st.nbytes != int(nbytes)
                     or st.dtype != np.dtype(dtype)):
                 self.store.init_key(key, nbytes, dtype, init)
         elif self.store.managed(key):
             self.store.drop(key)    # re-declared non-fused: hand back
+        self._meta[int(key)] = (int(nbytes), dtype)
+        self._cache.drop(key)
         self.backend.init_key(key, nbytes, dtype, init)
 
     def push(self, key: int, data: np.ndarray) -> None:
@@ -350,21 +373,26 @@ class FusedFront:
         else:
             self.backend.pull(key, out, round=round, timeout_ms=timeout_ms)
 
-    def _managed(self, key: int) -> FusedSumStore:
-        if not self.store.managed(key):
-            raise KeyError(f"key {key} was not declared fused=True: only "
-                           f"the homogeneous fused store takes fused "
-                           f"payloads")
-        return self.store
-
     def push_fused(self, key: int, payload) -> None:
-        self._managed(key).ingest(key, payload)
+        if self.store.managed(key):
+            self.store.ingest(key, payload)
+            return
+        # the engine-side route: decoded into the engine, a lossy decode
+        # counted (a `none` frame is a view of the bytes, not a decode)
+        dense = wire.decode_for_store(payload, self._meta.get(int(key)))
+        if wire.lossy(wire.peek(payload)[0]):
+            self.store.m_decodes.inc()
+        self.backend.push(key, dense)
 
     def pull_fused(self, key: int, nbytes: int, dtype: str, codec: int,
                    round: int = 0, timeout_ms: int = 30000,
                    div: Optional[int] = None) -> bytes:
-        return self._managed(key).pull_payload(
-            key, codec, round, timeout_ms, div=div or wire.TOPK_DIV)
+        if self.store.managed(key):
+            return self.store.pull_payload(
+                key, codec, round, timeout_ms, div=div or wire.TOPK_DIV)
+        return wire.pull_encoded(self.backend, self._cache, key, nbytes,
+                                 dtype, codec, round, timeout_ms=timeout_ms,
+                                 div=div or wire.TOPK_DIV)
 
     def round(self, key: int) -> int:
         if self.store.managed(key):

@@ -77,7 +77,10 @@ a pull would.
 gradient exchange, but each worker's weight delta folded into an async
 store, whose weights it pulls back.
 
-Not ported yet (ROADMAP.md): the row-sparse exchange.
+``RowSparseExchange`` is the sync row-sparse exchange behind
+``bps.push_pull_rowsparse`` (``byteps_tpu/server/ps_mode.py:1509-1552``):
+each worker pushes the touched (index, row) pairs of a table, a key a
+table, and pulls the dense merged table of its round.
 """
 
 from __future__ import annotations
@@ -1341,3 +1344,55 @@ class AsyncPSWorker:
                 torch.cuda.current_stream(dev).synchronize()
         for i, (k, d) in enumerate(zip(self.keys, deltas)):
             self._push(k, host_leaf(self._staging[i] if cuda[i] else d))
+
+
+class RowSparseExchange:
+    """Sync row-sparse exchange: push the touched (idx, rows) of a
+    ``[num_rows, cols]`` table, pull the dense table summed over the
+    workers (``server/rowsparse.py``; the reference reserved the request
+    type, common.h:267-271, without a handler). One PS key a table name.
+    Counts its wire bytes in ``ps/push_bytes`` (the frame's payload) and
+    ``ps/pull_bytes``."""
+
+    def __init__(self, backend, registry: Optional[NameRegistry] = None
+                 ) -> None:
+        self.backend = backend
+        self.registry = registry or NameRegistry()
+        self._inited: Dict[int, tuple] = {}     # key -> (num_rows, cols)
+        self._rounds: Dict[int, int] = {}
+        reg = get_registry()
+        self._m_push_bytes = reg.counter("ps/push_bytes")
+        self._m_pull_bytes = reg.counter("ps/pull_bytes")
+
+    def exchange(self, idx, rows, num_rows: int, name: str) -> np.ndarray:
+        """One sync round; returns the dense ``[num_rows, cols]`` sum over
+        the workers. Distinct tables need distinct names."""
+        idx = np.asarray(idx, np.int32).reshape(-1)
+        rows = np.asarray(rows)
+        if rows.ndim != 2:
+            raise ValueError(f"rows must be [n, cols]; got {rows.shape}")
+        cols, dtype = rows.shape[1], str(rows.dtype)
+        key = self.registry.declare(name).key_for_partition(0)
+        dense_nbytes = num_rows * cols * rows.dtype.itemsize
+        prev = self._inited.get(key)
+        if prev is None:
+            self.backend.init_key(key, dense_nbytes, dtype)
+            self._inited[key] = (num_rows, cols)
+        elif prev != (num_rows, cols):
+            raise ValueError(f"table {name!r} was {prev}, now "
+                             f"{(num_rows, cols)} — shape must be stable")
+        rnd = self._rounds.get(key)
+        if rnd is None:
+            # seeded from the server, as the dense exchange is: a rejoined
+            # worker resumes at the job's round, not 1 (round 1 would be a
+            # stale table at once). Read before the push, which may
+            # complete the round.
+            rnd = int(self.backend.round(key))
+        rnd += 1
+        self._rounds[key] = rnd
+        self.backend.push_rowsparse(key, idx, rows, dense_nbytes, dtype)
+        self._m_push_bytes.inc(4 + idx.nbytes + rows.nbytes)
+        out = np.empty(num_rows * cols, rows.dtype)
+        self.backend.pull(key, out, round=rnd)
+        self._m_pull_bytes.inc(out.nbytes)
+        return out.reshape(num_rows, cols)

@@ -14,7 +14,11 @@ value, ``round`` bit 0 = the fused-plane declaration), 2=PUSH (``round`` =
 the dedup token ``incarnation << 32 | per-key seq``), 3=PULL (``round`` =
 the sync round, response = the merged buffer), 4=CLOSE, 5=INIT_C / 6=PUSH_C
 / 7=PULL_C (the legacy compression chains, ``server/compressed.py``),
-9=ROUND (the key's latest completed round, u64), 17=PUSH_F / 18=PULL_F (the
+8=PUSH_RS (a row-sparse push, ``server/rowsparse.py``: ``nbytes`` = the
+dense table's size, payload = n:u32 | idx:i32[n] | rows[n·cols], ``round``
+= the dedup token; the server scatters it into a dense table that the
+engine sums, pinning each key's cols at its first push), 9=ROUND (the
+key's latest completed round, u64), 17=PUSH_F / 18=PULL_F (the
 fused compression plane: a self-describing codec payload; the pull's
 payload is codec:u8 | topk div:u16le), 21=PARAM_PUT / 22=PARAM_GET /
 24=PARAM_SEQ (the sharded weight update's param mailbox,
@@ -45,7 +49,8 @@ folded; ``RemotePSBackend(async_mode=True)``'s ``push_pull`` pulls the
 store as it is.
 
 ``PSTransportServer`` fronts a ``PSServer`` (wrapped in ``FusedFront``, so
-fused keys have their homogeneous store, and given a ``StaleStore`` of the
+fused keys have their homogeneous store, or at ``BPS_FUSED_HOMOG=0`` the
+engine-side route of ``server/homog.py``, and given a ``StaleStore`` of the
 transport's own at the first lag declaration, whose rounds ``OP_ROUND``
 then answers) or a ``HostPSBackend`` (which keeps both itself) with one
 thread per connection. ``RemotePSBackend`` is the worker-side client with
@@ -88,6 +93,7 @@ _RSP = struct.Struct("!BQ")
 
 OP_INIT, OP_PUSH, OP_PULL, OP_CLOSE = 1, 2, 3, 4
 OP_INIT_C, OP_PUSH_C, OP_PULL_C = 5, 6, 7
+OP_PUSH_RS = 8
 OP_ROUND = 9
 OP_PUSH_F, OP_PULL_F = 17, 18
 OP_PARAM_PUT, OP_PARAM_GET, OP_PARAM_SEQ = 21, 22, 24
@@ -100,7 +106,6 @@ _NOT_PORTED = "is not ported yet (see ROADMAP.md, 'Modules still to port'"
 
 # the JAX package's other ops: op -> (what, ROADMAP queue 1 item)
 UNPORTED_OPS: Dict[int, Tuple[str, int]] = {
-    8: ("row-sparse push OP_PUSH_RS", 6),
     10: ("shared-memory push OP_PUSH_SHM", 6),
     11: ("shared-memory pull OP_PULL_SHM", 6),
     12: ("striped push OP_PUSH_PART", 6),
@@ -138,9 +143,6 @@ SERVER_REFUSED = {
     "BPS_ENABLE_IPC": ("BYTEPS_ENABLE_IPC", "the Unix-socket listener", 6,
                        _OFF),
     "BPS_KEY_LOG": ("PS_KEY_LOG", "the per-key traffic log", 9, _OFF),
-    # the port's fused store always owns fused keys (server/homog.py)
-    "BPS_FUSED_HOMOG": (None, "the engine-side fused route", 6,
-                        ("", "1", "on", "true", "yes")),
 }
 LAUNCHER_REFUSED = {
     "BPS_SERVER_SNAPSHOT": (None, "server snapshots", 6, ("",)),
@@ -264,6 +266,7 @@ def _send_req(sock, op: int, key: int, rnd: int, nbytes: int,
 # ops whose handlers consume the payload before the next frame is read, so
 # a large payload may land in the connection's reused buffer
 _REUSE_SAFE_OPS = frozenset({OP_INIT, OP_PUSH, OP_PUSH_C, OP_PUSH_F,
+                             OP_PUSH_RS,      # scattered into a new table
                              OP_PARAM_PUT,    # the store copies: bytes()
                              OP_PUSH_LAG})    # the store folds (+=)
 
@@ -311,6 +314,7 @@ class PSTransportServer:
         # key -> (nbytes, dtype) from INIT/INIT_C: the wire transcode's
         # store dtype
         self._key_meta: Dict[int, Tuple[int, str]] = {}
+        self._rs_cols: Dict[int, int] = {}   # row-sparse: pinned cols a key
         # (key, incarnation) -> _DedupState: a push retried after a lost
         # ACK carries its token again and is acknowledged, not re-applied;
         # a retry racing the original's apply waits for its outcome
@@ -323,6 +327,8 @@ class PSTransportServer:
         reg = get_registry()
         self._m_requests = reg.counter("transport/requests")
         self._m_merge_wait = reg.histogram("server/merge_wait_s")
+        self._m_rowsparse = reg.counter("server/rowsparse_pushes")
+        self._m_rowsparse_bytes = reg.counter("server/rowsparse_push_bytes")
         # the param mailbox (the sharded weight update), made at its
         # first use: plain deployments never allocate it
         self._params = None
@@ -407,12 +413,14 @@ class PSTransportServer:
                 conn.sendall(_RSP.pack(ST_OK, len(buf)))
                 conn.sendall(buf)
             elif op == OP_PUSH_F:
+                self._no_chain(key)
                 pay = bytes(payload)
                 self._apply_push_once(
                     key, rnd, lambda: self._fb.push_fused(key, pay))
                 conn.sendall(_RSP.pack(ST_OK, 0))
             elif op == OP_PULL_F:
                 from ..compress import wire
+                self._no_chain(key)
                 pb = bytes(payload or b"\0")
                 cid = int(pb[0])
                 div = (struct.unpack("<H", pb[1:3])[0] if len(pb) >= 3
@@ -425,6 +433,16 @@ class PSTransportServer:
                 self._m_merge_wait.observe(time.time() - t0)
                 conn.sendall(_RSP.pack(ST_OK, len(buf)))
                 conn.sendall(buf)
+            elif op == OP_PUSH_RS:
+                from .rowsparse import rowsparse_push, unpack_rows
+                idx, rows = unpack_rows(payload, dtype)
+                if self._apply_push_once(
+                        key, rnd, lambda: rowsparse_push(
+                            self.backend, key, idx, rows, int(nbytes), dtype,
+                            meta=self._rs_cols)):
+                    self._m_rowsparse.inc()
+                    self._m_rowsparse_bytes.inc(len(payload))
+                conn.sendall(_RSP.pack(ST_OK, 0))
             elif op == OP_ROUND:
                 # a transport-owned lag store versions the key's rounds
                 # itself: a rejoining worker must see its counter
@@ -486,6 +504,14 @@ class PSTransportServer:
             else:
                 msg = f"{type(e).__name__}: {e}".encode()[:4096]
                 conn.sendall(_RSP.pack(ST_ERR, len(msg)) + msg)
+
+    def _no_chain(self, key: int) -> None:
+        """A key with a legacy chain on a raw engine refuses fused payloads
+        (a ``HostPSBackend`` checks its own chains)."""
+        if self._fb is not self.backend and self.compressed.has(key):
+            raise KeyError(f"key {key} carries a legacy compression chain: "
+                           f"its payloads go through OP_PUSH_C/OP_PULL_C, "
+                           f"never the fused plane")
 
     def param_store(self):
         """This server's param mailbox (``sharded_update.ParamStore``)."""
@@ -657,7 +683,7 @@ class RemotePSBackend:
     its predecessor's."""
 
     # payload frames of the gradient class under the wire credit
-    _SCHED_GRAD_OPS = frozenset({OP_PUSH, OP_PUSH_C, OP_PUSH_F,
+    _SCHED_GRAD_OPS = frozenset({OP_PUSH, OP_PUSH_C, OP_PUSH_RS, OP_PUSH_F,
                                  OP_PUSH_LAG})
     # the param mailbox's ops, on channels of their own
     _PARAM_OPS = frozenset({OP_PARAM_PUT, OP_PARAM_GET, OP_PARAM_SEQ})
@@ -1011,6 +1037,17 @@ class RemotePSBackend:
             lambda slice_ms: self._rpc(OP_PULL_F, key, round, int(nbytes),
                                        slice_ms, dtype, payload),
             timeout_ms, f"pull_fused({key}) round={round}")
+
+    def push_rowsparse(self, key: int, idx, rows, dense_nbytes: int,
+                       dtype=None) -> None:
+        """Row-sparse push: only the touched rows cross the wire, under a
+        dedup token like any push. ``dtype`` defaults to the rows' own
+        (another would reinterpret their bytes on the server)."""
+        from .rowsparse import pack_rows
+        if dtype is None:
+            dtype = str(np.asarray(rows).dtype)
+        self._rpc(OP_PUSH_RS, key, self._push_token(key), dense_nbytes, 0,
+                  dtype, memoryview(pack_rows(idx, rows)))
 
     def param_put(self, key: int, seq: int, payload) -> None:
         """Publish one param frame (the sharded update); last-wins per

@@ -72,7 +72,8 @@ holds state for the owned groups only. It needs the streamed tail and
 case it cannot serve keeps the full update with one INFO line; both the
 draining and the cross-step tails run it. A failed sharded step raises: it
 may be partial. A live membership change (``reshard``) and sharded
-checkpoints (``restore_sharded``) are not ported yet and raise.
+checkpoints (``restore_sharded``) are not ported yet and raise; the
+full-tree checkpoints of ``checkpoint.py`` take ``state_dict()``.
 
 ``BPS_MAX_LAG=K`` > 1 (bounded staleness; ``BPS_LAG_GRACE_MS`` on the
 server) sends the dense buckets through the server's versioned round
@@ -645,11 +646,14 @@ class DistributedTrainer:
             "item 6)")
 
     def restore_sharded(self, path: str):
-        """A sharded checkpoint's restore: not ported."""
+        """A sharded checkpoint's restore: not ported (the full-tree
+        checkpoints of ``checkpoint.py`` take ``state_dict()``)."""
         raise NotImplementedError(
             "DistributedTrainer.restore_sharded (sharded checkpoints) is "
             "not ported yet (see ROADMAP.md, 'Modules still to port', "
-            "queue 1, item 6)")
+            "queue 1, item 6, 'What the sharded update leaves'); "
+            "checkpoint.save_checkpoint / restore_checkpoint take the full "
+            "tree of state_dict()")
 
     # ------------------------------------------------------------ head
 

@@ -342,12 +342,26 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          (``check_bf16_card``); every parameter the weights its last
          pull wrote, and at world 2 the other worker's deltas in them;
          (d1)'s server RSS at each step's end, printed (``--async-ps``:
-         over 3 + 7 steps). The PS fp8 routes, the fp8 tree API, PS
-         auto, the PS watchdog, int8 over TCP at world 1, the world-2
-         arms (b0)/(b1) and the lag arms (c0)-(c2) run at
-         ``CUT_LAYERS`` of the 24 layers, for the run's time limit, their
-         losses held against a dense run at that depth; every other
-         path runs at full depth. Each PS and remote phase prints its
+         over 3 + 7 steps). (e) ``bert_large_ps_store_routes``, PS int8
+         at world 2 over ``launch --server`` at full depth, two worker
+         processes (``--store-routes-worker``) and a fresh server each
+         arm: (e0) the default, where ``FusedFront``'s homogeneous store
+         owns the fused keys, (e1) ``BPS_FUSED_HOMOG=0``, where the
+         engine does; (e2) row-sparse rounds on the vocabulary table
+         against (e1)'s server (``train_bert_ps_store_routes`` has the
+         gates: one sha1 over both workers and both arms, the servers'
+         fused counters, each table bit for bit a numpy reference, the
+         push bytes exact). (f) ``bert_large_checkpoint``, world 1 dense:
+         ``checkpoint.save_checkpoint`` after step 2, step 3, then a
+         fresh trainer from other weights restored and stepped: its step
+         3 bit for bit the original's (``train_bert_checkpoint``). The PS
+         fp8 routes, the fp8 tree API, PS onebit, PS int8 accumulation,
+         PS auto, the PS watchdog, int8 over TCP at world 1, the world-2
+         arms (b0)/(b1), the lag arms (c0)-(c2) and the async world-2
+         arms (d1)/(d2) run at ``CUT_LAYERS`` of the 24 layers, for the
+         run's time limit, their losses held against a dense run at that
+         depth where they compare losses; every other path runs at full
+         depth. Each PS and remote phase prints its
          seconds (``[phase]``), all of them on one ``phase seconds``
          line.
      Losses must be finite and falling. BERT (both widths), dense GPT-2
@@ -413,19 +427,22 @@ step 3 (``ps_routes``). Prints ``{"ps_routes": ...}``, also written to
 
     python3 chip_smoke.py --remote-ps
     python3 chip_smoke.py --async-ps
+    python3 chip_smoke.py --store-routes
 
-runs only phase 4's remote PS runs (the kernels and the server engine
-built first), or of them only ``bert_large_ps_async`` with ``ASYNC_SOAK``
-more (d1) steps for the server's resident set, and prints
+runs only phase 4's remote PS runs and (e), (f) (the kernels and the
+server engine built first), or of them only ``bert_large_ps_async`` with
+``ASYNC_SOAK`` more (d1) steps for the server's resident set, or only
+``bert_large_ps_store_routes`` and ``bert_large_checkpoint``, and prints
 ``{"remote_ps": ...}``, the card line and the same last line.
 
     python3 chip_smoke.py --remote-ps-worker WID ADDR OUT
     python3 chip_smoke.py --lag-ps-worker WID DIR
     python3 chip_smoke.py --async-ps-worker WID DIR SOAK
+    python3 chip_smoke.py --store-routes-worker WID DIR
 
 is one worker of phase 4's remote PS runs at world 2 (``remote_ps_worker``,
-``lag_ps_worker``, ``async_ps_worker``); the phase starts two of them
-itself.
+``lag_ps_worker``, ``async_ps_worker``, ``store_routes_worker``); the
+phase starts two of them itself.
 
     python3 chip_smoke.py --world 2
 
@@ -3212,16 +3229,17 @@ def check_running_mean():
                              "JAX package's order of operations in numpy")
 
 
-def train_bert_ps_accum(dense_losses):
+def train_bert_ps_accum(dense_losses, layers=None):
     """BERT-large PS int8 with ``backward_passes_per_step=2``: ACCUM_MICRO
     micro-steps on two batches in turn, one exchange a window through the
     streamed tail (the staged head stays off): the flash launches of every
     micro-step, the codec launches of ACCUM_MICRO / ACCUM_K rounds, step
     1's loss the dense run's, and at each window's end the exchanged mean
     of two leaves bit for bit numpy's running mean of the same
-    gradients."""
+    gradients. ``layers``: the cut depth, ``dense_losses`` the dense run's
+    at that depth."""
     from byteps_tpu_torch.models import bert
-    cfg, loss_fn, data, _ = _bert_setup()
+    cfg, loss_fn, data, _ = _bert_setup(layers=layers)
     tag = "bert_large ps int8 accum2"
     check_running_mean()
     other = bert.synth_mlm_batch(np.random.RandomState(1), TRAIN_BATCH,
@@ -3452,15 +3470,16 @@ def replay_chains(ex, grads, kwargs):
     return out
 
 
-def train_bert_ps_onebit(dense_losses):
+def train_bert_ps_onebit(dense_losses, layers=None):
     """BERT-large through the PS path with the README's onebit kwargs in
     the legacy chains (``DistributedTrainer(compression=...)``): each
     bucket at or above the floor copied to the host dense, compressed by
     the worker chain (momentum, error feedback, onebit), decompressed,
     summed and recompressed by the server chain, decompressed by the
     worker. No kernel of the card runs in the exchange: the flash launches
-    are dense BERT's."""
-    cfg, loss_fn, data, fps = _bert_setup()
+    are dense BERT's. ``layers``: the cut depth, ``dense_losses`` the dense
+    run's at that depth."""
+    cfg, loss_fn, data, fps = _bert_setup(layers=layers)
     tag = "bert_large ps onebit"
     want = _attention_launches(cfg, ("flash_bwd_fused",))
     first = _FirstExchange()
@@ -5730,13 +5749,16 @@ def _await_reports(procs, reports, deadline):
     return None
 
 
-def _lag_arms():
-    """The arms of ``bert_large_ps_lag`` in turn: for each a fresh server
-    (``BPS_NUM_WORKER=2``, the arm's grace), served to the same two worker
-    processes (``lag_ps_worker``); returns {arm: (the workers' reports,
+def _arms_over_servers(what, flag, server_env):
+    """The arms of a world-2 phase in turn: for each arm of ``server_env``
+    ({arm: the server's extra environment}) a fresh ``launch --server``
+    (``BPS_NUM_WORKER=2``), served to the same two worker processes
+    (``chip_smoke.py FLAG WID DIR``, which read ``DIR/<arm>.addr`` and
+    write ``DIR/<arm>.w<WID>.json``); returns {arm: (the workers' reports,
     the server's stop-time stats)}. A worker's death or a timeout fails
-    the phase; every process is stopped."""
+    the phase (``bert_large ps WHAT``); every process is stopped."""
     import os
+    import shutil
     import tempfile
     tmp = Path(tempfile.mkdtemp())
     procs, logs, out = [], [], {}
@@ -5746,12 +5768,11 @@ def _lag_arms():
             logf = open(tmp / f"worker{wid}.log", "w")
             logs.append(logf)
             procs.append(subprocess.Popen(
-                [sys.executable, __file__, "--lag-ps-worker", str(wid),
-                 str(tmp)], cwd=ROOT, env=dict(os.environ), stdout=logf,
+                [sys.executable, __file__, flag, str(wid), str(tmp)],
+                cwd=ROOT, env=dict(os.environ), stdout=logf,
                 stderr=subprocess.STDOUT))
-        for arm, (_, grace, _) in LAG_ARMS.items():
-            server, lines, addr = start_ps_server(
-                2, {"BPS_LAG_GRACE_MS": str(grace)})
+        for arm, env in server_env.items():
+            server, lines, addr = start_ps_server(2, env)
             reports = [tmp / f"{arm}.w{w}.json" for w in (0, 1)]
             try:
                 (tmp / f"{arm}.addr.tmp").write_text(addr)
@@ -5785,17 +5806,18 @@ def _lag_arms():
             f.close()
     for wid, p in enumerate(procs):
         text = (tmp / f"worker{wid}.log").read_text()
-        log(f"----- lag PS worker {wid} (exit {p.returncode})")
+        log(f"----- {what} PS worker {wid} (exit {p.returncode})")
         log(text if failed or p.returncode else text[-1500:])
         if failed or p.returncode:
             # the error's end on stderr too, where a caller that keeps
             # only that stream still sees why
-            print(f"----- lag PS worker {wid} (exit {p.returncode}), its "
+            print(f"----- {what} PS worker {wid} (exit {p.returncode}), its "
                   f"log's end:\n{text[-6000:]}", file=sys.stderr, flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
     if failed is None and any(p.returncode for p in procs):
         failed = "a worker exited with an error"
     if failed is not None:
-        raise AssertionError(f"bert_large ps lag: {failed}")
+        raise AssertionError(f"bert_large ps {what}: {failed}")
     return out
 
 
@@ -5828,7 +5850,10 @@ def train_bert_ps_lag():
     gated (two processes share one card). Returns each arm's launches
     summed over its workers."""
     card = card_line()
-    arms = _lag_arms()
+    arms = _arms_over_servers(
+        "lag", "--lag-ps-worker",
+        {arm: {"BPS_LAG_GRACE_MS": str(grace)}
+         for arm, (_, grace, _) in LAG_ARMS.items()})
     for arm, (res, stats) in arms.items():
         tag = f"bert_large ps lag {arm}"
         lag, grace, hold = LAG_ARMS[arm]
@@ -6232,7 +6257,7 @@ def _async_worker_arm(wid, arm, addr, where, soak) -> None:
                       BPS_SHARDED_UPDATE="0")
     bps.init()
     try:
-        cfg, loss_fn, _, _ = _bert_setup()
+        cfg, loss_fn, _, _ = _bert_setup(layers=CUT_LAYERS)
         data = bert.synth_mlm_batch(np.random.RandomState(wid), TRAIN_BATCH,
                                     BERT_SEQ, cfg.vocab_size)
         torch.cuda.reset_peak_memory_stats()
@@ -6435,12 +6460,13 @@ def check_bf16_card():
 
 def train_bert_ps_async(soak=0):
     """Phase ``bert_large_ps_async``: async PS (``BPS_ENABLE_ASYNC=1``),
-    BERT-large dense at full width and depth, batch 8, ``STEPS`` counted
-    steps, three arms: (d0) world 1 in process; (d1) world 2, two worker
-    processes on ``cuda:0`` on their own batches against a fresh ``launch
-    --server`` with ``BPS_ENABLE_ASYNC=1``, the fp32 wire; (d2) the same at
-    ``BPS_ASYNC_WIRE_DTYPE=bfloat16`` (one pair of workers for both, a
-    fresh server each).
+    BERT-large dense at full width, batch 8, ``STEPS`` counted steps,
+    three arms: (d0) world 1 in process, at full depth; (d1) world 2, two
+    worker processes on ``cuda:0`` on their own batches against a fresh
+    ``launch --server`` with ``BPS_ENABLE_ASYNC=1``, the fp32 wire; (d2)
+    the same at ``BPS_ASYNC_WIRE_DTYPE=bfloat16`` (one pair of workers for
+    both, a fresh server each); (d1) and (d2) at ``CUT_LAYERS``, for the
+    full run's time limit.
 
     Gates, every worker of every arm: the launches of BERT's path (144
     flash forwards, 72 fused backwards, all d 64) and no codec kernel;
@@ -6468,15 +6494,16 @@ def train_bert_ps_async(soak=0):
     card = card_line()
     check_bf16_card()
     d0 = _async_d0()
-    cfg, _, _, _ = _bert_setup()
+    cfg, _, _, _ = _bert_setup(layers=CUT_LAYERS)
     init = _async_init(cfg)
+    n_cut = sum(a.size for a in init)
     arms = _async_world2(init, soak)
     del init
-    n = d0["n_params"]
     rows = [("d0", 0, d0)] + [(arm, wid, r) for arm, (res, *_)
                                in arms.items() for wid, r in enumerate(res)]
     for arm, wid, r in rows:
         tag = f"bert_large ps async {arm}"
+        n = d0["n_params"] if arm == "d0" else n_cut
         log(f"[{tag}] worker {wid}: losses {r['losses']}, steps 2-3 "
             f"{r['ms']:.1f} ms a step, ps/push_bytes {r['push_bytes']:.0f} "
             f"and ps/pull_bytes {r['pull_bytes']:.0f} a step ({n} "
@@ -6549,6 +6576,443 @@ def train_bert_ps_async(soak=0):
          for k in res[0]["launches"]} for res, *_ in arms.values())
 
 
+# ------- the PS store's routes at world 2: the engine-side fused route and
+# row-sparse rounds; full-tree checkpoints at world 1
+
+# arm -> the server's BPS_FUSED_HOMOG: (e0) unset, the homogeneous store
+# owns the fused keys; (e1) 0, the summation engine does
+ROUTE_ARMS = {"e0": None, "e1": "0"}
+# (e2): row-sparse rounds on BERT-large's vocabulary table against (e1)'s
+# server, after (e1)'s steps, under one name
+RS_ARM, RS_ROUNDS, RS_NAME = "e1", 3, "bert.embed.tok"
+
+
+def _rs_ids(wid, vocab):
+    """Worker ``wid``'s token ids, its training batch's (duplicates kept)."""
+    from byteps_tpu_torch.models import bert
+    return bert.synth_mlm_batch(np.random.RandomState(wid), TRAIN_BATCH,
+                                BERT_SEQ, vocab)[0].reshape(-1)
+
+
+def _rs_rows(wid, rnd, cols):
+    """Worker ``wid``'s rows of round ``rnd``, drawn on the card from a
+    generator seeded by (worker, round)."""
+    g = torch.Generator(device="cuda").manual_seed(1000 * (wid + 1) + rnd)
+    return torch.randn(TRAIN_BATCH * BERT_SEQ, cols, generator=g,
+                       device="cuda")
+
+
+def rowsparse_rounds(wid, cfg):
+    """(e2) on one worker: ``RS_ROUNDS`` rounds of ``bps.push_pull_rowsparse``
+    on the ``[vocab, hidden]`` fp32 table, ``average`` in the last. Each
+    round's returned table against the numpy reference (both workers'
+    ``np.add.at`` scatters, in push order, summed in fp32, halved in the
+    last round), its sha1, whether it differs from the round before, its
+    device and shape, the round's ``ps/push_bytes`` and ``ps/pull_bytes``
+    and seconds; the kernel launches over the rounds."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.obs.metrics import get_registry
+    from byteps_tpu_torch.server.rowsparse import scatter_dense
+    vocab, cols = cfg.vocab_size, cfg.hidden
+    ids = {w: _rs_ids(w, vocab) for w in (0, 1)}
+    reg = get_registry()
+    ctr = counters()
+    torch.cuda.synchronize()
+    zero_counts(ctr)
+    reg.reset()
+    rounds, prev = [], None
+    for rnd in range(1, RS_ROUNDS + 1):
+        rows = _rs_rows(wid, rnd, cols)
+        idx = torch.from_numpy(ids[wid]).cuda()
+        push0 = reg.counter("ps/push_bytes").value
+        pull0 = reg.counter("ps/pull_bytes").value
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = bps.push_pull_rowsparse(idx, rows, vocab,
+                                      average=rnd == RS_ROUNDS, name=RS_NAME)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        got = out.cpu().numpy()
+        ref = None
+        for w in (0, 1):
+            part = scatter_dense(ids[w], _rs_rows(w, rnd, cols).cpu().numpy(),
+                                 vocab, "float32")
+            ref = part if ref is None else ref + part
+        if rnd == RS_ROUNDS:
+            ref = ref / 2
+        rounds.append({
+            "ok": got.tobytes() == ref.tobytes(),
+            "sha1": hashlib.sha1(got.tobytes()).hexdigest(),
+            "fresh": prev is None or got.tobytes() != prev,
+            "device": out.device.type, "shape": list(out.shape),
+            "dtype": str(out.dtype),
+            "push_bytes": reg.counter("ps/push_bytes").value - push0,
+            "pull_bytes": reg.counter("ps/pull_bytes").value - pull0,
+            "s": secs})
+        prev = got.tobytes()
+        del out, got, ref, rows
+    return {"rounds": rounds, "launches": read_counts(ctr)}
+
+
+def store_routes_worker(wid, where) -> int:
+    """``--store-routes-worker WID DIR``: one of the two worker processes of
+    ``bert_large_ps_store_routes`` on ``cuda:0``, for every arm in turn (one
+    process for both). For each arm it waits for ``DIR/<arm>.addr``, the
+    address of the arm's fresh server, trains BERT-large PS int8 on the
+    default route at full depth from seed 0 on its own batch (seed WID)
+    for ``STEPS`` counted steps, then in ``RS_ARM`` the row-sparse rounds
+    (``rowsparse_rounds``), and writes ``DIR/<arm>.w<WID>.json``."""
+    import gc
+    where = Path(where)
+    for arm in ROUTE_ARMS:
+        _await_file(where / f"{arm}.addr", f"server address for arm {arm}")
+        report = _route_worker_arm(wid, arm,
+                                   (where / f"{arm}.addr").read_text())
+        _write_json(where / f"{arm}.w{wid}.json", report)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
+def _route_worker_arm(wid, arm, addr) -> dict:
+    """One arm of ``store_routes_worker``: its report."""
+    import os
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import bert
+    for name in ("BPS_MAX_LAG", "BPS_ENABLE_ASYNC", "BPS_FUSED_HOMOG"):
+        os.environ.pop(name, None)
+    os.environ.update(BPS_ENABLE_PS="1", BPS_COMPRESS="int8",
+                      BPS_NUM_WORKER="2", BPS_WORKER_ID=str(wid),
+                      BPS_LOCAL_RANK="0", BPS_SERVER_ADDRS=addr,
+                      BPS_SHARDED_UPDATE="0")
+    bps.init()
+    try:
+        cfg, loss_fn, _, _ = _bert_setup()
+        data = bert.synth_mlm_batch(np.random.RandomState(wid), TRAIN_BATCH,
+                                    BERT_SEQ, cfg.vocab_size)
+        torch.cuda.reset_peak_memory_stats()
+        trainer = _ps_trainer(cfg, loss_fn)
+        r = _counted_ps_steps(trainer, data)
+        push, pull, resends = _ps_bytes(r["metrics"])
+        digest = hashlib.sha1()
+        for _, p in sorted(trainer.model.named_parameters()):
+            digest.update(p.detach().cpu().numpy().tobytes())
+        (_, keyed), = trainer.ps_exchange._plans.values()
+        report = {"arm": arm, "losses": r["losses"],
+                  "launches": r["launches"],
+                  "want": _remote_want(cfg)(trainer), "ms": r["ms"],
+                  "push_bytes": push, "pull_bytes": pull,
+                  "resends": resends, "params": digest.hexdigest(),
+                  "peak_mem": torch.cuda.max_memory_allocated(),
+                  "nc": trainer.ps_exchange.n_compressed(),
+                  "buckets": len(keyed)}
+        trainer.close()
+        del trainer
+        torch.cuda.empty_cache()
+        if arm == RS_ARM:
+            report["rowsparse"] = rowsparse_rounds(wid, cfg)
+        return report
+    finally:
+        bps.shutdown()
+
+
+def train_bert_ps_store_routes():
+    """Phase ``bert_large_ps_store_routes``: BERT-large at full width and
+    depth, PS int8 (``BPS_COMPRESS=int8``) on the default route at world
+    2, two worker processes on ``cuda:0`` (``store_routes_worker``) on
+    their own batches, the same batches in every arm, a fresh ``launch
+    --server`` an arm: (e0) at the default, where ``FusedFront``'s
+    homogeneous store owns the fused keys; (e1) at
+    ``BPS_FUSED_HOMOG=0``, where the engine owns them (a fused push is
+    decoded into its sum, a fused pull is its merged round re-encoded);
+    (e2) ``RS_ROUNDS`` row-sparse rounds against (e1)'s server after (e1)'s
+    steps.
+
+    (e0), (e1): both workers end on one sha1 of their parameters, the same
+    in both arms (the engine copies the first arrival and adds the
+    second, the store widens each payload, copies the first and adds the
+    second; two fp32 arrivals sum alike in either order, and both routes
+    re-encode with ``wire.encode``); finite losses with step 3 below step
+    1, (e1)'s equal to (e0)'s; each worker's launches BERT's (144 forward,
+    72 fused backward, all d 64) and 3·nc int8 quantize and dequantize,
+    nothing else; no resend; ``ps/push_bytes`` equal in both arms; the
+    server's stop line: (e0) ``server/fused_dense_decodes`` 0 and
+    ``server/fused_rounds_homog`` ``STEPS`` x nc, (e1) 0 and 2 x ``STEPS``
+    x nc.
+
+    (e2): each worker pushes its batch's 4096 token ids and ``[4096,
+    1024]`` rows drawn on the card a round, ``average`` in the last; each
+    round's returned table lies on the card, is on both workers bit for
+    bit the numpy reference (``rowsparse_rounds``) and differs from the
+    round before; a round pushes exactly 4 + 4·4096 + 4·4096·1024 bytes a
+    worker (the worker's ``ps/push_bytes`` and, over both workers and
+    every round, the server's ``server/rowsparse_push_bytes``) and pulls
+    the dense table's bytes; the server counted 2 x ``RS_ROUNDS`` pushes;
+    no kernel launches during the rounds. The seconds a round are
+    printed, not gated. Returns each arm's launches summed over its
+    workers."""
+    card = card_line()
+    arms = _arms_over_servers(
+        "store routes", "--store-routes-worker",
+        {arm: {} if homog is None else {"BPS_FUSED_HOMOG": homog}
+         for arm, homog in ROUTE_ARMS.items()})
+    cfg, _, _, _ = _bert_setup()
+    for arm, (res, stats) in arms.items():
+        tag = f"bert_large ps store routes {arm}"
+        nc = res[0]["nc"]
+        for wid, r in enumerate(res):
+            log(f"[{tag}] worker {wid}: losses {r['losses']}, steps 2-3 "
+                f"{r['ms']:.1f} ms a step (two worker processes share one "
+                f"card), ps/push_bytes {r['push_bytes']:.0f} and "
+                f"ps/pull_bytes {r['pull_bytes']:.0f} a step, "
+                f"transport/resends {r['resends']}, {r['nc']} of "
+                f"{r['buckets']} buckets compressed, peak memory "
+                f"{r['peak_mem']} bytes; {card}")
+            if not all(math.isfinite(x) for x in r["losses"]) \
+                    or not r["losses"][2] < r["losses"][0]:
+                raise AssertionError(f"{tag} worker {wid}: losses "
+                                     f"{r['losses']}")
+            if r["launches"] != r["want"]:
+                raise AssertionError(f"{tag} worker {wid}: launches "
+                                     f"{r['launches']}, expected {r['want']}")
+            if r["resends"] or r["nc"] != nc:
+                raise AssertionError(f"{tag} worker {wid}: resends "
+                                     f"{r['resends']}, nc {r['nc']}")
+        fused = {k: stats[k] for k in ("server/fused_rounds_homog",
+                                       "server/fused_dense_decodes")}
+        log(f"[{tag}] server: {fused}, peak RSS {stats['peak_rss_bytes']} "
+            f"bytes ({stats['peak_rss_source']}); workers' sha1 "
+            f"{res[0]['params']} / {res[1]['params']}")
+        want = ({"server/fused_rounds_homog": STEPS * nc,
+                 "server/fused_dense_decodes": 0} if arm == "e0" else
+                {"server/fused_rounds_homog": 0,
+                 "server/fused_dense_decodes": 2 * STEPS * nc})
+        if fused != want:
+            raise AssertionError(f"{tag}: server {fused}, expected {want}")
+        if res[0]["params"] != res[1]["params"]:
+            raise AssertionError(f"{tag}: the workers' parameters differ")
+        if res[0]["losses"] == res[1]["losses"]:
+            raise AssertionError(f"{tag}: both workers read the same batch")
+    (e0, _), (e1, s1) = arms["e0"], arms["e1"]
+    if e0[0]["params"] != e1[0]["params"]:
+        raise AssertionError("bert_large ps store routes: (e1)'s parameters "
+                             "differ from (e0)'s")
+    for wid in (0, 1):
+        if e0[wid]["losses"] != e1[wid]["losses"] \
+                or e0[wid]["push_bytes"] != e1[wid]["push_bytes"]:
+            raise AssertionError(f"bert_large ps store routes: worker {wid}'s"
+                                 f" losses or push bytes differ between the "
+                                 f"arms")
+    log(f"[bert_large ps store routes] (e0) and (e1): every parameter of "
+        f"both workers in both arms one sha1 ({e0[0]['params']}), the "
+        f"losses and push bytes the same")
+    tag = "bert_large ps store routes e2"
+    n = TRAIN_BATCH * BERT_SEQ
+    push = 4 + 4 * n + 4 * n * cfg.hidden
+    pull = 4 * cfg.vocab_size * cfg.hidden
+    for wid, r in enumerate(e1):
+        rs = r["rowsparse"]
+        for i, x in enumerate(rs["rounds"], 1):
+            log(f"[{tag}] worker {wid} round {i}: {x['s']:.3f} s, push "
+                f"{x['push_bytes']} B ({x['push_bytes'] / pull:.4f} of the "
+                f"dense table), pull {x['pull_bytes']} B, table on "
+                f"{x['device']} {x['shape']} {x['dtype']}, sha1 {x['sha1']},"
+                f" the numpy reference's bits: {x['ok']}; {card}")
+            if not (x["ok"] and x["fresh"] and x["device"] == "cuda"
+                    and x["shape"] == [cfg.vocab_size, cfg.hidden]
+                    and x["push_bytes"] == push and x["pull_bytes"] == pull):
+                raise AssertionError(f"{tag} worker {wid} round {i}: {x}")
+        if any(rs["launches"].values()):
+            raise AssertionError(f"{tag} worker {wid}: launches during the "
+                                 f"rounds {rs['launches']}")
+    if [x["sha1"] for x in e1[0]["rowsparse"]["rounds"]] \
+            != [x["sha1"] for x in e1[1]["rowsparse"]["rounds"]]:
+        raise AssertionError(f"{tag}: the workers' tables differ")
+    rs_stats = {k: s1[k] for k in ("server/rowsparse_pushes",
+                                   "server/rowsparse_push_bytes")}
+    log(f"[{tag}] server: {rs_stats}")
+    if rs_stats != {"server/rowsparse_pushes": 2 * RS_ROUNDS,
+                    "server/rowsparse_push_bytes": 2 * RS_ROUNDS * push}:
+        raise AssertionError(f"{tag}: server {rs_stats}")
+    log(f"[{tag}] every round's table bit for bit the numpy reference on "
+        f"both workers, {push} B pushed a round a worker; every gate held")
+    SUMMARY["bert_large ps store routes"] = {
+        **{arm: {"ms": [r["ms"] for r in res],
+                 "peak_mem": [r["peak_mem"] for r in res],
+                 "server_peak_rss": stats["peak_rss_bytes"]}
+           for arm, (res, stats) in arms.items()},
+        "e2": {"s": [[x["s"] for x in r["rowsparse"]["rounds"]]
+                     for r in e1]}}
+    return tuple({k: res[0]["launches"][k] + res[1]["launches"][k]
+                  for k in res[0]["launches"]} for res, _ in arms.values())
+
+
+def _tensors(state, prefix=""):
+    """{path: tensor} of every tensor in a ``state_dict()`` tree."""
+    out = {}
+    if torch.is_tensor(state):
+        out[prefix] = state
+    elif isinstance(state, dict):
+        for k, v in state.items():
+            out.update(_tensors(v, f"{prefix}.{k}"))
+    elif isinstance(state, (list, tuple)):
+        for i, v in enumerate(state):
+            out.update(_tensors(v, f"{prefix}[{i}]"))
+    return out
+
+
+def _sha1s(state):
+    return {k: hashlib.sha1(t.detach().cpu().numpy().tobytes()).hexdigest()
+            for k, t in _tensors(state).items()}
+
+
+def _same_state(ta, tb):
+    """Whether two {path: tensor} maps hold the same tensors bit for bit
+    (compared on the first one's devices)."""
+    if ta.keys() != tb.keys():
+        return False
+    for k, x in ta.items():
+        y = tb[k].to(x.device)
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if not torch.equal(x.reshape(-1).contiguous().view(torch.uint8),
+                           y.reshape(-1).contiguous().view(torch.uint8)):
+            return False
+    return True
+
+
+CKPT_DISK_MARGIN = 1 << 30      # bytes free beyond the checkpoint's own
+
+
+def train_bert_checkpoint():
+    """Phase ``bert_large_checkpoint``: world 1, dense ``DistributedTrainer``,
+    BERT-large at full width and depth, batch 8. Steps 1 and 2;
+    ``checkpoint.save_checkpoint`` of ``state_dict()`` to a temporary
+    directory with the step count and the name registry (which holds a
+    declaration a parameter, as a caller pins its keys); step 3, its loss
+    and the sha1 of every parameter and optimizer-state tensor recorded
+    (A). Then a fresh trainer from other weights (seed 1), so that a
+    restore that did nothing fails: ``restore_checkpoint`` into its
+    templates, ``load_state_dict``, and step 3 on the same batch.
+
+    Gates: the restored trainer's step count is 2 before its step and its
+    state bit for bit the saved one; after its step 3 every sha1 equals
+    (A) and the loss is bit for bit step 3's; the restored declarations
+    name every declaration of the registry; each step, the replayed one
+    too, launches 48 forwards and 24 fused backwards, all d 64. Printed,
+    not gated: the checkpoint's bytes on disk and the save and restore
+    seconds. The directory is removed after; a disk too short for it
+    fails the phase and says so. Returns the launches of the 4 steps."""
+    import shutil
+    import tempfile
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch import checkpoint as ckpt
+    from byteps_tpu_torch.common.global_state import GlobalState
+    from byteps_tpu_torch.models.transformer import Transformer
+    from byteps_tpu_torch.optim import adamw
+    from byteps_tpu_torch.training import DistributedTrainer
+    tag = "bert_large checkpoint"
+    cfg, loss_fn, data, _ = _bert_setup()
+    per_step = dict.fromkeys(COUNT_KEYS, 0)
+    per_step["flash_fwd"], per_step["flash_bwd_fused"] = \
+        2 * cfg.layers, cfg.layers
+    per_step = by_width(per_step, cfg.head_dim)
+    ctr = counters()
+    total = dict.fromkeys(per_step, 0)
+
+    def step(trainer):
+        torch.cuda.synchronize()
+        zero_counts(ctr)
+        loss = trainer.step(data).item()
+        torch.cuda.synchronize()
+        got = read_counts(ctr)
+        if got != per_step:
+            raise AssertionError(f"{tag}: launches {got}, expected "
+                                 f"{per_step}")
+        for k, v in got.items():
+            total[k] += v
+        return loss
+
+    def make(seed):
+        model = Transformer(cfg, generator=torch.Generator().manual_seed(seed))
+        return DistributedTrainer(loss_fn, model,
+                                  adamw(model.parameters(), 1e-4),
+                                  partition_bytes=PARTITION_BYTES)
+
+    bps.init()
+    tmp = Path(tempfile.mkdtemp())
+    try:
+        reg = GlobalState.get().registry
+        trainer = make(0)
+        for name, _ in trainer.model.named_parameters():
+            bps.declare_tensor(name)
+        losses = [step(trainer) for _ in range(2)]
+        st = trainer.state_dict()
+        need = sum(t.numel() * t.element_size()
+                   for t in _tensors(st).values())
+        free = shutil.disk_usage(tmp).free
+        if free < need + CKPT_DISK_MARGIN:
+            raise AssertionError(f"{tag}: {free} bytes free at {tmp}, the "
+                                 f"checkpoint needs {need} and "
+                                 f"{CKPT_DISK_MARGIN} to spare")
+        saved = {k: t.detach().clone() for k, t in _tensors(st).items()}
+        t = time.perf_counter()
+        ckpt.save_checkpoint(str(tmp), st["model"], st["optimizer"],
+                             step=st["step_count"], registry=reg)
+        save_s = time.perf_counter() - t
+        on_disk = {p.name: p.stat().st_size for p in tmp.iterdir()}
+        losses.append(step(trainer))
+        a = _sha1s(trainer.state_dict())
+        del trainer, st
+        torch.cuda.empty_cache()
+        fresh = make(1)
+        t = time.perf_counter()
+        tmpl = fresh.state_dict()
+        params, opt, ck_step, declared = ckpt.restore_checkpoint(
+            str(tmp), tmpl["model"], tmpl["optimizer"])
+        fresh.load_state_dict({"model": params, "optimizer": opt,
+                               "step_count": ck_step})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        del params, opt, tmpl
+        state = fresh.state_dict()
+        if fresh.step_count != 2 or not _same_state(_tensors(state), saved):
+            raise AssertionError(f"{tag}: the restored state is not the "
+                                 f"saved one (step count "
+                                 f"{fresh.step_count})")
+        del state, saved
+        replay = step(fresh)
+        b = _sha1s(fresh.state_dict())
+        names = reg.declared_names()
+        del fresh
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        bps.shutdown()
+    off = [k for k in a if a[k] != b.get(k)]
+    log(f"[{tag}] losses {losses}, the restored trainer's step 3 "
+        f"{replay}; {len(a)} tensors, {len(off)} off (A); checkpoint "
+        f"{sum(on_disk.values())} bytes on disk ({on_disk}), save "
+        f"{save_s:.2f} s, restore {restore_s:.2f} s; {card_line()}")
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[2] < losses[0]:
+        raise AssertionError(f"{tag}: losses {losses}")
+    if off or a.keys() != b.keys() or replay != losses[2]:
+        raise AssertionError(f"{tag}: the replayed step 3 differs: loss "
+                             f"{replay} against {losses[2]}, tensors {off}")
+    if [d["name"] for d in declared] != names or not names:
+        raise AssertionError(f"{tag}: declarations {declared} against the "
+                             f"registry's {names}")
+    log(f"[{tag}] the restored trainer's step 3 bit for bit the original's "
+        f"in every parameter, optimizer-state tensor and the loss; every "
+        f"gate held")
+    SUMMARY[tag] = {"bytes_on_disk": sum(on_disk.values()),
+                    "save_s": save_s, "restore_s": restore_s}
+    return total
+
+
 PHASE_S = {}
 
 
@@ -6578,19 +7042,34 @@ def _remote_phases(paths):
                                                train_bert_ps_async)
 
 
-def remote_ps_main(only_async=False) -> int:
-    """``--remote-ps``: the toolchain, then only phase 4's remote PS runs;
-    ``--async-ps``: only ``bert_large_ps_async`` of them."""
+def _store_phases(paths):
+    """The PS store's routes at world 2 over ``launch --server``, and the
+    full-tree checkpoint at world 1."""
+    (paths["bert_large_ps_store_routes_e0"],
+     paths["bert_large_ps_store_routes_e1"]) = _timed(
+        "bert_large_ps_store_routes", train_bert_ps_store_routes)
+    paths["bert_large_checkpoint"] = _timed("bert_large_checkpoint",
+                                            train_bert_checkpoint)
+
+
+def remote_ps_main(only=None) -> int:
+    """``--remote-ps``: the toolchain, then only phase 4's remote PS runs
+    and the store's phases; ``--async-ps``: only ``bert_large_ps_async``
+    of them; ``--store-routes``: only ``bert_large_ps_store_routes`` and
+    ``bert_large_checkpoint``."""
     t = time.perf_counter()
     toolchain()
     paths = {}
-    if only_async:
+    if only == "async":
         (paths["bert_large_ps_async_d0"], paths["bert_large_ps_async_d1"],
          paths["bert_large_ps_async_d2"]) = _timed("bert_large_ps_async",
                                                    train_bert_ps_async,
                                                    ASYNC_SOAK)
+    elif only == "store":
+        _store_phases(paths)
     else:
         _remote_phases(paths)
+        _store_phases(paths)
     log(f"phase seconds {json.dumps(PHASE_S)}")
     log(f"remote PS in {time.perf_counter() - t:.1f} s")
     print(json.dumps({"remote_ps": {
@@ -7421,10 +7900,14 @@ def main() -> int:
         return lag_ps_worker(int(args[1]), args[2])
     if args[:1] == ["--async-ps-worker"]:
         return async_ps_worker(int(args[1]), args[2], int(args[3]))
+    if args[:1] == ["--store-routes-worker"]:
+        return store_routes_worker(int(args[1]), args[2])
     if args == ["--remote-ps"]:
         return remote_ps_main()
     if args == ["--async-ps"]:
-        return remote_ps_main(only_async=True)
+        return remote_ps_main("async")
+    if args == ["--store-routes"]:
+        return remote_ps_main("store")
     if args[:1] == ["--ps-routes"]:
         toolchain()
         return ps_routes(tuple(args[1:]) or ("int8", "fp8_e4m3"))
@@ -7514,14 +7997,17 @@ def main() -> int:
             "bert_large_ps_fp8_e4m3 (cut)", train_bert_ps, "fp8_e4m3",
             cut_losses, step2_misses, CUT_LAYERS)
     paths["bert_large_ps_int8_accum2"] = _timed(
-        "bert_large_ps_int8_accum2", train_bert_ps_accum, bert_losses)
+        "bert_large_ps_int8_accum2 (cut)", train_bert_ps_accum, cut_losses,
+        CUT_LAYERS)
     paths["bert_large_ps_onebit"] = _timed(
-        "bert_large_ps_onebit", train_bert_ps_onebit, bert_losses)
+        "bert_large_ps_onebit (cut)", train_bert_ps_onebit, cut_losses,
+        CUT_LAYERS)
     paths["bert_large_ps_auto_live"], paths["bert_large_ps_auto_injected"] = \
         _timed("bert_large_ps_auto (cut)", train_bert_ps_auto, cut_losses)
     paths["bert_large_ps_watchdog"] = _timed(
         "bert_large_ps_watchdog (cut)", train_bert_ps_watchdog, cut_losses)
     _remote_phases(paths)
+    _store_phases(paths)
     paths["bert_large_plugin"] = _timed("bert_large_plugin",
                                         train_bert_plugin, bert_losses)
     paths["bert_large_pushpull_int8"] = _timed(

@@ -5,14 +5,16 @@ no process group).
 
     python _torch_ps_remote_worker.py MODE WID ADDRS OUT [INPUTS]
 
-ADDRS is ``codec=host:port,...`` for the trainer modes (one server a codec)
-and ``host:port`` for "plugin". Prints ``WORKER_OK`` at the end.
+ADDRS is ``codec=host:port,...`` for the trainer modes (one server a codec;
+a codec may carry a tag, ``int8@off``, so two servers run one codec) and
+``host:port`` for "plugin". Prints ``WORKER_OK`` at the end.
 
 MODE "port": the port's ``DistributedTrainer`` on the small BERT of
 ``test_torch_ps_trainer.py`` (the weights INPUTS holds, from
 ``convert.params_from_jax``) takes STEPS steps on this worker's batches
-(seed WID) on the default PS route, once a codec; saves the losses and the
-parameters in the JAX tree's layout (``torch.save``).
+(seed WID) on the default PS route, once a codec; saves the losses, the
+parameters in the JAX tree's layout and the count of compressed buckets
+(``torch.save``).
 
 MODE "jax": the same with the JAX package's trainer (weights from
 ``init_params(PRNGKey(0))``, a one-device mesh; the JAX staged head reads
@@ -85,7 +87,8 @@ def run_port(wid, addrs, out, inputs):
     state = torch.load(inputs)
     res = {}
     for codec, addr in _addrs(addrs).items():
-        os.environ.update(BPS_COMPRESS=codec, BPS_SERVER_ADDRS=addr)
+        os.environ.update(BPS_COMPRESS=codec.split("@")[0],
+                          BPS_SERVER_ADDRS=addr)
         bps.init(device="cpu")
         model = tbert.Transformer(tbert.bert_config(dtype="float32",
                                                     **WIDTH))
@@ -95,7 +98,8 @@ def run_port(wid, addrs, out, inputs):
             model, adamw(model.parameters(), LR, eps=EPS), device="cpu")
         losses = [tt.step(_batch(wid, i)).item() for i in range(STEPS)]
         tt.drain()
-        res[codec] = (losses, convert.params_to_jax_layout(tt.model))
+        res[codec] = (losses, convert.params_to_jax_layout(tt.model),
+                      tt.ps_exchange.n_compressed())
         tt.close()
         bps.shutdown()
     torch.save(res, out)
@@ -237,7 +241,8 @@ def run_jax(wid, addrs, out, inputs):
     jp = jtr.init_params(jax.random.PRNGKey(0), jcfg)
     res = {}
     for codec, addr in _addrs(addrs).items():
-        os.environ.update(BPS_COMPRESS=codec, BPS_SERVER_ADDRS=addr)
+        os.environ.update(BPS_COMPRESS=codec.split("@")[0],
+                          BPS_SERVER_ADDRS=addr)
         mesh = make_mesh({"data": 1}, devices=jax.devices()[:1])
         jbps.init(mesh=mesh)
         jt = JaxTrainer(lambda p, b: jbert.mlm_loss(p, jcfg, b,

@@ -351,6 +351,8 @@ ACTED_ON = {
     "BPS_ENABLE_ASYNC": ("common/config.py", "launcher/launch.py"),
     "BPS_ASYNC_WIRE_DTYPE": ("server/ps_mode.py",),
     "BPS_ASYNC_PULL_DTYPE": ("server/ps_mode.py",),
+    # the engine-side fused route, read from os.environ where it acts
+    "BPS_FUSED_HOMOG": ("server/homog.py",),
 }
 
 
@@ -509,7 +511,7 @@ def _transport_cases():
     values = {"BPS_STRIPE_MIN": "4194304", "BPS_ENABLE_SHM": "1",
               "BPS_ENABLE_IPC": "1", "BYTEPS_ENABLE_IPC": "1",
               "BPS_REDUCE_ROOTS": "0", "BYTEPS_REDUCE_ROOTS": "0",
-              "BPS_KEY_LOG": "1", "PS_KEY_LOG": "1", "BPS_FUSED_HOMOG": "0",
+              "BPS_KEY_LOG": "1", "PS_KEY_LOG": "1",
               "BPS_SERVER_SNAPSHOT": "ps_state.npz", "BPS_NIC_RATE": "1e9"}
     cases = []
     for role, table in (("client", t.CLIENT_REFUSED),

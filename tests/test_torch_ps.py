@@ -478,15 +478,24 @@ def test_key_placement_is_the_jax_packages_djb2():
 
 
 def test_fused_push_of_an_undeclared_key_raises():
-    """Only the homogeneous store takes fused payloads: a key not declared
-    ``fused=True`` refuses them rather than decoding into the engine."""
+    """A key not declared ``fused=True`` takes the engine-side route, as
+    ``byteps_tpu/server/engine.py:782-797`` does: a payload that does not
+    fit the key's store raises ``CodecError`` before a byte lands, one that
+    fits is decoded into the engine's sum. A fused declaration hands the
+    key to the homogeneous store."""
     from byteps_tpu_torch.compress import wire
     be = HostPSBackend(num_servers=1, num_workers=1, engine_threads=1)
     try:
         be.init_key(5, 64 * 4, "float32")
         payload = wire.encode(wire.CODEC_INT8, np.ones(64, np.float32))
-        with pytest.raises(KeyError, match="fused=True"):
-            be.push_fused(5, payload)
+        with pytest.raises(wire.CodecError, match="expects 64"):
+            be.push_fused(5, wire.encode(wire.CODEC_INT8,
+                                         np.ones(65, np.float32)))
+        assert be.round(5) == 0
+        be.push_fused(5, payload)
+        out = np.empty(64, np.float32)
+        be.pull(5, out, round=1)
+        assert out.tobytes() == wire.decode(payload, 64).tobytes()
         be.init_key(5, 64 * 4, "float32", fused=True)
         be.push_fused(5, payload)
         got = be.pull_fused(5, 64 * 4, "float32", wire.CODEC_INT8, round=1)

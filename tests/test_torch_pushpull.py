@@ -397,7 +397,7 @@ def test_top_level_api_works_after_importing_the_plugin():
     bps.suspend()
     bps.resume(device="cpu")
     assert GlobalState.get().registry.get("k") is not None
-    for name in ("push_pull_rowsparse", "MirroredStrategy",
+    for name in ("MirroredStrategy",
                  "DistributedDataParallel", "DistributedGradientTape",
                  "Compression"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -622,8 +622,8 @@ def test_golden_frames_match_the_jax_package(name):
 
 def test_ported_op_numbers_are_the_jax_packages():
     for name in ("OP_INIT", "OP_PUSH", "OP_PULL", "OP_CLOSE", "OP_INIT_C",
-                 "OP_PUSH_C", "OP_PULL_C", "OP_ROUND", "OP_PUSH_F",
-                 "OP_PULL_F", "ST_OK", "ST_ERR", "ST_TIMEOUT", "ST_GONE"):
+                 "OP_PUSH_C", "OP_PULL_C", "OP_PUSH_RS", "OP_ROUND",
+                 "OP_PUSH_F", "OP_PULL_F", "ST_OK", "ST_ERR", "ST_TIMEOUT", "ST_GONE"):
         assert getattr(ptransport, name) == getattr(jtransport, name), name
     assert ptransport._HDR.format == jtransport._HDR.format
     assert ptransport._RSP.format == jtransport._RSP.format
