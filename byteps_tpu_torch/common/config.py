@@ -88,14 +88,24 @@ they act: ``BPS_PS_CONNS`` (pooled connections a server, default 4),
 ``BPS_RECONNECT_SECS`` (the redial budget of a dropped connection, default
 30; 0 = fail at once), ``BPS_PULL_TIMEOUT_MS`` (a pull's deadline, default
 30000) and, on the server, ``BPS_PUSH_DEDUP_TTL_SECS`` (how long a dead
-incarnation's dedup record lives, default 600); those it does not port
-raise at a non-default value where a client, a server or the launcher
-would read them (``transport.CLIENT_REFUSED``, ``SERVER_REFUSED``,
-``LAUNCHER_REFUSED``). The server process (``python -m
-byteps_tpu_torch.launcher.launch --server``) builds no ``Config``: it reads
-``BPS_SERVER_PORT`` (default 9090), ``BPS_NUM_WORKER``,
-``BPS_SERVER_ENGINE_THREAD``, ``BPS_SERVER_ENABLE_SCHEDULE`` and
-``BPS_ENABLE_ASYNC`` itself, as the JAX launcher does.
+incarnation's dedup record lives, default 600), and as the JAX package
+reads them: ``BPS_ENABLE_SHM`` (a client's shared-memory data plane to a
+colocated server, default off), ``BPS_STRIPE_MIN`` (the least bytes of a
+striped op, default 0 = off; ops of at least ``max(BPS_STRIPE_MIN, 512
+KiB)`` are split over the pool), ``BPS_ENABLE_IPC`` (or
+``BYTEPS_ENABLE_IPC``: the server's Unix-socket listener and the client's
+upgrade to it on loopback, default off) and ``BPS_IPC_DIR`` (the
+listener's directory, default ``<tmp>/bps-ipc-<uid>``, which must be the
+user's own at mode 0700); those it does not port raise at a non-default
+value where a client, a server or the launcher would read them
+(``transport.CLIENT_REFUSED``, ``SERVER_REFUSED``, ``LAUNCHER_REFUSED``).
+The server process (``python -m byteps_tpu_torch.launcher.launch
+--server``) builds no ``Config``: it reads ``BPS_SERVER_PORT`` (default
+9090), ``BPS_NUM_WORKER``, ``BPS_SERVER_ENGINE_THREAD``,
+``BPS_SERVER_ENABLE_SCHEDULE``, ``BPS_ENABLE_ASYNC``,
+``BPS_SERVER_SNAPSHOT`` (the store's snapshot file: restored at start
+where it exists, written every ``BPS_SERVER_SNAPSHOT_SECS``, default 60,
+and at stop) itself, as the JAX launcher does.
 ``BPS_FUSED_HOMOG`` (default on; off is ``0``, ``off``, ``false`` or
 ``no``) is read from ``os.environ`` by ``server/homog.py``
 (``homog_enabled``) at each fused declaration, in a worker's in-process

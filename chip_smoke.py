@@ -343,7 +343,7 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          pull wrote, and at world 2 the other worker's deltas in them;
          (d1)'s server RSS at each step's end, printed (``--async-ps``:
          over 3 + 7 steps). (e) ``bert_large_ps_store_routes``, PS int8
-         at world 2 over ``launch --server`` at full depth, two worker
+         at world 2 over ``launch --server`` at ``CUT_LAYERS``, two worker
          processes (``--store-routes-worker``) and a fresh server each
          arm: (e0) the default, where ``FusedFront``'s homogeneous store
          owns the fused keys, (e1) ``BPS_FUSED_HOMOG=0``, where the
@@ -354,11 +354,26 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          push bytes exact). (f) ``bert_large_checkpoint``, world 1 dense:
          ``checkpoint.save_checkpoint`` after step 2, step 3, then a
          fresh trainer from other weights restored and stepped: its step
-         3 bit for bit the original's (``train_bert_checkpoint``). The PS
+         3 bit for bit the original's (``train_bert_checkpoint``). (g)
+         ``bert_large_ps_transport``, dense PS at world 2 over ``launch
+         --server`` at full depth, two worker processes
+         (``--transport-worker``), a fresh server an arm: (f0) TCP, (f1)
+         the colocated deployment (the server and the workers at
+         ``BPS_ENABLE_IPC=1``, the workers at ``BPS_ENABLE_SHM=1``), (f2)
+         striping over TCP (``BPS_STRIPE_MIN=1048576``); one sha1 over
+         every worker and arm, and the server's frames by op exact from
+         the bucket plan (``check_transport_server``); ``/dev/shm``'s
+         room checked first (``shm_fit``). (h) ``bert_large_ps_snapshot``,
+         (f3): async PS at world 1 and ``CUT_LAYERS`` against a server at
+         ``BPS_SERVER_SNAPSHOT``, stopped after 2 steps (its final
+         snapshot) and restarted on the same port from the file; the
+         worker (``--snapshot-worker``) reconnects, reads every key's
+         bits back and takes step 3 (``check_snapshot_restart``). The PS
          fp8 routes, the fp8 tree API, PS onebit, PS int8 accumulation,
          PS auto, the PS watchdog, int8 over TCP at world 1, the world-2
-         arms (b0)/(b1), the lag arms (c0)-(c2) and the async world-2
-         arms (d1)/(d2) run at ``CUT_LAYERS`` of the 24 layers, for the
+         arms (b0)/(b1), the lag arms (c0)-(c2), the async world-2 arms
+         (d1)/(d2), the store-route arms (e0)/(e1) and (f3) run at
+         ``CUT_LAYERS`` of the 24 layers, for the
          run's time limit, their losses held against a dense run at that
          depth where they compare losses; every other path runs at full
          depth. Each PS and remote phase prints its
@@ -428,21 +443,26 @@ step 3 (``ps_routes``). Prints ``{"ps_routes": ...}``, also written to
     python3 chip_smoke.py --remote-ps
     python3 chip_smoke.py --async-ps
     python3 chip_smoke.py --store-routes
+    python3 chip_smoke.py --transport
 
-runs only phase 4's remote PS runs and (e), (f) (the kernels and the
+runs only phase 4's remote PS runs and (e)-(h) (the kernels and the
 server engine built first), or of them only ``bert_large_ps_async`` with
 ``ASYNC_SOAK`` more (d1) steps for the server's resident set, or only
-``bert_large_ps_store_routes`` and ``bert_large_checkpoint``, and prints
+``bert_large_ps_store_routes`` and ``bert_large_checkpoint``, or only
+``bert_large_ps_transport`` and ``bert_large_ps_snapshot``, and prints
 ``{"remote_ps": ...}``, the card line and the same last line.
 
     python3 chip_smoke.py --remote-ps-worker WID ADDR OUT
     python3 chip_smoke.py --lag-ps-worker WID DIR
     python3 chip_smoke.py --async-ps-worker WID DIR SOAK
     python3 chip_smoke.py --store-routes-worker WID DIR
+    python3 chip_smoke.py --transport-worker WID DIR
+    python3 chip_smoke.py --snapshot-worker DIR
 
-is one worker of phase 4's remote PS runs at world 2 (``remote_ps_worker``,
-``lag_ps_worker``, ``async_ps_worker``, ``store_routes_worker``); the
-phase starts two of them itself.
+is one worker of phase 4's remote PS runs (``remote_ps_worker``,
+``lag_ps_worker``, ``async_ps_worker``, ``store_routes_worker``,
+``transport_worker``, ``snapshot_worker``); the phase starts them
+itself.
 
     python3 chip_smoke.py --world 2
 
@@ -5168,13 +5188,15 @@ REMOTE_WAIT = 600       # seconds a server or worker process may take
 
 def start_ps_server(workers, env=None):
     """``python -m byteps_tpu_torch.launcher.launch --server`` on port 0
-    for ``workers`` workers (``env``: more variables for it); returns
+    (or ``env``'s ``BPS_SERVER_PORT``: a restart on the port it had) for
+    ``workers`` workers (``env``: more variables for it); returns
     (process, its stderr lines, address) once it printed ``server up on
     :<port>``."""
     import os
     import threading
-    env = dict(os.environ, BPS_SERVER_PORT="0", BPS_NUM_WORKER=str(workers),
-               **(env or {}))
+    # env may name the port: a restart's
+    env = {**os.environ, "BPS_SERVER_PORT": "0",
+           "BPS_NUM_WORKER": str(workers), **(env or {})}
     proc = subprocess.Popen(
         [sys.executable, "-m", "byteps_tpu_torch.launcher.launch",
          "--server"], cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
@@ -6659,7 +6681,7 @@ def store_routes_worker(wid, where) -> int:
     ``bert_large_ps_store_routes`` on ``cuda:0``, for every arm in turn (one
     process for both). For each arm it waits for ``DIR/<arm>.addr``, the
     address of the arm's fresh server, trains BERT-large PS int8 on the
-    default route at full depth from seed 0 on its own batch (seed WID)
+    default route at ``CUT_LAYERS`` from seed 0 on its own batch (seed WID)
     for ``STEPS`` counted steps, then in ``RS_ARM`` the row-sparse rounds
     (``rowsparse_rounds``), and writes ``DIR/<arm>.w<WID>.json``."""
     import gc
@@ -6688,7 +6710,7 @@ def _route_worker_arm(wid, arm, addr) -> dict:
                       BPS_SHARDED_UPDATE="0")
     bps.init()
     try:
-        cfg, loss_fn, _, _ = _bert_setup()
+        cfg, loss_fn, _, _ = _bert_setup(layers=CUT_LAYERS)
         data = bert.synth_mlm_batch(np.random.RandomState(wid), TRAIN_BATCH,
                                     BERT_SEQ, cfg.vocab_size)
         torch.cuda.reset_peak_memory_stats()
@@ -6719,7 +6741,9 @@ def _route_worker_arm(wid, arm, addr) -> dict:
 
 def train_bert_ps_store_routes():
     """Phase ``bert_large_ps_store_routes``: BERT-large at full width and
-    depth, PS int8 (``BPS_COMPRESS=int8``) on the default route at world
+    ``CUT_LAYERS`` (the world-2 dense path at full depth is
+    ``bert_large_ps_transport``'s (f0)), PS int8 (``BPS_COMPRESS=int8``) on
+    the default route at world
     2, two worker processes on ``cuda:0`` (``store_routes_worker``) on
     their own batches, the same batches in every arm, a fresh ``launch
     --server`` an arm: (e0) at the default, where ``FusedFront``'s
@@ -6734,8 +6758,9 @@ def train_bert_ps_store_routes():
     second, the store widens each payload, copies the first and adds the
     second; two fp32 arrivals sum alike in either order, and both routes
     re-encode with ``wire.encode``); finite losses with step 3 below step
-    1, (e1)'s equal to (e0)'s; each worker's launches BERT's (144 forward,
-    72 fused backward, all d 64) and 3·nc int8 quantize and dequantize,
+    1, (e1)'s equal to (e0)'s; each worker's launches BERT's at that depth
+    (36 forward, 18 fused backward, all d 64) and 3·nc int8 quantize and
+    dequantize,
     nothing else; no resend; ``ps/push_bytes`` equal in both arms; the
     server's stop line: (e0) ``server/fused_dense_decodes`` 0 and
     ``server/fused_rounds_homog`` ``STEPS`` x nc, (e1) 0 and 2 x ``STEPS``
@@ -7013,6 +7038,510 @@ def train_bert_checkpoint():
     return total
 
 
+# ------ the transport's rest at world 2: the colocated deployment (the Unix
+# socket and the shared-memory data plane), striping over TCP; a snapshot
+# restart under async PS at world 1
+
+# arm -> (the server's extra environment, the workers' client knobs): (f0)
+# TCP, the control; (f1) the colocated deployment; (f2) striping over TCP,
+# four parts of 1,024,000 bytes for a full bucket on the default 4 channels
+TRANSPORT_ARMS = {
+    "f0": ({}, {}),
+    "f1": ({"BPS_ENABLE_IPC": "1"},
+           {"BPS_ENABLE_IPC": "1", "BPS_ENABLE_SHM": "1"}),
+    "f2": ({}, {"BPS_STRIPE_MIN": "1048576"}),
+}
+TRANSPORT_KNOBS = ("BPS_ENABLE_IPC", "BYTEPS_ENABLE_IPC", "BPS_ENABLE_SHM",
+                   "BPS_STRIPE_MIN")
+SHM_SEGMENT_MIN = 1 << 20       # a channel's segment holds at least this
+SNAPSHOT_STEPS = 2              # (f3)'s steps before the restart
+# a Unix socket's path holds at most this many bytes
+UDS_PATH_MAX = 107
+
+
+def ipc_dir():
+    """A fresh directory of this user's, mode 0700, for the servers' Unix
+    sockets: under the temporary directory where a socket's path there
+    fits ``UDS_PATH_MAX``, else under ``/tmp``."""
+    import tempfile
+    d = tempfile.mkdtemp(prefix="bps-")
+    if len(os.path.join(d, "bps-ipc-65535.sock")) > UDS_PATH_MAX:
+        os.rmdir(d)
+        d = tempfile.mkdtemp(prefix="bps-", dir="/tmp")
+    os.chmod(d, 0o700)
+    return d
+
+
+def shm_fit(free, workers, conns, largest):
+    """(the bytes the shm arm's segments take, None or why they cannot fit
+    in ``free`` bytes of ``/dev/shm``): one segment a channel of each
+    worker, each the largest op's bytes and at least ``SHM_SEGMENT_MIN``.
+    The port reserves a segment's pages when it makes one, so a segment
+    that does not fit falls back to the socket (the arm's fallback gate
+    fails), never a ``SIGBUS``; this says why before the arm runs."""
+    need = workers * conns * max(int(largest), SHM_SEGMENT_MIN)
+    if need > free:
+        return need, (f"/dev/shm has {free} bytes free and the shm arm's "
+                      f"segments take {need} ({workers} workers x {conns} "
+                      f"channels x {max(int(largest), SHM_SEGMENT_MIN)} "
+                      f"bytes): give the machine a larger /dev/shm")
+    return need, None
+
+
+def transport_frames_want(arm, plan, workers=2, steps=STEPS):
+    """The server's counts of arm ``arm`` ((f0)-(f2)) from the exchange's
+    bucket plan ``plan`` (each bucket's parts under the workers'
+    ``_stripe_ranges``, 0 for a bucket it leaves whole): ({counter: the
+    exact count}, {counter: the least count}). A pull waits on the server
+    in slices of 2 s, each slice a frame, so the pulls' counts are lower
+    bounds."""
+    n, nb = workers * steps, len(plan)
+    parts, whole = sum(plan), sum(1 for p in plan if not p)
+    if arm == "f1":
+        return ({"server/shm_pushes": n * nb, "server/push_frames": 0,
+                 "server/pull_frames": 0, "server/part_pushes": 0,
+                 "server/part_pulls": 0, "server/tcp_conns": 0},
+                {"server/shm_pulls": n * nb, "server/ipc_conns": 1})
+    exact = {"server/shm_pushes": 0, "server/shm_pulls": 0,
+             "server/ipc_conns": 0}
+    if arm == "f0":
+        exact.update({"server/push_frames": n * nb, "server/part_pushes": 0,
+                      "server/part_pulls": 0})
+        return exact, {"server/pull_frames": n * nb, "server/tcp_conns": 1}
+    exact.update({"server/part_pushes": n * parts,
+                  "server/push_frames": n * whole})
+    return exact, {"server/part_pulls": n * parts,
+                   "server/pull_frames": n * whole, "server/tcp_conns": 1}
+
+
+def check_transport_server(arm, stats, plan):
+    """What is wrong with an arm's server counts (``server stats``), by
+    ``transport_frames_want``; empty when nothing is."""
+    exact, least = transport_frames_want(arm, plan)
+    bad = [f"{k} {stats.get(k)}, expected {v}" for k, v in exact.items()
+           if stats.get(k) != v]
+    bad += [f"{k} {stats.get(k)}, expected at least {v}"
+            for k, v in least.items() if (stats.get(k) or 0) < v]
+    return bad
+
+
+def transport_worker(wid, where) -> int:
+    """``--transport-worker WID DIR``: one of the two worker processes of
+    ``bert_large_ps_transport`` on ``cuda:0``, for every arm in turn. For
+    each arm it waits for ``DIR/<arm>.addr``, the address of the arm's
+    fresh server, trains BERT-large dense PS on the default route at full
+    depth from seed 0 on its own batch (seed WID) with the arm's client
+    knobs set (and cleared after), ``STEPS`` counted steps, and writes
+    ``DIR/<arm>.w<WID>.json``."""
+    import gc
+    where = Path(where)
+    for arm in TRANSPORT_ARMS:
+        _await_file(where / f"{arm}.addr", f"server address for arm {arm}")
+        report = _transport_worker_arm(wid, arm,
+                                       (where / f"{arm}.addr").read_text())
+        _write_json(where / f"{arm}.w{wid}.json", report)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
+def _channels(backend):
+    """(the address families of a remote backend's dialed data channels,
+    the bytes of their shm segments), with no op in flight."""
+    fams, seg = set(), 0
+    for pool in backend._pools:
+        chans = [pool.get() for _ in range(backend._nconns)]
+        for ch in chans:
+            if ch.sock is not None:
+                fams.add(ch.sock.family.name)
+            if ch.shm is not None:
+                seg += ch.shm.size
+            pool.put(ch)
+    return sorted(fams), seg
+
+
+def _transport_worker_arm(wid, arm, addr) -> dict:
+    """One arm of ``transport_worker``: its report."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import bert
+    knobs = TRANSPORT_ARMS[arm][1]
+    for name in ("BPS_COMPRESS", "BPS_MAX_LAG", "BPS_ENABLE_ASYNC",
+                 "BPS_FUSED_HOMOG") + TRANSPORT_KNOBS:
+        os.environ.pop(name, None)
+    os.environ.update(BPS_ENABLE_PS="1", BPS_NUM_WORKER="2",
+                      BPS_WORKER_ID=str(wid), BPS_LOCAL_RANK="0",
+                      BPS_SERVER_ADDRS=addr, BPS_SHARDED_UPDATE="0",
+                      **knobs)
+    bps.init()
+    try:
+        cfg, loss_fn, _, _ = _bert_setup()
+        data = bert.synth_mlm_batch(np.random.RandomState(wid), TRAIN_BATCH,
+                                    BERT_SEQ, cfg.vocab_size)
+        torch.cuda.reset_peak_memory_stats()
+        trainer = _ps_trainer(cfg, loss_fn)
+        r = _counted_ps_steps(trainer, data)
+        push, pull, resends = _ps_bytes(r["metrics"])
+        m = r["metrics"]
+        be = trainer.ps_exchange.backend
+        (_, keyed), = trainer.ps_exchange._plans.values()
+        sizes = [b.size * np.dtype(b.dtype).itemsize for _, b in keyed]
+        families, seg_bytes = _channels(be)
+        digest = hashlib.sha1()
+        for _, p in sorted(trainer.model.named_parameters()):
+            digest.update(p.detach().cpu().numpy().tobytes())
+        report = {
+            "arm": arm, "losses": r["losses"], "launches": r["launches"],
+            "want": _attention_launches(cfg, ("flash_bwd_fused",))(trainer),
+            "ms": r["ms"], "push_bytes": push, "pull_bytes": pull,
+            "resends": resends,
+            "reconnects": m.get("transport/reconnects", 0),
+            "shm_fallbacks": m.get("transport/shm_fallbacks", 0),
+            "tcp_dials": m.get("transport/tcp_dials", 0),
+            "ipc_dials": m.get("transport/ipc_dials", 0),
+            "families": families, "shm_segment_bytes": seg_bytes,
+            "plan": [len(be._stripe_ranges(n) or ()) for n in sizes],
+            "largest": max(sizes), "params": digest.hexdigest(),
+            "peak_mem": torch.cuda.max_memory_allocated()}
+        trainer.close()
+        return report
+    finally:
+        bps.shutdown()
+        for name in knobs:
+            os.environ.pop(name, None)
+
+
+def train_bert_ps_transport():
+    """Phase ``bert_large_ps_transport``: BERT-large at full width and
+    depth, dense PS (no ``BPS_COMPRESS``) on the default route at world 2,
+    two worker processes on ``cuda:0`` (``transport_worker``) on their own
+    batches, the same batches in every arm, a fresh ``launch --server``
+    (``BPS_NUM_WORKER=2``) an arm: (f0) TCP; (f1) the colocated deployment,
+    the server at ``BPS_ENABLE_IPC=1`` and the workers at
+    ``BPS_ENABLE_IPC=1 BPS_ENABLE_SHM=1``; (f2) ``BPS_STRIPE_MIN=1048576``
+    over TCP. ``/dev/shm``'s size and room are printed first and must fit
+    the segments (``shm_fit``).
+
+    Gates: both workers of all three arms end on one sha1 of every
+    parameter (the transport moves bytes; two fp32 arrivals sum alike in
+    either order); each worker's launches BERT's (144 forward, 72 fused
+    backward, all d 64) and no codec kernel; finite losses, step 3 below
+    step 1; ``transport/resends``, ``transport/reconnects`` and
+    ``transport/shm_fallbacks`` 0; the server's frames by op exact from
+    the bucket plan (``check_transport_server``): (f1) ``server/shm_pushes``
+    2 x ``STEPS`` x the buckets, ``server/shm_pulls`` at least that, no op
+    2 or 3 frame and no TCP connection, and every worker's data channels
+    on ``AF_UNIX`` with no TCP dial; (f2) ``server/part_pushes`` 2 x
+    ``STEPS`` x the parts ``_stripe_ranges`` makes of the buckets and the
+    op-2 frames 2 x ``STEPS`` x the buckets it leaves whole.
+
+    Printed, not gated: each worker's steps 2-3 (the arms run in turn in
+    this call), push and pull bytes, peak memory and shm segments' bytes,
+    and each server's peak RSS, beside the card. Returns each arm's
+    launches summed over its workers."""
+    import shutil
+    card = card_line()
+    tag = "bert_large ps transport"
+    st = os.statvfs("/dev/shm")
+    size, free = st.f_blocks * st.f_frsize, st.f_bavail * st.f_frsize
+    conns = int(os.environ.get("BPS_PS_CONNS", "4") or 4)
+    need, why = shm_fit(free, 2, conns, PARTITION_BYTES)
+    log(f"[{tag}] /dev/shm: {size} bytes, {free} free; (f1)'s segments "
+        f"take at most {need} bytes (2 workers x {conns} channels, the "
+        f"largest bucket at most {PARTITION_BYTES} bytes); {card}")
+    if why:
+        raise AssertionError(f"{tag}: {why}")
+    old = os.environ.get("BPS_IPC_DIR")
+    os.environ["BPS_IPC_DIR"] = d = ipc_dir()
+    try:
+        arms = _arms_over_servers(
+            "transport", "--transport-worker",
+            {arm: env for arm, (env, _) in TRANSPORT_ARMS.items()})
+    finally:
+        if old is None:
+            os.environ.pop("BPS_IPC_DIR", None)
+        else:
+            os.environ["BPS_IPC_DIR"] = old
+        shutil.rmtree(d, ignore_errors=True)
+    sha = arms["f0"][0][0]["params"]
+    for arm, (res, stats) in arms.items():
+        atag = f"{tag} {arm}"
+        plan = res[0]["plan"]
+        for wid, r in enumerate(res):
+            log(f"[{atag}] worker {wid}: losses {r['losses']}, steps 2-3 "
+                f"{r['ms']:.1f} ms a step (two worker processes share one "
+                f"card), ps/push_bytes {r['push_bytes']:.0f} and "
+                f"ps/pull_bytes {r['pull_bytes']:.0f} a step, resends "
+                f"{r['resends']}, reconnects {r['reconnects']}, shm "
+                f"fallbacks {r['shm_fallbacks']}, dials tcp "
+                f"{r['tcp_dials']} ipc {r['ipc_dials']}, channels "
+                f"{r['families']}, shm segments {r['shm_segment_bytes']} "
+                f"bytes, peak memory {r['peak_mem']} bytes; {card}")
+            if not all(math.isfinite(x) for x in r["losses"]) \
+                    or not r["losses"][2] < r["losses"][0]:
+                raise AssertionError(f"{atag} worker {wid}: losses "
+                                     f"{r['losses']}")
+            if r["launches"] != r["want"]:
+                raise AssertionError(f"{atag} worker {wid}: launches "
+                                     f"{r['launches']}, expected {r['want']}")
+            if r["resends"] or r["reconnects"] or r["shm_fallbacks"]:
+                raise AssertionError(f"{atag} worker {wid}: resends "
+                                     f"{r['resends']}, reconnects "
+                                     f"{r['reconnects']}, shm fallbacks "
+                                     f"{r['shm_fallbacks']}")
+            if r["plan"] != plan or r["params"] != sha:
+                raise AssertionError(f"{atag} worker {wid}: its bucket plan "
+                                     f"or parameters differ")
+            if arm == "f1" and (r["families"] != ["AF_UNIX"]
+                                or r["tcp_dials"]):
+                raise AssertionError(f"{atag} worker {wid}: channels "
+                                     f"{r['families']}, {r['tcp_dials']} "
+                                     f"TCP dials")
+        frames = {k: v for k, v in stats.items()
+                  if k.startswith("server/") and k.split("/")[1] in (
+                      "push_frames", "pull_frames", "shm_pushes",
+                      "shm_pulls", "part_pushes", "part_pulls", "tcp_conns",
+                      "ipc_conns")}
+        log(f"[{atag}] server: {frames}, peak RSS {stats['peak_rss_bytes']} "
+            f"bytes ({stats['peak_rss_source']}); {len(plan)} buckets, "
+            f"{sum(plan)} parts in {sum(1 for p in plan if p)} striped; "
+            f"{card}")
+        bad = check_transport_server(arm, stats, plan)
+        if bad:
+            raise AssertionError(f"{atag}: server {bad}")
+        if res[0]["losses"] == res[1]["losses"]:
+            raise AssertionError(f"{atag}: both workers read the same batch")
+    log(f"[{tag}] every parameter of both workers in (f0), (f1), (f2) one "
+        f"sha1 ({sha}); every gate held")
+    SUMMARY[tag] = {arm: {"ms": [r["ms"] for r in res],
+                          "peak_mem": [r["peak_mem"] for r in res],
+                          "shm_segment_bytes": [r["shm_segment_bytes"]
+                                                for r in res],
+                          "server_peak_rss": stats["peak_rss_bytes"]}
+                    for arm, (res, stats) in arms.items()}
+    SUMMARY[tag]["dev_shm"] = {"size": size, "free": free}
+    return tuple({k: res[0]["launches"][k] + res[1]["launches"][k]
+                  for k in res[0]["launches"]} for res, _ in arms.values())
+
+
+_SNAP_RE = {"final": re.compile(r"final snapshot: (\d+) PS keys, (\d+) "
+                                r"bytes in ([\d.]+) s"),
+            "restored": re.compile(r"restored (\d+) PS keys from \S+ "
+                                   r"\((\d+) bytes in ([\d.]+) s\)")}
+
+
+def snapshot_lines(lines):
+    """{"final": (keys, bytes, s), "restored": (keys, bytes, s)} from a
+    server's stderr lines (``launch --server``), None for one it did not
+    print."""
+    out = dict.fromkeys(_SNAP_RE)
+    for line in lines:
+        for k, rx in _SNAP_RE.items():
+            m = rx.search(line)
+            if m:
+                out[k] = (int(m.group(1)), int(m.group(2)),
+                          float(m.group(3)))
+    return out
+
+
+def check_snapshot_restart(before, report, first, second, stats):
+    """What is wrong with (f3); empty when nothing is. ``before``: the
+    worker's report before the stop (its keys, their rounds and each
+    key's round-0 sha1); ``report``: its report after step 3;
+    ``first``/``second``: ``snapshot_lines`` of the first and the
+    restarted server; ``stats``: the restarted server's stop line."""
+    n = before["keys"]
+    bad = []
+    if before["rounds"] != [SNAPSHOT_STEPS]:
+        bad.append(f"rounds before the stop {before['rounds']}, expected "
+                   f"[{SNAPSHOT_STEPS}]")
+    if first["final"] is None or first["final"][0] != n:
+        bad.append(f"the first server's final snapshot {first['final']}, "
+                   f"expected {n} keys")
+    if second["restored"] is None or second["restored"][0] != n:
+        bad.append(f"the restarted server restored {second['restored']}, "
+                   f"expected {n} keys")
+    if stats.get("server/restored_keys") != n:
+        bad.append(f"server/restored_keys {stats.get('server/restored_keys')}"
+                   f", expected {n}")
+    diff = [k for k, (a, b) in enumerate(zip(before["sha1"], report["sha1"]))
+            if a != b]
+    if len(report["sha1"]) != n or diff:
+        bad.append(f"{len(diff)} keys' round-0 pulls after the restore "
+                   f"differ from before the stop (of {len(report['sha1'])})")
+    if report["reconnects"] < 1:
+        bad.append("transport/reconnects 0: the worker never reconnected")
+    if not math.isfinite(report["loss3"]):
+        bad.append(f"step 3's loss {report['loss3']}")
+    if report["rounds"] != [1]:
+        bad.append(f"rounds after step 3 {report['rounds']}, expected [1]")
+    if report["over"]:
+        bad.append(f"{report['over']} elements of the store after step 3 "
+                   f"off the restored store plus its delta")
+    return bad
+
+
+def snapshot_worker(where) -> int:
+    """``--snapshot-worker DIR``: the worker of (f3), world 1 on ``cuda:0``.
+    It waits for ``DIR/f3.addr``, trains BERT-large dense async PS at
+    ``CUT_LAYERS`` from seed 0 for ``SNAPSHOT_STEPS`` steps, waits until
+    the store folded them (each key's round), writes each key's round-0
+    sha1 to ``DIR/f3.before.json``, waits for ``DIR/f3.restarted`` (the
+    server stopped and restarted from its snapshot), pulls every key
+    again (its first ops reconnect and replay the inits), takes step 3
+    with its deltas logged, and writes ``DIR/f3.json``: the sha1s after
+    the restore, the reconnects, the losses and launches of the three
+    steps, the rounds after step 3 and the store against the restored one
+    plus the deltas (``async_store_check``, one fold)."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import bert
+    from byteps_tpu_torch.obs.metrics import get_registry
+    where = Path(where)
+    _await_file(where / "f3.addr", "server address for arm f3")
+    for name in ("BPS_COMPRESS", "BPS_MAX_LAG", "BPS_ASYNC_WIRE_DTYPE",
+                 "BPS_ASYNC_PULL_DTYPE", "BPS_FUSED_HOMOG") + TRANSPORT_KNOBS:
+        os.environ.pop(name, None)
+    os.environ.update(BPS_ENABLE_PS="1", BPS_ENABLE_ASYNC="1",
+                      BPS_NUM_WORKER="1", BPS_WORKER_ID="0",
+                      BPS_LOCAL_RANK="0",
+                      BPS_SERVER_ADDRS=(where / "f3.addr").read_text(),
+                      BPS_SHARDED_UPDATE="0")
+    bps.init()
+    try:
+        cfg, loss_fn, data, _ = _bert_setup(layers=CUT_LAYERS)
+        trainer = _ps_trainer(cfg, loss_fn)
+        w = trainer._async_worker
+        torch.cuda.synchronize()
+        ctr = counters()
+        zero_counts(ctr)
+        losses = []
+        for _ in range(SNAPSHOT_STEPS):
+            losses.append(trainer.step(data).item())
+        rounds = _await_folds(w.backend, w.keys, SNAPSHOT_STEPS)
+
+        def store():
+            for key, n in zip(w.keys, w.sizes):
+                out = np.empty(n, np.float32)
+                w.backend.pull(key, out)
+                yield out
+
+        _write_json(where / "f3.before.json", {
+            "keys": len(w.keys), "rounds": sorted(set(rounds)),
+            "sha1": [hashlib.sha1(a.tobytes()).hexdigest()
+                     for a in store()]})
+        _await_file(where / "f3.restarted", "the restarted server")
+        reconnects = get_registry().counter("transport/reconnects")
+        r0 = reconnects.value
+        restored = list(store())
+        sha1 = [hashlib.sha1(a.tobytes()).hexdigest() for a in restored]
+        dlog = DeltaLog(w.backend)
+        losses.append(trainer.step(data).item())
+        torch.cuda.synchronize()
+        dlog.stop()
+        launches = read_counts(ctr)
+        rounds3 = _await_folds(w.backend, w.keys, 1)
+        over, worst = 0, 0.0
+        for x0, now, key in zip(restored, store(), w.keys):
+            o, q = async_store_check(x0, dlog.pushed[key], now, 1, "cuda")
+            over, worst = over + o, max(worst, q)
+        _write_json(where / "f3.json", {
+            "sha1": sha1, "reconnects": reconnects.value - r0,
+            "losses": losses, "loss3": losses[-1], "launches": launches,
+            "want": _attention_launches(cfg, ("flash_bwd_fused",))(trainer),
+            "rounds": sorted(set(rounds3)), "over": over, "worst": worst,
+            "n_params": sum(w.sizes)})
+        trainer.close()
+    finally:
+        bps.shutdown()
+    return 0
+
+
+def train_bert_ps_snapshot():
+    """Phase ``bert_large_ps_snapshot``, (f3): a snapshot restart under
+    async PS at world 1, BERT-large at ``CUT_LAYERS`` (a snapshot holds the
+    store, which under async PS is the weights). The first ``launch
+    --server`` runs at ``BPS_ENABLE_ASYNC=1`` and ``BPS_SERVER_SNAPSHOT``;
+    the worker (``snapshot_worker``) takes ``SNAPSHOT_STEPS`` steps and
+    quiesces; SIGTERM makes the server write its final snapshot and stop;
+    a fresh server on the same port restores the file before it accepts;
+    the worker reconnects and takes step 3. Gates
+    (``check_snapshot_restart``): the restarted server restored every key;
+    every key's round-0 pull after the restore is bit for bit its pull
+    before the stop; the worker reconnected; step 3's loss is finite; the
+    store after step 3 is the restored store plus the step-3 delta
+    (``async_store_check``); the three steps' launches BERT's at that
+    depth. Printed: the snapshot's bytes and the seconds to write it and
+    to restore it, beside the card. Returns the worker's launches."""
+    import shutil
+    import tempfile
+    card = card_line()
+    tag = "bert_large ps snapshot f3"
+    tmp = Path(tempfile.mkdtemp())
+    env = {"BPS_ENABLE_ASYNC": "1",
+           "BPS_SERVER_SNAPSHOT": str(tmp / "ps.npz")}
+    logf = open(tmp / "worker.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, __file__, "--snapshot-worker", str(tmp)], cwd=ROOT,
+        env=dict(os.environ), stdout=logf, stderr=subprocess.STDOUT)
+    servers, failed = [], None
+    try:
+        server, lines1, addr = start_ps_server(1, env)
+        servers.append(server)
+        (tmp / "f3.addr.tmp").write_text(addr)
+        (tmp / "f3.addr.tmp").rename(tmp / "f3.addr")
+        failed = _await_reports([proc], [tmp / "f3.before.json"],
+                                time.time() + REMOTE_WAIT)
+        if failed is None:
+            rc1 = stop_ps_server(server)      # SIGTERM: the final snapshot
+            server, lines2, _ = start_ps_server(
+                1, dict(env, BPS_SERVER_PORT=addr.rsplit(":", 1)[1]))
+            servers.append(server)
+            _write_json(tmp / "f3.restarted", True)
+            failed = _await_reports([proc], [tmp / "f3.json"],
+                                    time.time() + REMOTE_WAIT)
+    finally:
+        rcs = [stop_ps_server(s) for s in servers]
+        if proc.poll() is None and failed is not None:
+            proc.kill()
+        proc.wait(timeout=60)
+        logf.close()
+    text = (tmp / "worker.log").read_text()
+    log(f"----- snapshot worker (exit {proc.returncode})")
+    log(text if failed or proc.returncode else text[-1500:])
+    if failed or proc.returncode:
+        print(f"----- snapshot worker (exit {proc.returncode}), its log's "
+              f"end:\n{text[-6000:]}", file=sys.stderr, flush=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise AssertionError(f"{tag}: {failed or 'the worker failed'}")
+    before = json.loads((tmp / "f3.before.json").read_text())
+    report = json.loads((tmp / "f3.json").read_text())
+    shutil.rmtree(tmp, ignore_errors=True)
+    stats = [json.loads(x.split("server stats ", 1)[1])
+             for x in lines2 if "server stats " in x]
+    first, second = snapshot_lines(lines1), snapshot_lines(lines2)
+    log(f"[{tag}] {before['keys']} keys, {report['n_params']} parameters; "
+        f"the first server's final snapshot (keys, bytes, s) "
+        f"{first['final']}, exit {rc1}; the restarted server restored "
+        f"{second['restored']}, its final snapshot {second['final']}, "
+        f"exit {rcs[-1]}; reconnects {report['reconnects']}; losses "
+        f"{report['losses']}; the store after step 3 against the restored "
+        f"one plus the delta: {report['over']} elements over the bound, "
+        f"the largest error {report['worst']:.4f} of it; {card}")
+    bad = check_snapshot_restart(before, report, first, second,
+                                 stats[0] if len(stats) == 1 else {})
+    if rc1 or rcs[-1]:
+        bad.append(f"the servers exited {rc1} and {rcs[-1]}")
+    if report["launches"] != report["want"]:
+        bad.append(f"launches {report['launches']}, expected "
+                   f"{report['want']}")
+    if bad:
+        raise AssertionError(f"{tag}: {bad}")
+    log(f"[{tag}] every key's bits restored; every gate held")
+    SUMMARY["bert_large ps snapshot"] = {
+        "final": first["final"], "restored": second["restored"],
+        "keys": before["keys"]}
+    return report["launches"]
+
+
 PHASE_S = {}
 
 
@@ -7047,16 +7576,28 @@ def _store_phases(paths):
     full-tree checkpoint at world 1."""
     (paths["bert_large_ps_store_routes_e0"],
      paths["bert_large_ps_store_routes_e1"]) = _timed(
-        "bert_large_ps_store_routes", train_bert_ps_store_routes)
+        "bert_large_ps_store_routes (cut)", train_bert_ps_store_routes)
     paths["bert_large_checkpoint"] = _timed("bert_large_checkpoint",
                                             train_bert_checkpoint)
 
 
+def _transport_phases(paths):
+    """The transport's routes at world 2 over ``launch --server`` (TCP,
+    the colocated deployment, striping) and the snapshot restart."""
+    (paths["bert_large_ps_transport_f0"], paths["bert_large_ps_transport_f1"],
+     paths["bert_large_ps_transport_f2"]) = _timed(
+        "bert_large_ps_transport", train_bert_ps_transport)
+    paths["bert_large_ps_snapshot_f3"] = _timed(
+        "bert_large_ps_snapshot (cut)", train_bert_ps_snapshot)
+
+
 def remote_ps_main(only=None) -> int:
-    """``--remote-ps``: the toolchain, then only phase 4's remote PS runs
-    and the store's phases; ``--async-ps``: only ``bert_large_ps_async``
-    of them; ``--store-routes``: only ``bert_large_ps_store_routes`` and
-    ``bert_large_checkpoint``."""
+    """``--remote-ps``: the toolchain, then only phase 4's remote PS runs,
+    the store's phases and the transport's; ``--async-ps``: only
+    ``bert_large_ps_async`` of them; ``--store-routes``: only
+    ``bert_large_ps_store_routes`` and ``bert_large_checkpoint``;
+    ``--transport``: only ``bert_large_ps_transport`` and
+    ``bert_large_ps_snapshot``."""
     t = time.perf_counter()
     toolchain()
     paths = {}
@@ -7067,9 +7608,12 @@ def remote_ps_main(only=None) -> int:
                                                    ASYNC_SOAK)
     elif only == "store":
         _store_phases(paths)
+    elif only == "transport":
+        _transport_phases(paths)
     else:
         _remote_phases(paths)
         _store_phases(paths)
+        _transport_phases(paths)
     log(f"phase seconds {json.dumps(PHASE_S)}")
     log(f"remote PS in {time.perf_counter() - t:.1f} s")
     print(json.dumps({"remote_ps": {
@@ -7902,12 +8446,18 @@ def main() -> int:
         return async_ps_worker(int(args[1]), args[2], int(args[3]))
     if args[:1] == ["--store-routes-worker"]:
         return store_routes_worker(int(args[1]), args[2])
+    if args[:1] == ["--transport-worker"]:
+        return transport_worker(int(args[1]), args[2])
+    if args[:1] == ["--snapshot-worker"]:
+        return snapshot_worker(args[1])
     if args == ["--remote-ps"]:
         return remote_ps_main()
     if args == ["--async-ps"]:
         return remote_ps_main("async")
     if args == ["--store-routes"]:
         return remote_ps_main("store")
+    if args == ["--transport"]:
+        return remote_ps_main("transport")
     if args[:1] == ["--ps-routes"]:
         toolchain()
         return ps_routes(tuple(args[1:]) or ("int8", "fp8_e4m3"))
@@ -8008,6 +8558,7 @@ def main() -> int:
         "bert_large_ps_watchdog (cut)", train_bert_ps_watchdog, cut_losses)
     _remote_phases(paths)
     _store_phases(paths)
+    _transport_phases(paths)
     paths["bert_large_plugin"] = _timed("bert_large_plugin",
                                         train_bert_plugin, bert_losses)
     paths["bert_large_pushpull_int8"] = _timed(

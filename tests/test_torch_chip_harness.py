@@ -250,3 +250,129 @@ def test_the_servers_memory_by_mapping():
     assert chip_smoke.memory_map(pid=-1) is None
     samples = [(1.0, 5), (2.0, 9), (3.0, 7), (4.0, 8)]
     assert chip_smoke.rss_at(samples, [0.5, 2.5, 3.5, 9.0]) == [0, 9, 9, 9]
+
+
+# -- the transport phase's gates (``bert_large_ps_transport``, (f3))
+
+
+def _bert_large_plan():
+    """BERT-large's dense bucket sizes (327 buckets of at most 4,096,000
+    bytes) and the parts ``_stripe_ranges`` makes of each at
+    ``BPS_STRIPE_MIN=1048576`` on 4 channels."""
+    from byteps_tpu_torch.server.transport import RemotePSBackend
+    c = object.__new__(RemotePSBackend)
+    c._stripe_min, c._nconns = 1 << 20, 4
+    sizes = [4_096_000] * 300 + [1_048_576] * 7 + [524_288] * 5 \
+        + [8_192] * 15
+    return sizes, [len(c._stripe_ranges(n) or ()) for n in sizes]
+
+
+def _sound_stats(arm, plan):
+    n, nb = 6, len(plan)
+    parts, whole = sum(plan), sum(1 for p in plan if not p)
+    stats = dict.fromkeys(
+        ("server/push_frames", "server/pull_frames", "server/shm_pushes",
+         "server/shm_pulls", "server/part_pushes", "server/part_pulls",
+         "server/tcp_conns", "server/ipc_conns"), 0)
+    if arm == "f0":
+        stats.update({"server/push_frames": n * nb,
+                      "server/pull_frames": n * nb + 3,
+                      "server/tcp_conns": 8})
+    elif arm == "f1":
+        stats.update({"server/shm_pushes": n * nb,
+                      "server/shm_pulls": n * nb + 5,
+                      "server/ipc_conns": 8})
+    else:
+        stats.update({"server/part_pushes": n * parts,
+                      "server/part_pulls": n * parts,
+                      "server/push_frames": n * whole,
+                      "server/pull_frames": n * whole + 1,
+                      "server/tcp_conns": 8})
+    return stats
+
+
+def test_the_transport_frames_come_from_the_bucket_plan():
+    sizes, plan = _bert_large_plan()
+    assert len(plan) == 327
+    assert plan[:300] == [4] * 300            # 4 parts of 1,024,000 bytes
+    assert plan[300:] == [0] * 27             # below 1 MiB or one part
+    exact, least = chip_smoke.transport_frames_want("f1", plan)
+    assert exact["server/shm_pushes"] == 2 * 3 * 327
+    assert least["server/shm_pulls"] == 2 * 3 * 327
+    assert exact["server/push_frames"] == exact["server/pull_frames"] == 0
+    assert exact["server/tcp_conns"] == 0
+    exact, least = chip_smoke.transport_frames_want("f2", plan)
+    assert exact["server/part_pushes"] == 2 * 3 * 1200
+    assert exact["server/push_frames"] == 2 * 3 * 27
+    assert least["server/part_pulls"] == 2 * 3 * 1200
+    exact, _ = chip_smoke.transport_frames_want("f0", plan)
+    assert exact["server/push_frames"] == 2 * 3 * 327
+    assert exact["server/part_pushes"] == exact["server/shm_pushes"] == 0
+
+
+@pytest.mark.parametrize("arm", ["f0", "f1", "f2"])
+def test_the_transport_server_gate_passes_a_sound_run_only(arm):
+    _, plan = _bert_large_plan()
+    stats = _sound_stats(arm, plan)
+    assert chip_smoke.check_transport_server(arm, stats, plan) == []
+    faults = {"f0": ("server/push_frames", -1),
+              "f1": ("server/push_frames", 1),     # a socket push
+              "f2": ("server/part_pushes", 1)}     # a part resent
+    name, d = faults[arm]
+    bad = dict(stats, **{name: stats[name] + d})
+    assert chip_smoke.check_transport_server(arm, bad, plan)
+    if arm == "f1":
+        for name in ("server/tcp_conns", "server/pull_frames"):
+            assert chip_smoke.check_transport_server(
+                arm, dict(stats, **{name: 1}), plan)
+        short = dict(stats, **{"server/shm_pulls": 2 * 3 * 327 - 1})
+        assert chip_smoke.check_transport_server(arm, short, plan)
+
+
+def test_the_dev_shm_fit_check():
+    need, why = chip_smoke.shm_fit(64 << 20, 2, 4, 4_096_000)
+    assert need == 2 * 4 * 4_096_000 and why is None
+    need, why = chip_smoke.shm_fit(32 << 20, 2, 4, 4_096_000)
+    assert need == 32_768_000 and why is None        # 32 MiB holds it
+    need, why = chip_smoke.shm_fit(30 << 20, 2, 4, 4_096_000)
+    assert why and "/dev/shm has" in why
+    need, why = chip_smoke.shm_fit(16 << 20, 2, 4, 1000)
+    assert need == 8 << 20 and why is None           # 1 MiB a segment
+
+
+def _snapshot_run():
+    before = {"keys": 3, "rounds": [chip_smoke.SNAPSHOT_STEPS],
+              "sha1": ["a", "b", "c"]}
+    report = {"sha1": ["a", "b", "c"], "reconnects": 4, "loss3": 7.2,
+              "rounds": [1], "over": 0}
+    first = chip_smoke.snapshot_lines([
+        "[byteps_tpu_torch.launch] server up on :4000 (workers=1)",
+        "[byteps_tpu_torch.launch] final snapshot: 3 PS keys, 4096 bytes "
+        "in 0.012 s -> /tmp/x/ps.npz"])
+    second = chip_smoke.snapshot_lines([
+        "[byteps_tpu_torch.launch] restored 3 PS keys from /tmp/x/ps.npz "
+        "(4096 bytes in 0.020 s)",
+        "[byteps_tpu_torch.launch] server up on :4000 (workers=1)"])
+    return before, report, first, second, {"server/restored_keys": 3}
+
+
+def test_the_snapshot_restart_gate_passes_a_sound_run_only():
+    before, report, first, second, stats = _snapshot_run()
+    assert first["final"] == (3, 4096, 0.012) and first["restored"] is None
+    assert second["restored"] == (3, 4096, 0.020)
+    assert chip_smoke.check_snapshot_restart(before, report, first, second,
+                                             stats) == []
+    broken = [
+        (dict(before), dict(report, sha1=["a", "x", "c"]), first, second,
+         stats),
+        (before, dict(report, reconnects=0), first, second, stats),
+        (before, dict(report, loss3=float("nan")), first, second, stats),
+        (before, dict(report, over=12), first, second, stats),
+        (before, report, {"final": None, "restored": None}, second, stats),
+        (before, report, first, {"final": None, "restored": (2, 1, 0.1)},
+         stats),
+        (before, report, first, second, {"server/restored_keys": 0}),
+        (dict(before, rounds=[1, 2]), report, first, second, stats),
+    ]
+    for args in broken:
+        assert chip_smoke.check_snapshot_restart(*args), args

@@ -353,6 +353,15 @@ ACTED_ON = {
     "BPS_ASYNC_PULL_DTYPE": ("server/ps_mode.py",),
     # the engine-side fused route, read from os.environ where it acts
     "BPS_FUSED_HOMOG": ("server/homog.py",),
+    # the transport's rest: the shm data plane, striping and the Unix
+    # socket on both sides; the launcher's server snapshots
+    "BPS_ENABLE_SHM": ("server/transport.py",),
+    "BPS_STRIPE_MIN": ("server/transport.py",),
+    "BPS_ENABLE_IPC": ("server/transport.py",),
+    "BYTEPS_ENABLE_IPC": ("server/transport.py",),
+    "BPS_IPC_DIR": ("server/transport.py",),
+    "BPS_SERVER_SNAPSHOT": ("launcher/launch.py",),
+    "BPS_SERVER_SNAPSHOT_SECS": ("launcher/launch.py",),
 }
 
 
@@ -508,11 +517,8 @@ def test_debug_sampler_logs_matching_names(env, monkeypatch):
 
 def _transport_cases():
     from byteps_tpu_torch.server import transport as t
-    values = {"BPS_STRIPE_MIN": "4194304", "BPS_ENABLE_SHM": "1",
-              "BPS_ENABLE_IPC": "1", "BYTEPS_ENABLE_IPC": "1",
-              "BPS_REDUCE_ROOTS": "0", "BYTEPS_REDUCE_ROOTS": "0",
-              "BPS_KEY_LOG": "1", "PS_KEY_LOG": "1",
-              "BPS_SERVER_SNAPSHOT": "ps_state.npz", "BPS_NIC_RATE": "1e9"}
+    values = {"BPS_REDUCE_ROOTS": "0", "BYTEPS_REDUCE_ROOTS": "0",
+              "BPS_KEY_LOG": "1", "PS_KEY_LOG": "1", "BPS_NIC_RATE": "1e9"}
     cases = []
     for role, table in (("client", t.CLIENT_REFUSED),
                         ("server", t.SERVER_REFUSED),

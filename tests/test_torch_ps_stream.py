@@ -339,6 +339,8 @@ def test_watchdog_names_a_held_pull_of_an_ingest_round(monkeypatch):
 
     be = HostPSBackend(num_servers=1, num_workers=1, engine_threads=1)
     t = _tree(4)
+    # the gauge is process-wide: hold this exchange's own rounds
+    base = tmetrics.get_registry().gauge("ps/rounds_in_flight").value
     _, ex = _exchange(backend=Held(be), pipeline_depth=2)
     try:
         ex.plan_for(t, name="w")
@@ -363,7 +365,8 @@ def test_watchdog_names_a_held_pull_of_an_ingest_round(monkeypatch):
         release.set()
         ex.close()
         be.close()
-    assert tmetrics.get_registry().gauge("ps/rounds_in_flight").value == 0
+    assert tmetrics.get_registry().gauge("ps/rounds_in_flight").value \
+        == base
 
 
 # ------------------------------------------------------- chunked apply

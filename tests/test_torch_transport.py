@@ -623,9 +623,11 @@ def test_golden_frames_match_the_jax_package(name):
 def test_ported_op_numbers_are_the_jax_packages():
     for name in ("OP_INIT", "OP_PUSH", "OP_PULL", "OP_CLOSE", "OP_INIT_C",
                  "OP_PUSH_C", "OP_PULL_C", "OP_PUSH_RS", "OP_ROUND",
+                 "OP_PUSH_SHM", "OP_PULL_SHM", "OP_PUSH_PART", "OP_PULL_PART",
                  "OP_PUSH_F", "OP_PULL_F", "ST_OK", "ST_ERR", "ST_TIMEOUT", "ST_GONE"):
         assert getattr(ptransport, name) == getattr(jtransport, name), name
     assert ptransport._HDR.format == jtransport._HDR.format
+    assert ptransport._PART.format == jtransport._PART.format
     assert ptransport._RSP.format == jtransport._RSP.format
     jops = {v for k, v in vars(jtransport).items() if k.startswith("OP_")}
     ported = {v for k, v in vars(ptransport).items() if k.startswith("OP_")}
