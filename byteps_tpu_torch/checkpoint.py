@@ -1,6 +1,6 @@
-"""Checkpoint and resume helpers (the port of the full-tree half of
-``byteps_tpu/checkpoint.py``: ``save_checkpoint`` at ``:60-83``,
-``restore_checkpoint`` at ``:207-218``).
+"""Checkpoint and resume helpers (the port of ``byteps_tpu/checkpoint.py``:
+``save_checkpoint`` at ``:60-83``, ``restore_checkpoint`` at ``:207-218``,
+the sharded pair at ``:85-204``).
 
 The reference leaves checkpoints to the frameworks and only guarantees a
 consistent init and a stable name→key map across an elastic resume
@@ -34,10 +34,22 @@ their template's device (a leaf the template lacks, such as the moments
 of a fresh optimizer, stays on the CPU, where the optimizer's
 ``load_state_dict`` moves it to its parameter's device).
 
-The sharded checkpoints of ``BPS_SHARDED_UPDATE=1``
-(``save_sharded_checkpoint``, ``restore_sharded_checkpoint``) are not
-ported yet and raise (ROADMAP.md, queue 1, item 6, "What the sharded
-update leaves").
+Sharded checkpoints (``BPS_SHARDED_UPDATE=1``): every worker holds the
+optimizer state of its owned bucket groups only, so every worker calls
+``save_sharded_checkpoint(path, trainer)`` at the same step boundary.
+Each writes its owned groups' slices, ``opt_shard/s<step>/g<gi>.bin``
+(``sharded_update.pack_opt_state`` frames, the membership handoff's
+format; the JAX package's layout, so a slice of either package restores
+into the other), each under a temporary name and renamed; worker 0 then
+writes ``state.pt`` (``{"params": model.state_dict()}``) and last
+``bps_meta.json``, ``{"step", "sharded": {"member_epoch", "world",
+"live", "owner", "name", "groups"}}`` as the JAX package writes it. The
+meta is the commit marker and names the step whose slice directory it
+pairs with, so a re-save cut short leaves the committed meta and its
+slices readable (the window between ``state.pt``'s rename and the
+meta's is the JAX package's too). ``DistributedTrainer.restore_sharded``
+reads it back before the first step; a feature-store ``embed=`` raises
+(``server/embed.py`` is not ported: ROADMAP.md, queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -50,8 +62,9 @@ import torch
 
 _META = "bps_meta.json"
 _STATE = "state.pt"
-_SHARDED = ("is not ported yet (see ROADMAP.md, 'Modules still to port', "
-            "queue 1, item 6, 'What the sharded update leaves')")
+_SLICES = "opt_shard"
+_EMBED = ("the feature store (server/embed.py) is not ported yet (see "
+          "ROADMAP.md, 'Modules still to port', queue 1, item 8)")
 
 
 def _write_atomic(path: str, write) -> None:
@@ -143,14 +156,78 @@ def restore_checkpoint(path: str, params_like: Any,
 
 def save_sharded_checkpoint(path: str, trainer, step: Optional[int] = None,
                             embed=None) -> None:
-    """The sharded update's per-replica checkpoint: not ported."""
-    raise NotImplementedError(f"save_sharded_checkpoint (sharded "
-                              f"checkpoints of BPS_SHARDED_UPDATE=1) "
-                              f"{_SHARDED}")
+    """Save this worker's part of a sharded checkpoint (module docstring):
+    the slices of its owned groups, then, on worker 0, the parameters and
+    the meta. It drains the trainer first, so every tail and param frame
+    of the steps before is in. Raises without an engaged sharded
+    update."""
+    if embed is not None:
+        raise NotImplementedError(f"save_sharded_checkpoint(embed=): "
+                                  f"{_EMBED}")
+    st = getattr(trainer, "_sharded", None)
+    chunked = getattr(trainer, "_chunked", None)
+    if st is None or chunked is None or not chunked.decomposable:
+        raise RuntimeError(
+            "save_sharded_checkpoint needs an engaged sharded update "
+            "(BPS_SHARDED_UPDATE=1, dp>1, at least one step run) — use "
+            "save_checkpoint for the full-tree state")
+    trainer.drain()
+    from .sharded_update import pack_opt_state
+    step_val = int(trainer.step_count if step is None else step)
+    path = os.path.abspath(path)
+    shard_dir = os.path.join(path, _SLICES, f"s{step_val}")
+    os.makedirs(shard_dir, exist_ok=True)
+    plan = st.plan
+    for gi in plan.owned:
+        blob = pack_opt_state(chunked.group_state(gi))
+        tmp = os.path.join(shard_dir, f".g{gi}.bin.tmp.{os.getpid()}")
+        with open(tmp, "wb") as f:
+            f.write(blob)
+        os.replace(tmp, os.path.join(shard_dir, f"g{gi}.bin"))
+    if plan.rank != 0:
+        return
+    params = trainer._model.state_dict()
+    _write_atomic(os.path.join(path, _STATE),
+                  lambda p: torch.save({"params": params}, p))
+    meta = {"step": step_val,
+            "sharded": {"member_epoch": st.member_epoch,
+                        "world": plan.world,
+                        "live": sorted(plan.live),
+                        "owner": list(plan.owner),
+                        "name": st.name,
+                        "groups": [list(g) for g in plan.groups]}}
+    tmp = os.path.join(path, f".{_META}.tmp.{os.getpid()}")
+    with open(tmp, "w") as f:
+        json.dump(meta, f)
+    os.replace(tmp, os.path.join(path, _META))
 
 
 def restore_sharded_checkpoint(path: str, params_like: Any, embed=None):
-    """The sharded update's per-replica restore: not ported."""
-    raise NotImplementedError(f"restore_sharded_checkpoint (sharded "
-                              f"checkpoints of BPS_SHARDED_UPDATE=1) "
-                              f"{_SHARDED}")
+    """Read a sharded checkpoint: ``(params, {group: slice bytes}, step,
+    meta)``. Every slice of the committed step (the meta's) comes back,
+    whoever saved it, so any worker may adopt any group; a slice for a
+    group at or beyond the meta's group count is left out. ``params``
+    as ``restore_checkpoint`` places them, against ``params_like``."""
+    if embed is not None:
+        raise NotImplementedError(f"restore_sharded_checkpoint(embed=): "
+                                  f"{_EMBED}")
+    path = os.path.abspath(path)
+    with open(os.path.join(path, _META)) as f:
+        meta = json.load(f)
+    if "sharded" not in meta:
+        raise ValueError(
+            f"{path} is not a sharded checkpoint (no membership meta) — "
+            f"restore_checkpoint handles full-tree saves")
+    params, _, _, _ = restore_checkpoint(path, params_like)
+    shard_dir = os.path.join(path, _SLICES, f"s{meta.get('step', 0)}")
+    n_groups = len(meta["sharded"].get("groups") or []) or None
+    blobs = {}
+    if os.path.isdir(shard_dir):
+        for fn in sorted(os.listdir(shard_dir)):
+            if fn.startswith("g") and fn.endswith(".bin"):
+                gi = int(fn[1:-4])
+                if n_groups is not None and gi >= n_groups:
+                    continue
+                with open(os.path.join(shard_dir, fn), "rb") as f:
+                    blobs[gi] = f.read()
+    return params, blobs, meta.get("step", 0), meta

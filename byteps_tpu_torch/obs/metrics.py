@@ -237,6 +237,17 @@ class MetricsRegistry:
         return {name: m.summary() if isinstance(m, Histogram) else m.value
                 for name, m in items}
 
+    def counters_with_prefix(
+            self, prefixes: Tuple[str, ...]) -> Dict[str, int]:
+        """{name: value} of every counter whose name starts with one of
+        ``prefixes``: the per-layer byte counters
+        (``ps/push_bytes/<decl>.<bucket>``) appear at plan time, so no
+        fixed list covers them."""
+        with self._lock:
+            items = [(n, m) for n, m in self._metrics.items()
+                     if isinstance(m, Counter) and n.startswith(prefixes)]
+        return {n: m.value for n, m in items}
+
     def reset(self) -> None:
         """Zero every metric."""
         with self._lock:

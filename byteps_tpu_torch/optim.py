@@ -233,6 +233,55 @@ def leafwise_decomposable(optimizer, params, groups, steps: int = 2) -> bool:
         return False        # run keeps the fused apply
 
 
+def _adam_layout(optimizer) -> bool:
+    """Whether ``optimizer`` keeps optax's ``ScaleByAdamState`` per
+    parameter: torch's Adam or AdamW without amsgrad (``step``,
+    ``exp_avg``, ``exp_avg_sq``: the count, mu and nu)."""
+    return (isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW))
+            and not any(g.get("amsgrad") for g in optimizer.param_groups))
+
+
+def _scalar_on_device(hyper: dict) -> bool:
+    """Whether torch keeps a parameter's 0-d state on its device."""
+    return bool(hyper.get("capturable") or hyper.get("fused"))
+
+
+def _adam_fresh(p, hyper: dict) -> dict:
+    """The state torch's Adam and AdamW make at a parameter's first step
+    (``Adam._init_group``): ``step`` 0, a 0-d tensor on the CPU (on the
+    parameter's device under ``capturable`` or ``fused``), float32 (float64
+    when that is the default dtype and the step is not fused), and the
+    two moments as zeros like the parameter."""
+    fused = bool(hyper.get("fused"))
+    dtype = (torch.float64 if torch.get_default_dtype() == torch.float64
+             and not fused else torch.float32)
+    dev = p.device if _scalar_on_device(hyper) else torch.device("cpu")
+    return {"step": torch.zeros((), dtype=dtype, device=dev),
+            "exp_avg": torch.zeros_like(
+                p, memory_format=torch.preserve_format),
+            "exp_avg_sq": torch.zeros_like(
+                p, memory_format=torch.preserve_format)}
+
+
+class GroupState:
+    """One bucket group's optimizer state, as torch keeps it: ``state``
+    holds a dict a parameter of ``params`` (the group's leaves, in group
+    order), the entries of ``optimizer.state``. ``adam``: the optimizer's
+    state has the JAX package's Adam layout (``_adam_layout``), the frame
+    layout of ``sharded_update.pack_opt_state``. ``scalar_on_device``:
+    per parameter, whether torch keeps its 0-d state (``step``) on the
+    parameter's device (``capturable`` or ``fused``) rather than on the
+    CPU."""
+
+    __slots__ = ("params", "state", "adam", "scalar_on_device")
+
+    def __init__(self, params, state, adam: bool, scalar_on_device) -> None:
+        self.params = list(params)
+        self.state = [dict(s) for s in state]
+        self.adam = bool(adam)
+        self.scalar_on_device = list(scalar_on_device)
+
+
 class ChunkedApply:
     """The inner optimizer applied per bucket group of the flat parameter
     list ``params`` (the trainer's leaves, in the JAX tree's order), the
@@ -254,7 +303,9 @@ class ChunkedApply:
     groups this replica applies. A group's child optimizer is made at its
     first apply, and a torch optimizer makes a parameter's state at its
     first step, so optimizer state exists for the owned groups only;
-    applying another group raises (its state lives on its owner)."""
+    applying another group raises (its state lives on its owner). A
+    membership change moves a group's state with ``init_group``,
+    ``adopt_group``, ``release_group`` and ``set_owned``."""
 
     def __init__(self, optimizer, params, groups, owned=None) -> None:
         self.opt = optimizer
@@ -353,6 +404,86 @@ class ChunkedApply:
         state = self.opt.state
         return [gi for gi, g in enumerate(self.groups)
                 if any(state.get(self.params[li]) for li in g)]
+
+    # ------------------------------------------------ membership changes
+    #
+    # The sharded update's ownership moves (``sharded_update.py``'s
+    # ``reshard`` and the sharded checkpoints) through these: the port of
+    # ``byteps_tpu/optim.py:258-287``. A group's state is its parameters'
+    # entries of the one ``optimizer.state`` table.
+
+    def _stepped(self, gi: int):
+        """The leaves of group ``gi`` that the optimizer steps, and the
+        param-group dict of each."""
+        where = _group_index(self.opt)
+        ps = [self.params[li] for li in self.groups[gi]
+              if id(self.params[li]) in where]
+        return ps, [self.opt.param_groups[where[id(p)]] for p in ps]
+
+    def group_state(self, gi: int) -> GroupState:
+        """Group ``gi``'s optimizer state as it stands (a parameter without
+        state has an empty dict)."""
+        ps, hyper = self._stepped(gi)
+        st = self.opt.state
+        return GroupState(ps, [st.get(p, {}) for p in ps],
+                          _adam_layout(self.opt), [_scalar_on_device(g)
+                                                   for g in hyper])
+
+    @property
+    def states(self) -> Optional[List[Optional[GroupState]]]:
+        """Per group, its state, or None where no parameter of it has any
+        (the JAX package's ``states``); None for a tail that is not
+        decomposable."""
+        if not self.decomposable:
+            return None
+        return [s if any(s.state) else None
+                for s in (self.group_state(gi)
+                          for gi in range(len(self.groups)))]
+
+    def init_group(self, gi: int) -> GroupState:
+        """The state a fresh optimizer has for group ``gi`` once its first
+        step made it: the unpack template of a handoff frame or a
+        checkpoint slice, and the state a crashed owner's group restarts
+        from. For Adam and AdamW, what ``Adam._init_group`` makes
+        (``_adam_fresh``), so a group restarted from it steps as one that
+        never had state; another optimizer makes its state from the first
+        gradient, so its fresh state is none (empty dicts)."""
+        ps, hyper = self._stepped(gi)
+        adam = _adam_layout(self.opt)
+        return GroupState(ps, [_adam_fresh(p, g) if adam else {}
+                               for p, g in zip(ps, hyper)],
+                          adam, [_scalar_on_device(g) for g in hyper])
+
+    def adopt_group(self, gi: int, state: GroupState) -> None:
+        """Install ``state`` (from ``init_group`` or
+        ``sharded_update.unpack_opt_state``, its tensors where torch keeps
+        them) as group ``gi``'s optimizer state."""
+        if not self.decomposable:
+            raise RuntimeError(
+                "adopt_group on a non-decomposable tail — sharded "
+                "ownership never engages there")
+        ps, _ = self._stepped(gi)
+        if len(state.state) != len(ps):
+            raise ValueError(f"adopt_group({gi}): state for "
+                             f"{len(state.state)} parameters, the group "
+                             f"steps {len(ps)}")
+        for p, s in zip(ps, state.state):
+            if s:
+                self.opt.state[p] = dict(s)
+            else:
+                self.opt.state.pop(p, None)
+
+    def release_group(self, gi: int) -> None:
+        """Drop group ``gi``'s optimizer state (ownership handed away: the
+        ~1/dp memory holds through membership changes)."""
+        for li in self.groups[gi]:
+            self.opt.state.pop(self.params[li], None)
+
+    def set_owned(self, owned) -> None:
+        """Flip the owned set at a membership epoch's boundary (the caller
+        adopts the gained groups before and releases the lost ones
+        after); applying a group outside it raises."""
+        self.owned = None if owned is None else frozenset(owned)
 
     def mark_epoch(self, leaf_ids, epoch: int) -> None:
         """Publish ``leaf_ids`` as applied through step ``epoch`` (after

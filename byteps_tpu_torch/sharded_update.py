@@ -48,15 +48,24 @@ legacy ``compressor_type`` keys, fewer than two groups and an optimizer
 that is not leafwise decomposable each keep the full apply, with one INFO
 line naming the reason.
 
-Not ported yet (ROADMAP.md, queue 1, item 6): a live membership change
-(``reshard``, the optimizer-state handoff through ``STATE_KEY_BASE`` keys)
-and sharded checkpoints. They raise ``NotImplementedError``.
+A live membership change (``ShardedUpdateState.reshard``, the JAX
+package's ``:642-754``): at a step boundary every replica re-plans
+ownership over the live ranks (``ShardedUpdatePlan.reshard``: kept owners
+stay), publishes each group it loses as an optimizer-state frame
+(``pack_opt_state``) under ``STATE_KEY_BASE | decl << 16 | gi`` with seq
+the new member epoch, and only then fetches and adopts the groups it
+gains: publish before fetch on every rank, so no rank waits on another
+that waits on it. A frame that never comes (the old owner crashed) is
+logged and the group restarts from a fresh state. A sharded checkpoint
+(``checkpoint.py``) stores the same frames, one a group, and its restore
+adopts the saved owner map (``adopt_membership``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import heapq
+import io
 import os
 import threading
 import time
@@ -74,17 +83,14 @@ from .server.ps_mode import _dtype_name
 #: disjoint from gradient keys (< 2^40) and activation channels (bit 40)
 PARAM_KEY_BASE = 1 << 41
 
-#: the membership handoff's key space (bit 42), kept free of param keys;
-#: the handoff itself is not ported
+#: the membership handoff's key space (bit 42): a lost group's optimizer
+#: state frame rides the param mailbox under ``1 << 42 | decl << 16 |
+#: group``, seq the member epoch that hands it over
 STATE_KEY_BASE = 1 << 42
 
 #: mailbox retention, seqs per key: two rounds in flight (cross steps)
 #: and slack for a straggling fetcher's retry
 PARAM_RETAIN = 4
-
-_NOT_PORTED = ("is not ported yet (see ROADMAP.md, 'Modules still to "
-               "port', queue 1, item 6)")
-
 
 def param_timeout_ms() -> int:
     """How long a non-owner waits for an owner's param frame before it
@@ -378,16 +384,201 @@ class ShardedUpdatePlan:
         return metas
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A state tensor's host copy (bfloat16 as its ``uint16`` bits)."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _like(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    """Host array ``a`` as a tensor of ``dtype`` on ``device``."""
+    if dtype == torch.bfloat16 and a.dtype.itemsize == 2 \
+            and a.dtype.kind in "uiV":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
+                                                        dtype=dtype)
+
+
 def pack_opt_state(state) -> bytes:
-    """The membership handoff's optimizer-state frame: not ported."""
-    raise NotImplementedError(f"the sharded update's optimizer-state "
-                              f"handoff (pack_opt_state) {_NOT_PORTED}")
+    """One group's optimizer-state frame (``optim.GroupState``): the
+    membership handoff's frame and a sharded checkpoint's slice, one
+    format for both, an ``np.savez`` of arrays ``a0``, ``a1``, ...
+
+    Adam and AdamW (``state.adam``) take the JAX package's layout, the
+    flat leaves of optax's ``ScaleByAdamState``: ``a0`` the group's count
+    (int32, 0-d; torch's common ``step``), then the ``exp_avg`` of each
+    parameter in group order (mu), then the ``exp_avg_sq`` (nu). A frame
+    of either package unpacks in the other to the same arrays; the bytes
+    differ, since ``np.savez`` writes zip timestamps.
+
+    Another optimizer's frame is the port's own layout: each parameter's
+    state tensors in group order and, within a parameter, in its state
+    dict's order, with an entry ``keys`` naming each (``"<j>:<key>"``;
+    ``"<j>:<key>:py"`` for a Python number, stored 0-d); the JAX package
+    reads no such frame."""
+    arrays = {}
+    if state.adam:
+        steps = {float(s["step"]) for s in state.state if s}
+        if len(steps) > 1 or (steps and not all(state.state)):
+            raise ValueError(f"opt-state frame: the group's parameters are "
+                             f"at different steps {sorted(steps)}")
+        count = int(steps.pop()) if steps else 0
+        arrays["a0"] = np.asarray(count, dtype=np.int32)
+        n = len(state.state)
+        for j, s in enumerate(state.state):
+            for i, key in ((1 + j, "exp_avg"), (1 + n + j, "exp_avg_sq")):
+                # a group never stepped: the fresh state's zeros
+                arrays[f"a{i}"] = _host(s[key] if s else torch.zeros_like(
+                    state.params[j], memory_format=torch.contiguous_format))
+    else:
+        names = []
+        for j, s in enumerate(state.state):
+            for key, v in s.items():
+                if torch.is_tensor(v):
+                    arrays[f"a{len(names)}"] = _host(v)
+                    names.append(f"{j}:{key}")
+                elif isinstance(v, (bool, int, float)):
+                    arrays[f"a{len(names)}"] = np.asarray(v)
+                    names.append(f"{j}:{key}:py")
+                else:
+                    raise TypeError(f"opt-state frame: parameter {j}'s "
+                                    f"state {key!r} is a "
+                                    f"{type(v).__name__}, neither a tensor "
+                                    f"nor a number")
+        arrays["keys"] = np.asarray(names, dtype=np.str_)
+    bio = io.BytesIO()
+    np.savez(bio, **arrays)
+    return bio.getvalue()
+
+
+def _leaf_count(n: int, want: int) -> None:
+    if n != want:
+        raise ValueError(
+            f"opt-state frame has {n} leaves, template expects {want} — "
+            f"peers are running different optimizer recipes or bucket "
+            f"plans")
+
+
+def _leaf_shape(i: int, a: np.ndarray, want: tuple) -> None:
+    if tuple(a.shape) != tuple(want):
+        raise ValueError(
+            f"opt-state leaf {i} is {tuple(a.shape)}, template expects "
+            f"{tuple(want)} — peers are running different plans")
 
 
 def unpack_opt_state(payload, template):
-    """The membership handoff's optimizer-state frame: not ported."""
-    raise NotImplementedError(f"the sharded update's optimizer-state "
-                              f"handoff (unpack_opt_state) {_NOT_PORTED}")
+    """The group state of a ``pack_opt_state`` frame, against
+    ``template`` (``ChunkedApply.init_group`` of the group, or its current
+    state): each tensor in its template tensor's dtype and on its device,
+    where torch keeps it. A leaf count or a shape other than the
+    template's means the peers run different plans, and raises the JAX
+    package's ``ValueError``."""
+    from .optim import GroupState
+    data = np.load(io.BytesIO(bytes(payload)))
+    files = set(data.files)
+    n = len(template.state)
+    if template.adam:
+        _leaf_count(len(files), 1 + 2 * n)
+        if files != {f"a{i}" for i in range(1 + 2 * n)}:
+            raise ValueError(
+                f"opt-state frame holds {sorted(files)}, not the Adam "
+                f"layout's a0..a{2 * n} — peers are running different "
+                f"optimizer recipes")
+        leaves = [data[f"a{i}"] for i in range(1 + 2 * n)]
+        shapes = [()] + [tuple(t[key].shape) for key in ("exp_avg",
+                                                         "exp_avg_sq")
+                         for t in template.state]
+        for i, (a, want) in enumerate(zip(leaves, shapes)):
+            _leaf_shape(i, a, want)
+        out = []
+        for j, t in enumerate(template.state):
+            out.append({"step": torch.full((), float(leaves[0]),
+                                           dtype=t["step"].dtype,
+                                           device=t["step"].device),
+                        "exp_avg": _into(leaves[1 + j], t["exp_avg"]),
+                        "exp_avg_sq": _into(leaves[1 + n + j],
+                                            t["exp_avg_sq"])})
+        return GroupState(template.params, out, True,
+                          template.scalar_on_device)
+    if "keys" not in files:
+        raise ValueError("opt-state frame has the Adam layout, the "
+                         "template another optimizer's — peers are running "
+                         "different optimizer recipes")
+    names = [str(x) for x in data["keys"]]
+    _leaf_count(len(files) - 1, len(names))
+    want = sum(len(s) for s in template.state)
+    if want:
+        _leaf_count(len(names), want)
+    out = [{} for _ in range(n)]
+    for i, name in enumerate(names):
+        j, key, *py = name.split(":")
+        j = int(j)
+        if not 0 <= j < n:
+            raise ValueError(f"opt-state leaf {i} names parameter {j} of a "
+                             f"group of {n} — peers are running different "
+                             f"plans")
+        a = data[f"a{i}"]
+        if py:
+            out[j][key] = a.item()
+            continue
+        t = template.state[j].get(key)
+        if torch.is_tensor(t):
+            _leaf_shape(i, a, t.shape)
+            out[j][key] = _into(a, t)
+            continue
+        p = template.params[j]
+        if a.ndim == 0:
+            dev = (p.device if template.scalar_on_device[j]
+                   else torch.device("cpu"))
+            out[j][key] = torch.from_numpy(np.array(a)).to(dev)
+        else:
+            _leaf_shape(i, a, p.shape)
+            out[j][key] = _like(a, p.dtype, p.device)
+    return GroupState(template.params, out, False,
+                      template.scalar_on_device)
+
+
+def _into(a: np.ndarray, t: torch.Tensor) -> torch.Tensor:
+    """A new tensor like ``t`` (dtype, device, memory format) holding
+    ``a``."""
+    out = torch.empty_like(t)
+    out.copy_(_like(a, t.dtype, t.device).view(t.shape))
+    return out
+
+
+#: live-weight quantization: the balance greedy reads weights only as
+#: ratios, and every replica must compute the same ones; rungs of 1/64 of
+#: the largest absorb sub-percent counter skew between workers
+_WEIGHT_BUCKETS = 64
+
+
+def live_group_weights(plan: ShardedUpdatePlan, name: str,
+                       registry=None) -> Optional[List[int]]:
+    """A reshard's per-group weights from the live per-layer
+    ``ps/push_bytes/<name>.<bucket label>`` counters (registered when the
+    compression plane takes a bucket), quantized to ``_WEIGHT_BUCKETS``
+    rungs of the largest, at least 1; None while no counter has moved (a
+    cold registry, or dense PS, where the plane registers none: the
+    static plan bytes then). Push counters only: every replica pushes
+    every bucket, so under a pinned codec the counts agree across
+    replicas, where the pull counts differ by ownership. Under
+    ``BPS_COMPRESS=auto`` they differ too (``DistributedTrainer.reshard``
+    passes none there)."""
+    reg = registry if registry is not None else get_registry()
+    names = reg.counters_with_prefix(("ps/push_bytes/",))
+    raw = []
+    for gi in range(len(plan.groups)):
+        raw.append(sum(names.get(f"ps/push_bytes/{name}."
+                                 f"{plan.bucket_labels[bi]}", 0)
+                       for bi in plan.needed[gi]))
+    top = max(raw, default=0)
+    if top <= 0:
+        return None
+    return [max(1, round(_WEIGHT_BUCKETS * b / top)) if b else 1
+            for b in raw]
 
 
 def _fallback(reason: str) -> None:
@@ -456,6 +647,7 @@ class ShardedUpdateState:
         self.exchange = exchange
         self.plan = plan
         self.name = name
+        self.member_epoch = 1
         self._seq_lock = threading.Lock()
         self.timeout_ms = param_timeout_ms()
         # a rejoining owner resumes its seq above the server's retained
@@ -478,6 +670,17 @@ class ShardedUpdateState:
                 get_logger().info(
                     "sharded update: param seq resumes at %d from the "
                     "server's retained frames", self._seq)
+                get_logger().warning(
+                    "sharded update: rejoined a live job (retained param "
+                    "frames found). This fresh plan is at member epoch 1: "
+                    "if the job's membership epoch has moved, adopt the "
+                    "current owner map before any reshard "
+                    "(restore_sharded from a sharded checkpoint, or "
+                    "adopt_membership); a reshard from a fresh plan would "
+                    "diverge from the peers'")
+                flight.record("member_join",
+                              detail=f"rank {plan.rank} rejoined; param "
+                                     f"seq resumed at {self._seq}")
         reg = get_registry()
         self._m_put = reg.counter("ps/param_put_bytes")
         self._m_fetch = reg.counter("ps/param_fetch_bytes")
@@ -504,15 +707,107 @@ class ShardedUpdateState:
 
     # ------------------------------------------------------- membership
 
-    def reshard(self, *args, **kwargs):
-        """A live membership change: not ported."""
-        raise NotImplementedError(f"a live membership change of the sharded "
-                                  f"update (reshard) {_NOT_PORTED}")
+    def reshard(self, chunked, live, weights=None,
+                handoff_timeout_ms: Optional[int] = None) -> Dict:
+        """A membership epoch: ownership re-planned over ``live``
+        (``ShardedUpdatePlan.reshard``, kept owners staying) and each moved
+        group's optimizer state handed to its new owner through the param
+        mailbox; the gradient keys, the param keys and the server stay as
+        they are. Every live replica calls it at the same step boundary,
+        after draining (``DistributedTrainer.reshard``):
 
-    def adopt_membership(self, *args, **kwargs):
-        """A membership view from a sharded checkpoint: not ported."""
-        raise NotImplementedError(f"the sharded update's membership "
-                                  f"handoff (adopt_membership) {_NOT_PORTED}")
+          1. each group this rank loses goes out as a state frame
+             (``pack_opt_state``, key ``state_keys[gi]``, seq the new
+             epoch);
+          2. then each group it gains is fetched and adopted; a frame that
+             does not come within ``handoff_timeout_ms`` (default
+             ``BPS_PARAM_TIMEOUT_MS``: the old owner crashed) is logged
+             and the group restarts from ``chunked.init_group``;
+          3. the owned set flips, and the lost groups' state is freed.
+
+        Returns ``{"member_epoch", "gained", "lost", "live"}``."""
+        from .common.logging import get_logger
+        plan = self.plan
+        live = frozenset(int(r) for r in live)
+        if live == plan.live:
+            return {"member_epoch": self.member_epoch, "gained": (),
+                    "lost": (), "live": sorted(live)}
+        if chunked is None or not chunked.decomposable:
+            raise RuntimeError(
+                "reshard needs the engaged chunked sharded tail — run at "
+                "least one step first")
+        timeout = (self.timeout_ms if handoff_timeout_ms is None
+                   else int(handoff_timeout_ms))
+        new_plan = plan.reshard(live, weights=weights)
+        epoch = self.member_epoch + 1
+        before, after = plan.owned_set, new_plan.owned_set
+        lost = tuple(sorted(before - after))
+        gained = tuple(sorted(after - before))
+        be = self.exchange.backend
+        reg = get_registry()
+        # 1. every rank publishes before it fetches: no wait cycle
+        for gi in lost:
+            payload = pack_opt_state(chunked.group_state(gi))
+            be.param_put(plan.state_keys[gi], epoch, payload)
+            reg.counter("ps/state_put_bytes").inc(len(payload))
+            # no key: a dump filtered to the wedged keys keeps it
+            flight.record("state_put", round=epoch, nbytes=len(payload),
+                          detail=f"group {gi} opt-state handoff "
+                                 f"(key {plan.state_keys[gi]:#x})")
+        # 2. adopt the gained groups from their old owners' frames
+        for gi in gained:
+            template = chunked.init_group(gi)
+            try:
+                payload = be.param_get(plan.state_keys[gi], epoch,
+                                       timeout_ms=timeout)
+            except TimeoutError:
+                get_logger().warning(
+                    "reshard (member epoch %d): group %d's previous owner "
+                    "(rank %s) never published its opt_state handoff "
+                    "frame — crashed leave: the group's optimizer moments "
+                    "restart from init (restore a sharded checkpoint for "
+                    "a lossless takeover)", epoch, gi, plan.owner[gi])
+                state = template
+            else:
+                reg.counter("ps/state_fetch_bytes").inc(len(payload))
+                state = unpack_opt_state(payload, template)
+            chunked.adopt_group(gi, state)
+        # 3. flip ownership; free what was handed away only now
+        chunked.set_owned(after)
+        for gi in lost:
+            chunked.release_group(gi)
+        if plan.rank in plan.live and plan.rank not in live:
+            flight.record("member_leave",
+                          detail=f"rank {plan.rank} left the ownership "
+                                 f"plan at member epoch {epoch}")
+        elif plan.rank not in plan.live and plan.rank in live:
+            flight.record("member_join",
+                          detail=f"rank {plan.rank} joined the ownership "
+                                 f"plan at member epoch {epoch}")
+        flight.record("reshard",
+                      detail=f"member epoch {self.member_epoch}->{epoch}: "
+                             f"live={sorted(live)} gained={list(gained)} "
+                             f"lost={list(lost)}")
+        get_logger().info(
+            "sharded update reshard: member epoch %d -> %d, live=%s, rank "
+            "%d gained %s lost %s", self.member_epoch, epoch, sorted(live),
+            plan.rank, list(gained), list(lost))
+        self.plan = new_plan
+        self.member_epoch = epoch
+        return {"member_epoch": epoch, "gained": gained, "lost": lost,
+                "live": sorted(live)}
+
+    def adopt_membership(self, owner_map, member_epoch: int,
+                         live=None) -> None:
+        """Install the membership of a sharded checkpoint's meta (no
+        handoff: the optimizer state comes from the checkpoint's slices).
+        Runs before the chunked tail is built, so ownership and state
+        agree."""
+        self.plan = self.plan.with_owner_map(owner_map, live=live)
+        self.member_epoch = int(member_epoch)
+        flight.record("member_join",
+                      detail=f"rank {self.plan.rank} adopted membership "
+                             f"epoch {member_epoch} from checkpoint meta")
 
     # -------------------------------------------------------- publisher
 

@@ -71,9 +71,13 @@ holds state for the owned groups only. It needs the streamed tail and
 ``backward_passes_per_step`` 1, and is built at the first step, where a
 case it cannot serve keeps the full update with one INFO line; both the
 draining and the cross-step tails run it. A failed sharded step raises: it
-may be partial. A live membership change (``reshard``) and sharded
-checkpoints (``restore_sharded``) are not ported yet and raise; the
-full-tree checkpoints of ``checkpoint.py`` take ``state_dict()``.
+may be partial. ``reshard(live)`` changes the membership at a step
+boundary (every worker calls it; it drains first, and the moved groups'
+optimizer state hands off through the server), and
+``checkpoint.save_sharded_checkpoint`` / ``restore_sharded`` save and
+restore each worker's owned slices of the optimizer state with the
+owner map; the full-tree checkpoints of ``checkpoint.py`` take
+``state_dict()``.
 
 ``BPS_MAX_LAG=K`` > 1 (bounded staleness; ``BPS_LAG_GRACE_MS`` on the
 server) sends the dense buckets through the server's versioned round
@@ -422,6 +426,10 @@ class DistributedTrainer:
         self._sharded_epoch = 0
         self._sharded_cfg = None
         self._put_param = None
+        # a sharded checkpoint's slices and membership (restore_sharded),
+        # installed by the first step
+        self._restored_groups = None
+        self._restored_membership = None
         if cfg.sharded_update and self.ps_exchange.plane.max_lag > 1:
             # the JAX package's sharded tails keep e - 1 while its server
             # runs the lag store (byteps_tpu/sharded_update.py:966, 1019)
@@ -613,6 +621,13 @@ class DistributedTrainer:
             world)
         if self._sharded is not None:
             self._put_param = self._sharded.param_installer(self.device)
+            mem = self._restored_membership
+            if mem:
+                # the checkpoint's owner map is the shared state: installed
+                # as it is (its slices come from disk, no handoff)
+                self._sharded.adopt_membership(
+                    mem["owner"], mem["member_epoch"], live=mem.get("live"))
+        self._restored_membership = None
 
     def _sharded_active(self):
         """The live sharded state, or None; checked at every round, so a
@@ -637,23 +652,93 @@ class DistributedTrainer:
                                   d._epoch if d is not None else 0) + 1
         return self._sharded_epoch
 
-    def reshard(self, live, weights=None, handoff_timeout_ms=None):
-        """A live membership change of the sharded update: not ported."""
-        raise NotImplementedError(
-            "DistributedTrainer.reshard (a live membership change of the "
-            "sharded update, with its optimizer-state handoff) is not "
-            "ported yet (see ROADMAP.md, 'Modules still to port', queue 1, "
-            "item 6)")
+    def reshard(self, live, weights=None, handoff_timeout_ms=None) -> dict:
+        """A live membership change of the sharded update (JOIN or LEAVE;
+        ``byteps_tpu/training.py:753-784``): drain this trainer's tails
+        and param frames to a step boundary, then move to the next member
+        epoch over the ranks ``live``, handing the moved groups' optimizer
+        state through the server (``ShardedUpdateState.reshard``). Every
+        worker makes the same call at the same step boundary.
+        ``weights=None`` balances by the live per-layer push counters
+        (``live_group_weights``; the static bytes while they are cold, and
+        always under ``BPS_COMPRESS=auto``, whose counts differ between
+        workers). Returns ``{"member_epoch", "gained", "lost", "live"}``."""
+        st = getattr(self, "_sharded", None)
+        if st is None:
+            raise RuntimeError(
+                "reshard needs an engaged sharded update "
+                "(BPS_SHARDED_UPDATE=1, dp>1, at least one step run)")
+        self.drain()
+        if weights is None:
+            from .sharded_update import live_group_weights
+            gs = GlobalState._instance
+            compress = gs.config.compress if gs is not None else "none"
+            if compress != "auto":
+                weights = live_group_weights(st.plan, self._name)
+        return st.reshard(self._chunked, live, weights=weights,
+                          handoff_timeout_ms=handoff_timeout_ms)
 
-    def restore_sharded(self, path: str):
-        """A sharded checkpoint's restore: not ported (the full-tree
-        checkpoints of ``checkpoint.py`` take ``state_dict()``)."""
-        raise NotImplementedError(
-            "DistributedTrainer.restore_sharded (sharded checkpoints) is "
-            "not ported yet (see ROADMAP.md, 'Modules still to port', "
-            "queue 1, item 6, 'What the sharded update leaves'); "
-            "checkpoint.save_checkpoint / restore_checkpoint take the full "
-            "tree of state_dict()")
+    def restore_sharded(self, path: str) -> dict:
+        """Restore a sharded checkpoint (``checkpoint.
+        save_sharded_checkpoint``) before the first step: the parameters
+        and the step count now; the owner map when the first step builds
+        the sharded state, and the owned groups' optimizer-state slices
+        once it builds the chunked tail, so training goes on sharded.
+        The optimizer that ``state_dict()`` and ``load_state_dict()`` see
+        is not touched. Returns the checkpoint's meta."""
+        if getattr(self, "_chunked", None) is not None:
+            raise RuntimeError(
+                "restore_sharded must run before the first step — the "
+                "chunked tail already built its optimizer states")
+        if self.ps_exchange is None or not self._apply_chunked:
+            raise RuntimeError(
+                "restore_sharded needs the PS path's streamed tail "
+                "(BPS_ENABLE_PS=1, BPS_APPLY_CHUNKED=1): it installs the "
+                "slices into its per-group optimizer state")
+        from .checkpoint import restore_sharded_checkpoint
+        params, blobs, step, meta = restore_sharded_checkpoint(
+            path, self._model.state_dict())
+        self._model.load_state_dict(params)
+        self.step_count = int(step)
+        self._restored_groups = dict(blobs)
+        self._restored_membership = meta.get("sharded")
+        return meta
+
+    def _install_restored_groups(self) -> None:
+        """First streamed step, once the chunked tail exists: the owned
+        groups' slices of a sharded checkpoint unpacked into their state
+        (``byteps_tpu/training.py:814-855``); the other groups' slices are
+        their owners' to install."""
+        blobs, self._restored_groups = self._restored_groups, None
+        if not blobs:
+            return
+        chunked = self._chunked
+        if not chunked.decomposable:
+            raise RuntimeError(
+                "sharded checkpoint restore needs the decomposable "
+                "chunked tail (it holds per-group optimizer state) — the "
+                "optimizer changed since the save")
+        from .sharded_update import unpack_opt_state
+        st = self._sharded
+        for gi, payload in sorted(blobs.items()):
+            if gi >= len(chunked.groups):
+                raise ValueError(
+                    f"sharded checkpoint has a slice for group {gi} but "
+                    f"the plan has {len(chunked.groups)} groups — "
+                    f"different bucket plans")
+            if st is not None and gi not in st.plan.owned_set:
+                continue
+            chunked.adopt_group(gi, unpack_opt_state(
+                payload, chunked.init_group(gi)))
+        missing = [gi for gi in (st.plan.owned if st is not None
+                                 else range(len(chunked.groups)))
+                   if gi not in blobs]
+        if missing:
+            from .common.logging import get_logger
+            get_logger().warning(
+                "sharded checkpoint restore: no slice for owned group(s) "
+                "%s — their optimizer moments restart from init (the "
+                "owner's save was lost?)", missing)
 
     # ------------------------------------------------------------ head
 
@@ -725,6 +810,7 @@ class DistributedTrainer:
                                      [p for _, p in self._ps_params], groups,
                                      owned=st.plan.owned_set if st else None)
         self._stager = H2DStager(self.device, world=self._ps_world)
+        self._install_restored_groups()
 
     def _ps_step_streamed(self, grads=None, handle=None) -> None:
         """The streamed tail: each leaf goes to the card as it lands, the

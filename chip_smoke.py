@@ -155,8 +155,8 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          as the dense run, plus 3 x nc pack and 3 x 2 x nc unpack
          launches for the nc compressed buckets of the plan (world 1:
          error feedback's decompress and the one gathered payload's);
-       - GPT-2 medium with the compressors beyond onebit
-         (``GPT2_COMPRESSION``): topk and randomk at 1% with error
+       - GPT-2 medium at ``CUT_LAYERS`` with the compressors beyond
+         onebit (``GPT2_COMPRESSION``): topk and randomk at 1% with error
          feedback, dithering at 4 linear levels, and the README's onebit
          over the rs exchange (the dense run's launches, plus 3 x 2 x nc
          pack and 3 x 4 x nc unpack launches for onebit over rs).
@@ -288,7 +288,7 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          launches (BERT's plus 3·nc int8 quantize and dequantize), no
          resend, each arm's steps 2-3 printed beside the card. (b) world 2:
          a server for two workers and two worker processes on ``cuda:0``
-         (``--remote-ps-worker``), each from seed 0 on its own batch (seed
+         (``--world2-worker``), each from seed 0 on its own batch (seed
          = worker id): both end with the same parameters bit for bit (a
          sha1 of every parameter's bytes), finite losses, each worker's
          launches (those of (a)), ``transport/resends`` 0; each worker's
@@ -351,12 +351,13 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          against (e1)'s server (``train_bert_ps_store_routes`` has the
          gates: one sha1 over both workers and both arms, the servers'
          fused counters, each table bit for bit a numpy reference, the
-         push bytes exact). (f) ``bert_large_checkpoint``, world 1 dense:
+         push bytes exact). (f) ``bert_large_checkpoint``, world 1 dense
+         at ``CUT_LAYERS``:
          ``checkpoint.save_checkpoint`` after step 2, step 3, then a
          fresh trainer from other weights restored and stepped: its step
          3 bit for bit the original's (``train_bert_checkpoint``). (g)
          ``bert_large_ps_transport``, dense PS at world 2 over ``launch
-         --server`` at full depth, two worker processes
+         --server`` at ``CUT_LAYERS``, two worker processes
          (``--transport-worker``), a fresh server an arm: (f0) TCP, (f1)
          the colocated deployment (the server and the workers at
          ``BPS_ENABLE_IPC=1``, the workers at ``BPS_ENABLE_SHM=1``), (f2)
@@ -368,17 +369,33 @@ CUDA toolkit. Phases (any failure raises and the exit code is not 0):
          ``BPS_SERVER_SNAPSHOT``, stopped after 2 steps (its final
          snapshot) and restarted on the same port from the file; the
          worker (``--snapshot-worker``) reconnects, reads every key's
-         bits back and takes step 3 (``check_snapshot_restart``). The PS
+         bits back and takes step 3 (``check_snapshot_restart``). (i)
+         ``bert_large_ps_membership``, dense PS at world 2 over ``launch
+         --server`` at full depth with ``BPS_SHARDED_UPDATE=1``, two
+         worker processes (``--membership-worker``), a fresh server an
+         arm: (g0) 3 steps with a sharded checkpoint saved after step 2,
+         (g1) a LEAVE of worker 1 after step 1 and its JOIN after step 2
+         (``trainer.reshard``), (g2) two fresh workers
+         (``--membership-restore-worker``) restoring (g0)'s checkpoint and
+         taking step 3: one sha1 and the same losses over every worker and
+         arm, the plans and state bytes around each reshard
+         (``check_membership_plans``), the slices
+         (``check_membership_slices``). The PS
          fp8 routes, the fp8 tree API, PS onebit, PS int8 accumulation,
          PS auto, the PS watchdog, int8 over TCP at world 1, the world-2
          arms (b0)/(b1), the lag arms (c0)-(c2), the async world-2 arms
-         (d1)/(d2), the store-route arms (e0)/(e1) and (f3) run at
+         (d1)/(d2), the store-route arms (e0)/(e1), the transport arms
+         (f0)-(f2), (f3), the full-tree checkpoint and GPT-2 medium's
+         topk, randomk, dithering and onebit-over-rs paths run at
          ``CUT_LAYERS`` of the 24 layers, for the
          run's time limit, their losses held against a dense run at that
          depth where they compare losses; every other path runs at full
-         depth. Each PS and remote phase prints its
-         seconds (``[phase]``), all of them on one ``phase seconds``
-         line.
+         depth. Each block of the run (the build, the kernel checks and
+         timings, the dense paths by model) and each PS and remote phase
+         prints its seconds (``[phase]``), all of them on one ``phase
+         seconds`` line; a world-2 phase prints each arm's seconds and
+         its server's boot (every arm's server is spawned at the phase's
+         start).
      Losses must be finite and falling. BERT (both widths), dense GPT-2
      and T5 repeat step 1 with ``attn_impl="naive"`` (plain attention on
      the card) as the reference for the loss; every run prints step time,
@@ -444,25 +461,29 @@ step 3 (``ps_routes``). Prints ``{"ps_routes": ...}``, also written to
     python3 chip_smoke.py --async-ps
     python3 chip_smoke.py --store-routes
     python3 chip_smoke.py --transport
+    python3 chip_smoke.py --membership
 
-runs only phase 4's remote PS runs and (e)-(h) (the kernels and the
+runs only phase 4's remote PS runs and (e)-(i) (the kernels and the
 server engine built first), or of them only ``bert_large_ps_async`` with
 ``ASYNC_SOAK`` more (d1) steps for the server's resident set, or only
 ``bert_large_ps_store_routes`` and ``bert_large_checkpoint``, or only
-``bert_large_ps_transport`` and ``bert_large_ps_snapshot``, and prints
+``bert_large_ps_transport`` and ``bert_large_ps_snapshot``, or only
+``bert_large_ps_membership``, and prints
 ``{"remote_ps": ...}``, the card line and the same last line.
 
-    python3 chip_smoke.py --remote-ps-worker WID ADDR OUT
+    python3 chip_smoke.py --world2-worker WID DIR
     python3 chip_smoke.py --lag-ps-worker WID DIR
     python3 chip_smoke.py --async-ps-worker WID DIR SOAK
     python3 chip_smoke.py --store-routes-worker WID DIR
     python3 chip_smoke.py --transport-worker WID DIR
     python3 chip_smoke.py --snapshot-worker DIR
+    python3 chip_smoke.py --membership-worker WID DIR
+    python3 chip_smoke.py --membership-restore-worker WID DIR
 
-is one worker of phase 4's remote PS runs (``remote_ps_worker``,
+is one worker of phase 4's remote PS runs (``world2_worker``,
 ``lag_ps_worker``, ``async_ps_worker``, ``store_routes_worker``,
-``transport_worker``, ``snapshot_worker``); the phase starts them
-itself.
+``transport_worker``, ``snapshot_worker``, ``membership_worker``); the
+phase starts them itself.
 
     python3 chip_smoke.py --world 2
 
@@ -612,10 +633,11 @@ SPEED_FACTOR = 1.25
 # depth of the paths cut for the full run's time limit (of BERT-large's
 # 24 layers, full width): the PS fp8 routes, the fp8 tree API, PS auto, the
 # PS watchdog, int8 over TCP at world 1, the world-2 int8 arms (b0)/(b1)
-# and the bounded-staleness arms (c0)-(c2). Their host
-# costs scale with the parameter bytes; every gate stays, its expected
-# counts computed from the cut config, the losses held against a dense
-# run at the same depth. The async PS phase runs at full depth.
+# and the bounded-staleness arms (c0)-(c2), and the phases listed in the
+# module docstring. Their host costs scale with the parameter bytes;
+# every gate stays, its expected counts computed from the cut config, the
+# losses held against a dense run at the same depth. The async PS phase
+# (d0) and the membership phase run at full depth.
 CUT_LAYERS = 6
 README_COMPRESSION = {"compressor_type": "onebit",
                       "compressor_onebit_scaling": "true",
@@ -4257,10 +4279,14 @@ def train_bert_pushpull(codec, dense_losses, step2_misses, layers=None):
                 os.environ[k] = v
 
 
-def _gpt2_setup():
+def _gpt2_setup(layers=None):
+    import dataclasses
+
     from byteps_tpu_torch.models import gpt2
     from byteps_tpu_torch.models.flops import transformer_train_flops_per_sample
     cfg = gpt2.gpt2_medium()
+    if layers is not None:         # a cut path (CUT_LAYERS)
+        cfg = dataclasses.replace(cfg, layers=layers)
     data = gpt2.synth_lm_batch(np.random.RandomState(0), TRAIN_BATCH,
                                GPT2_SEQ, cfg.vocab_size)
     return (cfg, gpt2.causal_lm_loss, data,
@@ -4999,8 +5025,10 @@ def train_gpt2_compressed(name):
     GPT2_COMPRESSION[name])``: finite falling losses, the flash launches
     (onebit over rs also 2·nc pack and 4·nc unpack launches a step), then
     ``check_onebit_reduction`` (onebit over rs) or
-    ``check_step1_reduction`` (the others)."""
-    cfg, loss_fn, data, fps = _gpt2_setup()
+    ``check_step1_reduction`` (the others). At ``CUT_LAYERS`` for the
+    full run's time limit: the launches follow the cut config, and the
+    reductions keep every bucket of the cut model's plan."""
+    cfg, loss_fn, data, fps = _gpt2_setup(layers=CUT_LAYERS)
     attn = _attention_launches(cfg, ("flash_bwd_dq", "flash_bwd_dkv"))
     tag = f"gpt2_medium {name}"
 
@@ -5186,12 +5214,12 @@ def kernel_entry(name, paths, worst, timing, card, ptxas, d=None):
 REMOTE_WAIT = 600       # seconds a server or worker process may take
 
 
-def start_ps_server(workers, env=None):
-    """``python -m byteps_tpu_torch.launcher.launch --server`` on port 0
-    (or ``env``'s ``BPS_SERVER_PORT``: a restart on the port it had) for
-    ``workers`` workers (``env``: more variables for it); returns
-    (process, its stderr lines, address) once it printed ``server up on
-    :<port>``."""
+def spawn_ps_server(workers, env=None):
+    """Start ``python -m byteps_tpu_torch.launcher.launch --server`` on
+    port 0 (or ``env``'s ``BPS_SERVER_PORT``: a restart on the port it
+    had) for ``workers`` workers (``env``: more variables for it) without
+    waiting for it; returns (process, its stderr lines), the lines read on
+    a thread to the end."""
     import os
     import threading
     # env may name the port: a restart's
@@ -5208,6 +5236,13 @@ def start_ps_server(workers, env=None):
             lines.append(line.rstrip())
 
     threading.Thread(target=read, daemon=True).start()
+    return proc, lines
+
+
+def await_ps_server(proc, lines):
+    """The address of a spawned server once it printed ``server up on
+    :<port>`` (it is stopped, and this raises, if it exits or takes more
+    than 120 s)."""
     deadline = time.time() + 120
     while not any("server up on :" in x for x in lines):
         if proc.poll() is not None or time.time() > deadline:
@@ -5218,7 +5253,14 @@ def start_ps_server(workers, env=None):
     line = next(x for x in lines if "server up on :" in x)
     port = int(line.split("server up on :", 1)[1].split()[0])
     log(f"[remote ps] {line}")
-    return proc, lines, f"127.0.0.1:{port}"
+    return f"127.0.0.1:{port}"
+
+
+def start_ps_server(workers, env=None):
+    """``spawn_ps_server`` and ``await_ps_server``: (process, its stderr
+    lines, address)."""
+    proc, lines = spawn_ps_server(workers, env)
+    return proc, lines, await_ps_server(proc, lines)
 
 
 def stop_ps_server(proc):
@@ -5357,20 +5399,40 @@ def _sharded_report(trainer):
             "load": plan.load}
 
 
-def remote_ps_worker(wid, addr, out, arm="unsharded") -> int:
-    """``--remote-ps-worker WID ADDR OUT [ARM]``: one of the world-2
-    workers of phase "remote PS" (b), on ``cuda:0``: BERT-large PS int8
-    from seed 0 on its own batch (seed WID), ``STEPS`` counted steps, ARM
-    ``unsharded`` (b0) or ``sharded`` (b1, ``BPS_SHARDED_UPDATE=1``);
-    writes its losses, launches, wanted launches, bytes, resends, step
-    time, a digest of every parameter's bytes, its optimizer state's
-    bytes, its peak memory and, under (b1), the sharded plan and any
-    fallback line to OUT."""
-    import os
+WORLD2_ARMS = ("unsharded", "sharded")
 
+
+def world2_worker(wid, where) -> int:
+    """``--world2-worker WID DIR``: one of the two world-2 worker processes
+    of phase "remote PS" (b) on ``cuda:0``, for both arms in turn: for
+    each it waits for ``DIR/<arm>.addr``, the address of the arm's fresh
+    server, runs the arm (``_world2_worker_arm``) and writes
+    ``DIR/<arm>.w<WID>.json``."""
+    import gc
+    where = Path(where)
+    for arm in WORLD2_ARMS:
+        _await_file(where / f"{arm}.addr", f"server address for arm {arm}")
+        report = _world2_worker_arm(wid, arm,
+                                    (where / f"{arm}.addr").read_text())
+        _write_json(where / f"{arm}.w{wid}.json", report)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
+def _world2_worker_arm(wid, arm, addr) -> dict:
+    """One arm of ``world2_worker``: BERT-large PS int8 from seed 0 on its
+    own batch (seed WID), ``STEPS`` counted steps, ``unsharded`` (b0) or
+    ``sharded`` (b1, ``BPS_SHARDED_UPDATE=1``); its report: the losses,
+    launches, wanted launches, bytes, resends, step time, a digest of
+    every parameter's bytes, the optimizer state's bytes, the peak memory
+    and, under (b1), the sharded plan and any fallback line."""
     import byteps_tpu_torch as bps
     from byteps_tpu_torch.common.logging import get_logger
     from byteps_tpu_torch.models import bert
+    for name in ("BPS_MAX_LAG", "BPS_ENABLE_ASYNC",
+                 "BPS_FUSED_HOMOG") + TRANSPORT_KNOBS:
+        os.environ.pop(name, None)
     os.environ.update(BPS_ENABLE_PS="1", BPS_COMPRESS="int8",
                       BPS_NUM_WORKER="2", BPS_WORKER_ID=str(wid),
                       BPS_LOCAL_RANK="0", BPS_SERVER_ADDRS=addr,
@@ -5396,7 +5458,7 @@ def remote_ps_worker(wid, addr, out, arm="unsharded") -> int:
                         for t in st.values() if torch.is_tensor(t))
         (_, keyed), = trainer.ps_exchange._plans.values()
         plane = trainer.ps_exchange._cplane
-        Path(out).write_text(json.dumps({
+        report = {
             "arm": arm, "losses": r["losses"], "launches": r["launches"],
             "want": _remote_want(cfg)(trainer), "ms": r["ms"],
             "push_bytes": push, "pull_bytes": pull, "resends": resends,
@@ -5410,60 +5472,18 @@ def remote_ps_worker(wid, addr, out, arm="unsharded") -> int:
             "compressed_buckets": [bi for bi, (k, _) in enumerate(keyed)
                                    if plane.active(k)],
             "sharded": _sharded_report(trainer),
-            "fallbacks": fallbacks.lines}))
+            "fallbacks": fallbacks.lines}
         trainer.close()
+        return report
     finally:
         get_logger().removeHandler(fallbacks)
         bps.shutdown()
-    return 0
-
-
-def _world2_arm(arm):
-    """One arm of phase "remote PS" (b): a fresh server for two workers
-    and the two worker processes; returns (the workers' reports, the
-    server's exit code, its last lines)."""
-    import os
-    import tempfile
-    tag = f"bert_large ps int8 world 2 {arm}"
-    tmp = Path(tempfile.mkdtemp())
-    server, lines, addr = start_ps_server(2)
-    procs, logs = [], []
-    try:
-        for wid in (0, 1):
-            logf = open(tmp / f"worker{wid}.log", "w")
-            logs.append(logf)
-            procs.append(subprocess.Popen(
-                [sys.executable, __file__, "--remote-ps-worker", str(wid),
-                 addr, str(tmp / f"worker{wid}.json"), arm], cwd=ROOT,
-                env=dict(os.environ), stdout=logf, stderr=subprocess.STDOUT))
-        deadline = time.time() + REMOTE_WAIT
-        while any(p.poll() is None for p in procs):
-            failed = [p for p in procs if p.poll() not in (None, 0)]
-            if failed or time.time() > deadline:
-                break               # a dead peer would wedge the other
-            time.sleep(0.5)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait(timeout=30)
-        for f in logs:
-            f.close()
-        rc = stop_ps_server(server)
-    for wid, p in enumerate(procs):
-        text = (tmp / f"worker{wid}.log").read_text()
-        log(f"----- remote PS worker {wid}, {arm} (exit {p.returncode})")
-        log(text if p.returncode else text[-1500:])
-    if any(p.returncode for p in procs):
-        raise AssertionError(f"{tag}: a worker failed or timed out")
-    res = [json.loads((tmp / f"worker{w}.json").read_text()) for w in (0, 1)]
-    return res, rc, lines
 
 
 def train_bert_ps_world2():
     """Phase "remote PS" (b), world 2, two arms in turn, each on its own
     server (``BPS_NUM_WORKER=2``) with two worker processes on ``cuda:0``
-    (``remote_ps_worker``), each worker from seed 0 on its own batch.
+    (``world2_worker``), each worker from seed 0 on its own batch.
 
     (b0), unsharded: both workers end with the same parameters bit for bit
     (two arrivals sum alike in either order), finite losses, the launches
@@ -5488,13 +5508,15 @@ def train_bert_ps_world2():
     resend.
 
     The step times are two processes sharing one card, not a scaling
-    figure. Returns each arm's launches summed over its workers."""
+    figure. Both arms run in the same two worker processes
+    (``_arms_over_servers``). Returns each arm's launches summed over its
+    workers."""
     card = card_line()
-    arms = {}
-    for arm in ("unsharded", "sharded"):
-        res, rc, lines = _world2_arm(arm)
-        _check_world2(arm, res, rc, lines, card)
-        arms[arm] = res
+    arms = {arm: res for arm, (res, _) in _arms_over_servers(
+        "int8 world 2", "--world2-worker",
+        dict.fromkeys(WORLD2_ARMS, {})).items()}
+    for arm, res in arms.items():
+        _check_world2(arm, res, card)
     _check_sharded(arms["unsharded"], arms["sharded"], card)
     SUMMARY["bert_large ps int8 world 2"] = {
         arm: {"ms": [r["ms"] for r in res]} for arm, res in arms.items()}
@@ -5503,7 +5525,7 @@ def train_bert_ps_world2():
                  for res in (arms["unsharded"], arms["sharded"]))
 
 
-def _check_world2(arm, res, rc, lines, card):
+def _check_world2(arm, res, card):
     """(b0)'s gates, which (b1) keeps."""
     tag = f"bert_large ps int8 world 2 {arm}"
     for wid, r in enumerate(res):
@@ -5525,9 +5547,6 @@ def _check_world2(arm, res, rc, lines, card):
         raise AssertionError(f"{tag}: the workers' parameters differ")
     if res[0]["losses"] == res[1]["losses"]:
         raise AssertionError(f"{tag}: both workers read the same batch")
-    if rc != 0:
-        raise AssertionError(f"{tag}: the server exited {rc}:\n"
-                             + "\n".join(lines[-20:]))
     log(f"[{tag}] both workers' parameters bit for bit the same "
         f"(sha1 {res[0]['params']}); optimizer state "
         f"{[r['opt_state_bytes'] for r in res]} bytes, peak memory "
@@ -5771,19 +5790,22 @@ def _await_reports(procs, reports, deadline):
     return None
 
 
-def _arms_over_servers(what, flag, server_env):
+def _arms_over_servers(what, flag, server_env, where=None):
     """The arms of a world-2 phase in turn: for each arm of ``server_env``
     ({arm: the server's extra environment}) a fresh ``launch --server``
     (``BPS_NUM_WORKER=2``), served to the same two worker processes
     (``chip_smoke.py FLAG WID DIR``, which read ``DIR/<arm>.addr`` and
     write ``DIR/<arm>.w<WID>.json``); returns {arm: (the workers' reports,
     the server's stop-time stats)}. A worker's death or a timeout fails
-    the phase (``bert_large ps WHAT``); every process is stopped."""
+    the phase (``bert_large ps WHAT``); every process is stopped. DIR is
+    a fresh temporary directory, removed after, or ``where``, kept (the
+    caller's, shared by two calls). Every arm's server is spawned at the
+    start, so each boots while the arms before it run."""
     import os
     import shutil
     import tempfile
-    tmp = Path(tempfile.mkdtemp())
-    procs, logs, out = [], [], {}
+    tmp = Path(tempfile.mkdtemp()) if where is None else Path(where)
+    procs, logs, out, servers = [], [], {}, {}
     failed = None
     try:
         for wid in (0, 1):
@@ -5794,9 +5816,14 @@ def _arms_over_servers(what, flag, server_env):
                 cwd=ROOT, env=dict(os.environ), stdout=logf,
                 stderr=subprocess.STDOUT))
         for arm, env in server_env.items():
-            server, lines, addr = start_ps_server(2, env)
-            reports = [tmp / f"{arm}.w{w}.json" for w in (0, 1)]
+            servers[arm] = spawn_ps_server(2, env)
+        for arm in server_env:
+            t = time.perf_counter()
+            server, lines = servers[arm]
             try:
+                addr = await_ps_server(server, lines)
+                up = time.perf_counter() - t
+                reports = [tmp / f"{arm}.w{w}.json" for w in (0, 1)]
                 (tmp / f"{arm}.addr.tmp").write_text(addr)
                 (tmp / f"{arm}.addr.tmp").rename(tmp / f"{arm}.addr")
                 failed = _await_reports(procs, reports,
@@ -5815,11 +5842,15 @@ def _arms_over_servers(what, flag, server_env):
                 break
             out[arm] = ([json.loads(f.read_text()) for f in reports],
                         stats[0])
+            log(f"[{what}] arm {arm}: {time.perf_counter() - t:.1f} s, its "
+                f"server up in {up:.1f} s")
         deadline = time.time() + 60
         while failed is None and any(p.poll() is None for p in procs) \
                 and time.time() < deadline:
             time.sleep(0.2)
     finally:
+        for server, _ in servers.values():
+            stop_ps_server(server)      # an arm's that never ran
         for p in procs:
             if p.poll() is None:
                 p.kill()
@@ -5835,7 +5866,8 @@ def _arms_over_servers(what, flag, server_env):
             # only that stream still sees why
             print(f"----- {what} PS worker {wid} (exit {p.returncode}), its "
                   f"log's end:\n{text[-6000:]}", file=sys.stderr, flush=True)
-    shutil.rmtree(tmp, ignore_errors=True)
+    if where is None:
+        shutil.rmtree(tmp, ignore_errors=True)
     if failed is None and any(p.returncode for p in procs):
         failed = "a worker exited with an error"
     if failed is not None:
@@ -6742,7 +6774,7 @@ def _route_worker_arm(wid, arm, addr) -> dict:
 def train_bert_ps_store_routes():
     """Phase ``bert_large_ps_store_routes``: BERT-large at full width and
     ``CUT_LAYERS`` (the world-2 dense path at full depth is
-    ``bert_large_ps_transport``'s (f0)), PS int8 (``BPS_COMPRESS=int8``) on
+    ``bert_large_ps_membership``'s (g0)), PS int8 (``BPS_COMPRESS=int8``) on
     the default route at world
     2, two worker processes on ``cuda:0`` (``store_routes_worker``) on
     their own batches, the same batches in every arm, a fresh ``launch
@@ -6912,7 +6944,9 @@ CKPT_DISK_MARGIN = 1 << 30      # bytes free beyond the checkpoint's own
 
 def train_bert_checkpoint():
     """Phase ``bert_large_checkpoint``: world 1, dense ``DistributedTrainer``,
-    BERT-large at full width and depth, batch 8. Steps 1 and 2;
+    BERT-large at full width and ``CUT_LAYERS`` (the full-depth
+    checkpoint is ``bert_large_ps_membership``'s sharded one), batch 8.
+    Steps 1 and 2;
     ``checkpoint.save_checkpoint`` of ``state_dict()`` to a temporary
     directory with the step count and the name registry (which holds a
     declaration a parameter, as a caller pins its keys); step 3, its loss
@@ -6925,7 +6959,7 @@ def train_bert_checkpoint():
     state bit for bit the saved one; after its step 3 every sha1 equals
     (A) and the loss is bit for bit step 3's; the restored declarations
     name every declaration of the registry; each step, the replayed one
-    too, launches 48 forwards and 24 fused backwards, all d 64. Printed,
+    too, launches 2 forwards and 1 fused backward a layer, all d 64. Printed,
     not gated: the checkpoint's bytes on disk and the save and restore
     seconds. The directory is removed after; a disk too short for it
     fails the phase and says so. Returns the launches of the 4 steps."""
@@ -6939,7 +6973,7 @@ def train_bert_checkpoint():
     from byteps_tpu_torch.optim import adamw
     from byteps_tpu_torch.training import DistributedTrainer
     tag = "bert_large checkpoint"
-    cfg, loss_fn, data, _ = _bert_setup()
+    cfg, loss_fn, data, _ = _bert_setup(layers=CUT_LAYERS)
     per_step = dict.fromkeys(COUNT_KEYS, 0)
     per_step["flash_fwd"], per_step["flash_bwd_fused"] = \
         2 * cfg.layers, cfg.layers
@@ -7129,8 +7163,8 @@ def transport_worker(wid, where) -> int:
     """``--transport-worker WID DIR``: one of the two worker processes of
     ``bert_large_ps_transport`` on ``cuda:0``, for every arm in turn. For
     each arm it waits for ``DIR/<arm>.addr``, the address of the arm's
-    fresh server, trains BERT-large dense PS on the default route at full
-    depth from seed 0 on its own batch (seed WID) with the arm's client
+    fresh server, trains BERT-large dense PS on the default route at
+    ``CUT_LAYERS`` from seed 0 on its own batch (seed WID) with the arm's client
     knobs set (and cleared after), ``STEPS`` counted steps, and writes
     ``DIR/<arm>.w<WID>.json``."""
     import gc
@@ -7174,7 +7208,7 @@ def _transport_worker_arm(wid, arm, addr) -> dict:
                       **knobs)
     bps.init()
     try:
-        cfg, loss_fn, _, _ = _bert_setup()
+        cfg, loss_fn, _, _ = _bert_setup(layers=CUT_LAYERS)
         data = bert.synth_mlm_batch(np.random.RandomState(wid), TRAIN_BATCH,
                                     BERT_SEQ, cfg.vocab_size)
         torch.cuda.reset_peak_memory_stats()
@@ -7212,7 +7246,9 @@ def _transport_worker_arm(wid, arm, addr) -> dict:
 
 def train_bert_ps_transport():
     """Phase ``bert_large_ps_transport``: BERT-large at full width and
-    depth, dense PS (no ``BPS_COMPRESS``) on the default route at world 2,
+    ``CUT_LAYERS`` (the world-2 dense path at full depth is
+    ``bert_large_ps_membership``'s (g0)), dense PS (no ``BPS_COMPRESS``)
+    on the default route at world 2,
     two worker processes on ``cuda:0`` (``transport_worker``) on their own
     batches, the same batches in every arm, a fresh ``launch --server``
     (``BPS_NUM_WORKER=2``) an arm: (f0) TCP; (f1) the colocated deployment,
@@ -7224,7 +7260,8 @@ def train_bert_ps_transport():
     Gates: both workers of all three arms end on one sha1 of every
     parameter (the transport moves bytes; two fp32 arrivals sum alike in
     either order); each worker's launches BERT's (144 forward, 72 fused
-    backward, all d 64) and no codec kernel; finite losses, step 3 below
+    backward, all d 64, at full depth; 36 and 18 at ``CUT_LAYERS``) and
+    no codec kernel; finite losses, step 3 below
     step 1; ``transport/resends``, ``transport/reconnects`` and
     ``transport/shm_fallbacks`` 0; the server's frames by op exact from
     the bucket plan (``check_transport_server``): (f1) ``server/shm_pushes``
@@ -7542,17 +7579,486 @@ def train_bert_ps_snapshot():
     return report["launches"]
 
 
+# -------- the sharded update's membership change and sharded checkpoints:
+# BERT-large dense PS at world 2, full depth, BPS_SHARDED_UPDATE=1
+
+# (g0) the control, saved after MEMBERSHIP_SAVE_AT; (g1) a LEAVE of worker 1
+# after step 1 and its JOIN after step 2; (g2) two fresh worker processes
+# restoring (g0)'s checkpoint, then step 3
+MEMBERSHIP_LIVE = {1: (0,), 2: (0, 1)}     # (g1): after step k, reshard(live)
+MEMBERSHIP_SAVE_AT = 2
+
+
+class _MembershipLines(logging.Handler):
+    """The port logger's lines that say a membership phase lost state: the
+    sharded update's fallback, a handoff frame never published, an owned
+    group without its slice."""
+
+    SAY = ("BPS_SHARDED_UPDATE falls back", "never published",
+           "no slice for owned group")
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if any(s in msg for s in self.SAY):
+            self.lines.append(msg)
+
+
+def membership_batch(wid, step, cfg):
+    """Worker ``wid``'s batch of step ``step`` (1-based) in every arm."""
+    from byteps_tpu_torch.models import bert
+    return bert.synth_mlm_batch(np.random.RandomState(100 * wid + step),
+                                TRAIN_BATCH, BERT_SEQ, cfg.vocab_size)
+
+
+def membership_worker(wid, where, arms) -> int:
+    """``--membership-worker WID DIR`` (arms (g0), (g1)) and
+    ``--membership-restore-worker WID DIR`` ((g2)): one of the two worker
+    processes of ``bert_large_ps_membership`` on ``cuda:0``. For each arm
+    it waits for ``DIR/<arm>.addr``, runs the arm (``_membership_arm``;
+    the checkpoint is ``DIR/ck``) and writes ``DIR/<arm>.w<WID>.json``."""
+    import gc
+    where = Path(where)
+    for arm in arms:
+        _await_file(where / f"{arm}.addr", f"server address for arm {arm}")
+        report = _membership_arm(wid, arm,
+                                 (where / f"{arm}.addr").read_text(),
+                                 where / "ck")
+        _write_json(where / f"{arm}.w{wid}.json", report)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
+def _state_report(trainer):
+    """A worker's optimizer state now: the groups with state, the bytes of
+    all its state tensors and of the moments (on the card)."""
+    st = trainer._tx.state
+    return {"owned": sorted(trainer._sharded.plan.owned),
+            "with_state": trainer._chunked.groups_with_state(),
+            "state_bytes": sum(t.numel() * t.element_size()
+                               for s in st.values() for t in s.values()
+                               if torch.is_tensor(t)),
+            "moment_bytes": sum(t.numel() * t.element_size()
+                                for s in st.values() for k, t in s.items()
+                                if k in ("exp_avg", "exp_avg_sq")),
+            "owner": list(trainer._sharded.plan.owner),
+            "member_epoch": trainer._sharded.member_epoch}
+
+
+def _plan_inputs(trainer):
+    """What ``ShardedUpdatePlan`` is made of on this worker: each bucket's
+    key, label and leaves, the groups and the leaves' meta."""
+    (_, keyed), = trainer.ps_exchange._plans.values()
+    plan = trainer._sharded.plan
+    return {"keyed": [[k, b.index, [sg.leaf_index for sg in b.segments]]
+                      for k, b in keyed],
+            "groups": [list(g) for g in plan.groups],
+            "leaf_meta": [[list(sh), dt, n] for sh, dt, n in plan.leaf_meta]}
+
+
+def _membership_arm(wid, arm, addr, ck) -> dict:
+    """One arm of ``membership_worker``: its report."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch import checkpoint as ckpt
+    from byteps_tpu_torch.common.logging import get_logger
+    from byteps_tpu_torch.obs.metrics import get_registry
+    from byteps_tpu_torch.optim import ChunkedApply
+    from byteps_tpu_torch.sharded_update import (STATE_KEY_BASE,
+                                                 live_group_weights)
+    for name in ("BPS_COMPRESS", "BPS_MAX_LAG", "BPS_ENABLE_ASYNC",
+                 "BPS_FUSED_HOMOG") + TRANSPORT_KNOBS:
+        os.environ.pop(name, None)
+    os.environ.update(BPS_ENABLE_PS="1", BPS_NUM_WORKER="2",
+                      BPS_WORKER_ID=str(wid), BPS_LOCAL_RANK="0",
+                      BPS_SERVER_ADDRS=addr, BPS_SHARDED_UPDATE="1")
+    lines = _MembershipLines()
+    get_logger().addHandler(lines)
+    adopted = []
+    real_adopt = ChunkedApply.adopt_group
+
+    def adopt(self, gi, state):
+        adopted.append(gi)
+        return real_adopt(self, gi, state)
+
+    ChunkedApply.adopt_group = adopt
+    bps.init()
+    try:
+        cfg, loss_fn, _, _ = _bert_setup()
+        first = 1 if arm != "g2" else STEPS
+        batches = {s: membership_batch(wid, s, cfg)
+                   for s in range(first, STEPS + 1)}
+        torch.cuda.reset_peak_memory_stats()
+        trainer = _ps_trainer(cfg, loss_fn)
+        report = {"arm": arm, "losses": [], "step_ms": []}
+        puts = []
+        if arm == "g2":
+            t = time.perf_counter()
+            meta = trainer.restore_sharded(str(ck))
+            report["restore"] = {
+                "seconds": time.perf_counter() - t,
+                "step": meta["step"], "owner": meta["sharded"]["owner"],
+                "member_epoch": meta["sharded"]["member_epoch"],
+                "slices": {p.name: p.stat().st_size for p in sorted(
+                    (ck / "opt_shard" / f"s{meta['step']}").iterdir())},
+                "state_pt": (ck / "state.pt").stat().st_size,
+                "optimizer_before_step": len(trainer._tx.state)}
+        be = trainer.ps_exchange.backend
+        real_put = be.param_put
+
+        def put(key, seq, payload):
+            if key & STATE_KEY_BASE:
+                puts.append(key & 0xFFFF)
+            return real_put(key, seq, payload)
+
+        be.param_put = put
+        ctr = counters()
+        torch.cuda.synchronize()
+        zero_counts(ctr)
+        reshards = []
+        for s in range(first, STEPS + 1):
+            t = time.perf_counter()
+            loss = trainer.step(batches[s])
+            torch.cuda.synchronize()
+            report["step_ms"].append((time.perf_counter() - t) * 1e3)
+            report["losses"].append(loss.item())
+            if s == 1:
+                report["plan"] = _plan_inputs(trainer)
+                report["start"] = _state_report(trainer)
+            if arm == "g0" and s == MEMBERSHIP_SAVE_AT:
+                _drain(trainer)
+                t = time.perf_counter()
+                ckpt.save_sharded_checkpoint(str(ck), trainer)
+                sdir = ck / "opt_shard" / f"s{s}"
+                report["save"] = {
+                    "seconds": time.perf_counter() - t,
+                    "slices": {f"g{gi}.bin": (sdir / f"g{gi}.bin")
+                               .stat().st_size
+                               for gi in trainer._sharded.plan.owned},
+                    "state_pt": ((ck / "state.pt").stat().st_size
+                                 if wid == 0 else None),
+                    **_state_report(trainer)}
+            if arm == "g1" and s in MEMBERSHIP_LIVE:
+                live = list(MEMBERSHIP_LIVE[s])
+                _drain(trainer)
+                before = _state_report(trainer)
+                weights = live_group_weights(trainer._sharded.plan,
+                                             trainer._name)
+                m = get_registry().snapshot()
+                del puts[:], adopted[:]
+                t = time.perf_counter()
+                out = trainer.reshard(live)
+                sec = time.perf_counter() - t
+                after = get_registry().snapshot()
+                reshards.append({
+                    "live": live, "weights": weights, "seconds": sec,
+                    "member_epoch": out["member_epoch"],
+                    "gained": list(out["gained"]), "lost": list(out["lost"]),
+                    "puts": sorted(puts), "adopted": sorted(adopted),
+                    "put_bytes": after.get("ps/state_put_bytes", 0)
+                    - m.get("ps/state_put_bytes", 0),
+                    "fetch_bytes": after.get("ps/state_fetch_bytes", 0)
+                    - m.get("ps/state_fetch_bytes", 0),
+                    "before": before, "after": _state_report(trainer)})
+        t = time.perf_counter()
+        _drain(trainer)
+        drain_s = time.perf_counter() - t
+        report["step_ms"][-1] += drain_s * 1e3
+        m = get_registry().snapshot()
+        digest = hashlib.sha1()
+        for _, p in sorted(trainer.model.named_parameters()):
+            digest.update(p.detach().cpu().numpy().tobytes())
+        steps = STEPS - first + 1
+        want = dict.fromkeys(COUNT_KEYS, 0)
+        want["flash_fwd"] = 2 * cfg.layers * steps
+        want["flash_bwd_fused"] = cfg.layers * steps
+        report.update({
+            "launches": read_counts(ctr), "want": by_width(want, cfg.head_dim),
+            "params": digest.hexdigest(), "reshards": reshards,
+            "end": _state_report(trainer),
+            "adopted_at_start": sorted(adopted) if arm == "g2" else None,
+            "group_bytes": list(trainer._sharded.plan.group_bytes),
+            "resends": m.get("transport/resends", 0),
+            "reconnects": m.get("transport/reconnects", 0),
+            "lines": lines.lines, "peak_mem": torch.cuda.max_memory_allocated()})
+        trainer.close()
+        return report
+    finally:
+        ChunkedApply.adopt_group = real_adopt
+        get_logger().removeHandler(lines)
+        bps.shutdown()
+
+
+def _plan_from(inputs, rank=0, world=2):
+    """A ``ShardedUpdatePlan`` from a worker's ``_plan_inputs``."""
+    from types import SimpleNamespace
+
+    from byteps_tpu_torch.sharded_update import ShardedUpdatePlan
+    keyed = [(k, SimpleNamespace(index=i, segments=[
+        SimpleNamespace(leaf_index=li) for li in leaves]))
+        for k, i, leaves in inputs["keyed"]]
+    meta = [(tuple(sh), dt, n) for sh, dt, n in inputs["leaf_meta"]]
+    return ShardedUpdatePlan(keyed, inputs["groups"], meta, rank, world)
+
+
+def check_membership_plans(res):
+    """What is wrong with (g1)'s two workers' reports ``res``; empty when
+    nothing is. After each reshard both owner maps equal the port's own
+    ``ShardedUpdatePlan.reshard`` of the plan before on the weights the
+    workers used; after the LEAVE worker 1 owns nothing and holds no
+    state, worker 0 owns every group and holds both moments of every
+    parameter; after the JOIN each worker's state covers exactly its
+    owned groups; the member epoch ends at 3; the state frames a worker
+    put are the groups it lost, the groups it adopted those it gained."""
+    bad = []
+    plan = _plan_from(res[0]["plan"])
+    n, total = len(plan.groups), sum(plan.group_bytes)
+    if [r["start"]["owner"] for r in res] != [plan.owner] * 2:
+        bad.append("the starting owner maps are not the plan's")
+    for k, live in enumerate(MEMBERSHIP_LIVE.values()):
+        rs = [r["reshards"][k] for r in res]
+        weights = rs[0]["weights"]
+        if rs[1]["weights"] != weights:
+            bad.append(f"reshard {k + 1}: the workers' weights differ")
+        plan = plan.reshard(live, weights=weights)
+        for wid, x in enumerate(rs):
+            a = x["after"]
+            if a["owner"] != plan.owner:
+                bad.append(f"reshard {k + 1} worker {wid}: owner map "
+                           f"{a['owner']}, the plan's {plan.owner}")
+            mine = sorted(gi for gi, o in enumerate(plan.owner) if o == wid)
+            if a["owned"] != mine or a["with_state"] != mine:
+                bad.append(f"reshard {k + 1} worker {wid}: owns "
+                           f"{a['owned']}, state for {a['with_state']}, "
+                           f"the plan gives it {mine}")
+            owned_bytes = sum(plan.group_bytes[gi] for gi in mine)
+            if a["moment_bytes"] != 2 * owned_bytes:
+                bad.append(f"reshard {k + 1} worker {wid}: moments "
+                           f"{a['moment_bytes']} bytes, its groups' "
+                           f"{2 * owned_bytes}")
+            if not mine and a["state_bytes"]:
+                bad.append(f"reshard {k + 1} worker {wid}: owns nothing and "
+                           f"holds {a['state_bytes']} bytes of state")
+            if x["puts"] != x["lost"] or x["adopted"] != x["gained"]:
+                bad.append(f"reshard {k + 1} worker {wid}: put {x['puts']} "
+                           f"for lost {x['lost']}, adopted {x['adopted']} "
+                           f"for gained {x['gained']}")
+            before = set(x["before"]["owned"])
+            if x["lost"] != sorted(before - set(mine)) \
+                    or x["gained"] != sorted(set(mine) - before):
+                bad.append(f"reshard {k + 1} worker {wid}: lost "
+                           f"{x['lost']} and gained {x['gained']} from "
+                           f"{sorted(before)} to {mine}")
+        if k == 0 and ([x["after"]["owned"] for x in rs]
+                       != [list(range(n)), []]
+                       or rs[0]["after"]["moment_bytes"] != 2 * total):
+            bad.append("after the LEAVE worker 0 does not own and hold "
+                       "every group, or worker 1 still owns one")
+    if [r["end"]["member_epoch"] for r in res] != [3, 3]:
+        bad.append(f"member epochs {[r['end']['member_epoch'] for r in res]}"
+                   f", expected 3 on both")
+    return bad
+
+
+def check_membership_slices(g0, g2):
+    """What is wrong with the checkpoint between (g0)'s reports (the save)
+    and (g2)'s (the restore); empty when nothing is. The restored meta has
+    (g0)'s owner map and member epoch; the step's slice directory holds
+    one slice a group, the two workers' saved slices together; each (g2)
+    worker adopted exactly its owned groups, holds state for them only,
+    and left the optimizer untouched until its first step."""
+    bad = []
+    n = len(g0[0]["save"]["owner"])
+    saved = {}
+    for r in g0:
+        saved.update(r["save"]["slices"])
+    want = sorted(f"g{gi}.bin" for gi in range(n))
+    if sorted(saved) != want:
+        bad.append(f"(g0) saved slices {sorted(saved)}, one a group wanted")
+    for wid, r in enumerate(g2):
+        rs = r["restore"]
+        if rs["owner"] != g0[0]["save"]["owner"] \
+                or rs["member_epoch"] != g0[0]["save"]["member_epoch"]:
+            bad.append(f"(g2) worker {wid}: meta owner map or member epoch "
+                       f"not (g0)'s")
+        if sorted(rs["slices"]) != want or rs["slices"] != saved:
+            bad.append(f"(g2) worker {wid}: slices {sorted(rs['slices'])}")
+        mine = sorted(gi for gi, o in enumerate(rs["owner"]) if o == wid)
+        if r["adopted_at_start"] != mine or r["end"]["with_state"] != mine \
+                or r["end"]["owned"] != mine:
+            bad.append(f"(g2) worker {wid}: adopted "
+                       f"{r['adopted_at_start']}, state for "
+                       f"{r['end']['with_state']}, owns {mine}")
+        if rs["optimizer_before_step"]:
+            bad.append(f"(g2) worker {wid}: the restore touched the "
+                       f"optimizer before the first step")
+    return bad
+
+
+def check_one_sha1(arms):
+    """What is wrong across the arms {arm: the two workers' reports}: every
+    worker of every arm ends on one sha1 of its parameters, and every
+    worker's loss of a step is that step's loss in every arm."""
+    bad = []
+    shas = {(arm, w): r["params"] for arm, res in arms.items()
+            for w, r in enumerate(res)}
+    if len(set(shas.values())) != 1:
+        bad.append(f"parameters differ: {shas}")
+    ref = arms["g0"]
+    for arm, res in arms.items():
+        for wid, r in enumerate(res):
+            want = ref[wid]["losses"][STEPS - len(r["losses"]):]
+            if r["losses"] != want:
+                bad.append(f"({arm}) worker {wid}: losses {r['losses']}, "
+                           f"(g0)'s {want}")
+    return bad
+
+
+def train_bert_ps_membership():
+    """Phase ``bert_large_ps_membership``: BERT-large at full width and
+    depth, dense PS (no ``BPS_COMPRESS``) on the default route at world 2
+    with ``BPS_SHARDED_UPDATE=1``, two worker processes on ``cuda:0`` from
+    seed-0 weights, each on its own batches (``membership_batch``), a
+    fresh ``launch --server`` an arm, ``STEPS`` counted steps:
+
+    (g0) the control, steps 1-3; after step 2 both workers call
+    ``save_sharded_checkpoint(DIR/ck, trainer)``. (g1) step 1; both call
+    ``trainer.reshard([0])`` (worker 1 leaves the ownership plan, its
+    groups' AdamW state handed to worker 0 through the server); step 2;
+    ``reshard([0, 1])`` (worker 1 rejoins); step 3. (g2) two fresh worker
+    processes each call ``restore_sharded(DIR/ck)`` before their first
+    step, then take step 3 on (g0)'s third batches.
+
+    Gates, each exact: one sha1 of every parameter and the same losses
+    step by step on every worker of every arm (``check_one_sha1``: a
+    handoff and a slice move the optimizer state's bytes, and each
+    group's owner applies the same operations to them); no fallback,
+    "never published" or "no slice" line; the plans, the state bytes and
+    the frames around each reshard (``check_membership_plans``); the
+    checkpoint (``check_membership_slices``); 48 forward and 24 fused
+    backward launches a step at d 64 and no codec launch on every worker;
+    ``transport/resends`` and ``transport/reconnects`` 0.
+
+    Printed, not gated: each arm's steps (the arms in turn in this call),
+    each reshard's seconds and bytes handed off, each worker's state bytes
+    around each reshard, the checkpoint's bytes and its save and restore
+    seconds, each server's peak RSS, beside the card. Returns each arm's
+    launches summed over its workers."""
+    import shutil
+    import tempfile
+    card = card_line()
+    tag = "bert_large ps membership"
+    where = Path(tempfile.mkdtemp())
+    try:
+        # the checkpoint: fp32 params and AdamW's two moments
+        need = 3 * 4 * _bert_params()
+        free = shutil.disk_usage(where).free
+        if free < need + CKPT_DISK_MARGIN:
+            raise AssertionError(f"{tag}: {free} bytes free at {where}, the "
+                                 f"checkpoint needs {need} and "
+                                 f"{CKPT_DISK_MARGIN} to spare")
+        arms = _arms_over_servers("membership", "--membership-worker",
+                                  {"g0": {}, "g1": {}}, where)
+        arms.update(_arms_over_servers(
+            "membership restore", "--membership-restore-worker", {"g2": {}},
+            where))
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    res = {arm: r for arm, (r, _) in arms.items()}
+    bad = []
+    for arm, (rs, stats) in arms.items():
+        atag = f"{tag} {arm}"
+        for wid, r in enumerate(rs):
+            log(f"[{atag}] worker {wid}: losses {r['losses']}, steps "
+                f"{[round(x, 1) for x in r['step_ms']]} ms (the last with "
+                f"its tail drained; two worker processes share one card), "
+                f"peak memory {r['peak_mem']} bytes, state "
+                f"{r['end']['state_bytes']} bytes for groups "
+                f"{r['end']['with_state']}; {card}")
+            for x in r["reshards"]:
+                log(f"[{atag}] worker {wid}: reshard({x['live']}) in "
+                    f"{x['seconds']:.3f} s, member epoch "
+                    f"{x['member_epoch']}, lost {x['lost']} ({x['put_bytes']}"
+                    f" bytes put), gained {x['gained']} ({x['fetch_bytes']} "
+                    f"bytes fetched); state {x['before']['state_bytes']} -> "
+                    f"{x['after']['state_bytes']} bytes (moments "
+                    f"{x['before']['moment_bytes']} -> "
+                    f"{x['after']['moment_bytes']}); {card}")
+            if "save" in r:
+                log(f"[{atag}] worker {wid}: save in "
+                    f"{r['save']['seconds']:.3f} s, slices "
+                    f"{sum(r['save']['slices'].values())} bytes in "
+                    f"{len(r['save']['slices'])} files, state.pt "
+                    f"{r['save']['state_pt']} bytes; {card}")
+            if "restore" in r:
+                log(f"[{atag}] worker {wid}: restore_sharded in "
+                    f"{r['restore']['seconds']:.3f} s (the slices install "
+                    f"in the first step), {len(r['restore']['slices'])} "
+                    f"slices, adopted {r['adopted_at_start']}; {card}")
+            if not all(math.isfinite(x) for x in r["losses"]):
+                bad.append(f"({arm}) worker {wid}: losses {r['losses']}")
+            if r["launches"] != r["want"]:
+                bad.append(f"({arm}) worker {wid}: launches "
+                           f"{r['launches']}, expected {r['want']}")
+            if r["resends"] or r["reconnects"]:
+                bad.append(f"({arm}) worker {wid}: resends {r['resends']}, "
+                           f"reconnects {r['reconnects']}")
+            if r["lines"]:
+                bad.append(f"({arm}) worker {wid}: {r['lines']}")
+        log(f"[{atag}] server peak RSS {stats['peak_rss_bytes']} bytes "
+            f"({stats['peak_rss_source']}); {card}")
+    bad += check_membership_plans(res["g1"])
+    bad += check_membership_slices(res["g0"], res["g2"])
+    bad += check_one_sha1(res)
+    if bad:
+        raise AssertionError(f"{tag}: " + "; ".join(bad))
+    log(f"[{tag}] every parameter of both workers in (g0), (g1), (g2) one "
+        f"sha1 ({res['g0'][0]['params']}), the losses step by step the "
+        f"same; every gate held")
+    SUMMARY[tag] = {
+        arm: {"step_ms": [r["step_ms"] for r in rs],
+              "server_peak_rss": stats["peak_rss_bytes"],
+              "reshards": [[{k: x[k] for k in ("live", "seconds",
+                                                "put_bytes", "fetch_bytes")}
+                            | {"state_bytes": [x["before"]["state_bytes"],
+                                               x["after"]["state_bytes"]]}
+                            for x in r["reshards"]] for r in rs],
+              "save": [r.get("save", {}).get("seconds") for r in rs],
+              "restore": [r.get("restore", {}).get("seconds") for r in rs]}
+        for arm, (rs, stats) in arms.items()}
+    return tuple({k: rs[0]["launches"][k] + rs[1]["launches"][k]
+                  for k in rs[0]["launches"]} for rs, _ in arms.values())
+
+
+def _bert_params():
+    """BERT-large's parameter count at full depth (from its config)."""
+    from byteps_tpu_torch.models.transformer import Transformer
+    cfg, _, _, _ = _bert_setup()
+    with torch.device("meta"):
+        return sum(p.numel() for p in Transformer(cfg).parameters())
+
+
 PHASE_S = {}
+
+
+@contextlib.contextmanager
+def _phase(name):
+    """The block's seconds, logged and kept in ``PHASE_S``."""
+    t = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_S[name] = round(time.perf_counter() - t, 1)
+        log(f"[phase] {name}: {PHASE_S[name]} s")
 
 
 def _timed(name, fn, *args):
     """``fn(*args)``, its seconds logged and kept in ``PHASE_S``."""
-    t = time.perf_counter()
-    try:
+    with _phase(name):
         return fn(*args)
-    finally:
-        PHASE_S[name] = round(time.perf_counter() - t, 1)
-        log(f"[phase] {name}: {PHASE_S[name]} s")
 
 
 def _remote_phases(paths):
@@ -7577,7 +8083,7 @@ def _store_phases(paths):
     (paths["bert_large_ps_store_routes_e0"],
      paths["bert_large_ps_store_routes_e1"]) = _timed(
         "bert_large_ps_store_routes (cut)", train_bert_ps_store_routes)
-    paths["bert_large_checkpoint"] = _timed("bert_large_checkpoint",
+    paths["bert_large_checkpoint"] = _timed("bert_large_checkpoint (cut)",
                                             train_bert_checkpoint)
 
 
@@ -7586,9 +8092,18 @@ def _transport_phases(paths):
     the colocated deployment, striping) and the snapshot restart."""
     (paths["bert_large_ps_transport_f0"], paths["bert_large_ps_transport_f1"],
      paths["bert_large_ps_transport_f2"]) = _timed(
-        "bert_large_ps_transport", train_bert_ps_transport)
+        "bert_large_ps_transport (cut)", train_bert_ps_transport)
     paths["bert_large_ps_snapshot_f3"] = _timed(
         "bert_large_ps_snapshot (cut)", train_bert_ps_snapshot)
+
+
+def _membership_phases(paths):
+    """The sharded update's membership change and sharded checkpoints at
+    world 2 over ``launch --server``."""
+    (paths["bert_large_ps_membership_g0"],
+     paths["bert_large_ps_membership_g1"],
+     paths["bert_large_ps_membership_g2"]) = _timed(
+        "bert_large_ps_membership", train_bert_ps_membership)
 
 
 def remote_ps_main(only=None) -> int:
@@ -7597,7 +8112,8 @@ def remote_ps_main(only=None) -> int:
     ``bert_large_ps_async`` of them; ``--store-routes``: only
     ``bert_large_ps_store_routes`` and ``bert_large_checkpoint``;
     ``--transport``: only ``bert_large_ps_transport`` and
-    ``bert_large_ps_snapshot``."""
+    ``bert_large_ps_snapshot``; ``--membership``: only
+    ``bert_large_ps_membership``."""
     t = time.perf_counter()
     toolchain()
     paths = {}
@@ -7610,10 +8126,13 @@ def remote_ps_main(only=None) -> int:
         _store_phases(paths)
     elif only == "transport":
         _transport_phases(paths)
+    elif only == "membership":
+        _membership_phases(paths)
     else:
         _remote_phases(paths)
         _store_phases(paths)
         _transport_phases(paths)
+        _membership_phases(paths)
     log(f"phase seconds {json.dumps(PHASE_S)}")
     log(f"remote PS in {time.perf_counter() - t:.1f} s")
     print(json.dumps({"remote_ps": {
@@ -8438,8 +8957,8 @@ def main() -> int:
         return world_rank(int(args[1]), int(args[2]), int(args[3]), args[4])
     if args[:1] == ["--world"]:
         return world_main(int(args[1]))
-    if args[:1] == ["--remote-ps-worker"]:
-        return remote_ps_worker(int(args[1]), args[2], args[3], *args[4:5])
+    if args[:1] == ["--world2-worker"]:
+        return world2_worker(int(args[1]), args[2])
     if args[:1] == ["--lag-ps-worker"]:
         return lag_ps_worker(int(args[1]), args[2])
     if args[:1] == ["--async-ps-worker"]:
@@ -8450,6 +8969,10 @@ def main() -> int:
         return transport_worker(int(args[1]), args[2])
     if args[:1] == ["--snapshot-worker"]:
         return snapshot_worker(args[1])
+    if args[:1] == ["--membership-worker"]:
+        return membership_worker(int(args[1]), args[2], ("g0", "g1"))
+    if args[:1] == ["--membership-restore-worker"]:
+        return membership_worker(int(args[1]), args[2], ("g2",))
     if args == ["--remote-ps"]:
         return remote_ps_main()
     if args == ["--async-ps"]:
@@ -8458,6 +8981,8 @@ def main() -> int:
         return remote_ps_main("store")
     if args == ["--transport"]:
         return remote_ps_main("transport")
+    if args == ["--membership"]:
+        return remote_ps_main("membership")
     if args[:1] == ["--ps-routes"]:
         toolchain()
         return ps_routes(tuple(args[1:]) or ("int8", "fp8_e4m3"))
@@ -8470,73 +8995,83 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
 
-    ptxas = toolchain()
+    with _phase("toolchain and build"):
+        ptxas = toolchain()
     worst = dict.fromkeys(KERNELS, 0.0)
     worst.update({(k, f): 0.0 for k in FLASH_FORMS for f in FORMS})
     worst128 = dict(worst)
     ring_worst = {(v, d): 0.0 for v in VARIANT_NAMES.values() for d in WIDTHS}
-    check_bert_kernels(worst)
-    check_gpt2_kernels(worst)
-    check_t5_kernels(worst)
-    check_dh128_kernels(worst128)
-    check_ring_forms(ring_worst)
-    check_ring_schedule()
-    check_long_kernels(worst)
-    check_determinism()
-    check_onebit(_adversarial(), "adversarial vector")
-    check_quant()
-    check_codec_views()
-    check_fp8_edges()
-    timing = time_attention(TRAIN_BATCH, BERT_SEQ, False,
-                            ("flash_fwd", "flash_bwd_fused"))
-    gpt2_timing = time_attention(TRAIN_BATCH, GPT2_SEQ, True,
-                                 ("flash_fwd", "flash_bwd_dq",
-                                  "flash_bwd_dkv"))
-    timing["flash_bwd_dq"] = gpt2_timing.pop("flash_bwd_dq")
-    timing["flash_bwd_dkv"] = gpt2_timing.pop("flash_bwd_dkv")
-    time_floor()
-    timing.update(time_onebit())
-    timing.update(time_quant())
-    form_timing = {
-        ("rel", "encoder"): time_forms(TRAIN_BATCH, T5_SRC, False, "rel"),
-        ("rel", "decoder"): time_forms(TRAIN_BATCH, T5_TGT - 1, True, "rel"),
-        ("bias", "encoder"): time_forms(TRAIN_BATCH, T5_SRC, False, "bias")}
-    # d 128: the forward and fused backward at the dh128 BERT shape, the
-    # split backward past one block, the forms at T5's encoder geometry
-    timing128 = time_attention(TRAIN_BATCH, BERT_SEQ, False,
-                               ("flash_fwd", "flash_bwd_fused"),
-                               DH128_HEADS, DH128)
-    split128 = time_attention(TRAIN_BATCH, GPT2_SEQ, True,
-                              ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
-                              DH128_HEADS, DH128)
-    timing128["flash_bwd_dq"] = split128.pop("flash_bwd_dq")
-    timing128["flash_bwd_dkv"] = split128.pop("flash_bwd_dkv")
-    form_timing128 = {
-        (f, "encoder"): time_forms(TRAIN_BATCH, T5_SRC, False, f, DH128)
-        for f in FORMS}
-    long_timing = time_long_attention()
-    ring_timing = {HEAD_DIM: time_ring_forms(),
-                   DH128: time_ring_forms(DH128_HEADS, DH128)}
-    host = {HEAD_DIM: time_host(), DH128: time_host(DH128_HEADS, DH128)}
-    bert_launches, bert_losses = train_bert()
-    paths = {"bert_large": bert_launches}
-    paths.update(train_bert_remat())
-    paths.update({"bert_large_hybrid": train_bert_hybrid(),
-                  "bert_large_dh128": train_bert_dh128(),
-                  "gpt2_medium_dense": train_gpt2_dense()})
-    check_head_gemm()
-    paths["gpt2_medium_dense_fp32_head"] = train_gpt2_fp32_head()
-    paths["gpt2_medium_onebit"] = train_gpt2_onebit()
-    for name in GPT2_COMPRESSION:
-        paths[f"gpt2_medium_{name}"] = train_gpt2_compressed(name)
-    paths.update({"t5_small": train_t5(),
-                  "t5_small_hybrid": train_t5_hybrid(),
-                  "bert_large_sp": train_bert_sp(),
-                  "gpt2_medium_sp": train_gpt2_sp()})
-    paths["gpt2_medium_sp_accum"] = train_gpt2_sp_accum(
-        paths["gpt2_medium_onebit"])
-    paths["gpt2_medium_32k"], paths["gpt2_medium_32k_full_head"] = \
-        train_gpt2_long()
+    with _phase("kernel checks"):
+        check_bert_kernels(worst)
+        check_gpt2_kernels(worst)
+        check_t5_kernels(worst)
+        check_dh128_kernels(worst128)
+        check_ring_forms(ring_worst)
+        check_ring_schedule()
+        check_long_kernels(worst)
+        check_determinism()
+        check_onebit(_adversarial(), "adversarial vector")
+        check_quant()
+        check_codec_views()
+        check_fp8_edges()
+    with _phase("kernel timing"):
+        timing = time_attention(TRAIN_BATCH, BERT_SEQ, False,
+                                ("flash_fwd", "flash_bwd_fused"))
+        gpt2_timing = time_attention(TRAIN_BATCH, GPT2_SEQ, True,
+                                     ("flash_fwd", "flash_bwd_dq",
+                                      "flash_bwd_dkv"))
+        timing["flash_bwd_dq"] = gpt2_timing.pop("flash_bwd_dq")
+        timing["flash_bwd_dkv"] = gpt2_timing.pop("flash_bwd_dkv")
+        time_floor()
+        timing.update(time_onebit())
+        timing.update(time_quant())
+        form_timing = {
+            ("rel", "encoder"): time_forms(TRAIN_BATCH, T5_SRC, False,
+                                           "rel"),
+            ("rel", "decoder"): time_forms(TRAIN_BATCH, T5_TGT - 1, True,
+                                           "rel"),
+            ("bias", "encoder"): time_forms(TRAIN_BATCH, T5_SRC, False,
+                                            "bias")}
+        # d 128: the forward and fused backward at the dh128 BERT shape, the
+        # split backward past one block, the forms at T5's encoder geometry
+        timing128 = time_attention(TRAIN_BATCH, BERT_SEQ, False,
+                                   ("flash_fwd", "flash_bwd_fused"),
+                                   DH128_HEADS, DH128)
+        split128 = time_attention(TRAIN_BATCH, GPT2_SEQ, True,
+                                  ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv"), DH128_HEADS, DH128)
+        timing128["flash_bwd_dq"] = split128.pop("flash_bwd_dq")
+        timing128["flash_bwd_dkv"] = split128.pop("flash_bwd_dkv")
+        form_timing128 = {
+            (f, "encoder"): time_forms(TRAIN_BATCH, T5_SRC, False, f, DH128)
+            for f in FORMS}
+        long_timing = time_long_attention()
+        ring_timing = {HEAD_DIM: time_ring_forms(),
+                       DH128: time_ring_forms(DH128_HEADS, DH128)}
+        host = {HEAD_DIM: time_host(), DH128: time_host(DH128_HEADS, DH128)}
+    with _phase("bert_large dense paths"):
+        bert_launches, bert_losses = train_bert()
+        paths = {"bert_large": bert_launches}
+        paths.update(train_bert_remat())
+        paths.update({"bert_large_hybrid": train_bert_hybrid(),
+                      "bert_large_dh128": train_bert_dh128()})
+    with _phase("gpt2_medium dense and compressed paths"):
+        paths["gpt2_medium_dense"] = train_gpt2_dense()
+        check_head_gemm()
+        paths["gpt2_medium_dense_fp32_head"] = train_gpt2_fp32_head()
+        paths["gpt2_medium_onebit"] = train_gpt2_onebit()
+        for name in GPT2_COMPRESSION:
+            paths[f"gpt2_medium_{name}"] = train_gpt2_compressed(name)
+    with _phase("t5 and sp paths"):
+        paths.update({"t5_small": train_t5(),
+                      "t5_small_hybrid": train_t5_hybrid(),
+                      "bert_large_sp": train_bert_sp(),
+                      "gpt2_medium_sp": train_gpt2_sp()})
+        paths["gpt2_medium_sp_accum"] = train_gpt2_sp_accum(
+            paths["gpt2_medium_onebit"])
+    with _phase("gpt2_medium_32k"):
+        paths["gpt2_medium_32k"], paths["gpt2_medium_32k_full_head"] = \
+            train_gpt2_long()
     step2_misses = []
     cut_losses = _timed("bert_large dense cut", _dense_losses, CUT_LAYERS)
     paths["bert_large_ps_int8"], paths["bert_large_ps_int8_monolithic"] = \
@@ -8559,6 +9094,7 @@ def main() -> int:
     _remote_phases(paths)
     _store_phases(paths)
     _transport_phases(paths)
+    _membership_phases(paths)
     paths["bert_large_plugin"] = _timed("bert_large_plugin",
                                         train_bert_plugin, bert_losses)
     paths["bert_large_pushpull_int8"] = _timed(

@@ -180,3 +180,118 @@ def run_port_arm(make_model, loss_fn, worker_batches, *, dp, sharded,
                 p.close()
             srv.close()
             eng.close()
+
+
+def _in_threads(fns, what):
+    """Run ``fns`` (one a worker) in threads; raise a worker's failure or
+    a hang past ``WAIT``."""
+    errs = []
+
+    def run(w, fn):
+        try:
+            fn()
+        except BaseException as e:   # noqa: BLE001 — asserted
+            errs.append((w, e))
+
+    ts = [threading.Thread(target=run, args=(w, fn), daemon=True)
+          for w, fn in enumerate(fns)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(WAIT)
+    assert not any(t.is_alive() for t in ts), f"{what}: a worker hung"
+    assert not errs, errs
+
+
+def state_bytes(tr):
+    """The bytes of a trainer's optimizer-state tensors."""
+    return sum(t.numel() * t.element_size() for s in tr._tx.state.values()
+               for t in s.values() if torch.is_tensor(t))
+
+
+def run_phased(make_model, loss_fn, worker_batches, phases, *, name,
+               dp=2, cross="0", optimizer=adam, partition_bytes=8 << 10,
+               conns=8, restore=None, save=None, start=0,
+               handoff_timeout_ms=20000):
+    """``dp`` port trainers (threads) over one port server on TCP, the
+    shape of the JAX package's ``_phased_rig``: ``phases`` is ``[(steps,
+    live)]``, and before a phase whose ``live`` is not None every worker
+    calls ``reshard(live)`` at once (publish before fetch on each). With
+    ``restore`` each trainer restores that sharded checkpoint before its
+    first step; with ``save`` each saves one there after the last phase,
+    worker 0 last. Worker ``w`` steps on ``worker_batches[w][start:]``.
+    Returns a dict: ``finals`` (per-worker parameters as numpy in the flat
+    order), ``owned``, ``with_state``, ``owner``, ``member_epoch``,
+    ``state_bytes`` (per worker at the end), ``reshards`` (per reshard
+    phase, each worker's result), ``metas`` (the restores')."""
+    eng = PSServer(num_workers=dp, engine_threads=2)
+    srv = PSTransportServer(eng, host="127.0.0.1", port=0)
+    addr = f"127.0.0.1:{srv.port}"
+    privs, out = [], {"reshards": [], "metas": []}
+    with env(BPS_ENABLE_PS=1, BPS_NUM_WORKER=dp, BPS_SERVER_ADDRS=addr,
+             BPS_SHARDED_UPDATE=1, BPS_CROSS_STEP=cross, BPS_PS_CONNS=conns):
+        try:
+            bps.init(device="cpu")
+            get_registry().reset()
+            trs = []
+            for w in range(dp):
+                model = make_model()
+                tr = DistributedTrainer(loss_fn, model,
+                                        optimizer(model.parameters()),
+                                        device="cpu",
+                                        partition_bytes=partition_bytes,
+                                        name=name, shard_rank=w)
+                priv = RemotePSBackend([addr], conns_per_shard=conns)
+                tr.ps_exchange.backend = priv
+                privs.append(priv)
+                trs.append(tr)
+            if restore is not None:
+                out["metas"] = [tr.restore_sharded(restore) for tr in trs]
+            done = start
+            for steps, live in phases:
+                if live is not None:
+                    res = [None] * dp
+
+                    def rs(w, live=live, res=res):
+                        res[w] = trs[w].reshard(
+                            live, handoff_timeout_ms=handoff_timeout_ms)
+                    _in_threads([lambda w=w: rs(w) for w in range(dp)],
+                                "reshard")
+                    owners = {tuple(tr._sharded.plan.owner) for tr in trs}
+                    assert len(owners) == 1, \
+                        f"reshard diverged across ranks: {owners}"
+                    out["reshards"].append(res)
+
+                def run(w, s=done, n=steps):
+                    for i in range(n):
+                        trs[w].step(worker_batches[w][s + i])
+                    trs[w].drain()
+                _in_threads([lambda w=w: run(w) for w in range(dp)],
+                            "steps")
+                done += steps
+            if save is not None:
+                from byteps_tpu_torch.checkpoint import \
+                    save_sharded_checkpoint
+                for tr in reversed(trs):
+                    save_sharded_checkpoint(save, tr)
+            for tr in trs:
+                assert tr._sharded is not None, \
+                    "the sharded update fell back"
+            out.update(
+                finals=[[p.detach().numpy().copy() for _, p in tr._ps_params]
+                        for tr in trs],
+                owned=[set(tr._sharded.plan.owned) for tr in trs],
+                with_state=[set(tr._chunked.groups_with_state())
+                            for tr in trs],
+                owner=[list(tr._sharded.plan.owner) for tr in trs],
+                member_epoch=[tr._sharded.member_epoch for tr in trs],
+                state_bytes=[state_bytes(tr) for tr in trs])
+            for tr in trs:
+                tr.close()
+            return out
+        finally:
+            bps.shutdown()
+            for p in privs:
+                p.close()
+            srv.close()
+            eng.close()

@@ -5,7 +5,8 @@ same 3 steps, bit for bit in every loss, parameter and optimizer-state
 tensor (a toy model and BERT-tiny through ``DistributedTrainer``, dense and
 on the PS path, whose ``state_dict()`` drains the cross-step tails); the
 registry rides along; ``bps_meta.json`` is byte for byte the JAX package's
-for the same step and declarations; the sharded savers raise.
+for the same step and declarations. The sharded checkpoints are in
+``test_torch_sharded_checkpoint.py``.
 
 Tolerance: none (the same fp32 state into the same computation).
 """
@@ -189,15 +190,3 @@ def test_a_restore_checks_the_templates_and_places_the_tensors(tmp_path):
                                 {"w": torch.zeros(3, 2), "b": torch.zeros(3)})
     with pytest.raises(ValueError, match="only one of"):
         ckpt.restore_checkpoint(str(tmp_path / "ck"), {"w": torch.zeros(2, 3)})
-
-
-def test_the_sharded_checkpoints_raise(tmp_path):
-    why = "What the sharded update leaves"
-    with pytest.raises(NotImplementedError, match=why):
-        ckpt.save_sharded_checkpoint(str(tmp_path), None)
-    with pytest.raises(NotImplementedError, match=why):
-        ckpt.restore_sharded_checkpoint(str(tmp_path), {})
-    tr, _ = _toy(0)
-    with pytest.raises(NotImplementedError, match=why):
-        tr.restore_sharded(str(tmp_path))
-    tr.close()

@@ -108,6 +108,24 @@ def test_cut_paths_keep_their_width_and_recompute_their_counts():
         assert want["int8_quantize"] == want["fp8_sr_quantize"] == 0
 
 
+def test_cut_gpt2_paths_keep_their_width_and_recompute_their_counts():
+    """GPT-2 medium's compressed paths beyond onebit run at
+    ``CUT_LAYERS``: its full width, and wanted launches (2 forwards, a dq
+    and a dk/dv a layer a step) that follow the depth."""
+    full = chip_smoke._gpt2_setup()[0]
+    cut = chip_smoke._gpt2_setup(layers=chip_smoke.CUT_LAYERS)[0]
+    assert (full.layers, cut.layers) == (24, chip_smoke.CUT_LAYERS)
+    for f in ("hidden", "heads", "mlp_dim", "vocab_size", "max_seq",
+              "dtype", "remat", "causal"):
+        assert getattr(cut, f) == getattr(full, f), f
+    want = chip_smoke._attention_launches(
+        cut, ("flash_bwd_dq", "flash_bwd_dkv"))(None)
+    n = chip_smoke.STEPS * cut.layers
+    assert want["flash_fwd"] == want["flash_fwd:d64"] == 2 * n
+    assert want["flash_bwd_dq"] == want["flash_bwd_dkv"] == n
+    assert want["flash_bwd_fused"] == 0
+
+
 def test_timed_keeps_each_phases_seconds():
     chip_smoke.PHASE_S.clear()
     assert chip_smoke._timed("p", lambda a, b: a + b, 2, 3) == 5
@@ -376,3 +394,162 @@ def test_the_snapshot_restart_gate_passes_a_sound_run_only():
     ]
     for args in broken:
         assert chip_smoke.check_snapshot_restart(*args), args
+
+
+# -- the membership phase's gates (bert_large_ps_membership)
+
+def _small_plan_inputs():
+    """``_plan_inputs`` of a port exchange over six leaves in 4 KiB
+    buckets."""
+    import torch
+
+    from byteps_tpu_torch.server import engine, ps_mode
+    from byteps_tpu_torch.sharded_update import ShardedUpdatePlan
+    be = engine.HostPSBackend(num_servers=1, num_workers=1,
+                              engine_threads=1)
+    ex = ps_mode.PSGradientExchange(be, partition_bytes=4 << 10)
+    pairs = [(f"k{i}", torch.zeros(1000 + 200 * i)) for i in range(6)]
+    try:
+        _, keyed = ex._plan(pairs, "m")
+        groups = ex.leaf_groups(pairs, name="m")
+    finally:
+        ex.close()
+        be.close()
+    return {"keyed": [[k, b.index, [s.leaf_index for s in b.segments]]
+                      for k, b in keyed],
+            "groups": [list(g) for g in groups],
+            "leaf_meta": [[list(sh), dt, n] for sh, dt, n in
+                          ShardedUpdatePlan.leaf_meta_of(pairs)]}
+
+
+def _state(plan, wid, epoch):
+    mine = sorted(gi for gi, o in enumerate(plan.owner) if o == wid)
+    moments = 2 * sum(plan.group_bytes[gi] for gi in mine)
+    steps = 4 * sum(len(plan.groups[gi]) for gi in mine)
+    return {"owned": mine, "with_state": list(mine),
+            "state_bytes": moments + steps, "moment_bytes": moments,
+            "owner": list(plan.owner), "member_epoch": epoch}
+
+
+def _membership_g1():
+    """(g1)'s two sound reports on the small plan."""
+    inputs = _small_plan_inputs()
+    plan0 = chip_smoke._plan_from(inputs)
+    res = [{"plan": inputs, "start": _state(plan0, w, 1), "reshards": []}
+           for w in (0, 1)]
+    prev, epoch = plan0, 1
+    for live in chip_smoke.MEMBERSHIP_LIVE.values():
+        new, epoch = prev.reshard(live), epoch + 1
+        for w, r in enumerate(res):
+            before, after = _state(prev, w, epoch - 1), _state(new, w, epoch)
+            lost = sorted(set(before["owned"]) - set(after["owned"]))
+            gained = sorted(set(after["owned"]) - set(before["owned"]))
+            r["reshards"].append({
+                "live": list(live), "weights": None, "seconds": 0.1,
+                "member_epoch": epoch, "lost": lost, "gained": gained,
+                "puts": list(lost), "adopted": list(gained),
+                "before": before, "after": after})
+        prev = new
+    for w, r in enumerate(res):
+        r["end"] = _state(prev, w, epoch)
+    return res
+
+
+def _break_plan(res, case):
+    x = res[1]["reshards"][0]
+    if case == "owner_map":
+        x["after"]["owner"] = [0] * (len(x["after"]["owner"]) - 1) + [1]
+    elif case == "leaver_keeps_state":
+        x["after"]["state_bytes"] = 8
+    elif case == "leaver_owns":
+        x["after"]["owned"] = x["after"]["with_state"] = [0]
+    elif case == "frames":
+        x["puts"] = x["puts"][:-1]
+    elif case == "adopted":
+        res[0]["reshards"][0]["adopted"] = []
+    elif case == "moments":
+        res[0]["reshards"][1]["after"]["moment_bytes"] += 4
+    elif case == "weights":
+        x["weights"] = [1] * len(x["after"]["owner"])
+    elif case == "epoch":
+        res[0]["end"]["member_epoch"] = 2
+    return res
+
+
+@pytest.mark.parametrize("case", ["owner_map", "leaver_keeps_state",
+                                  "leaver_owns", "frames", "adopted",
+                                  "moments", "weights", "epoch"])
+def test_the_membership_plan_gate_passes_a_sound_run_only(case):
+    res = _membership_g1()
+    assert len(res[0]["plan"]["groups"]) >= 3
+    assert res[1]["reshards"][0]["lost"], "the leaver owned nothing"
+    assert res[0]["reshards"][0]["after"]["owned"] == \
+        list(range(len(res[0]["plan"]["groups"])))
+    assert chip_smoke.check_membership_plans(res) == []
+    assert chip_smoke.check_membership_plans(_break_plan(res, case))
+
+
+def _membership_ck():
+    owner = [0, 1, 0, 1, 0]
+    slices = {f"g{gi}.bin": 1000 + gi for gi in range(len(owner))}
+    g0 = [{"save": {"owner": owner, "member_epoch": 1,
+                    "slices": {k: v for k, v in slices.items()
+                               if owner[int(k[1:-4])] == w}}}
+          for w in (0, 1)]
+    g2 = []
+    for w in (0, 1):
+        mine = [gi for gi, o in enumerate(owner) if o == w]
+        g2.append({"restore": {"owner": owner, "member_epoch": 1,
+                               "slices": dict(slices),
+                               "optimizer_before_step": 0},
+                   "adopted_at_start": mine,
+                   "end": {"owned": mine, "with_state": mine}})
+    return g0, g2
+
+
+def test_the_membership_slice_gate_passes_a_sound_run_only():
+    g0, g2 = _membership_ck()
+    assert chip_smoke.check_membership_slices(g0, g2) == []
+    broken = []
+    g0, g2 = _membership_ck()
+    del g0[1]["save"]["slices"]["g1.bin"]
+    broken.append((g0, g2))
+    g0, g2 = _membership_ck()
+    g2[1]["restore"]["member_epoch"] = 2
+    broken.append((g0, g2))
+    g0, g2 = _membership_ck()
+    g2[0]["adopted_at_start"] = [0, 1, 2, 4]
+    broken.append((g0, g2))
+    g0, g2 = _membership_ck()
+    g2[1]["end"]["with_state"] = [1, 3, 4]
+    broken.append((g0, g2))
+    g0, g2 = _membership_ck()
+    g2[0]["restore"]["optimizer_before_step"] = 12
+    broken.append((g0, g2))
+    g0, g2 = _membership_ck()
+    del g2[0]["restore"]["slices"]["g4.bin"]
+    broken.append((g0, g2))
+    for args in broken:
+        assert chip_smoke.check_membership_slices(*args), args
+
+
+def test_the_one_sha1_gate_passes_a_sound_run_only():
+    losses = [[7.5, 7.25, 7.0], [7.75, 7.5, 7.125]]
+
+    def arms():
+        out = {arm: [{"params": "ab12", "losses": list(losses[w])}
+                     for w in (0, 1)] for arm in ("g0", "g1")}
+        out["g2"] = [{"params": "ab12", "losses": [losses[w][2]]}
+                     for w in (0, 1)]
+        return out
+
+    assert chip_smoke.check_one_sha1(arms()) == []
+    bad = arms()
+    bad["g2"][1]["params"] = "ab13"
+    assert chip_smoke.check_one_sha1(bad)
+    bad = arms()
+    bad["g1"][0]["losses"][1] = 7.2500001
+    assert chip_smoke.check_one_sha1(bad)
+    bad = arms()
+    bad["g2"][0]["losses"] = [7.25]
+    assert chip_smoke.check_one_sha1(bad)

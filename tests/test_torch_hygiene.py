@@ -658,32 +658,6 @@ def test_the_server_is_built_from_the_ports_own_source():
     assert Path(lib._name).resolve() == path.resolve()
 
 
-# -- what the sharded update leaves for later: each raises, citing its item
-
-@pytest.mark.parametrize("call", ["reshard", "restore_sharded",
-                                  "state_reshard", "adopt_membership",
-                                  "pack_opt_state", "unpack_opt_state"])
-def test_sharded_update_leftovers_raise_citing_their_item(call):
-    """A live membership change, its optimizer-state handoff and sharded
-    checkpoints are not ported: each raises ``NotImplementedError`` naming
-    ROADMAP.md queue 1 item 6, none is silently ignored."""
-    from byteps_tpu_torch import sharded_update as su
-    from byteps_tpu_torch.training import DistributedTrainer
-    calls = {
-        "reshard": lambda: DistributedTrainer.reshard(None, [0]),
-        "restore_sharded": lambda: DistributedTrainer.restore_sharded(
-            None, "ckpt"),
-        "state_reshard": lambda: su.ShardedUpdateState.reshard(None, [0]),
-        "adopt_membership": lambda: su.ShardedUpdateState.adopt_membership(
-            None, [0], 2),
-        "pack_opt_state": lambda: su.pack_opt_state({}),
-        "unpack_opt_state": lambda: su.unpack_opt_state(b"", {}),
-    }
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md.*queue 1, item 6"):
-        calls[call]()
-
-
 # -- async PS, refused at three sites until it was ported
 
 @pytest.mark.parametrize("site", ["init", "trainer", "launcher"])
